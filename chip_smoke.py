@@ -8,18 +8,35 @@ with CUDA, and never imports JAX. Phases:
   1. the card: name and power limit, torch and CUDA versions;
   2. build of the sweep kernel from cpflow_tpu_torch/csrc/ into build/;
   3. kernel against its plain PyTorch version on the card, same inputs,
-     T = 60, at three shapes (3q CCZ k=12 B=1000; 5q Toffoli k=20 B=256;
-     the verification shape B=8 with a mask, r=0, lr 0.01, target_loss),
+     T = 60, at six shapes: (a) 3q CCZ k=12 B=1000; (b) 5q Toffoli k=20
+     B=256; (c) the verification shape B=8 with a mask, r=0, lr 0.01,
+     target_loss; (d) the adaptive search's bucketed shape, 4q square
+     Toffoli-4 padded to k=40, B = 4 x 256 with four r values and four
+     template masks (k = 10, 20, 30, 40); (e) the state loss, 4q GHZ chain
+     k=6 B=100; (f) the state loss at 10 qubits, GHZ chain k=36 B=256;
      with the tolerances stated in phase_compare and drift_ok;
-  4. the main path: Synthesize(..., device='cuda').static on the 3q chain
-     CCZ (k=12, 1024 samples), which must return a decomposition with at
-     most 8 CZ and float64 host loss <= 1e-6, through the kernel in both
+  4. the static main path: Synthesize(..., device='cuda').static on the 3q
+     chain CCZ (k=12, 1024 samples), which must return a decomposition with
+     at most 8 CZ and float64 host loss <= 1e-6, through the kernel in both
      the sampling and the verification stage;
-  5. times of the kernel and the plain version at the main path's sampling
-     shape and at the 5q k=20 batch-2048 shape.
+  5. times of the kernel and the plain version at the static sampling
+     shape, at the 5q k=20 batch-2048 shape, at shape (d) for 2000 steps
+     and at shape (f) for 500 steps;
+  6. the adaptive main path: Synthesize(square_layer(4),
+     target_unitary=u_toff4, device='cuda').adaptive with k in [10, 40],
+     1024 samples, bucketed, 4 parallel trials, 8 evals, stopping at 16 CZ;
+     every trial must score finitely, every sampling sweep must run the
+     kernel with r differing across its restarts, and a verified
+     decomposition must reach float64 host loss <= 1e-6;
+  7. the state main path: Synthesize(chain_layer(4), target_state=GHZ-4,
+     device='cuda').static (k=6, 100 samples, r=0.001), which must return a
+     3-CZ decomposition with float64 host state loss <= 1e-6 through the
+     kernel in both stages.
 
-It prints the card, a JSON line of kernel results and, last, the JSON
-device line; it exits non-zero if any phase fails or there is no card.
+Each main path (4, 6, 7) runs with the kernel's launch count set to 0 just
+before it and read just after. The script prints the card, a JSON line of
+kernel results and, last, the JSON device line; it exits non-zero if any
+phase fails or there is no card.
 """
 
 from __future__ import annotations
@@ -50,17 +67,48 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------- helpers
 
-def make_objective(n, k, target, r):
-    """The static path's objective on an n-qubit chain with k CP blocks."""
+def make_objective(n, k, target, r, layer=None, kind='hst'):
+    """The objective on an n-qubit layer (default: the chain) with k CP
+    blocks; kind 'hst' for a target unitary, 'state' for a target state."""
     from cpflow_tpu_torch.api import Ansatz, LossSpec, RegularizationOptions
     from cpflow_tpu_torch.ops.penalty import make_regularization_function
     from cpflow_tpu_torch.sim.batched import make_batched_regloss
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
-    anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k))
+    anz = Ansatz(n, 'cp', fill_layers(layer or chain_layer(n), k))
     return make_batched_regloss(
-        n, 'cp', 'xyz', anz.placements, LossSpec('hst', target=target),
+        n, 'cp', 'xyz', anz.placements, LossSpec(kind, target=target),
         cp_mask=anz.cp_mask, regularization_func=make_regularization_function(
             RegularizationOptions), r=r), anz.num_angles
+
+
+def ghz(n):
+    import numpy as np
+    t = np.zeros(2 ** n, dtype=np.complex64)
+    t[0] = t[-1] = 2 ** -0.5
+    return t
+
+
+BUCKET_KS = (10, 20, 30, 40)
+BUCKET_RS = (0.0003, 0.00055, 0.001, 0.002)
+
+
+def bucketed_shape(device):
+    """Shape (d): the adaptive search's bucketed sweep, four trials of 256
+    restarts on the 4q square Toffoli-4 template padded to k = 40, each
+    with its own r and its own template mask. Returns (objective, inits,
+    mask)."""
+    import torch
+    from cpflow_tpu_torch.ops.gates import u_toff4
+    from cpflow_tpu_torch.topology import square_layer
+    obj, P = make_objective(4, 40, u_toff4, 0.0, layer=square_layer(4))
+    S = 256
+    obj.r = torch.tensor(BUCKET_RS, device=device).repeat_interleave(S)
+    active = torch.zeros((P, len(BUCKET_KS)), device=device)
+    for j, k in enumerate(BUCKET_KS):
+        active[:3 * 4 + 7 * k, j] = 1.0
+    mask = active.repeat_interleave(S, dim=1).contiguous()
+    init = uniform_inits(P, S * len(BUCKET_KS), 300, device) * mask
+    return obj, init, mask
 
 
 def uniform_inits(P, B, seed, device):
@@ -117,20 +165,33 @@ def phase_compare():
     from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
     dev = 'cuda'
     shapes = [
-        dict(name='3q CCZ k=12 B=1000', n=3, k=12, target=u_ccz3, B=1000,
+        dict(name='(a) 3q CCZ k=12 B=1000', n=3, k=12, target=u_ccz3, B=1000,
              r=0.00055, lr=0.1, mask=False, target_loss=None),
-        dict(name='5q Toffoli k=20 B=256', n=5, k=20,
+        dict(name='(b) 5q Toffoli k=20 B=256', n=5, k=20,
              target=multi_controlled_x(5), B=256, r=0.00055, lr=0.1,
              mask=False, target_loss=None),
-        dict(name='verification B=8', n=3, k=12, target=u_ccz3, B=8, r=0.0,
-             lr=0.01, mask=True, target_loss=0.5),
+        dict(name='(c) verification B=8', n=3, k=12, target=u_ccz3, B=8,
+             r=0.0, lr=0.01, mask=True, target_loss=0.5),
+        dict(name='(d) bucketed 4q square Toffoli-4 k<=40 B=4x256, r and '
+             'mask per trial', bucketed=True, B=1024, lr=0.1,
+             target_loss=None),
+        dict(name='(e) state 4q GHZ k=6 B=100', n=4, k=6, target=ghz(4),
+             kind='state', B=100, r=0.001, lr=0.1, mask=False,
+             target_loss=None),
+        dict(name='(f) state 10q GHZ k=36 B=256', n=10, k=36, target=ghz(10),
+             kind='state', B=256, r=0.001, lr=0.1, mask=False,
+             target_loss=None),
     ]
     worst = 0.0
     for i, s in enumerate(shapes):
-        obj, P = make_objective(s['n'], s['k'], s['target'], s['r'])
-        init = uniform_inits(P, s['B'], 100 + i, dev)
         mask = None
-        if s['mask']:
+        if s.get('bucketed'):
+            obj, init, mask = bucketed_shape(dev)
+        else:
+            obj, P = make_objective(s['n'], s['k'], s['target'], s['r'],
+                                    kind=s.get('kind', 'hst'))
+            init = uniform_inits(P, s['B'], 100 + i, dev)
+        if s.get('mask'):
             gen = torch.Generator(device=dev).manual_seed(200 + i)
             mask = (torch.rand((P, s['B']), generator=gen, device=dev) > 0.3
                     ).float()
@@ -178,6 +239,7 @@ def phase_main_path():
     from cpflow_tpu_torch.ops.gates import u_ccz3
     from cpflow_tpu_torch.topology import chain_layer
     synth = Synthesize(chain_layer(3), target_unitary=u_ccz3, device='cuda')
+    target = u_ccz3.astype(np.complex128)
     options = StaticOptions(num_cp_gates=12, num_samples=1024,
                             accepted_num_cz_gates=8)
     sk.LAUNCHES = 0
@@ -193,7 +255,6 @@ def phase_main_path():
           f'not in both the sampling and the verification stage')
     decs = results.decompositions
     check(len(decs) > 0, 'no verified decomposition')
-    target = u_ccz3.astype(np.complex128)
     best = None
     for d in decs:
         u = d.circuit.unitary()
@@ -214,28 +275,151 @@ def phase_main_path():
 
 
 def phase_timing(card):
+    """Kernel and plain times. The plain version of the two new rows is
+    timed over T_plain = 100 steps, not T: its time is linear in the step
+    count (no early exit), and 2000 of its steps at shape (d) would take
+    over a minute of the script's budget. Rates are restart-iter/s."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
+
+    def plain_shape(n, k, target, r, B, kind='hst'):
+        obj, P = make_objective(n, k, target, r, kind=kind)
+        return obj, uniform_inits(P, B, 7, 'cuda'), None
+
     rows = []
-    for name, n, k, target, B, T in [
-            ('3q CCZ k=12 B=1024 T=2000 (static sampling)', 3, 12, u_ccz3,
-             1024, 2000),
-            ('5q Toffoli k=20 B=2048 T=500', 5, 20, multi_controlled_x(5),
-             2048, 500)]:
-        obj, P = make_objective(n, k, target, 0.00055)
-        init = uniform_inits(P, B, 7, 'cuda')
-        sk.sweep_reference(obj, init, 0.1, 2)          # warm-up
-        _, plain_ms = timed(lambda: sk.sweep_reference(obj, init, 0.1, T))
-        sk.sweep(obj, init, 0.1, 2)                    # warm-up
-        _, ms1 = timed(lambda: sk.sweep(obj, init, 0.1, T))
-        _, ms2 = timed(lambda: sk.sweep(obj, init, 0.1, T))
+    for name, make, T, T_plain in [
+            ('3q CCZ k=12 B=1024 T=2000 (static sampling)',
+             lambda: plain_shape(3, 12, u_ccz3, 0.00055, 1024), 2000, 2000),
+            ('5q Toffoli k=20 B=2048 T=500',
+             lambda: plain_shape(5, 20, multi_controlled_x(5), 0.00055,
+                                 2048), 500, 500),
+            ('(d) bucketed 4q square Toffoli-4 k<=40 B=4x256 T=2000',
+             lambda: bucketed_shape('cuda'), 2000, 100),
+            ('(f) state 10q GHZ k=36 B=256 T=500',
+             lambda: plain_shape(10, 36, ghz(10), 0.001, 256, kind='state'),
+             500, 100)]:
+        obj, init, mask = make()
+        B = init.shape[1]
+        sk.sweep_reference(obj, init, 0.1, 2, mask)          # warm-up
+        _, plain_ms = timed(lambda: sk.sweep_reference(obj, init, 0.1,
+                                                       T_plain, mask))
+        sk.sweep(obj, init, 0.1, 2, mask)                    # warm-up
+        _, ms1 = timed(lambda: sk.sweep(obj, init, 0.1, T, mask))
+        _, ms2 = timed(lambda: sk.sweep(obj, init, 0.1, T, mask))
         ms = min(ms1, ms2)
         print(f'phase 5: {name} on {card}: kernel {ms1:.2f} / {ms2:.2f} ms '
               f'= {B * T / (ms / 1e3):.4g} restart-iter/s; plain '
-              f'{plain_ms:.2f} ms = {B * T / (plain_ms / 1e3):.4g} '
-              f'restart-iter/s', flush=True)
+              f'{plain_ms:.2f} ms over {T_plain} steps = '
+              f'{B * T_plain / (plain_ms / 1e3):.4g} restart-iter/s',
+              flush=True)
         rows.append((ms, plain_ms))
     return rows[0]
+
+
+def phase_adaptive():
+    """The adaptive main path on the 4q square Toffoli-4 (the shape of the
+    JAX package's toffoli4_square benchmark config: k in [10, 40], 1024
+    samples, published 16 CZ). Every bucketed sampling sweep is watched: it
+    must launch the kernel, with as many distinct r values across its
+    restarts as it runs trials."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import AdaptiveOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.optimize import candidates as cand
+    from cpflow_tpu_torch.ops.gates import u_toff4
+    from cpflow_tpu_torch.topology import square_layer
+    stage = cand.run_bucketed_stage
+    sweeps = []
+
+    def watched(objective, seeds, rs, *args, **kw):
+        before = sk.LAUNCHES
+        out = stage(objective, seeds, rs, *args, **kw)
+        sweeps.append((len(rs), len(set(np.float32(rs).tolist())),
+                       sk.LAUNCHES - before))
+        return out
+
+    options = AdaptiveOptions(min_num_cp_gates=10, max_num_cp_gates=40,
+                              num_samples=1024, bucketed=True,
+                              parallel_trials=4, max_evals=8,
+                              target_num_cz_gates=16,
+                              stop_if_target_reached=True)
+    synth = Synthesize(square_layer(4), target_unitary=u_toff4,
+                       device='cuda')
+    cand.run_bucketed_stage = watched
+    try:
+        sk.LAUNCHES = 0
+        start = time.perf_counter()
+        results = synth.adaptive(options, save_results=False, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = sk.LAUNCHES
+    finally:
+        cand.run_bucketed_stage = stage
+    trials = results.trials.results
+    check(trials and all(np.isfinite(t['loss']) for t in trials),
+          f'a trial without a finite score: {[t["loss"] for t in trials]}')
+    check(sweeps and all(calls >= 1 and distinct == n and n > 1
+                         for n, distinct, calls in sweeps),
+          f'a sampling sweep missed the kernel or r per restart: {sweeps}')
+    target = u_toff4.astype(np.complex128)
+    hosts = []
+    for d in results.decompositions:
+        u = d.circuit.unitary()
+        check(u.shape == (16, 16) and np.isfinite(u).all(), 'bad unitary')
+        hosts.append((d.cz_count,
+                      float(1 - abs((u * target.conj()).sum()) ** 2 / 256)))
+    good = [h for h in hosts if h[1] <= 1e-6]
+    check(good, f'no verified decomposition with host loss <= 1e-6: {hosts}')
+    best = min(good)
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 6: adaptive Toffoli-4 square, bucketed, 4 parallel trials:'
+          f' {len(trials)} evals in {len(sweeps)} sampling sweeps; best '
+          f'{best[0]} CZ at host loss {best[1]:.3e} (published 16); '
+          f'verified {sorted(h[0] for h in hosts)}; trials (k, r, score) '
+          f'{[(t["num_cp_gates"], round(t["r"], 6), round(t["loss"], 3)) for t in trials]}; '
+          f'kernel launches {launches}; wall {wall:.3f} s ({stages})',
+          flush=True)
+    return launches
+
+
+def phase_state():
+    """The state main path: GHZ-4 on the 4q chain (the JAX package's
+    ghz_state benchmark config; GHZ_n needs n - 1 CZ on a chain)."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.topology import chain_layer
+    target = ghz(4).astype(np.complex128)
+    synth = Synthesize(chain_layer(4), target_state=target, device='cuda')
+    options = StaticOptions(num_cp_gates=6, num_samples=100,
+                            accepted_num_cz_gates=3, r=0.001)
+    sk.LAUNCHES = 0
+    start = time.perf_counter()
+    results = synth.static(options, save_results=False, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = sk.LAUNCHES
+    check(launches >= 2, f'state path launched the kernel {launches} times: '
+          f'not in both the sampling and the verification stage')
+    hosts = []
+    for d in results.decompositions:
+        u = d.circuit.unitary()
+        check(u.shape == (16, 16) and np.isfinite(u).all(), 'bad unitary')
+        hosts.append((d.cz_count,
+                      float(1 - abs((target.conj() * u[:, 0]).sum()) ** 2)))
+    good = [h for h in hosts if h[0] == 3 and h[1] <= 1e-6]
+    check(good, f'no 3-CZ decomposition with host state loss <= 1e-6: '
+          f'{hosts}')
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 7: static GHZ-4 chain k=6 100 samples: {len(hosts)} '
+          f'verified, {len(good)} at 3 CZ, best host state loss '
+          f'{min(good)[1]:.3e}; kernel launches {launches}; wall {wall:.3f} s '
+          f'({stages})', flush=True)
+    return launches
 
 
 def main() -> int:
@@ -259,8 +443,10 @@ def main() -> int:
               f'{torch.version.cuda}', flush=True)
         phase_build()
         max_err = phase_compare()
-        launches = phase_main_path()
+        launches = {'static_ccz3': phase_main_path()}
         ms, plain_ms = phase_timing(card)
+        launches['adaptive_toffoli4'] = phase_adaptive()
+        launches['static_ghz4'] = phase_state()
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -270,7 +456,8 @@ def main() -> int:
         'name': 'sweep', 'route': 'cuda',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
-        'launches': launches, 'max_abs_err': max_err,
+        'modes': ['hst', 'state'], 'launches': sum(launches.values()),
+        'launches_by_path': launches, 'max_abs_err': max_err,
         'ms': ms, 'plain_ms': plain_ms}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,17 +6,19 @@ hand-written CUDA sweep kernel, or on the CPU through its plain PyTorch
 version. The JAX package cpflow_tpu is the reference the port is held
 against; this package never imports it, nor JAX.
 
-Ported so far: the static synthesis path (``Synthesize.static``).
+Ported so far: ``Synthesize.static`` and ``Synthesize.adaptive`` (TPE over
+the template length and the penalty weight), with the HS-test and
+state-preparation losses.
 """
 
-from cpflow_tpu_torch.api import (Ansatz, BasicOptions, Decomposition,
-                                  EntanglingBlock, LossSpec,
+from cpflow_tpu_torch.api import (AdaptiveOptions, Ansatz, BasicOptions,
+                                  Decomposition, EntanglingBlock, LossSpec,
                                   RegularizationOptions, Results,
                                   StaticOptions, Synthesize)
 
 __version__ = '0.1.0'
 
 __all__ = [
-    'Ansatz', 'BasicOptions', 'Decomposition', 'EntanglingBlock', 'LossSpec',
-    'RegularizationOptions', 'Results', 'StaticOptions', 'Synthesize',
+    'AdaptiveOptions', 'Ansatz', 'BasicOptions', 'Decomposition',
+    'EntanglingBlock', 'LossSpec', 'RegularizationOptions', 'Results', 'StaticOptions', 'Synthesize',
 ]

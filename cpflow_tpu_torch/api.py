@@ -1,20 +1,27 @@
-"""User-facing API of the port: Synthesize.static and what it returns
-(counterpart of cpflow_tpu/api.py, static slice).
+"""User-facing API of the port: Synthesize.static, Synthesize.adaptive and
+what they return (counterpart of cpflow_tpu/api.py).
 
 The public names, option dataclasses and their defaults follow the JAX
 package. What differs:
 
   * ``Synthesize`` takes an explicit ``device`` ('cpu' or 'cuda'). On a CUDA
-    device both the sampling and the verification sweep run the
-    hand-written kernel (kernels/sweep.py); on the CPU, its plain PyTorch
-    version. There is no fallback from one to the other.
+    device every sweep (sampling, the adaptive search's bucketed stage,
+    verification) runs the hand-written kernel (kernels/sweep.py); on the
+    CPU, its plain PyTorch version. There is no fallback from one to the
+    other. Device losses: the HS test (``target_unitary``) and state
+    preparation (``target_state``).
   * initial angles come from a ``torch.Generator`` seeded with
     ``random_seed``: the same seed gives other angles than the JAX
-    package (optimize/candidates.py).
-  * ``Results`` persist with the standard library's pickle.
-  * Not here yet: ``adaptive`` and TPE (ROADMAP A.8), ``Decomposition.refine``
-    (A.11), methods other than 'adam' (A.10), device losses other than the
-    HS test (A.4), the device mesh (A.9).
+    package (optimize/candidates.py). The adaptive search's trial seeds
+    and TPE suggestions are the JAX package's, bit for bit
+    (search/seed_chain.py), so equal scores give equal (seed, k, r) streams.
+  * ``parallel_trials`` puts the trials side by side on the restart axis of
+    one sweep (the JAX package vmaps the stage over them).
+  * ``Results`` persist with the standard library's pickle;
+    ``params.trials_from_jax`` carries a JAX package's trials over.
+  * Not here yet: ``Decomposition.refine`` (ROADMAP A.11), methods other
+    than 'adam' (A.10), disc and custom device losses (A.10), the device
+    mesh (A.9), ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import math
 import os
 import pickle
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Any, Callable, List, Optional
 
 import numpy as np
@@ -34,7 +41,10 @@ from cpflow_tpu_torch.circuits.ir import Circuit
 from cpflow_tpu_torch.circuits.passes import convert_to_zxz, cp_to_cz_circuit
 from cpflow_tpu_torch.optimize import candidates as cand
 from cpflow_tpu_torch.optimize import engine
+from cpflow_tpu_torch.ops import losses
 from cpflow_tpu_torch.ops.penalty import make_regularization_function
+from cpflow_tpu_torch.search import tpe
+from cpflow_tpu_torch.search.seed_chain import next_seed
 from cpflow_tpu_torch.sim import batched as batched_sim
 from cpflow_tpu_torch.sim.ansatz_kernel import (block_matrix, build_unitary,
                                                 cp_angle_indices,
@@ -216,6 +226,7 @@ class Decomposition:
         self.cz_depth = circuit.gates_depth(['cz'])
         self._cp_data = None
         self._static_options = None
+        self._adaptive_options = None
 
     @classmethod
     def _from_cp_circuit(cls, unitary_loss_func, anz: Ansatz, angles,
@@ -284,16 +295,62 @@ class StaticOptions(BasicOptions):
             raise TypeError("Missing required argument 'accepted_num_cz_gates'")
 
 
+@dataclass
+class AdaptiveOptions(BasicOptions):
+    """Adaptive synthesis options: TPE over the template length
+    num_cp_gates in [min_num_cp_gates, max_num_cp_gates] and the penalty
+    weight r ~ lognormal(log r_mean, r_variance).
+
+    bucketed=True runs every trial on one template padded to
+    max_num_cp_gates, a shorter template's tail blocks frozen at identity
+    by the gradient mask, r given per restart. parallel_trials > 1 runs
+    that many TPE suggestions as one sweep (constant-liar batching:
+    suggestions after the first see provisional trials at the mean
+    observed score); it always takes the bucketed stage."""
+    min_num_cp_gates: int = -1
+    max_num_cp_gates: int = -1
+    r_mean: float = 0.00055
+    r_variance: float = 0.5
+    max_evals: int = 100
+    target_num_cz_gates: int = 0
+    stop_if_target_reached: bool = False
+    keep_logs: bool = False
+    bucketed: bool = False
+    parallel_trials: int = 1
+
+    def __post_init__(self):
+        if self.min_num_cp_gates == -1:
+            raise TypeError("Missing required argument 'min_num_cp_gates'")
+        if self.max_num_cp_gates == -1:
+            raise TypeError("Missing required argument 'max_num_cp_gates'")
+        if self.bucketed and self.method != 'adam':
+            import warnings
+            warnings.warn(
+                f"bucketed=True always runs the fused Adam sweep; "
+                f"method={self.method!r} is ignored in the raw stage "
+                f"(set bucketed=False to honor it)", stacklevel=2)
+
+    def get_static(self, num_cp_gates, r) -> StaticOptions:
+        default_static = asdict(BasicOptions())
+        basic = {k: v for k, v in asdict(self).items() if k in default_static}
+        basic['num_cp_gates'] = num_cp_gates
+        basic['r'] = r
+        # adaptive trials filter on entry_loss only; any CZ count may enter
+        basic['accepted_num_cz_gates'] = np.iinfo(np.int32).max
+        return StaticOptions(**basic)
+
+
 # --------------------------------------------------------------------------
 # Results
 # --------------------------------------------------------------------------
 
 @dataclass
 class Results:
-    """Persistent store of decompositions."""
+    """Persistent store of trials and decompositions."""
     loss_function: Any
     layer: list
     label: str = ''
+    trials: Any = None
     decompositions: tuple = ()
     save_to: str = ''
 
@@ -313,6 +370,32 @@ class Results:
         with open(path, 'rb') as f:
             return pickle.load(f)
 
+    def best_hyperparameters(self) -> List[List]:
+        """[num_cp_gates, r] pairs ordered by increasing score."""
+        results = sorted(self.trials.results, key=lambda res: res['loss'])
+        return [[res['num_cp_gates'], res['r']] for res in results]
+
+    def plot_trials(self):
+        """(k, r) -> score scatter (needs matplotlib)."""
+        import matplotlib.pyplot as plt
+        results = self.trials.results
+        num = np.array([res['num_cp_gates'] for res in results], dtype=float)
+        r = np.array([res['r'] for res in results], dtype=float)
+        loss = np.array([res['loss'] for res in results], dtype=float)
+
+        finite = np.isfinite(loss)
+        n_best, r_best = self.best_hyperparameters()[0]
+
+        plt.scatter(num[finite], r[finite], c=loss[finite], cmap='jet',
+                    edgecolors='black')
+        plt.colorbar()
+        plt.scatter(num[~finite], r[~finite], marker='x', color='red')
+        plt.scatter([n_best], [r_best], marker='*', facecolors='gold',
+                    edgecolors='black', s=[250])
+        plt.xlabel('Number of CP gates')
+        plt.ylabel('r: regularization weight')
+        plt.title('Score')
+
 
 # --------------------------------------------------------------------------
 # Synthesize
@@ -325,8 +408,8 @@ class Synthesize:
         layer: connectivity pairs, e.g. [[0,1],[1,2]].
         unitary_loss_func: a LossSpec.
         target_unitary: sets the loss to the HS-test distance to this matrix.
-        target_state: sets the loss to 1 - |<target|U|0>|^2 (host side
-            only for now: its device loss is ROADMAP A.4).
+        target_state: sets the loss to 1 - |<target|U|0>|^2; the sweeps
+            then build only the |0...0> column of U.
         label: name used for persistence.
         cp_regularization_func: per-angle CP penalty (default: piecewise
             linear with RegularizationOptions defaults).
@@ -369,6 +452,12 @@ class Synthesize:
             make_regularization_function(RegularizationOptions)
         self.stage_seconds: dict = {}  # wall time of each stage of the last run
 
+    def __getstate__(self):
+        # the bucketed stage's cache is rebuilt on next use
+        state = self.__dict__.copy()
+        state.pop('_stage_cache', None)
+        return state
+
     # -- internals ----------------------------------------------------------
 
     def _ansatz(self, options) -> Ansatz:
@@ -376,11 +465,11 @@ class Synthesize:
                       fill_layers(self.layer, options.num_cp_gates),
                       options.rotation_gates)
 
-    def _objective(self, anz: Ansatz, options):
+    def _objective(self, anz: Ansatz, r):
         return batched_sim.make_batched_regloss(
-            self.num_qubits, 'cp', options.rotation_gates, anz.placements,
+            self.num_qubits, 'cp', anz.rotation_gates, anz.placements,
             self.unitary_loss_func, cp_mask=anz.cp_mask,
-            regularization_func=self.cp_regularization_func, r=options.r)
+            regularization_func=self.cp_regularization_func, r=r)
 
     @staticmethod
     def _check_method(options):
@@ -407,7 +496,7 @@ class Synthesize:
                                     dtype=config.real_dtype,
                                     device=self.device)
         return engine.minimize_fused(
-            self._objective(anz, options), inits,
+            self._objective(anz, options.r), inits,
             learning_rate=options.learning_rate,
             num_iterations=options.num_gd_iterations)
 
@@ -417,7 +506,7 @@ class Synthesize:
         self._check_method(options)
         anz = self._ansatz(options)
         return cand.run_raw_stage_fused(
-            self._objective(anz, options), options.random_seed,
+            self._objective(anz, options.r), options.random_seed,
             options.num_samples, anz.num_angles, anz.cp_mask,
             cp_dist=options.cp_distribution, threshold=options.threshold_cp,
             learning_rate=options.learning_rate,
@@ -462,11 +551,54 @@ class Synthesize:
         return results
 
     def _make_decomposition(self, anz: Ansatz, best_angles,
-                            static_options=None) -> Decomposition:
+                            static_options=None, adaptive_options=None
+                            ) -> Decomposition:
         d = Decomposition._from_cp_circuit(self.unitary_loss_func, anz,
                                            best_angles, self.label)
         d._static_options = static_options
+        d._adaptive_options = adaptive_options
         return d
+
+    def _bucketed_stage(self, options):
+        """The padded template of the bucketed stage, cached on the
+        instance: (objective, ansatz) at max_num_cp_gates. Every (k, r)
+        trial runs on it, k through the gradient mask, r per restart."""
+        key = (options.max_num_cp_gates, options.rotation_gates)
+        cache = getattr(self, '_stage_cache', None)
+        if cache is None:
+            cache = self._stage_cache = {}
+        if key not in cache:
+            anz = Ansatz(self.num_qubits, 'cp',
+                         fill_layers(self.layer, options.max_num_cp_gates),
+                         options.rotation_gates)
+            cache[key] = (self._objective(anz, 0.0), anz)
+        return cache[key]
+
+    def _staged_run(self, options):
+        """run(seeds, rs, actives) -> (cz (N, S), loss (N, S),
+        angles (N, S, P)): N trials of the bucketed stage in one sweep,
+        chaining options.num_gd_segments sweeps, each resuming from the
+        previous one's best angles with fresh Adam moments. It always runs
+        Adam, whatever options.method says (AdaptiveOptions warns)."""
+        objective, anz = self._bucketed_stage(options)
+        segments = max(1, int(options.num_gd_segments or 1))
+
+        def run(seeds, rs, actives):
+            kw = dict(cp_dist=options.cp_distribution,
+                      threshold=options.threshold_cp,
+                      learning_rate=options.learning_rate,
+                      num_iterations=options.num_gd_iterations,
+                      device=self.device)
+            out = cand.run_bucketed_stage(objective, seeds, rs, actives,
+                                          options.num_samples, anz.cp_mask,
+                                          **kw)
+            for _ in range(segments - 1):
+                out = cand.run_bucketed_stage(
+                    objective, seeds, rs, actives, options.num_samples,
+                    anz.cp_mask, params_in=out[2], **kw)
+            return out
+
+        return run, anz
 
     # -- static -------------------------------------------------------------
 
@@ -518,4 +650,233 @@ class Synthesize:
         else:
             log('\nNo candidates passed the entry thresholds.')
 
+        return results
+
+    # -- adaptive -----------------------------------------------------------
+
+    def adaptive(self, options: AdaptiveOptions, save_results=True,
+                 save_to='', verbose=True) -> Results:
+        """TPE-adaptive synthesis over (num_cp_gates, r).
+
+        Each trial samples num_samples restarts at its (k, r) and scores
+        the CZ counts of the candidates under entry_loss; candidates that
+        beat the best verified CZ count so far are verified, and the first
+        success is kept. Trials and decompositions are saved after each
+        trial; a run finding saved trials resumes from them.
+        stage_seconds sums, over the trials, the sampling, TPE,
+        verification and decomposition time."""
+        def log(msg):
+            if verbose:
+                print(msg, flush=True)
+
+        log(f'\nSynthesis run starting; options:\n{options}')
+        self.stage_seconds = dict.fromkeys(
+            ('sampling', 'tpe', 'verification', 'decomposition'), 0.0)
+
+        def timed(stage, fn, *args):
+            start = time.perf_counter()
+            out = fn(*args)
+            self.stage_seconds[stage] += time.perf_counter() - start
+            return out
+
+        space = [
+            tpe.QUniformInt('num_cp_gates', options.min_num_cp_gates,
+                            options.max_num_cp_gates, 1),
+            tpe.LogNormal('r', math.log(options.r_mean), options.r_variance),
+        ]
+
+        results = self._initialize_results(save_results, save_to)
+        if results.trials is not None:
+            log('\nExisting trials found on disk - resuming.')
+            trials = results.trials
+            random_seed = trials.results[-1]['random_seed']
+            num_existing = len(trials.results)
+        else:
+            trials = tpe.Trials()
+            random_seed = options.random_seed
+            num_existing = 0
+
+        if results.decompositions:
+            scoreboard = sorted(set(d.cz_count for d in results.decompositions))
+        else:
+            scoreboard = [losses.theoretical_lower_bound(self.num_qubits)]
+
+        if num_existing >= options.max_evals:
+            log('Evaluation budget already exhausted.')
+
+        def result_from_ev(ev, random_seed, num_cp_gates, r):
+            prospective = cand.filter_prospective(
+                ev, threshold_cz_count=float('inf'),
+                threshold_loss=options.entry_loss)
+            cz_counts = [int(ev.cz[i]) for i in prospective]
+
+            # score: soft-min of the CZ counts, per sample (num_samples, so
+            # that trials resumed elsewhere score on the same scale), log2
+            score_val = np.sum(2.0 ** (-np.array(cz_counts, dtype=np.float64)))
+            with np.errstate(divide='ignore'):
+                score = float(np.log2(score_val / options.num_samples))
+            min_raw_loss = float(np.nanmin(ev.loss)) if np.size(ev.loss) \
+                else float('inf')
+            if not cz_counts:
+                # graded score of a trial with no prospective: ranked by how
+                # close its best restart came, 1000 above any real score
+                # (those are <= max_cz + log2(num_samples)), so that TPE
+                # still learns from a hard target's empty trials
+                score = -(1000.0 + 10.0 * math.log10(
+                    max(min_raw_loss, 1e-12))) \
+                    if math.isfinite(min_raw_loss) else -float('inf')
+
+            log(f'score: {-score}, cz counts of prospective results: '
+                f'{cz_counts}')
+
+            return_dict = {
+                'loss': -score,
+                'status': 'ok',
+                'random_seed': random_seed,
+                'cz_counts': cz_counts,
+                'min_raw_loss': min_raw_loss,
+                'num_cp_gates': num_cp_gates,
+                'r': r,
+                'layer': self.layer,
+                'prospective_decompositions':
+                    [[int(ev.cz[i]), ev.angles[i]] for i in prospective],
+            }
+            if options.keep_logs:
+                return_dict['attachments'] = {
+                    'prospective_decompositions':
+                        pickle.dumps(return_dict['prospective_decompositions']),
+                    'static_options':
+                        pickle.dumps(options.get_static(num_cp_gates, r)),
+                    'unitary_loss_func': pickle.dumps(self.unitary_loss_func)}
+            return return_dict
+
+        def evaluate(suggestions):
+            """One result dict per (seed, (k, r)) suggestion. A single
+            unbucketed trial takes the static sampling stage at its own k;
+            otherwise every suggestion runs in one bucketed sweep."""
+            if len(suggestions) == 1 and not options.bucketed:
+                seed, values = suggestions[0]
+                num_cp_gates, r = int(values[0]), float(values[1])
+                log(f'\nnum_cp_gates: {num_cp_gates}, r: {r}')
+                static_options = options.get_static(num_cp_gates, r)
+                static_options.random_seed = seed
+                ev = timed('sampling', self._raw_and_evaluate, static_options)
+                return [result_from_ev(ev, seed, num_cp_gates, r)]
+
+            run, anz_max = self._staged_run(options)
+            actives = np.zeros((len(suggestions), anz_max.num_angles),
+                               dtype=np.float32)
+            p_ks = []
+            for j, (_, values) in enumerate(suggestions):
+                p_k = 3 * self.num_qubits + \
+                    int(values[0]) * anz_max.num_block_angles
+                actives[j, :p_k] = 1.0
+                p_ks.append(p_k)
+            czs, lss, angs = timed(
+                'sampling', run, [seed for seed, _ in suggestions],
+                [float(values[1]) for _, values in suggestions], actives)
+            out = []
+            for j, (seed, values) in enumerate(suggestions):
+                num_cp_gates, r = int(values[0]), float(values[1])
+                log(f'\nnum_cp_gates: {num_cp_gates}, r: {r}')
+                ev = cand.EvaluatedBatch(cz=czs[j], loss=lss[j],
+                                         angles=angs[j][:, :p_ks[j]])
+                out.append(result_from_ev(ev, seed, num_cp_gates, r))
+            return out
+
+        def suggest(step):
+            """`step` suggestions; the seed chain runs on sequentially, so
+            the trial stream equals the sequential mode's and resume works
+            unchanged."""
+            nonlocal random_seed
+            suggestions = []
+            if step > 1:
+                # constant liar: later suggestions see provisional results
+                # at the mean observed score, keeping the batch diverse
+                lie_trials = tpe.Trials()
+                lie_trials.vals = list(trials.vals)
+                lie_trials.results = list(trials.results)
+                lie = (float(np.mean([res['loss'] for res in trials.results]))
+                       if trials.results else 0.0)
+            for _ in range(step):
+                random_seed = next_seed(random_seed)
+                rng = np.random.default_rng(random_seed)
+                values = tpe.suggest(space, trials if step == 1
+                                     else lie_trials, rng)
+                if step > 1:
+                    lie_trials.record(values, {
+                        'loss': lie, 'status': 'ok',
+                        'num_cp_gates': int(values[0]),
+                        'r': float(values[1]),
+                        'random_seed': random_seed, 'cz_counts': []})
+                suggestions.append((random_seed, values))
+            return suggestions
+
+        def verify(last):
+            """Verify the trial's candidates that beat the scoreboard; keep
+            the first success. Returns whether one was found."""
+            num_cp_gates, r = last['num_cp_gates'], last['r']
+            to_verify = [[cz, angles] for cz, angles
+                         in last['prospective_decompositions']
+                         if cz < scoreboard[0]]
+            if not options.keep_logs:
+                last.pop('prospective_decompositions')
+            if not to_verify:
+                log(f'\nNo candidate beats the current best CZ count '
+                    f'{scoreboard[0]}.')
+                return False
+            log(f'\n{len(to_verify)} candidates beat the current best CZ '
+                f'count {scoreboard[0]}; verifying...')
+            static_options = options.get_static(num_cp_gates, r)
+            anz = self._ansatz(static_options)
+            ver = timed('verification', self._verify, anz,
+                        np.stack([a for _, a in to_verify]), options)
+            for pos in range(len(to_verify)):
+                if ver.success[pos]:
+                    num_cz = int(ver.cz[pos])
+                    log(f'\nNew verified decomposition: {num_cz} CZ gates.')
+                    scoreboard.insert(0, num_cz)
+                    d = timed('decomposition', self._make_decomposition, anz,
+                              ver.best_angles[pos], static_options, options)
+                    results.decompositions = \
+                        list(results.decompositions) + [d]
+                    if save_results:
+                        results.save()
+                    return True
+            log('\nNone of the candidates survived verification.')
+            return False
+
+        n_par = max(1, int(options.parallel_trials or 1))
+        pbar = None
+        if verbose:
+            try:
+                from tqdm.auto import tqdm
+                pbar = tqdm(desc='Evaluations', initial=num_existing,
+                            total=options.max_evals)
+            except ImportError:
+                pass
+        i = num_existing
+        stop = False
+        while i < options.max_evals and not stop:
+            step = min(n_par, options.max_evals - i)
+            log('\n' + '-' * 42)
+            log(f'iteration {i}/{options.max_evals}'
+                + (f' ({step} parallel trials)' if step > 1 else ''))
+            suggestions = timed('tpe', suggest, step)
+            for (_, values), result in zip(suggestions, evaluate(suggestions)):
+                trials.record(values, result)
+                results.trials = trials
+                if save_results:
+                    results.save()
+                verify(trials.results[-1])
+                if options.stop_if_target_reached and \
+                        scoreboard[0] <= options.target_num_cz_gates:
+                    log('\nTarget CZ count reached - stopping early.')
+                    stop = True
+                    break
+            i += step
+            if pbar is not None:
+                pbar.update(step)
+        if pbar is not None:
+            pbar.close()
         return results

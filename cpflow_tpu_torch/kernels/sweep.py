@@ -8,11 +8,17 @@ launches the CUDA kernel of csrc/sweep.cu, built for sm_90a with nvcc into
 tensor it runs ``sweep_reference``: the sim/batched.py objective under
 PyTorch autograd and the same Adam loop, written out to match optax.adam.
 
+The kernel computes the HS-test loss (the whole 2^n x 2^n unitary) and the
+state-preparation loss (only its |0...0> column), with the penalty weight r
+given per restart: a float r is expanded to every restart, a (B,) tensor r
+(several adaptive trials side by side) is passed as it is.
+
 What bounds the kernel on this card, and what its design does about it, is
-set out at the top of csrc/sweep.cu: per-restart shared memory (the 4^n
-state and cotangent; n <= 6 here, 7 qubits need tiling, ROADMAP B.7) and
-the barriers and block reductions of the adjoint walk (few threads per
-restart, a 31-shuffle warp reduction, double-buffered cross-warp partials).
+set out at the top of csrc/sweep.cu: per-restart shared memory (the state
+and cotangent, 2^n x C each; n <= 6 for the HS test, where 7 qubits need
+tiling, ROADMAP B.7, and n <= 12 for a state) and the barriers and block
+reductions of the adjoint walk (few threads per restart, a 31-shuffle warp
+reduction, double-buffered cross-warp partials).
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -43,7 +49,7 @@ from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
 
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
 
-MAX_QUBITS = 6
+MAX_QUBITS = {'hst': 6, 'state': 12}  # qubits the kernel takes, per loss
 TARGET_CHECK_EVERY = 50  # kernel steps between host checks of target_loss
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'sweep.cu'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -150,11 +156,12 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(target))
     ptr = ctypes.c_void_p
     lib.cpflow_sweep_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ptr]
+        ctypes.c_int, ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
-    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int]
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     BUILD_INFO['library'] = str(target)
     _lib = lib
@@ -169,23 +176,23 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
 def _check_objective(objective):
-    n = objective.num_qubits
-    if not 2 <= n <= MAX_QUBITS:
+    kind = getattr(objective.unitary_loss_func, 'kind', None)
+    if kind not in MAX_QUBITS:
+        raise NotImplementedError(
+            f'the sweep kernel computes the HS-test and state-preparation '
+            f'losses, got {kind!r} (ROADMAP A.10)')
+    n, limit = objective.num_qubits, MAX_QUBITS[kind]
+    if not 2 <= n <= limit:
         raise ValueError(
-            f'the sweep kernel takes 2 to {MAX_QUBITS} qubits, got {n}: '
-            f'above {MAX_QUBITS} the state and cotangent exceed one block\'s '
-            f'shared memory, and tiling them is ROADMAP B.7')
+            f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
+            f'loss, got {n}: above {limit} the state and cotangent exceed one '
+            f'block\'s shared memory, and tiling them is ROADMAP B.7')
     if objective.entangling_gate_name != 'cp' or \
             objective.rotation_gates != 'xyz':
         raise NotImplementedError(
             'the sweep kernel takes the CP entangler with rotations "xyz"; '
             f'got {objective.entangling_gate_name!r} / '
             f'{objective.rotation_gates!r} (ROADMAP B.6)')
-    kind = getattr(objective.unitary_loss_func, 'kind', None)
-    if kind != 'hst':
-        raise NotImplementedError(
-            f'the sweep kernel computes the HS-test loss, got {kind!r} '
-            f'(ROADMAP B.5)')
     if objective.has_penalty and \
             not isinstance(objective.regularization_func, LinearPenalty):
         raise NotImplementedError(
@@ -216,15 +223,21 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
         grad_mask = grad_mask.to(device=device,
                                  dtype=config.real_dtype).contiguous()
 
+    state = objective.unitary_loss_func.kind == 'state'
+    log_c = 0 if state else n
     lib = load_library()
-    smem = lib.cpflow_sweep_smem_bytes(n, nb)
+    smem = lib.cpflow_sweep_smem_bytes(n, nb, log_c)
     if smem > _SMEM_LIMIT:
         raise ValueError(f'{n} qubits with {nb} blocks need {smem} bytes of '
                          f'shared memory per restart, above {_SMEM_LIMIT}')
 
-    target = torch.view_as_real(torch.as_tensor(
-        np.asarray(objective.unitary_loss_func.target),
-        dtype=config.complex_dtype).to(device).contiguous())
+    target = torch.as_tensor(np.asarray(objective.unitary_loss_func.target),
+                             dtype=config.complex_dtype)
+    if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
+        raise ValueError(f'target of shape {tuple(target.shape)} for a '
+                         f'{n}-qubit {objective.unitary_loss_func.kind!r} '
+                         f'loss')
+    target = torch.view_as_real(target.to(device).contiguous())
     if objective.has_penalty:
         cp_mask = torch.as_tensor(objective.cp_mask, device=device)
         xs, ys = breakpoints(*objective.regularization_func.params)
@@ -233,6 +246,13 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
         cp_mask = torch.zeros(P, device=device, dtype=config.real_dtype)
         xs, ys = breakpoints(np.pi / 2, 2.0, .05, .05, .05)
         r = 0.0
+    if isinstance(r, torch.Tensor):
+        if tuple(r.shape) != (B,):
+            raise ValueError(f'r must be a float or of shape ({B},), got '
+                             f'{tuple(r.shape)}')
+        r = r.to(device=device, dtype=config.real_dtype).contiguous()
+    else:
+        r = torch.full((B,), float(r), dtype=config.real_dtype, device=device)
     pen_tab = torch.tensor(xs + ys, dtype=config.real_dtype, device=device)
     plc = torch.tensor(placements if nb else [[0, 0]], dtype=torch.int32,
                        device=device).contiguous()
@@ -251,8 +271,8 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
             best_params.data_ptr(), summary.data_ptr(), target.data_ptr(),
             cp_mask.data_ptr(),
             grad_mask.data_ptr() if grad_mask is not None else None,
-            plc.data_ptr(), pen_tab.data_ptr(), n, nb, B, it_begin, it_end,
-            float(learning_rate), float(r), stream)
+            plc.data_ptr(), pen_tab.data_ptr(), r.data_ptr(), n, nb, log_c,
+            B, it_begin, it_end, float(learning_rate), stream)
         if err != 0:
             raise RuntimeError(f'sweep kernel launch failed: CUDA error {err}')
         LAUNCHES += 1

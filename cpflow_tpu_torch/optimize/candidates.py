@@ -1,5 +1,7 @@
 """CP-template candidate pipeline: init, evaluation, projection, verification
-(counterpart of cpflow_tpu/optimize/candidates.py, fused path only).
+(counterpart of cpflow_tpu/optimize/candidates.py, fused path only), and the
+adaptive search's bucketed raw stage (the stage closure of
+cpflow_tpu/api.py:Synthesize._bucketed_stage).
 
 PRNG: initial angles are drawn from ``torch.Generator(device)
 .manual_seed(random_seed)``. The JAX package reproduces the reference's
@@ -14,6 +16,7 @@ CP(pi) = CZ, the frozen unitary is exactly the projected circuit's.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Optional
 
@@ -132,6 +135,60 @@ def run_raw_stage_fused(objective, seed: int, batch_size: int,
                   threshold=threshold).sum(dim=0).to(torch.int32)
     return EvaluatedBatch(cz=cz.cpu().numpy(), loss=best_loss.cpu().numpy(),
                           angles=best_params.T.cpu().numpy())
+
+
+def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
+                       cp_mask, cp_dist: str = 'uniform',
+                       threshold: float = 0.2, learning_rate: float = 0.1,
+                       num_iterations: int = 2000, *, device,
+                       params_in: Optional[np.ndarray] = None):
+    """The adaptive search's bucketed raw stage for N trials at once, all on
+    one padded template: trial j has seed seeds[j], penalty weight rs[j] and
+    the (P,) 0/1 mask actives[j] of the angles its shorter template uses.
+
+    The trials sit side by side on the restart axis, trial j on columns
+    [j * S, (j + 1) * S) with S = num_samples, and run as ONE sweep with r
+    and the gradient mask given per restart. Trial j's initial angles are
+    drawn from torch.Generator(device).manual_seed(seeds[j]) and multiplied
+    by its mask, so the inactive tail blocks start at identity
+    (CP(0) = R(0) = Id) and the mask keeps them there. params_in, an
+    (N, S, P) array, resumes from earlier angles in place of the draws,
+    taken as they are (a segment chained after a first one).
+
+    objective: the padded template's sim.batched.BatchedRegloss; its r is
+    ignored. Returns numpy (cz (N, S) int32, loss (N, S), angles (N, S, P))
+    at each restart's best iterate."""
+    actives = np.asarray(actives, dtype=np.float32)
+    N, P = actives.shape
+    S = int(num_samples)
+    if params_in is None:
+        inits = []
+        for j, seed in enumerate(seeds):
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            batch = generate_initial_angles_batch(
+                gen, P, cp_mask, cp_dist=cp_dist, batch_size=S,
+                device=device)
+            inits.append(batch * torch.as_tensor(actives[j], device=device))
+        inits = torch.cat(inits, dim=0)
+    else:
+        inits = torch.as_tensor(np.asarray(params_in).reshape(N * S, P),
+                                dtype=config.real_dtype, device=device)
+    per_restart = torch.as_tensor(actives, device=device).repeat_interleave(
+        S, dim=0)                                              # (N S, P)
+    run = copy.copy(objective)
+    run.r = torch.as_tensor(np.asarray(rs, dtype=np.float32),
+                            device=device).repeat_interleave(S)
+    best_params, _, best_loss = engine.fused_adam_sweep(
+        run, inits.T.contiguous(), learning_rate=learning_rate,
+        num_iterations=num_iterations,
+        grad_mask_pb=per_restart.T.contiguous())
+    mask = torch.as_tensor(np.asarray(cp_mask), dtype=config.real_dtype,
+                           device=device)
+    cz = cz_value(best_params * mask[:, None],
+                  threshold=threshold).sum(dim=0).to(torch.int32)
+    return (cz.reshape(N, S).cpu().numpy(),
+            best_loss.reshape(N, S).cpu().numpy(),
+            best_params.T.reshape(N, S, P).cpu().numpy())
 
 
 def filter_prospective(ev: EvaluatedBatch, threshold_cz_count,

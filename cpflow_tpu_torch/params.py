@@ -1,9 +1,11 @@
-"""Angle vectors carried between the JAX package and the port.
+"""State carried between the JAX package and the port.
 
 The system has no weights: its parameters are angle vectors in the layout
 of sim/ansatz_kernel.py, identical in both packages. The JAX package's
 public functions take restart batches as (B, P) arrays; the port's sweep
-takes (P, B) tensors, batch last.
+takes (P, B) tensors, batch last. An adaptive search's state is its trial
+records, which ``trials_from_jax`` carries over so that a search saved by
+the JAX package resumes in the port.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import numpy as np
 import torch
 
 from cpflow_tpu_torch import config
+from cpflow_tpu_torch.api import Ansatz
+from cpflow_tpu_torch.search import tpe
 from cpflow_tpu_torch.sim.ansatz_kernel import cp_angle_indices
+from cpflow_tpu_torch.topology import fill_layers, num_qubits_from_layer
 
 
 def _check_layout(num_angles: int, ansatz) -> None:
@@ -42,3 +47,30 @@ def angles_to_jax(t: torch.Tensor) -> np.ndarray:
     """(P, B) tensor -> (B, P) float32 numpy, the inverse of
     angles_from_jax."""
     return np.ascontiguousarray(t.detach().cpu().numpy().T, dtype=np.float32)
+
+
+def trials_from_jax(results_or_trials, rotation_gates: str = 'xyz'
+                    ) -> tpe.Trials:
+    """The JAX package's adaptive trial records (its ``Results``, or its
+    ``Results.trials``) as the port's ``tpe.Trials``: values and result
+    dicts copied, numbers as Python or numpy values, and the prospective
+    angles of a trial kept with keep_logs checked against the trial's
+    template (rotation_gates, as the search ran) through angles_from_jax.
+    The keep_logs ``attachments`` are dropped: they are dill payloads of
+    the JAX package's objects. Set the result as a port ``Results.trials``
+    and ``Synthesize.adaptive`` resumes from it."""
+    src = results_or_trials if hasattr(results_or_trials, 'vals') else \
+        results_or_trials.trials
+    out = tpe.Trials()
+    for values, result in zip(src.vals, src.results):
+        rec = {key: value for key, value in dict(result).items()
+               if key != 'attachments'}
+        if 'prospective_decompositions' in rec:
+            anz = Ansatz(num_qubits_from_layer(rec['layer']), 'cp',
+                         fill_layers(rec['layer'], rec['num_cp_gates']),
+                         rotation_gates)
+            rec['prospective_decompositions'] = [
+                [int(cz), angles_to_jax(angles_from_jax(a, anz, 'cpu'))[0]]
+                for cz, a in rec['prospective_decompositions']]
+        out.record([int(values[0]), float(values[1])], rec)
+    return out

@@ -13,9 +13,10 @@ kernel (kernels/sweep.py): gradients come from PyTorch autograd, a second
 derivation set against the kernel's hand-written adjoint. Semantics (angle
 layout, block order) are those of sim/ansatz_kernel.build_unitary.
 
-Not ported here: ``_apply_gate_batched_slices`` (a TPU layout experiment),
-the reversible custom-gradient builder, and the state-preparation and disc
-losses (ROADMAP A.4).
+Losses: the HS test and state preparation; a state loss builds only the
+|0...0> column of the unitary. Not ported here: ``_apply_gate_batched_slices``
+(a TPU layout experiment), the reversible custom-gradient builder, and the
+disc and custom losses (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -133,10 +134,14 @@ def _apply_gate_batched(gate: torch.Tensor, u: torch.Tensor,
 
 def build_unitary_batched(num_qubits: int, entangling_gate_name: str,
                           rotation_gates: str, placements: dict,
-                          angles: torch.Tensor) -> torch.Tensor:
+                          angles: torch.Tensor, columns=None) -> torch.Tensor:
     """angles: (P, B) -> batched unitary (2,)*n + (2^n, B): the surface 1q
     round, then every block in application order. All gate matrices are
-    built at once; only their application is sequential."""
+    built at once; only their application is sequential.
+
+    columns: optional list of input basis states. Gates touch only the row
+    legs, so each column evolves on its own; the result is then
+    (2,)*n + (len(columns), B), those columns of the unitary."""
     nba = num_block_angles(entangling_gate_name, rotation_gates)
     n = num_qubits
     d = 2 ** n
@@ -150,7 +155,10 @@ def build_unitary_batched(num_qubits: int, entangling_gate_name: str,
         angles[3 * n:].reshape(-1, nba, B).transpose(0, 1))    # (4, 4, k, B)
 
     eye = torch.eye(d, dtype=config.complex_dtype, device=angles.device)
-    u = eye.reshape([2] * n + [d, 1]).expand([2] * n + [d, B])
+    if columns is not None:
+        eye = eye[:, list(columns)]
+    ncols = eye.shape[1]
+    u = eye.reshape([2] * n + [ncols, 1]).expand([2] * n + [ncols, B])
     for q in range(n):
         u = _apply_gate_batched(surface[:, :, q], u, [q], n)
     for j, p in enumerate(block_pl):
@@ -172,15 +180,27 @@ def batched_cost_hst(u: torch.Tensor, u_target) -> torch.Tensor:
     return 1 - s.abs() ** 2 / d ** 2
 
 
+def batched_state_prep(u: torch.Tensor, target_state) -> torch.Tensor:
+    """(B,) state-preparation infidelities 1 - |<target|U|0>|^2 from column
+    0 of u: (2,)*n + (cols, B)."""
+    d = 2 ** (u.dim() - 2)
+    col0 = u[..., 0, :].reshape(d, u.shape[-1])
+    t = torch.as_tensor(np.asarray(target_state), dtype=config.complex_dtype,
+                        device=u.device)[:, None]
+    return 1 - (t.conj() * col0).sum(dim=0).abs() ** 2
+
+
 def batched_unitary_loss(unitary_loss_func, u: torch.Tensor) -> torch.Tensor:
-    """Evaluate a LossSpec on the batched unitary. Only the HS-test kind is
-    ported; state-preparation, disc and custom losses are ROADMAP A.4."""
+    """Evaluate a LossSpec on the batched unitary: the HS-test and
+    state-preparation kinds; disc and custom losses are ROADMAP A.10."""
     kind = getattr(unitary_loss_func, 'kind', None)
     if kind == 'hst':
         return batched_cost_hst(u, unitary_loss_func.target)
+    if kind == 'state':
+        return batched_state_prep(u, unitary_loss_func.target)
     raise NotImplementedError(
-        f'batched loss kind {kind!r} is not ported yet (ROADMAP A.4: '
-        f'state-preparation, disc and custom losses)')
+        f'batched loss kind {kind!r} is not ported yet (ROADMAP A.10: disc '
+        f'and custom losses)')
 
 
 class BatchedRegloss:
@@ -188,12 +208,15 @@ class BatchedRegloss:
     regloss = loss + r * sum(penalty(cp_mask * angles)).
 
     Unlike the JAX package's closure, the objective keeps its parts as
-    attributes: the sweep kernel reads the ansatz, the target, the mask and
-    the penalty's breakpoints from them and never calls the object."""
+    attributes: the sweep kernel reads the ansatz, the target, the mask, r
+    and the penalty's breakpoints from them and never calls the object.
+    r is a float or a (B,) tensor of one weight per restart, so that one
+    objective serves the restarts of several adaptive trials. A state loss
+    builds only the |0...0> column (``columns``)."""
 
     def __init__(self, num_qubits: int, entangling_gate_name: str,
                  rotation_gates: str, placements: dict, unitary_loss_func,
-                 cp_mask=None, regularization_func=None, r: float = 0.0):
+                 cp_mask=None, regularization_func=None, r=0.0):
         self.num_qubits = num_qubits
         self.entangling_gate_name = entangling_gate_name
         self.rotation_gates = rotation_gates
@@ -202,32 +225,53 @@ class BatchedRegloss:
         self.cp_mask = None if cp_mask is None else \
             np.asarray(cp_mask, dtype=np.float32)
         self.regularization_func = regularization_func
-        self.r = float(r)
+        self.r = r.to(config.real_dtype) if isinstance(r, torch.Tensor) \
+            else float(r)
+        self.columns = [0] if getattr(unitary_loss_func, 'kind', None) == \
+            'state' else None
 
     @property
     def has_penalty(self) -> bool:
         return self.regularization_func is not None and \
             self.cp_mask is not None
 
-    def __call__(self, angles: torch.Tensor):
+    def loss_and_penalty(self, angles: torch.Tensor):
+        """(loss_B, penalty_B), the penalty not yet weighted by r."""
         u = build_unitary_batched(self.num_qubits, self.entangling_gate_name,
                                   self.rotation_gates, self.placements,
-                                  angles)
+                                  angles, columns=self.columns)
         loss = batched_unitary_loss(self.unitary_loss_func, u)
         if not self.has_penalty:
-            return loss, loss
+            return loss, torch.zeros_like(loss)
         mask = torch.as_tensor(self.cp_mask, device=angles.device)
-        reg = self.r * self.regularization_func(
+        return loss, self.regularization_func(
             angles * mask[:, None]).sum(dim=0)
-        return loss + reg, loss
+
+    def __call__(self, angles: torch.Tensor):
+        loss, pen = self.loss_and_penalty(angles)
+        if not self.has_penalty:
+            return loss, loss
+        return loss + self.r * pen, loss
 
 
 def make_batched_regloss(num_qubits: int, entangling_gate_name: str,
                          rotation_gates: str, placements: dict,
                          unitary_loss_func, cp_mask=None,
-                         regularization_func=None,
-                         r: float = 0.0) -> BatchedRegloss:
-    """The fused hot-path objective (loss + r * sum(penalty(cp angles)))."""
+                         regularization_func=None, r=0.0) -> BatchedRegloss:
+    """The fused hot-path objective (loss + r * sum(penalty(cp angles)));
+    r a float or a (B,) tensor."""
     return BatchedRegloss(num_qubits, entangling_gate_name, rotation_gates,
                           placements, unitary_loss_func, cp_mask=cp_mask,
                           regularization_func=regularization_func, r=r)
+
+
+def make_batched_loss_and_penalty(num_qubits: int, entangling_gate_name: str,
+                                  rotation_gates: str, placements: dict,
+                                  unitary_loss_func, cp_mask,
+                                  regularization_func):
+    """f(angles_PB) -> (loss_B, penalty_B) with the weight r left to the
+    caller, who combines loss + r * penalty."""
+    return BatchedRegloss(num_qubits, entangling_gate_name, rotation_gates,
+                          placements, unitary_loss_func, cp_mask=cp_mask,
+                          regularization_func=regularization_func
+                          ).loss_and_penalty

@@ -1,6 +1,7 @@
 """The port runs where JAX, optax and dill are not installed (as on the
 machine with the card): imported in a fresh interpreter with those modules
-blocked, it runs a tiny static synthesis on the CPU."""
+blocked, it runs a tiny static, adaptive and state-preparation synthesis on
+the CPU."""
 
 import os
 import pathlib
@@ -26,6 +27,22 @@ opts = api.StaticOptions(num_cp_gates=3, num_samples=4, num_gd_iterations=5,
                          num_gd_iterations_at_verification=5)
 res = synth.static(opts, save_results=False, verbose=False)
 assert set(synth.stage_seconds) == {'sampling', 'verification',
+                                    'decomposition'}
+ada = api.AdaptiveOptions(min_num_cp_gates=1, max_num_cp_gates=3,
+                          max_evals=3, num_samples=4, num_gd_iterations=5,
+                          num_gd_iterations_at_verification=5,
+                          bucketed=True, parallel_trials=2, keep_logs=True)
+res = synth.adaptive(ada, save_results=False, verbose=False)
+assert len(res.trials.results) == 3
+ghz = np.zeros(8, dtype=np.complex64)
+ghz[0] = ghz[-1] = 2 ** -0.5
+state = api.Synthesize(chain_layer(3), target_state=ghz, device='cpu')
+state.static(api.StaticOptions(num_cp_gates=2, num_samples=4,
+                               num_gd_iterations=5, accepted_num_cz_gates=9,
+                               entry_loss=1.0,
+                               num_gd_iterations_at_verification=5),
+             save_results=False, verbose=False)
+assert set(state.stage_seconds) == {'sampling', 'verification',
                                     'decomposition'}
 anz = synth._ansatz(opts)
 a = np.random.default_rng(0).uniform(0, 6, (2, anz.num_angles))
