@@ -7,8 +7,9 @@ version. The JAX package cpflow_tpu is the reference the port is held
 against; this package never imports it, nor JAX.
 
 Ported so far: ``Synthesize.static`` and ``Synthesize.adaptive`` (TPE over
-the template length and the penalty weight), with the HS-test and
-state-preparation losses.
+the template length and the penalty weight), with the HS-test, disc,
+state-preparation and modulo-identity/diagonal losses, any rotation string
+of x, y, z, and the CP, CZ and CX entanglers.
 """
 
 from cpflow_tpu_torch.api import (AdaptiveOptions, Ansatz, BasicOptions,

@@ -4,12 +4,15 @@ what they return (counterpart of cpflow_tpu/api.py).
 The public names, option dataclasses and their defaults follow the JAX
 package. What differs:
 
-  * ``Synthesize`` takes an explicit ``device`` ('cpu' or 'cuda'). On a CUDA
-    device every sweep (sampling, the adaptive search's bucketed stage,
-    verification) runs the hand-written kernel (kernels/sweep.py); on the
-    CPU, its plain PyTorch version. There is no fallback from one to the
-    other. Device losses: the HS test (``target_unitary``) and state
-    preparation (``target_state``).
+  * ``Synthesize`` takes a ``device``, 'cuda' unless the caller asks for
+    'cpu'. On a CUDA device every sweep (sampling, the adaptive search's
+    bucketed stage, verification) runs the hand-written kernel
+    (kernels/sweep.py); on the CPU, its plain PyTorch version. There is no
+    fallback from one to the other. Device losses: the HS test
+    (``target_unitary``), state preparation (``target_state``), and the
+    ``LossSpec`` kinds 'disc', 'modulo_identity' and 'modulo_diagonal',
+    with any rotation string of x, y, z; ``Ansatz`` also takes the fixed
+    'cz' and 'cx' entanglers (the success-ratio protocol's template).
   * initial angles come from a ``torch.Generator`` seeded with
     ``random_seed``: the same seed gives other angles than the JAX
     package (optimize/candidates.py). The adaptive search's trial seeds
@@ -20,8 +23,9 @@ package. What differs:
   * ``Results`` persist with the standard library's pickle;
     ``params.trials_from_jax`` carries a JAX package's trials over.
   * Not here yet: ``Decomposition.refine`` (ROADMAP A.11), methods other
-    than 'adam' (A.10), disc and custom device losses (A.10), the device
-    mesh (A.9), ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
+    than 'adam' (A.10), custom losses on the device (A.10: a Python
+    callable cannot enter the fused kernel), the device mesh (A.9),
+    ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
 """
 
 from __future__ import annotations
@@ -57,8 +61,10 @@ from cpflow_tpu_torch.topology import fill_layers, num_qubits_from_layer
 # --------------------------------------------------------------------------
 
 class LossSpec:
-    """Declarative unitary loss. On the device the port evaluates the HS
-    test ('hst'); ``numpy`` evaluates the host loss of a float64 matrix."""
+    """Declarative unitary loss: 'hst', 'disc', 'state', 'modulo_identity'
+    and 'modulo_diagonal' (these two with ``num_qubits`` and ``wires``) run
+    in the sweeps; 'custom' wraps a callable ``fn`` that only ``numpy``
+    evaluates. ``numpy`` evaluates the host loss of a float64 matrix."""
 
     def __init__(self, kind: str, target: Optional[np.ndarray] = None,
                  fn: Optional[Callable] = None, wires: Optional[list] = None,
@@ -82,11 +88,15 @@ class LossSpec:
         if self.kind == 'state':
             overlap = (t.conj() * u[:, 0]).sum()
             return float(1 - abs(overlap) ** 2)
+        if self.kind == 'modulo_identity':
+            return float(losses.disc_modulo_identity(
+                t, np.asarray(u), self.num_qubits, self.wires))
+        if self.kind == 'modulo_diagonal':
+            return float(losses.disc_modulo_diagonal(
+                t, np.asarray(u), self.num_qubits, self.wires))
         if self.kind == 'custom':
             return float(self.fn(u))
-        raise NotImplementedError(
-            f'loss kind {self.kind!r} is not ported yet (ROADMAP A.10: the '
-            f'modulo-identity/diagonal losses)')
+        raise ValueError(f'unknown loss kind {self.kind!r}')
 
     def __repr__(self):
         shape = None if self.target is None else self.target.shape
@@ -413,12 +423,12 @@ class Synthesize:
         label: name used for persistence.
         cp_regularization_func: per-angle CP penalty (default: piecewise
             linear with RegularizationOptions defaults).
-        device: where the sweeps run, 'cpu' or 'cuda'.
+        device: where the sweeps run, 'cuda' (the default) or 'cpu'.
     """
 
     def __init__(self, layer, unitary_loss_func=None, target_unitary=None,
                  target_state=None, label=None, cp_regularization_func=None,
-                 *, device):
+                 *, device='cuda'):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device is cuda, but no CUDA device is visible')

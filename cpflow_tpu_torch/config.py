@@ -18,6 +18,12 @@ import torch
 real_dtype = torch.float32
 complex_dtype = torch.complex64
 
+
+def complex_of(real: torch.dtype) -> torch.dtype:
+    """The complex dtype of a real one: complex128 for float64, else
+    complex_dtype."""
+    return torch.complex128 if real == torch.float64 else complex_dtype
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

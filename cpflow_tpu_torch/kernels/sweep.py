@@ -8,17 +8,22 @@ launches the CUDA kernel of csrc/sweep.cu, built for sm_90a with nvcc into
 tensor it runs ``sweep_reference``: the sim/batched.py objective under
 PyTorch autograd and the same Adam loop, written out to match optax.adam.
 
-The kernel computes the HS-test loss (the whole 2^n x 2^n unitary) and the
-state-preparation loss (only its |0...0> column), with the penalty weight r
-given per restart: a float r is expanded to every restart, a (B,) tensor r
-(several adaptive trials side by side) is passed as it is.
+The kernel computes what make_pallas_sweep computes, for any rotation
+string of x, y, z with the CP entangler, and besides the fixed CZ and CX
+entanglers and five losses: the HS test, disc and the modulo-identity and
+modulo-diagonal losses on the whole 2^n x 2^n unitary, and state
+preparation on its |0...0> column only. The penalty weight r is given per
+restart: a float r is expanded to every restart, a (B,) tensor r (several
+adaptive trials side by side) is passed as it is. It raises, and never
+falls back, for a custom loss (a Python callable cannot enter the kernel)
+and above MAX_QUBITS.
 
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
-and cotangent, 2^n x C each; n <= 6 for the HS test, where 7 qubits need
-tiling, ROADMAP B.7, and n <= 12 for a state) and the barriers and block
-reductions of the adjoint walk (few threads per restart, a 31-shuffle warp
-reduction, double-buffered cross-warp partials).
+and cotangent, 2^n x C each; n <= 6 for the whole unitary, where 7 qubits
+need tiling, ROADMAP B.7, and n <= 12 for a state) and the barriers and
+block reductions of the adjoint walk (few threads per restart, a
+31-shuffle warp reduction, double-buffered cross-warp partials).
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -45,11 +50,18 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, breakpoints
-from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
+from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
+from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
 
-MAX_QUBITS = {'hst': 6, 'state': 12}  # qubits the kernel takes, per loss
+# qubits the kernel takes, per loss (the whole unitary, or one column)
+MAX_QUBITS = {'hst': 6, 'disc': 6, 'modulo_identity': 6,
+              'modulo_diagonal': 6, 'state': 12}
+LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
+              'modulo_diagonal': 4}  # as csrc/sweep.cu numbers them
+ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
+LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 TARGET_CHECK_EVERY = 50  # kernel steps between host checks of target_loss
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'sweep.cu'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -82,9 +94,10 @@ def sweep_reference(objective, params0: torch.Tensor,
     the gradient before the moments, so a masked entry never moves. Best
     tracking keeps the angles *before* the update whose loss improved
     (strict <); the initial angles are the first best. With target_loss the
-    loop stops once every restart's best loss is at or under it.
+    loop stops once every restart's best loss is at or under it. It runs in
+    the objective's dtype.
     """
-    params = params0.detach().to(config.real_dtype).clone()
+    params = params0.detach().to(objective.dtype).clone()
     with torch.no_grad():
         regloss0, loss0 = objective(params)
     best_p = params.clone()
@@ -155,13 +168,10 @@ def load_library() -> ctypes.CDLL:
         BUILD_INFO['ptxas'] = proc.stderr.strip()
     lib = ctypes.CDLL(str(target))
     ptr = ctypes.c_void_p
-    lib.cpflow_sweep_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ptr]
+    lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
-    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int]
+    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     BUILD_INFO['library'] = str(target)
     _lib = lib
@@ -175,24 +185,48 @@ def load_library() -> ctypes.CDLL:
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
+def modulo_tables(n: int, wires):
+    """The index maps the kernel's modulo losses take: (4, 2^n) rows pi,
+    pi^-1, s, s^-1 (ops.losses.wire_permutation of `wires` and the block
+    shift of ops.losses._shift_indices) and log2 of the block size,
+    n - len(wires)."""
+    perm = wire_permutation(n, wires)
+    block_log2 = n - len(wires)
+    shift = _shift_indices(1 << n, 1 << block_log2)
+    return np.stack([perm, np.argsort(perm), shift, np.argsort(shift)]), \
+        block_log2
+
+
 def _check_objective(objective):
-    kind = getattr(objective.unitary_loss_func, 'kind', None)
+    spec = objective.unitary_loss_func
+    kind = getattr(spec, 'kind', None)
     if kind not in MAX_QUBITS:
         raise NotImplementedError(
-            f'the sweep kernel computes the HS-test and state-preparation '
-            f'losses, got {kind!r} (ROADMAP A.10)')
+            f'the sweep kernel computes the {", ".join(MAX_QUBITS)} losses, '
+            f'got {kind!r}: a custom loss (a Python callable) cannot enter '
+            f'the kernel (ROADMAP A.10)')
+    if objective.dtype != torch.float32:
+        raise ValueError(f'the sweep kernel computes in float32, the '
+                         f'objective in {objective.dtype}')
     n, limit = objective.num_qubits, MAX_QUBITS[kind]
     if not 2 <= n <= limit:
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
             f'loss, got {n}: above {limit} the state and cotangent exceed one '
             f'block\'s shared memory, and tiling them is ROADMAP B.7')
-    if objective.entangling_gate_name != 'cp' or \
-            objective.rotation_gates != 'xyz':
-        raise NotImplementedError(
-            'the sweep kernel takes the CP entangler with rotations "xyz"; '
-            f'got {objective.entangling_gate_name!r} / '
-            f'{objective.rotation_gates!r} (ROADMAP B.6)')
+    if objective.entangling_gate_name not in ENTANGLER_CODES or \
+            set(objective.rotation_gates) - set(LETTER_CODES):
+        raise ValueError(
+            f'unknown template: entangler {objective.entangling_gate_name!r} '
+            f'(cp, cz or cx), rotations {objective.rotation_gates!r} '
+            f'(letters of x, y, z)')
+    if kind.startswith('modulo') and (
+            spec.num_qubits != n or
+            sorted(set(spec.wires)) != sorted(spec.wires) or
+            not set(spec.wires) <= set(range(n))):
+        raise ValueError(f'a {kind!r} loss on {n} qubits needs num_qubits '
+                         f'{n} and distinct wires in range({n}), got '
+                         f'{spec.num_qubits} and {spec.wires}')
     if objective.has_penalty and \
             not isinstance(objective.regularization_func, LinearPenalty):
         raise NotImplementedError(
@@ -207,10 +241,12 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
     if (major, minor) != (9, 0):
         raise RuntimeError(f'the sweep kernel is built for sm_90a (Hopper); '
                            f'device has compute capability {major}.{minor}')
-    n = objective.num_qubits
+    n, spec = objective.num_qubits, objective.unitary_loss_func
+    ent, rot = objective.entangling_gate_name, objective.rotation_gates
     placements = all_placements(objective.placements)
     nb = len(placements)
-    P = 3 * n + 7 * nb
+    nba = num_block_angles(ent, rot)
+    P = 3 * n + nba * nb
     if params0.dim() != 2 or params0.shape[0] != P:
         raise ValueError(f'params0 must be (P={P}, B), got '
                          f'{tuple(params0.shape)}')
@@ -223,20 +259,19 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
         grad_mask = grad_mask.to(device=device,
                                  dtype=config.real_dtype).contiguous()
 
-    state = objective.unitary_loss_func.kind == 'state'
-    log_c = 0 if state else n
+    loss = LOSS_CODES[spec.kind]
     lib = load_library()
-    smem = lib.cpflow_sweep_smem_bytes(n, nb, log_c)
+    smem = lib.cpflow_sweep_smem_bytes(n, nb, nba, loss)
     if smem > _SMEM_LIMIT:
         raise ValueError(f'{n} qubits with {nb} blocks need {smem} bytes of '
                          f'shared memory per restart, above {_SMEM_LIMIT}')
 
-    target = torch.as_tensor(np.asarray(objective.unitary_loss_func.target),
+    state = spec.kind == 'state'
+    target = torch.as_tensor(np.asarray(spec.target),
                              dtype=config.complex_dtype)
     if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
         raise ValueError(f'target of shape {tuple(target.shape)} for a '
-                         f'{n}-qubit {objective.unitary_loss_func.kind!r} '
-                         f'loss')
+                         f'{n}-qubit {spec.kind!r} loss')
     target = torch.view_as_real(target.to(device).contiguous())
     if objective.has_penalty:
         cp_mask = torch.as_tensor(objective.cp_mask, device=device)
@@ -254,6 +289,11 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
     else:
         r = torch.full((B,), float(r), dtype=config.real_dtype, device=device)
     pen_tab = torch.tensor(xs + ys, dtype=config.real_dtype, device=device)
+    letters = torch.tensor([LETTER_CODES[c] for c in rot] or [0],
+                           dtype=torch.int32, device=device)
+    wire_map, block_log2 = modulo_tables(n, spec.wires) \
+        if spec.kind.startswith('modulo') else (np.zeros((1, 1)), 0)
+    wire_map = torch.tensor(wire_map, dtype=torch.int32, device=device)
     plc = torch.tensor(placements if nb else [[0, 0]], dtype=torch.int32,
                        device=device).contiguous()
     # the Adam state, kept on the card between launches
@@ -271,8 +311,10 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
             best_params.data_ptr(), summary.data_ptr(), target.data_ptr(),
             cp_mask.data_ptr(),
             grad_mask.data_ptr() if grad_mask is not None else None,
-            plc.data_ptr(), pen_tab.data_ptr(), r.data_ptr(), n, nb, log_c,
-            B, it_begin, it_end, float(learning_rate), stream)
+            plc.data_ptr(), pen_tab.data_ptr(), r.data_ptr(),
+            letters.data_ptr(), wire_map.data_ptr(), n, nb, len(rot),
+            ENTANGLER_CODES[ent], nba, loss, block_log2, B, it_begin, it_end,
+            float(learning_rate), stream)
         if err != 0:
             raise RuntimeError(f'sweep kernel launch failed: CUDA error {err}')
         LAUNCHES += 1

@@ -35,8 +35,10 @@ def breakpoints(xmax, ymax, plato_0, plato_1, plato_2):
 
 
 def cp_penalty_linear(a, xmax, ymax, plato_0, plato_1, plato_2):
-    """Piecewise-linear CP penalty, elementwise."""
-    a = torch.as_tensor(a, dtype=config.real_dtype)
+    """Piecewise-linear CP penalty, elementwise, in the dtype of a floating
+    tensor `a` (else config.real_dtype)."""
+    if not (torch.is_tensor(a) and a.is_floating_point()):
+        a = torch.as_tensor(a, dtype=config.real_dtype)
     x = torch.remainder(a, TWO_PI)
     xs_l, ys_l = breakpoints(xmax, ymax, plato_0, plato_1, plato_2)
     xs = torch.tensor(xs_l, dtype=x.dtype, device=x.device)

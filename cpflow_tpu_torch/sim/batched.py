@@ -13,10 +13,12 @@ kernel (kernels/sweep.py): gradients come from PyTorch autograd, a second
 derivation set against the kernel's hand-written adjoint. Semantics (angle
 layout, block order) are those of sim/ansatz_kernel.build_unitary.
 
-Losses: the HS test and state preparation; a state loss builds only the
-|0...0> column of the unitary. Not ported here: ``_apply_gate_batched_slices``
-(a TPU layout experiment), the reversible custom-gradient builder, and the
-disc and custom losses (ROADMAP A.10).
+Losses: the HS test, disc, state preparation (which builds only the
+|0...0> column of the unitary) and the modulo-identity/diagonal losses,
+written directly on the batch-last tensor where the JAX package vmaps the
+per-unitary callable. Not ported here: ``_apply_gate_batched_slices`` (a TPU
+layout experiment), the reversible custom-gradient builder, and custom
+losses (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.ops import gates as gate_mats
+from cpflow_tpu_torch.ops import losses
 from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                 num_block_angles)
 
@@ -41,8 +44,10 @@ _PAULI = {'x': gate_mats.x_mat, 'y': gate_mats.y_mat, 'z': gate_mats.z_mat}
 
 
 def _lift(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """Constant matrix m shaped to broadcast against (2|4, 2|4) + like.shape."""
-    t = torch.as_tensor(m, dtype=config.complex_dtype, device=like.device)
+    """Constant matrix m shaped to broadcast against (2|4, 2|4) + like.shape,
+    in the complex dtype of the real tensor `like`."""
+    t = torch.as_tensor(m, dtype=config.complex_of(like.dtype),
+                        device=like.device)
     return t.reshape(t.shape + (1,) * like.dim())
 
 
@@ -51,8 +56,8 @@ def _rot_batched(letter: str, a: torch.Tensor) -> torch.Tensor:
     a: (...)."""
     if letter not in _PAULI:
         raise ValueError(f'unknown rotation {letter!r}')
-    c = torch.cos(a / 2).to(config.complex_dtype)
-    s = torch.sin(a / 2).to(config.complex_dtype)
+    c = torch.cos(a / 2).to(config.complex_of(a.dtype))
+    s = torch.sin(a / 2).to(config.complex_of(a.dtype))
     return c * _lift(np.eye(2), a) + s * _lift(-1j * _PAULI[letter], a)
 
 
@@ -84,7 +89,8 @@ def block_matrix_batched(entangling_gate_name: str, rotation_gates: str,
     elif entangling_gate_name in ('cz', 'cx'):
         m = gate_mats.cz_mat if entangling_gate_name == 'cz' \
             else gate_mats.cx_mat
-        u = torch.as_tensor(m, device=block_angles.device).reshape(
+        u = torch.as_tensor(m, dtype=config.complex_of(block_angles.dtype),
+                            device=block_angles.device).reshape(
             (4, 4) + (1,) * (block_angles.dim() - 1)).expand(
             (4, 4) + block_angles.shape[1:])
     else:
@@ -134,18 +140,21 @@ def _apply_gate_batched(gate: torch.Tensor, u: torch.Tensor,
 
 def build_unitary_batched(num_qubits: int, entangling_gate_name: str,
                           rotation_gates: str, placements: dict,
-                          angles: torch.Tensor, columns=None) -> torch.Tensor:
+                          angles: torch.Tensor, columns=None,
+                          dtype=None) -> torch.Tensor:
     """angles: (P, B) -> batched unitary (2,)*n + (2^n, B): the surface 1q
     round, then every block in application order. All gate matrices are
     built at once; only their application is sequential.
 
     columns: optional list of input basis states. Gates touch only the row
     legs, so each column evolves on its own; the result is then
-    (2,)*n + (len(columns), B), those columns of the unitary."""
+    (2,)*n + (len(columns), B), those columns of the unitary. dtype: the
+    real dtype to compute in (default config.real_dtype); the unitary is of
+    its complex counterpart."""
     nba = num_block_angles(entangling_gate_name, rotation_gates)
     n = num_qubits
     d = 2 ** n
-    angles = torch.as_tensor(angles, dtype=config.real_dtype)
+    angles = torch.as_tensor(angles, dtype=dtype or config.real_dtype)
     B = angles.shape[-1]
     surface = surface_gate_batched(angles[:3 * n].reshape(n, 3, B)
                                    .transpose(0, 1))           # (2, 2, n, B)
@@ -154,7 +163,8 @@ def build_unitary_batched(num_qubits: int, entangling_gate_name: str,
         entangling_gate_name, rotation_gates,
         angles[3 * n:].reshape(-1, nba, B).transpose(0, 1))    # (4, 4, k, B)
 
-    eye = torch.eye(d, dtype=config.complex_dtype, device=angles.device)
+    eye = torch.eye(d, dtype=config.complex_of(angles.dtype),
+                    device=angles.device)
     if columns is not None:
         eye = eye[:, list(columns)]
     ncols = eye.shape[1]
@@ -174,7 +184,7 @@ def batched_cost_hst(u: torch.Tensor, u_target) -> torch.Tensor:
     """(B,) HS-test losses 1 - |tr(T^dag U)|^2 / d^2; u: (2,)*n + (2^n, B),
     u_target: (2^n, 2^n)."""
     d = u_target.shape[0]
-    t = torch.as_tensor(np.asarray(u_target), dtype=config.complex_dtype,
+    t = torch.as_tensor(np.asarray(u_target), dtype=u.dtype,
                         device=u.device).reshape(u.shape[:-1] + (1,))
     s = (u * t.conj()).reshape(-1, u.shape[-1]).sum(dim=0)
     return 1 - s.abs() ** 2 / d ** 2
@@ -185,22 +195,76 @@ def batched_state_prep(u: torch.Tensor, target_state) -> torch.Tensor:
     0 of u: (2,)*n + (cols, B)."""
     d = 2 ** (u.dim() - 2)
     col0 = u[..., 0, :].reshape(d, u.shape[-1])
-    t = torch.as_tensor(np.asarray(target_state), dtype=config.complex_dtype,
+    t = torch.as_tensor(np.asarray(target_state), dtype=u.dtype,
                         device=u.device)[:, None]
     return 1 - (t.conj() * col0).sum(dim=0).abs() ** 2
 
 
+def batched_disc(u: torch.Tensor, u_target) -> torch.Tensor:
+    """(B,) losses 1 - |tr(U^dag T)| / d; u: (2,)*n + (2^n, B)."""
+    d = u_target.shape[0]
+    t = torch.as_tensor(np.asarray(u_target), dtype=u.dtype,
+                        device=u.device).reshape(u.shape[:-1] + (1,))
+    s = (u.conj() * t).reshape(-1, u.shape[-1]).sum(dim=0)
+    return 1 - s.abs() / d
+
+
+def _batched_modulo(u: torch.Tensor, u_target, num_qubits: int, wires,
+                    diagonal: bool) -> torch.Tensor:
+    """ops.losses.disc_modulo_identity / _diagonal of every restart of
+    u: (2,)*n + (2^n, B), on the batch-last tensor: W = (U T)^dag with its
+    wires moved up, its block-diagonal part against that part
+    block-shifted, plus the off-block weight."""
+    n, B = num_qubits, u.shape[-1]
+    d = 2 ** n
+    t = torch.as_tensor(np.asarray(u_target), dtype=u.dtype, device=u.device)
+    v = torch.einsum('ijb,jk->ikb', u.reshape(d, d, B), t)
+    w = losses.move_wires_up(v.conj().transpose(0, 1), n, wires)
+    w_diag, w_shifted, w_off = losses.block_diagonal_split(
+        w, n, n - len(wires))                                 # (d, d, B)
+    rows = (w_diag * w_shifted.conj()).sum(dim=1)             # (d, B)
+    loss_off = (w_off.abs() ** 2).sum(dim=(0, 1))
+    if diagonal:
+        sp = (rows.abs() ** 2).sum(dim=0)
+    else:
+        sp = rows.sum(dim=0).abs()
+    return 1 - sp / d + loss_off
+
+
+def batched_modulo_identity(u: torch.Tensor, u_target, num_qubits: int,
+                            wires) -> torch.Tensor:
+    """(B,) disc_modulo_identity losses of the batched unitary."""
+    return _batched_modulo(u, u_target, num_qubits, wires, diagonal=False)
+
+
+def batched_modulo_diagonal(u: torch.Tensor, u_target, num_qubits: int,
+                            wires) -> torch.Tensor:
+    """(B,) disc_modulo_diagonal losses of the batched unitary."""
+    return _batched_modulo(u, u_target, num_qubits, wires, diagonal=True)
+
+
 def batched_unitary_loss(unitary_loss_func, u: torch.Tensor) -> torch.Tensor:
-    """Evaluate a LossSpec on the batched unitary: the HS-test and
-    state-preparation kinds; disc and custom losses are ROADMAP A.10."""
+    """Evaluate a LossSpec on the batched unitary: the HS-test, disc,
+    state-preparation and modulo-identity/diagonal kinds. A custom loss (a
+    Python callable) is not taken: the sweep kernel cannot run one, and the
+    plain path keeps to what the kernel computes (ROADMAP A.10)."""
     kind = getattr(unitary_loss_func, 'kind', None)
+    target = getattr(unitary_loss_func, 'target', None)
     if kind == 'hst':
-        return batched_cost_hst(u, unitary_loss_func.target)
+        return batched_cost_hst(u, target)
+    if kind == 'disc':
+        return batched_disc(u, target)
     if kind == 'state':
-        return batched_state_prep(u, unitary_loss_func.target)
+        return batched_state_prep(u, target)
+    if kind == 'modulo_identity':
+        return batched_modulo_identity(u, target, unitary_loss_func.num_qubits,
+                                       unitary_loss_func.wires)
+    if kind == 'modulo_diagonal':
+        return batched_modulo_diagonal(u, target, unitary_loss_func.num_qubits,
+                                       unitary_loss_func.wires)
     raise NotImplementedError(
-        f'batched loss kind {kind!r} is not ported yet (ROADMAP A.10: disc '
-        f'and custom losses)')
+        f'batched loss kind {kind!r} is not ported (ROADMAP A.10: a custom '
+        f'loss cannot enter the fused sweep kernel)')
 
 
 class BatchedRegloss:
@@ -212,11 +276,13 @@ class BatchedRegloss:
     and the penalty's breakpoints from them and never calls the object.
     r is a float or a (B,) tensor of one weight per restart, so that one
     objective serves the restarts of several adaptive trials. A state loss
-    builds only the |0...0> column (``columns``)."""
+    builds only the |0...0> column (``columns``). dtype is the real dtype
+    the plain version computes in (default config.real_dtype; the kernel
+    takes float32 only)."""
 
     def __init__(self, num_qubits: int, entangling_gate_name: str,
                  rotation_gates: str, placements: dict, unitary_loss_func,
-                 cp_mask=None, regularization_func=None, r=0.0):
+                 cp_mask=None, regularization_func=None, r=0.0, dtype=None):
         self.num_qubits = num_qubits
         self.entangling_gate_name = entangling_gate_name
         self.rotation_gates = rotation_gates
@@ -225,7 +291,8 @@ class BatchedRegloss:
         self.cp_mask = None if cp_mask is None else \
             np.asarray(cp_mask, dtype=np.float32)
         self.regularization_func = regularization_func
-        self.r = r.to(config.real_dtype) if isinstance(r, torch.Tensor) \
+        self.dtype = dtype or config.real_dtype
+        self.r = r.to(self.dtype) if isinstance(r, torch.Tensor) \
             else float(r)
         self.columns = [0] if getattr(unitary_loss_func, 'kind', None) == \
             'state' else None
@@ -239,11 +306,13 @@ class BatchedRegloss:
         """(loss_B, penalty_B), the penalty not yet weighted by r."""
         u = build_unitary_batched(self.num_qubits, self.entangling_gate_name,
                                   self.rotation_gates, self.placements,
-                                  angles, columns=self.columns)
+                                  angles, columns=self.columns,
+                                  dtype=self.dtype)
         loss = batched_unitary_loss(self.unitary_loss_func, u)
         if not self.has_penalty:
             return loss, torch.zeros_like(loss)
-        mask = torch.as_tensor(self.cp_mask, device=angles.device)
+        mask = torch.as_tensor(self.cp_mask, dtype=self.dtype,
+                               device=angles.device)
         return loss, self.regularization_func(
             angles * mask[:, None]).sum(dim=0)
 
@@ -257,12 +326,15 @@ class BatchedRegloss:
 def make_batched_regloss(num_qubits: int, entangling_gate_name: str,
                          rotation_gates: str, placements: dict,
                          unitary_loss_func, cp_mask=None,
-                         regularization_func=None, r=0.0) -> BatchedRegloss:
+                         regularization_func=None, r=0.0,
+                         dtype=None) -> BatchedRegloss:
     """The fused hot-path objective (loss + r * sum(penalty(cp angles)));
-    r a float or a (B,) tensor."""
+    r a float or a (B,) tensor; dtype the real dtype of the plain version
+    (default config.real_dtype)."""
     return BatchedRegloss(num_qubits, entangling_gate_name, rotation_gates,
                           placements, unitary_loss_func, cp_mask=cp_mask,
-                          regularization_func=regularization_func, r=r)
+                          regularization_func=regularization_func, r=r,
+                          dtype=dtype)
 
 
 def make_batched_loss_and_penalty(num_qubits: int, entangling_gate_name: str,

@@ -136,14 +136,19 @@ def _stub(synth, mod, anz_max):
     synth._verify = _fake_verify
 
 
-def _pair(**kw):
-    """The two packages' Synthesize on the 3q CCZ, raw stage stubbed."""
+def _pair(loss=None, **kw):
+    """The two packages' Synthesize on the 3q CCZ, raw stage stubbed; loss:
+    optional (kind, LossSpec keywords) in place of the HS test."""
     opts = dict(max_evals=24, bucketed=False)
     opts.update(kw)
-    jsynth = japi.Synthesize(LAYER, target_unitary=u_ccz3, mesh=None)
+    jkw = tkw = dict(target_unitary=u_ccz3)
+    if loss is not None:
+        jkw = dict(unitary_loss_func=japi.LossSpec(loss[0], **loss[1]))
+        tkw = dict(unitary_loss_func=tapi.LossSpec(loss[0], **loss[1]))
+    jsynth = japi.Synthesize(LAYER, mesh=None, **jkw)
     janz = japi.Ansatz(N, 'cp', {'layers': [LAYER, K_MAX // 2], 'free': []})
     _stub(jsynth, jcand, janz)
-    synth = tapi.Synthesize(LAYER, target_unitary=u_ccz3, device='cpu')
+    synth = tapi.Synthesize(LAYER, device='cpu', **tkw)
     tanz = tapi.Ansatz(N, 'cp', {'layers': [LAYER, K_MAX // 2], 'free': []})
     _stub(synth, tcand, tanz)
     return jsynth, synth, _options(japi, **opts), _options(tapi, **opts)
@@ -182,6 +187,24 @@ def test_stubbed_search_stops_at_the_target():
     assert len(tres.trials.results) < 24
     assert _records(tres) == _records(jres)
     assert len(tres.decompositions) == len(jres.decompositions)
+
+
+def test_stubbed_relative_phase_search_gives_identical_trial_records():
+    """The relative-phase kind: modulo-diagonal loss on all three wires of
+    the CCZ, two evals; the decompositions' host losses come from each
+    package's own LossSpec.numpy."""
+    loss = ('modulo_diagonal', dict(target=u_ccz3, num_qubits=N,
+                                    wires=[0, 1, 2]))
+    jsynth, synth, jo, to = _pair(loss=loss, max_evals=2)
+    jres = jsynth.adaptive(jo, save_results=False, verbose=False)
+    tres = synth.adaptive(to, save_results=False, verbose=False)
+    assert len(tres.trials.results) == 2
+    assert _records(tres) == _records(jres)
+    assert tres.decompositions and \
+        len(tres.decompositions) == len(jres.decompositions)
+    for d, jd in zip(tres.decompositions, jres.decompositions):
+        assert d.cz_count == jd.cz_count
+        assert abs(d.loss - float(jd.loss)) <= 1e-10
 
 
 # ------------------------------------------------------------------- real runs

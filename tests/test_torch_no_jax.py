@@ -1,7 +1,8 @@
 """The port runs where JAX, optax and dill are not installed (as on the
 machine with the card): imported in a fresh interpreter with those modules
-blocked, it runs a tiny static, adaptive and state-preparation synthesis on
-the CPU."""
+blocked, it runs a tiny static, adaptive, state-preparation and
+relative-phase (modulo-diagonal) synthesis and a fixed-'cz' sweep on the
+CPU."""
 
 import os
 import pathlib
@@ -44,6 +45,23 @@ state.static(api.StaticOptions(num_cp_gates=2, num_samples=4,
              save_results=False, verbose=False)
 assert set(state.stage_seconds) == {'sampling', 'verification',
                                     'decomposition'}
+from cpflow_tpu_torch.ops.gates import u_toff3
+rel = api.Synthesize(chain_layer(3), device='cpu', unitary_loss_func=api.LossSpec(
+    'modulo_diagonal', target=u_toff3, num_qubits=3, wires=[0, 1, 2]))
+rel.static(api.StaticOptions(num_cp_gates=2, num_samples=4,
+                             num_gd_iterations=5, accepted_num_cz_gates=9,
+                             entry_loss=10.0, rotation_gates='xz',
+                             num_gd_iterations_at_verification=5),
+           save_results=False, verbose=False)
+assert set(rel.stage_seconds) == {'sampling', 'verification', 'decomposition'}
+import torch
+from cpflow_tpu_torch.optimize import engine
+from cpflow_tpu_torch.sim.batched import make_batched_regloss
+cz = api.Ansatz(3, 'cz', {'free': [[0, 1], [1, 2]]}, 'xz')
+raw = engine.minimize_fused(make_batched_regloss(
+    3, 'cz', 'xz', cz.placements, api.LossSpec('disc', target=u_ccz3)),
+    torch.zeros(2, cz.num_angles), num_iterations=3)
+assert bool(torch.isfinite(raw.loss).all())
 anz = synth._ansatz(opts)
 a = np.random.default_rng(0).uniform(0, 6, (2, anz.num_angles))
 assert np.allclose(params.angles_to_jax(params.angles_from_jax(a, anz,
