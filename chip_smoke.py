@@ -32,9 +32,10 @@ with CUDA, and never imports JAX. Phases:
      decomposition with at most 8 CZ and float64 host loss <= 1e-6,
      through the kernel in both the sampling and the verification stage;
   5. times of the kernel and the plain version, each kernel time beside
-     its bound (bound_ms, from the operations sweep_work counts): the static
-     sampling shape, the 5q k=20 batch-2048 shape, shape (d) for 2000
-     steps, (f) for 500, (g) for 500 and (h) for 2000;
+     its bound (bound_ms, from the operations sweep_work counts) and the
+     kernel's registers per thread and resident blocks per SM at that
+     shape: the static sampling shape, the 5q k=20 batch-2048 shape, shape
+     (d) for 2000 steps, (f) for 500, (g) for 500 and (h) for 2000;
   6. the adaptive main path: Synthesize(square_layer(4),
      target_unitary=u_toff4).adaptive with k in [10, 40], 1024 samples,
      bucketed, 4 parallel trials, 8 evals, stopping at 16 CZ; every trial
@@ -138,23 +139,23 @@ def artifact_cz_placements():
 #  - the loss with its cotangent: 14 per amplitude (hst, disc, state); for
 #    the modulo losses 26 per entry on the blocks, 5 per entry off them and
 #    6 per row;
-#  - a block of m rotation letters, in factored 2x2 form: its 2m rotations
-#    with their derivatives (8 each), the up and down chains' 2(m - 1)
-#    products (56 each, the prefixes kept), their Kronecker product (96),
-#    the pullback of the 4x4 cotangent onto the two factors (240), along
-#    each chain m - 1 products for the suffix cotangents and m - 1 for the
-#    letters', and a contraction of 16 per angle: 384m in all; CP adds 87
-#    (its phase column in the build and the pullback, its angle gradient),
-#    CZ 16 (sign flips), CX nothing (a permutation);
-#  - a surface gate Rz Rx Rz: 3 rotations, 2 products, 4 pullback products
-#    and 3 contractions, 408;
+#  - the cosine and sine of every angle (or half angle), 3 per angle;
+#  - a block of m rotation letters in factored 2x2 form (sim/adjoint.py):
+#    the up and down legs' 2(m - 1) products (112(m - 1)), their Kronecker
+#    product (96), the legs' cotangents from the 4x4 cotangent (256) and
+#    U Y^T, D Y^T (112), and down each leg a conjugation R^dag V R (51) and
+#    a trace per letter (102(m - 1) + 2m): 214(m - 1) + 464 + 2m; CP adds
+#    109 (its phase column in the build and the pullback, its angle
+#    gradient), CZ 16 (sign flips), CX nothing (a permutation);
+#  - a surface gate Rz Rx Rz: its build (112), G Gbar^T (56) and the walk
+#    down its three letters (105), 273;
 #  - Adam with the gradient mask, 15 per angle; the penalty's value and
 #    slope, 22 per CP angle.
-# `executed` counts csrc/sweep.cu's loops as they stand: block_grads
-# rebuilds each letter's prefix product through block_right (288m(m - 1))
-# and multiplies whole 4x4 Kronecker products (576m + 1376m); the surface
-# gates take 496, the penalty and Adam 35 per angle. What it adds to
-# `needed` is a lever for the kernel's redesign, not part of the bound.
+# `executed` counts csrc/sweep.cu's loops as they stand. Beyond `needed`
+# the gradient pass rebuilds both legs of every block from the stored cos
+# and sin (112(m - 1) a block), and the kernel computes the penalty of
+# every angle (masked by cp_mask) in the evaluation and again in the Adam
+# pass (2 x 22 per angle).
 def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None):
     """dict(P angles, target entries, needed and executed float32
     operations of one restart-iteration) of a sweep."""
@@ -168,10 +169,10 @@ def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None):
         common += 26 * on + 5 * (amps - on) + 6 * d
     else:
         common += 14 * amps
-    needed = common + 408 * n + (384 * m + {'cp': 87, 'cz': 16, 'cx': 0}[ent]
-                                 ) * nb + 15 * P + 22 * nb * (ent == 'cp')
-    executed = common + 496 * n + (576 * m + 288 * m * (m - 1) + 1376 * m +
-                                   4 * (ent == 'cp')) * nb + 35 * P
+    common += 273 * n + (214 * max(m - 1, 0) + 464 + 2 * m + {
+        'cp': 109, 'cz': 16, 'cx': 0}[ent]) * nb + 18 * P
+    needed = common + 22 * nb * (ent == 'cp')
+    executed = common + 112 * max(m - 1, 0) * nb + 44 * P
     return dict(P=P, target=amps, needed=needed, executed=executed)
 
 
@@ -319,6 +320,21 @@ def as_close_as_plain(kernel, plain, plain64, keep):
                       f'{ep.max().item():.2e}')
 
 
+def plain_drifted(kernel, plain, plain64, keep):
+    """On a shape that is not an arbiter shape, where drift_ok misses, the
+    plain float32 version is at fault, not the kernel, only if it misses
+    drift_ok against the float64 version itself while the kernel meets
+    drift_ok against float64: the same rule, held against the exact
+    reference."""
+    ek = scaled_err(kernel.double(), plain64)[keep]
+    ep = scaled_err(plain.double(), plain64)[keep]
+    (ok_k, wk), (ok_p, wp) = drift_ok(ek), drift_ok(ep)
+    return ok_k and not ok_p, (
+        f'kernel within 1e-4 {wk:.1%}, median {ek.median().item():.2e}, max '
+        f'{ek.max().item():.2e}; plain float32 {wp:.1%}, '
+        f'{ep.median().item():.2e}, {ep.max().item():.2e}')
+
+
 def compare_shapes():
     """Phase 3's shapes, (a)-(p), as dicts: a bucketed one has ks, rs and S
     (B = S len(ks)). arbiter=True names the shapes on which the float64
@@ -326,7 +342,9 @@ def compare_shapes():
     float32 itself misses drift_ok against float64 at T = 60, the deep
     templates (g), (l) and (o) with their many flat directions, and (n),
     where one restart of plain float32 drifts by 1.1e-2 (PERF.md,
-    Findings). Every other shape is held to drift_ok alone."""
+    Findings). Every other shape is held to drift_ok, against plain float32
+    or, where plain float32 itself misses it, against float64
+    (plain_drifted)."""
     from cpflow_tpu_torch.ops.gates import (multi_controlled_x, u_ccz3,
                                             u_toff4, u_toff5)
     from cpflow_tpu_torch.topology import connected_layer, square_layer
@@ -386,9 +404,11 @@ def phase_compare():
     """Kernel vs plain version on the card, same inputs, 60 steps. The
     losses at the initial angles must agree within 1e-5 for every restart
     (two derivations of one float32 forward pass), as scaled_err measures;
-    the best losses after 60 steps as drift_ok says or, on an arbiter
-    shape only, as close to the plain float64 version as the plain float32 one
-    (as_close_as_plain); with target_loss the success flags must be equal.
+    the best losses after 60 steps as drift_ok says; where it misses, on an
+    arbiter shape as close to the plain float64 version as the plain
+    float32 one (as_close_as_plain), on any other shape within drift_ok of
+    float64 where plain float32 is not (plain_drifted); with target_loss
+    the success flags must be equal.
     Returns (largest absolute error, the templates driven: a dict of the
     losses, entanglers and rotation strings)."""
     import torch
@@ -436,15 +456,15 @@ def phase_compare():
             ok, within = drift_ok(err)
             line += (f', {label} scaled error max {err.max().item():.2e} median '
                      f'{err.median().item():.2e} within 1e-4 {within:.1%}')
-            if not ok and s.get('arbiter'):  # float64 plain decides
+            if not ok:  # float64 plain decides
                 if ref64 is None:
                     obj64 = shape_objective(s, torch.float64)[0]
                     ref64 = sk.sweep_reference(obj64, init, s['lr'], 60, mask,
                                                tl)
-                ok, verdict = as_close_as_plain(
-                    a, b, ref64.best_reg if label == 'best regloss'
-                    else ref64.best_loss, keep)
-                line += f' (float64 arbiter: {verdict})'
+                rule = as_close_as_plain if s.get('arbiter') else plain_drifted
+                ok, verdict = rule(a, b, ref64.best_reg if label ==
+                                   'best regloss' else ref64.best_loss, keep)
+                line += f' (float64, {rule.__name__}: {verdict})'
             check(ok, f'{s["name"]}: {label} drifts beyond the rule: {line}')
             worst = max(worst, (a - b).abs()[keep].max().item())
         print(line, flush=True)
@@ -525,15 +545,20 @@ def phase_timing(card):
         ms = min(ms1, ms2)
         work = shape_work(s)
         b_ms, b_by = bound_ms(work, B, T)
+        occ = sk.occupancy(obj, B)
         print(f'phase 5: {s["name"]} T={T} on {card}: kernel {ms1:.2f} / '
               f'{ms2:.2f} ms = {B * T / (ms / 1e3):.4g} restart-iter/s; bound '
               f'{b_ms:.3f} ms by {b_by} ({work["needed"]} float32 ops needed '
               f'per restart-iter, {work["executed"]} executed), share '
               f'{b_ms / ms:.2%}; plain {plain_ms:.2f} ms over {T_plain} '
-              f'steps = {B * T_plain / (plain_ms / 1e3):.4g} restart-iter/s',
-              flush=True)
+              f'steps = {B * T_plain / (plain_ms / 1e3):.4g} restart-iter/s; '
+              f'{occ["registers"]} registers and {occ["local_bytes"]} local '
+              f'bytes per thread, {occ["threads"]} threads and '
+              f'{occ["smem_bytes"]} shared bytes per block, '
+              f'{occ["blocks_per_sm"]} blocks per SM', flush=True)
         rows.append(dict(ms=ms, plain_ms=plain_ms * T / T_plain,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         registers=occ['registers']))
     return rows
 
 
@@ -806,6 +831,7 @@ def main() -> int:
         return 1
     print(card)
     # ms, plain_ms and bound_ms: the static sampling shape (phase 5, row 1);
+    # registers: per thread, as the CUDA runtime reports them;
     # no single PyTorch call computes the sweep, so library_ms is null;
     # modes, entanglers and rotation strings: those phase 3 drove
     print(json.dumps({'kernels': [{
@@ -817,7 +843,7 @@ def main() -> int:
         'launches_by_path': launches, 'max_abs_err': max_err,
         'ms': rows[0]['ms'], 'plain_ms': rows[0]['plain_ms'],
         'bound_ms': rows[0]['bound_ms'], 'bound_by': rows[0]['bound_by'],
-        'library_ms': None}]}))
+        'library_ms': None, 'registers': rows[0]['registers']}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -173,6 +173,8 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_launch.restype = ctypes.c_int
     lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
+    lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
+    lib.cpflow_sweep_occupancy.restype = ctypes.c_int
     BUILD_INFO['library'] = str(target)
     _lib = lib
     return lib
@@ -331,6 +333,26 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
             it = end
     return SweepResult(best_params, summary[2], summary[3], summary[0],
                        summary[1])
+
+
+def occupancy(objective, batch: int) -> dict:
+    """What the kernel build that a sweep of `batch` restarts of
+    `objective` launches takes of one SM, from the CUDA runtime: registers
+    and local memory bytes (stack and spills) per thread, threads and
+    shared memory bytes per block, resident blocks per SM."""
+    _check_objective(objective)
+    n, spec = objective.num_qubits, objective.unitary_loss_func
+    nb = len(all_placements(objective.placements))
+    nba = num_block_angles(objective.entangling_gate_name,
+                           objective.rotation_gates)
+    out = (ctypes.c_int * 5)()
+    err = load_library().cpflow_sweep_occupancy(
+        n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
+    if err != 0:
+        raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
+                           f'{err}')
+    return dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
+                     'blocks_per_sm'), out))
 
 
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,

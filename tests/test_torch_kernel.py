@@ -212,3 +212,29 @@ def test_kernel_matches_plain_version_on_card(case):
                                rtol=0)
     torch.testing.assert_close(out.best_loss, ref.best_loss,
                                atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_both_kernel_builds_match_plain_version_on_card():
+    """The kernel has two builds: the 128-register one runs a batch larger
+    than the other build keeps resident on the card at once (here 64
+    threads a restart), and agrees with the plain version as the other
+    does."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py runs both '
+                    'builds at the main path\'s shapes')
+    obj, inits, rng = _problem(5, 4, 'xyz', multi_controlled_x(5), 0.002,
+                               600, seed=4)
+    small, large = sk.occupancy(obj, 37), sk.occupancy(obj, 600)
+    assert large['registers'] <= 128 < small['registers']
+    assert large['blocks_per_sm'] > small['blocks_per_sm']
+    assert 600 > torch.cuda.get_device_properties(0).multi_processor_count \
+        * small['blocks_per_sm']
+    p0 = torch.tensor(inits.T.copy(), device='cuda')
+    out = sk.sweep(obj, p0, 0.1, 20)
+    ref = sk.sweep_reference(obj, p0, 0.1, 20)
+    torch.testing.assert_close(out.regloss0, ref.regloss0, atol=1e-5, rtol=0)
+    # over 600 restarts a few drift apart, as chip_smoke.drift_ok sets out
+    import chip_smoke
+    for x, y in [(out.best_reg, ref.best_reg), (out.best_loss, ref.best_loss)]:
+        assert chip_smoke.drift_ok(chip_smoke.scaled_err(x, y))[0]

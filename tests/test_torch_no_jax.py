@@ -55,6 +55,10 @@ rel.static(api.StaticOptions(num_cp_gates=2, num_samples=4,
            save_results=False, verbose=False)
 assert set(rel.stage_seconds) == {'sampling', 'verification', 'decomposition'}
 import torch
+from cpflow_tpu_torch.sim import adjoint
+g = adjoint.block_vjp('cp', 'xz', torch.zeros(5, 2, dtype=torch.float64),
+                      torch.ones(4, 4, 2, dtype=torch.complex128))
+assert g.shape == (5, 2)
 from cpflow_tpu_torch.optimize import engine
 from cpflow_tpu_torch.sim.batched import make_batched_regloss
 cz = api.Ansatz(3, 'cz', {'free': [[0, 1], [1, 2]]}, 'xz')
