@@ -9,7 +9,10 @@ against; this package never imports it, nor JAX.
 Ported so far: ``Synthesize.static`` and ``Synthesize.adaptive`` (TPE over
 the template length and the penalty weight), with the HS-test, disc,
 state-preparation and modulo-identity/diagonal losses, any rotation string
-of x, y, z, and the CP, CZ and CX entanglers.
+of x, y, z, and the CP, CZ and CX entanglers; and, on the host in float64
+numpy, ``Decomposition.refine`` with the whole ``circuits`` package (circuit
+IR with QASM and drawing, passes, Rational and Clifford+T rounding, grid
+synthesis, exact cyclotomic unitaries, circuit-to-ansatz).
 """
 
 from cpflow_tpu_torch.api import (AdaptiveOptions, Ansatz, BasicOptions,

@@ -22,9 +22,11 @@ package. What differs:
     one sweep (the JAX package vmaps the stage over them).
   * ``Results`` persist with the standard library's pickle;
     ``params.trials_from_jax`` carries a JAX package's trials over.
-  * Not here yet: ``Decomposition.refine`` (ROADMAP A.11), methods other
-    than 'adam' (A.10), custom losses on the device (A.10: a Python
-    callable cannot enter the fused kernel), the device mesh (A.9),
+  * ``Decomposition.refine`` runs on the host in float64 numpy, with the
+    JAX package's signature and defaults (circuits/refine.py).
+  * Not here yet: methods other than 'adam' (ROADMAP A.10), custom losses
+    on the device (A.10: a Python callable cannot enter the fused kernel;
+    ``refine`` takes them, on the host), the device mesh (A.9),
     ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
 """
 
@@ -43,6 +45,8 @@ import torch
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.circuits.ir import Circuit
 from cpflow_tpu_torch.circuits.passes import convert_to_zxz, cp_to_cz_circuit
+from cpflow_tpu_torch.circuits.refine import host_loss_adapter
+from cpflow_tpu_torch.circuits.refine import refine as refine_circuit
 from cpflow_tpu_torch.optimize import candidates as cand
 from cpflow_tpu_torch.optimize import engine
 from cpflow_tpu_torch.ops import losses
@@ -221,8 +225,8 @@ class Ansatz:
 # --------------------------------------------------------------------------
 
 class Decomposition:
-    """A found decomposition: circuit, host loss, CZ metrics.
-    ``refine`` (Clifford+T) is not ported yet (ROADMAP A.11)."""
+    """A found decomposition: circuit, host loss, CZ metrics, refinement
+    to Rational and Clifford+T circuits."""
 
     def __init__(self, unitary_loss_func, circuit: Circuit, label: str = '',
                  type: str = 'Approximate'):
@@ -230,13 +234,17 @@ class Decomposition:
         self.circuit = circuit
         self.unitary = circuit.unitary()
         self.label = label
-        self.loss = unitary_loss_func.numpy(self.unitary)
+        self.loss = host_loss_adapter(unitary_loss_func)(self.unitary)
         self.type = type
         self.cz_count = circuit.gates_count(['cz'])
         self.cz_depth = circuit.gates_depth(['cz'])
+        self.t_count = None
+        self.t_depth = None
+
         self._cp_data = None
         self._static_options = None
         self._adaptive_options = None
+        self._decomposer = None
 
     @classmethod
     def _from_cp_circuit(cls, unitary_loss_func, anz: Ansatz, angles,
@@ -252,9 +260,37 @@ class Decomposition:
         d._cp_data = [anz.placements, angles]
         return d
 
+    def refine(self, max_denominator=32, angle_threshold=0.01,
+               cp_threshold=0.01, reduce_threshold=1e-5,
+               recursion_degree=0, recursion_depth=5):
+        """Simplify angles, rationalize, Clifford+T (host, float64)."""
+        qc, refine_type, t_count, t_depth = refine_circuit(
+            self.circuit, self.unitary_loss_func,
+            max_denominator=max_denominator,
+            angle_threshold=angle_threshold, cp_threshold=cp_threshold,
+            reduce_threshold=reduce_threshold,
+            recursion_degree=recursion_degree,
+            recursion_depth=recursion_depth)
+
+        self.type = refine_type
+        self.circuit = qc
+        self.unitary = qc.unitary()
+        self.loss = host_loss_adapter(self.unitary_loss_func)(self.unitary)
+        self.cz_count = qc.gates_count(['cz'])
+        self.cz_depth = qc.gates_depth(['cz'])
+        if refine_type == 'Clifford+T':
+            self.t_count = t_count
+            self.t_depth = t_depth
+        return f'Refined to {refine_type}'
+
     def __repr__(self):
-        return (f"< {self.label}| {self.type} | loss: {self.loss}  "
-                f"| CZ count: {self.cz_count} | CZ depth: {self.cz_depth}  >")
+        description = (
+            f"< {self.label}| {self.type} | loss: {self.loss}  "
+            f"| CZ count: {self.cz_count} | CZ depth: {self.cz_depth}  >")
+        if self.type == 'Clifford+T':
+            description = (description[:-1] + f'| T count: {self.t_count} '
+                           f'| T depth: {self.t_depth} >')
+        return description
 
 
 # --------------------------------------------------------------------------
@@ -567,6 +603,7 @@ class Synthesize:
                                            best_angles, self.label)
         d._static_options = static_options
         d._adaptive_options = adaptive_options
+        d._decomposer = self
         return d
 
     def _bucketed_stage(self, options):

@@ -5,7 +5,10 @@ of sim/ansatz_kernel.py, identical in both packages. The JAX package's
 public functions take restart batches as (B, P) arrays; the port's sweep
 takes (P, B) tensors, batch last. An adaptive search's state is its trial
 records, which ``trials_from_jax`` carries over so that a search saved by
-the JAX package resumes in the port.
+the JAX package resumes in the port. A circuit is a list of instructions:
+``circuit_from_jax`` and ``circuit_to_jax`` carry one between the two
+packages' ``Circuit`` classes, so that both ``refine`` pipelines can take
+the same circuit.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.api import Ansatz
+from cpflow_tpu_torch.circuits.ir import Circuit
 from cpflow_tpu_torch.search import tpe
 from cpflow_tpu_torch.sim.ansatz_kernel import cp_angle_indices
 from cpflow_tpu_torch.topology import fill_layers, num_qubits_from_layer
@@ -73,4 +77,35 @@ def trials_from_jax(results_or_trials, rotation_gates: str = 'xyz'
                 [int(cz), angles_to_jax(angles_from_jax(a, anz, 'cpu'))[0]]
                 for cz, a in rec['prospective_decompositions']]
         out.record([int(values[0]), float(values[1])], rec)
+    return out
+
+
+def circuit_rows(circuit) -> list:
+    """Either package's ``Circuit`` as plain rows (name, qubits, param,
+    matrix): param a Python float or None, matrix a numpy copy or None."""
+    return [(inst.name, tuple(int(q) for q in inst.qubits),
+             None if inst.param is None else float(inst.param),
+             None if inst.matrix is None else np.array(inst.matrix))
+            for inst in circuit.instructions]
+
+
+def circuit_from_jax(circuit_or_rows, num_qubits=None) -> Circuit:
+    """The JAX package's ``Circuit``, or its rows (name, qubits[, param
+    [, matrix]]) with ``num_qubits``, as the port's ``Circuit``."""
+    if hasattr(circuit_or_rows, 'instructions'):
+        num_qubits = circuit_or_rows.num_qubits
+        circuit_or_rows = circuit_rows(circuit_or_rows)
+    out = Circuit(num_qubits)
+    for row in circuit_or_rows:
+        out.append(*row)
+    return out
+
+
+def circuit_to_jax(circuit: Circuit, circuit_cls):
+    """The port's ``Circuit`` as an instance of ``circuit_cls``, the JAX
+    package's ``Circuit`` class (passed in: this module does not import
+    that package)."""
+    out = circuit_cls(circuit.num_qubits)
+    for row in circuit_rows(circuit):
+        out.append(*row)
     return out

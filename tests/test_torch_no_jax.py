@@ -2,7 +2,9 @@
 machine with the card): imported in a fresh interpreter with those modules
 blocked, it runs a tiny static, adaptive, state-preparation and
 relative-phase (modulo-diagonal) synthesis and a fixed-'cz' sweep on the
-CPU."""
+CPU, then every host module of circuits/: a QASM round trip, a refine to
+Clifford+T, an embedding into the CP ansatz, a grid synthesis and an exact
+unitary."""
 
 import os
 import pathlib
@@ -70,6 +72,27 @@ anz = synth._ansatz(opts)
 a = np.random.default_rng(0).uniform(0, 6, (2, anz.num_angles))
 assert np.allclose(params.angles_to_jax(params.angles_from_jax(a, anz,
                                                                'cpu')), a)
+import math
+from cpflow_tpu_torch.circuits import (clifford_t, euler, exact_unitary,
+                                       gridsynth, ir, passes, refine, rings,
+                                       to_ansatz)
+qc = ir.parse_qasm(ir.Circuit(2).rz(math.pi / 4 + 2e-4, 0).cz(0, 1)
+                   .rx(-math.pi / 2 + 1e-4, 1).rz(0.7, 1).to_qasm())
+d = api.Decomposition(api.LossSpec('hst', target=qc.unitary()), qc)
+assert d.refine() == 'Refined to Clifford+T' and d.t_count > 1, d
+assert d._decomposer is None
+placements, emb = to_ansatz.circuit_to_ansatz(qc)
+back = api.Ansatz(2, 'cp', {'free': placements}).circuit(emb)
+assert passes.hst_distance(back.unitary(), qc.unitary()) < 1e-12
+word = gridsynth.gridsynth_rz(0.7, 1e-3)
+assert clifford_t.generic_rotation_word('rz', 0.7, 1e-3) == word
+assert rings.OMEGA ** 8 == rings.ZOmega(1)
+exact = exact_unitary.exact_unitary(ir.Circuit(1).h(0).t(0).h(0), q=4)
+np.testing.assert_allclose(exact.to_complex(),
+                           euler.rx_matrix(math.pi / 4) * np.exp(1j * math.pi / 8),
+                           atol=1e-12)
+assert params.circuit_from_jax(params.circuit_rows(qc), 2).to_qasm() == \
+    qc.to_qasm()
 loaded = [m for m in ('jax', 'optax', 'dill') if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')

@@ -2,7 +2,12 @@
 port against the JAX package's pipeline composed from its public pieces
 (minimize_fused -> evaluate_raw_batch -> filter_prospective ->
 verify_candidates_batch -> Decomposition._from_cp_circuit), on the 3q chain
-CCZ with k=12 and 16 restarts, both fed the same numpy initial angles."""
+CCZ with k=12 and 16 restarts, both fed the same numpy initial angles.
+Then the same verified angles refined by both packages (Decomposition.refine:
+equal type, CZ count, T count, T depth, loss within 1e-9), and the rerun
+recipe through Decomposition._decomposer."""
+
+import pickle
 
 import numpy as np
 import pytest
@@ -13,6 +18,7 @@ from cpflow_tpu.optimize import candidates as jcand
 from cpflow_tpu.optimize import engine as jengine
 from cpflow_tpu.sim import batched as jbt
 from cpflow_tpu_torch import api as tapi
+from cpflow_tpu_torch import params
 from cpflow_tpu_torch.optimize import candidates as tcand
 from cpflow_tpu_torch.ops.gates import u_ccz3
 from cpflow_tpu_torch.topology import chain_layer, fill_layers
@@ -59,12 +65,21 @@ def test_sampling_stage_matches_jax_at_60_steps():
     np.testing.assert_array_equal(ev2.loss, ev.loss)
 
 
-def test_static_outcome_matches_jax_pipeline(tmp_path):
+@pytest.fixture(scope='module')
+def static_run(tmp_path_factory):
+    """(synth, options, results, path) of the port's static run on the CPU,
+    saved to disk."""
+    path = str(tmp_path_factory.mktemp('static') / 'ccz')
     options = tapi.StaticOptions(**_options(1000))
     synth = tapi.Synthesize(chain_layer(N), target_unitary=u_ccz3,
                             device='cpu', label='ccz')
-    results = synth.static(options, save_to=str(tmp_path / 'ccz'),
-                           verbose=False, initial_angles_array=INITS)
+    results = synth.static(options, save_to=path, verbose=False,
+                           initial_angles_array=INITS)
+    return synth, options, results, path
+
+
+def test_static_outcome_matches_jax_pipeline(static_run):
+    synth, options, results, path = static_run
     decs = results.decompositions
     assert decs, 'the port verified no decomposition'
     assert set(synth.stage_seconds) == {'sampling', 'verification',
@@ -99,9 +114,71 @@ def test_static_outcome_matches_jax_pipeline(tmp_path):
         assert d.cz_count == jd.cz_count and d.cz_depth == jd.cz_depth
         np.testing.assert_allclose(d.unitary, jd.unitary, atol=1e-6)
 
-    loaded = tapi.Results.load(str(tmp_path / 'ccz'))
+    loaded = tapi.Results.load(path)
     assert [d.cz_count for d in loaded.decompositions] == \
         [d.cz_count for d in decs]
+
+
+def test_rerun_through_the_decomposer_gives_the_same_cz_counts(static_run):
+    synth, options, results, path = static_run
+    d = results.decompositions[0]
+    assert d._decomposer is synth and d._static_options is options
+    assert tapi.Decomposition(d.unitary_loss_func,
+                              d.circuit)._decomposer is None
+    # the tutorial's reproducibility recipe
+    again = d._decomposer.static(d._static_options, save_results=False,
+                                 verbose=False, initial_angles_array=INITS)
+    assert [x.cz_count for x in again.decompositions] == \
+        [x.cz_count for x in results.decompositions]
+    np.testing.assert_array_equal(again.decompositions[0]._cp_data[1],
+                                  d._cp_data[1])
+    # a Results holding such decompositions pickles and loads, the
+    # decomposer with it (one object, shared) and without its stage cache
+    synth._stage_cache = {'key': lambda: None}   # what a bucketed run leaves
+    loaded = pickle.loads(pickle.dumps(results))
+    del synth._stage_cache
+    decomposers = {id(x._decomposer) for x in loaded.decompositions}
+    assert len(decomposers) == 1
+    back = loaded.decompositions[0]._decomposer
+    assert isinstance(back, tapi.Synthesize) and back.layer == synth.layer
+    assert not hasattr(back, '_stage_cache')
+    assert tapi.Results.load(path).decompositions[0]._decomposer.label == 'ccz'
+
+
+def test_refine_of_the_verified_angles_matches_jax(static_run):
+    """The whole path: the port's verified angles carried to the JAX
+    package and both Decompositions refined, with the defaults (on this
+    template's free angles rationalization at angle_threshold=0.01 fails
+    its guard in both, so both stay 'Approximate') and, the decomposition
+    with the least loss, at angle_threshold=1e-3, which reaches
+    'Clifford+T' through grid synthesis of the generic angles."""
+    _, _, results, _ = static_run
+    janz = japi.Ansatz(N, 'cp', fill_layers(chain_layer(N), K))
+    spec = japi.LossSpec('hst', target=u_ccz3)
+    decs = sorted(results.decompositions, key=lambda d: d.loss)[:3]
+    types = []
+    for d, kw in [(d, {}) for d in decs] + [(decs[0],
+                                            {'angle_threshold': 1e-3})]:
+        anz = tapi.Ansatz(N, 'cp', d._cp_data[0])
+        # the verified angles as float32, as params carries them
+        angles = params.angles_to_jax(
+            params.angles_from_jax(d._cp_data[1], anz, 'cpu'))[0]
+        td = tapi.Decomposition._from_cp_circuit(d.unitary_loss_func, anz,
+                                                 angles)
+        jd = japi.Decomposition._from_cp_circuit(spec, janz, angles)
+        assert td.t_count is None and td.t_depth is None
+        assert td.refine(**kw) == jd.refine(**kw) == f'Refined to {td.type}'
+        assert td.type == jd.type and td.cz_count == jd.cz_count == 8
+        assert td.cz_depth == jd.cz_depth
+        assert td.t_count == jd.t_count and td.t_depth == jd.t_depth
+        assert abs(td.loss - jd.loss) <= 1e-9
+        assert len(td.circuit.instructions) == len(jd.circuit.instructions)
+        np.testing.assert_allclose(td.unitary, jd.unitary, atol=1e-9)
+        assert repr(td).split('| loss')[0] == repr(jd).split('| loss')[0]
+        assert repr(td).split('| CZ')[1:] == repr(jd).split('| CZ')[1:]
+        types.append(td.type)
+    assert types[-1] == 'Clifford+T' and td.t_count > 0 and 'T depth' in \
+        repr(td)
 
 
 def test_static_entry_points_refuse_what_is_not_ported():
