@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch port (cpflow_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
-one Hopper card (the sweep kernel is built for sm_90a), nvcc and PyTorch
+one Hopper card (the kernels are built for sm_90a), nvcc and PyTorch
 with CUDA, and never imports JAX. Phases:
 
   1. the card: name and power limit, torch and CUDA versions;
-  2. build of the sweep kernel from cpflow_tpu_torch/csrc/ into build/;
+  2. build of the kernels from cpflow_tpu_torch/csrc/ into build/, one nvcc
+     for each source (sweep.cu, unitary.cu), side by side;
   3. kernel against its plain PyTorch version on the card, same inputs,
      T = 60, at sixteen shapes: (a) 3q CCZ k=12 B=1000; (b) 5q Toffoli k=20
      B=256; (c) the verification shape B=8 with a mask, r=0, lr 0.01,
@@ -69,12 +70,34 @@ with CUDA, and never imports JAX. Phases:
      CZ count unchanged, proved equal to the Toffoli over the cyclotomic
      integers where the circuit's angles allow it; (b) Toffoli-3 on the
      chain, k=14, r=0.88e-3, 100 samples, 8 CZ, the best T count and T
-     depth printed beside the paper's 7 and 3.
+     depth printed beside the paper's 7 and 3;
+ 12. the forward and vjp kernels of the differentiable ansatz
+     (kernels/unitary.py) against their plain version on the card at
+     twelve templates: at B=256, 3q k=12 'xyz' cp, 5q k=20 'xz' cp, 6q
+     connected k=40 (the largest layout), 4q 'cz' blocks with 'y', 10q k=36
+     column 0; then every template of phases 13 and 14 at the batch they
+     give it, a verification's few candidates with frozen CP angles among
+     them; the unitary within 2e-5, the gradients of two cotangents within
+     1e-4 scaled by max(1, |gradient|), at 3q also against float64 central
+     differences (1e-3); then both kernels' times beside their bounds at
+     3q k=12 B=1024 and 5q k=20 B=2048;
+ 13. the custom-loss path: the reference notebook's GHZ-4 and
+     relative-phase Toffoli-3 syntheses with the losses as torch callables
+     (adaptive, k in [0, 10], stopping at 3 CZ, max_evals cut to 8), which
+     must run through the forward and vjp kernels and never through the
+     plain builder; GHZ-4 must reach 3 CZ at host loss <= 1e-6, as the same
+     run with target_state (the fused kernel) does; the relative-phase
+     Toffoli-3's 8 trials run bucketed in one sweep, and its last
+     decomposition is refined;
+ 14. the engine: Ansatz.learn (Toffoli-3, 200 restarts, without and with a
+     history) and StaticOptions(method=...) for 'natural adam', 'hessian'
+     and 'angle by angle' on the 3q chain CCZ at small budgets.
 
-Each main path (4 and 6-11) runs with the kernel's launch count set to 0
-just before it and read just after. The script prints the card, a JSON line
-of kernel results and, last, the JSON device line; it exits non-zero if any
-phase fails or there is no card.
+Each main path (4, 6-11, 13 and 14) runs with the kernels' launch counts
+set to 0 just before it and read just after. The script prints the card, a
+JSON line of kernel results (sweep, ansatz_forward, ansatz_vjp) and, last,
+the JSON device line; it exits non-zero if any phase fails or there is no
+card.
 """
 
 from __future__ import annotations
@@ -126,8 +149,10 @@ def make_objective(n, k, target, r, layer=None, kind='hst', rot='xyz',
         pen = dict(cp_mask=anz.cp_mask, r=r,
                    regularization_func=make_regularization_function(
                        RegularizationOptions))
+    # plain=True: called on the card, this objective is the plain version
+    # (the sweep kernel reads its attributes and never calls it)
     return make_batched_regloss(n, ent, rot, anz.placements, spec,
-                                dtype=dtype, **pen), anz.num_angles
+                                dtype=dtype, plain=True, **pen), anz.num_angles
 
 
 def artifact_cz_placements():
@@ -276,18 +301,48 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def device_ms(fn, kernel_name, repeats=20):
+    """Mean time in ms that the kernels whose name contains `kernel_name`
+    take on the card over `repeats` calls of fn, from torch.profiler's
+    trace of the card; None if the trace holds no such kernel. Unlike
+    `timed`, which brackets the call on the stream and so includes whatever
+    the host needs to launch it, this is the kernel alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for event in prof.key_averages():
+        if kernel_name in event.key:
+            spent = getattr(event, 'self_device_time_total', None)
+            if spent is None:
+                spent = event.self_cuda_time_total
+            total_us += spent
+            count += event.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_build():
-    from cpflow_tpu_torch.kernels import sweep as sk
+    """Builds every source of csrc/, one nvcc each, side by side."""
+    from cpflow_tpu_torch.kernels import build
     start = time.perf_counter()
-    sk.load_library()
-    print(f'phase 2: built {sk.BUILD_INFO["library"]} in '
-          f'{time.perf_counter() - start:.2f} s (nvcc '
-          f'{sk.BUILD_INFO.get("seconds", float("nan")):.2f} s)')
-    for line in sk.BUILD_INFO.get('ptxas', '').splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ptxas:', line.strip())
+    build.build_all()
+    wall = time.perf_counter() - start
+    for name in build.SOURCES:
+        info = build.INFO[name]
+        print(f'phase 2: built {info["library"]} (nvcc '
+              f'{info.get("seconds", float("nan")):.2f} s; all sources '
+              f'{wall:.2f} s)')
+        for line in info.get('ptxas', '').splitlines():
+            if 'registers' in line or 'spill' in line or \
+                    'Compiling entry' in line:
+                print('  ptxas:', line.strip())
 
 
 def scaled_err(a, b):
@@ -914,6 +969,539 @@ def phase_refine(name, layer, options, want_cz, published):
     return launches
 
 
+# float32 operations of one forward pass and of one adjoint walk of the
+# ansatz, with sweep_work's terms: per amplitude of the d x C state a 1q
+# gate costs 14 forwards and 44 in the walk, a 2q gate 30 and 92; the cos and
+# sin of every angle 3; a surface gate's build 112 and its gradients 161; a
+# block's build 112(m - 1) + 96 (+ 24 for CP's phase column, 4 for CZ's
+# signs) and its gradients 368 + 102(m - 1) + 2m (+ 85 for CP, 12 for CZ).
+# The walk needs the gates too, so it builds them again; it also halves and
+# conjugates the cotangent (2 per amplitude).
+def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None):
+    """dict(P, amplitudes, forward and vjp float32 operations of one
+    restart, forward and vjp bytes of one restart) of the unitary kernels."""
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    m = len(rot)
+    P = 3 * n + num_block_angles(ent, rot) * nb
+    amps = 2 ** (n + (n if log_c is None else log_c))
+    gates = 3 * P + 112 * n + (112 * max(m - 1, 0) + 96 + {
+        'cp': 24, 'cz': 4, 'cx': 0}[ent]) * nb
+    forward = amps * (14 * n + 30 * nb) + gates
+    vjp = gates + amps * (44 * n + 92 * nb + 2) + 161 * n + (
+        368 + 102 * max(m - 1, 0) + 2 * m + {'cp': 85, 'cz': 12, 'cx': 0}[ent]
+    ) * nb
+    return dict(P=P, amps=amps, forward=forward, vjp=vjp,
+                forward_bytes=4 * P + 8 * amps,
+                vjp_bytes=8 * P + 16 * amps)
+
+
+def unitary_bound_ms(ops, nbytes, B):
+    """(least time in ms, 'operations' or 'bytes') of B restarts."""
+    t_ops = ops * B / PEAK_F32 * 1e3
+    t_bytes = nbytes * B / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def unitary_shapes():
+    """Phase 12's templates: dicts of n, ent, rot, placements, columns and
+    the restarts B (default 256): the five largest layouts, then every
+    template and batch that phases 13 and 14 give the kernels. With
+    verification=True the batch is what a verification hands over: every
+    other CP angle snapped to 0 or pi, and its gradient masked out."""
+    from cpflow_tpu_torch.topology import (chain_layer, connected_layer,
+                                           fill_layers)
+    return [
+        dict(name="3q chain k=12 'xyz' cp", n=3, ent='cp', rot='xyz',
+             placements=fill_layers(chain_layer(3), 12)),
+        dict(name="5q chain k=20 'xz' cp", n=5, ent='cp', rot='xz',
+             placements=fill_layers(chain_layer(5), 20)),
+        dict(name="6q connected k=40 'xyz' cp (the largest layout)", n=6,
+             ent='cp', rot='xyz',
+             placements=fill_layers(connected_layer(6), 40)),
+        dict(name="4q 'cz' blocks on the 14 Toffoli-4 placements, 'y'", n=4,
+             ent='cz', rot='y',
+             placements={'layers': [[], 0], 'free': artifact_cz_placements()}),
+        dict(name="10q chain k=36 'xyz' cp, column 0", n=10, ent='cp',
+             rot='xyz', placements=fill_layers(chain_layer(10), 36),
+             columns=[0]),
+        dict(name="4q line k=10 'xyz' cp (phase 13's GHZ-4, longest template)",
+             n=4, ent='cp', rot='xyz',
+             placements=fill_layers(chain_layer(4), 10), B=100),
+        dict(name="4q line k=3 'xyz' cp (phase 13's GHZ-4, its first trial)",
+             n=4, ent='cp', rot='xyz',
+             placements=fill_layers(chain_layer(4), 3), B=100),
+        dict(name="3q connected k=10 'xyz' cp (phase 13's bucketed sweep)",
+             n=3, ent='cp', rot='xyz',
+             placements=fill_layers(connected_layer(3), 10), B=800),
+        dict(name="3q connected k=2 'xyz' cp (a short adaptive trial)", n=3,
+             ent='cp', rot='xyz',
+             placements=fill_layers(connected_layer(3), 2), B=100),
+        dict(name="3q connected k=7 'xyz' cp, a verification: 5 candidates, "
+                  "every other CP angle at 0 or pi and frozen", n=3, ent='cp',
+             rot='xyz', placements=fill_layers(connected_layer(3), 7), B=5,
+             verification=True),
+        dict(name="3q chain k=12 'xyz' cp (phase 14's non-Adam methods)",
+             n=3, ent='cp', rot='xyz',
+             placements=fill_layers(chain_layer(3), 12), B=64),
+        dict(name="3q chain k=8 'xz' cp (phase 14's Ansatz.learn)", n=3,
+             ent='cp', rot='xz', placements=fill_layers(chain_layer(3), 8),
+             B=200),
+    ]
+
+
+def random_unitary(rng, d):
+    """A complex d x d unitary from a numpy generator (QR of a Ginibre
+    matrix)."""
+    import numpy as np
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d)))
+    return q
+
+
+def phase_unitary(card):
+    """Phase 12: the forward and vjp kernels of kernels/unitary.py against
+    their plain version (sim.batched.build_unitary_batched under autograd)
+    on the card, same inputs, B = 256 restarts at the five largest layouts
+    and, at every template that phases 13 and 14 drive, the batch they
+    drive it with (unitary_shapes), angles uniform in [0, 2 pi) from a
+    seeded numpy generator. Tolerances: the unitary within 2e-5 in
+    every entry (complex64, two float32 derivations of at most 46 gates);
+    the angle gradients within 1e-4 of autograd's, each scaled by
+    max(1, |gradient|), for two cotangents: that of the HS test against a
+    complex random unitary (of the state loss against its first column where
+    only column 0 is built), which catches a missing conjugate, and a
+    random complex cotangent; at 3 qubits the kernel's gradient within 1e-3
+    of central differences (h = 1e-4) of the plain path in float64. Then the
+    times of both kernels at the static sampling shape and the 5q k=20
+    B=2048 shape beside their bounds and the plain version's times: of one
+    call of the wrapper (CUDA events, the faster of two; at these sizes
+    mostly the host's launch path) and of the kernel alone on the card
+    (torch.profiler), against which the share of the bound is taken where
+    the trace has it.
+    Returns (largest errors by kernel, timing rows by kernel)."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import Ansatz
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    from cpflow_tpu_torch.sim.batched import (batched_cost_hst,
+                                              batched_state_prep,
+                                              build_unitary_batched)
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    dev = 'cuda'
+    worst = {'ansatz_forward': 0.0, 'ansatz_vjp': 0.0}
+
+    def scaled(a, b):
+        return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+    for i, s in enumerate(unitary_shapes()):
+        rng = np.random.default_rng(1200 + i)
+        n, ent, rot, pl = s['n'], s['ent'], s['rot'], s['placements']
+        cols, B = s.get('columns'), s.get('B', 256)
+        tpl = (n, ent, rot, pl)
+        P = 3 * n + num_block_angles(ent, rot) * len(all_placements(pl))
+        d = 2 ** n
+        drawn = rng.uniform(0, 2 * math.pi, (P, B))
+        mask = None
+        if s.get('verification'):
+            frozen = np.nonzero(Ansatz(n, ent, pl, rot).cp_mask)[0][::2]
+            drawn[frozen] = math.pi * rng.integers(0, 2, (len(frozen), B))
+            mask = torch.ones(P, B, device=dev)
+            mask[torch.as_tensor(frozen, device=dev)] = 0
+        angles = torch.tensor(drawn, dtype=torch.float32, device=dev)
+        before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+        u_k = uk.ansatz_forward(*tpl, angles, cols)            # (B, d, C)
+        a_p = angles.clone().requires_grad_(True)
+        u_p = build_unitary_batched(*tpl, a_p, columns=cols)
+        check(u_k.shape == (B, d, d if cols is None else 1) and
+              bool(torch.isfinite(torch.view_as_real(u_k)).all()),
+              f'{s["name"]}: bad forward output {tuple(u_k.shape)}')
+        err_f = (u_k.permute(1, 2, 0).reshape(u_p.shape) - u_p).abs().max() \
+            .item()
+        check(err_f <= 2e-5, f'{s["name"]}: unitary differs by {err_f}')
+        q = random_unitary(rng, d)
+        if cols is None:
+            loss_of = lambda u: batched_cost_hst(u, q)
+        else:
+            loss_of = lambda u: batched_state_prep(u, q[:, 0])
+        w = torch.view_as_complex(torch.tensor(
+            rng.normal(size=tuple(u_p.shape) + (2,)), dtype=torch.float32,
+            device=dev))
+        a_k = angles.clone().requires_grad_(True)
+        g_k, = torch.autograd.grad(
+            loss_of(uk.build_unitary(*tpl, a_k, columns=cols)).sum(), a_k)
+        h_k, = torch.autograd.grad(uk.build_unitary(*tpl, a_k, columns=cols),
+                                   a_k, grad_outputs=w)
+        g_p, = torch.autograd.grad(loss_of(u_p).sum(), a_p, retain_graph=True)
+        h_p, = torch.autograd.grad(u_p, a_p, grad_outputs=w)
+        if mask is not None:    # as the Adam loop masks them
+            g_k, h_k, g_p, h_p = (g * mask for g in (g_k, h_k, g_p, h_p))
+        torch.cuda.synchronize()
+        check(uk.FORWARD_LAUNCHES == before[0] + 3 and
+              uk.VJP_LAUNCHES == before[1] + 2,
+              f'{s["name"]}: the kernels were not launched')
+        err_g, err_h = scaled(g_k, g_p), scaled(h_k, h_p)
+        check(err_g <= 1e-4 and err_h <= 1e-4,
+              f'{s["name"]}: gradient differs from autograd: loss cotangent '
+              f'{err_g}, random cotangent {err_h}')
+        line = (f'phase 12: {s["name"]} B={B}: unitary error max {err_f:.2e}; '
+                f'gradient error (scaled by max(1, |grad|)) loss cotangent '
+                f'{err_g:.2e} (|grad| up to {g_p.abs().max().item():.3g}), '
+                f'random cotangent {err_h:.2e} (|grad| up to '
+                f'{h_p.abs().max().item():.3g})')
+        if n == 3:  # central differences of the plain path in float64
+            h, errs = 1e-4, []
+            for b in (0, 1):
+                base = angles[:, b].double()
+                shifted = torch.cat([base[:, None] + h * torch.eye(
+                    P, dtype=torch.float64, device=dev), base[:, None] -
+                    h * torch.eye(P, dtype=torch.float64, device=dev)], dim=1)
+                with torch.no_grad():
+                    ls = loss_of(build_unitary_batched(
+                        *tpl, shifted, columns=cols, dtype=torch.float64))
+                fd = (ls[:P] - ls[P:]) / (2 * h)
+                if mask is not None:
+                    fd = fd * mask[:, b]
+                errs.append((fd - g_k[:, b].double()).abs().max().item())
+            check(max(errs) <= 1e-3, f'{s["name"]}: kernel gradient differs '
+                  f'from float64 central differences by {max(errs)}')
+            line += f'; against float64 central differences {max(errs):.2e}'
+        print(line, flush=True)
+        worst['ansatz_forward'] = max(worst['ansatz_forward'], err_f)
+        worst['ansatz_vjp'] = max(
+            worst['ansatz_vjp'], (g_k - g_p).abs().max().item(),
+            (h_k - h_p).abs().max().item())
+
+    rows = {'ansatz_forward': [], 'ansatz_vjp': []}
+    for name, n, k, Bt in [('3q chain k=12 B=1024', 3, 12, 1024),
+                           ('5q chain k=20 B=2048', 5, 20, 2048)]:
+        tpl = (n, 'cp', 'xyz', fill_layers(chain_layer(n), k))
+        work = unitary_work(n, k)
+        rng = np.random.default_rng(1250 + n)
+        angles = torch.tensor(rng.uniform(0, 2 * math.pi, (work['P'], Bt)),
+                              dtype=torch.float32, device=dev)
+        u = uk.ansatz_forward(*tpl, angles)                    # warm-up
+        w = torch.view_as_complex(torch.tensor(
+            rng.normal(size=tuple(u.shape) + (2,)), dtype=torch.float32,
+            device=dev))
+        uk.ansatz_vjp(*tpl, angles, u, w)                      # warm-up
+        f_ms = min(timed(lambda: uk.ansatz_forward(*tpl, angles))[1]
+                   for _ in range(2))
+        v_ms = min(timed(lambda: uk.ansatz_vjp(*tpl, angles, u, w))[1]
+                   for _ in range(2))
+        pf, pv = [], []
+        for _ in range(3):                    # the first call warms up
+            a_p = angles.clone().requires_grad_(True)
+            u_p, ms = timed(lambda: build_unitary_batched(*tpl, a_p))
+            w_p = w.permute(1, 2, 0).reshape(u_p.shape)
+            pf.append(ms)
+            pv.append(timed(lambda: torch.autograd.grad(
+                u_p, a_p, grad_outputs=w_p))[1])
+        f_dev = device_ms(lambda: uk.ansatz_forward(*tpl, angles),
+                          'forward_kernel')
+        v_dev = device_ms(lambda: uk.ansatz_vjp(*tpl, angles, u, w),
+                          'vjp_kernel')
+        regs = uk.registers()
+        for kernel, ms, on_card, plain, ops, nbytes in [
+                ('ansatz_forward', f_ms, f_dev, min(pf[1:]), work['forward'],
+                 work['forward_bytes']),
+                ('ansatz_vjp', v_ms, v_dev, min(pv[1:]), work['vjp'],
+                 work['vjp_bytes'])]:
+            b_ms, b_by = unitary_bound_ms(ops, nbytes, Bt)
+            alone = 'not measured' if on_card is None else \
+                f'{on_card:.4f} ms (share of bound {b_ms / on_card:.2%})'
+            print(f'phase 12: {kernel} {name} on {card}: one call {ms:.4f} '
+                  f'ms, the kernel alone on the card {alone}; bound '
+                  f'{b_ms:.5f} ms by {b_by} ({ops} float32 ops and {nbytes} '
+                  f'bytes per restart); plain {plain:.3f} ms; '
+                  f'{regs[kernel]} registers', flush=True)
+            rows[kernel].append(dict(shape=name, ms=ms, device_ms=on_card,
+                                     plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=b_by, registers=regs[kernel]))
+    return worst, rows
+
+
+class PlainBuilderWatch:
+    """Counts calls of the plain builder (sim.batched.build_unitary_batched)
+    while a main path runs on the card: such a path takes its unitary from
+    the kernels, so the count must stay 0."""
+
+    def __enter__(self):
+        from cpflow_tpu_torch.kernels import unitary as uk
+        from cpflow_tpu_torch.sim import batched as tbt
+        self.calls = 0
+        self.modules, self.plain = (uk, tbt), tbt.build_unitary_batched
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.plain(*args, **kw)
+
+        for m in self.modules:
+            m.build_unitary_batched = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.build_unitary_batched = self.plain
+
+
+def on_device(array):
+    """A numpy constant as a tensor of u's dtype on u's device, made once
+    per dtype and device (a custom loss runs every step: it must not copy
+    its constants to the card each time)."""
+    import torch
+    made = {}
+
+    def get(u):
+        key = (u.dtype, u.device)
+        if key not in made:
+            made[key] = torch.as_tensor(array, dtype=u.dtype, device=u.device)
+        return made[key]
+    return get
+
+
+def run_custom_adaptive(synth, options):
+    """synth.adaptive(options) with the unitary kernels' launch counts set
+    to 0 just before and read just after, and the plain builder watched.
+    Returns (results, forward launches, vjp launches, sweep launches, plain
+    builder calls, wall seconds)."""
+    import torch
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    with PlainBuilderWatch() as watch:
+        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = sk.LAUNCHES = 0
+        start = time.perf_counter()
+        results = synth.adaptive(options, save_results=False, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES, sk.LAUNCHES)
+    return (results, *counts, watch.calls, wall)
+
+
+def phase_custom_loss():
+    """Phase 13: the reference notebook's two custom-loss syntheses
+    (benchmarks/full_notebook_run.py, cells 24-30) with the losses written
+    in torch, AdaptiveOptions defaults (100 samples, 2000 + 5000 steps) but
+    max_evals cut from 100 to 8: GHZ-4 on the line with
+    1 - |<ghz|U|0>|^2, k in [0, 10], stopping at 3 CZ, which must reach 3
+    CZ at host loss <= 1e-6; the same run with target_state (the fused
+    kernel), which must reach the same CZ count; and the relative-phase
+    Toffoli-3 on full connectivity with 1 - sum |conj(T) * U|^2 / 8, then
+    refine() of its last decomposition. The Toffoli's 8 trials run
+    bucketed, side by side in one sweep of 8 x 100 restarts padded to k=10
+    (bucketed=True, parallel_trials=8): a custom-loss step costs host time
+    whatever the batch, so one trial after the other (7 sweeps until k=7
+    comes up) took 56-71 s for the same trials. It must verify a
+    decomposition with a finite loss; its CZ count is printed, not held to
+    3. Every custom-loss sweep must go through the forward and vjp kernels,
+    and never through the plain builder or the fused sweep kernel."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import AdaptiveOptions, Synthesize
+    from cpflow_tpu_torch.ops.gates import u_toff3
+    max_evals = 8
+    make_options = lambda **kw: AdaptiveOptions(
+        min_num_cp_gates=0, max_num_cp_gates=10, target_num_cz_gates=3,
+        stop_if_target_reached=True, max_evals=max_evals, **kw)
+    line = [[0, 1], [1, 2], [2, 3]]
+    ghz4, psi0 = on_device(ghz(4)), on_device(np.eye(16)[0])
+    ghz_loss = lambda u: 1 - torch.abs(ghz4(u).conj() @ u @ psi0(u)) ** 2
+    launches = {}
+
+    synth = Synthesize(line, unitary_loss_func=ghz_loss)
+    results, fwd, vjp, fused, plain, wall = run_custom_adaptive(
+        synth, make_options())
+    check(fwd > 0 and vjp > 0 and fused == 0 and plain == 0,
+          f'GHZ-4 custom loss: forward {fwd}, vjp {vjp}, fused sweep {fused} '
+          f'launches, plain builder {plain} calls')
+    decs = results.decompositions
+    target = ghz(4).astype(np.complex128)
+    hosts = sorted((d.cz_count, float(1 - abs(
+        target.conj() @ d.circuit.unitary()[:, 0]) ** 2)) for d in decs)
+    check(hosts and hosts[0][0] == 3 and hosts[0][1] <= 1e-6,
+          f'GHZ-4 custom loss: no 3-CZ decomposition at host loss <= 1e-6 in '
+          f'{len(results.trials.results)} evals: {hosts}')
+    check(all(abs(d.loss - h) <= 1e-9 for d, h in zip(
+        sorted(decs, key=lambda d: d.cz_count), (h for _, h in hosts))),
+          'GHZ-4 custom loss: the host evaluation of the callable differs')
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    evals_custom = len(results.trials.results)
+    print(f'phase 13: adaptive GHZ-4 line, custom loss, max_evals cut to '
+          f'{max_evals}: {evals_custom} evals, verified (CZ, host loss) '
+          f'{[(c, float(f"{h:.3e}")) for c, h in hosts]}; forward launches '
+          f'{fwd}, vjp launches {vjp}, plain builder calls {plain}; wall '
+          f'{wall:.3f} s ({stages})', flush=True)
+    launches['adaptive_ghz4_custom'] = (fwd, vjp)
+
+    fused_synth = Synthesize(line, target_state=ghz(4))
+    results, fwd, vjp, fused, plain, wall = run_custom_adaptive(
+        fused_synth, make_options())
+    best = min(d.cz_count for d in results.decompositions) \
+        if results.decompositions else None
+    check(fused > 0 and fwd == 0 and vjp == 0 and best == hosts[0][0],
+          f'GHZ-4 by target_state: {fused} sweep launches, forward {fwd}, '
+          f'vjp {vjp}, best CZ count {best} against the custom loss\'s '
+          f'{hosts[0][0]}')
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in fused_synth.stage_seconds.items())
+    print(f'phase 13: the same with target_state (the fused sweep kernel): '
+          f'{len(results.trials.results)} evals, best {best} CZ; sweep '
+          f'launches {fused}; wall {wall:.3f} s ({stages})', flush=True)
+    sweep_launches = fused
+
+    t3 = on_device(u_toff3.conj())
+    rel_loss = lambda u: 1 - (torch.abs(t3(u) * u) ** 2).sum() / 8
+    synth = Synthesize([[0, 1], [1, 2], [0, 2]], unitary_loss_func=rel_loss)
+    results, fwd, vjp, fused, plain, wall = run_custom_adaptive(
+        synth, make_options(bucketed=True, parallel_trials=max_evals))
+    check(fwd > 0 and vjp > 0 and fused == 0 and plain == 0,
+          f'relative-phase Toffoli-3: forward {fwd}, vjp {vjp}, fused sweep '
+          f'{fused} launches, plain builder {plain} calls')
+    trials = results.trials.results
+    check(all(np.isfinite(t['loss']) for t in trials),
+          f'a trial without a finite score: {[t["loss"] for t in trials]}')
+    decs = results.decompositions
+    check(decs and all(np.isfinite(d.loss) for d in decs),
+          f'relative-phase Toffoli-3: no verified decomposition in '
+          f'{len(trials)} evals')
+    last = decs[-1]
+    cz, before = last.cz_count, last.loss
+    start = time.perf_counter()
+    refined = last.refine()
+    refine_s = time.perf_counter() - start
+    check(np.isfinite(last.loss) and last.cz_count <= cz,
+          f'refine of the relative-phase Toffoli-3: {refined}, loss '
+          f'{last.loss}, CZ {cz} -> {last.cz_count}')
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 13: adaptive relative-phase Toffoli-3 connected, custom '
+          f'loss, max_evals cut to {max_evals}, bucketed, {max_evals} trials '
+          f'in one sweep: {len(trials)} evals recorded before the target '
+          f'(k {[t["num_cp_gates"] for t in trials]}), verified CZ counts '
+          f'{sorted(d.cz_count for d in decs)}; the last ({cz} CZ, '
+          f'host loss {before:.3e}): {refined} at host loss {last.loss:.3e} '
+          f'in {refine_s:.3f} s on the host; forward launches {fwd}, vjp '
+          f'launches {vjp}, plain builder calls {plain}; wall {wall:.3f} s '
+          f'({stages})', flush=True)
+    launches['adaptive_relphase_toffoli3_custom'] = (fwd, vjp)
+    return launches, sweep_launches
+
+
+def phase_engine():
+    """Phase 14: the engine on the card. Ansatz.learn as the tutorial calls
+    it (Toffoli-3 on the 3q chain, k=8, 'xz', 200 restarts, the default 5000
+    Adam steps, keep_history=False), and with keep_history=True over 500
+    steps: history shapes, and loss[i] recomputed at params[i] with the
+    plain one-unitary builder for three i (1e-5). Then
+    StaticOptions(method=...) for 'natural adam', 'hessian' and 'angle by
+    angle' on the 3q chain CCZ (k=12, 64 samples) at small budgets, through
+    Synthesize.static with a verification of 3 steps by the same method:
+    every number finite, and some restart's objective below its start.
+    The gradients and the coordinate descent's probes must go through the
+    unitary kernels; the preconditioners' metric and Hessian are plain
+    torch ops by design and are not watched."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import Ansatz, StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.ops.gates import u_ccz3, u_toff3
+    from cpflow_tpu_torch.ops.losses import cost_HST
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    launches = {}
+
+    def counted(fn):
+        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, (uk.FORWARD_LAUNCHES,
+                                                  uk.VJP_LAUNCHES)
+
+    anz = Ansatz(3, 'cp', fill_layers(chain_layer(3), 8), rotation_gates='xz')
+    with PlainBuilderWatch() as watch:
+        res, wall, counts = counted(lambda: anz.learn(
+            u_toff3, num_repeats=200, keep_history=False))
+    check(counts[0] > 0 and counts[1] > 0 and watch.calls == 0,
+          f'Ansatz.learn: forward {counts[0]}, vjp {counts[1]} launches, '
+          f'plain builder {watch.calls} calls')
+    check(len(res) == 200 and set(res[0]) == {'params', 'loss'} and
+          tuple(res[0]['params'].shape) == (2, anz.num_angles) and
+          res[0]['params'].is_cuda,
+          f'Ansatz.learn: {len(res)} results of keys {sorted(res[0])}')
+    loss = torch.stack([r['loss'] for r in res])               # (200, 2)
+    check(bool(torch.isfinite(loss).all()) and
+          bool((loss[:, 1] <= loss[:, 0]).all()),
+          'Ansatz.learn: a loss not finite, or a best above its start')
+    print(f'phase 14: Ansatz.learn Toffoli-3 chain k=8 xz, 200 restarts x '
+          f'5000 steps, keep_history=False: best loss min '
+          f'{loss[:, 1].min().item():.3e}, median '
+          f'{loss[:, 1].median().item():.3e}, {(loss[:, 1] < 1e-4).sum()} '
+          f'under 1e-4; forward launches {counts[0]}, vjp launches '
+          f'{counts[1]}; wall {wall:.3f} s', flush=True)
+    launches['ansatz_learn'] = counts
+
+    with PlainBuilderWatch() as watch:
+        res, wall, counts = counted(lambda: anz.learn(
+            u_toff3, num_repeats=200, keep_history=True, num_iterations=500))
+    check(counts == (500, 500) and watch.calls == 0,
+          f'Ansatz.learn with history: launches {counts}, plain builder '
+          f'{watch.calls} calls')
+    check(len(res) == 200 and
+          tuple(res[0]['params'].shape) == (500, anz.num_angles) and
+          tuple(res[0]['loss'].shape) == (500,),
+          f'Ansatz.learn with history: shapes '
+          f'{tuple(res[0]["params"].shape)}, {tuple(res[0]["loss"].shape)}')
+    worst = 0.0
+    for b, i in [(0, 0), (7, 250), (199, 499)]:
+        again = cost_HST(anz.unitary(res[b]['params'][i]), u_toff3)
+        worst = max(worst, abs(float(again) - float(res[b]['loss'][i])))
+    check(worst <= 1e-5, f'Ansatz.learn with history: loss[i] differs from '
+          f'the loss at params[i] by {worst}')
+    print(f'phase 14: Ansatz.learn with keep_history=True, 200 restarts x 500 '
+          f'steps: params (500, {anz.num_angles}) and loss (500,) per '
+          f'restart, loss[i] at params[i] within {worst:.2e}; forward '
+          f'launches {counts[0]}, vjp launches {counts[1]}; wall {wall:.3f} s',
+          flush=True)
+    launches['ansatz_learn_history'] = counts
+
+    synth = Synthesize(chain_layer(3), target_unitary=u_ccz3)
+    for method, steps in [('natural adam', 8), ('hessian', 5),
+                          ('angle by angle', 2)]:
+        options = StaticOptions(
+            num_cp_gates=12, num_samples=64, accepted_num_cz_gates=100,
+            entry_loss=10.0, method=method, num_gd_iterations=steps,
+            num_gd_iterations_at_verification=3)
+        raw, wall_raw, _ = counted(lambda: synth._generate_raw(
+            options, keep_history=True))
+        check(tuple(raw.params.shape) == (64, steps, 93) and all(bool(
+            torch.isfinite(getattr(raw, f)).all()) for f in
+            ('params', 'regloss', 'loss', 'reg')),
+              f'{method}: a history of shape {tuple(raw.params.shape)} or '
+              f'not finite')
+        lowered = int((raw.regloss.min(dim=1).values < raw.regloss[:, 0])
+                      .sum())
+        check(lowered > 0, f'{method}: no restart below its start')
+        results, wall, counts = counted(lambda: synth.static(
+            options, save_results=False, verbose=False))
+        check(counts[0] > 0 and (counts[1] > 0 or method == 'angle by angle'),
+              f'{method}: forward {counts[0]}, vjp {counts[1]} launches')
+        check(all(np.isfinite(d.loss) for d in results.decompositions),
+              f'{method}: a decomposition with a loss not finite')
+        stages = ', '.join(f'{k} {v:.3f} s'
+                           for k, v in synth.stage_seconds.items())
+        print(f'phase 14: StaticOptions(method={method!r}) 3q chain CCZ k=12, '
+              f'64 samples, {steps} steps: objective start median '
+              f'{raw.regloss[:, 0].median().item():.4f}, best median '
+              f'{raw.regloss.min(dim=1).values.median().item():.4f}, '
+              f'{lowered} of 64 restarts below their start; raw stage with '
+              f'history {wall_raw:.3f} s; static wall {wall:.3f} s ({stages}); '
+              f'forward launches {counts[0]}, vjp launches {counts[1]}',
+              flush=True)
+        launches[f'static_{method.replace(" ", "_")}'] = counts
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -954,8 +1542,15 @@ def main() -> int:
             StaticOptions(num_cp_gates=14, r=0.88e-3, num_samples=100,
                           accepted_num_cz_gates=8), 8,
             'published: 8 CZ, 7 T, T depth 3')
+        unitary_err, unitary_rows = phase_unitary(card)
+        unitary_launches, launches['adaptive_ghz4_state'] = \
+            phase_custom_loss()
+        unitary_launches.update(phase_engine())
         check(all(v > 0 for v in launches.values()),
-              f'a main path missed the kernel: {launches}')
+              f'a main path missed the sweep kernel: {launches}')
+        check(all(f > 0 for f, _ in unitary_launches.values()) and
+              sum(v for _, v in unitary_launches.values()) > 0,
+              f'a main path missed the unitary kernels: {unitary_launches}')
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -965,7 +1560,14 @@ def main() -> int:
     # registers: per thread, as the CUDA runtime reports them;
     # no single PyTorch call computes the sweep, so library_ms is null;
     # modes, entanglers and rotation strings: those phase 3 drove
-    print(json.dumps({'kernels': [{
+    # the unitary kernels: ms (one call of the wrapper, CUDA events, as the
+    # sweep's), device_ms (the kernel alone on the card, from the profiler's
+    # trace; null if the trace lacks it), plain_ms and bound_ms at the same
+    # 3q k=12 B=1024 shape (phase 12; `shapes` also has the 5q k=20 B=2048
+    # row); a forward pass is a chain of n + k batched gate applications and its
+    # vjp a walk back through them, which no single PyTorch call computes,
+    # so library_ms is null for them too
+    kernels = [{
         'name': 'sweep', 'route': 'cuda',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
@@ -974,7 +1576,21 @@ def main() -> int:
         'launches_by_path': launches, 'max_abs_err': max_err,
         'ms': rows[0]['ms'], 'plain_ms': rows[0]['plain_ms'],
         'bound_ms': rows[0]['bound_ms'], 'bound_by': rows[0]['bound_by'],
-        'library_ms': None, 'registers': rows[0]['registers']}]}))
+        'library_ms': None, 'registers': rows[0]['registers']}]
+    for i, name in enumerate(('ansatz_forward', 'ansatz_vjp')):
+        by_path = {k: v[i] for k, v in unitary_launches.items()}
+        row = unitary_rows[name][0]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'cpflow_tpu_torch/csrc/unitary.cu',
+            'replaces': 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': unitary_err[name],
+            'ms': row['ms'], 'device_ms': row['device_ms'],
+            'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'library_ms': None,
+            'registers': row['registers'], 'shapes': unitary_rows[name]})
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -6,13 +6,24 @@ package. What differs:
 
   * ``Synthesize`` takes a ``device``, 'cuda' unless the caller asks for
     'cpu'. On a CUDA device every sweep (sampling, the adaptive search's
-    bucketed stage, verification) runs the hand-written kernel
-    (kernels/sweep.py); on the CPU, its plain PyTorch version. There is no
-    fallback from one to the other. Device losses: the HS test
-    (``target_unitary``), state preparation (``target_state``), and the
-    ``LossSpec`` kinds 'disc', 'modulo_identity' and 'modulo_diagonal',
-    with any rotation string of x, y, z; ``Ansatz`` also takes the fixed
-    'cz' and 'cx' entanglers (the success-ratio protocol's template).
+    bucketed stage, verification) runs hand-written kernels; on the CPU,
+    their plain PyTorch version. There is no fallback from one to the
+    other. The built-in losses, the HS test (``target_unitary``), state
+    preparation (``target_state``) and the ``LossSpec`` kinds 'disc',
+    'modulo_identity' and 'modulo_diagonal', run in the fused sweep kernel
+    (kernels/sweep.py), with any rotation string of x, y, z; ``Ansatz``
+    also takes the fixed 'cz' and 'cx' entanglers (the success-ratio
+    protocol's template).
+  * a custom loss, ``unitary_loss_func=<callable>`` or
+    ``LossSpec('custom', fn=...)``, must be a **torch** callable of one
+    (d, d) complex matrix returning a real scalar. It is vmapped over the
+    restarts under autograd; on the card the unitary and its gradient come
+    from the forward and vjp kernels of kernels/unitary.py. The host
+    checks hand it a complex128 tensor.
+  * ``StaticOptions.method`` other than 'adam' ('natural adam',
+    'natural gd', 'hessian', 'angle by angle') runs the chains of
+    optimize/engine.py on the same batched objective; ``Ansatz.learn``
+    does too.
   * initial angles come from a ``torch.Generator`` seeded with
     ``random_seed``: the same seed gives other angles than the JAX
     package (optimize/candidates.py). The adaptive search's trial seeds
@@ -24,9 +35,7 @@ package. What differs:
     ``params.trials_from_jax`` carries a JAX package's trials over.
   * ``Decomposition.refine`` runs on the host in float64 numpy, with the
     JAX package's signature and defaults (circuits/refine.py).
-  * Not here yet: methods other than 'adam' (ROADMAP A.10), custom losses
-    on the device (A.10: a Python callable cannot enter the fused kernel;
-    ``refine`` takes them, on the host), the device mesh (A.9),
+  * Not here yet: the device mesh (A.9). Not ported:
     ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
 """
 
@@ -48,7 +57,7 @@ from cpflow_tpu_torch.circuits.passes import convert_to_zxz, cp_to_cz_circuit
 from cpflow_tpu_torch.circuits.refine import host_loss_adapter
 from cpflow_tpu_torch.circuits.refine import refine as refine_circuit
 from cpflow_tpu_torch.optimize import candidates as cand
-from cpflow_tpu_torch.optimize import engine
+from cpflow_tpu_torch.optimize import engine, unitary_learn
 from cpflow_tpu_torch.ops import losses
 from cpflow_tpu_torch.ops.penalty import make_regularization_function
 from cpflow_tpu_torch.search import tpe
@@ -66,9 +75,10 @@ from cpflow_tpu_torch.topology import fill_layers, num_qubits_from_layer
 
 class LossSpec:
     """Declarative unitary loss: 'hst', 'disc', 'state', 'modulo_identity'
-    and 'modulo_diagonal' (these two with ``num_qubits`` and ``wires``) run
-    in the sweeps; 'custom' wraps a callable ``fn`` that only ``numpy``
-    evaluates. ``numpy`` evaluates the host loss of a float64 matrix."""
+    and 'modulo_diagonal' (these two with ``num_qubits`` and ``wires``),
+    and 'custom', which wraps a torch callable ``fn`` of one unitary.
+    Calling the spec evaluates it on a torch tensor; ``numpy`` evaluates
+    the host loss of a float64 matrix."""
 
     def __init__(self, kind: str, target: Optional[np.ndarray] = None,
                  fn: Optional[Callable] = None, wires: Optional[list] = None,
@@ -80,6 +90,21 @@ class LossSpec:
         self.fn = fn
         self.wires = wires
         self.num_qubits = num_qubits
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        if self.kind == 'hst':
+            return losses.cost_HST(u, self.target)
+        if self.kind == 'disc':
+            return losses.disc(u, self.target)
+        if self.kind == 'state':
+            return losses.state_prep_loss(u, self.target)
+        if self.kind == 'modulo_identity':
+            return losses.disc_modulo_identity(self.target, u,
+                                               self.num_qubits, self.wires)
+        if self.kind == 'modulo_diagonal':
+            return losses.disc_modulo_diagonal(self.target, u,
+                                               self.num_qubits, self.wires)
+        return self.fn(u)
 
     def numpy(self, u: np.ndarray) -> float:
         t = self.target
@@ -98,9 +123,24 @@ class LossSpec:
         if self.kind == 'modulo_diagonal':
             return float(losses.disc_modulo_diagonal(
                 t, np.asarray(u), self.num_qubits, self.wires))
-        if self.kind == 'custom':
-            return float(self.fn(u))
+        if self.kind == 'custom':  # a torch callable: hand it a tensor
+            return float(self.fn(torch.as_tensor(
+                np.asarray(u), dtype=torch.complex128)))
         raise ValueError(f'unknown loss kind {self.kind!r}')
+
+    def __getstate__(self):
+        # Results persist with the standard library's pickle, which saves
+        # a function by its module and name: a lambda or a local function
+        # cannot be saved. Such a custom loss is left out of the saved
+        # spec (fn None), so that a run with a label still saves its trials
+        # and decompositions; a module-level function is saved as it is.
+        state = self.__dict__.copy()
+        if self.fn is not None:
+            try:
+                pickle.dumps(self.fn)
+            except (pickle.PicklingError, AttributeError, TypeError):
+                state['fn'] = None
+        return state
 
     def __repr__(self):
         shape = None if self.target is None else self.target.shape
@@ -218,6 +258,16 @@ class Ansatz:
                 qc.append('r' + letter, p[0], block[2 * i])
                 qc.append('r' + letter, p[1], block[2 * i + 1])
         return qc
+
+    def learn(self, u_target, method='adam', learning_rate=0.1,
+              target_loss=1e-7, keep_history=True, **kwargs):
+        """Multi-start learning of a target unitary: unitary_learn on this
+        ansatz as a batched objective, on the card (through the unitary
+        kernels) unless called with device='cpu'."""
+        return unitary_learn(self.unitary, u_target, self.num_angles,
+                             method=method, learning_rate=learning_rate,
+                             target_loss=target_loss,
+                             keep_history=keep_history, ansatz=self, **kwargs)
 
 
 # --------------------------------------------------------------------------
@@ -452,7 +502,8 @@ class Synthesize:
 
     Args:
         layer: connectivity pairs, e.g. [[0,1],[1,2]].
-        unitary_loss_func: a LossSpec.
+        unitary_loss_func: a LossSpec, or a torch callable of one (d, d)
+            complex matrix returning a real scalar (a custom loss).
         target_unitary: sets the loss to the HS-test distance to this matrix.
         target_state: sets the loss to 1 - |<target|U|0>|^2; the sweeps
             then build only the |0...0> column of U.
@@ -465,9 +516,7 @@ class Synthesize:
     def __init__(self, layer, unitary_loss_func=None, target_unitary=None,
                  target_state=None, label=None, cp_regularization_func=None,
                  *, device='cuda'):
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError('device is cuda, but no CUDA device is visible')
+        self.device = config.resolve_device(device=device)
         self.layer = layer
         self.num_qubits = num_qubits_from_layer(layer)
         self.target_unitary = target_unitary
@@ -517,18 +566,36 @@ class Synthesize:
             self.unitary_loss_func, cp_mask=anz.cp_mask,
             regularization_func=self.cp_regularization_func, r=r)
 
-    @staticmethod
-    def _check_method(options):
-        if options.method != 'adam':
-            raise NotImplementedError(
-                f'method {options.method!r} is not ported yet (ROADMAP A.10)')
+    def _loss_and_reg(self, anz: Ansatz, options):
+        """The objective's two parts as per-chain callables of (P,)
+        angles, differentiated as they are (the sweeps use the batched
+        objective of _objective instead)."""
+        loss_func = lambda angles: self.unitary_loss_func(anz.unitary(angles))
+        reg_func = lambda angs: options.r * self.cp_regularization_func(
+            angs * torch.as_tensor(anz.cp_mask, dtype=angs.dtype,
+                                   device=angs.device)).sum()
+        return loss_func, reg_func
 
-    def _generate_raw(self, options, initial_angles_array=None
-                      ) -> engine.RawResult:
-        """Multi-start raw sampling stage with the [initial, best] contract.
-        initial_angles_array: optional (num_samples, P) initial angles in
-        place of the seeded draw."""
-        self._check_method(options)
+    @staticmethod
+    def _plot_raw(res):
+        """Plot the regloss, loss and reg learning curves of one restart
+        (needs keep_history=True histories and matplotlib)."""
+        import matplotlib.pyplot as plt
+        for name in ('regloss', 'loss', 'reg'):
+            plt.plot(torch.as_tensor(res[name]).cpu().numpy(), label=name)
+        plt.yscale('log')
+        plt.legend()
+
+    def _generate_raw(self, options, initial_angles_array=None,
+                      keep_history=False) -> engine.RawResult:
+        """Multi-start raw sampling stage. initial_angles_array: optional
+        (num_samples, P) initial angles in place of the seeded draw.
+
+        Method 'adam' takes the fused sweep ([initial, best], or every
+        step with keep_history); any other method takes the engine's
+        chains (preconditioned, or coordinate descent) on the same batched
+        objective, whose unitary comes from the unitary kernels on the
+        card."""
         anz = self._ansatz(options)
         if initial_angles_array is None:
             gen = torch.Generator(device=self.device).manual_seed(
@@ -541,16 +608,26 @@ class Synthesize:
             inits = torch.as_tensor(np.asarray(initial_angles_array),
                                     dtype=config.real_dtype,
                                     device=self.device)
-        return engine.minimize_fused(
-            self._objective(anz, options.r), inits,
+        objective = self._objective(anz, options.r)
+        if options.method == 'adam':
+            return engine.minimize_fused(
+                objective, inits, learning_rate=options.learning_rate,
+                num_iterations=options.num_gd_iterations,
+                keep_history=keep_history)
+        return engine.minimize_multistart(
+            objective, inits, method=options.method,
             learning_rate=options.learning_rate,
-            num_iterations=options.num_gd_iterations)
+            num_iterations=options.num_gd_iterations,
+            keep_history=keep_history, u_func=anz.unitary)
 
     def _raw_and_evaluate(self, options, initial_angles_array=None
                           ) -> cand.EvaluatedBatch:
         """Raw sampling + evaluation in one pass over the device."""
-        self._check_method(options)
         anz = self._ansatz(options)
+        if options.method != 'adam':
+            raw = self._generate_raw(options, initial_angles_array)
+            return cand.evaluate_raw_batch(raw, anz.cp_mask,
+                                           threshold=options.threshold_cp)
         return cand.run_raw_stage_fused(
             self._objective(anz, options.r), options.random_seed,
             options.num_samples, anz.num_angles, anz.cp_mask,
@@ -572,7 +649,7 @@ class Synthesize:
             angles_batch = np.concatenate([angles_batch, pad], axis=0)
         ver = cand.verify_candidates_batch(
             self.unitary_loss_func, anz, angles_batch,
-            threshold_cp=options.threshold_cp,
+            threshold_cp=options.threshold_cp, method=options.method,
             learning_rate=options.learning_rate_at_verification,
             num_iterations=options.num_gd_iterations_at_verification,
             target_loss=options.target_loss,

@@ -12,9 +12,9 @@ Each stage is guarded by check_approximation / check_loss; a ValueError rolls
 the result back to the previous stage (refine state machine,
 exact_decompositions.py:293-344).
 
-Counterpart of cpflow_tpu/circuits/refine.py without ``lasso_angles`` (the
-L1-regularized re-optimization): that one optimizes on the device and waits
-for the engine's ``mynimize_repeated`` (ROADMAP A.10).
+Counterpart of cpflow_tpu/circuits/refine.py. Everything is host numpy but
+``lasso_angles`` (the L1-regularized re-optimization), which optimizes with
+the engine's ``mynimize_repeated`` and imports torch when called.
 """
 
 from __future__ import annotations
@@ -305,3 +305,37 @@ def refine(circuit: Circuit,
         return qc, refine_type, None, None
 
     return qc, refine_type, t_count, t_depth
+
+
+# --------------------------------------------------------------------------
+# Extras kept for parity
+# --------------------------------------------------------------------------
+
+def lasso_angles(loss_function, angles, eps: float = 1e-5,
+                 threshold_loss: float = 1e-6, *, device=None):
+    """L1-regularized re-optimization of circuit angles: Adam (10000 steps
+    at 0.01) on loss_function, a torch callable of the (P,) angles, plus
+    eps * sum |angle bracketed to [-pi, pi)|. Unlike the rest of this
+    module it optimizes with autograd, on `device`: the angles' own device
+    if they are a tensor, else the card (config.resolve_device). Raises
+    AssertionError if the best iterate's loss ends above threshold_loss."""
+    import torch
+    from cpflow_tpu_torch import config
+    from cpflow_tpu_torch.ops.trig import bracket_angle
+    from cpflow_tpu_torch.optimize import mynimize_repeated
+
+    device = config.resolve_device(angles, device)
+    penalty = lambda angs: eps * torch.abs(bracket_angle(angs)).sum()
+    res = mynimize_repeated(
+        loss_function, len(angles), regularization_func=penalty,
+        num_repeats=1, method='adam', learning_rate=0.01,
+        initial_params_batch=torch.as_tensor(
+            angles if isinstance(angles, torch.Tensor) else np.asarray(angles),
+            dtype=config.real_dtype, device=device),
+        num_iterations=10000, device=device)
+
+    best_i = int(torch.argmin(res['regloss']))
+    best_angs = res['params'][best_i]
+    if not float(res['loss'][best_i]) <= threshold_loss:
+        raise AssertionError('L1 regularization was not successful.')
+    return best_angs

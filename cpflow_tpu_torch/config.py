@@ -24,6 +24,31 @@ def complex_of(real: torch.dtype) -> torch.dtype:
     complex_dtype."""
     return torch.complex128 if real == torch.float64 else complex_dtype
 
+
+def set_precision(double: bool = False) -> None:
+    """Switch the default dtypes between single (the default) and double
+    precision. The plain PyTorch path follows them; the hand-written
+    kernels compute in float32 only and go on refusing float64 on the
+    card."""
+    global real_dtype, complex_dtype
+    if double:
+        real_dtype, complex_dtype = torch.float64, torch.complex128
+    else:
+        real_dtype, complex_dtype = torch.float32, torch.complex64
+
+
+def resolve_device(given=None, device=None) -> torch.device:
+    """Where an entry point runs: `device` if the caller names one, else
+    the device of `given` if that is a tensor, else 'cuda'. Raises when
+    that is a CUDA device and none is visible: nothing runs on the CPU
+    unasked."""
+    if device is None:
+        device = given.device if isinstance(given, torch.Tensor) else 'cuda'
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('device is cuda, but no CUDA device is visible')
+    return device
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -15,8 +15,19 @@ modulo-diagonal losses on the whole 2^n x 2^n unitary, and state
 preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
-falls back, for a custom loss (a Python callable cannot enter the kernel)
-and above MAX_QUBITS.
+falls back, above MAX_QUBITS, for float64 and for a penalty other than the
+piecewise-linear one.
+
+Routing of ``sweep``, by the tensor's device and the loss:
+  * CPU tensor, any loss: ``sweep_reference``, the plain version;
+  * CUDA tensor, a built-in loss kind: the fused sweep kernel;
+  * CUDA tensor, a custom loss (a torch callable of one unitary, which
+    cannot enter a fused kernel): the Adam loop of ``sweep_reference``
+    around the objective, whose unitary comes from the hand-written
+    forward and vjp kernels of kernels/unitary.py (never from the plain
+    builder: an objective made with ``plain=True`` is refused), with
+    target_loss checked every TARGET_CHECK_EVERY steps as on the fused
+    route.
 
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
@@ -36,19 +47,13 @@ steps. Success flags agree; best losses are at most the plain loop's.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cpflow_tpu_torch import config
+from cpflow_tpu_torch.kernels import build
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, breakpoints
 from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
 from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
@@ -63,12 +68,9 @@ LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 TARGET_CHECK_EVERY = 50  # kernel steps between host checks of target_loss
-SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'sweep.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
-BUILD_INFO: dict = {}  # seconds and ptxas report of this process's build
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
-_lib = None
+_lib = None  # the bound library; set to time another build of the kernel
 
 
 class SweepResult(NamedTuple):
@@ -83,10 +85,21 @@ class SweepResult(NamedTuple):
 # Plain version
 # --------------------------------------------------------------------------
 
+def adam_step(params, grad, m, v, t: int, learning_rate: float):
+    """One optax.adam update at step t (from 1): b1 0.9, b2 0.999, eps 1e-8
+    outside the square root, bias correction. Returns (params, m, v)."""
+    m = (1 - _B1) * grad + _B1 * m
+    v = (1 - _B2) * (grad * grad) + _B2 * v
+    mhat = m / (1 - _B1 ** t)
+    vhat = v / (1 - _B2 ** t)
+    return params - learning_rate * (mhat / (torch.sqrt(vhat) + _EPS)), m, v
+
+
 def sweep_reference(objective, params0: torch.Tensor,
                     learning_rate: float = 0.1, num_iterations: int = 5000,
                     grad_mask: Optional[torch.Tensor] = None,
-                    target_loss: Optional[float] = None) -> SweepResult:
+                    target_loss: Optional[float] = None,
+                    check_every: int = 1) -> SweepResult:
     """Multi-start Adam over objective(params_PB) -> (regloss_B, loss_B).
 
     optax.adam arithmetic: b1 0.9, b2 0.999, eps 1e-8 outside the square
@@ -94,8 +107,9 @@ def sweep_reference(objective, params0: torch.Tensor,
     the gradient before the moments, so a masked entry never moves. Best
     tracking keeps the angles *before* the update whose loss improved
     (strict <); the initial angles are the first best. With target_loss the
-    loop stops once every restart's best loss is at or under it. It runs in
-    the objective's dtype.
+    loop stops once every restart's best loss is at or under it, checked
+    before every check_every-th step (each check reads the card). It runs
+    in the objective's dtype.
     """
     params = params0.detach().to(objective.dtype).clone()
     with torch.no_grad():
@@ -105,7 +119,8 @@ def sweep_reference(objective, params0: torch.Tensor,
     m = torch.zeros_like(params)
     v = torch.zeros_like(params)
     for it in range(num_iterations):
-        if target_loss is not None and bool((best_loss <= target_loss).all()):
+        if target_loss is not None and it % check_every == 0 and \
+                bool((best_loss <= target_loss).all()):
             break
         p = params.clone().requires_grad_(True)
         regloss, loss = objective(p)
@@ -117,12 +132,8 @@ def sweep_reference(objective, params0: torch.Tensor,
             best_reg = torch.where(improved, regloss, best_reg)
             best_loss = torch.where(improved, loss, best_loss)
             best_p = torch.where(improved[None, :], params, best_p)
-            t = it + 1
-            m = (1 - _B1) * grad + _B1 * m
-            v = (1 - _B2) * (grad * grad) + _B2 * v
-            mhat = m / (1 - _B1 ** t)
-            vhat = v / (1 - _B2 ** t)
-            params = params - learning_rate * (mhat / (torch.sqrt(vhat) + _EPS))
+            params, m, v = adam_step(params, grad, m, v, it + 1,
+                                     learning_rate)
     return SweepResult(best_p, best_reg.detach(), best_loss.detach(),
                        regloss0, loss0)
 
@@ -131,42 +142,13 @@ def sweep_reference(objective, params0: torch.Tensor,
 # Build and bind
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    candidate = os.path.join(cuda_home, 'bin', 'nvcc')
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError('nvcc not found: the sweep kernel is built from '
-                       f'{SOURCE} with the CUDA toolkit')
-
-
 def load_library() -> ctypes.CDLL:
-    """Build csrc/sweep.cu for sm_90a (once per source version) and load it."""
+    """Build csrc/sweep.cu for sm_90a (once per version of csrc/) and load
+    it."""
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    target = BUILD_DIR / f'libcpflow_sweep_{digest}.so'
-    if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-               '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-               '-Xptxas', '-v', '-o', tmp, str(SOURCE)]
-        start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, target)
-        BUILD_INFO['seconds'] = time.perf_counter() - start
-        BUILD_INFO['ptxas'] = proc.stderr.strip()
-    lib = ctypes.CDLL(str(target))
+    lib = build.load('sweep')
     ptr = ctypes.c_void_p
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ptr]
@@ -175,7 +157,6 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
-    BUILD_INFO['library'] = str(target)
     _lib = lib
     return lib
 
@@ -204,9 +185,9 @@ def _check_objective(objective):
     kind = getattr(spec, 'kind', None)
     if kind not in MAX_QUBITS:
         raise NotImplementedError(
-            f'the sweep kernel computes the {", ".join(MAX_QUBITS)} losses, '
-            f'got {kind!r}: a custom loss (a Python callable) cannot enter '
-            f'the kernel (ROADMAP A.10)')
+            f'the fused sweep kernel computes the {", ".join(MAX_QUBITS)} '
+            f'losses, got {kind!r}: a custom loss (a Python callable) cannot '
+            f'enter it, and sweep() routes one to the unitary kernels')
     if objective.dtype != torch.float32:
         raise ValueError(f'the sweep kernel computes in float32, the '
                          f'objective in {objective.dtype}')
@@ -358,12 +339,25 @@ def occupancy(objective, batch: int) -> dict:
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,
           num_iterations: int = 5000, grad_mask: Optional[torch.Tensor] = None,
           target_loss: Optional[float] = None) -> SweepResult:
-    """The fused sweep of `objective` (a sim.batched.BatchedRegloss) from
-    params0 (P, B): the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor. Returns a SweepResult."""
+    """The multi-start Adam sweep of `objective` (a
+    sim.batched.BatchedRegloss) from params0 (P, B), routed as the module
+    docstring says: the plain version for a CPU tensor; for a CUDA tensor
+    the fused kernel (a built-in loss) or the Adam loop over the unitary
+    kernels (a custom loss). Returns a SweepResult."""
     if params0.device.type == 'cuda':
-        return _launch(objective, params0, learning_rate, num_iterations,
-                       grad_mask, target_loss)
+        if getattr(objective.unitary_loss_func, 'kind', 'custom') != 'custom':
+            return _launch(objective, params0, learning_rate, num_iterations,
+                           grad_mask, target_loss)
+        if objective.plain:
+            raise ValueError('a custom loss on the card goes through the '
+                             'unitary kernels; this objective was made with '
+                             'plain=True')
+        if grad_mask is not None:
+            grad_mask = grad_mask.to(device=params0.device,
+                                     dtype=objective.dtype)
+        return sweep_reference(objective, params0, learning_rate,
+                               num_iterations, grad_mask, target_loss,
+                               check_every=TARGET_CHECK_EVERY)
     if params0.device.type == 'cpu':
         return sweep_reference(objective, params0, learning_rate,
                                num_iterations, grad_mask, target_loss)

@@ -1,6 +1,5 @@
-"""Losses on one unitary (counterpart of cpflow_tpu/ops/losses.py, without
-``disc2_swap`` and ``fubini_study``). The restart-batched losses of the hot
-path are in sim/batched.py.
+"""Losses on one unitary (counterpart of cpflow_tpu/ops/losses.py). The
+restart-batched losses of the hot path are in sim/batched.py.
 
 The tensor-factorization losses (compile modulo identity or modulo a
 diagonal on some wires) are written once and take either a torch tensor
@@ -48,6 +47,64 @@ def state_prep_loss(u: torch.Tensor, target_state) -> torch.Tensor:
     |0...0>."""
     t = _as(target_state, u)
     return 1 - torch.abs((t.conj() * u[:, 0]).sum()) ** 2
+
+
+def trace_prod(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Tr(U^dagger V) as an elementwise product and a sum."""
+    return (u.conj() * v).sum()
+
+
+# --- Permutation-equivalence loss --------------------------------------------
+
+def _permutation_matrix(perm, dtype=None) -> np.ndarray:
+    """Unitary permuting qubit wires: qubit i of the input goes to wire
+    perm[i] (big-endian: basis index b has bit n-1-i for qubit i)."""
+    n = len(perm)
+    d = 2 ** n
+    m = np.zeros((d, d), dtype=dtype or np.complex64)
+    for b in range(d):
+        bits = [(b >> (n - 1 - i)) & 1 for i in range(n)]
+        new_bits = [0] * n
+        for i in range(n):
+            new_bits[perm[i]] = bits[i]
+        nb = sum(bit << (n - 1 - i) for i, bit in enumerate(new_bits))
+        m[nb, b] = 1
+    return m
+
+
+def permutation_matrices(n: int):
+    from itertools import permutations
+    return [_permutation_matrix(p) for p in permutations(range(n))]
+
+
+def disc2_swap(u: torch.Tensor, u_target, num_qubits: int) -> torch.Tensor:
+    """Product of HST costs over all wire permutations of u."""
+    return torch.stack([cost_HST(_as(m, u) @ u, u_target)
+                        for m in permutation_matrices(num_qubits)]).prod()
+
+
+# --- Fubini-Study metric (natural gradient) ----------------------------------
+
+def fubini_study(u_func, x: torch.Tensor,
+                 relative_coeff: float = 1.0) -> torch.Tensor:
+    """The (P, P) Fubini-Study metric of u_func at the angles x (P,):
+    Re[<dU_i, dU_j> / |U|^2 - c <dU_i, U> conj(<dU_j, U>) / |U|^4].
+
+    It needs dU/dx for every angle, which torch.func.jacfwd takes through
+    u_func in forward mode (on the real and imaginary parts: jacfwd takes
+    no complex output). No kernel computes it, in the JAX package or here:
+    it is plain torch ops on the caller's device, so u_func is a plain
+    builder (sim.ansatz_kernel.build_unitary), never the unitary kernels."""
+    u = u_func(x)
+    u_norm2 = torch.abs(trace_prod(u, u))
+    u_jac = torch.view_as_complex(torch.func.jacfwd(
+        lambda a: torch.view_as_real(u_func(a)))(x).movedim(2, -1)
+        .contiguous())                                        # (d, d, P)
+    dudu = torch.tensordot(u_jac, u_jac.conj(), dims=([0, 1], [0, 1]))
+    udu = torch.tensordot(u_jac, u.conj(), dims=([0, 1], [0, 1]))
+    gij = dudu / u_norm2 - \
+        relative_coeff * torch.outer(udu.conj(), udu) / u_norm2 ** 2
+    return gij.real
 
 
 # --- Tensor-factorization losses (compile modulo identity / diagonal) --------

@@ -1,6 +1,6 @@
 """CP-template candidate pipeline: init, evaluation, projection, verification
-(counterpart of cpflow_tpu/optimize/candidates.py, fused path only), and the
-adaptive search's bucketed raw stage (the stage closure of
+(counterpart of cpflow_tpu/optimize/candidates.py), and the adaptive
+search's bucketed raw stage (the stage closure of
 cpflow_tpu/api.py:Synthesize._bucketed_stage).
 
 PRNG: initial angles are drawn from ``torch.Generator(device)
@@ -51,6 +51,44 @@ def generate_initial_angles_batch(generator: torch.Generator, num_angles: int,
                              device=device, dtype=config.real_dtype)
         return rnd * (1 - mask) + 1.5 * normal * mask
     raise ValueError(f"cp_dist {cp_dist!r} not supported")
+
+
+# --------------------------------------------------------------------------
+# Parameter-freezing helpers
+# --------------------------------------------------------------------------
+
+def insert_params(params, insertion_params, insertion_indices,
+                  as_tensor: bool = True):
+    """Merge `insertion_params` into `params` at `insertion_indices`:
+    params=[0,1,2,3], insertion=[-1,-2,-4], indices=[0,2,4]
+    -> [-1, 0, -2, 1, -4, 2, 3]. As a tensor (differentiable in params) or,
+    with as_tensor=False, a numpy array."""
+    insertion_indices = list(insertion_indices)
+    total = len(params) + len(insertion_params)
+    param_indices = [i for i in range(total) if i not in insertion_indices]
+    if not as_tensor:
+        res = np.zeros(total)
+        res[param_indices] = np.asarray(params)
+        res[insertion_indices] = np.asarray(insertion_params)
+        return res
+    params = torch.as_tensor(params)
+    if not params.is_floating_point():
+        params = params.to(config.real_dtype)
+    inserted = torch.as_tensor(insertion_params, dtype=params.dtype,
+                               device=params.device)
+    source = np.argsort(param_indices + insertion_indices)
+    return torch.cat([params, inserted])[torch.as_tensor(
+        source, device=params.device)]
+
+
+def constrained_function(f, fixed_params, indices, as_tensor: bool = True):
+    """f with the parameters at `indices` fixed. The batched verification
+    uses gradient masks instead; this form serves the single-candidate
+    wrappers and ad-hoc constrained optimization."""
+    def cf(free_params):
+        return f(insert_params(free_params, fixed_params, indices,
+                               as_tensor=as_tensor))
+    return cf
 
 
 # --------------------------------------------------------------------------
@@ -201,6 +239,91 @@ def filter_prospective(ev: EvaluatedBatch, threshold_cz_count,
 
 
 # --------------------------------------------------------------------------
+# Reference-shaped single-candidate wrappers
+# --------------------------------------------------------------------------
+
+def convert_cp_to_cz(anz, angles, threshold=0.2, *, device=None):
+    """Project near-0/pi CP angles and return (circ_func, u_func,
+    free_angles) with the projected angles fixed. circ_func maps free
+    angles to an IR Circuit; u_func maps free angles (a tensor) to the
+    unitary. free_angles lie on `device`: the angles' own device if they
+    are a tensor, else the card (config.resolve_device)."""
+    device = config.resolve_device(angles, device)
+    angles = torch.as_tensor(angles, dtype=config.real_dtype, device=device)
+    cp_indices = np.nonzero(np.asarray(anz.cp_mask) == 1)[0]
+    projected_all = project_cp_angles(
+        angles[torch.as_tensor(cp_indices, device=angles.device)],
+        threshold=threshold).cpu().numpy()
+    snapped = (projected_all == 0.0) | (projected_all == np.float32(np.pi))
+    projected_values = projected_all[snapped]
+    projected_indices = [int(i) for i in cp_indices[snapped]]
+    free = [i for i in range(len(angles)) if i not in projected_indices]
+    free_angles = angles[torch.as_tensor(free, dtype=torch.long,
+                                         device=angles.device)]
+    circ_func = constrained_function(
+        lambda angs: anz.circuit(list(np.asarray(angs))),
+        projected_values, projected_indices, as_tensor=False)
+    u_func = constrained_function(anz.unitary, projected_values,
+                                  projected_indices)
+    return circ_func, u_func, free_angles
+
+
+def evaluate_cp_result(res, cp_mask, threshold=0.2):
+    """(cz, loss, angles) at the best regloss iterate of one learning
+    history. Prefer evaluate_raw_batch for whole batches."""
+    regloss = torch.as_tensor(res['regloss'])
+    best_i = int(torch.argmin(regloss))
+    loss = res['loss'][best_i]
+    angles = torch.as_tensor(res['params'][best_i])
+    mask = torch.as_tensor(np.asarray(cp_mask), dtype=angles.dtype,
+                           device=angles.device)
+    cz = int(count_cz(angles * mask, threshold=threshold))
+    return cz, loss, angles
+
+
+def filter_cp_results(res_list, cp_mask, threshold_cz_count, threshold_loss,
+                      threshold_cp=0.2, disable_tqdm=False):
+    """[[cz, res], ...] for histories passing both thresholds, sorted by CZ
+    count."""
+    selected = []
+    for res in res_list:
+        cz, loss, _ = evaluate_cp_result(res, cp_mask, threshold=threshold_cp)
+        if cz <= threshold_cz_count and float(loss) <= threshold_loss:
+            selected.append([cz, res])
+    selected.sort(key=lambda x: x[0])
+    return selected
+
+
+def verify_cp_result(res, anz, unitary_loss_func, options,
+                     keep_history=False, *, device=None):
+    """Project one candidate and re-optimize its free angles, one chain
+    differentiated as it is on `device`: that of res['params'] if it is a
+    tensor, else the card (config.resolve_device). Returns (success,
+    num_cz_gates, circ_func, u_func, best_angles[, histories])."""
+    device = config.resolve_device(res['params'], device)
+    num_cz_gates, _, angles = evaluate_cp_result(
+        res, anz.cp_mask, threshold=options.threshold_cp)
+    circ_func, u_func, free_angles = convert_cp_to_cz(
+        anz, angles, threshold=options.threshold_cp, device=device)
+
+    loss_fn = lambda angs: unitary_loss_func(u_func(angs))
+    hist, losses = engine.minimize_chain(
+        loss_fn, free_angles, method=options.method,
+        learning_rate=options.learning_rate_at_verification,
+        num_iterations=options.num_gd_iterations_at_verification,
+        keep_history=keep_history, device=device)
+
+    best_i = int(torch.argmin(losses))
+    best_angs = hist[best_i]
+    best_loss = float(losses[best_i])
+    if not keep_history:
+        return (best_loss <= options.target_loss, num_cz_gates, circ_func,
+                u_func, best_angs)
+    return (best_loss <= options.target_loss, num_cz_gates, circ_func,
+            u_func, best_angs, hist, losses)
+
+
+# --------------------------------------------------------------------------
 # Batched verification
 # --------------------------------------------------------------------------
 
@@ -214,17 +337,21 @@ class VerifiedBatch(NamedTuple):
 
 def verify_candidates_batch(unitary_loss_func, anz, candidate_angles,
                             threshold_cp: float = 0.2,
+                            method: str = 'adam',
                             learning_rate: float = 0.01,
                             num_iterations: int = 5000,
                             target_loss: float = 1e-6,
                             num_segments: int = 1, *,
                             device) -> VerifiedBatch:
     """Project the CP angles of every candidate (C, P) and re-optimize the
-    remaining free angles, all candidates in one fused sweep with the
-    projected angles frozen by the gradient mask. num_segments > 1 chains
-    that many sweeps, each resuming from the previous one's best angles
-    with fresh Adam moments; the frozen mask and the CZ count always come
-    from the original candidate's projection."""
+    remaining free angles, all candidates at once with the projected angles
+    frozen by the gradient mask. With method 'adam' it is one fused sweep;
+    num_segments > 1 chains that many sweeps, each resuming from the
+    previous one's best angles with fresh Adam moments; the frozen mask and
+    the CZ count always come from the original candidate's projection. Any
+    other method runs engine.minimize_multistart's chains on the same
+    objective (one segment, no early exit) and takes each candidate's best
+    iterate."""
     cand = torch.as_tensor(np.asarray(candidate_angles),
                            dtype=config.real_dtype, device=device)
     if cand.dim() == 1:
@@ -241,11 +368,20 @@ def verify_candidates_batch(unitary_loss_func, anz, candidate_angles,
         anz.num_qubits, anz.entangling_gate_name, anz.rotation_gates,
         anz.placements, unitary_loss_func)
     params = inits.T.contiguous()
-    for _ in range(max(1, int(num_segments))):
-        params, best_reg, _ = engine.fused_adam_sweep(
-            objective, params, learning_rate=learning_rate,
-            num_iterations=num_iterations, grad_mask_pb=mask_pb,
-            target_loss=target_loss)
+    if method == 'adam':
+        for _ in range(max(1, int(num_segments))):
+            params, best_reg, _ = engine.fused_adam_sweep(
+                objective, params, learning_rate=learning_rate,
+                num_iterations=num_iterations, grad_mask_pb=mask_pb,
+                target_loss=target_loss)
+    else:
+        raw = engine.minimize_multistart(
+            objective, inits, method=method, learning_rate=learning_rate,
+            num_iterations=num_iterations, keep_history=False,
+            u_func=anz.unitary, grad_mask=mask_pb.T, device=device)
+        best_i = torch.argmin(raw.regloss, dim=1)
+        rows = torch.arange(len(raw), device=device)
+        params, best_reg = raw.params[rows, best_i].T, raw.regloss[rows, best_i]
     cz = count_cz(projected * cp_mask[None, :],
                   threshold=threshold_cp).to(torch.int32)
     best_loss = best_reg.cpu().numpy()

@@ -43,9 +43,11 @@ import numpy as np
 import torch
 
 from cpflow_tpu_torch.ops import gates as gate_mats
-from cpflow_tpu_torch.sim.batched import (_PAULI, _cp_batched, _kron_batched,
-                                          _lift, _matmul_batched,
-                                          _rot_batched)
+from cpflow_tpu_torch import config
+from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
+from cpflow_tpu_torch.sim.batched import (_PAULI, _apply_gate_batched,
+                                          _cp_batched, _kron_batched, _lift,
+                                          _matmul_batched, _rot_batched)
 
 
 def _pauli(letter: str, like: torch.Tensor) -> torch.Tensor:
@@ -185,3 +187,91 @@ def surface_vjp(a3: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
     letters z, x, z."""
     g, rs = _leg('zxz', a3, gbar.real[0, 0])
     return torch.stack(_leg_grads('zxz', rs, _mm_bt(g, gbar)))
+
+
+# --------------------------------------------------------------------------
+# Adjoint walk (plain reference of the kernels' walk, whole-matrix form)
+# --------------------------------------------------------------------------
+
+def _gate_cotangent(m_cot, a_prev, placement, n):
+    """Gbar[p,k,b] = sum_rest M[p,rest,b] * A_prev[k,rest,b]."""
+    dim_g = 2 ** len(placement)
+    placement = list(placement)
+    others = [q for q in range(n) if q not in placement]
+    perm = placement + others + [n, n + 1]
+    B = m_cot.shape[-1]
+    mt = m_cot.permute(perm).reshape(dim_g, -1, B)
+    at = a_prev.permute(perm).reshape(dim_g, -1, B)
+    return torch.einsum('prb,krb->pkb', mt, at)
+
+
+def _apply_transpose(gate, tensor, placement, n):
+    """Apply G^T (plain transpose, no conjugation) at `placement`."""
+    return _apply_gate_batched(gate.transpose(0, 1), tensor, placement, n)
+
+
+def _apply_dagger(gate, tensor, placement, n):
+    return _apply_gate_batched(gate.transpose(0, 1).conj(), tensor,
+                               placement, n)
+
+
+def hst_output_cotangent(u, u_target):
+    """M = dL/dU (holomorphic) of the HS-test loss; u: (2,)*n + (2^n, B).
+    Returns (loss_B, M)."""
+    d = u_target.shape[0]
+    t = torch.as_tensor(np.asarray(u_target), dtype=u.dtype,
+                        device=u.device).reshape(u.shape[:-1] + (1,))
+    s = (u * t.conj()).reshape(-1, u.shape[-1]).sum(dim=0)
+    loss = 1 - s.abs() ** 2 / d ** 2
+    return loss, (-(s.conj() / d ** 2)) * t.conj()
+
+
+def manual_value_and_grad(num_qubits: int, entangling_gate_name: str,
+                          rotation_gates: str, placements: dict, u_target):
+    """Returns f(angles_PB) -> (loss_B, grad_PB): hand-written reverse mode
+    for the HS loss (no penalty), the derivation the kernels' walk follows,
+    held against autograd by the tests. Plain torch ops, unrolled over all
+    blocks."""
+    block_pl = all_placements(placements)
+    nba = num_block_angles(entangling_gate_name, rotation_gates)
+    n = num_qubits
+
+    def f(angles):
+        angles = torch.as_tensor(angles, dtype=config.real_dtype)
+        B = angles.shape[-1]
+        surface = angles[:3 * n].reshape(n, 3, B)
+        blocks = angles[3 * n:].reshape(-1, nba, B)
+
+        eye = torch.eye(2 ** n, dtype=config.complex_of(angles.dtype),
+                        device=angles.device)
+        u = eye.reshape([2] * n + [2 ** n, 1]).expand([2] * n + [2 ** n, B])
+        gates, grads, places = [], [], []
+        for q in range(n):
+            g, gs = surface_matrix_and_grads(surface[q])
+            gates.append(g)
+            grads.append(gs)
+            places.append([q])
+        for j, p in enumerate(block_pl):
+            g, gs = block_matrix_and_grads(entangling_gate_name,
+                                           rotation_gates, blocks[j])
+            gates.append(g)
+            grads.append(gs)
+            places.append(p)
+        for g, p in zip(gates, places):
+            u = _apply_gate_batched(g, u, p, n)
+
+        loss, m_cot = hst_output_cotangent(u, u_target)
+
+        # backward walk, last gate first
+        a_state = u
+        d_angles = [None] * len(gates)
+        for j in reversed(range(len(gates))):
+            g, p = gates[j], places[j]
+            a_state = _apply_dagger(g, a_state, p, n)
+            gbar = _gate_cotangent(m_cot, a_state, p, n)
+            d_angles[j] = torch.stack([
+                2 * (gbar * dg).sum(dim=(0, 1)).real for dg in grads[j]])
+            m_cot = _apply_transpose(g, m_cot, p, n)
+        return loss, torch.cat(d_angles, dim=0)
+
+    return f

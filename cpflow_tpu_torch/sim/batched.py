@@ -8,17 +8,22 @@ Every tensor keeps the restart batch as its last axis:
     gates   (4, 4, B) / (2, 2, B)
     loss    (B,)
 
-This is the CPU path of the port and the independent reference of the sweep
-kernel (kernels/sweep.py): gradients come from PyTorch autograd, a second
-derivation set against the kernel's hand-written adjoint. Semantics (angle
-layout, block order) are those of sim/ansatz_kernel.build_unitary.
+This is the CPU path of the port and the independent reference of the
+kernels (kernels/sweep.py, kernels/unitary.py): gradients come from PyTorch
+autograd, a second derivation set against the kernels' hand-written
+adjoint. Semantics (angle layout, block order) are those of
+sim/ansatz_kernel.build_unitary.
 
 Losses: the HS test, disc, state preparation (which builds only the
 |0...0> column of the unitary) and the modulo-identity/diagonal losses,
 written directly on the batch-last tensor where the JAX package vmaps the
-per-unitary callable. Not ported here: ``_apply_gate_batched_slices`` (a TPU
-layout experiment), the reversible custom-gradient builder, and custom
-losses (ROADMAP A.10).
+per-unitary callable; a custom loss, a torch callable of one (d, d) matrix,
+is vmapped over the restart axis. The JAX package's reversible
+custom-gradient builder (``make_reversible_builder``) is kernels/unitary.py
+here: ``BatchedRegloss`` takes its unitary from there, which on a CUDA
+tensor is the pair of hand-written kernels and on a CPU tensor
+``build_unitary_batched`` below. Not ported: ``_apply_gate_batched_slices``
+(a TPU layout experiment).
 """
 
 from __future__ import annotations
@@ -245,9 +250,11 @@ def batched_modulo_diagonal(u: torch.Tensor, u_target, num_qubits: int,
 
 def batched_unitary_loss(unitary_loss_func, u: torch.Tensor) -> torch.Tensor:
     """Evaluate a LossSpec on the batched unitary: the HS-test, disc,
-    state-preparation and modulo-identity/diagonal kinds. A custom loss (a
-    Python callable) is not taken: the sweep kernel cannot run one, and the
-    plain path keeps to what the kernel computes (ROADMAP A.10)."""
+    state-preparation and modulo-identity/diagonal kinds directly on the
+    batch-last tensor; a ``LossSpec('custom', fn=...)`` or a bare callable,
+    a torch function of one (d, d) complex matrix returning a real scalar,
+    vmapped over the restart axis, under autograd, in u's dtype and on its
+    device."""
     kind = getattr(unitary_loss_func, 'kind', None)
     target = getattr(unitary_loss_func, 'target', None)
     if kind == 'hst':
@@ -262,9 +269,14 @@ def batched_unitary_loss(unitary_loss_func, u: torch.Tensor) -> torch.Tensor:
     if kind == 'modulo_diagonal':
         return batched_modulo_diagonal(u, target, unitary_loss_func.num_qubits,
                                        unitary_loss_func.wires)
-    raise NotImplementedError(
-        f'batched loss kind {kind!r} is not ported (ROADMAP A.10: a custom '
-        f'loss cannot enter the fused sweep kernel)')
+    fn = unitary_loss_func.fn if kind == 'custom' else unitary_loss_func
+    if kind not in (None, 'custom') or not callable(fn):
+        raise ValueError(f'unknown loss {unitary_loss_func!r}')
+    d = 2 ** (u.dim() - 2)
+    if u.shape[-2] != d:
+        raise ValueError('a custom loss takes the whole unitary, got '
+                         f'{u.shape[-2]} of its {d} columns')
+    return torch.func.vmap(fn, in_dims=-1)(u.reshape(d, d, u.shape[-1]))
 
 
 class BatchedRegloss:
@@ -276,13 +288,21 @@ class BatchedRegloss:
     and the penalty's breakpoints from them and never calls the object.
     r is a float or a (B,) tensor of one weight per restart, so that one
     objective serves the restarts of several adaptive trials. A state loss
-    builds only the |0...0> column (``columns``). dtype is the real dtype
-    the plain version computes in (default config.real_dtype; the kernel
-    takes float32 only)."""
+    builds only the |0...0> column (``columns``); a custom loss always
+    takes the whole unitary. dtype is the real dtype the objective computes
+    in (default config.real_dtype; the kernels take float32 only).
+
+    Calling the objective builds the unitary with
+    kernels.unitary.build_unitary: on a CUDA tensor through the forward and
+    vjp kernels (differentiable, no fallback), on a CPU tensor with the
+    plain build_unitary_batched. plain=True keeps the plain builder on
+    either device: the kernels' reference on the card, and the float64
+    arbiter."""
 
     def __init__(self, num_qubits: int, entangling_gate_name: str,
                  rotation_gates: str, placements: dict, unitary_loss_func,
-                 cp_mask=None, regularization_func=None, r=0.0, dtype=None):
+                 cp_mask=None, regularization_func=None, r=0.0, dtype=None,
+                 plain: bool = False):
         self.num_qubits = num_qubits
         self.entangling_gate_name = entangling_gate_name
         self.rotation_gates = rotation_gates
@@ -296,25 +316,40 @@ class BatchedRegloss:
             else float(r)
         self.columns = [0] if getattr(unitary_loss_func, 'kind', None) == \
             'state' else None
+        self.plain = plain
 
     @property
     def has_penalty(self) -> bool:
         return self.regularization_func is not None and \
             self.cp_mask is not None
 
-    def loss_and_penalty(self, angles: torch.Tensor):
-        """(loss_B, penalty_B), the penalty not yet weighted by r."""
-        u = build_unitary_batched(self.num_qubits, self.entangling_gate_name,
-                                  self.rotation_gates, self.placements,
-                                  angles, columns=self.columns,
-                                  dtype=self.dtype)
-        loss = batched_unitary_loss(self.unitary_loss_func, u)
+    def penalty(self, angles: torch.Tensor) -> torch.Tensor:
+        """The penalty of angles (P, ...) summed over the CP angles, not yet
+        weighted by r; zeros without a penalty."""
         if not self.has_penalty:
-            return loss, torch.zeros_like(loss)
+            return torch.zeros(angles.shape[1:], dtype=self.dtype,
+                               device=angles.device)
         mask = torch.as_tensor(self.cp_mask, dtype=self.dtype,
                                device=angles.device)
-        return loss, self.regularization_func(
-            angles * mask[:, None]).sum(dim=0)
+        mask = mask.reshape((-1,) + (1,) * (angles.dim() - 1))
+        return self.regularization_func(angles * mask).sum(dim=0)
+
+    def regularization(self, angles: torch.Tensor) -> torch.Tensor:
+        """r * penalty of angles (P, ..., B): what the objective adds to
+        the loss."""
+        return self.r * self.penalty(angles)
+
+    def loss_and_penalty(self, angles: torch.Tensor):
+        """(loss_B, penalty_B), the penalty not yet weighted by r."""
+        if self.plain:
+            build = build_unitary_batched
+        else:
+            from cpflow_tpu_torch.kernels.unitary import build_unitary as build
+        u = build(self.num_qubits, self.entangling_gate_name,
+                  self.rotation_gates, self.placements, angles,
+                  columns=self.columns, dtype=self.dtype)
+        loss = batched_unitary_loss(self.unitary_loss_func, u)
+        return loss, self.penalty(angles)
 
     def __call__(self, angles: torch.Tensor):
         loss, pen = self.loss_and_penalty(angles)
@@ -327,14 +362,15 @@ def make_batched_regloss(num_qubits: int, entangling_gate_name: str,
                          rotation_gates: str, placements: dict,
                          unitary_loss_func, cp_mask=None,
                          regularization_func=None, r=0.0,
-                         dtype=None) -> BatchedRegloss:
+                         dtype=None, plain: bool = False) -> BatchedRegloss:
     """The fused hot-path objective (loss + r * sum(penalty(cp angles)));
-    r a float or a (B,) tensor; dtype the real dtype of the plain version
-    (default config.real_dtype)."""
+    r a float or a (B,) tensor; dtype the real dtype it computes in
+    (default config.real_dtype); plain=True for the plain builder on
+    either device (see BatchedRegloss)."""
     return BatchedRegloss(num_qubits, entangling_gate_name, rotation_gates,
                           placements, unitary_loss_func, cp_mask=cp_mask,
                           regularization_func=regularization_func, r=r,
-                          dtype=dtype)
+                          dtype=dtype, plain=plain)
 
 
 def make_batched_loss_and_penalty(num_qubits: int, entangling_gate_name: str,

@@ -1,10 +1,12 @@
 """Qubit-connectivity layers (counterpart of cpflow_tpu/topology.py).
 
-Plain Python lists; nothing here touches a tensor. ``random_placement*``
-is not ported (off the static path).
+Plain Python lists; only ``random_placement(s)`` draws, from an explicit
+``torch.Generator`` (the same seed gives other pairs than the JAX package).
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def connected_layer(num_qubits):
@@ -38,6 +40,24 @@ def fill_layers(layer, depth):
     num_complete_layers = depth // len(layer)
     incomplete_layer = layer[:depth % len(layer)]
     return {'layers': [layer, num_complete_layers], 'free': incomplete_layer}
+
+
+def random_placement(num_qubits, coupling_map=None, generator=None):
+    """Two distinct qubits, uniformly (coupling_map is not used, as in the
+    JAX package)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    i, j = torch.randperm(num_qubits, generator=generator,
+                          device=generator.device)[:2].tolist()
+    return [i, j]
+
+
+def random_placements(num_qubits, num_gates, coupling_map=None,
+                      generator=None):
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return [random_placement(num_qubits, coupling_map, generator)
+            for _ in range(num_gates)]
 
 
 def num_qubits_from_layer(layer):

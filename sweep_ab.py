@@ -29,14 +29,15 @@ import sys
 
 
 def build(source: Path) -> ctypes.CDLL:
-    from cpflow_tpu_torch.kernels import sweep as sk
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    from cpflow_tpu_torch.kernels import build as kb
+    # a source may include headers that lie beside it: hash its directory
+    digest = hashlib.sha1(b''.join(
+        p.read_bytes() for p in sorted(source.parent.iterdir())
+        if p.is_file())).hexdigest()[:12]
     out = Path(__file__).resolve().parent / 'build' / 'ab' / f'{digest}.so'
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        [sk._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-         '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o',
-         str(out), str(source)], capture_output=True, text=True)
+    proc = subprocess.run(kb.command(source, out), capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed for {source}:\n{proc.stderr}')
     report = [line.strip() for line in proc.stderr.splitlines()

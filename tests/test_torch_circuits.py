@@ -88,3 +88,44 @@ def test_param_gate_matrix_and_check_approximation():
     drifted = tir.Circuit(2).append('rx', 0, 0.9).append('cz', (0, 1))
     with pytest.raises(ValueError):
         tpasses.check_approximation(qc, drifted)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_circuit_to_torch_unitary_matches_circuit_unitary(seed):
+    """A circuit of rotations, fixed gates and a concrete cp gate as a
+    function of its rotation angles: at the circuit's own angles it is
+    Circuit.unitary() (1e-6 in complex64), at others the unitary of the
+    circuit with those angles, and it is differentiable. The JAX package's
+    circuit_to_jax_unitary gives the same matrix."""
+    import jax.numpy as jnp
+    import torch
+    from cpflow_tpu.circuits.ir import Circuit as JCircuit
+    from cpflow_tpu.sim.circuit_exec import circuit_to_jax_unitary
+    from cpflow_tpu_torch import params
+    from cpflow_tpu_torch.sim.circuit_exec import circuit_to_torch_unitary
+    rng = np.random.default_rng(seed)
+    qc = tir.Circuit(3)
+    qc.h(0).rz(rng.uniform(0, 6), 1).cz(0, 1).rx(rng.uniform(0, 6), 2)
+    qc.append('cp', (1, 2), float(rng.uniform(0, 6)))
+    qc.ry(rng.uniform(0, 6), 0).cx(2, 0).t(1).rz(rng.uniform(0, 6), 2)
+    u_func, angles, wires = circuit_to_torch_unitary(qc)
+    assert wires == [1, 2, 0, 2] and len(angles) == 4
+    np.testing.assert_allclose(u_func(angles).numpy(), qc.unitary(),
+                               atol=1e-6)
+    ju_func, jangles, jwires = circuit_to_jax_unitary(
+        params.circuit_to_jax(qc, JCircuit))
+    assert jwires == wires and jangles == angles
+    other = rng.uniform(0, 6, 4).astype(np.float32)
+    np.testing.assert_allclose(u_func(other).numpy(),
+                               np.asarray(ju_func(jnp.asarray(other))),
+                               atol=1e-6)
+    moved = tir.Circuit(3)
+    it = iter(other)
+    for inst in qc.instructions:
+        moved.append(inst.name, inst.qubits, float(next(it)) if inst.name in
+                     tir.ROTATION_NAMES else inst.param)
+    np.testing.assert_allclose(u_func(other).numpy(), moved.unitary(),
+                               atol=1e-6)
+    a = torch.tensor(other, requires_grad=True)
+    (g,) = torch.autograd.grad(u_func(a)[0, 0].abs() ** 2, a)
+    assert tuple(g.shape) == (4,) and bool(torch.isfinite(g).all())

@@ -46,8 +46,9 @@ def _problem(n, k, rot, target, r, B, seed, kind='hst', ent='cp',
         cp_mask[cp_angle_indices(n, nba, k)] = 1
         pen = dict(cp_mask=cp_mask, regularization_func=LinearPenalty(*PEN),
                    r=r)
+    # plain=True: called on the card, the objective is the plain version
     obj = make_batched_regloss(n, ent, rot, fill_layers(chain_layer(n), k),
-                               spec, dtype=dtype, **pen)
+                               spec, dtype=dtype, plain=True, **pen)
     return obj, inits, rng
 
 

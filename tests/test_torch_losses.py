@@ -226,3 +226,49 @@ def test_kernel_modulo_math_matches_autograd(kind, n, wires):
     getattr(tl, FUNCS[kind])(t, ut, n, wires).backward()
     np.testing.assert_allclose(ut.grad.numpy(), 2 * np.conj(m @ t.T),
                                atol=1e-12)
+
+
+# --- disc2_swap and the Fubini-Study metric ----------------------------------
+
+@pytest.mark.parametrize('n', [2, 3])
+def test_permutation_matrices_and_disc2_swap_match_jax(n):
+    """The product of HS-test costs over all wire permutations: 1e-5 in
+    float32; zero on a wire permutation of the target."""
+    t, u = _unitaries(n, 2, seed=40 + n)
+    for a, b in zip(tl.permutation_matrices(n), jl.permutation_matrices(n)):
+        np.testing.assert_array_equal(a, b)
+    u32, t32 = u.astype(np.complex64), t.astype(np.complex64)
+    got = tl.disc2_swap(torch.tensor(u32), t32, n)
+    want = jl.disc2_swap(jnp.asarray(u32), jnp.asarray(t32), n)
+    assert abs(got.item() - float(want)) <= 1e-5
+    swapped = tl.permutation_matrices(n)[-1].astype(np.complex128) @ t
+    assert abs(tl.disc2_swap(torch.tensor(swapped), t, n).item()) <= 1e-12
+    assert tl.disc2_swap(torch.tensor(u), t, n).item() > 1e-3
+
+
+@pytest.mark.parametrize('rot,k', [('xyz', 2), ('xz', 3)])
+def test_fubini_study_matches_jax(rot, k):
+    """The (P, P) metric of the ansatz unitary at random angles, 1e-5 in
+    float32; symmetric, with a nonnegative diagonal; vmappable over
+    restarts (the natural-gradient preconditioner of a batch)."""
+    from cpflow_tpu.sim.ansatz_kernel import build_unitary as j_build
+    from cpflow_tpu_torch.sim.ansatz_kernel import build_unitary as t_build
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    pl = fill_layers(chain_layer(3), k)
+    P = 9 + (2 * len(rot) + 1) * k
+    x = np.random.default_rng(7).uniform(0, 2 * np.pi, (P, 3)).astype(
+        np.float32)
+    ju = lambda a: j_build(3, 'cp', rot, pl, a)
+    tu = lambda a: t_build(3, 'cp', rot, pl, a)
+    for c in (1.0, 0.5):
+        got = tl.fubini_study(tu, torch.tensor(x[:, 0]), relative_coeff=c)
+        want = jl.fubini_study(ju, jnp.asarray(x[:, 0]), relative_coeff=c)
+        assert tuple(got.shape) == (P, P) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    torch.testing.assert_close(got, got.T, atol=1e-6, rtol=0)
+    assert float(got.diagonal().min()) >= -1e-6
+    batch = torch.func.vmap(lambda a: tl.fubini_study(tu, a), in_dims=1)(
+        torch.tensor(x))
+    torch.testing.assert_close(
+        batch[2], tl.fubini_study(tu, torch.tensor(x[:, 2])), atol=1e-6,
+        rtol=0)

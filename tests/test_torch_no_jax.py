@@ -93,6 +93,45 @@ np.testing.assert_allclose(exact.to_complex(),
                            atol=1e-12)
 assert params.circuit_from_jax(params.circuit_rows(qc), 2).to_qasm() == \
     qc.to_qasm()
+# the differentiable objective, custom losses and the rest of the engine
+from cpflow_tpu_torch import config, optimize, topology
+from cpflow_tpu_torch.kernels import build, unitary
+from cpflow_tpu_torch.ops import losses, trig
+from cpflow_tpu_torch.optimize import candidates
+from cpflow_tpu_torch.sim import circuit_exec
+assert build.digest() and unitary.FORWARD_LAUNCHES == 0
+u = unitary.build_unitary(3, 'cp', 'xyz', anz.placements,
+                          torch.zeros(anz.num_angles, 2))
+assert u.shape == (2, 2, 2, 8, 2)
+fn = lambda m: 1 - torch.abs((m * torch.as_tensor(u_ccz3).conj()).sum()) ** 2 / 64
+custom = api.Synthesize(chain_layer(3), unitary_loss_func=fn, device='cpu')
+custom.static(opts, save_results=False, verbose=False)
+custom.adaptive(ada, save_results=False, verbose=False)
+for method in ('natural adam', 'natural gd', 'hessian', 'angle by angle'):
+    synth.static(api.StaticOptions(num_cp_gates=2, num_samples=2,
+                                   num_gd_iterations=2, method=method,
+                                   accepted_num_cz_gates=100, entry_loss=9.0,
+                                   num_gd_iterations_at_verification=2),
+                 save_results=False, verbose=False)
+learned = anz.learn(u_ccz3, num_repeats=2, num_iterations=3, device='cpu')
+assert len(learned) == 2 and learned[0]['params'].shape == (3, anz.num_angles)
+hist, loss = optimize.mynimize(lambda a: (a ** 2).sum(), 3, num_iterations=4,
+                               device='cpu')
+assert hist.shape == (4, 3)
+raw = engine.minimize_fused(make_batched_regloss(
+    3, 'cz', 'xz', cz.placements, api.LossSpec('disc', target=u_ccz3)),
+    np.zeros((2, cz.num_angles)), num_iterations=3, keep_history=True,
+    device='cpu')
+assert raw.params.shape == (2, 3, cz.num_angles)
+assert trig.min_angle(lambda x: torch.cos(torch.as_tensor(x))) > 3
+assert losses.fubini_study(anz.unitary, torch.zeros(anz.num_angles)).shape \
+    == (anz.num_angles,) * 2
+assert len(topology.random_placements(4, 3)) == 3
+u_func, a0, _ = circuit_exec.circuit_to_torch_unitary(qc)
+assert refine.lasso_angles(
+    lambda a: losses.cost_HST(u_func(a), qc.unitary()), np.array(a0),
+    eps=0.0, device='cpu').shape == (len(a0),)
+config.set_precision(False)
 loaded = [m for m in ('jax', 'optax', 'dill') if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')

@@ -182,16 +182,32 @@ def test_refine_of_the_verified_angles_matches_jax(static_run):
 
 
 def test_static_entry_points_refuse_what_is_not_ported():
+    """Every method and a custom loss now run (they raised before the
+    engine was ported); what is left to refuse is an unknown method and a
+    StaticOptions without its required arguments."""
     synth = tapi.Synthesize(chain_layer(N), target_unitary=u_ccz3,
                             device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A.10'):
-        synth.static(tapi.StaticOptions(method='natural adam', **_options(5)),
-                     save_results=False, verbose=False)
-    # a custom loss (a Python callable) does not enter the sweep
-    custom = tapi.Synthesize(chain_layer(N), device='cpu',
-                             unitary_loss_func=lambda u: 0.0)
-    with pytest.raises(NotImplementedError, match='ROADMAP A.10'):
-        custom.static(tapi.StaticOptions(**_options(5)), save_results=False,
-                      verbose=False)
+    opts = dict(_options(3, 3), accepted_num_cz_gates=100, entry_loss=10.0)
+    res = synth.static(tapi.StaticOptions(method='natural adam', **opts),
+                       save_results=False, verbose=False,
+                       initial_angles_array=INITS[:4])
+    assert 'sampling' in synth.stage_seconds
+    assert all(np.isfinite(d.loss) for d in res.decompositions)
+    # a custom loss, a torch callable of one unitary, enters the sweep
+    target = torch.as_tensor(u_ccz3)
+    custom = tapi.Synthesize(
+        chain_layer(N), device='cpu',
+        unitary_loss_func=lambda u: 1 - torch.abs(
+            (u * target.to(u.dtype).conj()).sum()) ** 2 / 64)
+    hst = synth._raw_and_evaluate(tapi.StaticOptions(**opts), INITS[:4])
+    ev = custom._raw_and_evaluate(tapi.StaticOptions(**opts), INITS[:4])
+    np.testing.assert_allclose(ev.loss, hst.loss, atol=1e-6)
+    res = custom.static(tapi.StaticOptions(**opts), save_results=False,
+                        verbose=False, initial_angles_array=INITS[:4])
+    assert all(np.isfinite(d.loss) for d in res.decompositions)
+    with pytest.raises(ValueError, match='not supported'):
+        synth.static(tapi.StaticOptions(method='newton', **opts),
+                     save_results=False, verbose=False,
+                     initial_angles_array=INITS[:4])
     with pytest.raises(TypeError):
         tapi.StaticOptions(num_cp_gates=4)
