@@ -32,11 +32,12 @@ with CUDA, and never imports JAX. Phases:
      on the 3q chain CCZ (k=12, 1024 samples), which must return a
      decomposition with at most 8 CZ and float64 host loss <= 1e-6,
      through the kernel in both the sampling and the verification stage;
-  5. times of the kernel and the plain version, each kernel time beside
-     its bound (bound_ms, from the operations sweep_work counts) and the
-     kernel's registers per thread and resident blocks per SM at that
-     shape: the static sampling shape, the 5q k=20 batch-2048 shape, shape
-     (d) for 2000 steps, (f) for 500, (g) for 500 and (h) for 2000;
+  5. times of the kernel and the plain version (the plain one over 100 or
+     200 steps, scaled), each kernel time beside its bound (bound_ms, from
+     the operations sweep_work counts) and the kernel's registers per
+     thread and resident blocks per SM at that shape: the static sampling
+     shape, the 5q k=20 batch-2048 shape, shape (d) for 2000 steps, (f) for
+     500, (g) for 500 and (h) for 2000;
   6. the adaptive main path: Synthesize(square_layer(4),
      target_unitary=u_toff4).adaptive with k in [10, 40], 1024 samples,
      bucketed, 4 parallel trials, 8 evals, stopping at 16 CZ; every trial
@@ -73,37 +74,61 @@ with CUDA, and never imports JAX. Phases:
      depth printed beside the paper's 7 and 3;
  12. the forward and vjp kernels of the differentiable ansatz
      (kernels/unitary.py) against their plain version on the card at
-     twelve templates: at B=256, 3q k=12 'xyz' cp, 5q k=20 'xz' cp, 6q
-     connected k=40 (the largest layout), 4q 'cz' blocks with 'y', 10q k=36
-     column 0; then every template of phases 13 and 14 at the batch they
-     give it, a verification's few candidates with frozen CP angles among
-     them; the unitary within 2e-5, the gradients of two cotangents within
-     1e-4 scaled by max(1, |gradient|), at 3q also against float64 central
-     differences (1e-3); then both kernels' times beside their bounds at
-     3q k=12 B=1024 and 5q k=20 B=2048;
+     fifteen templates: at B=256, 3q k=12 'xyz' cp, 5q k=20 'xz' cp, 6q
+     connected k=40 (the largest layout on one block), 4q 'cz' blocks with
+     'y', 10q k=36 column 0; then every template of phases 13 and 14 at the
+     batch they give it, a verification's few candidates with frozen CP
+     angles among them; then the whole unitary split over several blocks:
+     7q chain k=24 B=64, 8q chain k=16 'xz' B=16 and the Toffoli-7
+     composite's 144 placements B=8; the unitary within 2e-5, the gradients
+     of two cotangents within 1e-4 scaled by max(1, |gradient|), at 3q also
+     against float64 central differences (1e-3); then both kernels' times
+     beside their bounds at 3q k=12 B=1024, 5q k=20 B=2048, 7q k=24 B=64
+     and 8q k=16 B=16;
  13. the custom-loss path: the reference notebook's GHZ-4 and
      relative-phase Toffoli-3 syntheses with the losses as torch callables
      (adaptive, k in [0, 10], stopping at 3 CZ, max_evals cut to 8), which
      must run through the forward and vjp kernels and never through the
      plain builder; GHZ-4 must reach 3 CZ at host loss <= 1e-6, as the same
      run with target_state (the fused kernel) does; the relative-phase
-     Toffoli-3's 8 trials run bucketed in one sweep, and its last
-     decomposition is refined;
+     Toffoli-3's 8 trials run bucketed in one sweep of 1000 steps (2000 in
+     the notebook), and its last decomposition is refined;
  14. the engine: Ansatz.learn (Toffoli-3, 200 restarts, without and with a
      history) and StaticOptions(method=...) for 'natural adam', 'hessian'
-     and 'angle by angle' on the 3q chain CCZ at small budgets.
+     and 'angle by angle' on the 3q chain CCZ at small budgets;
+ 15. seven and eight qubits, each restart's columns split over a cluster of
+     2, 4 or 8 thread blocks: (a) the sweep kernel against its plain
+     version as in phase 3 at nine shapes, T = 60 unless said: (q) 7q chain
+     Toffoli-7 k=24 B=256 r=0.002; (r) the disc loss on it, B=64; (s) the
+     modulo-diagonal loss on wires [2, 5, 0], 'xz', k=16 B=256; (t) the
+     modulo-identity loss on wires [6, 1], k=16 B=128; (u) (q)'s template
+     bucketed, k in (12, 24), B = 2 x 128 with r and a template mask per
+     trial ((q), (s), (t), (u) with the float64 arbiter, seven_shapes);
+     (v) the verification shape, B=8 with a mask, r=0, lr 0.01,
+     target_loss; (w) 8q chain k=16 'xz' B=32 (8 blocks); (x) 7q k=220
+     B=8 T=10 (4 blocks); (y) the 144 placements of the Toffoli-7
+     composite, B=64 T=20 (arbiter); (b) the Toffoli-7 program at full
+     width: the
+     composite embedded exactly (k=144), its float32 loss in the kernel
+     beside the float64 host loss, a warm batch of 64 through
+     engine.minimize_fused for 2000 steps at r = 1e-4, verification, which
+     must give at most 144 CZ at float64 host loss <= 1e-6; (c)
+     Synthesize.static on the 7q chain for the CX ladder (6 CZ); 9 qubits
+     must be refused.
 
-Each main path (4, 6-11, 13 and 14) runs with the kernels' launch counts
-set to 0 just before it and read just after. The script prints the card, a
-JSON line of kernel results (sweep, ansatz_forward, ansatz_vjp) and, last,
-the JSON device line; it exits non-zero if any phase fails or there is no
-card.
+Each main path (4, 6-11, 13, 14, 15 (b) and (c)) runs with the kernels'
+launch counts set to 0 just before it and read just after. Every shape's
+plan (blocks a restart, shared bytes per block) is held against the
+kernels' own. The script prints the card, a JSON line of kernel results
+(sweep, ansatz_forward, ansatz_vjp) and, last, the JSON device line; it
+exits non-zero if any phase fails or there is no card.
 """
 
 from __future__ import annotations
 
-import json
 from collections import Counter
+import functools
+import json
 import math
 from pathlib import Path
 import subprocess
@@ -465,34 +490,64 @@ def compare_shapes():
     ]
 
 
-def phase_compare():
-    """Kernel vs plain version on the card, same inputs, 60 steps. The
-    losses at the initial angles must agree within 1e-5 for every restart
-    (two derivations of one float32 forward pass), as scaled_err measures;
-    the best losses after 60 steps as drift_ok says; where it misses, on an
-    arbiter shape as close to the plain float64 version as the plain
-    float32 one (as_close_as_plain), on any other shape within drift_ok of
-    float64 where plain float32 is not (plain_drifted); with target_loss
-    the success flags must be equal.
+def check_plan(obj, B, name):
+    """The blocks a restart of `obj` runs on: kernels/sweep.py's plan
+    (cluster_plan, smem_bytes) must agree with the kernel's
+    (cpflow_sweep_smem_bytes, and the cluster of the build it launches).
+    Returns (blocks a restart, shared bytes per block, the occupancy)."""
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    kind = obj.unitary_loss_func.kind
+    n, nb = obj.num_qubits, len(all_placements(obj.placements))
+    nba = num_block_angles(obj.entangling_gate_name, obj.rotation_gates)
+    c = sk.cluster_plan(n, nb, nba, kind)
+    mine = sk.smem_bytes(n, nb, nba, kind, c)
+    card = sk.load_library().cpflow_sweep_smem_bytes(
+        n, nb, nba, sk.LOSS_CODES[kind], c)
+    occ = sk.occupancy(obj, B)
+    check(mine == card == occ['smem_bytes'] and occ['cluster'] == c,
+          f'{name}: the plan says {c} blocks of {mine} bytes, the kernel '
+          f'{occ["cluster"]} blocks of {card} ({occ["smem_bytes"]}) bytes')
+    return c, mine, occ
+
+
+def phase_compare(shapes=None, label='phase 3'):
+    """Kernel vs plain version on the card, same inputs, T steps (60 unless
+    the shape says). The losses at the initial angles must agree within
+    1e-5 for every restart (two derivations of one float32 forward pass),
+    as scaled_err measures; the best losses after T steps as drift_ok says;
+    where it misses, on an arbiter shape as close to the plain float64
+    version as the plain float32 one (as_close_as_plain), on any other
+    shape within drift_ok of float64 where plain float32 is not
+    (plain_drifted); with target_loss the success flags must be equal.
+    Every shape's plan (blocks a restart, shared bytes per block) is held
+    against the kernel's (check_plan). shapes: phase 3's (compare_shapes)
+    by default.
     Returns (largest absolute error, the templates driven: a dict of the
-    losses, entanglers and rotation strings)."""
+    losses, entanglers and rotation strings, and the rows: name, cluster,
+    bytes, ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     dev = 'cuda'
     worst = 0.0
     driven = {'modes': set(), 'entanglers': set(), 'rotation_strings': set()}
-    for i, s in enumerate(compare_shapes()):
+    rows = []
+    for i, s in enumerate(compare_shapes() if shapes is None else shapes):
         obj, init, mask = shape_inputs(s, s.get('seed', 100 + i))
-        P, tl = init.shape[0], s.get('target_loss')
+        P, tl, T = init.shape[0], s.get('target_loss'), s.get('T', 60)
         if s.get('mask'):
             gen = torch.Generator(device=dev).manual_seed(200 + i)
             mask = (torch.rand((P, s['B']), generator=gen, device=dev) > 0.3
                     ).float()
+        c, nbytes, occ = check_plan(obj, s['B'], s['name'])
+        check(c == s.get('cluster', 1), f'{s["name"]}: {c} blocks a '
+              f'restart, not {s.get("cluster", 1)}')
         before = sk.LAUNCHES
-        out, ms = timed(lambda: sk.sweep(obj, init, s['lr'], 60, mask, tl))
+        out, ms = timed(lambda: sk.sweep(obj, init, s['lr'], T, mask, tl))
         check(sk.LAUNCHES > before, f'{s["name"]}: kernel not launched')
         ref, plain_ms = timed(lambda: sk.sweep_reference(
-            obj, init, s['lr'], 60, mask, tl))
+            obj, init, s['lr'], T, mask, tl))
         for t in out:
             check(t.shape[-1] == s['B'] and bool(torch.isfinite(t).all()),
                   f'{s["name"]}: bad output')
@@ -500,8 +555,10 @@ def phase_compare():
         abs0 = (out.regloss0 - ref.regloss0).abs().max().item()
         check(err0 <= 1e-5, f'{s["name"]}: initial loss differs by {err0}')
         keep = torch.ones(s['B'], dtype=torch.bool, device=dev)
-        line = (f'phase 3: {s["name"]}: kernel {ms:.2f} ms, plain '
-                f'{plain_ms:.2f} ms; regloss0 up to '
+        line = (f'{label}: {s["name"]}: {c} block(s) a restart, {nbytes} '
+                f'shared bytes and {occ["registers"]} registers a thread each'
+                f', {occ["active_clusters"]} restarts resident; T={T}: kernel '
+                f'{ms:.2f} ms, plain {plain_ms:.2f} ms; regloss0 up to '
                 f'{ref.regloss0.abs().max().item():.4g}, error max {abs0:.2e}'
                 f' (scaled {err0:.2e})')
         if tl is not None:
@@ -513,30 +570,34 @@ def phase_compare():
             keep = ~ok_k  # the rest ran all 60 steps in both
         worst = max(worst, abs0)
         ref64 = None
-        for label, a, b in [('best regloss', out.best_reg, ref.best_reg),
-                            ('best loss', out.best_loss, ref.best_loss)]:
+        for what, a, b in [('best regloss', out.best_reg, ref.best_reg),
+                           ('best loss', out.best_loss, ref.best_loss)]:
             if not bool(keep.any()):
                 continue
             err = scaled_err(a, b)[keep]
             ok, within = drift_ok(err)
-            line += (f', {label} scaled error max {err.max().item():.2e} median '
+            line += (f', {what} scaled error max {err.max().item():.2e} median '
                      f'{err.median().item():.2e} within 1e-4 {within:.1%}')
             if not ok:  # float64 plain decides
                 if ref64 is None:
                     obj64 = shape_objective(s, torch.float64)[0]
-                    ref64 = sk.sweep_reference(obj64, init, s['lr'], 60, mask,
+                    ref64 = sk.sweep_reference(obj64, init, s['lr'], T, mask,
                                                tl)
                 rule = as_close_as_plain if s.get('arbiter') else plain_drifted
-                ok, verdict = rule(a, b, ref64.best_reg if label ==
+                ok, verdict = rule(a, b, ref64.best_reg if what ==
                                    'best regloss' else ref64.best_loss, keep)
                 line += f' (float64, {rule.__name__}: {verdict})'
-            check(ok, f'{s["name"]}: {label} drifts beyond the rule: {line}')
+            check(ok, f'{s["name"]}: {what} drifts beyond the rule: {line}')
             worst = max(worst, (a - b).abs()[keep].max().item())
         print(line, flush=True)
         driven['modes'].add(s.get('kind', 'hst'))
         driven['entanglers'].add(s.get('ent', 'cp'))
         driven['rotation_strings'].add(s.get('rot', 'xyz'))
-    return worst, {k: sorted(v) for k, v in driven.items()}
+        b_ms, b_by = bound_ms(shape_work(s), s['B'], T)
+        rows.append(dict(shape=s['name'], T=T, cluster=c, smem_bytes=nbytes,
+                         registers=occ['registers'], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return worst, {k: sorted(v) for k, v in driven.items()}, rows
 
 
 def phase_main_path():
@@ -584,9 +645,9 @@ def phase_main_path():
 
 def phase_timing(card):
     """Kernel and plain times, and the kernel's share of its bound
-    (bound_ms). The plain version of the later rows is timed over
-    T_plain = 100 steps, not T: its time is linear in the step count (no
-    early exit), and their T steps would take minutes of the script's
+    (bound_ms). The plain version is timed over T_plain steps, fewer than
+    T (200 at the static shape, else 100): its time is linear in the step
+    count (no early exit), and T steps took about 70 s of the script's
     budget. Rates are restart-iter/s. Returns one dict per row."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
@@ -594,9 +655,9 @@ def phase_timing(card):
     rows = []
     for s, T, T_plain in [
             (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12,
-                  target=u_ccz3, r=0.00055, B=1024), 2000, 2000),
+                  target=u_ccz3, r=0.00055, B=1024), 2000, 200),
             (dict(name='5q Toffoli k=20 B=2048', n=5, k=20,
-                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 500),
+                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 100),
             (shapes['(d)'], 2000, 100), (shapes['(f)'], 500, 100),
             (shapes['(g)'], 500, 100), (shapes['(h)'], 2000, 100)]:
         obj, init, mask = shape_inputs(s, s.get('seed', 7))
@@ -621,9 +682,9 @@ def phase_timing(card):
               f'bytes per thread, {occ["threads"]} threads and '
               f'{occ["smem_bytes"]} shared bytes per block, '
               f'{occ["blocks_per_sm"]} blocks per SM', flush=True)
-        rows.append(dict(ms=ms, plain_ms=plain_ms * T / T_plain,
-                         bound_ms=b_ms, bound_by=b_by,
-                         registers=occ['registers']))
+        rows.append(dict(shape=s['name'], T=T, cluster=occ['cluster'], ms=ms,
+                         plain_ms=plain_ms * T / T_plain, bound_ms=b_ms,
+                         bound_by=b_by, registers=occ['registers']))
     return rows
 
 
@@ -1004,8 +1065,10 @@ def unitary_bound_ms(ops, nbytes, B):
 
 def unitary_shapes():
     """Phase 12's templates: dicts of n, ent, rot, placements, columns and
-    the restarts B (default 256): the five largest layouts, then every
-    template and batch that phases 13 and 14 give the kernels. With
+    the restarts B (default 256): the five largest layouts on one block,
+    then every template and batch that phases 13 and 14 give the kernels,
+    then three whose columns are split over several blocks (7 and 8
+    qubits, and phase 15's 144-block Toffoli-7 template). With
     verification=True the batch is what a verification hands over: every
     other CP angle snapped to 0 or pi, and its gradient masked out."""
     from cpflow_tpu_torch.topology import (chain_layer, connected_layer,
@@ -1046,7 +1109,37 @@ def unitary_shapes():
         dict(name="3q chain k=8 'xz' cp (phase 14's Ansatz.learn)", n=3,
              ent='cp', rot='xz', placements=fill_layers(chain_layer(3), 8),
              B=200),
+        dict(name="7q chain k=24 'xyz' cp (phase 15's rows (q)-(v))", n=7,
+             ent='cp', rot='xyz', placements=fill_layers(chain_layer(7), 24),
+             B=64),
+        dict(name="8q chain k=16 'xz' cp (phase 15's row (w))", n=8,
+             ent='cp', rot='xz', placements=fill_layers(chain_layer(8), 16),
+             B=16),
+        dict(name="the Toffoli-7 composite's 144 placements 'xyz' cp "
+                  "(phase 15's program)", n=7, ent='cp', rot='xyz',
+             placements={'layers': [[], 0], 'free': toffoli7_program()[2]},
+             B=8),
     ]
+
+
+def unitary_plan(n, nb, nba, log_c, name):
+    """(forward, vjp) blocks a restart of the unitary kernels: the plan of
+    kernels/unitary.py (cluster_plan, smem_bytes) must agree with the
+    kernels' (cpflow_unitary_cluster, cpflow_unitary_smem_bytes)."""
+    from cpflow_tpu_torch.kernels import unitary as uk
+    lib = uk.load_library()
+    out = []
+    for vjp in (False, True):
+        c = uk.cluster_plan(n, nb, nba, log_c, vjp)
+        mine = uk.smem_bytes(n, nb, nba, log_c, vjp, c)
+        card = lib.cpflow_unitary_smem_bytes(n, nb, nba, log_c, int(vjp), c)
+        theirs = lib.cpflow_unitary_cluster(n, nb, nba, log_c, int(vjp))
+        check(c == theirs and mine == card,
+              f'{name}: the plan says {c} blocks of {mine} bytes for the '
+              f'{"vjp" if vjp else "forward pass"}, the kernels {theirs} '
+              f'blocks of {card} bytes')
+        out.append(c)
+    return tuple(out)
 
 
 def random_unitary(rng, d):
@@ -1099,8 +1192,10 @@ def phase_unitary(card):
         n, ent, rot, pl = s['n'], s['ent'], s['rot'], s['placements']
         cols, B = s.get('columns'), s.get('B', 256)
         tpl = (n, ent, rot, pl)
-        P = 3 * n + num_block_angles(ent, rot) * len(all_placements(pl))
+        nba, nb = num_block_angles(ent, rot), len(all_placements(pl))
+        P = 3 * n + nba * nb
         d = 2 ** n
+        blocks = unitary_plan(n, nb, nba, 0 if cols else n, s['name'])
         drawn = rng.uniform(0, 2 * math.pi, (P, B))
         mask = None
         if s.get('verification'):
@@ -1144,8 +1239,10 @@ def phase_unitary(card):
         check(err_g <= 1e-4 and err_h <= 1e-4,
               f'{s["name"]}: gradient differs from autograd: loss cotangent '
               f'{err_g}, random cotangent {err_h}')
-        line = (f'phase 12: {s["name"]} B={B}: unitary error max {err_f:.2e}; '
-                f'gradient error (scaled by max(1, |grad|)) loss cotangent '
+        line = (f'phase 12: {s["name"]} B={B}: forward on {blocks[0]}, vjp '
+                f'on {blocks[1]} block(s) a restart; unitary error max '
+                f'{err_f:.2e}; gradient error (scaled by max(1, |grad|)) loss '
+                f'cotangent '
                 f'{err_g:.2e} (|grad| up to {g_p.abs().max().item():.3g}), '
                 f'random cotangent {err_h:.2e} (|grad| up to '
                 f'{h_p.abs().max().item():.3g})')
@@ -1174,7 +1271,9 @@ def phase_unitary(card):
 
     rows = {'ansatz_forward': [], 'ansatz_vjp': []}
     for name, n, k, Bt in [('3q chain k=12 B=1024', 3, 12, 1024),
-                           ('5q chain k=20 B=2048', 5, 20, 2048)]:
+                           ('5q chain k=20 B=2048', 5, 20, 2048),
+                           ('7q chain k=24 B=64', 7, 24, 64),
+                           ('8q chain k=16 B=16', 8, 16, 16)]:
         tpl = (n, 'cp', 'xyz', fill_layers(chain_layer(n), k))
         work = unitary_work(n, k)
         rng = np.random.default_rng(1250 + n)
@@ -1202,22 +1301,26 @@ def phase_unitary(card):
         v_dev = device_ms(lambda: uk.ansatz_vjp(*tpl, angles, u, w),
                           'vjp_kernel')
         regs = uk.registers()
-        for kernel, ms, on_card, plain, ops, nbytes in [
+        blocks = unitary_plan(n, k, num_block_angles('cp', 'xyz'), n, name)
+        for kernel, ms, on_card, plain, ops, nbytes, c in [
                 ('ansatz_forward', f_ms, f_dev, min(pf[1:]), work['forward'],
-                 work['forward_bytes']),
+                 work['forward_bytes'], blocks[0]),
                 ('ansatz_vjp', v_ms, v_dev, min(pv[1:]), work['vjp'],
-                 work['vjp_bytes'])]:
+                 work['vjp_bytes'], blocks[1])]:
             b_ms, b_by = unitary_bound_ms(ops, nbytes, Bt)
             alone = 'not measured' if on_card is None else \
                 f'{on_card:.4f} ms (share of bound {b_ms / on_card:.2%})'
-            print(f'phase 12: {kernel} {name} on {card}: one call {ms:.4f} '
-                  f'ms, the kernel alone on the card {alone}; bound '
-                  f'{b_ms:.5f} ms by {b_by} ({ops} float32 ops and {nbytes} '
-                  f'bytes per restart); plain {plain:.3f} ms; '
-                  f'{regs[kernel]} registers', flush=True)
-            rows[kernel].append(dict(shape=name, ms=ms, device_ms=on_card,
-                                     plain_ms=plain, bound_ms=b_ms,
-                                     bound_by=b_by, registers=regs[kernel]))
+            reg = regs['ansatz_vjp_cluster' if kernel == 'ansatz_vjp' and
+                       c > 1 else kernel]
+            print(f'phase 12: {kernel} {name} on {card}: {c} block(s) a '
+                  f'restart; one call {ms:.4f} ms, the kernel alone on the '
+                  f'card {alone}; bound {b_ms:.5f} ms by {b_by} ({ops} '
+                  f'float32 ops and {nbytes} bytes per restart); plain '
+                  f'{plain:.3f} ms; {reg} registers', flush=True)
+            rows[kernel].append(dict(shape=name, cluster=c, ms=ms,
+                                     device_ms=on_card, plain_ms=plain,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     registers=reg))
     return worst, rows
 
 
@@ -1278,6 +1381,9 @@ def run_custom_adaptive(synth, options):
     return (results, *counts, watch.calls, wall)
 
 
+REL_STEPS = 1000  # phase 13's relative-phase Toffoli-3: sampling steps
+
+
 def phase_custom_loss():
     """Phase 13: the reference notebook's two custom-loss syntheses
     (benchmarks/full_notebook_run.py, cells 24-30) with the losses written
@@ -1291,9 +1397,10 @@ def phase_custom_loss():
     bucketed, side by side in one sweep of 8 x 100 restarts padded to k=10
     (bucketed=True, parallel_trials=8): a custom-loss step costs host time
     whatever the batch, so one trial after the other (7 sweeps until k=7
-    comes up) took 56-71 s for the same trials. It must verify a
-    decomposition with a finite loss; its CZ count is printed, not held to
-    3. Every custom-loss sweep must go through the forward and vjp kernels,
+    comes up) took 56-71 s for the same trials. Its sampling sweep is cut
+    from 2000 to REL_STEPS steps (a step is 3-7 ms of host time). It must
+    verify a decomposition with a finite loss; its CZ count is printed, not
+    held to 3. Every custom-loss sweep must go through the forward and vjp kernels,
     and never through the plain builder or the fused sweep kernel."""
     import numpy as np
     import torch
@@ -1354,7 +1461,8 @@ def phase_custom_loss():
     rel_loss = lambda u: 1 - (torch.abs(t3(u) * u) ** 2).sum() / 8
     synth = Synthesize([[0, 1], [1, 2], [0, 2]], unitary_loss_func=rel_loss)
     results, fwd, vjp, fused, plain, wall = run_custom_adaptive(
-        synth, make_options(bucketed=True, parallel_trials=max_evals))
+        synth, make_options(bucketed=True, parallel_trials=max_evals,
+                            num_gd_iterations=REL_STEPS))
     check(fwd > 0 and vjp > 0 and fused == 0 and plain == 0,
           f'relative-phase Toffoli-3: forward {fwd}, vjp {vjp}, fused sweep '
           f'{fused} launches, plain builder {plain} calls')
@@ -1376,7 +1484,8 @@ def phase_custom_loss():
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
     print(f'phase 13: adaptive relative-phase Toffoli-3 connected, custom '
-          f'loss, max_evals cut to {max_evals}, bucketed, {max_evals} trials '
+          f'loss, max_evals cut to {max_evals}, sampling steps cut from 2000 '
+          f'to {REL_STEPS}, bucketed, {max_evals} trials '
           f'in one sweep: {len(trials)} evals recorded before the target '
           f'(k {[t["num_cp_gates"] for t in trials]}), verified CZ counts '
           f'{sorted(d.cz_count for d in decs)}; the last ({cz} CZ, '
@@ -1502,6 +1611,278 @@ def phase_engine():
     return launches
 
 
+# ------------------------------------------------ phase 15: 7 and 8 qubits
+
+@functools.lru_cache(maxsize=1)
+def toffoli7_program():
+    """The 144-CZ connected Toffoli-7 of
+    benchmarks/artifacts/toffoli7_connected_composite.json: (its circuit,
+    its metadata, the CZ placements of its exact embedding in the CP
+    ansatz, those exact angles), embedded by the port's
+    circuits.to_ansatz.circuit_to_ansatz."""
+    from cpflow_tpu_torch.circuits.ir import Circuit
+    from cpflow_tpu_torch.circuits.to_ansatz import circuit_to_ansatz
+    path = Path(__file__).resolve().parent / 'benchmarks' / 'artifacts' / \
+        'toffoli7_connected_composite.json'
+    meta = json.loads(path.read_text())
+    qc = Circuit(meta['num_qubits'])
+    for ins in meta['instructions']:
+        qc.append(ins['name'], tuple(ins['qubits']), ins.get('param'))
+    placements, angles = circuit_to_ansatz(qc)
+    placements = [list(p) for p in placements]
+    check({w for p in placements for w in p} == set(range(qc.num_qubits)),
+          'the Toffoli-7 embedding leaves a wire without a block')
+    return qc, meta, placements, angles
+
+
+def build_warm_batch(angles, cp_mask, batch, seed):
+    """(batch, P) float32 initial angles and the noise sigma of each row,
+    as benchmarks/warmstart6q.py:build_warm_batch makes them: row 0 the
+    exact angles, the first three quarters noisy copies on the sigma ladder
+    3e-3 ... 0.3 (CP angles at sigma / 3), the last quarter uniform random
+    controls (sigma -1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    P = angles.shape[0]
+    rot_mask = 1.0 - cp_mask
+    n_warm = max(1, (3 * batch) // 4)
+    sigmas = np.array([0.003, 0.01, 0.03, 0.1, 0.3])
+    out = np.empty((batch, P), dtype=np.float32)
+    sig_of_row = np.zeros(batch, dtype=np.float64)
+    for b in range(n_warm):
+        s = sigmas[(b - 1) % len(sigmas)] if b else 0.0
+        noise = rng.normal(0.0, 1.0, P) * (s * rot_mask + (s / 3) * cp_mask)
+        out[b] = angles + noise
+        sig_of_row[b] = s
+    for b in range(n_warm, batch):
+        out[b] = rng.uniform(0.0, 2 * np.pi, P)
+        sig_of_row[b] = -1.0
+    return out, sig_of_row
+
+
+def seven_shapes():
+    """Phase 15's rows (q)-(y), as phase 3's shapes, each with the blocks a
+    restart must run on (`cluster`) and its steps T where not 60. At 7
+    qubits plain float32 itself drifts from float64 in 60 steps on (q),
+    (s), (t) and (u) (within 1e-4: 83-90%, 69-80%, 91-92% and 84% of the
+    restarts, CPU tests of the plain version; on the disc loss and at 8
+    qubits 100%), and in 20 steps on the 144 blocks of (y) (62.5% on the
+    card): as phase 3's deep templates, they are arbiter shapes, and they
+    run 64-256 restarts so that the arbiter's margin of 5 points is not
+    one or two restarts."""
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x
+    t7, t8 = multi_controlled_x(7), multi_controlled_x(8)
+    cz144 = {'free': toffoli7_program()[2]}
+    return [
+        dict(name='(q) 7q chain Toffoli-7 k=24 B=256', n=7, k=24, target=t7,
+             B=256, r=0.002, lr=0.1, arbiter=True, cluster=2),
+        dict(name='(r) disc 7q chain Toffoli-7 k=24 B=64', n=7, k=24,
+             target=t7, kind='disc', B=64, r=0.002, lr=0.1, cluster=2),
+        dict(name="(s) modulo_diagonal 7q chain Toffoli-7 wires [2, 5, 0] "
+             "'xz' k=16 B=256", n=7, k=16, target=t7, kind='modulo_diagonal',
+             wires=[2, 5, 0], rot='xz', B=256, r=0.00055, lr=0.1,
+             arbiter=True, cluster=2),
+        dict(name='(t) modulo_identity 7q chain Toffoli-7 wires [6, 1] k=16 '
+             'B=128', n=7, k=16, target=t7, kind='modulo_identity',
+             wires=[6, 1], B=128, r=0.00055, lr=0.1, arbiter=True,
+             cluster=2),
+        dict(name='(u) bucketed 7q chain Toffoli-7 k<=24 B=2x128, r and mask '
+             'per trial', n=7, target=t7, ks=(12, 24), rs=(0.00055, 0.002),
+             S=128, B=256, lr=0.1, seed=1500, arbiter=True, cluster=2),
+        dict(name='(v) verification 7q chain Toffoli-7 k=24 B=8', n=7, k=24,
+             target=t7, B=8, r=0.0, lr=0.01, mask=True, target_loss=0.7,
+             cluster=2),
+        dict(name="(w) 8q chain Toffoli-8 'xz' k=16 B=32", n=8, k=16,
+             target=t8, rot='xz', B=32, r=0.002, lr=0.1, cluster=8),
+        dict(name='(x) 7q chain Toffoli-7 k=220 B=8', n=7, k=220, target=t7,
+             B=8, r=0.002, lr=0.1, T=10, cluster=4),
+        dict(name="(y) the Toffoli-7 composite's 144 placements B=64", n=7,
+             k=144, target=t7, placements=cz144, B=64, r=0.0001, lr=0.1,
+             T=20, arbiter=True, cluster=2),
+    ]
+
+
+def hst64(u, target):
+    """The float64 HS-test loss of a unitary against a target."""
+    import numpy as np
+    t = np.asarray(target, dtype=np.complex128)
+    return float(1 - abs((u * t.conj()).sum()) ** 2 / t.shape[0] ** 2)
+
+
+def phase_toffoli7(card):
+    """Phase 15 (b): the JAX package's warm-start protocol
+    (benchmarks/warmstart6q.py, mode warm) on the 144-CZ Toffoli-7 at full
+    width, as benchmarks/run_queue32.sh ran it on the TPU: the artifact
+    embedded exactly in the CP ansatz (k = 144, 'xyz'), the warm batch of
+    64 (seed 0), one sweep of 2000 Adam steps at r = 1e-4 through
+    engine.minimize_fused (one segment, not four), then
+    verify_candidates_batch (2000 steps, not 5000) on every row under the
+    entry loss. Needs a verified decomposition with at most 144 CZ at
+    float64 host loss <= 1e-6. Returns (sweep launches, the sweep's timing
+    row)."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import Ansatz, BasicOptions, LossSpec, \
+        Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x
+    from cpflow_tpu_torch.optimize import candidates as cand
+    from cpflow_tpu_torch.optimize import engine
+    start = time.perf_counter()
+    qc, meta, placements, exact = toffoli7_program()
+    target = multi_controlled_x(7)
+    k, B, T, r = len(placements), 64, 2000, 1e-4
+    pl = {'layers': [[], 0], 'free': placements}
+    anz = Ansatz(7, 'cp', pl, 'xyz')
+    obj, P = make_objective(7, k, target, r, placements=pl)
+    warm, sigma = build_warm_batch(exact.astype(np.float32),
+                                   np.asarray(anz.cp_mask, dtype=np.float64),
+                                   B, 0)
+    host0 = hst64(anz.circuit(list(warm[0])).unitary(), target)
+    c, _, occ = check_plan(obj, B, 'the Toffoli-7 sweep')
+    sk.LAUNCHES = 0
+    raw, ms = timed(lambda: engine.minimize_fused(
+        obj, torch.tensor(warm, device='cuda'), learning_rate=0.1,
+        num_iterations=T))
+    launches = sk.LAUNCHES
+    loss0, best = raw.loss[:, 0].cpu().numpy(), raw.loss[:, 1].cpu().numpy()
+    check(np.isfinite(best).all() and launches == 1,
+          f'the Toffoli-7 sweep: {launches} launches, a loss not finite')
+    entry = BasicOptions.entry_loss
+    below = np.nonzero(best <= entry)[0]
+    check(len(below) > 0, f'no row of the warm batch under the entry loss '
+          f'{entry}: best {np.sort(best)[:4]}')
+    spec = LossSpec('hst', target=target)
+    rows = torch.as_tensor(below, device='cuda')
+    ver, ver_ms = timed(lambda: cand.verify_candidates_batch(
+        spec, anz, raw.params[rows, 1].cpu().numpy(), learning_rate=0.01,
+        num_iterations=2000, target_loss=1e-6, device='cuda'))
+    check(bool(ver.success.any()), f'no row verified: best losses '
+          f'{np.sort(ver.best_loss)[:4]}')
+    # the decomposition of the best verified row (fewest CZ, then loss)
+    ok = np.nonzero(ver.success)[0]
+    i = min(ok, key=lambda j: (ver.cz[j], ver.best_loss[j]))
+    synth = Synthesize(placements, target_unitary=target)
+    dec = synth._make_decomposition(anz, ver.best_angles[i])
+    host = hst64(dec.circuit.unitary(), target)
+    check(dec.cz_count <= meta['cz_count'] and host <= 1e-6,
+          f'the best verified Toffoli-7: {dec.cz_count} CZ at host loss '
+          f'{host}')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    per_sigma = {}  # sigma -1: the random controls
+    for key in sorted(set(sigma.tolist())):
+        mine = sigma == key
+        under = mine[below]
+        per_sigma[key] = (int(mine.sum()), int(under.sum()),
+                          int(ver.success[under].sum()),
+                          float(f'{best[mine].min():.3e}'))
+    b_ms, b_by = bound_ms(shape_work(dict(n=7, k=k)), B, T)
+    print(f'phase 15 (b): Toffoli-7 composite ({meta["cz_count"]} CZ, k={k}, '
+          f'P={P}) warm batch of {B} on {c} blocks a restart '
+          f'({occ["smem_bytes"]} shared bytes and {occ["registers"]} '
+          f'registers a thread each, {occ["active_clusters"]} restarts '
+          f'resident): sweep loss0 of the exact row {loss0[0]:.3e} (float32) '
+          f'against float64 host loss {host0:.3e}; sweep of {T} steps at r='
+          f'{r} on {card}: {ms:.2f} ms, bound {b_ms:.3f} ms by {b_by} '
+          f'({shape_work(dict(n=7, k=k))["needed"]} float32 ops per '
+          f'restart-iter), share {b_ms / ms:.2%}; best loss min '
+          f'{best.min():.3e}, {len(below)} rows under entry {entry}; '
+          f'verification of those ({ver_ms:.2f} ms): (sigma: rows, under '
+          f'entry, verified, least best loss) {per_sigma}; best verified '
+          f'{dec.cz_count} CZ at '
+          f'float32 loss {ver.best_loss[i]:.3e}, float64 host loss '
+          f'{host:.3e}; sweep launches {launches}; wall {wall:.3f} s',
+          flush=True)
+    row = dict(shape=f'Toffoli-7 composite k={k} B={B}', T=T, cluster=c,
+               smem_bytes=occ['smem_bytes'], registers=occ['registers'],
+               ms=ms, plain_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return launches, row
+
+
+LADDER_K, LADDER_SAMPLES = 8, 128  # phase 15 (c)
+
+
+def phase_ladder7():
+    """Phase 15 (c): Synthesize.static at 7 qubits on the chain, target the
+    CX ladder (CX(0,1) first, then CX(1,2), ..., CX(5,6)), which needs 6 CZ
+    on the chain: k = LADDER_K, LADDER_SAMPLES samples, accepting 6 CZ.
+    Needs the kernel in both stages and a verified 6-CZ decomposition at
+    float64 host loss <= 1e-6."""
+    import torch
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.circuits.ir import Circuit
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.topology import chain_layer
+    qc = Circuit(7)
+    for q in range(6):
+        qc.cx(q, q + 1)
+    ladder = qc.unitary()
+    synth = Synthesize(chain_layer(7), target_unitary=ladder)
+    options = StaticOptions(num_cp_gates=LADDER_K, num_samples=LADDER_SAMPLES,
+                            accepted_num_cz_gates=6)
+    sk.LAUNCHES = 0
+    start = time.perf_counter()
+    results = synth.static(options, save_results=False, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = sk.LAUNCHES
+    check(launches >= 2, f'7q ladder: the kernel was launched {launches} '
+          f'times: not in both the sampling and the verification stage')
+    hosts = sorted((d.cz_count, hst64(d.circuit.unitary(), ladder))
+                   for d in results.decompositions)
+    good = [h for h in hosts if h[1] <= 1e-6]
+    check(good and good[0][0] == 6, f'7q ladder: no 6-CZ decomposition at '
+          f'host loss <= 1e-6: {hosts[:8]}')
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 15 (c): static 7q chain CX ladder, k={LADDER_K}, '
+          f'{LADDER_SAMPLES} samples: {len(hosts)} verified, {len(good)} at '
+          f'host loss <= 1e-6, best {good[0][0]} CZ at {good[0][1]:.3e}; '
+          f'kernel launches {launches}; wall {wall:.3f} s ({stages})',
+          flush=True)
+    return launches
+
+
+def phase_seven(card):
+    """Phase 15: seven and eight qubits. (a) the sweep kernel against its
+    plain version at rows (q)-(y) (phase_compare), on clusters of 2, 4 and
+    8 blocks; (b) the Toffoli-7 program (phase_toffoli7); (c) the static 7q
+    ladder (phase_ladder7); 9 qubits refused by the sweep and the unitary
+    kernels. Returns (largest error of (a), the timing rows, the launches
+    of (b) and (c))."""
+    import numpy as np
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    start = time.perf_counter()
+    worst, _, rows = phase_compare(seven_shapes(), 'phase 15 (a)')
+    check({2, 4, 8} <= {r['cluster'] for r in rows},
+          f'phase 15 (a) ran clusters of {sorted({r["cluster"] for r in rows})}')
+    launches = {}
+    launches['toffoli7_warm'], row = phase_toffoli7(card)
+    launches['static_ladder7'] = phase_ladder7()
+    obj9, P9 = make_objective(9, 2, np.eye(512, dtype=np.complex64), 0.0)
+    before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES)
+    for name, call in [
+            ('sweep', lambda: sk.sweep(obj9, uniform_inits(P9, 2, 0, 'cuda'),
+                                       0.1, 1)),
+            ('build_unitary', lambda: uk.build_unitary(
+                9, 'cp', 'xyz', fill_layers(chain_layer(9), 2),
+                uniform_inits(P9, 2, 0, 'cuda')))]:
+        try:
+            call()
+        except ValueError as e:
+            check('2 to 8 qubits' in str(e), f'9 qubits: {name}: {e}')
+            print(f'phase 15: 9 qubits refused by {name}: {e}', flush=True)
+        else:
+            raise PhaseError(f'9 qubits: {name} did not raise')
+    check((sk.LAUNCHES, uk.FORWARD_LAUNCHES) == before,
+          '9 qubits: a kernel was launched')
+    print(f'phase 15: wall {time.perf_counter() - start:.3f} s', flush=True)
+    return worst, rows + [row], launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1517,12 +1898,13 @@ def main() -> int:
         print(f'FAIL: run from the root of the repository ({e})',
               file=sys.stderr)
         return 1
+    start = time.perf_counter()
     try:
         card = card_line()
         print(f'phase 1: {card}; torch {torch.__version__}, CUDA '
               f'{torch.version.cuda}', flush=True)
         phase_build()
-        max_err, driven = phase_compare()
+        max_err, driven, _ = phase_compare()
         launches = {'static_ccz3': phase_main_path()}
         rows = phase_timing(card)
         launches['adaptive_toffoli4'] = phase_adaptive()
@@ -1546,6 +1928,9 @@ def main() -> int:
         unitary_launches, launches['adaptive_ghz4_state'] = \
             phase_custom_loss()
         unitary_launches.update(phase_engine())
+        seven_err, seven_rows, seven_launches = phase_seven(card)
+        launches.update(seven_launches)
+        max_err = max(max_err, seven_err)
         check(all(v > 0 for v in launches.values()),
               f'a main path missed the sweep kernel: {launches}')
         check(all(f > 0 for f, _ in unitary_launches.values()) and
@@ -1555,16 +1940,21 @@ def main() -> int:
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
         return 1
+    print(f'all phases passed in {time.perf_counter() - start:.1f} s')
     print(card)
     # ms, plain_ms and bound_ms: the static sampling shape (phase 5, row 1);
     # registers: per thread, as the CUDA runtime reports them;
     # no single PyTorch call computes the sweep, so library_ms is null;
-    # modes, entanglers and rotation strings: those phase 3 drove
+    # modes, entanglers and rotation strings: those phase 3 drove;
+    # shapes: phase 5's rows, phase 15's rows (q)-(y) at their T and the
+    # Toffoli-7 program's sweep, each with the blocks a restart ran on
+    # (`cluster`; at the top, every size the kernel ran with)
     # the unitary kernels: ms (one call of the wrapper, CUDA events, as the
     # sweep's), device_ms (the kernel alone on the card, from the profiler's
     # trace; null if the trace lacks it), plain_ms and bound_ms at the same
-    # 3q k=12 B=1024 shape (phase 12; `shapes` also has the 5q k=20 B=2048
-    # row); a forward pass is a chain of n + k batched gate applications and its
+    # 3q k=12 B=1024 shape (phase 12; `shapes` also has the 5q k=20 B=2048,
+    # 7q k=24 B=64 and 8q k=16 B=16 rows, each with its `cluster`); a
+    # forward pass is a chain of n + k batched gate applications and its
     # vjp a walk back through them, which no single PyTorch call computes,
     # so library_ms is null for them too
     kernels = [{
@@ -1576,7 +1966,9 @@ def main() -> int:
         'launches_by_path': launches, 'max_abs_err': max_err,
         'ms': rows[0]['ms'], 'plain_ms': rows[0]['plain_ms'],
         'bound_ms': rows[0]['bound_ms'], 'bound_by': rows[0]['bound_by'],
-        'library_ms': None, 'registers': rows[0]['registers']}]
+        'library_ms': None, 'registers': rows[0]['registers'],
+        'cluster': sorted({r['cluster'] for r in rows + seven_rows}),
+        'shapes': rows + seven_rows}]
     for i, name in enumerate(('ansatz_forward', 'ansatz_vjp')):
         by_path = {k: v[i] for k, v in unitary_launches.items()}
         row = unitary_rows[name][0]
@@ -1589,7 +1981,9 @@ def main() -> int:
             'ms': row['ms'], 'device_ms': row['device_ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
             'bound_by': row['bound_by'], 'library_ms': None,
-            'registers': row['registers'], 'shapes': unitary_rows[name]})
+            'registers': row['registers'],
+            'cluster': sorted({r['cluster'] for r in unitary_rows[name]}),
+            'shapes': unitary_rows[name]})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

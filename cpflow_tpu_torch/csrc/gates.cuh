@@ -12,15 +12,27 @@
 // in the walk, the cotangent M live in shared memory; a gate is applied by
 // all threads of the block to disjoint amplitude groups, with one barrier
 // between gates.
+//
+// Above 6 qubits the whole unitary's A and M exceed one block's shared
+// memory. Then a restart runs on a cluster of c = 2^j blocks, and the block
+// of rank rho owns columns [rho C / c, (rho + 1) C / c) as a row-major
+// d x (C / c) tile. Every gate acts on row bits only, so each block runs the
+// chain and the walk on its own tile, calling the functions below with the
+// tile's log_c = n - j; what crosses columns (the sums over entries, each
+// gate's cotangent, the modulo losses' entries) goes through distributed
+// shared memory (tile_to_global, cluster_sum).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kSmemLimit = 232448;  // shared memory one block may use
+constexpr int kMaxClusterLog = 3;      // clusters of at most 8 blocks
 
 // entanglers, as kernels/sweep.py numbers them
 enum { E_CP, E_CZ, E_CX };
@@ -449,6 +461,35 @@ __device__ __forceinline__ void adjoint_walk(float2* A, float2* M,
     }
   }
   __syncthreads();
+}
+
+// ------------------------------------------------------------- clusters
+// Index in the row-major d x 2^log_c whole of entry e of the tile of rank
+// `rank`, a row-major d x 2^log_ct block of its columns.
+__device__ __forceinline__ int tile_to_global(int e, int log_c, int log_ct,
+                                              int rank) {
+  return ((e >> log_ct) << log_c) + (rank << log_ct) +
+         (e & ((1 << log_ct) - 1));
+}
+
+// Sums the partials x[0..len) that the blocks of a cluster hold at the same
+// shared-memory offset and leaves the sum in every block's x. One thread of
+// the cluster sums entry i, over the ranks in the order 0, 1, ..., c - 1,
+// and writes it to every block: all blocks then hold the same bits, so that
+// the angles, which every block updates, never drift apart. Begins and ends
+// with a cluster barrier.
+__device__ inline void cluster_sum(float* x, int len) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  cluster.sync();
+  for (int i = rank * blockDim.x + threadIdx.x; i < len;
+       i += c * blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < c; ++q) s += *cluster.map_shared_rank(x + i, q);
+    for (int q = 0; q < c; ++q) *cluster.map_shared_rank(x + i, q) = s;
+  }
+  cluster.sync();
 }
 
 // Every angle's gradient from the gates' cotangents, one gate per thread.

@@ -22,9 +22,17 @@
 //     and sums every gate's cotangent, then each angle's gradient
 //     2 Re sum Gbar * dG/dtheta. No intermediate state is stored or read.
 //
-// C = 2^n columns (the whole unitary, n <= 6) or C = 1 (the |0...0> column,
+// C = 2^n columns (the whole unitary) or C = 1 (the |0...0> column,
 // n <= 12). One thread block per restart, as in sweep.cu, with the same
-// threads per restart. What bounds them on this card: the forward pass
+// threads per restart, where the block's layout fits its shared memory:
+// the forward pass holds A, the vjp A and M (16 * 4^n bytes for the whole
+// unitary). Above that a restart's columns are split over c = 2, 4 or 8
+// blocks, each holding a d x (C / c) tile (gates.cuh), the smallest c that
+// fits (cluster_plan; the whole unitary then reaches 8 qubits): the
+// forward pass's blocks are independent, each storing its columns of U;
+// the vjp's form a cluster, which sums the gates' cotangents over
+// distributed shared memory in rank order before the angle gradients, and
+// rank 0 writes them. What bounds them on this card: the forward pass
 // writes, and the walk reads twice, 8 d C bytes per restart, against
 // 30 d C float32 operations per two-qubit gate forwards and 92 in the walk:
 // at n + k >= 10 gates both are bound by the float32 rate, not by device
@@ -42,25 +50,27 @@ struct Args {
   float* grad;            // (P, B): written by vjp
   const int* placements;  // (nb, 2)
   Template tpl;
-  int n, nb, log_c, B;
+  int n, nb, log_c, B, cluster_log;
 };
 
 struct Layout {
-  int P, G, nt, nw;
+  int P, G, nt, nw, log_ct;  // log_ct: log2 of a block's columns
   size_t off_M, off_gates, off_gbar, off_red, off_params, off_grad, off_cs,
       bytes;
 };
 
-// Shared memory of one restart's block; the forward pass keeps no M, gbar,
-// red and grad.
+// Shared memory of one block of a restart split over 2^cluster_log blocks;
+// the forward pass keeps no M, gbar, red and grad.
 __host__ __device__ inline Layout make_layout(int n, int nb, int nba,
-                                              int log_c, bool vjp) {
+                                              int log_c, int cluster_log,
+                                              bool vjp) {
   Layout L;
   L.P = 3 * n + nba * nb;
   L.G = n + nb;
-  L.nt = threads_for(n, log_c);
+  L.log_ct = log_c - cluster_log;
+  L.nt = threads_for(n, L.log_ct);
   L.nw = L.nt / 32;
-  const size_t amps = (size_t)1 << (n + log_c);
+  const size_t amps = (size_t)1 << (n + L.log_ct);
   size_t o = amps * sizeof(float2);                // A at offset 0
   L.off_M = o;        if (vjp) o += amps * sizeof(float2);
   L.off_gates = o;    o += (size_t)L.G * 16 * sizeof(float2);
@@ -73,13 +83,23 @@ __host__ __device__ inline Layout make_layout(int n, int nb, int nba,
   return L;
 }
 
+// log2 of the smallest split of the columns whose blocks' layout fits a
+// block's shared memory (at most kMaxClusterLog, never more than the
+// columns); -1 if none fits.
+inline int cluster_plan(int n, int nb, int nba, int log_c, bool vjp) {
+  const int most = log_c < kMaxClusterLog ? log_c : kMaxClusterLog;
+  for (int j = 0; j <= most; ++j)
+    if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit) return j;
+  return -1;
+}
+
 // The restart's angles into shared memory, their cos and sin, the gates.
 // Ends with a barrier.
 __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
-                                           float* params, float* cs,
+                                           int b, float* params, float* cs,
                                            float2* gates) {
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
-    params[i] = a.angles[(size_t)i * a.B + blockIdx.x];
+    params[i] = a.angles[(size_t)i * a.B + b];
   __syncthreads();
   angle_trig(a.tpl, a.n, L.P, params, cs);
   __syncthreads();
@@ -87,29 +107,41 @@ __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
   __syncthreads();
 }
 
+// Block blockIdx.x holds the tile of rank blockIdx.x mod c of restart
+// blockIdx.x / c; the blocks of a restart need nothing of each other.
 __global__ void __launch_bounds__(kMaxThreads)
 forward_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, false);
+  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
+                               false);
   float2* A = reinterpret_cast<float2*>(smem);
   float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
   float* params = reinterpret_cast<float*>(smem + L.off_params);
   float* cs = reinterpret_cast<float*>(smem + L.off_cs);
-  const int lc = a.log_c, amps = 1 << (a.n + lc);
+  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
+  const int b = blockIdx.x >> a.cluster_log;
+  const int rank = blockIdx.x & ((1 << a.cluster_log) - 1);
 
-  // the identity's first C columns, row-major d x C
+  // the identity's first C columns, row-major d x C, the block's tile of
+  // them
+  for (int e = threadIdx.x; e < amps; e += blockDim.x) {
+    const int g = tile_to_global(e, lc, lt, rank);
+    A[e] = make_float2((g >> lc) == (g & ((1 << lc) - 1)) ? 1.f : 0.f, 0.f);
+  }
+  load_gates(a, L, b, params, cs, gates);
+  forward_chain(A, gates, a.placements, a.n, a.nb, lt);
+  float2* out = a.U + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x)
-    A[e] = make_float2((e >> lc) == (e & ((1 << lc) - 1)) ? 1.f : 0.f, 0.f);
-  load_gates(a, L, params, cs, gates);
-  forward_chain(A, gates, a.placements, a.n, a.nb, lc);
-  float2* out = a.U + (size_t)blockIdx.x * amps;
-  for (int e = threadIdx.x; e < amps; e += blockDim.x) out[e] = A[e];
+    out[tile_to_global(e, lc, lt, rank)] = A[e];
 }
 
+// kCluster: the restart's columns split over the blocks of a cluster.
+template <bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
 vjp_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, true);
+  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
+                               kCluster ? a.cluster_log : 0, true);
   float2* A = reinterpret_cast<float2*>(smem);
   float2* M = reinterpret_cast<float2*>(smem + L.off_M);
   float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
@@ -118,42 +150,70 @@ vjp_kernel(Args a) {
   float* params = reinterpret_cast<float*>(smem + L.off_params);
   float* grad = reinterpret_cast<float*>(smem + L.off_grad);
   float* cs = reinterpret_cast<float*>(smem + L.off_cs);
-  const int lc = a.log_c, amps = 1 << (a.n + lc);
+  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
+  int b = blockIdx.x, rank = 0;
+  if constexpr (kCluster) {
+    b = blockIdx.x >> a.cluster_log;
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+  }
 
-  const float2* u = a.U + (size_t)blockIdx.x * amps;
-  const float2* g = a.Ubar + (size_t)blockIdx.x * amps;
+  const float2* u = a.U + ((size_t)b << (a.n + lc));
+  const float2* g = a.Ubar + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    A[e] = u[e];
-    const float2 t = g[e];
+    const int at = kCluster ? tile_to_global(e, lc, lt, rank) : e;
+    A[e] = u[at];
+    const float2 t = g[at];
     M[e] = make_float2(0.5f * t.x, -0.5f * t.y);  // M = conj(g) / 2
   }
-  load_gates(a, L, params, cs, gates);
-  adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lc, L.nw);
+  load_gates(a, L, b, params, cs, gates);
+  adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
+  if constexpr (kCluster) cluster_sum(gbar, 32 * L.G);
   angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
   __syncthreads();
+  if (rank != 0) return;
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
-    a.grad[(size_t)i * a.B + blockIdx.x] = grad[i];
+    a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
 using Kernel = void (*)(Args);
 
-Kernel kernel_of(bool vjp) { return vjp ? vjp_kernel : forward_kernel; }
+// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster
+Kernel kernel_of(int which) {
+  const Kernel kernels[3] = {forward_kernel, vjp_kernel<false>,
+                             vjp_kernel<true>};
+  return kernels[which];
+}
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one restart's block needs (vjp: 0 forward, 1 vjp).
+// Dynamic shared memory of each of the `cluster` blocks (1, 2, 4 or 8) that
+// hold a restart's columns (vjp: 0 forward, 1 vjp).
 long long cpflow_unitary_smem_bytes(int n, int num_blocks, int nba, int log_c,
-                                    int vjp) {
-  return (long long)make_layout(n, num_blocks, nba, log_c, vjp != 0).bytes;
+                                    int vjp, int cluster) {
+  int log = 0;
+  while ((1 << log) < cluster) ++log;
+  return (long long)make_layout(n, num_blocks, nba, log_c, log, vjp != 0)
+      .bytes;
+}
+
+// The blocks a restart's columns are split over (cluster_plan), 0 if no
+// split fits.
+int cpflow_unitary_cluster(int n, int num_blocks, int nba, int log_c,
+                           int vjp) {
+  const int log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
+  return log < 0 ? 0 : 1 << log;
 }
 
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
 // product (vjp == 1: reads U and Ubar, writes grad) on `stream`. angles and
 // grad: (P, B) float32; U and Ubar: (B, d, C) complex64 with C = 2^log_c,
 // log_c = n or 0; letters: (num_letters,) rotation letters 0, 1, 2 for x, y,
-// z; ent: 0 CP, 1 CZ, 2 CX; nba: angles per block. Returns
+// z; ent: 0 CP, 1 CZ, 2 CX; nba: angles per block. Each restart runs on the
+// blocks cluster_plan picks: the forward pass's as independent blocks, the
+// vjp's as a cluster launched with cudaLaunchKernelEx. Returns
+// cudaErrorInvalidValue if no split holds the shape, else
 // cudaGetLastError() after the launch.
 int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
@@ -174,24 +234,39 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   a.nb = num_blocks;
   a.log_c = log_c;
   a.B = B;
-  const Layout L = make_layout(n, num_blocks, nba, log_c, vjp != 0);
-  const Kernel kernel = kernel_of(vjp != 0);
+  a.cluster_log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
+  if (a.cluster_log < 0) return (int)cudaErrorInvalidValue;
+  const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
+                               vjp != 0);
+  const bool cluster = vjp && a.cluster_log > 0;
+  const Kernel kernel = kernel_of(vjp ? 1 + cluster : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(B),
-                         dim3(L.nt), args, L.bytes,
-                         static_cast<cudaStream_t>(stream));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster ? 1u << a.cluster_log : 1u;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)B << a.cluster_log);
+  cfg.blockDim = dim3(L.nt);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Registers per thread of the forward (out[0]) and the vjp kernel (out[1]).
-// Returns a CUDA error code, 0 on success.
+// Registers per thread of the forward kernel (out[0]), the vjp kernel on
+// one block a restart (out[1]) and on a cluster (out[2]). Returns a CUDA
+// error code, 0 on success.
 int cpflow_unitary_registers(int* out) {
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 3; ++i) {
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(i != 0));
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(i));
     if (err != cudaSuccess) return (int)err;
     out[i] = attr.numRegs;
   }

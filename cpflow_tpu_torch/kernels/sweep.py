@@ -15,8 +15,8 @@ modulo-diagonal losses on the whole 2^n x 2^n unitary, and state
 preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
-falls back, above MAX_QUBITS, for float64 and for a penalty other than the
-piecewise-linear one.
+falls back, above MAX_QUBITS (8 qubits for the whole unitary, 12 for a
+state), for float64 and for a penalty other than the piecewise-linear one.
 
 Routing of ``sweep``, by the tensor's device and the loss:
   * CPU tensor, any loss: ``sweep_reference``, the plain version;
@@ -31,10 +31,15 @@ Routing of ``sweep``, by the tensor's device and the loss:
 
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
-and cotangent, 2^n x C each; n <= 6 for the whole unitary, where 7 qubits
-need tiling, ROADMAP B.7, and n <= 12 for a state) and the barriers and
-block reductions of the adjoint walk (few threads per restart, a
-31-shuffle warp reduction, double-buffered cross-warp partials).
+and cotangent, 2^n x C each) and the barriers and block reductions of the
+adjoint walk (few threads per restart, a 31-shuffle warp reduction,
+double-buffered cross-warp partials). A restart runs on one thread block
+where its layout fits one block's shared memory (every shape up to 6
+qubits, and a state up to 12); above that its columns are split over a
+thread-block cluster of 2, 4 or 8 blocks, the smallest that fits
+(``cluster_plan``; 7 qubits take 2, or 4 from 215 'xyz' blocks, 8 qubits
+take 8). ``smem_bytes`` mirrors the kernel's layout so that the plan can
+be checked without a card.
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -60,9 +65,10 @@ from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
 
-# qubits the kernel takes, per loss (the whole unitary, or one column)
-MAX_QUBITS = {'hst': 6, 'disc': 6, 'modulo_identity': 6,
-              'modulo_diagonal': 6, 'state': 12}
+# qubits the kernel takes, per loss (the whole unitary, split over at most
+# 8 blocks, or one column on one block)
+MAX_QUBITS = {'hst': 8, 'disc': 8, 'modulo_identity': 8,
+              'modulo_diagonal': 8, 'state': 12}
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
               'modulo_diagonal': 4}  # as csrc/sweep.cu numbers them
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
@@ -153,7 +159,7 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
-    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
@@ -166,6 +172,35 @@ def load_library() -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
+
+
+def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
+               cluster: int = 1) -> int:
+    """Dynamic shared memory of each block of a restart split over
+    `cluster` blocks, as csrc/sweep.cu's make_layout lays it out: the tile
+    of A and of M (2^n x C / cluster amplitudes each), the gates and their
+    cotangents, the cross-warp partials, the modulo losses' row sums, five
+    arrays of the P angles and the cos and sin of each, 16 scalars."""
+    log_c = 0 if kind == 'state' else n
+    log_ct = log_c - (cluster.bit_length() - 1)
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
+    rows = (8 << n) if kind.startswith('modulo') else 0
+    return (16 << (n + log_ct)) + 256 * G + 8 * threads + rows + 28 * P + 64
+
+
+def cluster_plan(n: int, num_blocks: int, nba: int, kind: str):
+    """The blocks each restart runs on, as csrc/sweep.cu's cluster_plan
+    picks them: the smallest of 1, 2, 4, 8 whose per-block layout fits one
+    block's shared memory, never a split of the one column of a state, and
+    no more blocks than columns. None if none fits."""
+    for c in CLUSTERS:
+        if c > 1 and (kind == 'state' or c > 1 << n):
+            break
+        if smem_bytes(n, num_blocks, nba, kind, c) <= _SMEM_LIMIT:
+            return c
+    return None
 
 
 def modulo_tables(n: int, wires):
@@ -193,10 +228,12 @@ def _check_objective(objective):
                          f'objective in {objective.dtype}')
     n, limit = objective.num_qubits, MAX_QUBITS[kind]
     if not 2 <= n <= limit:
+        where = 'one block' if kind == 'state' else \
+            f'a cluster of {CLUSTERS[-1]} blocks'
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
-            f'loss, got {n}: above {limit} the state and cotangent exceed one '
-            f'block\'s shared memory, and tiling them is ROADMAP B.7')
+            f'loss, got {n}: above {limit} the state and cotangent exceed the '
+            f'shared memory of {where}')
     if objective.entangling_gate_name not in ENTANGLER_CODES or \
             set(objective.rotation_gates) - set(LETTER_CODES):
         raise ValueError(
@@ -243,11 +280,14 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
                                  dtype=config.real_dtype).contiguous()
 
     loss = LOSS_CODES[spec.kind]
+    if cluster_plan(n, nb, nba, spec.kind) is None:
+        most = 1 if spec.kind == 'state' else CLUSTERS[-1]
+        raise ValueError(
+            f'{n} qubits with {nb} blocks need '
+            f'{smem_bytes(n, nb, nba, spec.kind, most)} bytes of shared '
+            f'memory per block even on {most} blocks a restart, above '
+            f'{_SMEM_LIMIT}')
     lib = load_library()
-    smem = lib.cpflow_sweep_smem_bytes(n, nb, nba, loss)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f'{n} qubits with {nb} blocks need {smem} bytes of '
-                         f'shared memory per restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
     target = torch.as_tensor(np.asarray(spec.target),
@@ -299,7 +339,9 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
             ENTANGLER_CODES[ent], nba, loss, block_log2, B, it_begin, it_end,
             float(learning_rate), stream)
         if err != 0:
-            raise RuntimeError(f'sweep kernel launch failed: CUDA error {err}')
+            raise RuntimeError(
+                f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
+                f'on {cluster_plan(n, nb, nba, spec.kind)} blocks each)')
         LAUNCHES += 1
 
     T = int(num_iterations)
@@ -320,20 +362,23 @@ def occupancy(objective, batch: int) -> dict:
     """What the kernel build that a sweep of `batch` restarts of
     `objective` launches takes of one SM, from the CUDA runtime: registers
     and local memory bytes (stack and spills) per thread, threads and
-    shared memory bytes per block, resident blocks per SM."""
+    shared memory bytes per block, resident blocks per SM, the blocks a
+    restart runs on (`cluster`) and the clusters of that many blocks the
+    card holds at once (cudaOccupancyMaxActiveClusters; a lone block counts
+    as a cluster of one)."""
     _check_objective(objective)
     n, spec = objective.num_qubits, objective.unitary_loss_func
     nb = len(all_placements(objective.placements))
     nba = num_block_angles(objective.entangling_gate_name,
                            objective.rotation_gates)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     err = load_library().cpflow_sweep_occupancy(
         n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
     if err != 0:
         raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
                            f'{err}')
     return dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
-                     'blocks_per_sm'), out))
+                     'blocks_per_sm', 'cluster', 'active_clusters'), out))
 
 
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,

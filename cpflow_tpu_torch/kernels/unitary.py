@@ -15,11 +15,10 @@ other first-order methods.
     two but U itself;
   * ``AnsatzUnitary``: the autograd.Function over the pair;
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
-    ``AnsatzUnitary`` or raises (float32 only, sm_90 only, 2 to 6 qubits
-    for the whole unitary and 2 to 12 for one column, the shared-memory
-    limit of a block); it never falls back. On a CPU tensor it is the
-    plain version, sim.batched.build_unitary_batched under ordinary
-    autograd.
+    ``AnsatzUnitary`` or raises (float32 only, sm_90 only, 2 to 8 qubits
+    for the whole unitary and 2 to 12 for one column); it never falls back.
+    On a CPU tensor it is the plain version,
+    sim.batched.build_unitary_batched under ordinary autograd.
 
 Both kernels are csrc/unitary.cu (built with nvcc for sm_90a at first use,
 bound with ctypes); they share their device code with the sweep kernel
@@ -32,10 +31,16 @@ takes the holomorphic partial M = dL/dU (an angle's gradient is
 2 Re sum Gbar * dG/dtheta); the two are related by g = conj(2 M), and the
 vjp kernel converts as it loads.
 
-Layout. A kernel's block owns one restart and stores its d x C matrix
-contiguously, so U is (B, d, C) in memory; ``build_unitary`` hands it on as
-the batch-last view (2,)*n + (C, B) of the plain path, and the backward
-takes a cotangent of any strides.
+Layout. U is (B, d, C) in memory, one contiguous row-major d x C matrix
+per restart; ``build_unitary`` hands it on as the batch-last view
+(2,)*n + (C, B) of the plain path, and the backward takes a cotangent of
+any strides. A kernel's block owns one restart where its layout fits one
+block's shared memory; above that (7 and 8 qubits for the whole unitary)
+the restart's columns are split over c = 2, 4 or 8 blocks, the smallest
+that fits (``cluster_plan``, mirrored from csrc/unitary.cu): the forward
+pass's blocks each store their d x C / c columns, the vjp's form a thread
+block cluster and sum the gates' cotangents over distributed shared
+memory.
 """
 
 from __future__ import annotations
@@ -53,11 +58,42 @@ from cpflow_tpu_torch.sim.batched import build_unitary_batched
 FORWARD_LAUNCHES = 0  # launches of the forward kernel since the last reset
 VJP_LAUNCHES = 0      # launches of the vjp kernel; the plain path adds none
 
-MAX_QUBITS_UNITARY = 6   # the whole unitary: A and M take 16 * 4^n bytes
-MAX_QUBITS_COLUMN = 12   # one column
+MAX_QUBITS_UNITARY = 8   # the whole unitary, split over at most 8 blocks
+MAX_QUBITS_COLUMN = 12   # one column, on one block
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
+
+
+def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
+               cluster: int = 1) -> int:
+    """Dynamic shared memory of each block of a restart split over
+    `cluster` blocks, as csrc/unitary.cu's make_layout lays it out: the
+    tile of A (2^n x 2^log_c / cluster amplitudes), the gates, the angles
+    and the cos and sin of each; the vjp also the tile of M, the gates'
+    cotangents, the cross-warp partials and the gradient."""
+    log_ct = log_c - (cluster.bit_length() - 1)
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
+    out = (8 << (n + log_ct)) + 128 * G + 12 * P
+    if vjp:
+        out += (8 << (n + log_ct)) + 128 * G + 8 * threads + 4 * P
+    return out
+
+
+def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
+                 vjp: bool):
+    """The blocks each restart's columns are split over, as
+    csrc/unitary.cu's cluster_plan picks them: the smallest of 1, 2, 4, 8
+    (never more than the 2^log_c columns) whose per-block layout fits one
+    block's shared memory; None if none fits."""
+    for c in CLUSTERS:
+        if c > 1 << log_c:
+            break
+        if smem_bytes(n, num_blocks, nba, log_c, vjp, c) <= _SMEM_LIMIT:
+            return c
+    return None
 
 
 def load_library() -> ctypes.CDLL:
@@ -68,21 +104,25 @@ def load_library() -> ctypes.CDLL:
         lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [ctypes.c_int] * 8 + [
             ptr]
         lib.cpflow_unitary_launch.restype = ctypes.c_int
-        lib.cpflow_unitary_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.cpflow_unitary_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.cpflow_unitary_smem_bytes.restype = ctypes.c_longlong
+        lib.cpflow_unitary_cluster.argtypes = [ctypes.c_int] * 5
+        lib.cpflow_unitary_cluster.restype = ctypes.c_int
         lib.cpflow_unitary_registers.argtypes = [ptr]
         lib.cpflow_unitary_registers.restype = ctypes.c_int
     return lib
 
 
 def registers() -> dict:
-    """Registers per thread of the two kernels, from the CUDA runtime."""
-    out = (ctypes.c_int * 2)()
+    """Registers per thread of the two kernels, from the CUDA runtime; the
+    vjp's cluster build (7 and 8 qubits) as 'ansatz_vjp_cluster'."""
+    out = (ctypes.c_int * 3)()
     err = load_library().cpflow_unitary_registers(out)
     if err != 0:
         raise RuntimeError(f'unitary kernel attribute query failed: CUDA '
                            f'error {err}')
-    return {'ansatz_forward': out[0], 'ansatz_vjp': out[1]}
+    return {'ansatz_forward': out[0], 'ansatz_vjp': out[1],
+            'ansatz_vjp_cluster': out[2]}
 
 
 @functools.lru_cache(maxsize=64)
@@ -122,8 +162,9 @@ class _Shape:
             raise ValueError(
                 f'the unitary kernels take 2 to {limit} qubits for '
                 f'{"the whole unitary" if columns is None else "one column"}, '
-                f'got {n}: above that the state and its cotangent exceed one '
-                f'block\'s shared memory')
+                f'got {n}: above that the state and its cotangent exceed the '
+                f'shared memory of {CLUSTERS[-1] if columns is None else 1} '
+                f'block(s)')
         if entangling_gate_name not in ENTANGLER_CODES or \
                 set(rotation_gates) - set(LETTER_CODES):
             raise ValueError(
@@ -143,13 +184,15 @@ class _Shape:
                              f'{tuple(angles.shape)}')
         self.B = angles.shape[1]
         self.udims = (self.B, 1 << n, 1 << self.log_c)
+        self.cluster = cluster_plan(n, self.nb, self.nba, self.log_c, vjp)
+        if self.cluster is None:
+            most = min(CLUSTERS[-1], 1 << self.log_c)
+            raise ValueError(
+                f'{n} qubits with {self.nb} blocks need '
+                f'{smem_bytes(n, self.nb, self.nba, self.log_c, vjp, most)} '
+                f'bytes of shared memory per block even on {most} blocks a '
+                f'restart, above {_SMEM_LIMIT}')
         self.lib = load_library()
-        smem = self.lib.cpflow_unitary_smem_bytes(n, self.nb, self.nba,
-                                                  self.log_c, int(vjp))
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f'{n} qubits with {self.nb} blocks need {smem} '
-                             f'bytes of shared memory per restart, above '
-                             f'{_SMEM_LIMIT}')
 
     def launch(self, angles, u, ubar, grad, vjp):
         plc, letters = _tables(self.placements, self.rot, angles.device)
@@ -162,7 +205,8 @@ class _Shape:
             torch.cuda.current_stream(angles.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'unitary kernel launch failed: CUDA error '
-                               f'{err}')
+                               f'{err} ({self.B} restarts on {self.cluster} '
+                               f'blocks each)')
 
 
 def ansatz_forward(num_qubits: int, entangling_gate_name: str,

@@ -8,9 +8,10 @@ Run from the root of the repository:
         cpflow_tpu_torch/csrc/sweep.cu
 
 for example with OLD an earlier commit unpacked by ``git archive`` into
-``build/``. Each source must keep the C interface that this tree's
-kernels/sweep.py calls (cpflow_sweep_launch, cpflow_sweep_smem_bytes). Each
-is built with nvcc for sm_90a into build/ab/ and its ptxas report printed.
+``build/``. Each source must export cpflow_sweep_launch with the
+arguments this tree's kernels/sweep.py passes; the shapes below all run a
+restart on one block. Each is built with nvcc for sm_90a into build/ab/ and its ptxas
+report printed.
 Then every build times the kernel alone (CUDA events, the faster of two
 calls after a warm-up) at chip_smoke.py's phase-5 shapes and at the static
 CCZ shape with batches that put about 1, 2 and 2.75 one-warp restarts on
@@ -48,8 +49,6 @@ def build(source: Path) -> ctypes.CDLL:
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
-    lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -4,15 +4,18 @@ against cpflow_tpu.optimize.candidates)."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from cpflow_tpu import api as japi
+from cpflow_tpu import config as jconfig
 from cpflow_tpu.optimize import candidates as jcand
 from cpflow_tpu.optimize import engine as jengine
 from cpflow_tpu_torch import api as tapi
+from cpflow_tpu_torch import config as tconfig
 from cpflow_tpu_torch.optimize import candidates as tcand
 from cpflow_tpu_torch.optimize import engine as tengine
 from cpflow_tpu_torch.ops.gates import u_ccz3
@@ -127,11 +130,15 @@ def test_verify_candidates_batch_matches_jax():
 def test_verify_candidates_batch_with_another_method_matches_jax(method):
     """The non-fused branch: the same candidates through both packages'
     chains with the projected angles frozen. Frozen masks and CZ counts
-    equal; best losses and angles within 1e-3 after 3 steps (a float32
-    solve against a nearly singular matrix) or 1e-4 (angle by angle). As in
-    the JAX package the mask multiplies the gradient before the
-    preconditioner, which mixes coordinates, and coordinate descent takes
-    no mask: only Adam keeps the projected angles exactly in place."""
+    equal; best losses and angles within 1e-3 (hessian) or 1e-4 (angle by
+    angle). The hessian case runs in float64 in both packages (the JAX
+    package under jax.enable_x64, both precisions set back after): three
+    Newton steps against a nearly singular Hessian turn float32 rounding
+    into angle differences of up to 1e-3 (an angle of about 12 rad), which
+    differ between hosts, and float64 leaves about 1e-11. As in the JAX
+    package the mask multiplies the gradient before the preconditioner,
+    which mixes coordinates, and coordinate descent takes no mask: only
+    Adam keeps the projected angles exactly in place."""
     n, k = 2, 2
     janz = japi.Ansatz(n, 'cp', fill_layers(chain_layer(n), k), 'xz')
     tanz = tapi.Ansatz(n, 'cp', fill_layers(chain_layer(n), k), 'xz')
@@ -143,11 +150,22 @@ def test_verify_candidates_batch_with_another_method_matches_jax(method):
     from cpflow_tpu_torch.ops.gates import cz_mat
     kw = dict(threshold_cp=0.2, method=method, learning_rate=0.05,
               num_iterations=3, target_loss=1e-6)
-    ver = tcand.verify_candidates_batch(
-        tapi.LossSpec('hst', target=cz_mat), tanz, cand, device='cpu', **kw)
-    jver = jcand.verify_candidates_batch(
-        japi.LossSpec('hst', target=cz_mat), janz.unitary, cand,
-        janz.cp_mask, **kw)
+    double = method == 'hessian'
+    with jax.enable_x64(double):
+        jconfig.set_precision(double)
+        tconfig.set_precision(double)
+        try:
+            ver = tcand.verify_candidates_batch(
+                tapi.LossSpec('hst', target=cz_mat), tanz, cand,
+                device='cpu', **kw)
+            jver = jcand.verify_candidates_batch(
+                japi.LossSpec('hst', target=cz_mat), janz.unitary, cand,
+                janz.cp_mask, **kw)
+        finally:
+            jconfig.set_precision(False)
+            tconfig.set_precision(False)
+    assert ver.best_angles.dtype == np.asarray(jver.best_angles).dtype == \
+        (np.float64 if double else np.float32)
     np.testing.assert_array_equal(ver.frozen, jver.frozen)
     np.testing.assert_array_equal(ver.cz, jver.cz)
     assert ver.cz.tolist() == [1, 3, 0, 4]

@@ -65,12 +65,13 @@ def test_sweep_on_cpu_tensor_is_the_plain_version():
 
 def test_kernel_refuses_what_it_does_not_compute():
     eye = lambda n: np.eye(2 ** n, dtype=np.complex64)
-    for obj in [_problem(7, 2, 'xyz', eye(7), 0.0, 1, seed=0)[0],
-                _problem(13, 2, 'xyz', _ghz(13), 0.0, 1, seed=0,
-                         kind='state')[0],
-                _problem(7, 2, 'xz', eye(7), 0.0, 1, seed=0,
-                         kind='modulo_diagonal', wires=[0, 1])[0]]:
-        with pytest.raises(ValueError, match='ROADMAP B.7'):
+    for obj, limit in [
+            (_problem(9, 2, 'xyz', eye(9), 0.0, 1, seed=0)[0], 8),
+            (_problem(13, 2, 'xyz', _ghz(13), 0.0, 1, seed=0,
+                      kind='state')[0], 12),
+            (_problem(9, 2, 'xz', eye(9), 0.0, 1, seed=0,
+                      kind='modulo_diagonal', wires=[0, 1])[0], 8)]:
+        with pytest.raises(ValueError, match=f'2 to {limit} qubits'):
             sk._check_objective(obj)
     obj, _, _ = _problem(3, 2, 'xyz', u_ccz3, 0.0, 1, seed=0)
     obj.unitary_loss_func = LossSpec('custom', fn=lambda u: 0.0)

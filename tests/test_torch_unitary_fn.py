@@ -30,6 +30,9 @@ CASES = {
     '4q-cx-zyx': (4, 'cx', 'zyx', fill_layers(chain_layer(4), 7), None),
     '4q-cp-xyz-column0': (4, 'cp', 'xyz', fill_layers(chain_layer(4), 8),
                           [0]),
+    # the whole unitary on a cluster of blocks on the card (2 and 8)
+    '7q-cp-xyz': (7, 'cp', 'xyz', fill_layers(chain_layer(7), 3), None),
+    '8q-cp-xz': (8, 'cp', 'xz', fill_layers(chain_layer(8), 2), None),
 }
 
 
@@ -146,7 +149,7 @@ def test_kernels_refuse_float64_and_too_many_qubits_on_card():
     a = torch.tensor(_angles('3q-cp-xz'), device='cuda')
     with pytest.raises(ValueError, match='float32'):
         uk.build_unitary(n, ent, rot, pl, a.double(), dtype=torch.float64)
-    pl7 = fill_layers(chain_layer(7), 2)
-    a7 = torch.zeros((21 + 14, 2), device='cuda')
-    with pytest.raises(ValueError, match='2 to 6 qubits'):
-        uk.build_unitary(7, 'cp', 'xyz', pl7, a7)
+    pl9 = fill_layers(chain_layer(9), 2)
+    a9 = torch.zeros((27 + 14, 2), device='cuda')
+    with pytest.raises(ValueError, match='2 to 8 qubits'):
+        uk.build_unitary(9, 'cp', 'xyz', pl9, a9)
