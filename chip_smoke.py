@@ -32,8 +32,9 @@ with CUDA, and never imports JAX. Phases:
      on the 3q chain CCZ (k=12, 1024 samples), which must return a
      decomposition with at most 8 CZ and float64 host loss <= 1e-6,
      through the kernel in both the sampling and the verification stage;
-  5. times of the kernel and the plain version (the plain one over 100 or
-     200 steps, scaled), each kernel time beside its bound (bound_ms, from
+  5. times of the kernel and the plain version (the plain one over T steps
+     at the first two shapes, over 100 steps at the others, each reported
+     with its step count), each kernel time beside its bound (bound_ms, from
      the operations sweep_work counts) and the kernel's registers per
      thread and resident blocks per SM at that shape: the static sampling
      shape, the 5q k=20 batch-2048 shape, shape (d) for 2000 steps, (f) for
@@ -98,7 +99,7 @@ with CUDA, and never imports JAX. Phases:
      and 'angle by angle' on the 3q chain CCZ at small budgets;
  15. seven and eight qubits, each restart's columns split over a cluster of
      2, 4 or 8 thread blocks: (a) the sweep kernel against its plain
-     version as in phase 3 at nine shapes, T = 60 unless said: (q) 7q chain
+     version as in phase 3 at twelve shapes, T = 60 unless said: (q) 7q chain
      Toffoli-7 k=24 B=256 r=0.002; (r) the disc loss on it, B=64; (s) the
      modulo-diagonal loss on wires [2, 5, 0], 'xz', k=16 B=256; (t) the
      modulo-identity loss on wires [6, 1], k=16 B=128; (u) (q)'s template
@@ -107,14 +108,18 @@ with CUDA, and never imports JAX. Phases:
      (v) the verification shape, B=8 with a mask, r=0, lr 0.01,
      target_loss; (w) 8q chain k=16 'xz' B=32 (8 blocks); (x) 7q k=220
      B=8 T=10 (4 blocks); (y) the 144 placements of the Toffoli-7
-     composite, B=64 T=20 (arbiter); (b) the Toffoli-7 program at full
-     width: the
-     composite embedded exactly (k=144), its float32 loss in the kernel
-     beside the float64 host loss, a warm batch of 64 through
-     engine.minimize_fused for 2000 steps at r = 1e-4, verification, which
-     must give at most 144 CZ at float64 host loss <= 1e-6; (c)
+     composite, B=64 T=20 (arbiter); (z1)-(z3) the shapes the main paths
+     below give the kernel: (c)'s sampling (k=8 B=128) and verification
+     (k=8 B=8) and (b)'s verification (k=144 B=8 T=20); (b) the Toffoli-7
+     program at full width: the composite embedded exactly (k=144), its
+     float32 loss in the kernel beside the float64 host loss, a warm batch
+     of 64 through engine.minimize_fused at r = 1e-4, then verification:
+     2000 steps at lr 0.1 must give at most 144 CZ at float64 host loss
+     <= 1e-6, and 500 steps at lr 0.01 must bring a noisy row from above
+     the entry loss back under it to a verified decomposition; (c)
      Synthesize.static on the 7q chain for the CX ladder (6 CZ); 9 qubits
-     must be refused.
+     must be refused. Every cluster launch checks that its blocks end with
+     the same Adam state (the kernel traps otherwise).
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c)) runs with the kernels'
 launch counts set to 0 just before it and read just after. Every shape's
@@ -493,8 +498,9 @@ def compare_shapes():
 def check_plan(obj, B, name):
     """The blocks a restart of `obj` runs on: kernels/sweep.py's plan
     (cluster_plan, smem_bytes) must agree with the kernel's
-    (cpflow_sweep_smem_bytes, and the cluster of the build it launches).
-    Returns (blocks a restart, shared bytes per block, the occupancy)."""
+    (cpflow_sweep_cluster, cpflow_sweep_smem_bytes, and the cluster of the
+    build it launches). Returns (blocks a restart, shared bytes per block,
+    the occupancy)."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                     num_block_angles)
@@ -503,12 +509,14 @@ def check_plan(obj, B, name):
     nba = num_block_angles(obj.entangling_gate_name, obj.rotation_gates)
     c = sk.cluster_plan(n, nb, nba, kind)
     mine = sk.smem_bytes(n, nb, nba, kind, c)
-    card = sk.load_library().cpflow_sweep_smem_bytes(
-        n, nb, nba, sk.LOSS_CODES[kind], c)
+    lib = sk.load_library()
+    theirs = lib.cpflow_sweep_cluster(n, nb, nba, sk.LOSS_CODES[kind])
+    card = lib.cpflow_sweep_smem_bytes(n, nb, nba, sk.LOSS_CODES[kind], c)
     occ = sk.occupancy(obj, B)
-    check(mine == card == occ['smem_bytes'] and occ['cluster'] == c,
+    check(mine == card == occ['smem_bytes'] and c == theirs == occ['cluster'],
           f'{name}: the plan says {c} blocks of {mine} bytes, the kernel '
-          f'{occ["cluster"]} blocks of {card} ({occ["smem_bytes"]}) bytes')
+          f'{theirs} ({occ["cluster"]}) blocks of {card} '
+          f'({occ["smem_bytes"]}) bytes')
     return c, mine, occ
 
 
@@ -596,7 +604,7 @@ def phase_compare(shapes=None, label='phase 3'):
         b_ms, b_by = bound_ms(shape_work(s), s['B'], T)
         rows.append(dict(shape=s['name'], T=T, cluster=c, smem_bytes=nbytes,
                          registers=occ['registers'], ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         plain_T=T, bound_ms=b_ms, bound_by=b_by))
     return worst, {k: sorted(v) for k, v in driven.items()}, rows
 
 
@@ -645,19 +653,20 @@ def phase_main_path():
 
 def phase_timing(card):
     """Kernel and plain times, and the kernel's share of its bound
-    (bound_ms). The plain version is timed over T_plain steps, fewer than
-    T (200 at the static shape, else 100): its time is linear in the step
-    count (no early exit), and T steps took about 70 s of the script's
-    budget. Rates are restart-iter/s. Returns one dict per row."""
+    (bound_ms). The plain version of the later rows is timed over
+    T_plain = 100 steps, not T: their T steps would take minutes of the
+    script's budget. Each row reports the plain time it measured with its
+    step count (plain_T), never a time scaled to T. Rates are
+    restart-iter/s. Returns one dict per row."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
     shapes = {s['name'][:3]: s for s in compare_shapes()}
     rows = []
     for s, T, T_plain in [
             (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12,
-                  target=u_ccz3, r=0.00055, B=1024), 2000, 200),
+                  target=u_ccz3, r=0.00055, B=1024), 2000, 2000),
             (dict(name='5q Toffoli k=20 B=2048', n=5, k=20,
-                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 100),
+                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 500),
             (shapes['(d)'], 2000, 100), (shapes['(f)'], 500, 100),
             (shapes['(g)'], 500, 100), (shapes['(h)'], 2000, 100)]:
         obj, init, mask = shape_inputs(s, s.get('seed', 7))
@@ -683,7 +692,7 @@ def phase_timing(card):
               f'{occ["smem_bytes"]} shared bytes per block, '
               f'{occ["blocks_per_sm"]} blocks per SM', flush=True)
         rows.append(dict(shape=s['name'], T=T, cluster=occ['cluster'], ms=ms,
-                         plain_ms=plain_ms * T / T_plain, bound_ms=b_ms,
+                         plain_ms=plain_ms, plain_T=T_plain, bound_ms=b_ms,
                          bound_by=b_by, registers=occ['registers']))
     return rows
 
@@ -1660,9 +1669,23 @@ def build_warm_batch(angles, cp_mask, batch, seed):
     return out, sig_of_row
 
 
+def ladder7():
+    """The 7-qubit CX ladder CX(0,1), then CX(1,2), ..., CX(5,6): 6 CZ on
+    the chain, and no fewer."""
+    from cpflow_tpu_torch.circuits.ir import Circuit
+    qc = Circuit(7)
+    for q in range(6):
+        qc.cx(q, q + 1)
+    return qc.unitary()
+
+
 def seven_shapes():
-    """Phase 15's rows (q)-(y), as phase 3's shapes, each with the blocks a
-    restart must run on (`cluster`) and its steps T where not 60. At 7
+    """Phase 15's rows (q)-(y) and (z1)-(z3), as phase 3's shapes, each
+    with the blocks a restart must run on (`cluster`) and its steps T where
+    not 60. (z1)-(z3) are the shapes phase 15's main paths give the kernel:
+    (c)'s static sampling and its verification (StaticOptions' r, the
+    verification's learning rate, gradient mask and target loss), and (b)'s
+    verification at k = 144. At 7
     qubits plain float32 itself drifts from float64 in 60 steps on (q),
     (s), (t) and (u) (within 1e-4: 83-90%, 69-80%, 91-92% and 84% of the
     restarts, CPU tests of the plain version; on the disc loss and at 8
@@ -1670,9 +1693,12 @@ def seven_shapes():
     card): as phase 3's deep templates, they are arbiter shapes, and they
     run 64-256 restarts so that the arbiter's margin of 5 points is not
     one or two restarts."""
+    from cpflow_tpu_torch.api import BasicOptions, StaticOptions
     from cpflow_tpu_torch.ops.gates import multi_controlled_x
     t7, t8 = multi_controlled_x(7), multi_controlled_x(8)
     cz144 = {'free': toffoli7_program()[2]}
+    verify = dict(r=0.0, lr=BasicOptions.learning_rate_at_verification,
+                  mask=True, target_loss=BasicOptions.target_loss)
     return [
         dict(name='(q) 7q chain Toffoli-7 k=24 B=256', n=7, k=24, target=t7,
              B=256, r=0.002, lr=0.1, arbiter=True, cluster=2),
@@ -1699,6 +1725,14 @@ def seven_shapes():
         dict(name="(y) the Toffoli-7 composite's 144 placements B=64", n=7,
              k=144, target=t7, placements=cz144, B=64, r=0.0001, lr=0.1,
              T=20, arbiter=True, cluster=2),
+        dict(name=f'(z1) static sampling 7q chain CX ladder k={LADDER_K} '
+             f'B={LADDER_SAMPLES}', n=7, k=LADDER_K, target=ladder7(),
+             B=LADDER_SAMPLES, r=StaticOptions.r, lr=0.1, cluster=2),
+        dict(name=f'(z2) verification 7q chain CX ladder k={LADDER_K} B=8',
+             n=7, k=LADDER_K, target=ladder7(), B=8, cluster=2, **verify),
+        dict(name="(z3) verification on the Toffoli-7 composite's 144 "
+             "placements B=8", n=7, k=144, target=t7, placements=cz144, B=8,
+             T=20, cluster=2, **verify),
     ]
 
 
@@ -1713,13 +1747,22 @@ def phase_toffoli7(card):
     """Phase 15 (b): the JAX package's warm-start protocol
     (benchmarks/warmstart6q.py, mode warm) on the 144-CZ Toffoli-7 at full
     width, as benchmarks/run_queue32.sh ran it on the TPU: the artifact
-    embedded exactly in the CP ansatz (k = 144, 'xyz'), the warm batch of
-    64 (seed 0), one sweep of 2000 Adam steps at r = 1e-4 through
-    engine.minimize_fused (one segment, not four), then
+    embedded exactly in the CP ansatz (k = 144, 'xyz') and the warm batch
+    of 64 (seed 0), swept through engine.minimize_fused at r = 1e-4, then
     verify_candidates_batch (2000 steps, not 5000) on every row under the
-    entry loss. Needs a verified decomposition with at most 144 CZ at
-    float64 host loss <= 1e-6. Returns (sweep launches, the sweep's timing
-    row)."""
+    entry loss. Two arms from the same batch:
+      * the protocol's, one sweep of 2000 steps (one segment, not four) at
+        its learning rate 0.1: needs a verified decomposition with at most
+        144 CZ at float64 host loss <= 1e-6;
+      * 500 steps at the verification's learning rate 0.01, which brings
+        noisy rows back where 0.1 throws them out of the basin: needs a
+        noisy row (sigma > 0) that starts above the entry loss, ends under
+        it and verifies, at a float64 host loss no further above 1e-6 than
+        twice the float32 error the kernel shows at the exact angles
+        (|loss0 - host loss| of row 0). Only the sweep brings such a row
+        back.
+    Returns (launches of both arms' sweeps and verifications, a timing row
+    for each arm's sweep)."""
     import numpy as np
     import torch
     from cpflow_tpu_torch.api import Ansatz, BasicOptions, LossSpec, \
@@ -1731,7 +1774,8 @@ def phase_toffoli7(card):
     start = time.perf_counter()
     qc, meta, placements, exact = toffoli7_program()
     target = multi_controlled_x(7)
-    k, B, T, r = len(placements), 64, 2000, 1e-4
+    k, B, r = len(placements), 64, 1e-4
+    entry = BasicOptions.entry_loss
     pl = {'layers': [[], 0], 'free': placements}
     anz = Ansatz(7, 'cp', pl, 'xyz')
     obj, P = make_objective(7, k, target, r, placements=pl)
@@ -1740,64 +1784,95 @@ def phase_toffoli7(card):
                                    B, 0)
     host0 = hst64(anz.circuit(list(warm[0])).unitary(), target)
     c, _, occ = check_plan(obj, B, 'the Toffoli-7 sweep')
-    sk.LAUNCHES = 0
-    raw, ms = timed(lambda: engine.minimize_fused(
-        obj, torch.tensor(warm, device='cuda'), learning_rate=0.1,
-        num_iterations=T))
-    launches = sk.LAUNCHES
-    loss0, best = raw.loss[:, 0].cpu().numpy(), raw.loss[:, 1].cpu().numpy()
-    check(np.isfinite(best).all() and launches == 1,
-          f'the Toffoli-7 sweep: {launches} launches, a loss not finite')
-    entry = BasicOptions.entry_loss
-    below = np.nonzero(best <= entry)[0]
-    check(len(below) > 0, f'no row of the warm batch under the entry loss '
-          f'{entry}: best {np.sort(best)[:4]}')
     spec = LossSpec('hst', target=target)
-    rows = torch.as_tensor(below, device='cuda')
-    ver, ver_ms = timed(lambda: cand.verify_candidates_batch(
-        spec, anz, raw.params[rows, 1].cpu().numpy(), learning_rate=0.01,
-        num_iterations=2000, target_loss=1e-6, device='cuda'))
-    check(bool(ver.success.any()), f'no row verified: best losses '
+    synth = Synthesize(placements, target_unitary=target)
+    work = shape_work(dict(n=7, k=k))
+
+    def arm(lr, T):
+        """One sweep of the warm batch and the verification of its rows
+        under entry: (loss0, best loss, rows under entry, verification,
+        sweep ms, verification ms, sweep launches)."""
+        before = sk.LAUNCHES
+        raw, ms = timed(lambda: engine.minimize_fused(
+            obj, torch.tensor(warm, device='cuda'), learning_rate=lr,
+            num_iterations=T))
+        launches = sk.LAUNCHES - before
+        loss0 = raw.loss[:, 0].cpu().numpy()
+        best = raw.loss[:, 1].cpu().numpy()
+        check(np.isfinite(best).all() and launches == 1,
+              f'the Toffoli-7 sweep at lr {lr}: {launches} launches, a loss '
+              f'not finite')
+        below = np.nonzero(best <= entry)[0]
+        check(len(below) > 0, f'lr {lr}: no row of the warm batch under the '
+              f'entry loss {entry}: best {np.sort(best)[:4]}')
+        rows = torch.as_tensor(below, device='cuda')
+        ver, ver_ms = timed(lambda: cand.verify_candidates_batch(
+            spec, anz, raw.params[rows, 1].cpu().numpy(), learning_rate=0.01,
+            num_iterations=2000, target_loss=1e-6, device='cuda'))
+        per_sigma = {}  # sigma -1: the random controls
+        for key in sorted(set(sigma.tolist())):
+            mine = sigma == key
+            under = mine[below]
+            per_sigma[key] = (int(mine.sum()), int(under.sum()),
+                              int(ver.success[under].sum()),
+                              float(f'{best[mine].min():.3e}'))
+        b_ms, b_by = bound_ms(work, B, T)
+        print(f'phase 15 (b): lr {lr}: sweep of {T} steps on {card}: '
+              f'{ms:.2f} ms, bound {b_ms:.3f} ms by {b_by}, share '
+              f'{b_ms / ms:.2%}; best loss min {best.min():.3e}, '
+              f'{len(below)} rows under entry {entry}; verification of those '
+              f'({ver_ms:.2f} ms): (sigma: rows, under entry, verified, least '
+              f'best loss) {per_sigma}', flush=True)
+        row = dict(shape=f'Toffoli-7 composite k={k} B={B} lr={lr}', T=T,
+                   cluster=c, smem_bytes=occ['smem_bytes'],
+                   registers=occ['registers'], ms=ms, plain_ms=None,
+                   plain_T=None, bound_ms=b_ms, bound_by=b_by)
+        return loss0, below, ver, row
+
+    sk.LAUNCHES = 0
+    # the protocol's arm: the decomposition of its best verified row
+    # (fewest CZ, then loss)
+    loss0, below, ver, row1 = arm(0.1, 2000)
+    check(bool(ver.success.any()), f'lr 0.1: no row verified: best losses '
           f'{np.sort(ver.best_loss)[:4]}')
-    # the decomposition of the best verified row (fewest CZ, then loss)
     ok = np.nonzero(ver.success)[0]
     i = min(ok, key=lambda j: (ver.cz[j], ver.best_loss[j]))
-    synth = Synthesize(placements, target_unitary=target)
     dec = synth._make_decomposition(anz, ver.best_angles[i])
     host = hst64(dec.circuit.unitary(), target)
     check(dec.cz_count <= meta['cz_count'] and host <= 1e-6,
           f'the best verified Toffoli-7: {dec.cz_count} CZ at host loss '
           f'{host}')
+    # the verification's rate: a noisy row brought back by the sweep
+    loss0_b, below_b, ver_b, row2 = arm(0.01, 500)
+    back = [j for j in np.nonzero(ver_b.success)[0]
+            if sigma[below_b[j]] > 0 and loss0_b[below_b[j]] > entry]
+    check(len(back) > 0, 'lr 0.01: no noisy row that started above entry '
+          'ended under it and verified')
+    j = min(back, key=lambda j: (ver_b.cz[j], ver_b.best_loss[j]))
+    dec_b = synth._make_decomposition(anz, ver_b.best_angles[j])
+    host_b = hst64(dec_b.circuit.unitary(), target)
+    limit = 1e-6 + 2 * abs(float(loss0[0]) - host0)
+    check(dec_b.cz_count <= meta['cz_count'] and host_b <= limit,
+          f'lr 0.01: the best noisy row brought back: {dec_b.cz_count} CZ at '
+          f'host loss {host_b}, above {limit:.3e}')
+    launches = sk.LAUNCHES
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    per_sigma = {}  # sigma -1: the random controls
-    for key in sorted(set(sigma.tolist())):
-        mine = sigma == key
-        under = mine[below]
-        per_sigma[key] = (int(mine.sum()), int(under.sum()),
-                          int(ver.success[under].sum()),
-                          float(f'{best[mine].min():.3e}'))
-    b_ms, b_by = bound_ms(shape_work(dict(n=7, k=k)), B, T)
     print(f'phase 15 (b): Toffoli-7 composite ({meta["cz_count"]} CZ, k={k}, '
           f'P={P}) warm batch of {B} on {c} blocks a restart '
           f'({occ["smem_bytes"]} shared bytes and {occ["registers"]} '
           f'registers a thread each, {occ["active_clusters"]} restarts '
-          f'resident): sweep loss0 of the exact row {loss0[0]:.3e} (float32) '
-          f'against float64 host loss {host0:.3e}; sweep of {T} steps at r='
-          f'{r} on {card}: {ms:.2f} ms, bound {b_ms:.3f} ms by {b_by} '
-          f'({shape_work(dict(n=7, k=k))["needed"]} float32 ops per '
-          f'restart-iter), share {b_ms / ms:.2%}; best loss min '
-          f'{best.min():.3e}, {len(below)} rows under entry {entry}; '
-          f'verification of those ({ver_ms:.2f} ms): (sigma: rows, under '
-          f'entry, verified, least best loss) {per_sigma}; best verified '
-          f'{dec.cz_count} CZ at '
+          f'resident; {work["needed"]} float32 ops per restart-iter): sweep '
+          f'loss0 of the exact row {loss0[0]:.3e} (float32) against float64 '
+          f'host loss {host0:.3e}; lr 0.1: best verified {dec.cz_count} CZ at '
           f'float32 loss {ver.best_loss[i]:.3e}, float64 host loss '
-          f'{host:.3e}; sweep launches {launches}; wall {wall:.3f} s',
-          flush=True)
-    row = dict(shape=f'Toffoli-7 composite k={k} B={B}', T=T, cluster=c,
-               smem_bytes=occ['smem_bytes'], registers=occ['registers'],
-               ms=ms, plain_ms=None, bound_ms=b_ms, bound_by=b_by)
-    return launches, row
+          f'{host:.3e}; lr 0.01: {len(back)} noisy rows brought back under '
+          f'entry and verified, the best (sigma {sigma[below_b[j]]}, loss0 '
+          f'{loss0_b[below_b[j]]:.3e}) {dec_b.cz_count} CZ at float32 loss '
+          f'{ver_b.best_loss[j]:.3e}, float64 host loss {host_b:.3e} (limit '
+          f'{limit:.3e}); sweep and verification launches {launches}; wall '
+          f'{wall:.3f} s', flush=True)
+    return launches, [row1, row2]
 
 
 LADDER_K, LADDER_SAMPLES = 8, 128  # phase 15 (c)
@@ -1811,13 +1886,9 @@ def phase_ladder7():
     float64 host loss <= 1e-6."""
     import torch
     from cpflow_tpu_torch.api import StaticOptions, Synthesize
-    from cpflow_tpu_torch.circuits.ir import Circuit
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.topology import chain_layer
-    qc = Circuit(7)
-    for q in range(6):
-        qc.cx(q, q + 1)
-    ladder = qc.unitary()
+    ladder = ladder7()
     synth = Synthesize(chain_layer(7), target_unitary=ladder)
     options = StaticOptions(num_cp_gates=LADDER_K, num_samples=LADDER_SAMPLES,
                             accepted_num_cz_gates=6)
@@ -1846,7 +1917,7 @@ def phase_ladder7():
 
 def phase_seven(card):
     """Phase 15: seven and eight qubits. (a) the sweep kernel against its
-    plain version at rows (q)-(y) (phase_compare), on clusters of 2, 4 and
+    plain version at rows (q)-(z3) (phase_compare), on clusters of 2, 4 and
     8 blocks; (b) the Toffoli-7 program (phase_toffoli7); (c) the static 7q
     ladder (phase_ladder7); 9 qubits refused by the sweep and the unitary
     kernels. Returns (largest error of (a), the timing rows, the launches
@@ -1860,7 +1931,7 @@ def phase_seven(card):
     check({2, 4, 8} <= {r['cluster'] for r in rows},
           f'phase 15 (a) ran clusters of {sorted({r["cluster"] for r in rows})}')
     launches = {}
-    launches['toffoli7_warm'], row = phase_toffoli7(card)
+    launches['toffoli7_warm'], toffoli_rows = phase_toffoli7(card)
     launches['static_ladder7'] = phase_ladder7()
     obj9, P9 = make_objective(9, 2, np.eye(512, dtype=np.complex64), 0.0)
     before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES)
@@ -1880,7 +1951,7 @@ def phase_seven(card):
     check((sk.LAUNCHES, uk.FORWARD_LAUNCHES) == before,
           '9 qubits: a kernel was launched')
     print(f'phase 15: wall {time.perf_counter() - start:.3f} s', flush=True)
-    return worst, rows + [row], launches
+    return worst, rows + toffoli_rows, launches
 
 
 def main() -> int:
@@ -1942,12 +2013,15 @@ def main() -> int:
         return 1
     print(f'all phases passed in {time.perf_counter() - start:.1f} s')
     print(card)
-    # ms, plain_ms and bound_ms: the static sampling shape (phase 5, row 1);
+    # ms, plain_ms and bound_ms: the static sampling shape (phase 5, row 1),
+    # the kernel and the plain version each timed over its T = 2000 steps;
+    # every row of `shapes` gives the steps its plain_ms was timed over
+    # (plain_T; both null where the plain version was not timed);
     # registers: per thread, as the CUDA runtime reports them;
     # no single PyTorch call computes the sweep, so library_ms is null;
     # modes, entanglers and rotation strings: those phase 3 drove;
-    # shapes: phase 5's rows, phase 15's rows (q)-(y) at their T and the
-    # Toffoli-7 program's sweep, each with the blocks a restart ran on
+    # shapes: phase 5's rows, phase 15's rows (q)-(z3) at their T and the
+    # Toffoli-7 program's two sweeps, each with the blocks a restart ran on
     # (`cluster`; at the top, every size the kernel ran with)
     # the unitary kernels: ms (one call of the wrapper, CUDA events, as the
     # sweep's), device_ms (the kernel alone on the card, from the profiler's

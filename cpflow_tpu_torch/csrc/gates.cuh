@@ -492,6 +492,44 @@ __device__ inline void cluster_sum(float* x, int len) {
   cluster.sync();
 }
 
+// Traps unless every block of the cluster holds the same bits in x[0..len)
+// as rank 0. The blocks of a restart update the same angles from the same
+// sums; a block that differs runs another unitary than its peers, and
+// nothing else would show it. Begins and ends with a cluster barrier, so that
+// rank 0's shared memory stays in place while its peers read it.
+__device__ inline void cluster_agree(const float* x, int len) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() != 0) {
+    const float* x0 = cluster.map_shared_rank(const_cast<float*>(x), 0);
+    for (int i = threadIdx.x; i < len; i += blockDim.x)
+      if (__float_as_uint(x[i]) != __float_as_uint(x0[i])) __trap();
+  }
+  cluster.sync();
+}
+
+// The launch of `grid` blocks of `threads` threads with `smem` bytes of
+// dynamic shared memory on `stream`, in clusters of `cluster` blocks along x
+// (1: no cluster). `attr` holds the cluster's dimensions and must outlive the
+// configuration.
+inline cudaLaunchConfig_t launch_config(unsigned grid, int threads,
+                                        size_t smem, unsigned cluster,
+                                        cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
 // Every angle's gradient from the gates' cotangents, one gate per thread.
 __device__ __forceinline__ void angle_grads(const Template& t, int n, int G,
                                             const float* cs,

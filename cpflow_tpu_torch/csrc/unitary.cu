@@ -244,17 +244,11 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
-  cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster ? 1u << a.cluster_log : 1u;
-  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)B << a.cluster_log);
-  cfg.blockDim = dim3(L.nt);
-  cfg.dynamicSmemBytes = L.bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &attr;
-  cfg.numAttrs = cluster ? 1 : 0;
+  const cudaLaunchConfig_t cfg = launch_config(
+      (unsigned)B << a.cluster_log, L.nt, L.bytes,
+      cluster ? 1u << a.cluster_log : 1u, static_cast<cudaStream_t>(stream),
+      &attr);
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
                             args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -38,8 +38,11 @@ where its layout fits one block's shared memory (every shape up to 6
 qubits, and a state up to 12); above that its columns are split over a
 thread-block cluster of 2, 4 or 8 blocks, the smallest that fits
 (``cluster_plan``; 7 qubits take 2, or 4 from 215 'xyz' blocks, 8 qubits
-take 8). ``smem_bytes`` mirrors the kernel's layout so that the plan can
-be checked without a card.
+take 8). On the card the library's own plan decides
+(``cpflow_sweep_cluster``); ``smem_bytes`` and ``cluster_plan`` mirror it
+so that the plan can be checked without a card. Every block of a cluster
+runs Adam on the same angles, and the kernel traps if the blocks end a
+launch with different bits of the Adam state.
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -161,6 +164,8 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_launch.restype = ctypes.c_int
     lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
+    lib.cpflow_sweep_cluster.argtypes = [ctypes.c_int] * 4
+    lib.cpflow_sweep_cluster.restype = ctypes.c_int
     lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
     _lib = lib
@@ -280,14 +285,15 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
                                  dtype=config.real_dtype).contiguous()
 
     loss = LOSS_CODES[spec.kind]
-    if cluster_plan(n, nb, nba, spec.kind) is None:
+    lib = load_library()
+    cluster = lib.cpflow_sweep_cluster(n, nb, nba, loss)
+    if not cluster:
         most = 1 if spec.kind == 'state' else CLUSTERS[-1]
         raise ValueError(
             f'{n} qubits with {nb} blocks need '
-            f'{smem_bytes(n, nb, nba, spec.kind, most)} bytes of shared '
-            f'memory per block even on {most} blocks a restart, above '
+            f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, most)} bytes of '
+            f'shared memory per block even on {most} blocks a restart, above '
             f'{_SMEM_LIMIT}')
-    lib = load_library()
 
     state = spec.kind == 'state'
     target = torch.as_tensor(np.asarray(spec.target),
@@ -341,7 +347,7 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
         if err != 0:
             raise RuntimeError(
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
-                f'on {cluster_plan(n, nb, nba, spec.kind)} blocks each)')
+                f'on {cluster} blocks each)')
         LAUNCHES += 1
 
     T = int(num_iterations)

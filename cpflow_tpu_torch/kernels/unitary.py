@@ -37,7 +37,8 @@ per restart; ``build_unitary`` hands it on as the batch-last view
 any strides. A kernel's block owns one restart where its layout fits one
 block's shared memory; above that (7 and 8 qubits for the whole unitary)
 the restart's columns are split over c = 2, 4 or 8 blocks, the smallest
-that fits (``cluster_plan``, mirrored from csrc/unitary.cu): the forward
+that fits (csrc/unitary.cu's plan, ``cpflow_unitary_cluster``, which
+``cluster_plan`` mirrors for checks without a card): the forward
 pass's blocks each store their d x C / c columns, the vjp's form a thread
 block cluster and sum the gates' cotangents over distributed shared
 memory.
@@ -184,15 +185,17 @@ class _Shape:
                              f'{tuple(angles.shape)}')
         self.B = angles.shape[1]
         self.udims = (self.B, 1 << n, 1 << self.log_c)
-        self.cluster = cluster_plan(n, self.nb, self.nba, self.log_c, vjp)
-        if self.cluster is None:
-            most = min(CLUSTERS[-1], 1 << self.log_c)
-            raise ValueError(
-                f'{n} qubits with {self.nb} blocks need '
-                f'{smem_bytes(n, self.nb, self.nba, self.log_c, vjp, most)} '
-                f'bytes of shared memory per block even on {most} blocks a '
-                f'restart, above {_SMEM_LIMIT}')
         self.lib = load_library()
+        self.cluster = self.lib.cpflow_unitary_cluster(
+            n, self.nb, self.nba, self.log_c, int(vjp))
+        if not self.cluster:
+            most = min(CLUSTERS[-1], 1 << self.log_c)
+            nbytes = self.lib.cpflow_unitary_smem_bytes(
+                n, self.nb, self.nba, self.log_c, int(vjp), most)
+            raise ValueError(
+                f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
+                f'shared memory per block even on {most} blocks a restart, '
+                f'above {_SMEM_LIMIT}')
 
     def launch(self, angles, u, ubar, grad, vjp):
         plc, letters = _tables(self.placements, self.rot, angles.device)

@@ -10,8 +10,9 @@ Run from the root of the repository:
 for example with OLD an earlier commit unpacked by ``git archive`` into
 ``build/``. Each source must export cpflow_sweep_launch with the
 arguments this tree's kernels/sweep.py passes; the shapes below all run a
-restart on one block. Each is built with nvcc for sm_90a into build/ab/ and its ptxas
-report printed.
+restart on one block, so a source from before the cluster build, which
+lacks cpflow_sweep_cluster, is given a stand-in that answers one. Each is
+built with nvcc for sm_90a into build/ab/ and its ptxas report printed.
 Then every build times the kernel alone (CUDA events, the faster of two
 calls after a warm-up) at chip_smoke.py's phase-5 shapes and at the static
 CCZ shape with batches that put about 1, 2 and 2.75 one-warp restarts on
@@ -49,6 +50,11 @@ def build(source: Path) -> ctypes.CDLL:
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
+    if hasattr(lib, 'cpflow_sweep_cluster'):
+        lib.cpflow_sweep_cluster.argtypes = [ctypes.c_int] * 4
+        lib.cpflow_sweep_cluster.restype = ctypes.c_int
+    else:
+        lib.cpflow_sweep_cluster = lambda *shape: 1
     return lib
 
 
