@@ -119,14 +119,38 @@ with CUDA, and never imports JAX. Phases:
      the entry loss back under it to a verified decomposition; (c)
      Synthesize.static on the 7q chain for the CX ladder (6 CZ); 9 qubits
      must be refused. Every cluster launch checks that its blocks end with
-     the same Adam state (the kernel traps otherwise).
+     the same Adam state (the kernel traps otherwise);
+ 16. the command line and the restart split (parallel/mesh.py) on the one
+     card, where a mesh lists cuda:0 more than once: (a) ``python -m
+     cpflow_tpu_torch info`` and ``synthesize --target ccz --layer chain
+     --static --num-cp-gates 12 --num-samples 1024 --accepted-cz 8
+     --no-save`` as subprocesses (the second run as ``-m`` runs it, through
+     runpy, so that its launch count can be read at its end), which must
+     exit 0 and find an 8-CZ decomposition at loss <= 1e-6; (b)
+     Synthesize.static on the 3q chain CCZ (1024 samples) with mesh
+     [cuda:0, cuda:0] against no mesh: the same sorted CZ lists, losses
+     within 1e-6 pair by pair, the sampling stage launching the sweep once
+     per shard, the current device unchanged, and the kernel library's
+     runtime seeing the tensor's device (index 0: one card) under the
+     launch guard; (c) the sampling sweep (3q k=12, B=1024, T=2000)
+     through minimize_fused split 2 ways against the whole batch: bit-equal
+     where both run the same kernel build (occupancy), else within
+     drift_ok; (d) two processes over gloo (distributed_init on 127.0.0.1,
+     a shard each on cuda:0), each holding the whole gathered result,
+     equal to (c)'s whole batch under (c)'s rule, each with 120 s to end;
+     (e) parallel.dryrun.dryrun_multichip(4). The subprocesses of (a) and
+     (d) run beside (b), (c) and (e).
 
-Each main path (4, 6-11, 13, 14, 15 (b) and (c)) runs with the kernels'
-launch counts set to 0 just before it and read just after. Every shape's
+Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e)) runs with
+the kernels' launch counts set to 0 just before it and read just after
+(16 (a) and (d) in their own processes). Every shape's
 plan (blocks a restart, shared bytes per block) is held against the
 kernels' own. The script prints the card, a JSON line of kernel results
 (sweep, ansatz_forward, ansatz_vjp) and, last, the JSON device line; it
-exits non-zero if any phase fails or there is no card.
+exits non-zero if any phase fails or there is no card. The kernels' work
+and bounds come from cpflow_tpu_torch/utils/profiling.py.
+``python3 chip_smoke.py --dist-worker <port> <rank> <file>`` is phase 16
+(d)'s worker.
 """
 
 from __future__ import annotations
@@ -139,6 +163,14 @@ from pathlib import Path
 import subprocess
 import sys
 import time
+
+
+try:  # the kernels' work and bounds; main() says so if the port is missing
+    from cpflow_tpu_torch.utils.profiling import (bound_ms, sweep_work,
+                                                  unitary_bound_ms,
+                                                  unitary_work)
+except ImportError:
+    pass
 
 
 class PhaseError(Exception):
@@ -193,69 +225,6 @@ def artifact_cz_placements():
         'toffoli4_connected.json'
     doc = json.loads(path.read_text())
     return [list(i['qubits']) for i in doc['instructions'] if i['name'] == 'cz']
-
-
-# float32 operations of one restart-iteration (a complex product 6, a
-# complex sum 2, a sine or cosine 1). `needed` is what the sweep's
-# algorithm needs, the numerator of its bound:
-#  - per amplitude of the d x C state: a 1q gate's forward pass 14 and its
-#    adjoint step 44 (rewinding A by G^dag, pulling M back by G^T, summing
-#    the gate's cotangent), a 2q gate's 30 and 92;
-#  - the loss with its cotangent: 14 per amplitude (hst, disc, state); for
-#    the modulo losses 26 per entry on the blocks, 5 per entry off them and
-#    6 per row;
-#  - the cosine and sine of every angle (or half angle), 3 per angle;
-#  - a block of m rotation letters in factored 2x2 form (sim/adjoint.py):
-#    the up and down legs' 2(m - 1) products (112(m - 1)), their Kronecker
-#    product (96), the legs' cotangents from the 4x4 cotangent (256) and
-#    U Y^T, D Y^T (112), and down each leg a conjugation R^dag V R (51) and
-#    a trace per letter (102(m - 1) + 2m): 214(m - 1) + 464 + 2m; CP adds
-#    109 (its phase column in the build and the pullback, its angle
-#    gradient), CZ 16 (sign flips), CX nothing (a permutation);
-#  - a surface gate Rz Rx Rz: its build (112), G Gbar^T (56) and the walk
-#    down its three letters (105), 273;
-#  - Adam with the gradient mask, 15 per angle; the penalty's value and
-#    slope, 22 per CP angle.
-# `executed` counts csrc/sweep.cu's loops as they stand. Beyond `needed`
-# the gradient pass rebuilds both legs of every block from the stored cos
-# and sin (112(m - 1) a block), and the kernel computes the penalty of
-# every angle (masked by cp_mask) in the evaluation and again in the Adam
-# pass (2 x 22 per angle).
-def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None):
-    """dict(P angles, target entries, needed and executed float32
-    operations of one restart-iteration) of a sweep."""
-    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
-    d, m = 2 ** n, len(rot)
-    P = 3 * n + num_block_angles(ent, rot) * nb
-    amps = d if kind == 'state' else d * d
-    common = amps * (58 * n + 122 * nb)
-    if kind.startswith('modulo'):
-        on = d * 2 ** (n - num_wires)          # entries on the blocks
-        common += 26 * on + 5 * (amps - on) + 6 * d
-    else:
-        common += 14 * amps
-    common += 273 * n + (214 * max(m - 1, 0) + 464 + 2 * m + {
-        'cp': 109, 'cz': 16, 'cx': 0}[ent]) * nb + 18 * P
-    needed = common + 22 * nb * (ent == 'cp')
-    executed = common + 112 * max(m - 1, 0) * nb + 44 * P
-    return dict(P=P, target=amps, needed=needed, executed=executed)
-
-
-PEAK_F32 = 67e12   # float32 FLOP/s outside the tensor cores, H100 SXM, 700 W
-PEAK_BYTES = 3.35e12
-
-
-def bound_ms(work, B, T):
-    """(least time in ms, 'operations' or 'bytes') for a sweep of B restarts
-    over T steps of sweep_work's `work`: its needed operations over the
-    float32 peak, or the bytes it must move (initial angles, mask, target
-    and r read, best angles and summary written) over the memory rate,
-    whichever is larger."""
-    P = work['P']
-    nbytes = 4 * (3 * P * B + 5 * B + P) + 8 * work['target']
-    t_ops = work['needed'] * B * T / PEAK_F32 * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def ghz(n):
@@ -1037,39 +1006,6 @@ def phase_refine(name, layer, options, want_cz, published):
           f'{loss:.3e}, least T count {min(r[1] for r in refined)} '
           f'({published})', flush=True)
     return launches
-
-
-# float32 operations of one forward pass and of one adjoint walk of the
-# ansatz, with sweep_work's terms: per amplitude of the d x C state a 1q
-# gate costs 14 forwards and 44 in the walk, a 2q gate 30 and 92; the cos and
-# sin of every angle 3; a surface gate's build 112 and its gradients 161; a
-# block's build 112(m - 1) + 96 (+ 24 for CP's phase column, 4 for CZ's
-# signs) and its gradients 368 + 102(m - 1) + 2m (+ 85 for CP, 12 for CZ).
-# The walk needs the gates too, so it builds them again; it also halves and
-# conjugates the cotangent (2 per amplitude).
-def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None):
-    """dict(P, amplitudes, forward and vjp float32 operations of one
-    restart, forward and vjp bytes of one restart) of the unitary kernels."""
-    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
-    m = len(rot)
-    P = 3 * n + num_block_angles(ent, rot) * nb
-    amps = 2 ** (n + (n if log_c is None else log_c))
-    gates = 3 * P + 112 * n + (112 * max(m - 1, 0) + 96 + {
-        'cp': 24, 'cz': 4, 'cx': 0}[ent]) * nb
-    forward = amps * (14 * n + 30 * nb) + gates
-    vjp = gates + amps * (44 * n + 92 * nb + 2) + 161 * n + (
-        368 + 102 * max(m - 1, 0) + 2 * m + {'cp': 85, 'cz': 12, 'cx': 0}[ent]
-    ) * nb
-    return dict(P=P, amps=amps, forward=forward, vjp=vjp,
-                forward_bytes=4 * P + 8 * amps,
-                vjp_bytes=8 * P + 16 * amps)
-
-
-def unitary_bound_ms(ops, nbytes, B):
-    """(least time in ms, 'operations' or 'bytes') of B restarts."""
-    t_ops = ops * B / PEAK_F32 * 1e3
-    t_bytes = nbytes * B / PEAK_BYTES * 1e3
-    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def unitary_shapes():
@@ -1954,6 +1890,255 @@ def phase_seven(card):
     return worst, rows + toffoli_rows, launches
 
 
+# ------------------------------------------------------------ phase 16
+
+MESH_T = 2000  # phase 16 (c) and (d): the sampling sweep's steps
+
+# python -m cpflow_tpu_torch, as runpy runs it for -m, with the sweep
+# kernel's launch count (set to 0 first) written to stderr once main()
+# returns: the count lives in that process
+CLI_COUNTED = (
+    'import runpy, sys\n'
+    'from cpflow_tpu_torch.kernels import sweep\n'
+    'sweep.LAUNCHES = 0\n'
+    'sys.argv = ["cpflow_tpu_torch"] + sys.argv[1:]\n'
+    'runpy.run_module("cpflow_tpu_torch", run_name="__main__", '
+    'alter_sys=True)\n'
+    'print("LAUNCHES", sweep.LAUNCHES, file=sys.stderr)\n')
+
+
+def mesh_sweep_inputs():
+    """Phase 16 (c) and (d): the static CCZ sampling sweep's objective
+    (3q chain, k=12, r=0.00055) and 1024 seeded initial angles (B, P) on
+    the card."""
+    from cpflow_tpu_torch.ops.gates import u_ccz3
+    obj, P = make_objective(3, 12, u_ccz3, 0.00055)
+    return obj, uniform_inits(P, 1024, 16, 'cuda').T.contiguous()
+
+
+def same_sweep(a, b, same_build, what):
+    """Phase 16's rule for two [initial, best] results of one batch: bit
+    for bit where the same kernel build ran both, else drift_ok on the best
+    regularised and plain losses. Returns a description."""
+    import torch
+    if same_build:
+        check(torch.equal(a.regloss, b.regloss) and
+              torch.equal(a.params, b.params) and torch.equal(a.loss, b.loss),
+              f'{what}: not bit-equal on the same build')
+        return 'bit-equal (same build)'
+    for x, y, name in [(a.regloss[:, 1], b.regloss[:, 1], 'regloss'),
+                       (a.loss[:, 1], b.loss[:, 1], 'loss')]:
+        ok, within = drift_ok(scaled_err(x, y))
+        check(ok, f'{what}: best {name} misses drift_ok ({within:.1%} '
+              f'within 1e-4)')
+    return 'within drift_ok (builds differ)'
+
+
+def dist_worker(port, rank, out_path):
+    """Phase 16 (d)'s worker: process `rank` of two over gloo on
+    127.0.0.1, its shard on cuda:0, runs the sampling sweep of
+    mesh_sweep_inputs through minimize_fused(sharding=) and saves the
+    gathered result and its launch count to out_path."""
+    import torch
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.optimize.engine import minimize_fused
+    from cpflow_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.distributed_init(f'127.0.0.1:{port}', 2, rank, timeout=90)
+    mesh = mesh_lib.restart_mesh(['cuda:0'])
+    obj, inits = mesh_sweep_inputs()
+    sk.LAUNCHES = 0
+    raw = minimize_fused(obj, inits, 0.1, MESH_T, sharding=mesh)
+    torch.cuda.synchronize()
+    torch.save({'regloss': raw.regloss.cpu(), 'loss': raw.loss.cpu(),
+                'params': raw.params.cpu(), 'launches': sk.LAUNCHES,
+                'size': mesh.size,
+                'registers': sk.occupancy(obj, inits.shape[0] // 2,
+                                          'cuda:0')['registers']}, out_path)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh(card):
+    """Phase 16: the CLI and the restart split on the card (module
+    docstring). The subprocesses of (a) and (d) start first and run beside
+    (b), (c) and (e). Returns the sweep kernel's launches per path."""
+    import os
+    import socket
+    import tempfile
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.ops.gates import u_ccz3
+    from cpflow_tpu_torch.optimize import candidates as cand
+    from cpflow_tpu_torch.optimize.engine import minimize_fused
+    from cpflow_tpu_torch.parallel import mesh as mesh_lib
+    from cpflow_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cpflow_tpu_torch.topology import chain_layer
+    start = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    run = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+               cwd=root, env=env)
+    cli = [sys.executable, '-m', 'cpflow_tpu_torch']
+    synth_args = ['synthesize', '--target', 'ccz', '--layer', 'chain',
+                  '--static', '--num-cp-gates', '12', '--num-samples', '1024',
+                  '--accepted-cz', '8', '--no-save']
+    procs = {'info': subprocess.Popen(cli + ['info'], **run),
+             'synthesize': subprocess.Popen(
+                 [sys.executable, '-c', CLI_COUNTED] + synth_args, **run)}
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
+    for r in range(2):
+        procs[f'rank {r}'] = subprocess.Popen(
+            [sys.executable, str(root / 'chip_smoke.py'), '--dist-worker',
+             str(port), str(r), outs[r]], **run)
+    launches = {}
+    try:
+        # (b) the static CCZ with its restarts split over cuda:0 twice
+        dev0 = torch.cuda.current_device()
+        check(sk.library_device('cuda:0') == 0, 'the kernel library does '
+              'not see cuda:0 as current under the launch guard')
+        options = StaticOptions(num_cp_gates=12, num_samples=1024,
+                                accepted_num_cz_gates=8)
+        sampling = []
+        real = cand.run_raw_stage_fused
+
+        def watched(*args, **kw):
+            before = sk.LAUNCHES
+            out = real(*args, **kw)
+            sampling.append(sk.LAUNCHES - before)
+            return out
+
+        runs, walls = {}, {}
+        cand.run_raw_stage_fused = watched
+        try:
+            for name, mesh in [('none', None), ('mesh', mesh_lib.restart_mesh(
+                    ['cuda:0', 'cuda:0']))]:
+                synth = Synthesize(chain_layer(3), target_unitary=u_ccz3,
+                                   mesh=mesh)
+                sk.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = synth.static(options, save_results=False,
+                                   verbose=False)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                launches[name] = sk.LAUNCHES
+                check(res.mesh_size == (2 if mesh else 1),
+                      f'(b) mesh_size {res.mesh_size}')
+                runs[name] = sorted((d.cz_count, float(d.loss))
+                                    for d in res.decompositions)
+        finally:
+            cand.run_raw_stage_fused = real
+        check(sampling == [1, 2], f'(b) sampling launches {sampling}, not '
+              f'1 unsplit and one per shard')
+        check(torch.cuda.current_device() == dev0, '(b) the current device '
+              'changed')
+        check(runs['none'] and [c for c, _ in runs['none']] ==
+              [c for c, _ in runs['mesh']], '(b) the CZ lists differ')
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(runs['none'],
+                                                         runs['mesh']))
+        check(gap <= 1e-6, f'(b) losses differ by {gap:.3e}')
+        print(f'phase 16 (b): static CCZ 1024 samples, mesh [cuda:0, '
+              f'cuda:0] against none: {len(runs["mesh"])} decompositions '
+              f'each, CZ lists equal, losses within {gap:.3e}; sampling '
+              f'launches {sampling[1]} (none: {sampling[0]}), all '
+              f'{launches["mesh"]} ({launches["none"]}); walls '
+              f'{walls["mesh"]:.3f} s ({walls["none"]:.3f} s); library '
+              f'device 0 under the guard', flush=True)
+        launches = {'mesh_static_ccz': launches['mesh']}
+
+        # (c) the sampling sweep split two ways against the whole batch
+        obj, inits = mesh_sweep_inputs()
+        B = inits.shape[0]
+        whole, ms_whole = timed(lambda: minimize_fused(obj, inits, 0.1,
+                                                       MESH_T))
+        sk.LAUNCHES = 0
+        split, ms_split = timed(lambda: minimize_fused(
+            obj, inits, 0.1, MESH_T, sharding=mesh_lib.restart_mesh(
+                ['cuda:0', 'cuda:0'])))
+        launches['mesh_sweep'] = sk.LAUNCHES
+        check(sk.LAUNCHES == 2, f'(c) {sk.LAUNCHES} launches, not 2')
+        regs = {b: sk.occupancy(obj, b)['registers'] for b in (B, B // 2)}
+        same = regs[B] == regs[B // 2]
+        rule = same_sweep(split, whole, same, '(c)')
+        print(f'phase 16 (c): 3q k=12 B={B} T={MESH_T} split 2 ways: '
+              f'builds of {regs[B]} registers (whole) and {regs[B // 2]} '
+              f'(halves); {rule}; {ms_split:.2f} ms split, '
+              f'{ms_whole:.2f} ms whole (CUDA events around the call)',
+              flush=True)
+
+        # (e) the dry run over a mesh of four entries on the one card
+        sk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(4)
+        torch.cuda.synchronize()
+        launches['dryrun_multichip'] = sk.LAUNCHES
+        check(dry['mesh'] == ['cuda:0'] * 4 and dry['cards_repeated'],
+              f'(e) {dry}')
+        check(sk.LAUNCHES >= 8, f'(e) {sk.LAUNCHES} launches: not one per '
+              f'shard in both the sweep and the sampling stage')
+        print(f'phase 16 (e): dryrun_multichip(4): {dry}; launches '
+              f'{sk.LAUNCHES}; {time.perf_counter() - t0:.3f} s', flush=True)
+
+        # (a) the CLI, and (d) the two processes, all started above
+        done = {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f'phase 16: {name} did not end in 120 s')
+            check(proc.returncode == 0, f'phase 16: {name} exited '
+                  f'{proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}')
+            done[name] = (out, err)
+        info = json.loads(done['info'][0].strip().splitlines()[-1])
+        check(info['devices'] and info['devices'][0]['compute_capability']
+              == '9.0', f'(a) info: {info}')
+        found = json.loads(done['synthesize'][0].strip().splitlines()[-1])
+        best = min((d['loss'] for d in found['decompositions']
+                    if d['cz_count'] == 8), default=None)
+        check(best is not None and best <= 1e-6 and min(
+            d['cz_count'] for d in found['decompositions']) == 8,
+              f'(a) no 8-CZ decomposition at loss <= 1e-6')
+        counted = [line for line in done['synthesize'][1].splitlines()
+                   if line.startswith('LAUNCHES ')]
+        launches['cli_static_ccz'] = int(counted[-1].split()[1])
+        check(launches['cli_static_ccz'] >= 2, '(a) the CLI launched the '
+              'kernel in fewer than two stages')
+        print(f'phase 16 (a): info {json.dumps(info)}; synthesize: '
+              f'{len(found["decompositions"])} decompositions, best 8-CZ '
+              f'loss {best:.3e}, launches {launches["cli_static_ccz"]}',
+              flush=True)
+        dist = []
+        for r in range(2):
+            got = torch.load(outs[r])
+            check(got['size'] == 2 and got['regloss'].shape == (B, 2),
+                  f'(d) rank {r} holds {tuple(got["regloss"].shape)}')
+            dist.append(got)
+            rebuilt = type(whole)(params=got['params'].cuda(),
+                                  regloss=got['regloss'].cuda(),
+                                  loss=got['loss'].cuda())
+            rule_d = same_sweep(rebuilt, whole, got['registers'] == regs[B],
+                                f'(d) rank {r}')
+        launches['dist_sweep'] = sum(g['launches'] for g in dist)
+        check(launches['dist_sweep'] == 2, f'(d) launches '
+              f'{[g["launches"] for g in dist]}')
+        print(f'phase 16 (d): two processes over gloo, one shard each on '
+              f'cuda:0: both hold the whole {B} restarts, {rule_d} against '
+              f'(c)\'s whole batch', flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f'phase 16: wall {time.perf_counter() - start:.3f} s; {card}',
+          flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2001,6 +2186,7 @@ def main() -> int:
         unitary_launches.update(phase_engine())
         seven_err, seven_rows, seven_launches = phase_seven(card)
         launches.update(seven_launches)
+        launches.update(phase_mesh(card))
         max_err = max(max_err, seven_err)
         check(all(v > 0 for v in launches.values()),
               f'a main path missed the sweep kernel: {launches}')
@@ -2018,6 +2204,9 @@ def main() -> int:
     # every row of `shapes` gives the steps its plain_ms was timed over
     # (plain_T; both null where the plain version was not timed);
     # registers: per thread, as the CUDA runtime reports them;
+    # launches_by_path: every main path's count, phase 16's CLI
+    # (cli_static_ccz) and two-process (dist_sweep) counts read from those
+    # processes;
     # no single PyTorch call computes the sweep, so library_ms is null;
     # modes, entanglers and rotation strings: those phase 3 drove;
     # shapes: phase 5's rows, phase 15's rows (q)-(z3) at their T and the
@@ -2066,4 +2255,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dist-worker']:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -12,7 +12,10 @@ state-preparation and modulo-identity/diagonal losses, any rotation string
 of x, y, z, and the CP, CZ and CX entanglers; and, on the host in float64
 numpy, ``Decomposition.refine`` with the whole ``circuits`` package (circuit
 IR with QASM and drawing, passes, Rational and Clifford+T rounding, grid
-synthesis, exact cyclotomic unitaries, circuit-to-ansatz).
+synthesis, exact cyclotomic unitaries, circuit-to-ansatz); the restart
+split over several cards (``Synthesize(mesh=...)``, parallel/mesh.py),
+the command line (``python -m cpflow_tpu_torch``), utils/profiling.py,
+migrate.py and the qiskit bridge circuits/interop.py.
 """
 
 from cpflow_tpu_torch.api import (AdaptiveOptions, Ansatz, BasicOptions,

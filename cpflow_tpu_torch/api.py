@@ -35,8 +35,12 @@ package. What differs:
     ``params.trials_from_jax`` carries a JAX package's trials over.
   * ``Decomposition.refine`` runs on the host in float64 numpy, with the
     JAX package's signature and defaults (circuits/refine.py).
-  * Not here yet: the device mesh (A.9). Not ported:
-    ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
+  * ``Synthesize(mesh=...)`` takes a parallel.mesh.RestartMesh, the
+    restart split over several cards (or ``'auto'``: every visible card
+    when there is more than one and the device is CUDA). The sampling
+    sweeps split the (padded) batch over it; verification runs unsplit, as
+    in the JAX package. ``Results.mesh_size`` records the shard count.
+  * Not ported: ``AdaptiveOptions.unsafe_batch`` (a TPU memory guard).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from cpflow_tpu_torch.optimize import candidates as cand
 from cpflow_tpu_torch.optimize import engine, unitary_learn
 from cpflow_tpu_torch.ops import losses
 from cpflow_tpu_torch.ops.penalty import make_regularization_function
+from cpflow_tpu_torch.parallel import mesh as mesh_lib
 from cpflow_tpu_torch.search import tpe
 from cpflow_tpu_torch.search.seed_chain import next_seed
 from cpflow_tpu_torch.sim import batched as batched_sim
@@ -442,13 +447,15 @@ class AdaptiveOptions(BasicOptions):
 
 @dataclass
 class Results:
-    """Persistent store of trials and decompositions."""
+    """Persistent store of trials and decompositions; mesh_size: the
+    shards the sampling sweeps of the last run were split into."""
     loss_function: Any
     layer: list
     label: str = ''
     trials: Any = None
     decompositions: tuple = ()
     save_to: str = ''
+    mesh_size: int = 1
 
     def __post_init__(self):
         if self.save_to == '':
@@ -511,12 +518,19 @@ class Synthesize:
         cp_regularization_func: per-angle CP penalty (default: piecewise
             linear with RegularizationOptions defaults).
         device: where the sweeps run, 'cuda' (the default) or 'cpu'.
+        mesh: a parallel.mesh.RestartMesh to split the restart batch over;
+            'auto': every visible card when there is more than one and
+            device is CUDA, else None (no split).
     """
 
     def __init__(self, layer, unitary_loss_func=None, target_unitary=None,
                  target_state=None, label=None, cp_regularization_func=None,
-                 *, device='cuda'):
+                 *, device='cuda', mesh='auto'):
         self.device = config.resolve_device(device=device)
+        if mesh == 'auto':
+            mesh = mesh_lib.restart_mesh() if self.device.type == 'cuda' \
+                and torch.cuda.device_count() > 1 else None
+        self.mesh = mesh
         self.layer = layer
         self.num_qubits = num_qubits_from_layer(layer)
         self.target_unitary = target_unitary
@@ -548,10 +562,17 @@ class Synthesize:
         self.stage_seconds: dict = {}  # wall time of each stage of the last run
 
     def __getstate__(self):
-        # the bucketed stage's cache is rebuilt on next use
+        # the bucketed stage's cache is rebuilt on next use; the mesh names
+        # this machine's devices and process group
         state = self.__dict__.copy()
+        state['mesh'] = None
         state.pop('_stage_cache', None)
         return state
+
+    def _batch_size(self, num_samples: int) -> int:
+        """The restarts a sampling sweep runs: num_samples padded to a
+        multiple of the mesh size."""
+        return mesh_lib.padded_batch_size(num_samples, self.mesh)
 
     # -- internals ----------------------------------------------------------
 
@@ -603,7 +624,8 @@ class Synthesize:
             inits = cand.generate_initial_angles_batch(
                 gen, anz.num_angles, anz.cp_mask,
                 cp_dist=options.cp_distribution,
-                batch_size=options.num_samples, device=self.device)
+                batch_size=self._batch_size(options.num_samples),
+                device=self.device)
         else:
             inits = torch.as_tensor(np.asarray(initial_angles_array),
                                     dtype=config.real_dtype,
@@ -613,12 +635,13 @@ class Synthesize:
             return engine.minimize_fused(
                 objective, inits, learning_rate=options.learning_rate,
                 num_iterations=options.num_gd_iterations,
-                keep_history=keep_history)
+                keep_history=keep_history, sharding=self.mesh)
         return engine.minimize_multistart(
             objective, inits, method=options.method,
             learning_rate=options.learning_rate,
             num_iterations=options.num_gd_iterations,
-            keep_history=keep_history, u_func=anz.unitary)
+            keep_history=keep_history, u_func=anz.unitary,
+            sharding=self.mesh)
 
     def _raw_and_evaluate(self, options, initial_angles_array=None
                           ) -> cand.EvaluatedBatch:
@@ -630,11 +653,12 @@ class Synthesize:
                                            threshold=options.threshold_cp)
         return cand.run_raw_stage_fused(
             self._objective(anz, options.r), options.random_seed,
-            options.num_samples, anz.num_angles, anz.cp_mask,
-            cp_dist=options.cp_distribution, threshold=options.threshold_cp,
+            self._batch_size(options.num_samples), anz.num_angles,
+            anz.cp_mask, cp_dist=options.cp_distribution,
+            threshold=options.threshold_cp,
             learning_rate=options.learning_rate,
-            num_iterations=options.num_gd_iterations, device=self.device,
-            initial_angles=initial_angles_array)
+            num_iterations=options.num_gd_iterations, sharding=self.mesh,
+            device=self.device, initial_angles=initial_angles_array)
 
     def _verify(self, anz: Ansatz, angles_batch: np.ndarray,
                 options: BasicOptions) -> cand.VerifiedBatch:
@@ -671,6 +695,7 @@ class Synthesize:
                 results = Results.load(results.save_to)
             except FileNotFoundError:
                 pass
+        results.mesh_size = self.mesh.size if self.mesh is not None else 1
         return results
 
     def _make_decomposition(self, anz: Ansatz, best_angles,
@@ -712,14 +737,14 @@ class Synthesize:
                       threshold=options.threshold_cp,
                       learning_rate=options.learning_rate,
                       num_iterations=options.num_gd_iterations,
-                      device=self.device)
+                      sharding=self.mesh, device=self.device)
+            batch = self._batch_size(options.num_samples)
             out = cand.run_bucketed_stage(objective, seeds, rs, actives,
-                                          options.num_samples, anz.cp_mask,
-                                          **kw)
+                                          batch, anz.cp_mask, **kw)
             for _ in range(segments - 1):
                 out = cand.run_bucketed_stage(
-                    objective, seeds, rs, actives, options.num_samples,
-                    anz.cp_mask, params_in=out[2], **kw)
+                    objective, seeds, rs, actives, batch, anz.cp_mask,
+                    params_in=out[2], **kw)
             return out
 
         return run, anz
@@ -834,8 +859,9 @@ class Synthesize:
                 threshold_loss=options.entry_loss)
             cz_counts = [int(ev.cz[i]) for i in prospective]
 
-            # score: soft-min of the CZ counts, per sample (num_samples, so
-            # that trials resumed elsewhere score on the same scale), log2
+            # score: soft-min of the CZ counts, per sample (num_samples, not
+            # the mesh-padded batch, so that trials resumed elsewhere, on
+            # another number of cards, score on the same scale), log2
             score_val = np.sum(2.0 ** (-np.array(cz_counts, dtype=np.float64)))
             with np.errstate(divide='ignore'):
                 score = float(np.log2(score_val / options.num_samples))

@@ -168,6 +168,8 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_cluster.restype = ctypes.c_int
     lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
+    lib.cpflow_sweep_device.argtypes = [ptr]
+    lib.cpflow_sweep_device.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -260,6 +262,17 @@ def _check_objective(objective):
 
 def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
             target_loss) -> SweepResult:
+    """The fused kernel on params0's card. The library sizes, configures
+    and launches on the current device (cudaGetDevice), so that device is
+    made params0's for the whole launch, whatever the caller's current
+    device is."""
+    with torch.cuda.device(params0.device):
+        return _launch_on_current(objective, params0, learning_rate,
+                                  num_iterations, grad_mask, target_loss)
+
+
+def _launch_on_current(objective, params0, learning_rate, num_iterations,
+                       grad_mask, target_loss) -> SweepResult:
     _check_objective(objective)
     device = params0.device
     major, minor = torch.cuda.get_device_capability(device)
@@ -364,9 +377,10 @@ def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
                        summary[1])
 
 
-def occupancy(objective, batch: int) -> dict:
+def occupancy(objective, batch: int, device=None) -> dict:
     """What the kernel build that a sweep of `batch` restarts of
-    `objective` launches takes of one SM, from the CUDA runtime: registers
+    `objective` launches on `device` (default: the current CUDA device)
+    takes of one SM, from the CUDA runtime: registers
     and local memory bytes (stack and spills) per thread, threads and
     shared memory bytes per block, resident blocks per SM, the blocks a
     restart runs on (`cluster`) and the clusters of that many blocks the
@@ -378,13 +392,27 @@ def occupancy(objective, batch: int) -> dict:
     nba = num_block_angles(objective.entangling_gate_name,
                            objective.rotation_gates)
     out = (ctypes.c_int * 7)()
-    err = load_library().cpflow_sweep_occupancy(
-        n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
+    with torch.cuda.device(device):
+        err = load_library().cpflow_sweep_occupancy(
+            n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
     if err != 0:
         raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
                            f'{err}')
     return dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
                      'blocks_per_sm', 'cluster', 'active_clusters'), out))
+
+
+def library_device(device) -> int:
+    """The device index the kernel library's CUDA runtime calls current
+    (cudaGetDevice) under the guard the wrappers launch under: `device`'s,
+    if the library shares PyTorch's primary context."""
+    out = ctypes.c_int(-1)
+    with torch.cuda.device(device):
+        err = load_library().cpflow_sweep_device(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f'cudaGetDevice failed in the sweep library: CUDA '
+                           f'error {err}')
+    return out.value
 
 
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,

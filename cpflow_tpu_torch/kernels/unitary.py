@@ -114,11 +114,13 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def registers() -> dict:
-    """Registers per thread of the two kernels, from the CUDA runtime; the
-    vjp's cluster build (7 and 8 qubits) as 'ansatz_vjp_cluster'."""
+def registers(device=None) -> dict:
+    """Registers per thread of the two kernels on `device` (default: the
+    current CUDA device), from the CUDA runtime; the vjp's cluster build (7
+    and 8 qubits) as 'ansatz_vjp_cluster'."""
     out = (ctypes.c_int * 3)()
-    err = load_library().cpflow_unitary_registers(out)
+    with torch.cuda.device(device):
+        err = load_library().cpflow_unitary_registers(out)
     if err != 0:
         raise RuntimeError(f'unitary kernel attribute query failed: CUDA '
                            f'error {err}')
@@ -186,26 +188,31 @@ class _Shape:
         self.B = angles.shape[1]
         self.udims = (self.B, 1 << n, 1 << self.log_c)
         self.lib = load_library()
-        self.cluster = self.lib.cpflow_unitary_cluster(
-            n, self.nb, self.nba, self.log_c, int(vjp))
+        with torch.cuda.device(angles.device):
+            self.cluster = self.lib.cpflow_unitary_cluster(
+                n, self.nb, self.nba, self.log_c, int(vjp))
         if not self.cluster:
             most = min(CLUSTERS[-1], 1 << self.log_c)
-            nbytes = self.lib.cpflow_unitary_smem_bytes(
-                n, self.nb, self.nba, self.log_c, int(vjp), most)
+            with torch.cuda.device(angles.device):
+                nbytes = self.lib.cpflow_unitary_smem_bytes(
+                    n, self.nb, self.nba, self.log_c, int(vjp), most)
             raise ValueError(
                 f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
                 f'shared memory per block even on {most} blocks a restart, '
                 f'above {_SMEM_LIMIT}')
 
     def launch(self, angles, u, ubar, grad, vjp):
+        """Launches on the angles' card: the library configures and
+        launches on the current device, so that device is made theirs."""
         plc, letters = _tables(self.placements, self.rot, angles.device)
-        err = self.lib.cpflow_unitary_launch(
-            angles.data_ptr(), u.data_ptr(),
-            ubar.data_ptr() if ubar is not None else None,
-            grad.data_ptr() if grad is not None else None,
-            plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
-            len(self.rot), self.ent, self.nba, self.log_c, self.B, int(vjp),
-            torch.cuda.current_stream(angles.device).cuda_stream)
+        with torch.cuda.device(angles.device):
+            err = self.lib.cpflow_unitary_launch(
+                angles.data_ptr(), u.data_ptr(),
+                ubar.data_ptr() if ubar is not None else None,
+                grad.data_ptr() if grad is not None else None,
+                plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
+                len(self.rot), self.ent, self.nba, self.log_c, self.B,
+                int(vjp), torch.cuda.current_stream(angles.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'unitary kernel launch failed: CUDA error '
                                f'{err} ({self.B} restarts on {self.cluster} '

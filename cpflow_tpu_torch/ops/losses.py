@@ -151,6 +151,26 @@ def _shift_indices(dim: int, block: int) -> np.ndarray:
     return ((idx // block + 1) % (dim // block)) * block + idx % block
 
 
+def shifting_matrix(n: int) -> np.ndarray:
+    """The cyclic basis shift: m[i, (i + 1) % n] = 1 (float32)."""
+    m = np.zeros((n, n), dtype=np.float32)
+    m[np.arange(n), (np.arange(n) + 1) % n] = 1
+    return m
+
+
+def shift_matrix(u):
+    """Cyclically shift the eigenvalue order of a diagonal matrix, as an
+    index permutation of rows and columns."""
+    src = _index(_shift_indices(u.shape[0], 1), u)
+    return u[src][:, src]
+
+
+def shift_block_diagonal_matrix(u, m: int):
+    """Cyclically shift the order of the m x m diagonal blocks of u."""
+    src = _index(_shift_indices(u.shape[0], m), u)
+    return u[src][:, src]
+
+
 def block_diagonal_split(u, num_qubits, n):
     """Split u into its block-diagonal part (blocks of 2^n), that part with
     its blocks cyclically shifted, and the off-block-diagonal remainder.
@@ -173,6 +193,17 @@ def tensor_identity_loss(u, num_qubits, wires):
     sp_total = abs((u_diag * u_diag_shifted.conj()).sum(axis=1).sum())
     loss_off = (abs(u_off_diag) ** 2).sum()
     return 1 - sp_total / 2 ** num_qubits + loss_off
+
+
+def tensor_identity_loss_frobenius(u, num_qubits, wires):
+    """The Frobenius-norm variant of tensor_identity_loss: the squared
+    distance of the diagonal blocks from their shifted copies plus the
+    off-block weight."""
+    u = move_wires_up(u, num_qubits, wires)
+    u_diag, u_diag_shifted, u_off_diag = block_diagonal_split(
+        u, num_qubits, num_qubits - len(wires))
+    return (abs(u_diag - u_diag_shifted) ** 2).sum() + \
+        (abs(u_off_diag) ** 2).sum()
 
 
 def tensor_diagonal_loss(u, num_qubits, wires):

@@ -33,6 +33,24 @@ from cpflow_tpu_torch.sim import batched as batched_sim
 # Initial angles
 # --------------------------------------------------------------------------
 
+def random_cp_angles(num_angles: int, cp_mask, cp_dist: str = 'uniform',
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """One (num_angles,) vector of initial angles: uniform in [0, 2pi), CP
+    angles optionally zeroed ('0') or drawn from N(0, 1.5^2) ('normal').
+    generator: a torch.Generator on `device` (default: one seeded with 0,
+    as the JAX package defaults to PRNGKey(0)); `device` defaults to the
+    generator's, else the card."""
+    if device is None:
+        device = generator.device if generator is not None else \
+            config.resolve_device()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return generate_initial_angles_batch(generator, num_angles, cp_mask,
+                                         cp_dist=cp_dist, batch_size=1,
+                                         device=device)[0]
+
+
 def generate_initial_angles_batch(generator: torch.Generator, num_angles: int,
                                   cp_mask, cp_dist: str = 'uniform',
                                   batch_size: int = 1, *,
@@ -148,12 +166,15 @@ def evaluate_raw_batch(raw: engine.RawResult, cp_mask,
 def run_raw_stage_fused(objective, seed: int, batch_size: int,
                         num_angles: int, cp_mask, cp_dist: str = 'uniform',
                         threshold: float = 0.2, learning_rate: float = 0.1,
-                        num_iterations: int = 2000, *, device,
+                        num_iterations: int = 2000, sharding=None, *, device,
                         initial_angles: Optional[np.ndarray] = None
                         ) -> EvaluatedBatch:
-    """The raw sampling stage: initial angles (drawn from `seed`, or given
-    as a (batch_size, num_angles) array), the fused Adam sweep, CZ counting
-    at the best iterate, one host transfer."""
+    """The raw sampling stage: initial angles (drawn from `seed` on
+    `device`, or given as a (batch_size, num_angles) array), the fused Adam
+    sweep, CZ counting at the best iterate, one host transfer. sharding: a
+    parallel.mesh.RestartMesh that the drawn batch is split over
+    (engine.fused_adam_sweep); batch_size must then be a multiple of its
+    size (parallel.mesh.padded_batch_size)."""
     if initial_angles is None:
         gen = torch.Generator(device=device).manual_seed(int(seed))
         inits = generate_initial_angles_batch(
@@ -164,11 +185,11 @@ def run_raw_stage_fused(objective, seed: int, batch_size: int,
                                 dtype=config.real_dtype, device=device)
     best_params, _, best_loss = engine.fused_adam_sweep(
         objective, inits.T.contiguous(), learning_rate=learning_rate,
-        num_iterations=num_iterations)
+        num_iterations=num_iterations, sharding=sharding)
     # the best entry never exceeds the initial one, so the argmin over
     # [initial, best] always lands on it
     mask = torch.as_tensor(np.asarray(cp_mask), dtype=config.real_dtype,
-                           device=device)
+                           device=best_params.device)
     cz = cz_value(best_params * mask[:, None],
                   threshold=threshold).sum(dim=0).to(torch.int32)
     return EvaluatedBatch(cz=cz.cpu().numpy(), loss=best_loss.cpu().numpy(),
@@ -178,7 +199,7 @@ def run_raw_stage_fused(objective, seed: int, batch_size: int,
 def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
                        cp_mask, cp_dist: str = 'uniform',
                        threshold: float = 0.2, learning_rate: float = 0.1,
-                       num_iterations: int = 2000, *, device,
+                       num_iterations: int = 2000, sharding=None, *, device,
                        params_in: Optional[np.ndarray] = None):
     """The adaptive search's bucketed raw stage for N trials at once, all on
     one padded template: trial j has seed seeds[j], penalty weight rs[j] and
@@ -194,8 +215,10 @@ def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
     taken as they are (a segment chained after a first one).
 
     objective: the padded template's sim.batched.BatchedRegloss; its r is
-    ignored. Returns numpy (cz (N, S) int32, loss (N, S), angles (N, S, P))
-    at each restart's best iterate."""
+    ignored. sharding: a parallel.mesh.RestartMesh that the N S restarts
+    are split over (engine.fused_adam_sweep; the trials' draws, seeds and
+    masks are those of the unsplit stage). Returns numpy (cz (N, S) int32,
+    loss (N, S), angles (N, S, P)) at each restart's best iterate."""
     actives = np.asarray(actives, dtype=np.float32)
     N, P = actives.shape
     S = int(num_samples)
@@ -219,9 +242,9 @@ def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
     best_params, _, best_loss = engine.fused_adam_sweep(
         run, inits.T.contiguous(), learning_rate=learning_rate,
         num_iterations=num_iterations,
-        grad_mask_pb=per_restart.T.contiguous())
+        grad_mask_pb=per_restart.T.contiguous(), sharding=sharding)
     mask = torch.as_tensor(np.asarray(cp_mask), dtype=config.real_dtype,
-                           device=device)
+                           device=best_params.device)
     cz = cz_value(best_params * mask[:, None],
                   threshold=threshold).sum(dim=0).to(torch.int32)
     return (cz.reshape(N, S).cpu().numpy(),

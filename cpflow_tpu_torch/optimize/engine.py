@@ -32,6 +32,23 @@ angles reproduce it:
 Every entry point takes ``device=None``: the device of the initial angles
 if they are a tensor, else 'cuda'; it raises if that is a CUDA device and
 none is visible, and never runs on the CPU unasked.
+
+``fused_adam_sweep``, ``minimize_fused`` and ``minimize_multistart`` take
+``sharding``, a parallel.mesh.RestartMesh (the JAX package's
+NamedSharding over the restart axis). The whole batch of initial angles,
+drawn once as without a mesh, is cut in restart order into ``mesh.size``
+contiguous shards (a per-restart gradient mask and a per-restart r with
+it), and this process takes its own. Each local shard runs on its device,
+its sweep launched on that card (kernels/sweep.py makes the card current
+for the launch) on its current stream; every local shard is queued before
+any result is read, so shards on different cards run at once. A sweep
+with ``target_loss`` reads its summary every
+kernels.sweep.TARGET_CHECK_EVERY steps, so its shards run one after
+another (the sampling stage has no target_loss). The results come back to
+the mesh's first device in restart order (parallel.mesh.gather_restarts;
+across processes through the process group, so that every process holds
+the whole result). Restarts are independent, so the split changes no
+restart's arithmetic; the hot loop has no collective.
 """
 
 from __future__ import annotations
@@ -47,6 +64,7 @@ from cpflow_tpu_torch.kernels import sweep as sweep_kernel
 from cpflow_tpu_torch.kernels.sweep import adam_step
 from cpflow_tpu_torch.ops.losses import fubini_study
 from cpflow_tpu_torch.ops.trig import min_angle
+from cpflow_tpu_torch.parallel.mesh import gather_restarts, split_restarts
 from cpflow_tpu_torch.sim.batched import BatchedRegloss
 
 
@@ -248,20 +266,70 @@ class RawResult:
 
 
 # --------------------------------------------------------------------------
+# The restart split
+# --------------------------------------------------------------------------
+
+def _shards(mesh, objective, tensors):
+    """This process's shards, one per local device: (device, the objective
+    with its share of a per-restart r, then each of `tensors`' shards).
+    tensors: (tensor or None, its restart dim) pairs."""
+    cut = [[None] * len(mesh.devices) if t is None else
+           [part.contiguous() for part in split_restarts(t, mesh, dim)]
+           for t, dim in tensors]
+    objectives = [objective] * len(mesh.devices)
+    if isinstance(getattr(objective, 'r', None), torch.Tensor):
+        objectives = []
+        for r in split_restarts(objective.r, mesh):
+            part = copy.copy(objective)
+            part.r = r
+            objectives.append(part)
+    return [(device, objectives[i], *(c[i] for c in cut))
+            for i, device in enumerate(mesh.devices)]
+
+
+def _gather_raw(parts, mesh) -> 'RawResult':
+    """One RawResult of the whole batch from the shards' RawResults."""
+    def gather(name):
+        got = [getattr(p, name) for p in parts]
+        return None if got[0] is None else gather_restarts(got, mesh)
+    return RawResult(params=gather('params'), regloss=gather('regloss'),
+                     loss=gather('loss'), reg=gather('reg'), batched=True)
+
+
+def _whole_batch(initial_params_batch, device):
+    initial = torch.as_tensor(initial_params_batch, dtype=config.real_dtype,
+                              device=config.resolve_device(
+                                  initial_params_batch, device))
+    if initial.dim() != 2:
+        raise ValueError(f'a mesh splits a (B, P) batch of restarts, got '
+                         f'shape {tuple(initial.shape)}')
+    return initial
+
+
+# --------------------------------------------------------------------------
 # The fused sweep
 # --------------------------------------------------------------------------
 
 def fused_adam_sweep(objective, params0: torch.Tensor,
                      learning_rate: float = 0.1, num_iterations: int = 5000,
                      grad_mask_pb: Optional[torch.Tensor] = None,
-                     target_loss: Optional[float] = None):
+                     target_loss: Optional[float] = None, sharding=None):
     """params0 (P, B) -> (best_params (P, B), best_regloss (B,),
     best_loss (B,)) with best-so-far tracking. target_loss stops the sweep
     once every restart's best loss is at or under it (on the card it is
-    checked every kernels.sweep.TARGET_CHECK_EVERY steps)."""
-    res = sweep_kernel.sweep(objective, params0, learning_rate,
-                             num_iterations, grad_mask_pb, target_loss)
-    return res.best_params, res.best_reg, res.best_loss
+    checked every kernels.sweep.TARGET_CHECK_EVERY steps). sharding: a
+    RestartMesh to split the restarts over (module docstring); the results
+    then lie on its first device."""
+    if sharding is None:
+        res = sweep_kernel.sweep(objective, params0, learning_rate,
+                                 num_iterations, grad_mask_pb, target_loss)
+        return res.best_params, res.best_reg, res.best_loss
+    outs = [sweep_kernel.sweep(part, p, learning_rate, num_iterations, m,
+                               target_loss)
+            for _, part, p, m in _shards(sharding, objective,
+                                         [(params0, 1), (grad_mask_pb, 1)])]
+    return tuple(gather_restarts([o[f] for o in outs], sharding, dim=1 if
+                                 f == 0 else 0) for f in range(3))
 
 
 def _objective_value_and_grad(objective, mask_pb=None):
@@ -281,7 +349,7 @@ def _objective_value_and_grad(objective, mask_pb=None):
 def minimize_fused(objective, initial_params_batch,
                    learning_rate: float = 0.1, num_iterations: int = 5000,
                    keep_history: bool = False, grad_mask=None,
-                   target_loss: Optional[float] = None, *,
+                   target_loss: Optional[float] = None, sharding=None, *,
                    device=None) -> RawResult:
     """Fused batch-last multi-start Adam from (B, P) initial angles (or
     (P,) for one chain).
@@ -292,7 +360,20 @@ def minimize_fused(objective, initial_params_batch,
     stacks of the sweep (kernels/sweep.py routes it); keep_history=True
     records every step, params (B, T, P) and regloss, loss (B, T), with the
     objective's unitary from the unitary kernels on the card (the fused
-    sweep kernel keeps no history) and without target_loss."""
+    sweep kernel keeps no history) and without target_loss. sharding: a
+    RestartMesh; the (B, P) batch is split over it as the module docstring
+    says, and the result lies on its first device."""
+    if sharding is not None:
+        initial = _whole_batch(initial_params_batch, device)
+        mask = None if grad_mask is None else torch.as_tensor(
+            grad_mask, dtype=config.real_dtype,
+            device=initial.device).reshape(initial.shape)
+        return _gather_raw([
+            minimize_fused(part, p, learning_rate, num_iterations,
+                           keep_history, m, target_loss, device=dev)
+            for dev, part, p, m in _shards(sharding, objective,
+                                           [(initial, 0), (mask, 0)])],
+            sharding)
     device = config.resolve_device(initial_params_batch, device)
     initial = torch.as_tensor(initial_params_batch, dtype=config.real_dtype,
                               device=device)
@@ -398,10 +479,25 @@ def minimize_multistart(loss_func, initial_params_batch,
     The preconditioned methods differentiate the plain builder (u_func, or
     a plain copy of the objective). grad_mask: (P,) for every chain, or
     (B, P). batch_axis is a TPU layout knob: accepted and ignored, results
-    are batch-leading either way. sharding (the device mesh) is not ported
-    and raises."""
+    are batch-leading either way. sharding: a RestartMesh; the (B, P)
+    batch is split over it as the module docstring says (a (B, P) mask
+    with it), and the result lies on its first device."""
     if sharding is not None:
-        raise NotImplementedError('sharding over a device mesh is not ported')
+        initial = _whole_batch(initial_params_batch, device)
+        mask = None if grad_mask is None else torch.as_tensor(
+            grad_mask, dtype=config.real_dtype, device=initial.device)
+        per_restart = mask is not None and mask.dim() == 2
+        parts = []
+        for dev, part, p, m in _shards(
+                sharding, loss_func,
+                [(initial, 0), (mask if per_restart else None, 0)]):
+            if not per_restart and mask is not None:
+                m = mask.to(dev)
+            parts.append(minimize_multistart(
+                part, p, method, learning_rate, num_iterations, keep_history,
+                regularization_func, u_func, m, compute_losses,
+                device=dev))
+        return _gather_raw(parts, sharding)
     device = config.resolve_device(initial_params_batch, device)
     initial = torch.as_tensor(initial_params_batch, dtype=config.real_dtype,
                               device=device)

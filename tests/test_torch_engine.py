@@ -254,8 +254,19 @@ def test_minimize_multistart_single_chain_and_options():
     assert set(tr.as_single()) == {'params', 'regloss', 'loss'}
     with pytest.raises(TypeError):
         tr[0]
-    with pytest.raises(NotImplementedError, match='sharding'):
-        tengine.minimize_multistart(tl, x0, sharding=object(), device='cpu')
+    # sharding (a RestartMesh) splits the batch and changes no restart;
+    # a single chain is no batch to split
+    from cpflow_tpu_torch.parallel.mesh import restart_mesh
+    mesh = restart_mesh(['cpu'] * 2)
+    split = tengine.minimize_multistart(tl, x0, num_iterations=10,
+                                        sharding=mesh, device='cpu')
+    whole = tengine.minimize_multistart(tl, x0, num_iterations=10,
+                                        device='cpu')
+    torch.testing.assert_close(split.params, whole.params, atol=1e-6, rtol=0)
+    torch.testing.assert_close(split.regloss, whole.regloss, atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError, match='batch'):
+        tengine.minimize_multistart(tl, x0[0], sharding=mesh, device='cpu')
     with pytest.raises(ValueError, match='not supported'):
         tengine.minimize_multistart(tl, x0, method='newton', device='cpu')
 

@@ -240,3 +240,29 @@ def test_both_kernel_builds_match_plain_version_on_card():
     import chip_smoke
     for x, y in [(out.best_reg, ref.best_reg), (out.best_loss, ref.best_loss)]:
         assert chip_smoke.drift_ok(chip_smoke.scaled_err(x, y))[0]
+
+
+@pytest.mark.cuda
+def test_launches_land_on_the_tensors_card():
+    """The wrappers make the tensors' card current around every library
+    call: the library's runtime sees that card, a sweep on each card gives
+    the same result whatever card is current, and the current card is left
+    as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py phase 16 '
+                    'runs the split over cuda:0 twice')
+    obj, inits, _ = _problem(3, 4, 'xyz', u_ccz3, 0.002, 16, seed=5)
+    cards = [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+    before = torch.cuda.current_device()
+    first = None
+    for card in cards:
+        assert sk.library_device(card) == card.index
+        with torch.cuda.device(cards[-1].index):
+            out = sk.sweep(obj, torch.tensor(inits.T.copy(), device=card),
+                           0.1, 10)
+        assert out.best_reg.device == card
+        if first is None:
+            first = out
+        torch.testing.assert_close(out.best_reg.cpu(), first.best_reg.cpu(),
+                                   atol=0, rtol=0)
+    assert torch.cuda.current_device() == before

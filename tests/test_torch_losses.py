@@ -272,3 +272,86 @@ def test_fubini_study_matches_jax(rot, k):
     torch.testing.assert_close(
         batch[2], tl.fubini_study(tu, torch.tensor(x[:, 2])), atol=1e-6,
         rtol=0)
+
+
+@pytest.mark.parametrize('n', [1, 3, 8])
+def test_shifting_matrix_matches_jax(n):
+    """Exact: a 0/1 matrix."""
+    got = tl.shifting_matrix(n)
+    want = jl.shifting_matrix(n)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('dim,block', [(4, 1), (8, 1), (8, 2), (16, 4)])
+def test_shift_permutations_match_jax(dim, block):
+    """The shifts are index permutations: exact, in torch and in numpy."""
+    rng = np.random.default_rng(dim * 10 + block)
+    u = (rng.normal(size=(dim, dim)) + 1j * rng.normal(size=(dim, dim))
+         ).astype(np.complex64)
+    if block == 1:
+        got_np, got_t = tl.shift_matrix(u), tl.shift_matrix(torch.tensor(u))
+        want = np.asarray(jl.shift_matrix(jnp.asarray(u)))
+    else:
+        got_np = tl.shift_block_diagonal_matrix(u, block)
+        got_t = tl.shift_block_diagonal_matrix(torch.tensor(u), block)
+        want = np.asarray(jl.shift_block_diagonal_matrix(jnp.asarray(u),
+                                                         block))
+    np.testing.assert_array_equal(got_np, want)
+    np.testing.assert_array_equal(got_t.numpy(), want)
+
+
+@pytest.mark.parametrize('n,wires', CASES, ids=IDS)
+def test_tensor_identity_loss_frobenius_matches_jax(n, wires):
+    """1e-6 in float32 (complex64 unitaries); zero on a unitary that is
+    the identity on `wires`."""
+    u = _unitaries(n, 1, seed=n + 3 * len(wires))[0].astype(np.complex64)
+    want = float(jl.tensor_identity_loss_frobenius(jnp.asarray(u), n, wires))
+    got = tl.tensor_identity_loss_frobenius(torch.tensor(u), n, wires)
+    assert abs(got.item() - want) <= 1e-6 * max(1.0, abs(want))
+    assert abs(tl.tensor_identity_loss_frobenius(u, n, wires) - want) <= \
+        1e-6 * max(1.0, abs(want))
+    rest = n - len(wires)
+    if rest:
+        v = _unitaries(rest, 1, seed=5)[0]
+        local = np.kron(np.eye(2 ** len(wires)), v)
+        # local acts on the last `rest` qubits; move `wires` up to the top
+        perm = tl.wire_permutation(n, wires)
+        inv = np.argsort(perm)
+        embedded = local[inv][:, inv]
+        assert abs(tl.tensor_identity_loss_frobenius(
+            torch.tensor(embedded), n, wires).item()) <= 1e-10
+
+
+def test_random_cp_angles_branches():
+    """The port draws from a torch.Generator (other values than the JAX
+    package's PRNG), so the branches' structure is checked: 'uniform' in
+    [0, 2pi) everywhere, '0' zero on the CP angles and the uniform draw
+    elsewhere, 'normal' the uniform draw off the CP angles and a normal
+    one on them; the default generator is seeded with 0."""
+    from cpflow_tpu_torch.optimize.candidates import random_cp_angles
+    P = 30
+    mask = np.zeros(P, dtype=np.float32)
+    mask[::3] = 1
+    cp = torch.tensor(mask, dtype=torch.bool)
+
+    def gen():
+        return torch.Generator().manual_seed(4)
+
+    uni = random_cp_angles(P, mask, 'uniform', gen())
+    zero = random_cp_angles(P, mask, '0', gen())
+    normal = random_cp_angles(P, mask, 'normal', gen())
+    for a in (uni, zero, normal):
+        assert a.shape == (P,) and a.dtype == torch.float32
+    assert bool(((uni >= 0) & (uni < 2 * np.pi)).all())
+    assert bool((zero[cp] == 0).all())
+    torch.testing.assert_close(zero[~cp], uni[~cp], atol=0, rtol=0)
+    torch.testing.assert_close(normal[~cp], uni[~cp], atol=0, rtol=0)
+    assert bool((normal[cp] != uni[cp]).all())
+    assert bool((normal[cp] < 0).any())  # a normal draw, not a uniform one
+    torch.testing.assert_close(random_cp_angles(P, mask, device='cpu'),
+                               random_cp_angles(P, mask, 'uniform', torch.
+                                                Generator().manual_seed(0)),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match='not supported'):
+        random_cp_angles(P, mask, 'beta', gen())

@@ -1,10 +1,12 @@
 """The port runs where JAX, optax and dill are not installed (as on the
 machine with the card): imported in a fresh interpreter with those modules
-blocked, it runs a tiny static, adaptive, state-preparation and
-relative-phase (modulo-diagonal) synthesis and a fixed-'cz' sweep on the
-CPU, then every host module of circuits/: a QASM round trip, a refine to
-Clifford+T, an embedding into the CP ansatz, a grid synthesis and an exact
-unitary."""
+and the JAX package (cpflow_tpu and its shim cpflow) blocked, it runs a
+tiny static, adaptive, state-preparation and relative-phase
+(modulo-diagonal) synthesis and a fixed-'cz' sweep on the CPU, then every
+host module of circuits/: a QASM round trip, a refine to Clifford+T, an
+embedding into the CP ansatz, a grid synthesis and an exact unitary; then
+the CLI (info and a synthesis), the restart split's dry run,
+utils.profiling, migrate and circuits.interop."""
 
 import os
 import pathlib
@@ -16,7 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 SCRIPT = r'''
 import sys
-for name in ('jax', 'jaxlib', 'optax', 'dill'):
+for name in ('jax', 'jaxlib', 'optax', 'dill', 'cpflow_tpu', 'cpflow'):
     sys.modules[name] = None  # any import of them now raises ImportError
 import numpy as np
 import cpflow_tpu_torch
@@ -132,7 +134,41 @@ assert refine.lasso_angles(
     lambda a: losses.cost_HST(u_func(a), qc.unitary()), np.array(a0),
     eps=0.0, device='cpu').shape == (len(a0),)
 config.set_precision(False)
-loaded = [m for m in ('jax', 'optax', 'dill') if sys.modules.get(m)]
+# the CLI, the restart split, profiling, migration and the qiskit bridge
+import contextlib, io, json, pickle, tempfile
+from cpflow_tpu_torch import __main__ as cli, migrate
+from cpflow_tpu_torch.circuits import interop
+from cpflow_tpu_torch.parallel import dryrun, mesh
+from cpflow_tpu_torch.utils import profiling
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    cli.main(['info'])
+    cli.main(['synthesize', '--target', 'cz', '--static', '--num-cp-gates',
+              '1', '--num-samples', '4', '--accepted-cz', '9', '--no-save',
+              '--device', 'cpu'])
+lines = out.getvalue().splitlines()
+info, found = json.loads(lines[0]), json.loads(lines[-1])
+assert info['kernel_source_digest'] == build.digest()
+assert found['label'] == 'cz'
+ran = dryrun.dryrun_multichip(2, device='cpu')
+assert ran['mesh'] == ['cpu', 'cpu'] and ran['batch'] == 4
+forward, (example,) = dryrun.entry(device='cpu')
+assert forward(example).shape == (64,)
+assert mesh.padded_batch_size(5, mesh.restart_mesh(['cpu'] * 2)) == 6
+assert profiling.sweep_work(3, 12)['needed'] == 120569
+with tempfile.TemporaryDirectory() as tmp:
+    with profiling.trace(tmp):
+        torch.ones(3).sum()
+try:
+    interop.to_qiskit(qc)
+except ImportError:
+    pass
+with tempfile.NamedTemporaryFile(suffix='.pkl') as f:
+    f.write(b'\x80\x04\x8c\x0bcpflow.main\x8c\x07Results\x93.')
+    f.flush()
+    assert migrate.load_reference_pickle(f.name) is api.Results
+loaded = [m for m in ('jax', 'optax', 'dill', 'cpflow_tpu', 'cpflow')
+          if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')
 '''
@@ -148,7 +184,8 @@ def test_port_imports_and_runs_without_jax():
 
 def test_no_module_of_the_port_imports_jax():
     pattern = re.compile(
-        r'^\s*(import|from)\s+(jax|optax|dill|cpflow_tpu)([.\s]|$)', re.M)
+        r'^\s*(import|from)\s+(jax|optax|dill|cpflow_tpu|cpflow)([.\s]|$)',
+        re.M)
     files = sorted((ROOT / 'cpflow_tpu_torch').rglob('*.py')) + \
         [ROOT / 'chip_smoke.py', ROOT / 'tests' / 'test_torch_kernel.py']
     assert len(files) > 10
