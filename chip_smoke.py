@@ -131,15 +131,18 @@ with CUDA, and never imports JAX. Phases:
      [cuda:0, cuda:0] against no mesh: the same sorted CZ lists, losses
      within 1e-6 pair by pair, the sampling stage launching the sweep once
      per shard, the current device unchanged, and the kernel library's
-     runtime seeing the tensor's device (index 0: one card) under the
-     launch guard; (c) the sampling sweep (3q k=12, B=1024, T=2000)
+     runtime seeing the last card as current under the launch guard (on
+     one card that is cuda:0, current anyway, so the guard is not
+     exercised); (c) the sampling sweep (3q k=12, B=1024, T=2000)
      through minimize_fused split 2 ways against the whole batch: bit-equal
      where both run the same kernel build (occupancy), else within
      drift_ok; (d) two processes over gloo (distributed_init on 127.0.0.1,
      a shard each on cuda:0), each holding the whole gathered result,
      equal to (c)'s whole batch under (c)'s rule, each with 120 s to end;
-     (e) parallel.dryrun.dryrun_multichip(4). The subprocesses of (a) and
-     (d) run beside (b), (c) and (e).
+     (e) parallel.dryrun.dryrun_multichip(4). (b), (c) and (e) run first,
+     with the card to themselves; the subprocesses of (a) and (d) start
+     after them, so that no timing of (b) or (c) holds another process's
+     kernels.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e)) runs with
 the kernels' launch counts set to 0 just before it and read just after
@@ -1245,7 +1248,7 @@ def phase_unitary(card):
                           'forward_kernel')
         v_dev = device_ms(lambda: uk.ansatz_vjp(*tpl, angles, u, w),
                           'vjp_kernel')
-        regs = uk.registers()
+        regs = uk.registers(dev)
         blocks = unitary_plan(n, k, num_block_angles('cp', 'xyz'), n, name)
         for kernel, ms, on_card, plain, ops, nbytes, c in [
                 ('ansatz_forward', f_ms, f_dev, min(pf[1:]), work['forward'],
@@ -1960,8 +1963,9 @@ def dist_worker(port, rank, out_path):
 
 def phase_mesh(card):
     """Phase 16: the CLI and the restart split on the card (module
-    docstring). The subprocesses of (a) and (d) start first and run beside
-    (b), (c) and (e). Returns the sweep kernel's launches per path."""
+    docstring). (b), (c) and (e) run and are timed first, with the card to
+    themselves; the subprocesses of (a) and (d) start after them. Returns
+    the sweep kernel's launches per path."""
     import os
     import socket
     import tempfile
@@ -1988,20 +1992,19 @@ def phase_mesh(card):
     synth_args = ['synthesize', '--target', 'ccz', '--layer', 'chain',
                   '--static', '--num-cp-gates', '12', '--num-samples', '1024',
                   '--accepted-cz', '8', '--no-save']
-    procs = {'info': subprocess.Popen(cli + ['info'], **run),
-             'synthesize': subprocess.Popen(
-                 [sys.executable, '-c', CLI_COUNTED] + synth_args, **run)}
     outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(2)]
-    for r in range(2):
-        procs[f'rank {r}'] = subprocess.Popen(
-            [sys.executable, str(root / 'chip_smoke.py'), '--dist-worker',
-             str(port), str(r), outs[r]], **run)
+    procs = {}
     launches = {}
     try:
         # (b) the static CCZ with its restarts split over cuda:0 twice
         dev0 = torch.cuda.current_device()
-        check(sk.library_device('cuda:0') == 0, 'the kernel library does '
-              'not see cuda:0 as current under the launch guard')
+        last = torch.cuda.device_count() - 1
+        check(sk.library_device(f'cuda:{last}') == last, 'the kernel '
+              f'library does not see cuda:{last} as current under the '
+              f'launch guard')
+        guard = (f'the library saw cuda:{last} current under the guard' if
+                 last else 'the guard is not exercised on one card (the '
+                 'library saw cuda:0, already current)')
         options = StaticOptions(num_cp_gates=12, num_samples=1024,
                                 accepted_num_cz_gates=8)
         sampling = []
@@ -2047,8 +2050,8 @@ def phase_mesh(card):
               f'each, CZ lists equal, losses within {gap:.3e}; sampling '
               f'launches {sampling[1]} (none: {sampling[0]}), all '
               f'{launches["mesh"]} ({launches["none"]}); walls '
-              f'{walls["mesh"]:.3f} s ({walls["none"]:.3f} s); library '
-              f'device 0 under the guard', flush=True)
+              f'{walls["mesh"]:.3f} s ({walls["none"]:.3f} s); {guard}',
+              flush=True)
         launches = {'mesh_static_ccz': launches['mesh']}
 
         # (c) the sampling sweep split two ways against the whole batch
@@ -2084,7 +2087,16 @@ def phase_mesh(card):
         print(f'phase 16 (e): dryrun_multichip(4): {dry}; launches '
               f'{sk.LAUNCHES}; {time.perf_counter() - t0:.3f} s', flush=True)
 
-        # (a) the CLI, and (d) the two processes, all started above
+        # (a) the CLI, and (d) the two processes, started once (b), (c)
+        # and (e) have ended, so that no other process shares the card
+        # while those are timed
+        procs['info'] = subprocess.Popen(cli + ['info'], **run)
+        procs['synthesize'] = subprocess.Popen(
+            [sys.executable, '-c', CLI_COUNTED] + synth_args, **run)
+        for r in range(2):
+            procs[f'rank {r}'] = subprocess.Popen(
+                [sys.executable, str(root / 'chip_smoke.py'), '--dist-worker',
+                 str(port), str(r), outs[r]], **run)
         done = {}
         for name, proc in procs.items():
             try:

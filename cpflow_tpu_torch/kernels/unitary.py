@@ -114,10 +114,10 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def registers(device=None) -> dict:
-    """Registers per thread of the two kernels on `device` (default: the
-    current CUDA device), from the CUDA runtime; the vjp's cluster build (7
-    and 8 qubits) as 'ansatz_vjp_cluster'."""
+def registers(device) -> dict:
+    """Registers per thread of the two kernels on the CUDA `device`, from
+    the CUDA runtime; the vjp's cluster build (7 and 8 qubits) as
+    'ansatz_vjp_cluster'."""
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         err = load_library().cpflow_unitary_registers(out)

@@ -4,7 +4,8 @@
   * ``trace(logdir)``: torch.profiler around the enclosed block, its Chrome
     trace written into ``logdir`` (the JAX package uses jax.profiler);
   * ``Throughput``: restart-iterations per second over timed sections,
-    each section synchronising the device it is given at both ends;
+    each section synchronising the card at both ends (the device it is
+    given, else the current CUDA device);
   * the work and the bound of the hand-written kernels on an H100:
     ``sweep_work`` and ``bound_ms`` for the fused sweep (csrc/sweep.cu),
     ``unitary_work`` and ``unitary_bound_ms`` for the forward and vjp
@@ -51,8 +52,13 @@ def trace(logdir: str):
 
 
 def _synchronize(device) -> None:
+    """Wait for the work queued on `device`; with no device, for the current
+    CUDA device's work where CUDA is in use in this process."""
     import torch
-    if device is not None and torch.device(device).type == 'cuda':
+    if device is None:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    elif torch.device(device).type == 'cuda':
         torch.cuda.synchronize(device)
 
 
@@ -66,9 +72,11 @@ class Throughput:
     @contextlib.contextmanager
     def section(self, num_restarts: int, num_iterations: int,
                 label: str = '', device=None):
-        """Time the enclosed block on the host clock; with a CUDA `device`
-        the card is synchronised before the clock is read at both ends, so
-        that the section holds the work queued inside it."""
+        """Time the enclosed block on the host clock. The card is
+        synchronised before the clock is read at both ends, so that the
+        section holds the work queued inside it: `device` if it is a CUDA
+        device, the current CUDA device if it is None and CUDA is in use,
+        nothing if it is the CPU."""
         _synchronize(device)
         t0 = time.perf_counter()
         yield

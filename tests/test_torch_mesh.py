@@ -162,6 +162,41 @@ def test_minimize_fused_over_a_mesh_matches_no_mesh(size, keep_history):
 
 
 @pytest.mark.parametrize('size', [2, 4])
+def test_minimize_fused_over_a_mesh_matches_jax(size):
+    """The port's split sweep against the JAX package's minimize_fused
+    sharded over `size` of the 8 CPU devices (tests/conftest.py), on the
+    same numpy inputs and objective (the penalty of _problem in both):
+    float32 Adam over 40 steps in two packages, so per-restart [initial,
+    best] regloss and loss within 1e-4, as tests/test_torch_engine.py
+    holds the unsplit sweeps."""
+    import jax
+    import jax.numpy as jnp
+    from cpflow_tpu.api import LossSpec as JLossSpec
+    from cpflow_tpu.ops.gates import u_toff3
+    from cpflow_tpu.ops.penalty import cp_penalty_linear
+    from cpflow_tpu.optimize import engine as jengine
+    from cpflow_tpu.parallel import mesh as jmesh
+    from cpflow_tpu.sim import batched as jbt
+    from cpflow_tpu_torch.optimize import engine
+    obj, inits = _problem()
+    pen = (np.pi / 2, 2.0, .05, .05, .05)
+    jobj = jbt.make_batched_regloss(
+        3, 'cp', 'xyz', obj.placements, JLossSpec('hst', target=u_toff3),
+        cp_mask=jnp.asarray(obj.cp_mask),
+        regularization_func=lambda a: cp_penalty_linear(a, *pen), r=0.001,
+        reversible=True)
+    jax_mesh = jmesh.restart_mesh(jax.devices()[:size])
+    want = jengine.minimize_fused(jobj, inits, num_iterations=40,
+                                  sharding=jmesh.restart_sharding(jax_mesh))
+    got = engine.minimize_fused(obj, inits, num_iterations=40, device='cpu',
+                                sharding=mesh_lib.restart_mesh(['cpu'] * size))
+    for name in ('regloss', 'loss'):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize('size', [2, 4])
 @pytest.mark.parametrize('method', ['adam', 'natural gd'])
 def test_minimize_multistart_over_a_mesh_matches_no_mesh(size, method):
     """The batched objective's route, with an r per restart that is split

@@ -1,14 +1,18 @@
 """utils/profiling.py of the port: the kernels' work and bounds (the
-numbers PERF.md's kernel table records), the roofline model, Throughput's
-arithmetic and a torch.profiler trace written on the CPU. Integer counts
-are exact; times within 1e-12 relative."""
+numbers PERF.md's kernel table records), the roofline model, Throughput
+against cpflow_tpu.utils.profiling.Throughput on one clock, where each
+section synchronises, and a torch.profiler trace written on the CPU.
+Integer counts are exact; times within 1e-12 relative; Throughput's
+fields and report equal to the JAX package's."""
 
 import json
 import os
+import types
 
 import pytest
 import torch
 
+from cpflow_tpu.utils import profiling as jprof
 from cpflow_tpu_torch.utils import profiling as prof
 
 
@@ -85,6 +89,56 @@ def test_throughput_arithmetic(monkeypatch):
     assert report[0].startswith('total: 5.1e+03 restart-iters in 2.50s')
     assert '[a]' in report[1] and '[b]' in report[2]
     assert prof.Throughput().rate == 0.0
+
+
+@pytest.mark.parametrize('sections,ticks', [
+    ([(100, 50, 'a'), (10, 10, 'b')], [10.0, 12.0, 20.0, 20.5]),
+    ([(1024, 2000, 'sampling'), (64, 5000, 'verify'), (3, 7, '')],
+     [0.0, 0.109, 1.0, 1.25, 2.0, 2.0]),     # the last section takes 0 s
+    ([], []),
+])
+def test_throughput_matches_jax(monkeypatch, sections, ticks):
+    """The port's Throughput and the JAX package's, run through the same
+    sections on one clock (the JAX one reads time.time, the port's
+    time.perf_counter), hold the same fields and print the same report."""
+    out = []
+    for mod, name in ((prof, 'perf_counter'), (jprof, 'time')):
+        clock = iter(ticks)
+        monkeypatch.setattr(mod, 'time', types.SimpleNamespace(
+            **{name: lambda: next(clock)}))
+        t = mod.Throughput()
+        for restarts, iters, label in sections:
+            with t.section(restarts, iters, label=label):
+                pass
+        out.append(t)
+    port, jax_t = out
+    assert port.restart_iterations == jax_t.restart_iterations
+    assert port.seconds == jax_t.seconds
+    assert port.sections == jax_t.sections
+    assert port.rate == jax_t.rate
+    assert port.report() == jax_t.report()
+
+
+@pytest.mark.parametrize('device,initialized,want', [
+    (None, True, [None]),        # the current CUDA device, CUDA in use
+    (None, False, []),           # CUDA not in use in this process
+    ('cpu', True, []),
+    ('cuda:1', True, [torch.device('cuda:1')]),
+])
+def test_section_synchronises_the_card(monkeypatch, device, initialized,
+                                       want):
+    """A section waits for the card at both ends: the device it is given,
+    or with none the current CUDA device where CUDA is in use."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'is_initialized', lambda: initialized)
+    monkeypatch.setattr(torch.cuda, 'synchronize',
+                        lambda d=None: synced.append(
+                            None if d is None else torch.device(d)))
+    t = prof.Throughput()
+    with t.section(4, 5, device=device):
+        assert synced == want
+    assert synced == want * 2
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
