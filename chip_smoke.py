@@ -75,28 +75,37 @@ with CUDA, and never imports JAX. Phases:
      depth printed beside the paper's 7 and 3;
  12. the forward and vjp kernels of the differentiable ansatz
      (kernels/unitary.py) against their plain version on the card at
-     fifteen templates: at B=256, 3q k=12 'xyz' cp, 5q k=20 'xz' cp, 6q
-     connected k=40 (the largest layout on one block), 4q 'cz' blocks with
-     'y', 10q k=36 column 0; then every template of phases 13 and 14 at the
-     batch they give it, a verification's few candidates with frozen CP
-     angles among them; then the whole unitary split over several blocks:
-     7q chain k=24 B=64, 8q chain k=16 'xz' B=16 and the Toffoli-7
-     composite's 144 placements B=8; the unitary within 2e-5, the gradients
-     of two cotangents within 1e-4 scaled by max(1, |gradient|), at 3q also
-     against float64 central differences (1e-3); then both kernels' times
-     beside their bounds at 3q k=12 B=1024, 5q k=20 B=2048, 7q k=24 B=64
-     and 8q k=16 B=16;
+     fifteen templates, each through the design the plan gives it (the
+     column design, one lane per column, for the whole unitary at 2 to 6
+     qubits; the row-split design for one column and for 7 and 8 qubits),
+     the plan held against the library's: at B=256, 3q k=12 'xyz' cp, 5q
+     k=20 'xz' cp, 6q connected k=40 (the largest layout on one block), 4q
+     'cz' blocks with 'y', 10q k=36 column 0; then every template of phases
+     13 and 14 at the batch they give it, a verification's few candidates
+     with frozen CP angles among them; then the whole unitary split over
+     several blocks: 7q chain k=24 B=64, 8q chain k=16 'xz' B=16 and the
+     Toffoli-7 composite's 144 placements B=8; the unitary within 2e-5,
+     the gradients of two cotangents within 1e-4 scaled by max(1,
+     |gradient|), at 3q also against float64 central differences (1e-3);
+     the column kernels with 0 bytes of stack, spills (ptxas) and local
+     memory (runtime); then both kernels' times beside their bounds at the
+     seven shapes of UNITARY_TIMING (3q k=12 B=1024, 5q k=20 B=2048, 7q
+     k=24 B=64, 8q k=16 B=16, and the three that phases 13 and 14 launch
+     most: 3q k=8 'xz' B=200, 4q k=10 B=100, 3q connected k=10 B=800), the
+     row-split design timed in turns with the column design wherever the
+     plan takes the latter;
  13. the custom-loss path: the reference notebook's GHZ-4 and
      relative-phase Toffoli-3 syntheses with the losses as torch callables
      (adaptive, k in [0, 10], stopping at 3 CZ, max_evals cut to 8), which
-     must run through the forward and vjp kernels and never through the
-     plain builder; GHZ-4 must reach 3 CZ at host loss <= 1e-6, as the same
+     must run through the forward and vjp kernels, every launch in the
+     column design, and never through the plain builder; GHZ-4 must reach 3 CZ at host loss <= 1e-6, as the same
      run with target_state (the fused kernel) does; the relative-phase
      Toffoli-3's 8 trials run bucketed in one sweep of 1000 steps (2000 in
      the notebook), and its last decomposition is refined;
  14. the engine: Ansatz.learn (Toffoli-3, 200 restarts, without and with a
      history) and StaticOptions(method=...) for 'natural adam', 'hessian'
-     and 'angle by angle' on the 3q chain CCZ at small budgets;
+     and 'angle by angle' on the 3q chain CCZ at small budgets, every
+     launch of the unitary kernels in the column design;
  15. seven and eight qubits, each restart's columns split over a cluster of
      2, 4 or 8 thread blocks: (a) the sweep kernel against its plain
      version as in phase 3 at twelve shapes, T = 60 unless said: (q) 7q chain
@@ -1071,23 +1080,67 @@ def unitary_shapes():
 
 
 def unitary_plan(n, nb, nba, log_c, name):
-    """(forward, vjp) blocks a restart of the unitary kernels: the plan of
-    kernels/unitary.py (cluster_plan, smem_bytes) must agree with the
-    kernels' (cpflow_unitary_cluster, cpflow_unitary_smem_bytes)."""
+    """(forward, vjp) plans of the unitary kernels (kernels/unitary.py:plan:
+    design, threads a restart, restarts a block, shared bytes a block, blocks
+    a restart), each held against the library's own (cpflow_unitary_design,
+    and cpflow_unitary_column_restarts and _column_smem_bytes for the column
+    design, cpflow_unitary_cluster and _smem_bytes for the row-split one)."""
     from cpflow_tpu_torch.kernels import unitary as uk
     lib = uk.load_library()
     out = []
     for vjp in (False, True):
-        c = uk.cluster_plan(n, nb, nba, log_c, vjp)
-        mine = uk.smem_bytes(n, nb, nba, log_c, vjp, c)
-        card = lib.cpflow_unitary_smem_bytes(n, nb, nba, log_c, int(vjp), c)
-        theirs = lib.cpflow_unitary_cluster(n, nb, nba, log_c, int(vjp))
-        check(c == theirs and mine == card,
-              f'{name}: the plan says {c} blocks of {mine} bytes for the '
-              f'{"vjp" if vjp else "forward pass"}, the kernels {theirs} '
-              f'blocks of {card} bytes')
-        out.append(c)
+        mine = uk.plan(n, nb, nba, log_c, vjp)
+        what = 'vjp' if vjp else 'forward pass'
+        design = lib.cpflow_unitary_design(n, nb, nba, log_c, int(vjp))
+        check(mine is not None and uk.DESIGNS[mine['design']] == design,
+              f'{name}: the plan says {mine} for the {what}, the kernels '
+              f'design {design}')
+        if mine['design'] == 'columns':
+            r = lib.cpflow_unitary_column_restarts(n, nb, nba, log_c,
+                                                   int(vjp))
+            card = lib.cpflow_unitary_column_smem_bytes(n, nb, nba, int(vjp),
+                                                        r)
+            check(r == mine['restarts_per_block'] and
+                  card == mine['smem_bytes'],
+                  f'{name}: the plan says {mine} for the {what}, the kernels '
+                  f'{r} restarts a block in {card} bytes')
+        else:
+            c = mine['blocks_per_restart']
+            card = lib.cpflow_unitary_smem_bytes(n, nb, nba, log_c, int(vjp),
+                                                 c)
+            theirs = lib.cpflow_unitary_cluster(n, nb, nba, log_c, int(vjp))
+            check(c == theirs and card == mine['smem_bytes'],
+                  f'{name}: the plan says {c} blocks of {mine["smem_bytes"]} '
+                  f'bytes for the {what}, the kernels {theirs} blocks of '
+                  f'{card} bytes')
+        out.append(mine)
     return tuple(out)
+
+
+def plan_text(p):
+    """One plan of unitary_plan in words."""
+    if p['design'] == 'columns':
+        return (f'columns, {p["threads_per_restart"]} threads a restart, '
+                f'{p["restarts_per_block"]} a block, {p["smem_bytes"]} bytes')
+    return (f'rows, {p["blocks_per_restart"]} block(s) of {p["threads"]} '
+            f'threads a restart, {p["smem_bytes"]} bytes a block')
+
+
+def column_ptxas():
+    """{kernel entry: (stack bytes, spill store bytes, spill load bytes)} of
+    the column kernels from ptxas's report of the unitary library's build
+    (phase 2)."""
+    import re
+    from cpflow_tpu_torch.kernels import build
+    out, entry = {}, None
+    for line in build.INFO.get('unitary', {}).get('ptxas', '').splitlines():
+        if 'Compiling entry' in line:
+            m = re.search(r"column_(forward|vjp)ILi(\d)E", line)
+            entry = f'{m.group(1)} {m.group(2)}q' if m else None
+        elif entry and 'stack frame' in line:
+            out[entry] = tuple(int(v) for v in re.findall(r'(\d+) bytes',
+                                                          line)[:3])
+    return out
 
 
 def random_unitary(rng, d):
@@ -1098,39 +1151,112 @@ def random_unitary(rng, d):
     return q
 
 
+# Phase 12's timing shapes: name, qubits, blocks k, restarts B, rotations,
+# layer. The bench's two shapes and one of each cluster size; then the
+# three templates and batches that launch the kernels most on phases 13
+# and 14.
+UNITARY_TIMING = [
+    ('3q chain k=12 B=1024', 3, 12, 1024, 'xyz', 'chain'),
+    ('5q chain k=20 B=2048', 5, 20, 2048, 'xyz', 'chain'),
+    ('7q chain k=24 B=64', 7, 24, 64, 'xyz', 'chain'),
+    ('8q chain k=16 B=16', 8, 16, 16, 'xyz', 'chain'),
+    ("3q chain k=8 'xz' B=200 (Ansatz.learn)", 3, 8, 200, 'xz', 'chain'),
+    ('4q line k=10 B=100 (the GHZ-4 custom loss)', 4, 10, 100, 'xyz',
+     'chain'),
+    ('3q connected k=10 B=800 (the bucketed relative-phase Toffoli-3)', 3,
+     10, 800, 'xyz', 'connected'),
+]
+# the kernels' names in the profiler's trace, by design and pass
+TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
+               ('columns', False): 'column_forward',
+               ('columns', True): 'column_vjp'}
+
+
+def designs_alone(calls, repeats=20):
+    """{(design, vjp): mean ms of the kernel alone} from one torch.profiler
+    trace of the card over `calls`, a list of (design, vjp, fn) run in that
+    order `repeats` times each; the designs' kernels have different names,
+    so one trace holds them all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _, _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, _, fn in calls:
+            for _ in range(repeats):
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key in {(d, v) for d, v, _ in calls}:
+        total_us, count = 0.0, 0
+        for event in prof.key_averages():
+            if TRACE_NAMES[key] in event.key:
+                spent = getattr(event, 'self_device_time_total', None)
+                if spent is None:
+                    spent = event.self_cuda_time_total
+                total_us += spent
+                count += event.count
+        out[key] = total_us / count / 1e3 if count and total_us > 0 else None
+    return out
+
+
 def phase_unitary(card):
     """Phase 12: the forward and vjp kernels of kernels/unitary.py against
     their plain version (sim.batched.build_unitary_batched under autograd)
     on the card, same inputs, B = 256 restarts at the five largest layouts
     and, at every template that phases 13 and 14 drive, the batch they
     drive it with (unitary_shapes), angles uniform in [0, 2 pi) from a
-    seeded numpy generator. Tolerances: the unitary within 2e-5 in
-    every entry (complex64, two float32 derivations of at most 46 gates);
-    the angle gradients within 1e-4 of autograd's, each scaled by
-    max(1, |gradient|), for two cotangents: that of the HS test against a
-    complex random unitary (of the state loss against its first column where
-    only column 0 is built), which catches a missing conjugate, and a
-    random complex cotangent; at 3 qubits the kernel's gradient within 1e-3
-    of central differences (h = 1e-4) of the plain path in float64. Then the
-    times of both kernels at the static sampling shape and the 5q k=20
-    B=2048 shape beside their bounds and the plain version's times: of one
-    call of the wrapper (CUDA events, the faster of two; at these sizes
-    mostly the host's launch path) and of the kernel alone on the card
-    (torch.profiler), against which the share of the bound is taken where
-    the trace has it.
+    seeded numpy generator, each through the design the plan gives it (the
+    column design for the whole unitary at 2 to 6 qubits, the row-split
+    one for one column and for 7 and 8 qubits), the plan held against the
+    library's. Tolerances: the unitary within 2e-5 in every entry
+    (complex64, two float32 derivations of at most 46 gates); the angle
+    gradients within 1e-4 of autograd's, each scaled by max(1, |gradient|),
+    for two cotangents: that of the HS test against a complex random
+    unitary (of the state loss against its first column where only column 0
+    is built), which catches a missing conjugate, and a random complex
+    cotangent; at 3 qubits the kernel's gradient within 1e-3 of central
+    differences (h = 1e-4) of the plain path in float64. The column kernels
+    must have 0 bytes of local memory (CUDA runtime) and 0 bytes of stack
+    and spills (ptxas). Then both kernels' times at UNITARY_TIMING beside
+    their bounds and the plain version's times: of one call of the wrapper
+    (CUDA events, the faster of two; at these sizes mostly the host's
+    launch path) and of the kernel alone on the card (torch.profiler),
+    against which the share of the bound is taken where the trace has it;
+    where the plan takes the column design, the row-split design is timed
+    in turns with it (rows, columns, columns, rows), with the registers,
+    local bytes and resident blocks per SM of each.
     Returns (largest errors by kernel, timing rows by kernel)."""
     import numpy as np
     import torch
     from cpflow_tpu_torch.api import Ansatz
+    from cpflow_tpu_torch.kernels import build
     from cpflow_tpu_torch.kernels import unitary as uk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                     num_block_angles)
     from cpflow_tpu_torch.sim.batched import (batched_cost_hst,
                                               batched_state_prep,
                                               build_unitary_batched)
-    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    from cpflow_tpu_torch.topology import (chain_layer, connected_layer,
+                                           fill_layers)
     dev = 'cuda'
     worst = {'ansatz_forward': 0.0, 'ansatz_vjp': 0.0}
+    regs = uk.registers(dev)
+    stacks = column_ptxas()
+    local = {k: v['local_bytes'] for k, v in regs.items() if 'columns' in k}
+    built_here = 'ptxas' in build.INFO.get('unitary', {})
+    check((len(stacks) == len(local) or not built_here) and
+          all(v == (0, 0, 0) for v in stacks.values()) and
+          not any(local.values()),
+          f'the column kernels use local memory: ptxas (stack, spill stores, '
+          f'spill loads) {stacks}, runtime local bytes {local}')
+    print(f'phase 12: column kernels: runtime local bytes 0 in all '
+          f'{len(local)}; ptxas '
+          + (f'0 bytes of stack and spills in all {len(stacks)}' if built_here
+             else 'report not read (the library was built before this run)')
+          + f'; registers { {k: v["registers"] for k, v in regs.items()} }',
+          flush=True)
 
     def scaled(a, b):
         return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
@@ -1143,7 +1269,7 @@ def phase_unitary(card):
         nba, nb = num_block_angles(ent, rot), len(all_placements(pl))
         P = 3 * n + nba * nb
         d = 2 ** n
-        blocks = unitary_plan(n, nb, nba, 0 if cols else n, s['name'])
+        plans = unitary_plan(n, nb, nba, 0 if cols else n, s['name'])
         drawn = rng.uniform(0, 2 * math.pi, (P, B))
         mask = None
         if s.get('verification'):
@@ -1152,7 +1278,7 @@ def phase_unitary(card):
             mask = torch.ones(P, B, device=dev)
             mask[torch.as_tensor(frozen, device=dev)] = 0
         angles = torch.tensor(drawn, dtype=torch.float32, device=dev)
-        before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+        before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES, uk.COLUMN_LAUNCHES)
         u_k = uk.ansatz_forward(*tpl, angles, cols)            # (B, d, C)
         a_p = angles.clone().requires_grad_(True)
         u_p = build_unitary_batched(*tpl, a_p, columns=cols)
@@ -1180,15 +1306,19 @@ def phase_unitary(card):
         if mask is not None:    # as the Adam loop masks them
             g_k, h_k, g_p, h_p = (g * mask for g in (g_k, h_k, g_p, h_p))
         torch.cuda.synchronize()
+        on_columns = 3 * (plans[0]['design'] == 'columns') + \
+            2 * (plans[1]['design'] == 'columns')
         check(uk.FORWARD_LAUNCHES == before[0] + 3 and
-              uk.VJP_LAUNCHES == before[1] + 2,
-              f'{s["name"]}: the kernels were not launched')
+              uk.VJP_LAUNCHES == before[1] + 2 and
+              uk.COLUMN_LAUNCHES == before[2] + on_columns,
+              f'{s["name"]}: the kernels were not launched in the plan\'s '
+              f'designs')
         err_g, err_h = scaled(g_k, g_p), scaled(h_k, h_p)
         check(err_g <= 1e-4 and err_h <= 1e-4,
               f'{s["name"]}: gradient differs from autograd: loss cotangent '
               f'{err_g}, random cotangent {err_h}')
-        line = (f'phase 12: {s["name"]} B={B}: forward on {blocks[0]}, vjp '
-                f'on {blocks[1]} block(s) a restart; unitary error max '
+        line = (f'phase 12: {s["name"]} B={B}: forward {plan_text(plans[0])}; '
+                f'vjp {plan_text(plans[1])}; unitary error max '
                 f'{err_f:.2e}; gradient error (scaled by max(1, |grad|)) loss '
                 f'cotangent '
                 f'{err_g:.2e} (|grad| up to {g_p.abs().max().item():.3g}), '
@@ -1218,24 +1348,20 @@ def phase_unitary(card):
             (h_k - h_p).abs().max().item())
 
     rows = {'ansatz_forward': [], 'ansatz_vjp': []}
-    for name, n, k, Bt in [('3q chain k=12 B=1024', 3, 12, 1024),
-                           ('5q chain k=20 B=2048', 5, 20, 2048),
-                           ('7q chain k=24 B=64', 7, 24, 64),
-                           ('8q chain k=16 B=16', 8, 16, 16)]:
-        tpl = (n, 'cp', 'xyz', fill_layers(chain_layer(n), k))
-        work = unitary_work(n, k)
+    layers = {'chain': chain_layer, 'connected': connected_layer}
+    for name, n, k, Bt, rot, layer in UNITARY_TIMING:
+        tpl = (n, 'cp', rot, fill_layers(layers[layer](n), k))
+        nba = num_block_angles('cp', rot)
+        work = unitary_work(n, k, rot)
         rng = np.random.default_rng(1250 + n)
         angles = torch.tensor(rng.uniform(0, 2 * math.pi, (work['P'], Bt)),
                               dtype=torch.float32, device=dev)
+        plans = unitary_plan(n, k, nba, n, name)
         u = uk.ansatz_forward(*tpl, angles)                    # warm-up
         w = torch.view_as_complex(torch.tensor(
             rng.normal(size=tuple(u.shape) + (2,)), dtype=torch.float32,
             device=dev))
         uk.ansatz_vjp(*tpl, angles, u, w)                      # warm-up
-        f_ms = min(timed(lambda: uk.ansatz_forward(*tpl, angles))[1]
-                   for _ in range(2))
-        v_ms = min(timed(lambda: uk.ansatz_vjp(*tpl, angles, u, w))[1]
-                   for _ in range(2))
         pf, pv = [], []
         for _ in range(3):                    # the first call warms up
             a_p = angles.clone().requires_grad_(True)
@@ -1244,31 +1370,81 @@ def phase_unitary(card):
             pf.append(ms)
             pv.append(timed(lambda: torch.autograd.grad(
                 u_p, a_p, grad_outputs=w_p))[1])
-        f_dev = device_ms(lambda: uk.ansatz_forward(*tpl, angles),
-                          'forward_kernel')
-        v_dev = device_ms(lambda: uk.ansatz_vjp(*tpl, angles, u, w),
-                          'vjp_kernel')
-        regs = uk.registers(dev)
-        blocks = unitary_plan(n, k, num_block_angles('cp', 'xyz'), n, name)
-        for kernel, ms, on_card, plain, ops, nbytes, c in [
-                ('ansatz_forward', f_ms, f_dev, min(pf[1:]), work['forward'],
-                 work['forward_bytes'], blocks[0]),
-                ('ansatz_vjp', v_ms, v_dev, min(pv[1:]), work['vjp'],
-                 work['vjp_bytes'], blocks[1])]:
+        both = plans[0]['design'] == 'columns'
+        turns = ['rows', 'columns', 'columns', 'rows'] if both else ['rows']
+        calls, call_ms = [], {}
+        for design in turns:
+            f = functools.partial(uk.ansatz_forward, *tpl, angles,
+                                  design=design)
+            v = functools.partial(uk.ansatz_vjp, *tpl, angles, u, w,
+                                  design=design)
+            calls += [(design, False, f), (design, True, v)]
+            for vjp, fn in ((False, f), (True, v)):
+                call_ms.setdefault((design, vjp), []).append(
+                    min(timed(fn)[1] for _ in range(2)))
+        alone = designs_alone(calls)
+        for kernel, vjp, plain, ops, nbytes in [
+                ('ansatz_forward', False, min(pf[1:]), work['forward'],
+                 work['forward_bytes']),
+                ('ansatz_vjp', True, min(pv[1:]), work['vjp'],
+                 work['vjp_bytes'])]:
+            p = plans[vjp]
             b_ms, b_by = unitary_bound_ms(ops, nbytes, Bt)
-            alone = 'not measured' if on_card is None else \
+            row = dict(shape=name, design=p['design'],
+                       cluster=p['blocks_per_restart'], bound_ms=b_ms,
+                       bound_by=b_by, plain_ms=plain)
+            for design in turns[:2]:
+                kname = uk.kernel_name(design, vjp, n, p['blocks_per_restart'])
+                threads, nbytes_block = p['threads'], p['smem_bytes']
+                if design != p['design']:   # the row-split design's sizes
+                    c = uk.cluster_plan(n, k, nba, n, vjp)
+                    threads = min(max((1 << n) ** 2 // 16, 32), 256)
+                    nbytes_block = uk.smem_bytes(n, k, nba, n, vjp, c)
+                    kname = uk.kernel_name(design, vjp, n, c)
+                ms = call_ms[(design, vjp)]
+                prefix = '' if design == p['design'] else 'rows_'
+                row.update({
+                    f'{prefix}ms': sum(ms) / len(ms),
+                    f'{prefix}device_ms': alone[(design, vjp)],
+                    f'{prefix}registers': regs[kname]['registers'],
+                    f'{prefix}local_bytes': regs[kname]['local_bytes'],
+                    f'{prefix}blocks_per_sm': uk.occupancy(
+                        kname, threads, nbytes_block, dev)})
+            on_card = row['device_ms']
+            shown = 'not measured' if on_card is None else \
                 f'{on_card:.4f} ms (share of bound {b_ms / on_card:.2%})'
-            reg = regs['ansatz_vjp_cluster' if kernel == 'ansatz_vjp' and
-                       c > 1 else kernel]
-            print(f'phase 12: {kernel} {name} on {card}: {c} block(s) a '
-                  f'restart; one call {ms:.4f} ms, the kernel alone on the '
-                  f'card {alone}; bound {b_ms:.5f} ms by {b_by} ({ops} '
-                  f'float32 ops and {nbytes} bytes per restart); plain '
-                  f'{plain:.3f} ms; {reg} registers', flush=True)
-            rows[kernel].append(dict(shape=name, cluster=c, ms=ms,
-                                     device_ms=on_card, plain_ms=plain,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     registers=reg))
+            text = (f'phase 12: {kernel} {name} on {card}: {plan_text(p)}; '
+                    f'one call {row["ms"]:.4f} ms, the kernel alone on the '
+                    f'card {shown}; bound {b_ms:.5f} ms by {b_by} ({ops} '
+                    f'float32 ops and {nbytes} bytes per restart); plain '
+                    f'{plain:.3f} ms; {row["registers"]} registers, '
+                    f'{row["local_bytes"]} local bytes, '
+                    f'{row["blocks_per_sm"]} blocks per SM')
+            if both:
+                old = row['rows_device_ms']
+                text += (f'; row-split design in turns: one call '
+                         f'{row["rows_ms"]:.4f} ms, alone '
+                         + ('not measured' if old is None else
+                            f'{old:.4f} ms ({b_ms / old:.2%})') +
+                         f', {row["rows_registers"]} registers, '
+                         f'{row["rows_local_bytes"]} local bytes, '
+                         f'{row["rows_blocks_per_sm"]} blocks per SM')
+                if old and on_card:
+                    text += f'; columns / rows {on_card / old:.3f}'
+            print(text, flush=True)
+            rows[kernel].append(row)
+    ratios = [(r['shape'], kernel, r['device_ms'] / r['rows_device_ms'])
+              for kernel, rs in rows.items() for r in rs
+              if r.get('rows_device_ms') and r['device_ms']]
+    slowest = max(ratios, key=lambda t: t[2]) if ratios else None
+    first = rows['ansatz_vjp'][0]
+    half = first.get('rows_device_ms') and first['device_ms'] and \
+        first['device_ms'] <= 0.5 * first['rows_device_ms']
+    print(f'phase 12: the column design against the row-split one, the '
+          f'kernels alone in turns: slowest ratio {slowest} (no shape more '
+          f'than 5% slower: {"held" if slowest and slowest[2] <= 1.05 else "missed"}); '
+          f'3q k=12 B=1024 vjp at most half: {"held" if half else "missed"}',
+          flush=True)
     return worst, rows
 
 
@@ -1313,7 +1489,9 @@ def on_device(array):
 
 def run_custom_adaptive(synth, options):
     """synth.adaptive(options) with the unitary kernels' launch counts set
-    to 0 just before and read just after, and the plain builder watched.
+    to 0 just before and read just after, and the plain builder watched;
+    every launch of the unitary kernels must run the column design (the
+    whole unitary at 3 and 4 qubits).
     Returns (results, forward launches, vjp launches, sweep launches, plain
     builder calls, wall seconds)."""
     import torch
@@ -1321,11 +1499,15 @@ def run_custom_adaptive(synth, options):
     from cpflow_tpu_torch.kernels import unitary as uk
     with PlainBuilderWatch() as watch:
         uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = sk.LAUNCHES = 0
+        uk.COLUMN_LAUNCHES = 0
         start = time.perf_counter()
         results = synth.adaptive(options, save_results=False, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES, sk.LAUNCHES)
+    check(uk.COLUMN_LAUNCHES == counts[0] + counts[1],
+          f'{uk.COLUMN_LAUNCHES} of {counts[0] + counts[1]} unitary kernel '
+          f'launches ran the column design')
     return (results, *counts, watch.calls, wall)
 
 
@@ -1467,13 +1649,16 @@ def phase_engine():
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
     launches = {}
 
-    def counted(fn):
-        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
+    def counted(fn):  # every launch must run the column design (3q)
+        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = uk.COLUMN_LAUNCHES = 0
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - start, (uk.FORWARD_LAUNCHES,
-                                                  uk.VJP_LAUNCHES)
+        counts = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+        check(uk.COLUMN_LAUNCHES == sum(counts),
+              f'{uk.COLUMN_LAUNCHES} of {sum(counts)} unitary kernel '
+              f'launches ran the column design')
+        return out, time.perf_counter() - start, counts
 
     anz = Ansatz(3, 'cp', fill_layers(chain_layer(3), 8), rotation_gates='xz')
     with PlainBuilderWatch() as watch:
@@ -2227,8 +2412,11 @@ def main() -> int:
     # the unitary kernels: ms (one call of the wrapper, CUDA events, as the
     # sweep's), device_ms (the kernel alone on the card, from the profiler's
     # trace; null if the trace lacks it), plain_ms and bound_ms at the same
-    # 3q k=12 B=1024 shape (phase 12; `shapes` also has the 5q k=20 B=2048,
-    # 7q k=24 B=64 and 8q k=16 B=16 rows, each with its `cluster`); a
+    # 3q k=12 B=1024 shape (phase 12; `shapes` has every row of
+    # UNITARY_TIMING, each with the plan's `design`, its `cluster`,
+    # `registers`, `local_bytes` and `blocks_per_sm`, and where the plan is
+    # the column design the row-split design's numbers timed in turns with
+    # it under `rows_`); `designs`: the designs phase 12's timing ran; a
     # forward pass is a chain of n + k batched gate applications and its
     # vjp a walk back through them, which no single PyTorch call computes,
     # so library_ms is null for them too
@@ -2256,7 +2444,9 @@ def main() -> int:
             'ms': row['ms'], 'device_ms': row['device_ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
             'bound_by': row['bound_by'], 'library_ms': None,
-            'registers': row['registers'],
+            'registers': row['registers'], 'local_bytes': row['local_bytes'],
+            'design': row['design'],
+            'designs': sorted({r['design'] for r in unitary_rows[name]}),
             'cluster': sorted({r['cluster'] for r in unitary_rows[name]}),
             'shapes': unitary_rows[name]})
     print(json.dumps({'kernels': kernels}))

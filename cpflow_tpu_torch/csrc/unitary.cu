@@ -1,5 +1,6 @@
 // The two-qubit-block ansatz as a differentiable function of its angles:
-// two kernels, the forward pass angles -> U and its vector-Jacobian product.
+// two kernels, the forward pass angles -> U and its vector-Jacobian product,
+// each in two designs.
 //
 // No TPU kernel stands behind them. They replace
 // cpflow_tpu/sim/batched.py:make_reversible_builder (its fwd and bwd), a
@@ -9,37 +10,75 @@
 // per restart batch. kernels/unitary.py wraps the pair as one
 // torch.autograd.Function.
 //
-//   ansatz_forward: angles (P, B) float32 -> U (B, d, C) complex64, the
-//     chain of sweep.cu's evaluation (cos and sin once per angle, the gates
-//     in factored 2x2 form, the surface round and every block applied to a
-//     state in shared memory) followed by a store of the state.
+//   ansatz_forward: angles (P, B) float32 -> U (B, d, C) complex64: the cos
+//     and sin of each angle once, the gates in factored 2x2 form
+//     (gates.cuh), the surface round and every block applied to the
+//     identity's columns, then a store of the state.
 //   ansatz_vjp: angles (P, B), U (B, d, C) as the forward stored it, and the
 //     cotangent g of U as PyTorch hands it to a backward (dL/dRe + i dL/dIm
 //     of a real L, which is conj(2 M) for the holomorphic partial
 //     M = dL/dU of gates.cuh) -> dL/dangles (P, B). It loads A = U and
-//     M = conj(g) / 2 and runs sweep.cu's adjoint walk: it rewinds A by
-//     unitarity (A_{j-1} = G_j^dag A_j), pulls M back (M_{j-1} = G_j^T M_j)
-//     and sums every gate's cotangent, then each angle's gradient
+//     M = conj(g) / 2 and runs the adjoint walk: it rewinds A by unitarity
+//     (A_{j-1} = G_j^dag A_j), pulls M back (M_{j-1} = G_j^T M_j) and sums
+//     every gate's cotangent, then each angle's gradient
 //     2 Re sum Gbar * dG/dtheta. No intermediate state is stored or read.
 //
-// C = 2^n columns (the whole unitary) or C = 1 (the |0...0> column,
-// n <= 12). One thread block per restart, as in sweep.cu, with the same
-// threads per restart, where the block's layout fits its shared memory:
-// the forward pass holds A, the vjp A and M (16 * 4^n bytes for the whole
-// unitary). Above that a restart's columns are split over c = 2, 4 or 8
-// blocks, each holding a d x (C / c) tile (gates.cuh), the smallest c that
-// fits (cluster_plan; the whole unitary then reaches 8 qubits): the
-// forward pass's blocks are independent, each storing its columns of U;
-// the vjp's form a cluster, which sums the gates' cotangents over
-// distributed shared memory in rank order before the angle gradients, and
-// rank 0 writes them. What bounds them on this card: the forward pass
-// writes, and the walk reads twice, 8 d C bytes per restart, against
-// 30 d C float32 operations per two-qubit gate forwards and 92 in the walk:
-// at n + k >= 10 gates both are bound by the float32 rate, not by device
-// memory, and inside the block by the barrier after every gate and, in the
-// walk, the block reduction of every gate's 32-float cotangent.
+// What bounds them at the main paths' shapes. The paths that launch them (a
+// custom loss, a history, the non-Adam methods, Ansatz.learn) hand over
+// 5 to 800 restarts at 3 and 4 qubits: the whole batch is resident on the
+// card at once, and a launch lasts as long as one restart's work, the
+// prologue (the cos and sin of its angles, its gate matrices) and then its
+// chain of n + k gates, each waiting on the last. So latency bounds them,
+// not the float32 rate (at 3q k=12 B=1024 on an H100 the forward pass needs
+// 0.0005 ms of float32 work and the walk 0.0014 ms, against 0.0079 and
+// 0.0213 ms on the card, PERF.md) and not device memory (the forward pass
+// writes, and the walk reads twice, 8 d C bytes a restart).
+//
+// The column design (the whole unitary at 2 to 6 qubits; columns.cuh) cuts
+// that latency. Every gate acts on row bits only, so a lane owns one column
+// of a restart: the walk runs on it with no barrier, rewinding the column
+// and pulling its cotangent back, and sums each gate's cotangent over the
+// restart's lanes by shuffles, held in registers until the next gate has
+// been applied. A restart takes one warp (two at 6 qubits), so the prologue
+// and the angle gradients, which cost a small restart more than its chain,
+// spread over 32 lanes; in the forward pass at 2 to 4 qubits the 32 / C
+// lanes of a column share its amplitude groups, with a warp barrier after
+// each gate. No block barrier falls inside the chain or the walk. Blocks of
+// 64 threads, two restarts (one at 6 qubits), one where that layout does not
+// fit: the runtime places 8 to 10 of them on an SM at 3 and 4 qubits
+// (chip_smoke.py phase 12), so a main path's whole batch is resident, and
+// blocks of one restart measured no faster.
+//
+// The row-split design (one column, n <= 12, and the whole unitary at 7
+// and 8 qubits): one thread block per restart, as in sweep.cu, with
+// gates.cuh's threads per restart, each gate split over the block's threads
+// by amplitude groups with a barrier after it, and in the walk each gate's
+// cotangent reduced over the block before the next gate. Where the block's
+// layout does not fit its shared memory (the forward pass holds A, the vjp
+// A and M, 16 * 4^n bytes for the whole unitary) a restart's columns are
+// split over c = 2, 4 or 8 blocks, each holding a d x (C / c) tile
+// (gates.cuh), the smallest c that fits (cluster_plan): the forward pass's
+// blocks are independent, each storing its columns of U; the vjp's form a
+// cluster, which sums the gates' cotangents over distributed shared memory
+// in rank order before the angle gradients, and rank 0 writes them. One
+// column has too few columns to share out, and at 7 and 8 qubits a column
+// of A and M (4 and 8 KB) and a restart's layout exceed what one lane and
+// one block hold.
+//
+// Why no tensor cores: the products are 2x2 and 4x4 complex matrices
+// applied to one column at a time, far below wgmma's tile of 64 rows, and
+// TF32's 10-bit mantissa would break the 2e-5 (unitary) and 1e-4
+// (gradient) agreement with the plain float32 version. Why no cluster
+// below 7 qubits: a restart's whole layout fits one block there, and a
+// column never needs another block's data.
+//
+// The design is an explicit argument of the launch; kernels/unitary.py
+// passes the plan's (cpflow_unitary_design), which it mirrors for the
+// checks without a card. A launch the design does not take fails; nothing
+// falls back.
 
 #include "gates.cuh"
+#include "columns.cuh"
 
 namespace {
 
@@ -51,6 +90,7 @@ struct Args {
   const int* placements;  // (nb, 2)
   Template tpl;
   int n, nb, log_c, B, cluster_log;
+  int restarts;           // restarts a block (column design)
 };
 
 struct Layout {
@@ -175,13 +215,172 @@ vjp_kernel(Args a) {
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
+// ------------------------------------------------------ the column design
+// Block blockIdx.x holds restarts [R blockIdx.x, R blockIdx.x + R), each on
+// column_lanes(N) threads; in the walk lane c < C of a restart owns its
+// column c, in the forward pass lane l works on column l mod C.
+template <int N>
+__global__ void __launch_bounds__(kColumnThreads)
+column_forward(Args a) {
+  constexpr int C = 1 << N, lanes = column_lanes(N);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ColumnLayout L = column_layout(N, a.nb, a.tpl.nba, a.restarts, false);
+  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
+  float* params = reinterpret_cast<float*>(smem + L.off_params);
+  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
+  int* codes = reinterpret_cast<int*>(smem + L.off_codes);
+  const int r = threadIdx.x / lanes, q = threadIdx.x % lanes;
+  const int b0 = blockIdx.x * L.R, b = b0 + r;
+  float2* A = reinterpret_cast<float2*>(smem) + ((size_t)r << (2 * N));
+  column_fetch_angles(a.angles, a.B, b0, L, params);
+  for (int e = q; e < C * C; e += lanes)  // the identity
+    A[e] = make_float2((e >> N) == (e & (C - 1)) ? 1.f : 0.f, 0.f);
+  column_gates<0>(a.tpl, N, a.placements, L, params, codes, cs, gates);
+  if (q < C * column_ways(N)) {  // every lane up to 4 qubits
+    Column<N> x{A, nullptr, q & (C - 1)};
+    column_chain(x, gates + r * L.G * 16, codes, L.G, q >> N);
+  }
+  __syncthreads();
+  if (b < a.B) {  // the restart's d x C matrix, 16 bytes a lane
+    const float4* from = reinterpret_cast<const float4*>(A);
+    float4* to = reinterpret_cast<float4*>(a.U + ((size_t)b << (2 * N)));
+    for (int e = q; e < C * C / 2; e += lanes) to[e] = from[e];
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kColumnThreads)
+column_vjp(Args a) {
+  constexpr int C = 1 << N, lanes = column_lanes(N), LC = N < 5 ? N : 5;
+  constexpr unsigned mask = C >= 32 ? kFull : (1u << C) - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ColumnLayout L = column_layout(N, a.nb, a.tpl.nba, a.restarts, true);
+  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
+  float* gbar = reinterpret_cast<float*>(smem + L.off_gbar);
+  float* params = reinterpret_cast<float*>(smem + L.off_params);
+  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
+  float* grad = reinterpret_cast<float*>(smem + L.off_grad);
+  int* codes = reinterpret_cast<int*>(smem + L.off_codes);
+  const int r = threadIdx.x / lanes, q = threadIdx.x % lanes;
+  const int b0 = blockIdx.x * L.R, b = b0 + r;
+  float2* A = reinterpret_cast<float2*>(smem) + ((size_t)r << (2 * N));
+  float2* M = reinterpret_cast<float2*>(smem + L.off_M) + ((size_t)r << (2 * N));
+  column_fetch_angles(a.angles, a.B, b0, L, params);
+  // U and its cotangent copied while the gates are built
+  const size_t at = (size_t)min(b, a.B - 1) << (2 * N);
+  fetch_slab(A, a.U + at, C * C, q, lanes);
+  fetch_slab(M, a.Ubar + at, C * C, q, lanes);
+  __pipeline_commit();
+  column_gates<1>(a.tpl, N, a.placements, L, params, codes, cs, gates);
+  if (q < C) {
+    for (int row = 0; row < C; ++row) {  // M = conj(g) / 2
+      const float2 t = M[row * C + q];
+      M[row * C + q] = make_float2(0.5f * t.x, -0.5f * t.y);
+    }
+    Column<N> x{A, M, q};
+    float* gb = gbar + (size_t)(r * L.slots + q / 32) * L.G * 32;
+    column_walk<LC>(x, gates + r * L.G * 16, codes, gb, N, L.G, mask);
+  }
+  __syncthreads();
+  if (L.slots > 1) {  // the warps of a restart: their partials into slot 0
+    for (int i = threadIdx.x; i < L.R * L.G * 32; i += blockDim.x) {
+      const int rr = i / (L.G * 32), e = i - rr * L.G * 32;
+      float* x = gbar + (size_t)rr * L.slots * L.G * 32 + e;
+      for (int s = 1; s < L.slots; ++s) x[0] += x[s * L.G * 32];
+    }
+    __syncthreads();
+  }
+  // every angle's gradient, one gate per thread, as gates.cuh's angle_grads
+  for (int i = threadIdx.x; i < L.R * L.G; i += blockDim.x) {
+    const int rr = i % L.R, j = i / L.R;
+    const float* c = cs + rr * 2 * L.P;
+    const float2* gbj = reinterpret_cast<const float2*>(
+        gbar + ((size_t)rr * L.slots * L.G + j) * 32);
+    float* gr = grad + rr * L.P;
+    if (j < N) {
+      surface_grads(c + 6 * j, gates + (rr * L.G + j) * 16, gbj, gr + 3 * j);
+    } else {
+      const int off = 3 * N + a.tpl.nba * (j - N);
+      block_grads(a.tpl, c + 2 * off, gbj, gr + off);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L.R * L.P; i += blockDim.x) {
+    const int rr = i % L.R, p = i / L.R;
+    if (b0 + rr < a.B) a.grad[(size_t)p * a.B + b0 + rr] = grad[rr * L.P + p];
+  }
+}
+
 using Kernel = void (*)(Args);
 
-// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster
+// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster (the
+// row-split design); 3 + n - 2 the column forward pass at n qubits, 8 + n - 2
+// the column vjp.
+constexpr int kKernels = 3 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
 Kernel kernel_of(int which) {
-  const Kernel kernels[3] = {forward_kernel, vjp_kernel<false>,
-                             vjp_kernel<true>};
+  const Kernel kernels[kKernels] = {
+      forward_kernel,    vjp_kernel<false>, vjp_kernel<true>,
+      column_forward<2>, column_forward<3>, column_forward<4>,
+      column_forward<5>, column_forward<6>, column_vjp<2>,
+      column_vjp<3>,     column_vjp<4>,     column_vjp<5>,
+      column_vjp<6>};
   return kernels[which];
+}
+
+enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1 };
+
+// Dynamic shared memory granted to each kernel on each device so far: the
+// attribute is set once per kernel and size, not before every launch.
+constexpr int kMaxDevices = 64;
+size_t g_granted[kMaxDevices][kKernels];
+
+cudaError_t grant_smem(int which, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;  // the default allows it
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  size_t* granted = dev < kMaxDevices ? &g_granted[dev][which] : nullptr;
+  if (granted && *granted >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel_of(which),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && granted) *granted = bytes;
+  return err;
+}
+
+// The launch of one design: kernel, grid, threads and bytes a block, and
+// the cluster; false if the design does not take the shape.
+struct Launch {
+  int which, threads;
+  unsigned grid, cluster;
+  size_t bytes;
+};
+
+bool plan_launch(Args& a, int vjp, int design, Launch& out) {
+  const int n = a.n, nb = a.nb, nba = a.tpl.nba;
+  if (design == DESIGN_COLUMNS) {
+    a.cluster_log = 0;
+    a.restarts = column_restarts(n, nb, nba, a.log_c, vjp != 0);
+    if (!a.restarts) return false;
+    out.which = (vjp ? 8 : 3) + n - kColumnQubitsMin;
+    out.threads = a.restarts * column_lanes(n);
+    out.grid = (unsigned)((a.B + a.restarts - 1) / a.restarts);
+    out.cluster = 1;
+    out.bytes = column_layout(n, nb, nba, a.restarts, vjp != 0).bytes;
+    return true;
+  }
+  if (design != DESIGN_ROWS) return false;
+  a.restarts = 1;
+  a.cluster_log = cluster_plan(n, nb, nba, a.log_c, vjp != 0);
+  if (a.cluster_log < 0) return false;
+  const Layout L = make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0);
+  const bool cluster = vjp && a.cluster_log > 0;
+  out.which = vjp ? 1 + cluster : 0;
+  out.threads = L.nt;
+  out.grid = (unsigned)a.B << a.cluster_log;
+  out.cluster = cluster ? 1u << a.cluster_log : 1u;
+  out.bytes = L.bytes;
+  return true;
 }
 
 }  // namespace
@@ -189,7 +388,7 @@ Kernel kernel_of(int which) {
 extern "C" {
 
 // Dynamic shared memory of each of the `cluster` blocks (1, 2, 4 or 8) that
-// hold a restart's columns (vjp: 0 forward, 1 vjp).
+// hold a restart's columns in the row-split design (vjp: 0 forward, 1 vjp).
 long long cpflow_unitary_smem_bytes(int n, int num_blocks, int nba, int log_c,
                                     int vjp, int cluster) {
   int log = 0;
@@ -198,28 +397,53 @@ long long cpflow_unitary_smem_bytes(int n, int num_blocks, int nba, int log_c,
       .bytes;
 }
 
-// The blocks a restart's columns are split over (cluster_plan), 0 if no
-// split fits.
+// The blocks a restart's columns are split over in the row-split design
+// (cluster_plan), 0 if no split fits.
 int cpflow_unitary_cluster(int n, int num_blocks, int nba, int log_c,
                            int vjp) {
   const int log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
   return log < 0 ? 0 : 1 << log;
 }
 
+// Restarts a block of the column design (column_restarts), 0 where that
+// design does not take the shape.
+int cpflow_unitary_column_restarts(int n, int num_blocks, int nba, int log_c,
+                                   int vjp) {
+  return column_restarts(n, num_blocks, nba, log_c, vjp != 0);
+}
+
+// Dynamic shared memory of a block of the column design holding `restarts`
+// restarts.
+long long cpflow_unitary_column_smem_bytes(int n, int num_blocks, int nba,
+                                           int vjp, int restarts) {
+  return (long long)column_layout(n, num_blocks, nba, restarts, vjp != 0)
+      .bytes;
+}
+
+// The plan's design for a shape: 1 the column design (the whole unitary at
+// 2 to 6 qubits, where its layout fits), else 0 the row-split design.
+int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
+                          int vjp) {
+  return column_restarts(n, num_blocks, nba, log_c, vjp != 0) > 0
+             ? DESIGN_COLUMNS
+             : DESIGN_ROWS;
+}
+
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
-// product (vjp == 1: reads U and Ubar, writes grad) on `stream`. angles and
-// grad: (P, B) float32; U and Ubar: (B, d, C) complex64 with C = 2^log_c,
-// log_c = n or 0; letters: (num_letters,) rotation letters 0, 1, 2 for x, y,
-// z; ent: 0 CP, 1 CZ, 2 CX; nba: angles per block. Each restart runs on the
-// blocks cluster_plan picks: the forward pass's as independent blocks, the
-// vjp's as a cluster launched with cudaLaunchKernelEx. Returns
-// cudaErrorInvalidValue if no split holds the shape, else
-// cudaGetLastError() after the launch.
+// product (vjp == 1: reads U and Ubar, writes grad) in the given design
+// (0 row-split, 1 columns) on `stream`. angles and grad: (P, B) float32; U
+// and Ubar: (B, d, C) complex64 with C = 2^log_c, log_c = n or 0; letters:
+// (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
+// 2 CX; nba: angles per block. In the row-split design each restart runs
+// on the blocks cluster_plan picks: the forward pass's as independent
+// blocks, the vjp's as a cluster. Returns cudaErrorInvalidValue if the
+// design does not hold the shape, else cudaGetLastError() after the
+// launch.
 int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
                           const void* letters, int n, int num_blocks,
                           int num_letters, int ent, int nba, int log_c, int B,
-                          int vjp, void* stream) {
+                          int vjp, int design, void* stream) {
   Args a;
   a.angles = static_cast<const float*>(angles);
   a.U = static_cast<float2*>(U);
@@ -234,37 +458,45 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   a.nb = num_blocks;
   a.log_c = log_c;
   a.B = B;
-  a.cluster_log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
-  if (a.cluster_log < 0) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
-                               vjp != 0);
-  const bool cluster = vjp && a.cluster_log > 0;
-  const Kernel kernel = kernel_of(vjp ? 1 + cluster : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  Launch l;
+  if (!plan_launch(a, vjp, design, l)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = grant_smem(l.which, l.bytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&a};
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(
-      (unsigned)B << a.cluster_log, L.nt, L.bytes,
-      cluster ? 1u << a.cluster_log : 1u, static_cast<cudaStream_t>(stream),
-      &attr);
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
-                            args);
+  const cudaLaunchConfig_t cfg =
+      launch_config(l.grid, l.threads, l.bytes, l.cluster,
+                    static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(
+                                      kernel_of(l.which)), args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Registers per thread of the forward kernel (out[0]), the vjp kernel on
-// one block a restart (out[1]) and on a cluster (out[2]). Returns a CUDA
-// error code, 0 on success.
-int cpflow_unitary_registers(int* out) {
-  for (int i = 0; i < 3; ++i) {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(i));
-    if (err != cudaSuccess) return (int)err;
-    out[i] = attr.numRegs;
-  }
+int cpflow_unitary_kernel_count() { return kKernels; }
+
+// Registers per thread (out[0]) and local memory bytes per thread (out[1])
+// of kernel `which` (kernel_of's numbering). Returns a CUDA error code, 0 on
+// success.
+int cpflow_unitary_attributes(int which, int* out) {
+  if (which < 0 || which >= kKernels) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(which));
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
   return 0;
+}
+
+// Resident blocks per SM of kernel `which` at `threads` threads and `bytes`
+// of dynamic shared memory a block, from the CUDA runtime.
+int cpflow_unitary_occupancy(int which, int threads, long long bytes,
+                             int* blocks) {
+  if (which < 0 || which >= kKernels) return (int)cudaErrorInvalidValue;
+  cudaError_t err = grant_smem(which, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of(which), threads, (size_t)bytes);
+  return (int)err;
 }
 
 }  // extern "C"

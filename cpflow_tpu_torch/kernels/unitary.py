@@ -21,9 +21,35 @@ other first-order methods.
     sim.batched.build_unitary_batched under ordinary autograd.
 
 Both kernels are csrc/unitary.cu (built with nvcc for sm_90a at first use,
-bound with ctypes); they share their device code with the sweep kernel
-through csrc/gates.cuh. What bounds them on this card is set out at the top
-of csrc/unitary.cu.
+bound with ctypes); they share their gate algebra with the sweep kernel
+through csrc/gates.cuh.
+
+What bounds them, and the two designs. The paths that launch them hand
+over 5 to 800 restarts at 3 and 4 qubits, so the whole batch is resident at
+once and a launch lasts as long as one restart's work, its prologue (the
+cos and sin of its angles, its gate matrices) and its chain of n + k
+dependent gates: latency, not the float32 rate and not device memory.
+Every gate acts on row bits only, so in the column design (the whole
+unitary at 2 to 6 qubits, csrc/columns.cuh) a lane owns one column of a
+restart in the walk, which runs with no barrier and sums each gate's
+cotangent over the restart's lanes by shuffles; a restart takes a warp
+(two at 6 qubits), whose spare lanes share the prologue, and in the
+forward pass at 2 to 4 qubits the lanes of a column share its amplitude
+groups with a warp barrier after each gate. Blocks hold two restarts (one
+at 6 qubits, or where the layout does not fit). One column
+(``columns=[0]``, up to 12 qubits) and the whole unitary at 7 and 8 qubits
+keep the row-split design: one block a restart with a barrier after every
+gate, and where its layout exceeds one block's shared memory the restart's
+columns split over c = 2, 4 or 8 blocks (``cluster_plan``; the vjp's
+blocks form a thread-block cluster and sum the gates' cotangents over
+distributed shared memory). No tensor cores: the products are 2x2 and 4x4
+complex, far below a wgmma tile, and TF32 would break the 2e-5 agreement
+with the plain version; no cluster below 7 qubits, where a restart fits
+one block. The reasons and measurements are at the top of csrc/unitary.cu
+and csrc/columns.cuh. ``plan`` mirrors the library's choice
+(``cpflow_unitary_design`` and its sizes) for checks without a card; the
+wrappers always launch the plan's design, and a caller may ask for the
+row-split one (``design='rows'``) to compare the two.
 
 The cotangent convention. PyTorch hands a backward the gradient of a real L
 with respect to a complex tensor as dL/dRe + i dL/dIm. The kernels' walk
@@ -32,16 +58,9 @@ takes the holomorphic partial M = dL/dU (an angle's gradient is
 vjp kernel converts as it loads.
 
 Layout. U is (B, d, C) in memory, one contiguous row-major d x C matrix
-per restart; ``build_unitary`` hands it on as the batch-last view
-(2,)*n + (C, B) of the plain path, and the backward takes a cotangent of
-any strides. A kernel's block owns one restart where its layout fits one
-block's shared memory; above that (7 and 8 qubits for the whole unitary)
-the restart's columns are split over c = 2, 4 or 8 blocks, the smallest
-that fits (csrc/unitary.cu's plan, ``cpflow_unitary_cluster``, which
-``cluster_plan`` mirrors for checks without a card): the forward
-pass's blocks each store their d x C / c columns, the vjp's form a thread
-block cluster and sum the gates' cotangents over distributed shared
-memory.
+per restart (the column design copies a restart's slab 16 bytes a lane);
+``build_unitary`` hands it on as the batch-last view (2,)*n + (C, B) of the
+plain path, and the backward takes a cotangent of any strides.
 """
 
 from __future__ import annotations
@@ -53,11 +72,12 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
-from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
+from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
 from cpflow_tpu_torch.sim.batched import build_unitary_batched
 
 FORWARD_LAUNCHES = 0  # launches of the forward kernel since the last reset
 VJP_LAUNCHES = 0      # launches of the vjp kernel; the plain path adds none
+COLUMN_LAUNCHES = 0   # those of the two that ran the column design
 
 MAX_QUBITS_UNITARY = 8   # the whole unitary, split over at most 8 blocks
 MAX_QUBITS_COLUMN = 12   # one column, on one block
@@ -65,15 +85,23 @@ ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
+DESIGNS = {'rows': 0, 'columns': 1}  # csrc/unitary.cu's numbering
+COLUMN_THREADS = 64      # threads of a column kernel's block
+COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
+# csrc/unitary.cu's kernels, in kernel_of's order
+KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
+    f'ansatz_{k}_columns_{n}q' for k in ('forward', 'vjp')
+    for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1))
 
 
 def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
                cluster: int = 1) -> int:
     """Dynamic shared memory of each block of a restart split over
-    `cluster` blocks, as csrc/unitary.cu's make_layout lays it out: the
-    tile of A (2^n x 2^log_c / cluster amplitudes), the gates, the angles
-    and the cos and sin of each; the vjp also the tile of M, the gates'
-    cotangents, the cross-warp partials and the gradient."""
+    `cluster` blocks in the row-split design, as csrc/unitary.cu's
+    make_layout lays it out: the tile of A (2^n x 2^log_c / cluster
+    amplitudes), the gates, the angles and the cos and sin of each; the vjp
+    also the tile of M, the gates' cotangents, the cross-warp partials and
+    the gradient."""
     log_ct = log_c - (cluster.bit_length() - 1)
     P, G = 3 * n + nba * num_blocks, n + num_blocks
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
@@ -85,10 +113,10 @@ def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
 
 def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
                  vjp: bool):
-    """The blocks each restart's columns are split over, as
-    csrc/unitary.cu's cluster_plan picks them: the smallest of 1, 2, 4, 8
-    (never more than the 2^log_c columns) whose per-block layout fits one
-    block's shared memory; None if none fits."""
+    """The blocks each restart's columns are split over in the row-split
+    design, as csrc/unitary.cu's cluster_plan picks them: the smallest of 1,
+    2, 4, 8 (never more than the 2^log_c columns) whose per-block layout
+    fits one block's shared memory; None if none fits."""
     for c in CLUSTERS:
         if c > 1 << log_c:
             break
@@ -97,35 +125,135 @@ def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
     return None
 
 
+def column_lanes(n: int) -> int:
+    """Lanes of one restart in the column design: a warp up to 5 qubits,
+    the 64 columns at 6 (csrc/columns.cuh's column_lanes)."""
+    return 32 if n < 5 else 1 << n
+
+
+def column_smem_bytes(n: int, num_blocks: int, nba: int, vjp: bool,
+                      restarts: int) -> int:
+    """Dynamic shared memory of a block of `restarts` restarts in the column
+    design, as csrc/columns.cuh's column_layout lays it out: per restart its
+    d x d state A, its G gate matrices, its P angles and the cos and sin of
+    each; the vjp also the state's cotangent M, each gate's 32-float
+    cotangent once per warp of the restart, and the gradient; and the G
+    gate codes, once."""
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    slots = column_lanes(n) // 32
+    out = restarts * ((8 << 2 * n) + 128 * G + 12 * P) + 4 * G
+    if vjp:
+        out += restarts * ((8 << 2 * n) + 128 * slots * G + 4 * P)
+    return out
+
+
+def column_restarts(n: int, num_blocks: int, nba: int, log_c: int,
+                    vjp: bool) -> int:
+    """Restarts a block of the column design holds, as csrc/columns.cuh's
+    column_restarts picks them: 64 threads' worth (2 restarts up to 5
+    qubits, 1 at 6), else 1 where that layout does not fit; 0 where the
+    column design does not take the shape (one column, n outside 2..6, or
+    no layout fits)."""
+    if log_c != n or not COLUMN_QUBITS[0] <= n <= COLUMN_QUBITS[1]:
+        return 0
+    r = max(COLUMN_THREADS // column_lanes(n), 1)
+    while r >= 1:
+        if column_smem_bytes(n, num_blocks, nba, vjp, r) <= _SMEM_LIMIT:
+            return r
+        r //= 2
+    return 0
+
+
+def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool):
+    """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
+    and its sizes: dict(design 'columns' or 'rows', threads_per_restart,
+    restarts_per_block, threads (a block), smem_bytes (a block),
+    blocks_per_restart); None if neither design holds the shape."""
+    r = column_restarts(n, num_blocks, nba, log_c, vjp)
+    if r:
+        return dict(design='columns', threads_per_restart=column_lanes(n),
+                    restarts_per_block=r, threads=r * column_lanes(n),
+                    smem_bytes=column_smem_bytes(n, num_blocks, nba, vjp, r),
+                    blocks_per_restart=1)
+    c = cluster_plan(n, num_blocks, nba, log_c, vjp)
+    if c is None:
+        return None
+    log_ct = log_c - (c.bit_length() - 1)
+    threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
+    return dict(design='rows', threads_per_restart=threads * c,
+                restarts_per_block=1, threads=threads,
+                smem_bytes=smem_bytes(n, num_blocks, nba, log_c, vjp, c),
+                blocks_per_restart=c)
+
+
+def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1) -> str:
+    """The name in KERNELS of the kernel a launch of this design runs."""
+    kind = 'vjp' if vjp else 'forward'
+    if design == 'columns':
+        return f'ansatz_{kind}_columns_{n}q'
+    return 'ansatz_vjp_cluster' if vjp and cluster > 1 else f'ansatz_{kind}'
+
+
 def load_library() -> ctypes.CDLL:
     """Build csrc/unitary.cu (once per version of csrc/) and load it."""
     lib = build.load('unitary')
     if lib.cpflow_unitary_launch.argtypes is None:
-        ptr = ctypes.c_void_p
-        lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [ctypes.c_int] * 8 + [
-            ptr]
-        lib.cpflow_unitary_launch.restype = ctypes.c_int
-        lib.cpflow_unitary_smem_bytes.argtypes = [ctypes.c_int] * 6
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+        lib.cpflow_unitary_launch.restype = i
+        lib.cpflow_unitary_smem_bytes.argtypes = [i] * 6
         lib.cpflow_unitary_smem_bytes.restype = ctypes.c_longlong
-        lib.cpflow_unitary_cluster.argtypes = [ctypes.c_int] * 5
-        lib.cpflow_unitary_cluster.restype = ctypes.c_int
-        lib.cpflow_unitary_registers.argtypes = [ptr]
-        lib.cpflow_unitary_registers.restype = ctypes.c_int
+        lib.cpflow_unitary_cluster.argtypes = [i] * 5
+        lib.cpflow_unitary_cluster.restype = i
+        lib.cpflow_unitary_column_restarts.argtypes = [i] * 5
+        lib.cpflow_unitary_column_restarts.restype = i
+        lib.cpflow_unitary_column_smem_bytes.argtypes = [i] * 5
+        lib.cpflow_unitary_column_smem_bytes.restype = ctypes.c_longlong
+        lib.cpflow_unitary_design.argtypes = [i] * 5
+        lib.cpflow_unitary_design.restype = i
+        lib.cpflow_unitary_kernel_count.argtypes = []
+        lib.cpflow_unitary_kernel_count.restype = i
+        lib.cpflow_unitary_attributes.argtypes = [i, ptr]
+        lib.cpflow_unitary_attributes.restype = i
+        lib.cpflow_unitary_occupancy.argtypes = [i, i, ctypes.c_longlong,
+                                                 ptr]
+        lib.cpflow_unitary_occupancy.restype = i
     return lib
 
 
 def registers(device) -> dict:
-    """Registers per thread of the two kernels on the CUDA `device`, from
-    the CUDA runtime; the vjp's cluster build (7 and 8 qubits) as
-    'ansatz_vjp_cluster'."""
-    out = (ctypes.c_int * 3)()
+    """{kernel name: dict(registers per thread, local_bytes per thread)} of
+    every kernel of csrc/unitary.cu on the CUDA `device`, from the CUDA
+    runtime (KERNELS names them: the row-split forward and vjp, the vjp's
+    cluster build, the column design's forward and vjp at 2 to 6 qubits)."""
+    lib = load_library()
+    out = {}
     with torch.cuda.device(device):
-        err = load_library().cpflow_unitary_registers(out)
+        if lib.cpflow_unitary_kernel_count() != len(KERNELS):
+            raise RuntimeError('csrc/unitary.cu and KERNELS disagree on the '
+                               'kernels')
+        for which, name in enumerate(KERNELS):
+            attrs = (ctypes.c_int * 2)()
+            err = lib.cpflow_unitary_attributes(which, attrs)
+            if err != 0:
+                raise RuntimeError(f'unitary kernel attribute query failed: '
+                                   f'CUDA error {err}')
+            out[name] = dict(registers=attrs[0], local_bytes=attrs[1])
+    return out
+
+
+def occupancy(name: str, threads: int, nbytes: int, device) -> int:
+    """Resident blocks per SM of the kernel `name` (of KERNELS) at `threads`
+    threads and `nbytes` of dynamic shared memory a block, from the CUDA
+    runtime on `device`."""
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = load_library().cpflow_unitary_occupancy(
+            KERNELS.index(name), threads, nbytes, ctypes.byref(out))
     if err != 0:
-        raise RuntimeError(f'unitary kernel attribute query failed: CUDA '
+        raise RuntimeError(f'unitary kernel occupancy query failed: CUDA '
                            f'error {err}')
-    return {'ansatz_forward': out[0], 'ansatz_vjp': out[1],
-            'ansatz_vjp_cluster': out[2]}
+    return out.value
 
 
 @functools.lru_cache(maxsize=64)
@@ -140,19 +268,15 @@ def _tables(placements: tuple, rotation_gates: str, device: torch.device):
 
 
 class _Shape:
-    """The checked shape of one call: what the kernels take, and what they
-    refuse."""
+    """The checked shape of one template, column choice, batch, card and
+    kernel: what the kernels take, what they refuse, and the plan's design.
+    Made once per key (``_shape``): the capability check and the library's
+    plan are queried once, not at every call."""
 
     def __init__(self, num_qubits, entangling_gate_name, rotation_gates,
-                 placements, angles, columns, vjp):
+                 placements, columns, B, device, vjp):
         n = num_qubits
-        if angles.device.type != 'cuda':
-            raise ValueError(f'the unitary kernels run on a CUDA tensor, got '
-                             f'one on {angles.device}')
-        if angles.dtype != torch.float32:
-            raise ValueError(f'the unitary kernels compute in float32, got '
-                             f'{angles.dtype}')
-        major, minor = torch.cuda.get_device_capability(angles.device)
+        major, minor = torch.cuda.get_device_capability(device)
         if (major, minor) != (9, 0):
             raise RuntimeError(
                 f'the unitary kernels are built for sm_90a (Hopper); device '
@@ -177,23 +301,22 @@ class _Shape:
         self.n = n
         self.ent = ENTANGLER_CODES[entangling_gate_name]
         self.rot = rotation_gates
-        self.placements = tuple(tuple(p) for p in all_placements(placements))
+        self.placements = tuple(placements)
         self.nb = len(self.placements)
         self.nba = num_block_angles(entangling_gate_name, rotation_gates)
         self.log_c = n if columns is None else 0
-        P = 3 * n + self.nba * self.nb
-        if angles.dim() != 2 or angles.shape[0] != P:
-            raise ValueError(f'angles must be (P={P}, B), got '
-                             f'{tuple(angles.shape)}')
-        self.B = angles.shape[1]
-        self.udims = (self.B, 1 << n, 1 << self.log_c)
+        self.P = 3 * n + self.nba * self.nb
+        self.B = B
+        self.udims = (B, 1 << n, 1 << self.log_c)
         self.lib = load_library()
-        with torch.cuda.device(angles.device):
-            self.cluster = self.lib.cpflow_unitary_cluster(
-                n, self.nb, self.nba, self.log_c, int(vjp))
+        with torch.cuda.device(device):
+            args = (n, self.nb, self.nba, self.log_c, int(vjp))
+            self.cluster = self.lib.cpflow_unitary_cluster(*args)
+            code = self.lib.cpflow_unitary_design(*args)
+        self.design = {v: k for k, v in DESIGNS.items()}[code]
         if not self.cluster:
             most = min(CLUSTERS[-1], 1 << self.log_c)
-            with torch.cuda.device(angles.device):
+            with torch.cuda.device(device):
                 nbytes = self.lib.cpflow_unitary_smem_bytes(
                     n, self.nb, self.nba, self.log_c, int(vjp), most)
             raise ValueError(
@@ -201,7 +324,7 @@ class _Shape:
                 f'shared memory per block even on {most} blocks a restart, '
                 f'above {_SMEM_LIMIT}')
 
-    def launch(self, angles, u, ubar, grad, vjp):
+    def launch(self, angles, u, ubar, grad, vjp, design):
         """Launches on the angles' card: the library configures and
         launches on the current device, so that device is made theirs."""
         plc, letters = _tables(self.placements, self.rot, angles.device)
@@ -212,54 +335,96 @@ class _Shape:
                 grad.data_ptr() if grad is not None else None,
                 plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
                 len(self.rot), self.ent, self.nba, self.log_c, self.B,
-                int(vjp), torch.cuda.current_stream(angles.device).cuda_stream)
+                int(vjp), DESIGNS[design],
+                torch.cuda.current_stream(angles.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'unitary kernel launch failed: CUDA error '
-                               f'{err} ({self.B} restarts on {self.cluster} '
-                               f'blocks each)')
+                               f'{err} ({self.B} restarts, {design} design)')
+
+
+@functools.lru_cache(maxsize=256)
+def _shape(num_qubits, entangling_gate_name, rotation_gates, placements,
+           columns, B, device, vjp) -> _Shape:
+    return _Shape(num_qubits, entangling_gate_name, rotation_gates,
+                  placements, columns, B, device, vjp)
+
+
+def _checked(num_qubits, entangling_gate_name, rotation_gates, placements,
+             angles, columns, vjp, design) -> _Shape:
+    """The cached shape of one call, after the checks of the call itself
+    (device, dtype, angle count) and the design asked for."""
+    if angles.device.type != 'cuda':
+        raise ValueError(f'the unitary kernels run on a CUDA tensor, got '
+                         f'one on {angles.device}')
+    if angles.dtype != torch.float32:
+        raise ValueError(f'the unitary kernels compute in float32, got '
+                         f'{angles.dtype}')
+    layer, num_layers = placements['layers']
+    key = tuple(tuple(p) for p in layer) * num_layers + \
+        tuple(tuple(p) for p in placements['free'])
+    shape = _shape(num_qubits, entangling_gate_name, rotation_gates, key,
+                   None if columns is None else tuple(columns),
+                   angles.shape[1] if angles.dim() == 2 else -1,
+                   angles.device, vjp)
+    if angles.dim() != 2 or angles.shape[0] != shape.P:
+        raise ValueError(f'angles must be (P={shape.P}, B), got '
+                         f'{tuple(angles.shape)}')
+    if design not in (None, *DESIGNS):
+        raise ValueError(f'design must be one of {sorted(DESIGNS)}, got '
+                         f'{design!r}')
+    return shape
 
 
 def ansatz_forward(num_qubits: int, entangling_gate_name: str,
                    rotation_gates: str, placements: dict,
-                   angles: torch.Tensor, columns=None) -> torch.Tensor:
+                   angles: torch.Tensor, columns=None,
+                   design=None) -> torch.Tensor:
     """angles (P, B) float32 on the card -> the ansatz unitaries
     (B, d, C) complex64, one contiguous row-major d x C matrix per restart in
     the index order of sim.ansatz_kernel.build_unitary; C = 2^n, or 1 with
-    columns=[0]. Launches the forward kernel, or raises."""
-    global FORWARD_LAUNCHES
+    columns=[0]. Launches the forward kernel in the plan's design (or in
+    `design`, 'rows' or 'columns'), or raises."""
+    global FORWARD_LAUNCHES, COLUMN_LAUNCHES
     angles = angles.detach().contiguous()
-    shape = _Shape(num_qubits, entangling_gate_name, rotation_gates,
-                   placements, angles, columns, vjp=False)
+    shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
+                     placements, angles, columns, False, design)
+    design = design or shape.design
     u = torch.empty(shape.udims, dtype=torch.complex64, device=angles.device)
     if shape.B:
-        shape.launch(angles, u, None, None, vjp=False)
+        shape.launch(angles, u, None, None, False, design)
         FORWARD_LAUNCHES += 1
+        COLUMN_LAUNCHES += design == 'columns'
     return u
 
 
 def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
                rotation_gates: str, placements: dict, angles: torch.Tensor,
                u: torch.Tensor, grad_u: torch.Tensor,
-               columns=None) -> torch.Tensor:
+               columns=None, design=None) -> torch.Tensor:
     """The gradient (P, B) of a real L with respect to the angles, from
     u = ansatz_forward(angles), (B, d, C), and grad_u, (B, d, C): the
     gradient of L with respect to u in PyTorch's convention for complex
-    tensors, dL/dRe u + i dL/dIm u. Launches the vjp kernel, or raises."""
-    global VJP_LAUNCHES
+    tensors, dL/dRe u + i dL/dIm u. Launches the vjp kernel in the plan's
+    design (or in `design`), or raises."""
+    global VJP_LAUNCHES, COLUMN_LAUNCHES
     angles = angles.detach().contiguous()
-    shape = _Shape(num_qubits, entangling_gate_name, rotation_gates,
-                   placements, angles, columns, vjp=True)
+    shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
+                     placements, angles, columns, True, design)
+    design = design or shape.design
     for name, t in (('u', u), ('grad_u', grad_u)):
         if tuple(t.shape) != shape.udims or t.dtype != torch.complex64 or \
                 t.device != angles.device:
             raise ValueError(f'{name} must be complex64 {shape.udims} on '
                              f'{angles.device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    u, grad_u = u.contiguous(), grad_u.contiguous()
+    # the column design copies each restart's slab 16 bytes at a time
+    u, grad_u = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else
+                 t.contiguous().clone() for t in (u, grad_u))
     grad = torch.empty_like(angles)
     if shape.B:
-        shape.launch(angles, u, grad_u, grad, vjp=True)
+        shape.launch(angles, u, grad_u, grad, True, design)
         VJP_LAUNCHES += 1
+        COLUMN_LAUNCHES += design == 'columns'
     return grad
 
 

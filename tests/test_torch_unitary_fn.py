@@ -30,6 +30,8 @@ CASES = {
     '4q-cx-zyx': (4, 'cx', 'zyx', fill_layers(chain_layer(4), 7), None),
     '4q-cp-xyz-column0': (4, 'cp', 'xyz', fill_layers(chain_layer(4), 8),
                           [0]),
+    # the largest column layout on the card: two warps a restart
+    '6q-cp-xyz': (6, 'cp', 'xyz', fill_layers(connected_layer(6), 5), None),
     # the whole unitary on a cluster of blocks on the card (2 and 8)
     '7q-cp-xyz': (7, 'cp', 'xyz', fill_layers(chain_layer(7), 3), None),
     '8q-cp-xz': (8, 'cp', 'xz', fill_layers(chain_layer(8), 2), None),
@@ -118,13 +120,15 @@ def test_the_objective_builds_through_the_entry_point(monkeypatch):
 def test_kernels_match_the_plain_version_on_card(case):
     """Tolerances as chip_smoke.py phase 12: the unitary within 2e-5, the
     gradient of a random complex cotangent within 1e-4 scaled by
-    max(1, |gradient|)."""
+    max(1, |gradient|). The whole unitary at 2 to 6 qubits goes through
+    the column design (csrc/columns.cuh), the rest through the row-split
+    one."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py phase 12 '
                     'runs this comparison at the main path\'s shapes')
     n, ent, rot, pl, cols = CASES[case]
     a = torch.tensor(_angles(case, B=37), device='cuda')
-    before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+    before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES, uk.COLUMN_LAUNCHES)
     ak = a.clone().requires_grad_(True)
     uk_out = uk.build_unitary(n, ent, rot, pl, ak, columns=cols)
     ap = a.clone().requires_grad_(True)
@@ -138,6 +142,8 @@ def test_kernels_match_the_plain_version_on_card(case):
     torch.cuda.synchronize()
     assert (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
+    columns = cols is None and n <= 6
+    assert uk.COLUMN_LAUNCHES == before[2] + 2 * columns
     assert ((gk - gp).abs() / gp.abs().clamp(min=1.0)).max().item() <= 1e-4
 
 
