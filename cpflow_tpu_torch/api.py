@@ -24,11 +24,12 @@ package. What differs:
     'natural gd', 'hessian', 'angle by angle') runs the chains of
     optimize/engine.py on the same batched objective; ``Ansatz.learn``
     does too.
-  * initial angles come from a ``torch.Generator`` seeded with
-    ``random_seed``: the same seed gives other angles than the JAX
-    package (optimize/candidates.py). The adaptive search's trial seeds
-    and TPE suggestions are the JAX package's, bit for bit
-    (search/seed_chain.py), so equal scores give equal (seed, k, r) streams.
+  * initial angles come from ``PRNGKey(random_seed)`` through the JAX
+    package's threefry split tree (ops/prng.py), on the card, so a seed
+    gives the JAX package's restarts (optimize/candidates.py). The
+    adaptive search's trial seeds and TPE suggestions are the JAX
+    package's too, bit for bit (search/seed_chain.py), so equal scores
+    give equal (seed, k, r) streams.
   * ``parallel_trials`` puts the trials side by side on the restart axis of
     one sweep (the JAX package vmaps the stage over them).
   * ``Results`` persist with the standard library's pickle;
@@ -62,7 +63,7 @@ from cpflow_tpu_torch.circuits.refine import host_loss_adapter
 from cpflow_tpu_torch.circuits.refine import refine as refine_circuit
 from cpflow_tpu_torch.optimize import candidates as cand
 from cpflow_tpu_torch.optimize import engine, unitary_learn
-from cpflow_tpu_torch.ops import losses
+from cpflow_tpu_torch.ops import losses, prng
 from cpflow_tpu_torch.ops.penalty import make_regularization_function
 from cpflow_tpu_torch.parallel import mesh as mesh_lib
 from cpflow_tpu_torch.search import tpe
@@ -619,13 +620,11 @@ class Synthesize:
         card."""
         anz = self._ansatz(options)
         if initial_angles_array is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                int(options.random_seed))
             inits = cand.generate_initial_angles_batch(
-                gen, anz.num_angles, anz.cp_mask,
+                prng.PRNGKey(options.random_seed, self.device),
+                anz.num_angles, anz.cp_mask,
                 cp_dist=options.cp_distribution,
-                batch_size=self._batch_size(options.num_samples),
-                device=self.device)
+                batch_size=self._batch_size(options.num_samples))
         else:
             inits = torch.as_tensor(np.asarray(initial_angles_array),
                                     dtype=config.real_dtype,

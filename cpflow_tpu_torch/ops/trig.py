@@ -5,9 +5,8 @@ Any loss of a circuit is, as a function of one rotation angle, of the form
 F(x) = A cos x + B sin x + c; its argmin follows in closed form from the
 three evaluations F(0), F(pi/2), F(pi).
 
-Randomness comes from an explicit ``torch.Generator``. It does not
-reproduce JAX's threefry bits: the same seed gives other angles than the
-JAX package gives (see optimize/candidates.py).
+``random_angles`` draws from a threefry key (ops/prng.py): the same key
+gives the JAX package's angles, bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import math
 import torch
 
 from cpflow_tpu_torch import config
+from cpflow_tpu_torch.ops import prng
 
 
 def min_angle(F):
@@ -44,11 +44,18 @@ def min_angles(F, angles: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
     return torch.stack([one_min_angle(i) for i in range(s0, s1)])
 
 
-def random_angles(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Uniform angles in [0, 2pi) of the given shape, drawn on `device`."""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=config.real_dtype)
-    return u * (2 * math.pi)
+def random_angles(num_angles, key=None, device=None) -> torch.Tensor:
+    """Uniform angles in [0, 2pi): jax.random.uniform(key, (num_angles,),
+    minval=0, maxval=2pi). num_angles may be a shape; a batch of keys
+    (..., 2) gives (..., *shape). key defaults to PRNGKey(0) on `device`
+    (the card unless the caller names another); the draw runs on the
+    key's device."""
+    if key is None:
+        key = prng.PRNGKey(0, device)
+    elif device is not None:
+        key = key.to(device)
+    return prng.uniform(key, num_angles, 0.0, 2 * math.pi,
+                        dtype=config.real_dtype)
 
 
 def bracket_angle(a):

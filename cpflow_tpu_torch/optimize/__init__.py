@@ -4,9 +4,10 @@
 The reference-compatible entry points ``mynimize``, ``mynimize_repeated``
 and ``unitary_learn`` are thin wrappers over ``engine``. Each takes
 ``device=None`` (the initial angles' device if they are a tensor, else
-'cuda'; see engine) and, in place of the JAX package's ``PRNGKey(0)``, an
-explicit ``generator`` for the initial angles it draws itself: the same
-seed gives other angles than the JAX package.
+'cuda'; see engine) and a ``key`` (ops/prng.py) for the initial angles it
+draws itself, by default ``PRNGKey(0)`` as in the JAX package, whose draws
+it reproduces: ``mynimize`` draws from the key itself, ``mynimize_repeated``
+from the subkeys of the chain ``key, sub = split(key)``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from cpflow_tpu_torch import config
+from cpflow_tpu_torch.ops import prng
 from cpflow_tpu_torch.ops.losses import cost_HST, disc2_swap
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, cp_penalty_L1
 from cpflow_tpu_torch.ops.trig import random_angles
@@ -36,21 +38,25 @@ from cpflow_tpu_torch.optimize.engine import (  # noqa: F401
 from cpflow_tpu_torch.sim.batched import make_batched_regloss
 
 
-def _draw(shape, generator, device):
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    return random_angles(shape, generator, device)
+def _draw(num_params, key, device, num_repeats=None):
+    """The JAX package's initial angles: random_angles(num_params, key),
+    or with num_repeats one row per subkey of the chain ``key, sub =
+    split(key)`` (one draw for all rows)."""
+    key = prng.PRNGKey(0, device) if key is None else key.to(device)
+    if num_repeats is None:
+        return random_angles(num_params, key)
+    return random_angles(num_params, prng.split_chain(key, num_repeats)[0])
 
 
 def mynimize(loss_func, num_params, method='adam', learning_rate=0.1,
              u_func=None, target_loss=1e-7, keep_history=True,
              initial_params=None, num_iterations=5000, *, device=None,
-             generator=None, **kwargs):
+             key=None, **kwargs):
     """Single-chain minimization, reference signature. Returns
     (params_history, loss_history)."""
     device = config.resolve_device(initial_params, device)
     if initial_params is None:
-        initial_params = _draw((num_params,), generator, device)
+        initial_params = _draw(num_params, key, device)
     return minimize_chain(loss_func, initial_params, method=method,
                           learning_rate=learning_rate,
                           num_iterations=num_iterations,
@@ -63,7 +69,7 @@ def mynimize_repeated(loss_func, num_params, method='adam', learning_rate=0.1,
                       initial_params_batch=None, num_repeats=1,
                       regularization_func=None, keep_history=True,
                       compute_losses=True, num_iterations=5000,
-                      sharding=None, *, device=None, generator=None,
+                      sharding=None, *, device=None, key=None,
                       **kwargs):
     """Batched multi-start minimization, reference signature and return
     structure: a list of per-restart dicts with 'params'/'loss'
@@ -72,8 +78,7 @@ def mynimize_repeated(loss_func, num_params, method='adam', learning_rate=0.1,
     sim.batched.BatchedRegloss (see engine.minimize_multistart)."""
     device = config.resolve_device(initial_params_batch, device)
     if initial_params_batch is None:
-        initial_params_batch = _draw((num_repeats, num_params), generator,
-                                     device)
+        initial_params_batch = _draw(num_params, key, device, num_repeats)
         input_is_vector = num_repeats != 1
         if not input_is_vector:
             initial_params_batch = initial_params_batch[0]

@@ -3,11 +3,10 @@
 search's bucketed raw stage (the stage closure of
 cpflow_tpu/api.py:Synthesize._bucketed_stage).
 
-PRNG: initial angles are drawn from ``torch.Generator(device)
-.manual_seed(random_seed)``. The JAX package reproduces the reference's
-threefry split tree, so that fixed seeds give the reference's batches; the
-port does not. The same seed gives other initial angles in the two packages,
-and the tests feed numpy-drawn initial angles to both.
+PRNG: initial angles come from the JAX package's threefry split tree
+(ops/prng.py), one subkey per restart, so a seed gives the JAX package's
+(and the reference's) batch, bit for bit for the uniform draws. The whole
+batch, or all N trials of the bucketed stage, is one vectorised draw.
 
 Verification re-optimizes all prospective candidates at once: projected CP
 angles are frozen in place by a gradient mask, and since CP(0) = Id and
@@ -25,6 +24,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.optimize import engine
+from cpflow_tpu_torch.ops import prng
 from cpflow_tpu_torch.ops.trig import random_angles
 from cpflow_tpu_torch.sim import batched as batched_sim
 
@@ -33,42 +33,78 @@ from cpflow_tpu_torch.sim import batched as batched_sim
 # Initial angles
 # --------------------------------------------------------------------------
 
-def random_cp_angles(num_angles: int, cp_mask, cp_dist: str = 'uniform',
-                     generator: Optional[torch.Generator] = None,
-                     device=None) -> torch.Tensor:
-    """One (num_angles,) vector of initial angles: uniform in [0, 2pi), CP
-    angles optionally zeroed ('0') or drawn from N(0, 1.5^2) ('normal').
-    generator: a torch.Generator on `device` (default: one seeded with 0,
-    as the JAX package defaults to PRNGKey(0)); `device` defaults to the
-    generator's, else the card."""
-    if device is None:
-        device = generator.device if generator is not None else \
-            config.resolve_device()
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    return generate_initial_angles_batch(generator, num_angles, cp_mask,
-                                         cp_dist=cp_dist, batch_size=1,
-                                         device=device)[0]
-
-
-def generate_initial_angles_batch(generator: torch.Generator, num_angles: int,
-                                  cp_mask, cp_dist: str = 'uniform',
-                                  batch_size: int = 1, *,
-                                  device) -> torch.Tensor:
-    """(batch_size, num_angles) initial angles: uniform in [0, 2pi), CP angles
-    optionally zeroed ('0') or drawn from N(0, 1.5^2) ('normal')."""
-    rnd = random_angles((batch_size, num_angles), generator, device)
-    if cp_dist == 'uniform':
+def _draws(keys: torch.Tensor, num_angles: int, normal: bool):
+    """The JAX package's draws for every key of the batch (..., 2): ``key,
+    sub = split(key)`` and uniform(sub) in [0, 2pi), then, for 'normal',
+    ``key, sub = split(key)`` again and normal(sub). Returns the uniform
+    draw, or (uniform, normal)."""
+    pair = prng.split(keys)
+    rnd = random_angles(num_angles, pair[..., 1, :])
+    if not normal:
         return rnd
+    sub = prng.split(pair[..., 0, :])[..., 1, :]
+    return rnd, prng.normal(sub, num_angles, dtype=config.real_dtype)
+
+
+def _batch_draws(key: torch.Tensor, num_angles: int, batch_size: int,
+                 normal: bool):
+    """_draws of subkeys 1 to batch_size of split(key, batch_size + 1)."""
+    subkeys = prng.split(key, batch_size + 1)[..., 1:, :]
+    return _draws(subkeys, num_angles, normal)
+
+
+def _cp_angles(draws, cp_mask, cp_dist: str) -> torch.Tensor:
+    """The initial angles from _draws' output: the uniform draw, with the
+    CP angles zeroed ('0') or taken from 1.5 times the normal draw."""
+    if cp_dist == 'uniform':
+        return draws
+    rnd = draws[0] if cp_dist == 'normal' else draws
     mask = torch.as_tensor(np.asarray(cp_mask), dtype=config.real_dtype,
-                           device=device)
+                           device=rnd.device)
     if cp_dist == '0':
         return rnd * (1 - mask)
-    if cp_dist == 'normal':
-        normal = torch.randn((batch_size, num_angles), generator=generator,
-                             device=device, dtype=config.real_dtype)
-        return rnd * (1 - mask) + 1.5 * normal * mask
-    raise ValueError(f"cp_dist {cp_dist!r} not supported")
+    return rnd * (1 - mask) + 1.5 * draws[1] * mask
+
+
+def _check_dist(cp_dist: str) -> bool:
+    """Whether cp_dist draws a normal too; raises for an unknown one."""
+    if cp_dist not in ('uniform', '0', 'normal'):
+        raise ValueError(f"cp_dist {cp_dist!r} not supported")
+    return cp_dist == 'normal'
+
+
+def random_cp_angles(num_angles: int, cp_mask, cp_dist: str = 'uniform',
+                     key: Optional[torch.Tensor] = None,
+                     device=None) -> torch.Tensor:
+    """One (num_angles,) vector of initial angles: uniform in [0, 2pi), CP
+    angles optionally zeroed ('0') or drawn from N(0, 1.5^2) ('normal'),
+    from the JAX package's split tree: ``key, sub = split(key)`` for the
+    uniform draw, once more for the normal one. key defaults to PRNGKey(0)
+    on `device` (the card unless the caller names another); the draw runs
+    on the key's device."""
+    normal = _check_dist(cp_dist)
+    if key is None:
+        key = prng.PRNGKey(0, device)
+    elif device is not None:
+        key = key.to(device)
+    return _cp_angles(_draws(key, num_angles, normal), cp_mask, cp_dist)
+
+
+def generate_initial_angles_batch(key: torch.Tensor, num_angles: int,
+                                  cp_mask, cp_dist: str = 'uniform',
+                                  batch_size: int = 1, *,
+                                  device=None) -> torch.Tensor:
+    """(batch_size, num_angles) initial angles, restart b drawn by
+    random_cp_angles from subkey b + 1 of split(key, batch_size + 1), as
+    the JAX package draws them: one vectorised draw on `device` (default:
+    the key's), replayed from a CUDA graph on a card (prng.graphed). A key
+    of shape (N, 2) gives N such batches, (N, batch_size, num_angles)."""
+    normal = _check_dist(cp_dist)
+    if device is not None:
+        key = key.to(device)
+    draws = prng.graphed(_batch_draws, key, int(num_angles),
+                         int(batch_size), normal)
+    return _cp_angles(draws, cp_mask, cp_dist)
 
 
 # --------------------------------------------------------------------------
@@ -176,10 +212,9 @@ def run_raw_stage_fused(objective, seed: int, batch_size: int,
     (engine.fused_adam_sweep); batch_size must then be a multiple of its
     size (parallel.mesh.padded_batch_size)."""
     if initial_angles is None:
-        gen = torch.Generator(device=device).manual_seed(int(seed))
         inits = generate_initial_angles_batch(
-            gen, num_angles, cp_mask, cp_dist=cp_dist,
-            batch_size=batch_size, device=device)
+            prng.PRNGKey(seed, device), num_angles, cp_mask,
+            cp_dist=cp_dist, batch_size=batch_size)
     else:
         inits = torch.as_tensor(np.asarray(initial_angles),
                                 dtype=config.real_dtype, device=device)
@@ -208,8 +243,8 @@ def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
     The trials sit side by side on the restart axis, trial j on columns
     [j * S, (j + 1) * S) with S = num_samples, and run as ONE sweep with r
     and the gradient mask given per restart. Trial j's initial angles are
-    drawn from torch.Generator(device).manual_seed(seeds[j]) and multiplied
-    by its mask, so the inactive tail blocks start at identity
+    drawn from PRNGKey(seeds[j]), as the JAX package draws them (all N
+    trials in one draw), and multiplied by its mask, so the inactive tail blocks start at identity
     (CP(0) = R(0) = Id) and the mask keeps them there. params_in, an
     (N, S, P) array, resumes from earlier angles in place of the draws,
     taken as they are (a segment chained after a first one).
@@ -223,14 +258,11 @@ def run_bucketed_stage(objective, seeds, rs, actives, num_samples: int,
     N, P = actives.shape
     S = int(num_samples)
     if params_in is None:
-        inits = []
-        for j, seed in enumerate(seeds):
-            gen = torch.Generator(device=device).manual_seed(int(seed))
-            batch = generate_initial_angles_batch(
-                gen, P, cp_mask, cp_dist=cp_dist, batch_size=S,
-                device=device)
-            inits.append(batch * torch.as_tensor(actives[j], device=device))
-        inits = torch.cat(inits, dim=0)
+        inits = generate_initial_angles_batch(
+            prng.PRNGKey(seeds, device), P, cp_mask, cp_dist=cp_dist,
+            batch_size=S)
+        inits = (inits * torch.as_tensor(actives, device=device)[:, None]
+                 ).reshape(N * S, P)
     else:
         inits = torch.as_tensor(np.asarray(params_in).reshape(N * S, P),
                                 dtype=config.real_dtype, device=device)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from cpflow_tpu_torch import config
+from cpflow_tpu_torch.ops import prng
 
 
 def _flagship_objective(num_qubits=5, num_cp_gates=20, rotation_gates='xyz'):
@@ -56,9 +57,8 @@ def entry(device=None):
         regloss, _ = objective(angles_bp.T)  # batch last: (P, B)
         return regloss
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    example = torch.rand((64, num_angles), generator=gen, device=device,
-                         dtype=config.real_dtype) * (2 * math.pi)
+    example = prng.uniform(prng.PRNGKey(0, device), (64, num_angles), 0.0,
+                           2 * math.pi, dtype=config.real_dtype)
     return forward, (example,)
 
 
@@ -87,9 +87,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     objective, num_angles = _flagship_objective(num_qubits=3, num_cp_gates=4,
                                                 rotation_gates='xz')
     batch = 2 * mesh.size
-    gen = torch.Generator(device=device).manual_seed(0)
-    inits = torch.rand((batch, num_angles), generator=gen, device=device,
-                       dtype=config.real_dtype) * (2 * math.pi)
+    inits = prng.uniform(prng.PRNGKey(0, device), (batch, num_angles), 0.0,
+                         2 * math.pi, dtype=config.real_dtype)
     raw = minimize_fused(objective, inits, learning_rate=0.1,
                          num_iterations=2, sharding=mesh)
     if tuple(raw.params.shape) != (batch, 2, num_angles) or \

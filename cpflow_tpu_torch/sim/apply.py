@@ -12,6 +12,16 @@ import numpy as np
 import torch
 
 
+def inverse_leg_permutation(n_qubits, placement):
+    """Inverse of the move-placement-legs-to-front permutation, restricted
+    to the n row legs: position q of the result names where leg q sits
+    after a contraction has left the gate's output legs (in placement
+    order) at the front and the untouched legs behind them."""
+    front = list(placement) + [q for q in range(n_qubits)
+                               if q not in placement]
+    return [int(i) for i in np.argsort(front)]
+
+
 def apply_gate_to_tensor(gate: torch.Tensor, tensor: torch.Tensor,
                          placement) -> torch.Tensor:
     """Left-multiply `gate` into `tensor` at the row legs in `placement`.
@@ -26,5 +36,5 @@ def apply_gate_to_tensor(gate: torch.Tensor, tensor: torch.Tensor,
     perm = front + list(range(n, 2 * n))
     moved = tensor.permute(perm).reshape(dim_g, -1)
     out = gate.reshape(dim_g, dim_g) @ moved
-    inv = [int(i) for i in np.argsort(perm)]
+    inv = inverse_leg_permutation(n, placement) + list(range(n, 2 * n))
     return out.reshape([2] * (2 * n)).permute(inv)

@@ -1,12 +1,13 @@
 """Qubit-connectivity layers (counterpart of cpflow_tpu/topology.py).
 
-Plain Python lists; only ``random_placement(s)`` draws, from an explicit
-``torch.Generator`` (the same seed gives other pairs than the JAX package).
+Plain Python lists; only ``random_placement(s)`` draws, from a threefry
+key (ops/prng.py) as the JAX package does: the same key gives the same
+pairs.
 """
 
 from __future__ import annotations
 
-import torch
+from cpflow_tpu_torch.ops import prng
 
 
 def connected_layer(num_qubits):
@@ -42,22 +43,22 @@ def fill_layers(layer, depth):
     return {'layers': [layer, num_complete_layers], 'free': incomplete_layer}
 
 
-def random_placement(num_qubits, coupling_map=None, generator=None):
-    """Two distinct qubits, uniformly (coupling_map is not used, as in the
-    JAX package)."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    i, j = torch.randperm(num_qubits, generator=generator,
-                          device=generator.device)[:2].tolist()
-    return [i, j]
+def random_placement(num_qubits, coupling_map=None, key=None):
+    """Two distinct qubits, uniformly: jax.random.choice(key,
+    arange(num_qubits), (2,), replace=False); key defaults to PRNGKey(0) on
+    the CPU (coupling_map is not used, as in the JAX package)."""
+    if key is None:
+        key = prng.PRNGKey(0, 'cpu')
+    return prng.choice(key, num_qubits, (2,)).tolist()
 
 
-def random_placements(num_qubits, num_gates, coupling_map=None,
-                      generator=None):
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    return [random_placement(num_qubits, coupling_map, generator)
-            for _ in range(num_gates)]
+def random_placements(num_qubits, num_gates, coupling_map=None, key=None):
+    """num_gates random placements, gate g from subkey g of the chain
+    ``key, sub = split(key)`` (one draw for all gates)."""
+    if key is None:
+        key = prng.PRNGKey(0, 'cpu')
+    subkeys = prng.split_chain(key, num_gates)[0]
+    return prng.choice(subkeys, num_qubits, (2,)).tolist()
 
 
 def num_qubits_from_layer(layer):

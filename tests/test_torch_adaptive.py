@@ -95,6 +95,31 @@ def test_bucketed_stage_matches_jax_at_60_steps():
     assert not ang[0][:, 3 * N + 7 * ks[0]:].any()
 
 
+def test_bucketed_stage_from_seeds_matches_jax_at_60_steps():
+    """The bucketed stage drawing its own initial angles (params_in=None)
+    against the JAX package's stage with resume 0: both draw each trial
+    from PRNGKey(seed) (the port all trials in one draw), so the losses
+    agree within 1e-4 and the CZ counts exactly."""
+    seeds, rs, ks = [11, 3_000_000_007], [0.00055, 0.002], [3, 6]
+    jsynth = japi.Synthesize(LAYER, target_unitary=u_ccz3, mesh=None)
+    fn, janz = jsynth._bucketed_stage(_options(japi), vmapped=True)
+    actives = _actives(ks, janz.num_angles)
+    unused = np.zeros((2, S, janz.num_angles), np.float32)
+    jcz, jloss, jang = (np.asarray(x) for x in fn(
+        jnp.asarray(seeds, dtype=jnp.uint32), jnp.asarray(rs, jnp.float32),
+        jnp.asarray(actives), jnp.asarray(unused), jnp.float32(0.0)))
+
+    synth = tapi.Synthesize(LAYER, target_unitary=u_ccz3, device='cpu')
+    objective, anz = synth._bucketed_stage(_options(tapi))
+    cz, loss, ang = tcand.run_bucketed_stage(
+        objective, seeds, rs, actives, S, anz.cp_mask, learning_rate=0.1,
+        num_iterations=60, device='cpu')
+    assert cz.shape == jcz.shape == (2, S) and ang.shape == jang.shape
+    np.testing.assert_allclose(loss, jloss, atol=1e-4)
+    np.testing.assert_array_equal(cz, jcz)
+    assert not ang[0][:, 3 * N + 7 * ks[0]:].any()
+
+
 # ---------------------------------------------------------------- stubbed loop
 
 def _fake_batch(seed, k, angles_width=None):

@@ -16,6 +16,7 @@ from cpflow_tpu.optimize import candidates as jcand
 from cpflow_tpu.optimize import engine as jengine
 from cpflow_tpu_torch import api as tapi
 from cpflow_tpu_torch import config as tconfig
+from cpflow_tpu_torch.ops import prng
 from cpflow_tpu_torch.optimize import candidates as tcand
 from cpflow_tpu_torch.optimize import engine as tengine
 from cpflow_tpu_torch.ops.gates import u_ccz3
@@ -78,11 +79,13 @@ def test_evaluate_raw_batch_and_filter_match_jax():
 
 @pytest.mark.parametrize('cp_dist', ['uniform', '0', 'normal'])
 def test_generate_initial_angles_batch(cp_dist):
+    """The JAX package's draw from the same key: bit-equal off the CP
+    angles (and on them for 'uniform' and '0'), the normal CP draws within
+    2e-6 (XLA's erfinv against the port's, a few ulp)."""
     cp_mask = np.zeros(20, dtype=np.float32)
     cp_mask[[6, 13]] = 1
     draw = lambda: tcand.generate_initial_angles_batch(
-        torch.Generator().manual_seed(5), 20, cp_mask, cp_dist=cp_dist,
-        batch_size=7, device='cpu')
+        prng.PRNGKey(5, 'cpu'), 20, cp_mask, cp_dist=cp_dist, batch_size=7)
     a = draw()
     assert a.shape == (7, 20) and a.dtype == torch.float32
     assert torch.equal(a, draw())  # same seed, same angles
@@ -90,6 +93,13 @@ def test_generate_initial_angles_batch(cp_dist):
     assert float(free.min()) >= 0 and float(free.max()) < 2 * math.pi
     if cp_dist == '0':
         assert float(a[:, cp_mask == 1].abs().max()) == 0.0
+    ref = np.asarray(jcand.generate_initial_angles_batch(
+        jax.random.PRNGKey(5), 20, jnp.asarray(cp_mask), cp_dist=cp_dist,
+        batch_size=7))
+    np.testing.assert_array_equal(a[:, cp_mask == 0].numpy(),
+                                  ref[:, cp_mask == 0])
+    np.testing.assert_allclose(a.numpy(), ref, rtol=0,
+                               atol=2e-6 if cp_dist == 'normal' else 0)
 
 
 def test_verify_candidates_batch_matches_jax():

@@ -324,23 +324,25 @@ def test_tensor_identity_loss_frobenius_matches_jax(n, wires):
 
 
 def test_random_cp_angles_branches():
-    """The port draws from a torch.Generator (other values than the JAX
-    package's PRNG), so the branches' structure is checked: 'uniform' in
-    [0, 2pi) everywhere, '0' zero on the CP angles and the uniform draw
-    elsewhere, 'normal' the uniform draw off the CP angles and a normal
-    one on them; the default generator is seeded with 0."""
+    """The branches' structure: 'uniform' in [0, 2pi) everywhere, '0' zero
+    on the CP angles and the uniform draw elsewhere, 'normal' the uniform
+    draw off the CP angles and a normal one on them; the default key is
+    PRNGKey(0). Each branch equals the JAX package's draw from the same key
+    (the normal CP draws within 2e-6: XLA's erfinv, a few ulp)."""
+    from cpflow_tpu.optimize.candidates import random_cp_angles as jdraw
+    from cpflow_tpu_torch.ops import prng
     from cpflow_tpu_torch.optimize.candidates import random_cp_angles
     P = 30
     mask = np.zeros(P, dtype=np.float32)
     mask[::3] = 1
     cp = torch.tensor(mask, dtype=torch.bool)
 
-    def gen():
-        return torch.Generator().manual_seed(4)
+    def key():
+        return prng.PRNGKey(4, 'cpu')
 
-    uni = random_cp_angles(P, mask, 'uniform', gen())
-    zero = random_cp_angles(P, mask, '0', gen())
-    normal = random_cp_angles(P, mask, 'normal', gen())
+    uni = random_cp_angles(P, mask, 'uniform', key())
+    zero = random_cp_angles(P, mask, '0', key())
+    normal = random_cp_angles(P, mask, 'normal', key())
     for a in (uni, zero, normal):
         assert a.shape == (P,) and a.dtype == torch.float32
     assert bool(((uni >= 0) & (uni < 2 * np.pi)).all())
@@ -350,8 +352,13 @@ def test_random_cp_angles_branches():
     assert bool((normal[cp] != uni[cp]).all())
     assert bool((normal[cp] < 0).any())  # a normal draw, not a uniform one
     torch.testing.assert_close(random_cp_angles(P, mask, device='cpu'),
-                               random_cp_angles(P, mask, 'uniform', torch.
-                                                Generator().manual_seed(0)),
+                               random_cp_angles(P, mask, 'uniform',
+                                                prng.PRNGKey(0, 'cpu')),
                                atol=0, rtol=0)
+    for dist, ours in (('uniform', uni), ('0', zero), ('normal', normal)):
+        ref = np.asarray(jdraw(P, jnp.asarray(mask), dist,
+                               jax.random.PRNGKey(4)))
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0,
+                                   atol=2e-6 if dist == 'normal' else 0)
     with pytest.raises(ValueError, match='not supported'):
-        random_cp_angles(P, mask, 'beta', gen())
+        random_cp_angles(P, mask, 'beta', key())

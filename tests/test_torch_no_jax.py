@@ -1,6 +1,8 @@
 """The port runs where JAX, optax and dill are not installed (as on the
 machine with the card): imported in a fresh interpreter with those modules
-and the JAX package (cpflow_tpu and its shim cpflow) blocked, it runs a
+and the JAX package (cpflow_tpu and its shim cpflow) blocked, it imports
+every module of cpflow_torch (the port's twin of cpflow), draws a golden
+batch of initial angles from its seed (ops/prng.py), and it runs a
 tiny static, adaptive, state-preparation and relative-phase
 (modulo-diagonal) synthesis and a fixed-'cz' sweep on the CPU, then every
 host module of circuits/: a QASM round trip, a refine to Clifford+T, an
@@ -167,6 +169,18 @@ with tempfile.NamedTemporaryFile(suffix='.pkl') as f:
     f.write(b'\x80\x04\x8c\x0bcpflow.main\x8c\x07Results\x93.')
     f.flush()
     assert migrate.load_reference_pickle(f.name) is api.Results
+# the reference's import surface, and one draw of the JAX package's tree
+import importlib
+for name in ('', '.circuit_assembly', '.cp_utils', '.exact_decompositions',
+             '.gates', '.main', '.matrix_utils', '.optimization', '.penalty',
+             '.topology', '.trigonometric_utils'):
+    importlib.import_module('cpflow_torch' + name)
+from cpflow_torch.cp_utils import random_cp_angles
+from cpflow_tpu_torch.ops import prng
+golden = np.load('tests/golden/reference_goldens.npz')
+assert np.array_equal(random_cp_angles(
+    37, np.zeros(37), key=prng.PRNGKey(7, 'cpu')).numpy(),
+    golden['3q_chain_cp_xyz_k4/angles'])
 loaded = [m for m in ('jax', 'optax', 'dill', 'cpflow_tpu', 'cpflow')
           if sys.modules.get(m)]
 assert not loaded, loaded
@@ -187,7 +201,9 @@ def test_no_module_of_the_port_imports_jax():
         r'^\s*(import|from)\s+(jax|optax|dill|cpflow_tpu|cpflow)([.\s]|$)',
         re.M)
     files = sorted((ROOT / 'cpflow_tpu_torch').rglob('*.py')) + \
-        [ROOT / 'chip_smoke.py', ROOT / 'tests' / 'test_torch_kernel.py']
-    assert len(files) > 10
+        sorted((ROOT / 'cpflow_torch').rglob('*.py')) + \
+        [ROOT / 'chip_smoke.py', ROOT / 'tests' / 'test_torch_kernel.py',
+         ROOT / 'tests' / 'test_torch_golden_reference.py']
+    assert len(files) > 21
     for path in files:
         assert not pattern.search(path.read_text()), path

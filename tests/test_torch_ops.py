@@ -93,12 +93,19 @@ def test_penalty_matches_pallas_kernel_val_grad():
 
 
 def test_random_angles_and_bracket_angle():
-    gen = torch.Generator().manual_seed(3)
-    a = ttrig.random_angles((5, 7), gen, 'cpu')
+    from cpflow_tpu_torch.ops import prng
+    a = ttrig.random_angles((5, 7), prng.PRNGKey(3, 'cpu'))
     assert a.shape == (5, 7) and a.dtype == torch.float32
     assert float(a.min()) >= 0.0 and float(a.max()) < 2 * math.pi
-    again = ttrig.random_angles((5, 7), torch.Generator().manual_seed(3), 'cpu')
+    again = ttrig.random_angles((5, 7), prng.PRNGKey(3, 'cpu'))
     assert torch.equal(a, again)
+    # the JAX package's draw from the same key, bit for bit
+    np.testing.assert_array_equal(
+        ttrig.random_angles(35, prng.PRNGKey(3, 'cpu')).numpy(),
+        np.asarray(jtrig.random_angles(35, key=jax.random.PRNGKey(3))))
+    np.testing.assert_array_equal(
+        ttrig.random_angles(9, device='cpu').numpy(),
+        np.asarray(jtrig.random_angles(9)))           # default PRNGKey(0)
     b = _angles(100, seed=4)
     np.testing.assert_allclose(ttrig.bracket_angle(torch.tensor(b)).numpy(),
                                np.asarray(jtrig.bracket_angle(jnp.asarray(b))),

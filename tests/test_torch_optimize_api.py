@@ -11,15 +11,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import random as jrandom
 
 from cpflow_tpu import api as japi
 from cpflow_tpu import optimize as jopt
+from cpflow_tpu import topology as jtop
+from cpflow_tpu.ops.trig import random_angles as j_random_angles
 from cpflow_tpu.ops.losses import cost_HST as j_hst
 from cpflow_tpu.sim.ansatz_kernel import build_unitary as j_build
 from cpflow_tpu_torch import api as tapi
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch import optimize as topt
 from cpflow_tpu_torch import topology as ttop
+from cpflow_tpu_torch.ops import prng
 from cpflow_tpu_torch.ops.gates import cz_mat, u_ccz3
 from cpflow_tpu_torch.ops.losses import cost_HST as t_hst
 from cpflow_tpu_torch.sim.ansatz_kernel import build_unitary as t_build
@@ -61,15 +65,24 @@ def test_mynimize_matches_jax(method, keep_history):
 
 
 def test_mynimize_draws_its_own_angles_from_a_generator():
-    gen = lambda: torch.Generator().manual_seed(7)
+    """mynimize draws its start from `key` (default PRNGKey(0), as the JAX
+    package's mynimize): its first iterate is the JAX package's draw, bit
+    for bit, and the chains agree after 3 steps."""
+    key = lambda: prng.PRNGKey(7, 'cpu')
     h1, l1 = topt.mynimize(tloss, P, num_iterations=3, device='cpu',
-                           generator=gen())
+                           key=key())
     h2, _ = topt.mynimize(tloss, P, num_iterations=3, device='cpu',
-                          generator=gen())
+                          key=key())
     assert tuple(h1.shape) == (3, P) and torch.equal(h1, h2)
     assert 0 <= float(h1[0].min()) and float(h1[0].max()) < 2 * np.pi
-    h3, _ = topt.mynimize(tloss, P, num_iterations=3, device='cpu')
+    h3, l3 = topt.mynimize(tloss, P, num_iterations=3, device='cpu')
     assert not torch.equal(h1[0], h3[0])      # the default is seed 0
+    np.testing.assert_array_equal(
+        h1[0].numpy(), np.asarray(j_random_angles(P, key=jrandom.PRNGKey(7))))
+    jh, jl = jopt.mynimize(jloss, P, num_iterations=3)
+    np.testing.assert_array_equal(h3[0].numpy(), np.asarray(jh)[0])
+    _close(h3, jh)
+    _close(l3, jl)
 
 
 @pytest.mark.parametrize('regularized', [False, True])
@@ -304,12 +317,16 @@ def test_set_precision_switches_the_default_dtypes():
 
 
 def test_random_placements_are_distinct_pairs_from_a_generator():
-    gen = torch.Generator().manual_seed(3)
-    pairs = ttop.random_placements(5, 20, generator=gen)
+    """Distinct pairs from a key, equal to the JAX package's pairs from the
+    same key (and from the default PRNGKey(0))."""
+    pairs = ttop.random_placements(5, 20, key=prng.PRNGKey(3, 'cpu'))
     assert len(pairs) == 20
     assert all(len(p) == 2 and p[0] != p[1] and 0 <= min(p) and max(p) < 5
                for p in pairs)
     assert len({tuple(p) for p in pairs}) > 5
-    assert pairs == ttop.random_placements(
-        5, 20, generator=torch.Generator().manual_seed(3))
+    assert pairs == ttop.random_placements(5, 20, key=prng.PRNGKey(3, 'cpu'))
     assert ttop.random_placement(3) == ttop.random_placement(3)  # seed 0
+    as_ints = lambda ps: [[int(q) for q in p] for p in ps]
+    assert pairs == as_ints(jtop.random_placements(
+        5, 20, key=jrandom.PRNGKey(3)))
+    assert ttop.random_placement(3) == as_ints([jtop.random_placement(3)])[0]

@@ -19,6 +19,7 @@ from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
 from cpflow_tpu_torch.ops.penalty import LinearPenalty
 from cpflow_tpu_torch.sim import ansatz_kernel as tak
 from cpflow_tpu_torch.sim import batched as tbt
+from cpflow_tpu_torch.sim.apply import inverse_leg_permutation
 from cpflow_tpu_torch.topology import chain_layer, connected_layer, fill_layers
 
 torch.set_num_threads(1)
@@ -164,3 +165,34 @@ def test_angles_carry_between_packages():
         np.asarray(jax.jit(janz.unitary)(jnp.asarray(a[0]))), atol=1e-5)
     with pytest.raises(ValueError):
         angles_from_jax(a[:, :-1], janz, 'cpu')
+
+
+def test_inverse_leg_permutation_examples():
+    """The examples of tests/test_sim.py (the reference's layout-restoring
+    permutations, circuit_assembly.py:16-19)."""
+    assert inverse_leg_permutation(6, [1, 3]) == [2, 0, 3, 1, 4, 5]
+    assert inverse_leg_permutation(6, [3, 1]) == [2, 1, 3, 0, 4, 5]
+
+
+def test_inverse_leg_permutation_matches_jax_on_random_placements():
+    """Placements drawn by both packages from the same keys (ops/prng.py),
+    the inverse permutations equal; apply_gate_to_tensor restores the leg
+    layout with it, as the JAX package does."""
+    from cpflow_tpu.sim.apply import apply_gate_to_tensor as j_apply
+    from cpflow_tpu.sim.apply import inverse_leg_permutation as j_inverse
+    from cpflow_tpu_torch.ops import prng
+    from cpflow_tpu_torch.sim.apply import apply_gate_to_tensor
+    from cpflow_tpu_torch.topology import random_placements
+    rng = np.random.default_rng(4)
+    for n in (2, 3, 5, 7):
+        for p in random_placements(n, 6, key=prng.PRNGKey(n, 'cpu')):
+            assert inverse_leg_permutation(n, p) == j_inverse(n, p)
+        p = random_placements(n, 1, key=prng.PRNGKey(n, 'cpu'))[0]
+        gate = (rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4))
+                ).astype(np.complex64)
+        tensor = (rng.normal(size=(2,) * (2 * n)) + 1j *
+                  rng.normal(size=(2,) * (2 * n))).astype(np.complex64)
+        ours = apply_gate_to_tensor(torch.as_tensor(gate),
+                                    torch.as_tensor(tensor), p)
+        ref = np.asarray(j_apply(jnp.asarray(gate), jnp.asarray(tensor), p))
+        np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)

@@ -9,6 +9,7 @@ recipe through Decomposition._decomposer."""
 
 import pickle
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -63,6 +64,41 @@ def test_sampling_stage_matches_jax_at_60_steps():
     ev2 = tcand.evaluate_raw_batch(raw, synth._ansatz(options).cp_mask)
     np.testing.assert_array_equal(ev2.cz, ev.cz)
     np.testing.assert_array_equal(ev2.loss, ev.loss)
+
+
+def test_static_from_random_seed_alone_draws_the_jax_batch(monkeypatch):
+    """Synthesize.static given only random_seed (the JAX package's default
+    StaticOptions seed): the port draws the JAX package's batch bit for bit
+    (ops/prng.py), and its sampling stage's per-restart losses are within
+    1e-4 of the JAX package's sampling stage from the same seed."""
+    joptions = japi.StaticOptions(**_options(60))
+    seed = joptions.random_seed
+    jsynth = japi.Synthesize(chain_layer(N), target_unitary=u_ccz3, mesh=None)
+    jev = jsynth._raw_and_evaluate(joptions)
+    janz = jsynth._ansatz(joptions)
+    jinits = np.asarray(jcand.generate_initial_angles_batch(
+        jax.random.PRNGKey(seed), janz.num_angles, janz.cp_mask,
+        batch_size=SAMPLES))
+
+    drawn, stages = [], []
+
+    def spy(fn, into):
+        def call(*args, **kwargs):
+            into.append(fn(*args, **kwargs))
+            return into[-1]
+        return call
+
+    monkeypatch.setattr(tcand, 'generate_initial_angles_batch',
+                        spy(tcand.generate_initial_angles_batch, drawn))
+    monkeypatch.setattr(tcand, 'run_raw_stage_fused',
+                        spy(tcand.run_raw_stage_fused, stages))
+    synth = tapi.Synthesize(chain_layer(N), target_unitary=u_ccz3,
+                            device='cpu')
+    synth.static(tapi.StaticOptions(**_options(60), random_seed=seed),
+                 save_results=False, verbose=False)
+    assert len(drawn) == 1 and len(stages) == 1
+    np.testing.assert_array_equal(drawn[0].numpy(), jinits)
+    np.testing.assert_allclose(stages[0].loss, jev.loss, atol=1e-4)
 
 
 @pytest.fixture(scope='module')
