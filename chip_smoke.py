@@ -169,14 +169,39 @@ with CUDA, and never imports JAX. Phases:
      cpflow_torch import ...`` (StaticOptions(num_cp_gates=12,
      num_samples=10, accepted_num_cz_gates=8), everything else default),
      which must verify a decomposition with at most 8 CZ at float64 host
-     loss <= 1e-6 through the kernel.
+     loss <= 1e-6 through the kernel;
+ 18. double precision: the double builds of both sources (csrc/ compiled
+     with -DCPFLOW_DOUBLE, phase 2 builds them beside the float ones):
+     (a) their ptxas report (no spills), registers and local bytes at run
+     time; (b) the sweep kernel against its plain float64 version, 60 steps,
+     at six shapes (the static CCZ's sampling shape, 5q k=20, a 10q state,
+     4q modulo-diagonal, fixed 'cz' with 'xz', 7q on 4 blocks), each plan
+     held against the library's, within F64_LOSS0_TOL and F64_BEST_TOL, and
+     8 qubits refused; (c) ansatz_forward and ansatz_vjp against the plain
+     float64 builder under autograd in both designs at 3q, 5q and 7q (rows
+     only), within F64_UNITARY_TOL and F64_GRAD_TOL; then after
+     config.set_precision(True): (d) the static CCZ (3q chain, k=12, 1024
+     samples), which must verify at most 8 CZ at host loss <= 1e-6 with
+     every sweep launch in float64, and phase 6's adaptive square Toffoli-4
+     (8 evals), which must verify at host loss <= 1e-6; (e) phase 8's
+     relative-phase Toffoli-4, 16 evals, its best CZ count and float64 host
+     loss printed beside float32 verification's 2.169e-6 (informational);
+     (f) phase 13's GHZ-4 custom loss (8 evals), 3 CZ at host loss <= 1e-6,
+     and the static CCZ with cp_penalty_L1 (sampling through the unitary
+     kernels), every unitary launch in float64; (g) each float64 kernel
+     timed beside its float32 build in turns (CUDA events) at phase 5's 3q
+     and 5q sweep shapes and at 3q k=12 B=1024 and 5q k=20 B=2048 for the
+     unitary kernels, with the float64 bound (utils/profiling.py, PEAK_F64).
+     float32 is restored in `finally`.
 
-Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c)) runs with
+Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
+(d)-(f)) runs with
 the kernels' launch counts set to 0 just before it and read just after
 (16 (a) and (d) in their own processes). Every shape's
 plan (blocks a restart, shared bytes per block) is held against the
 kernels' own. The script prints the card, a JSON line of kernel results
-(sweep, ansatz_forward, ansatz_vjp) and, last, the JSON device line; it
+(sweep, ansatz_forward, ansatz_vjp, and their float64 builds sweep_f64,
+ansatz_forward_f64, ansatz_vjp_f64) and, last, the JSON device line; it
 exits non-zero if any phase fails or there is no card. A phase after the
 build and the comparison (phases 2-3) that fails is reported and the
 next one runs; the script then fails at the end, with no result lines.
@@ -502,17 +527,17 @@ def check_plan(obj, B, name):
     """The blocks a restart of `obj` runs on: kernels/sweep.py's plan
     (cluster_plan, smem_bytes) must agree with the kernel's
     (cpflow_sweep_cluster, cpflow_sweep_smem_bytes, and the cluster of the
-    build it launches). Returns (blocks a restart, shared bytes per block,
-    the occupancy)."""
+    build it launches), in the build of the objective's dtype. Returns
+    (blocks a restart, shared bytes per block, the occupancy)."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                     num_block_angles)
     kind = obj.unitary_loss_func.kind
     n, nb = obj.num_qubits, len(all_placements(obj.placements))
     nba = num_block_angles(obj.entangling_gate_name, obj.rotation_gates)
-    c = sk.cluster_plan(n, nb, nba, kind)
-    mine = sk.smem_bytes(n, nb, nba, kind, c)
-    lib = sk.load_library()
+    c = sk.cluster_plan(n, nb, nba, kind, dtype=obj.dtype)
+    mine = sk.smem_bytes(n, nb, nba, kind, c, obj.dtype)
+    lib = sk.load_library(obj.dtype)
     theirs = lib.cpflow_sweep_cluster(n, nb, nba, sk.LOSS_CODES[kind])
     card = lib.cpflow_sweep_smem_bytes(n, nb, nba, sk.LOSS_CODES[kind], c)
     occ = sk.occupancy(obj, B)
@@ -1113,17 +1138,20 @@ def unitary_shapes():
     ]
 
 
-def unitary_plan(n, nb, nba, log_c, name):
+def unitary_plan(n, nb, nba, log_c, name, dtype=None):
     """(forward, vjp) plans of the unitary kernels (kernels/unitary.py:plan:
     design, threads a restart, restarts a block, shared bytes a block, blocks
     a restart), each held against the library's own (cpflow_unitary_design,
     and cpflow_unitary_column_restarts and _column_smem_bytes for the column
-    design, cpflow_unitary_cluster and _smem_bytes for the row-split one)."""
+    design, cpflow_unitary_cluster and _smem_bytes for the row-split one),
+    in the build of `dtype` (default float32)."""
+    import torch
     from cpflow_tpu_torch.kernels import unitary as uk
-    lib = uk.load_library()
+    dtype = dtype or torch.float32
+    lib = uk.load_library(dtype)
     out = []
     for vjp in (False, True):
-        mine = uk.plan(n, nb, nba, log_c, vjp)
+        mine = uk.plan(n, nb, nba, log_c, vjp, dtype)
         what = 'vjp' if vjp else 'forward pass'
         design = lib.cpflow_unitary_design(n, nb, nba, log_c, int(vjp))
         check(mine is not None and uk.DESIGNS[mine['design']] == design,
@@ -2602,6 +2630,487 @@ def phase_prng(card):
     return {'cpflow_torch_readme_ccz': launches}
 
 
+# ------------------------------------------------------------ phase 18
+
+# Phase 18's tolerances, the float64 builds against the plain float64
+# version on the same inputs, stated before their first run on the card:
+# the regularized losses at the initial angles within 1e-12 and the best
+# losses after 60 steps within 1e-9 (scaled_err: scaled by max(1, |loss|));
+# the unitary within 1e-12 and the gradient of a cotangent within 1e-11,
+# scaled by max(1, |gradient|). Two float64 derivations of one function
+# differ by roundoff near 1e-15; 60 Adam steps amplify it along nearly flat
+# directions by a few orders (tests/test_torch_double.py), far below these
+# bounds, so no drift rule is needed in float64.
+F64_LOSS0_TOL, F64_BEST_TOL = 1e-12, 1e-9
+F64_UNITARY_TOL, F64_GRAD_TOL = 1e-12, 1e-11
+C4_HOST_LOSS = 2.169e-6  # phase 8's 6-CZ decomposition in float64 (C.4)
+F64_TIMING = [  # (shape, steps) of phase 5's first two rows
+    (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12, r=0.00055,
+          B=1024, lr=0.1), 2000),
+    (dict(name='5q Toffoli k=20 B=2048', n=5, k=20, r=0.00055, B=2048,
+          lr=0.1), 500)]
+
+
+def double_shapes():
+    """Phase 18 (b)'s shapes, as phase 3's: the static CCZ's sampling shape,
+    5q k=20, a 10q state, 4q modulo-diagonal, fixed 'cz' blocks with 'xz'
+    and a 7q shape on a cluster (4 blocks a restart in float64, where float32
+    takes 2)."""
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
+    phase3 = {s['name'][:3]: s for s in compare_shapes()}
+    return [
+        dict(name='(A) 3q CCZ k=12 B=1024 (static sampling)', n=3, k=12,
+             target=u_ccz3, B=1024, r=0.00055, lr=0.1),
+        dict(phase3['(b)'], name='(B) 5q Toffoli k=20 B=256'),
+        dict(phase3['(f)'], name='(C) state 10q GHZ k=36 B=256'),
+        dict(phase3['(h)'], name='(D) modulo_diagonal 4q connected '
+             'Toffoli-4 all wires k=12 B=256'),
+        dict(phase3['(k)'], name="(E) 'cz' blocks on the 14 Toffoli-4 "
+             "placements 'xz' B=512"),
+        dict(name='(F) 7q chain Toffoli-7 k=24 B=64', n=7, k=24,
+             target=multi_controlled_x(7), B=64, r=0.002, lr=0.1,
+             cluster=4),
+    ]
+
+
+def double_ptxas(build_name):
+    """[(entry, registers, stack bytes, spill stores, spill loads)] of the
+    kernels of one build, from ptxas's report (phase 2's build)."""
+    import re
+    from cpflow_tpu_torch.kernels import build
+    out, entry, frame = [], None, None
+    for line in build.INFO.get(build_name, {}).get('ptxas', '').splitlines():
+        if 'Compiling entry' in line:
+            m = re.search(r"(sweep_kernel|forward_kernel|vjp_kernel|"
+                          r"column_forward|column_vjp)(I(?:L[ib]\d+E)+E)?",
+                          line)
+            entry = line.split("'")[1] if m is None else m.group(1) + (
+                f"<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                if m.group(2) else '')
+        elif entry and 'stack frame' in line:
+            frame = tuple(int(v) for v in re.findall(r'(\d+) bytes',
+                                                     line)[:3])
+        elif entry and 'Used' in line and 'registers' in line and frame:
+            regs = int(re.search(r'Used (\d+) registers', line).group(1))
+            out.append((entry, regs, *frame))
+            entry = frame = None
+    return out
+
+
+def phase_double(card):
+    """Phase 18: the double-precision builds (csrc/ compiled with
+    -DCPFLOW_DOUBLE) and the main paths after config.set_precision(True):
+    (a) their ptxas report, registers and local bytes at run time, and the
+    plans held against the libraries; (b) the sweep kernel against its
+    plain float64 version at six shapes, 60 steps; (c) ansatz_forward and
+    ansatz_vjp against the plain float64 builder under autograd, in both
+    designs, at 3, 5 and 7 qubits; (d) the static CCZ (3q chain, k=12, 1024
+    samples), 8 CZ verified with every sweep launch in float64, and phase
+    6's adaptive square Toffoli-4 (bucketed, 8 evals); (e) phase 8's
+    relative-phase Toffoli-4, 16 evals as phase 8, informational; (f)
+    GHZ-4 with a
+    custom loss through the float64 unitary kernels, and the static CCZ
+    with the L1 penalty (cp_penalty_L1) routed to them; (g) times on CUDA
+    events of each float64 kernel beside its float32 build, in turns, with
+    the float64 bound. Runs under try/finally, so that float32 comes back
+    for whatever follows. Returns the kernel lines of the float64 builds."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch import config
+    from cpflow_tpu_torch.api import (AdaptiveOptions, Ansatz, LossSpec,
+                                      StaticOptions, Synthesize)
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.ops import losses
+    from cpflow_tpu_torch.ops.gates import (multi_controlled_x, u_ccz3,
+                                            u_toff4)
+    from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.sim.batched import build_unitary_batched
+    from cpflow_tpu_torch.topology import (chain_layer, connected_layer,
+                                           fill_layers, square_layer)
+    F64 = torch.float64
+    start_phase = time.perf_counter()
+
+    # (a) the builds
+    from cpflow_tpu_torch.kernels import build
+    for name in ('sweep_f64', 'unitary_f64'):
+        info = build.INFO[name]
+        rows = double_ptxas(name)
+        print(f'phase 18 (a): {name}: nvcc {info.get("seconds", float("nan")):.2f}'
+              f' s; ptxas (entry, registers, stack, spill stores, spill '
+              f'loads) {rows}', flush=True)
+        check(rows and all(r[3] == r[4] == 0 for r in rows),
+              f'{name}: a kernel spills: {rows}')
+    regs64 = uk.registers('cuda', F64)
+    print(f'phase 18 (a): unitary kernels in float64 at run time (registers, '
+          f'local bytes): {[(k, v["registers"], v["local_bytes"]) for k, v in regs64.items()]}',
+          flush=True)
+    check(all(v['local_bytes'] == 0 for k, v in regs64.items()
+              if 'columns' in k),
+          f'a float64 column kernel uses local memory: {regs64}')
+
+    # (b) the sweep kernel against the plain float64 version
+    worst0 = worst = 0.0
+    for s in double_shapes():
+        obj, P = shape_objective(s, F64)
+        init = uniform_inits(P, s['B'], s.get('seed', 7), 'cuda').to(F64)
+        c, nbytes, occ = check_plan(obj, s['B'], s['name'])
+        check(c == s.get('cluster', c), f'{s["name"]}: {c} blocks a restart')
+        before = sk.F64_LAUNCHES
+        got = sk.sweep(obj, init, s['lr'], 60)
+        torch.cuda.synchronize()
+        check(sk.F64_LAUNCHES == before + 1 and got.best_loss.dtype == F64,
+              f'{s["name"]}: the double build did not run')
+        want = sk.sweep_reference(obj, init, s['lr'], 60)
+        e0 = scaled_err(got.regloss0, want.regloss0).max().item()
+        e = scaled_err(got.best_loss, want.best_loss).max().item()
+        worst0, worst = max(worst0, e0), max(worst, e)
+        print(f'phase 18 (b): {s["name"]}: {c} block(s) of {nbytes} bytes, '
+              f'{occ["registers"]} registers, {occ["local_bytes"]} local '
+              f'bytes, {occ["blocks_per_sm"]} blocks per SM; initial loss '
+              f'err {e0:.3e} (tol {F64_LOSS0_TOL}), best loss err {e:.3e} '
+              f'(tol {F64_BEST_TOL})', flush=True)
+        check(e0 <= F64_LOSS0_TOL and e <= F64_BEST_TOL,
+              f'{s["name"]}: float64 kernel against plain float64: initial '
+              f'{e0:.3e}, best {e:.3e}')
+    nba = num_block_angles('cp', 'xyz')
+    t8 = multi_controlled_x(8)
+    obj8, _ = make_objective(8, 16, t8, 0.002, rot='xz', dtype=F64)
+    try:
+        sk.sweep(obj8, uniform_inits(3 * 8 + 5 * 16, 4, 0, 'cuda').to(F64),
+                 0.1, 2)
+        raise PhaseError('the float64 sweep took 8 qubits')
+    except ValueError as e:
+        check('cluster of 16' in str(e), f'8q float64 refused for {e}')
+
+    # (c) the unitary kernels against the plain float64 builder
+    uerr = {'ansatz_forward_f64': 0.0, 'ansatz_vjp_f64': 0.0}
+    gen = torch.Generator(device='cuda').manual_seed(18)
+    for n, k in ((3, 12), (5, 20), (7, 24)):
+        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k))
+        fwd_plan, vjp_plan = unitary_plan(n, k, nba, n, f'{n}q k={k}', F64)
+        angles = uniform_inits(anz.num_angles, 32, n, 'cuda').to(F64)
+        ap = angles.clone().requires_grad_(True)
+        up = build_unitary_batched(n, 'cp', 'xyz', anz.placements, ap,
+                                   dtype=F64)
+        up = up.reshape(2 ** n, 2 ** n, 32).permute(2, 0, 1)
+        g = torch.randn(up.shape, dtype=up.dtype, device='cuda',
+                        generator=gen)
+        (gp,) = torch.autograd.grad((up * g.conj()).real.sum(), ap)
+        for design in sorted({fwd_plan['design'], 'rows'}):
+            u = uk.ansatz_forward(n, 'cp', 'xyz', anz.placements, angles,
+                                  design=design)
+            gk = uk.ansatz_vjp(n, 'cp', 'xyz', anz.placements, angles, u, g,
+                               design=design)
+            torch.cuda.synchronize()
+            eu = (u - up.detach()).abs().max().item()
+            eg = ((gk - gp).abs() / gp.abs().clamp(min=1.0)).max().item()
+            uerr['ansatz_forward_f64'] = max(uerr['ansatz_forward_f64'], eu)
+            uerr['ansatz_vjp_f64'] = max(uerr['ansatz_vjp_f64'], eg)
+            print(f'phase 18 (c): {n}q k={k} B=32 {design} design '
+                  f'(forward {plan_text(fwd_plan)}; vjp {plan_text(vjp_plan)})'
+                  f': unitary err {eu:.3e} (tol {F64_UNITARY_TOL}), gradient '
+                  f'err {eg:.3e} (tol {F64_GRAD_TOL})', flush=True)
+            check(u.dtype == torch.complex128 and eu <= F64_UNITARY_TOL and
+                  eg <= F64_GRAD_TOL,
+                  f'{n}q {design}: float64 unitary kernels against plain: '
+                  f'{eu:.3e}, {eg:.3e}')
+
+    launches = {}
+    unitary_launches = {}
+    config.set_precision(True)
+    try:
+        # (d) the static CCZ and the adaptive square Toffoli-4
+        synth = Synthesize(chain_layer(3), target_unitary=u_ccz3)
+        target = u_ccz3.astype(np.complex128)
+        sk.LAUNCHES = sk.F64_LAUNCHES = 0
+        start = time.perf_counter()
+        results = synth.static(StaticOptions(num_cp_gates=12,
+                                             num_samples=1024,
+                                             accepted_num_cz_gates=8),
+                               save_results=False, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        n_all, n64 = sk.LAUNCHES, sk.F64_LAUNCHES
+        check(n_all >= 2 and n64 == n_all,
+              f'float64 static CCZ: {n64} of {n_all} sweep launches in '
+              f'float64 (2 or more, all in float64, needed)')
+        hosts = sorted((d.cz_count, float(1 - abs(
+            (d.circuit.unitary() * target.conj()).sum()) ** 2 / 64))
+            for d in results.decompositions)
+        good = [h for h in hosts if h[0] <= 8 and h[1] <= 1e-6]
+        check(good, f'float64 static CCZ: no decomposition with <= 8 CZ at '
+              f'host loss <= 1e-6: {hosts[:5]}')
+        print(f'phase 18 (d): static CCZ 3q k=12 1024 samples in float64: '
+              f'{len(hosts)} verified, CZ count: number '
+              f'{dict(sorted(Counter(h[0] for h in hosts).items()))}, best '
+              f'{good[0][0]} CZ at host loss {good[0][1]:.3e}; sweep launches '
+              f'{n_all}, {n64} of them float64; wall {wall:.3f} s, sampling '
+              f'{synth.stage_seconds["sampling"]:.3f} s '
+              f'({", ".join(f"{k} {v:.3f} s" for k, v in synth.stage_seconds.items())})',
+              flush=True)
+        launches['static_ccz3_f64'] = n64
+
+        synth = Synthesize(square_layer(4), target_unitary=u_toff4)
+        sk.F64_LAUNCHES = 0
+        results, sweeps, n_all, wall = run_adaptive(synth, AdaptiveOptions(
+            min_num_cp_gates=10, max_num_cp_gates=40, num_samples=1024,
+            bucketed=True, parallel_trials=4, max_evals=8,
+            target_num_cz_gates=16, stop_if_target_reached=True))
+        n64 = sk.F64_LAUNCHES
+        check(n64 == n_all > 0, f'float64 adaptive Toffoli-4: {n64} of '
+              f'{n_all} sweep launches in float64')
+        target = u_toff4.astype(np.complex128)
+        hosts = sorted((d.cz_count, float(1 - abs(
+            (d.circuit.unitary() * target.conj()).sum()) ** 2 / 256))
+            for d in results.decompositions)
+        good = [h for h in hosts if h[1] <= 1e-6]
+        check(good, f'float64 adaptive Toffoli-4: no verified decomposition '
+              f'at host loss <= 1e-6: {hosts}')
+        tr, stages = trial_summary(synth, results.trials.results)
+        print(f'phase 18 (d): adaptive Toffoli-4 square in float64, bucketed,'
+              f' 4 parallel trials: {len(results.trials.results)} evals in '
+              f'{len(sweeps)} sampling sweeps; best {good[0][0]} CZ at host '
+              f'loss {good[0][1]:.3e} (published 16); {tr}; sweep launches '
+              f'{n_all}, {n64} float64; wall {wall:.3f} s ({stages})',
+              flush=True)
+        launches['adaptive_toffoli4_f64'] = n64
+
+        # (e) the relative-phase Toffoli-4, informational
+        wires = [0, 1, 2, 3]
+        synth = Synthesize(connected_layer(4), unitary_loss_func=LossSpec(
+            'modulo_diagonal', target=u_toff4, num_qubits=4, wires=wires))
+        sk.F64_LAUNCHES = 0
+        results, sweeps, n_all, wall = run_adaptive(synth, AdaptiveOptions(
+            min_num_cp_gates=4, max_num_cp_gates=20, num_samples=1024,
+            bucketed=True, parallel_trials=4, max_evals=16,
+            target_num_cz_gates=6, stop_if_target_reached=True))
+        n64 = sk.F64_LAUNCHES
+        check(n64 == n_all > 0, f'float64 relative-phase Toffoli-4: {n64} of '
+              f'{n_all} sweep launches in float64')
+        hosts = sorted((d.cz_count, float(losses.disc_modulo_diagonal(
+            target, d.circuit.unitary(), 4, wires)))
+            for d in results.decompositions)
+        print(f'phase 18 (e): adaptive relative-phase Toffoli-4 in float64, '
+              f'{len(results.trials.results)} evals: verified (CZ, float64 host loss) '
+              f'{[(c, float(f"{h:.3e}")) for c, h in hosts]}; best '
+              f'{hosts[0] if hosts else None} beside float32 verification\'s '
+              f'6 CZ at {C4_HOST_LOSS} (ROADMAP C.4); sweep launches {n_all}, '
+              f'{n64} float64; wall {wall:.3f} s', flush=True)
+        launches['adaptive_relphase_toffoli4_f64'] = n64
+
+        # (f) a custom loss and a custom penalty through the float64 unitary
+        # kernels
+        ghz4, psi0 = on_device(ghz(4)), on_device(np.eye(16)[0])
+        ghz_loss = lambda u: 1 - torch.abs(ghz4(u).conj() @ u @ psi0(u)) ** 2
+        synth = Synthesize([[0, 1], [1, 2], [2, 3]],
+                           unitary_loss_func=ghz_loss)
+        uk.FORWARD_F64_LAUNCHES = uk.VJP_F64_LAUNCHES = 0
+        results, fwd, vjp, fused, plain, wall = run_custom_adaptive(
+            synth, AdaptiveOptions(min_num_cp_gates=0, max_num_cp_gates=10,
+                                   target_num_cz_gates=3,
+                                   stop_if_target_reached=True, max_evals=8))
+        f64 = (uk.FORWARD_F64_LAUNCHES, uk.VJP_F64_LAUNCHES)
+        check(f64 == (fwd, vjp) and fwd > 0 and vjp > 0 and fused == 0 and
+              plain == 0,
+              f'GHZ-4 custom loss in float64: forward {fwd} ({f64[0]} '
+              f'float64), vjp {vjp} ({f64[1]}), fused {fused}, plain {plain}')
+        target = ghz(4).astype(np.complex128)
+        hosts = sorted((d.cz_count, float(1 - abs(
+            target.conj() @ d.circuit.unitary()[:, 0]) ** 2))
+            for d in results.decompositions)
+        check(hosts and hosts[0][0] == 3 and hosts[0][1] <= 1e-6,
+              f'GHZ-4 custom loss in float64: no 3-CZ decomposition at host '
+              f'loss <= 1e-6: {hosts}')
+        print(f'phase 18 (f): adaptive GHZ-4 line, custom loss, in float64: '
+              f'{len(results.trials.results)} evals, verified (CZ, host loss) '
+              f'{[(c, float(f"{h:.3e}")) for c, h in hosts]}; forward '
+              f'launches {fwd}, vjp launches {vjp}, all float64; wall '
+              f'{wall:.3f} s', flush=True)
+        unitary_launches['adaptive_ghz4_custom_f64'] = f64
+
+        synth = Synthesize(chain_layer(3), target_unitary=u_ccz3,
+                           cp_regularization_func=cp_penalty_L1)
+        target = u_ccz3.astype(np.complex128)
+        steps = 300
+        with PlainBuilderWatch() as watch:
+            sk.LAUNCHES = sk.F64_LAUNCHES = 0
+            uk.FORWARD_F64_LAUNCHES = uk.VJP_F64_LAUNCHES = 0
+            uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
+            start = time.perf_counter()
+            results = synth.static(StaticOptions(
+                num_cp_gates=12, num_samples=100, accepted_num_cz_gates=24,
+                num_gd_iterations=steps,
+                num_gd_iterations_at_verification=steps),
+                save_results=False, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        f64 = (uk.FORWARD_F64_LAUNCHES, uk.VJP_F64_LAUNCHES)
+        # sampling: a forward and a vjp launch a step, through the unitary
+        # kernels; verification has no penalty and takes the fused kernel
+        check(watch.calls == 0 and f64[0] > steps and f64[1] >= steps and
+              f64 == (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES) and
+              sk.F64_LAUNCHES == sk.LAUNCHES,
+              f'L1 penalty in float64: plain builder {watch.calls}, forward '
+              f'{f64[0]} of {uk.FORWARD_LAUNCHES}, vjp {f64[1]} of '
+              f'{uk.VJP_LAUNCHES} in float64 ({steps} steps), sweep '
+              f'{sk.F64_LAUNCHES} of {sk.LAUNCHES}')
+        hosts = sorted((d.cz_count, float(1 - abs(
+            (d.circuit.unitary() * target.conj()).sum()) ** 2 / 64))
+            for d in results.decompositions)
+        check(hosts and all(h <= 1e-6 for _, h in hosts),
+              f'L1 penalty in float64: no verified decomposition: {hosts}')
+        print(f'phase 18 (f): static CCZ with cp_penalty_L1 in float64, 100 '
+              f'samples, 300 + 300 steps: verified (CZ, host loss) '
+              f'{[(c, float(f"{h:.3e}")) for c, h in hosts[:6]]} of '
+              f'{len(hosts)}; sampling through the unitary kernels, forward '
+              f'{f64[0]} and vjp {f64[1]} float64 launches; verification '
+              f'through the fused kernel, {sk.F64_LAUNCHES} float64 launches; '
+              f'wall {wall:.3f} s', flush=True)
+        unitary_launches['static_ccz3_l1_penalty_f64'] = f64
+        launches['static_ccz3_l1_penalty_f64_verification'] = \
+            sk.F64_LAUNCHES
+    finally:
+        config.set_precision(False)
+    check(config.real_dtype == torch.float32, 'float32 did not come back')
+
+    # (g) times, float64 beside float32, in turns
+    sweep_rows = []
+    for s, T in F64_TIMING:
+        s = dict(s, target=u_ccz3 if s['n'] == 3 else multi_controlled_x(5))
+        objs = {dt: shape_objective(s, dt)[0] for dt in (torch.float32, F64)}
+        P = 3 * s['n'] + nba * s['k']
+        init = uniform_inits(P, s['B'], 7, 'cuda')
+        ms = {torch.float32: [], F64: []}
+        for dt in (torch.float32, F64, F64, torch.float32):
+            sk.sweep(objs[dt], init.to(dt), 0.1, 2)  # warm-up
+            ms[dt].append(timed(lambda: sk.sweep(objs[dt], init.to(dt), 0.1,
+                                                 T))[1])
+        sk.sweep_reference(objs[F64], init.to(F64), 0.1, 2)
+        T_plain = 100
+        _, plain_ms = timed(lambda: sk.sweep_reference(objs[F64],
+                                                       init.to(F64), 0.1,
+                                                       T_plain))
+        work = sweep_work(s['n'], s['k'], dtype=F64)
+        b_ms, b_by = bound_ms(work, s['B'], T)
+        occ = sk.occupancy(objs[F64], s['B'])
+        m64, m32 = min(ms[F64]), min(ms[torch.float32])
+        print(f'phase 18 (g): sweep {s["name"]} T={T} on {card}: float64 '
+              f'{ms[F64][0]:.2f} / {ms[F64][1]:.2f} ms, float32 '
+              f'{ms[torch.float32][0]:.2f} / {ms[torch.float32][1]:.2f} ms '
+              f'(float64 / float32 {m64 / m32:.2f}); float64 bound '
+              f'{b_ms:.3f} ms by {b_by} (peak {work["peak"]:.3g}), share '
+              f'{b_ms / m64:.2%}; plain float64 {plain_ms:.2f} ms over '
+              f'{T_plain} steps; float64 build {occ["registers"]} registers, '
+              f'{occ["local_bytes"]} local bytes, {occ["threads"]} threads, '
+              f'{occ["smem_bytes"]} shared bytes, {occ["blocks_per_sm"]} '
+              f'blocks per SM', flush=True)
+        sweep_rows.append(dict(shape=s['name'], T=T, ms=m64, ms_f32=m32,
+                               plain_ms=plain_ms, plain_T=T_plain,
+                               bound_ms=b_ms, bound_by=b_by,
+                               registers=occ['registers'],
+                               local_bytes=occ['local_bytes'],
+                               blocks_per_sm=occ['blocks_per_sm']))
+    unitary_rows = {'ansatz_forward_f64': [], 'ansatz_vjp_f64': []}
+    for n, k, B in ((3, 12, 1024), (5, 20, 2048)):
+        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k))
+        angles = uniform_inits(anz.num_angles, B, 3, 'cuda')
+        work = unitary_work(n, k, dtype=F64)
+        for vjp, name in ((False, 'ansatz_forward_f64'),
+                          (True, 'ansatz_vjp_f64')):
+            calls = {}
+            for dt in (torch.float32, F64):
+                a = angles.to(dt)
+                u = uk.ansatz_forward(n, 'cp', 'xyz', anz.placements, a)
+                g = torch.randn(u.shape, dtype=u.dtype, device='cuda',
+                                generator=gen)
+                calls[dt] = (lambda a=a, u=u, g=g: uk.ansatz_vjp(
+                    n, 'cp', 'xyz', anz.placements, a, u, g)) if vjp else \
+                    (lambda a=a: uk.ansatz_forward(n, 'cp', 'xyz',
+                                                   anz.placements, a))
+            p = uk.plan(n, k, nba, n, vjp, F64)
+            trace = TRACE_NAMES[(p['design'], vjp)]
+            ms = {torch.float32: [], F64: []}
+            alone = {torch.float32: [], F64: []}
+            for dt in (torch.float32, F64, F64, torch.float32):
+                calls[dt]()
+                ms[dt].append(timed(lambda: [calls[dt]() for _ in
+                                             range(20)])[1] / 20)
+                alone[dt].append(device_ms(calls[dt], trace))
+            a64 = angles.to(F64).requires_grad_(vjp)
+            if vjp:
+                up = build_unitary_batched(n, 'cp', 'xyz', anz.placements,
+                                           a64, dtype=F64)
+                gp = torch.randn(up.shape, dtype=up.dtype, device='cuda')
+                _, plain_ms = timed(lambda: torch.autograd.grad(
+                    (up * gp.conj()).real.sum(), a64, retain_graph=True))
+            else:
+                _, plain_ms = timed(lambda: build_unitary_batched(
+                    n, 'cp', 'xyz', anz.placements, a64, dtype=F64))
+            ops = work['vjp' if vjp else 'forward']
+            nbytes = work['vjp_bytes' if vjp else 'forward_bytes']
+            b_ms, b_by = unitary_bound_ms(ops, nbytes, B, dtype=F64)
+            kname = uk.kernel_name(p['design'], vjp, n,
+                                   p['blocks_per_restart'])
+            m64, m32 = min(ms[F64]), min(ms[torch.float32])
+            d64 = min((x for x in alone[F64] if x), default=None)
+            d32 = min((x for x in alone[torch.float32] if x), default=None)
+            share = f'{b_ms / d64:.2%}' if d64 else 'not measured'
+            print(f'phase 18 (g): {name[:-4]} {n}q k={k} B={B} on {card} '
+                  f'({p["design"]} design): kernel alone (profiler) float64 '
+                  f'{alone[F64]} ms, float32 {alone[torch.float32]} ms '
+                  f'(float64 / float32 '
+                  f'{d64 / d32 if d64 and d32 else float("nan"):.2f}); one '
+                  f'wrapper call (CUDA events, 20 in a row) float64 '
+                  f'{ms[F64][0]:.4f} / {ms[F64][1]:.4f} ms, float32 '
+                  f'{ms[torch.float32][0]:.4f} / {ms[torch.float32][1]:.4f} '
+                  f'ms; float64 bound {b_ms:.4f} ms by {b_by}, share of the '
+                  f'kernel alone {share}; plain float64 {plain_ms:.3f} ms; '
+                  f'{regs64[kname]["registers"]} registers, '
+                  f'{regs64[kname]["local_bytes"]} local bytes', flush=True)
+            unitary_rows[name].append(dict(
+                shape=f'{n}q chain k={k} B={B}', design=p['design'], ms=m64,
+                ms_f32=m32, device_ms=d64, device_ms_f32=d32,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                registers=regs64[kname]['registers'],
+                local_bytes=regs64[kname]['local_bytes']))
+    print(f'phase 18: {time.perf_counter() - start_phase:.1f} s', flush=True)
+
+    # the float64 builds' kernel lines: launches from (d)-(f), errors from
+    # (b) and (c), times from (g) at 3q k=12 (sweep: T = 2000, plain_ms over
+    # plain_T steps; unitary: B = 1024, ms one wrapper call on CUDA events
+    # as phase 12's, device_ms the kernel alone); no single PyTorch call
+    # computes these functions, so library_ms is null
+    lines = [{
+        'name': 'sweep_f64', 'route': 'cuda',
+        'source': 'cpflow_tpu_torch/csrc/sweep.cu',
+        'build': '-DCPFLOW_DOUBLE',
+        'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
+        'launches': sum(launches.values()), 'launches_by_path': launches,
+        'max_abs_err': worst, 'max_abs_err_initial': worst0,
+        'ms': sweep_rows[0]['ms'], 'plain_ms': sweep_rows[0]['plain_ms'],
+        'plain_T': sweep_rows[0]['plain_T'],
+        'bound_ms': sweep_rows[0]['bound_ms'],
+        'bound_by': sweep_rows[0]['bound_by'], 'library_ms': None,
+        'shapes': sweep_rows}]
+    for i, name in enumerate(('ansatz_forward_f64', 'ansatz_vjp_f64')):
+        by_path = {k: v[i] for k, v in unitary_launches.items()}
+        row = unitary_rows[name][0]
+        lines.append({
+            'name': name, 'route': 'cuda',
+            'source': 'cpflow_tpu_torch/csrc/unitary.cu',
+            'build': '-DCPFLOW_DOUBLE',
+            'replaces': 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': uerr[name], 'ms': row['ms'],
+            'device_ms': row['device_ms'],
+            'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+            'bound_by': row['bound_by'], 'library_ms': None,
+            'shapes': unitary_rows[name]})
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -2667,6 +3176,7 @@ def main() -> int:
         launches.update(seven_launches)
         launches.update(attempt({}, phase_mesh, card))
         launches.update(attempt({}, phase_prng, card))
+        double_lines = attempt([], phase_double, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
         max_err = max(max_err, seven_err)
@@ -2734,6 +3244,8 @@ def main() -> int:
             'designs': sorted({r['design'] for r in unitary_rows[name]}),
             'cluster': sorted({r['cluster'] for r in unitary_rows[name]}),
             'shapes': unitary_rows[name]})
+    # phase 18's float64 builds, their launches on phase 18's paths
+    kernels += double_lines
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Global numeric configuration of the PyTorch port.
 
 Counterpart of cpflow_tpu/config.py. The compute path runs in float32 /
-complex64, as the JAX package does.
+complex64 by default, as the JAX package does, and in float64 / complex128
+after ``set_precision(True)``, as the JAX package does under x64.
 
 TF32 is switched off on import. A TF32 matrix product keeps about three
 decimal digits, which floors the Hilbert-Schmidt loss far above the 1e-6
@@ -27,9 +28,11 @@ def complex_of(real: torch.dtype) -> torch.dtype:
 
 def set_precision(double: bool = False) -> None:
     """Switch the default dtypes between single (the default) and double
-    precision. The plain PyTorch path follows them; the hand-written
-    kernels compute in float32 only and go on refusing float64 on the
-    card."""
+    precision. The plain PyTorch path follows them, and so do the
+    hand-written kernels on the card: a float64 objective or tensor
+    launches the double build of each kernel (kernels/build.py), never the
+    float one. The JAX package's switch also needs jax_enable_x64; this
+    one needs nothing else."""
     global real_dtype, complex_dtype
     if double:
         real_dtype, complex_dtype = torch.float64, torch.complex128

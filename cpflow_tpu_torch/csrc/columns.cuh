@@ -75,14 +75,14 @@ __host__ __device__ inline ColumnLayout column_layout(int n, int nb, int nba,
   L.lanes = column_lanes(n);
   L.slots = L.lanes / 32;
   const size_t amps = (size_t)R << (2 * n);
-  size_t o = amps * sizeof(float2);  // A at offset 0
-  L.off_M = o;      if (vjp) o += amps * sizeof(float2);
-  L.off_gates = o;  o += (size_t)R * L.G * 16 * sizeof(float2);
+  size_t o = amps * sizeof(cplx);  // A at offset 0
+  L.off_M = o;      if (vjp) o += amps * sizeof(cplx);
+  L.off_gates = o;  o += (size_t)R * L.G * 16 * sizeof(cplx);
   L.off_gbar = o;
-  if (vjp) o += (size_t)R * L.slots * L.G * 32 * sizeof(float);
-  L.off_params = o; o += (size_t)R * L.P * sizeof(float);
-  L.off_cs = o;     o += (size_t)R * 2 * L.P * sizeof(float);
-  L.off_grad = o;   if (vjp) o += (size_t)R * L.P * sizeof(float);
+  if (vjp) o += (size_t)R * L.slots * L.G * 32 * sizeof(real);
+  L.off_params = o; o += (size_t)R * L.P * sizeof(real);
+  L.off_cs = o;     o += (size_t)R * 2 * L.P * sizeof(real);
+  L.off_grad = o;   if (vjp) o += (size_t)R * L.P * sizeof(real);
   L.off_codes = o;  o += (size_t)L.G * sizeof(int);
   L.bytes = o;
   return L;
@@ -136,26 +136,35 @@ __device__ __forceinline__ void column_sincos(float x, float* s, float* c) {
 // Starts the copy of the block's angles, params[r P + p] = angle p of
 // restart b0 + r (restarts past B copy restart B - 1's), as asynchronous
 // copies that all stand in flight at once, and commits them as one group.
-__device__ __forceinline__ void column_fetch_angles(const float* angles, int B,
+__device__ __forceinline__ void column_fetch_angles(const real* angles, int B,
                                                     int b0,
                                                     const ColumnLayout& L,
-                                                    float* params) {
+                                                    real* params) {
   for (int i = threadIdx.x; i < L.R * L.P; i += blockDim.x) {
     const int r = i % L.R, p = i / L.R;  // neighbouring threads, restarts
     __pipeline_memcpy_async(params + r * L.P + p,
                             angles + (size_t)p * B + min(b0 + r, B - 1),
-                            sizeof(float));
+                            sizeof(real));
   }
   __pipeline_commit();
 }
 
-// Starts the copy of `count` complex values (an even count, both ends 16-byte
-// aligned) from src to dst by the `lanes` lanes of a restart, 16 bytes a
-// copy. The caller commits.
-__device__ __forceinline__ void fetch_slab(float2* dst, const float2* src,
+// Complex values in 16 bytes, two in float and one in double, and a type
+// of 16 bytes to copy them by.
+constexpr int kPer16 = 16 / sizeof(cplx);
+#ifdef CPFLOW_DOUBLE
+typedef double2 Vec16;
+#else
+typedef float4 Vec16;
+#endif
+
+// Starts the copy of `count` complex values (a multiple of kPer16, both ends
+// 16-byte aligned) from src to dst by the `lanes` lanes of a restart, 16
+// bytes a copy. The caller commits.
+__device__ __forceinline__ void fetch_slab(cplx* dst, const cplx* src,
                                            int count, int lane, int lanes) {
-  for (int e = 2 * lane; e < count; e += 2 * lanes)
-    __pipeline_memcpy_async(dst + e, src + e, 2 * sizeof(float2));
+  for (int e = kPer16 * lane; e < count; e += kPer16 * lanes)
+    __pipeline_memcpy_async(dst + e, src + e, 16);
 }
 
 // Waits for the angles (`later`: the copy groups this thread committed
@@ -168,8 +177,8 @@ template <int later>
 __device__ inline void column_gates(const Template& t, int n,
                                     const int* placements,
                                     const ColumnLayout& L,
-                                    const float* params, int* codes,
-                                    float* cs, float2* gates) {
+                                    const real* params, int* codes,
+                                    real* cs, cplx* gates) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int j = tid; j < L.G; j += nt)
     codes[j] = j < n ? 64 + j
@@ -180,14 +189,18 @@ __device__ inline void column_gates(const Template& t, int n,
     const int p = i % L.P;
     const int bi = p - 3 * n;
     const bool phase = t.ent == E_CP && bi >= 0 && bi % t.nba == t.nba - 1;
-    const float x = params[i];
-    column_sincos(phase ? x : 0.5f * x, cs + 2 * i + 1, cs + 2 * i);
+    const real x = params[i];
+#ifdef CPFLOW_DOUBLE
+    real_sincos(phase ? x : RL(0.5) * x, cs + 2 * i + 1, cs + 2 * i);
+#else
+    column_sincos(phase ? x : RL(0.5) * x, cs + 2 * i + 1, cs + 2 * i);
+#endif
   }
   __syncthreads();
   for (int i = tid; i < L.R * L.G; i += nt) {
     const int r = i % L.R, j = i / L.R;
-    const float* c = cs + r * 2 * L.P;
-    float2* g = gates + (r * L.G + j) * 16;
+    const real* c = cs + r * 2 * L.P;
+    cplx* g = gates + (r * L.G + j) * 16;
     if (j < n) surface_gate(c + 6 * j, g);
     else block_gate(t, c + 2 * (3 * n + t.nba * (j - n)), g);
   }
@@ -197,14 +210,19 @@ __device__ inline void column_gates(const Template& t, int n,
 
 // A gate's matrix (K = 1: 2x2, K = 2: 4x4, row-major) into registers.
 template <int K>
-__device__ __forceinline__ void load_gate(const float2* g, float2 (&G)[16]) {
+__device__ __forceinline__ void load_gate(const cplx* g, cplx (&G)[16]) {
+#ifdef CPFLOW_DOUBLE
+#pragma unroll
+  for (int e = 0; e < (K == 1 ? 4 : 16); ++e) G[e] = g[e];  // 16 bytes each
+#else
   const float4* g4 = reinterpret_cast<const float4*>(g);
 #pragma unroll
   for (int e = 0; e < (K == 1 ? 2 : 8); ++e) {
     const float4 v = g4[e];
-    G[2 * e] = make_float2(v.x, v.y);
-    G[2 * e + 1] = make_float2(v.z, v.w);
+    G[2 * e] = mkc(v.x, v.y);
+    G[2 * e + 1] = mkc(v.z, v.w);
   }
+#endif
 }
 
 __host__ __device__ constexpr int ins0(int x, int s) {
@@ -224,8 +242,8 @@ __host__ __device__ constexpr int gate_row(int K, int sa, int sb, int g,
 // d = C = 2^N, row-major in shared memory.
 template <int N>
 struct Column {
-  float2* A;
-  float2* M;
+  cplx* A;
+  cplx* M;
   int col;
 
   // the row bits of the gate of this code; qubit 0 is the most significant
@@ -242,7 +260,7 @@ struct Column {
   // A <- G A on the gate's rows: this lane's share of the amplitude groups,
   // every `ways`-th from `way`
   template <int K>
-  __device__ __forceinline__ void forward(int code, const float2 (&G)[16],
+  __device__ __forceinline__ void forward(int code, const cplx (&G)[16],
                                           int way) {
     constexpr int D = 1 << K, ways = column_ways(N);
     int sa, sb;
@@ -252,7 +270,7 @@ struct Column {
       const int g = g0 + way;
       if (ways > 1 && g >= (1 << (N - K))) break;
       int idx[D];
-      float2 x[D];
+      cplx x[D];
 #pragma unroll
       for (int p = 0; p < D; ++p) {
         idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
@@ -260,7 +278,7 @@ struct Column {
       }
 #pragma unroll
       for (int p = 0; p < D; ++p) {
-        float2 acc = make_float2(0.f, 0.f);
+        cplx acc = mkc(RL(0.), RL(0.));
 #pragma unroll
         for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], x[k]));
         A[idx[p]] = acc;
@@ -271,15 +289,15 @@ struct Column {
   // One step of the walk: A <- G^dag A, gb[p,k] += M[p] A[k] (with M at the
   // gate's output and A at its input), M <- G^T M.
   template <int K>
-  __device__ __forceinline__ void backward(int code, const float2 (&G)[16],
-                                           float (&gb)[32]) {
+  __device__ __forceinline__ void backward(int code, const cplx (&G)[16],
+                                           real (&gb)[32]) {
     constexpr int D = 1 << K;
     int sa, sb;
     bits(code, sa, sb);
 #pragma unroll
     for (int g = 0; g < (1 << (N - K)); ++g) {
       int idx[D];
-      float2 x[D], y[D];
+      cplx x[D], y[D];
 #pragma unroll
       for (int p = 0; p < D; ++p) {
         idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
@@ -288,7 +306,7 @@ struct Column {
       }
 #pragma unroll
       for (int k = 0; k < D; ++k) {
-        float2 ak = make_float2(0.f, 0.f), mk = make_float2(0.f, 0.f);
+        cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
 #pragma unroll
         for (int p = 0; p < D; ++p) {
           ak = cadd(ak, cmul(conj2(G[p * D + k]), x[p]));
@@ -296,7 +314,7 @@ struct Column {
         }
 #pragma unroll
         for (int p = 0; p < D; ++p) {
-          const float2 t = cmul(y[p], ak);
+          const cplx t = cmul(y[p], ak);
           gb[2 * (p * D + k)] += t.x;
           gb[2 * (p * D + k) + 1] += t.y;
         }
@@ -314,15 +332,15 @@ struct Column {
 // (column_ways), a warp barrier follows each gate; no block barrier.
 template <int K, int N>
 __device__ __forceinline__ void chain_range(Column<N>& col,
-                                            const float2* gates,
+                                            const cplx* gates,
                                             const int* codes, int lo, int hi,
                                             int way) {
   if (lo >= hi) return;
-  float2 Gc[16];
+  cplx Gc[16];
   load_gate<K>(gates + 16 * lo, Gc);
   int code = codes[lo];
   for (int j = lo; j < hi; ++j) {
-    float2 Gn[16];
+    cplx Gn[16];
     int next = 0;
     if (j + 1 < hi) {
       load_gate<K>(gates + 16 * (j + 1), Gn);
@@ -339,7 +357,7 @@ __device__ __forceinline__ void chain_range(Column<N>& col,
 // A <- G_{G-1} ... G_0 A: the surface round, then every block.
 template <int N>
 __device__ __forceinline__ void column_chain(Column<N>& col,
-                                             const float2* gates,
+                                             const cplx* gates,
                                              const int* codes, int G,
                                              int way) {
   chain_range<1>(col, gates, codes, 0, N, way);
@@ -353,7 +371,7 @@ __device__ __forceinline__ void column_chain(Column<N>& col,
 // index is known at compile time, so v stays in registers. mask: the lanes
 // of the warp that take part.
 template <int S, int NV>
-__device__ __forceinline__ void reduce_step(float (&v)[32], int lane,
+__device__ __forceinline__ void reduce_step(real (&v)[32], int lane,
                                             int& base, unsigned mask) {
   if constexpr (S >= 1) {
     if constexpr (NV > 1) {
@@ -361,8 +379,8 @@ __device__ __forceinline__ void reduce_step(float (&v)[32], int lane,
       const bool upper = lane & S;
 #pragma unroll
       for (int i = 0; i < H; ++i) {
-        const float send = upper ? v[i] : v[i + H];
-        const float keep = upper ? v[i + H] : v[i];
+        const real send = upper ? v[i] : v[i + H];
+        const real keep = upper ? v[i + H] : v[i];
         v[i] = keep + __shfl_xor_sync(mask, send, S);
       }
       if (upper) base += H;
@@ -375,14 +393,14 @@ __device__ __forceinline__ void reduce_step(float (&v)[32], int lane,
 }
 
 // The adjoint walk through gates hi-1 .. lo, all of K qubits: each step
-// leaves the gate's cotangent, 32 floats (K = 2) or 8 (K = 1), summed over
+// leaves the gate's cotangent, 32 reals (K = 2) or 8 (K = 1), summed over
 // the 2^LC lanes of the warp that hold the restart's columns (lanes 0 to
 // 2^LC - 1, `mask`). The sum of gate j is held in registers and stored to
 // gbar[32 j + ...] only after gate j - 1 has been applied and its matrix
 // loaded, so that no gate waits on the previous gate's sum. No barrier.
 template <int K, int LC, class Col>
-__device__ __forceinline__ void walk_range(Col& col, const float2* gates,
-                                           const int* codes, float* gbar,
+__device__ __forceinline__ void walk_range(Col& col, const cplx* gates,
+                                           const int* codes, real* gbar,
                                            int lo, int hi, unsigned mask) {
   constexpr int NV = K == 2 ? 32 : 8;
   constexpr int C = 1 << LC;
@@ -391,17 +409,17 @@ __device__ __forceinline__ void walk_range(Col& col, const float2* gates,
   if (lo >= hi) return;
   const int lane = threadIdx.x & 31;
   const bool owner = (lane & (SAME - 1)) == 0;
-  float2 Gc[16];
+  cplx Gc[16];
   load_gate<K>(gates + 16 * (hi - 1), Gc);
   int code = codes[hi - 1];
-  float held[KEEP];
+  real held[KEEP];
   int held_base = 0;
   for (int j = hi - 1; j >= lo; --j) {
-    float gb[32];
+    real gb[32];
 #pragma unroll
-    for (int e = 0; e < NV; ++e) gb[e] = 0.f;
+    for (int e = 0; e < NV; ++e) gb[e] = RL(0.);
     col.template backward<K>(code, Gc, gb);
-    float2 Gn[16];
+    cplx Gn[16];
     int next = 0;
     if (j > lo) {
       load_gate<K>(gates + 16 * (j - 1), Gn);
@@ -428,8 +446,8 @@ __device__ __forceinline__ void walk_range(Col& col, const float2* gates,
 
 // The whole walk, last gate first: the blocks, then the surface round.
 template <int LC, class Col>
-__device__ __forceinline__ void column_walk(Col& col, const float2* gates,
-                                            const int* codes, float* gbar,
+__device__ __forceinline__ void column_walk(Col& col, const cplx* gates,
+                                            const int* codes, real* gbar,
                                             int n, int G, unsigned mask) {
   walk_range<2, LC>(col, gates, codes, gbar, n, G, mask);
   walk_range<1, LC>(col, gates, codes, gbar, 0, n, mask);

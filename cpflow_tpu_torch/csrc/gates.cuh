@@ -7,7 +7,7 @@
 // differentiable function of its angles) include it; each compiles it into
 // its own library, so everything sits in an unnamed namespace.
 //
-// One thread block owns one restart. Its d x C complex64 state A (C = 2^n
+// One thread block owns one restart. Its d x C complex state A (C = 2^n
 // columns for the whole unitary, C = 1 for the |0...0> column alone) and,
 // in the walk, the cotangent M live in shared memory; a gate is applied by
 // all threads of the block to disjoint amplitude groups, with one barrier
@@ -21,6 +21,13 @@
 // tile's log_c = n - j; what crosses columns (the sums over entries, each
 // gate's cotangent, the modulo losses' entries) goes through distributed
 // shared memory (tile_to_global, cluster_sum).
+//
+// The precision of a build. Every source compiles twice: as it stands, in
+// float (complex64 amplitudes), and with -DCPFLOW_DOUBLE in double
+// (complex128) into a library of its own (kernels/build.py). The device code
+// is written in `real` and `cplx` and the few functions below; RL(x) is a
+// literal of the build's type, so that the float build keeps the float
+// literals (0.9f, 1e-8f) it always had and compiles to the same code.
 
 #pragma once
 
@@ -28,6 +35,48 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+#ifdef CPFLOW_DOUBLE
+typedef double real;
+typedef double2 cplx;
+#define RL(x) x
+__device__ __forceinline__ cplx mkc(real x, real y) { return make_double2(x, y); }
+__device__ __forceinline__ real r_sqrt(real x) { return sqrt(x); }
+__device__ __forceinline__ real r_pow(real x, real y) { return pow(x, y); }
+__device__ __forceinline__ real r_fmod(real x, real y) { return fmod(x, y); }
+__device__ __forceinline__ bool same_bits(real a, real b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+// sin and cos without local memory: sincos(double) keeps a Payne-Hanek
+// reduction for huge arguments on a stack in local memory, while sincospi's
+// reduction is exact and needs none. x / pi is formed to double precision
+// (the product, then its residual x - y pi by two fused multiply-adds), so
+// the result stays within a few ulp of sin and cos of x for the angles Adam
+// leaves (well below 1e9).
+__device__ __forceinline__ void real_sincos(real x, real* s, real* c) {
+  constexpr double kInvPi = 0.318309886183790671538;
+  constexpr double kPiHi = 3.141592653589793116;
+  constexpr double kPiLo = 1.2246467991473532e-16;
+  const double y = x * kInvPi;
+  double e = fma(-y, kPiHi, x);
+  e = fma(-y, kPiLo, e);
+  sincospi(fma(e, kInvPi, y), s, c);
+}
+#else
+typedef float real;
+typedef float2 cplx;
+#define RL(x) x##f
+__device__ __forceinline__ cplx mkc(real x, real y) { return make_float2(x, y); }
+__device__ __forceinline__ real r_sqrt(real x) { return sqrtf(x); }
+__device__ __forceinline__ real r_pow(real x, real y) { return powf(x, y); }
+__device__ __forceinline__ real r_fmod(real x, real y) { return fmodf(x, y); }
+__device__ __forceinline__ bool same_bits(real a, real b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ void real_sincos(real x, real* s, real* c) {
+  sincosf(x, s, c);
+}
+#endif
 
 constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
@@ -45,14 +94,14 @@ __host__ __device__ inline int threads_for(int n, int log_c) {
 }
 
 // ---------------------------------------------------------------- complex
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+__device__ __forceinline__ cplx cmul(cplx a, cplx b) {
+  return mkc(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
+__device__ __forceinline__ cplx cadd(cplx a, cplx b) {
+  return mkc(a.x + b.x, a.y + b.y);
 }
-__device__ __forceinline__ float2 conj2(float2 a) {
-  return make_float2(a.x, -a.y);
+__device__ __forceinline__ cplx conj2(cplx a) {
+  return mkc(a.x, -a.y);
 }
 
 // ------------------------------------------------------- small gate algebra
@@ -64,23 +113,23 @@ __device__ __forceinline__ float2 conj2(float2 a) {
 
 // 2x2 rotation exp(-i a P/2) = c I - i s P, row-major, from c = cos(a/2) and
 // s = sin(a/2); letter 0, 1, 2 for x, y, z.
-__device__ __forceinline__ void rot2(int letter, float c, float s,
-                                     float2* R) {
+__device__ __forceinline__ void rot2(int letter, real c, real s,
+                                     cplx* R) {
   if (letter == 0) {         // x
-    R[0] = make_float2(c, 0.f);  R[1] = make_float2(0.f, -s);
-    R[2] = make_float2(0.f, -s); R[3] = make_float2(c, 0.f);
+    R[0] = mkc(c, RL(0.));  R[1] = mkc(RL(0.), -s);
+    R[2] = mkc(RL(0.), -s); R[3] = mkc(c, RL(0.));
   } else if (letter == 1) {  // y
-    R[0] = make_float2(c, 0.f);  R[1] = make_float2(-s, 0.f);
-    R[2] = make_float2(s, 0.f);  R[3] = make_float2(c, 0.f);
+    R[0] = mkc(c, RL(0.));  R[1] = mkc(-s, RL(0.));
+    R[2] = mkc(s, RL(0.));  R[3] = mkc(c, RL(0.));
   } else {                   // z
-    R[0] = make_float2(c, -s);   R[1] = make_float2(0.f, 0.f);
-    R[2] = make_float2(0.f, 0.f); R[3] = make_float2(c, s);
+    R[0] = mkc(c, -s);   R[1] = mkc(RL(0.), RL(0.));
+    R[2] = mkc(RL(0.), RL(0.)); R[3] = mkc(c, s);
   }
 }
 
 // out = a b (2x2); out aliases neither
-__device__ __forceinline__ void mm2(const float2* a, const float2* b,
-                                    float2* out) {
+__device__ __forceinline__ void mm2(const cplx* a, const cplx* b,
+                                    cplx* out) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -89,8 +138,8 @@ __device__ __forceinline__ void mm2(const float2* a, const float2* b,
 }
 
 // out = a b^T (2x2); out aliases neither
-__device__ __forceinline__ void mm2_bt(const float2* a, const float2* b,
-                                       float2* out) {
+__device__ __forceinline__ void mm2_bt(const cplx* a, const cplx* b,
+                                       cplx* out) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -102,39 +151,39 @@ __device__ __forceinline__ void mm2_bt(const float2* a, const float2* b,
 // v <- R^dag v R for the rotation R = c I - i s P of a letter, as
 // c^2 v + s^2 P v P + i c s (P v - v P): a Pauli matrix only permutes and
 // negates entries. q = i (P v - v P).
-__device__ __forceinline__ void conj_rot(int letter, float c, float s,
-                                         float2* v) {
-  const float2 v0 = v[0], v1 = v[1], v2 = v[2], v3 = v[3];
-  float2 w[4], q[4];
+__device__ __forceinline__ void conj_rot(int letter, real c, real s,
+                                         cplx* v) {
+  const cplx v0 = v[0], v1 = v[1], v2 = v[2], v3 = v[3];
+  cplx w[4], q[4];
   if (letter == 0) {         // P v P swaps rows and columns
     w[0] = v3; w[1] = v2; w[2] = v1; w[3] = v0;
-    const float2 a = make_float2(v2.x - v1.x, v2.y - v1.y);
-    const float2 b = make_float2(v3.x - v0.x, v3.y - v0.y);
-    q[0] = make_float2(-a.y, a.x);  q[1] = make_float2(-b.y, b.x);
-    q[2] = make_float2(b.y, -b.x);  q[3] = make_float2(a.y, -a.x);
+    const cplx a = mkc(v2.x - v1.x, v2.y - v1.y);
+    const cplx b = mkc(v3.x - v0.x, v3.y - v0.y);
+    q[0] = mkc(-a.y, a.x);  q[1] = mkc(-b.y, b.x);
+    q[2] = mkc(b.y, -b.x);  q[3] = mkc(a.y, -a.x);
   } else if (letter == 1) {  // y
-    w[0] = v3; w[1] = make_float2(-v2.x, -v2.y);
-    w[2] = make_float2(-v1.x, -v1.y); w[3] = v0;
-    const float2 a = make_float2(v1.x + v2.x, v1.y + v2.y);
-    const float2 b = make_float2(v0.x - v3.x, v0.y - v3.y);
-    q[0] = a; q[1] = make_float2(-b.x, -b.y);
-    q[2] = make_float2(-b.x, -b.y); q[3] = make_float2(-a.x, -a.y);
+    w[0] = v3; w[1] = mkc(-v2.x, -v2.y);
+    w[2] = mkc(-v1.x, -v1.y); w[3] = v0;
+    const cplx a = mkc(v1.x + v2.x, v1.y + v2.y);
+    const cplx b = mkc(v0.x - v3.x, v0.y - v3.y);
+    q[0] = a; q[1] = mkc(-b.x, -b.y);
+    q[2] = mkc(-b.x, -b.y); q[3] = mkc(-a.x, -a.y);
   } else {                   // z
-    w[0] = v0; w[1] = make_float2(-v1.x, -v1.y);
-    w[2] = make_float2(-v2.x, -v2.y); w[3] = v3;
-    q[0] = q[3] = make_float2(0.f, 0.f);
-    q[1] = make_float2(-2.f * v1.y, 2.f * v1.x);
-    q[2] = make_float2(2.f * v2.y, -2.f * v2.x);
+    w[0] = v0; w[1] = mkc(-v1.x, -v1.y);
+    w[2] = mkc(-v2.x, -v2.y); w[3] = v3;
+    q[0] = q[3] = mkc(RL(0.), RL(0.));
+    q[1] = mkc(RL(-2.) * v1.y, RL(2.) * v1.x);
+    q[2] = mkc(RL(2.) * v2.y, RL(-2.) * v2.x);
   }
-  const float cc = c * c, ss = s * s, cs = c * s;
+  const real cc = c * c, ss = s * s, cs = c * s;
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    v[e] = make_float2(cc * v[e].x + ss * w[e].x + cs * q[e].x,
+    v[e] = mkc(cc * v[e].x + ss * w[e].x + cs * q[e].x,
                        cc * v[e].y + ss * w[e].y + cs * q[e].y);
 }
 
 // Im tr(v P) for the Pauli matrix P of a letter
-__device__ __forceinline__ float im_tr_pauli(int letter, const float2* v) {
+__device__ __forceinline__ real im_tr_pauli(int letter, const cplx* v) {
   return letter == 0 ? v[1].y + v[2].y
                      : (letter == 1 ? v[1].x - v[2].x : v[0].y - v[3].y);
 }
@@ -152,16 +201,16 @@ struct SurfaceLetters {
 // U = R_{m-1} ... R_0 of one leg, whose i-th angle has its cos and sin at
 // cs[stride i] and cs[stride i + 1].
 template <class Letters>
-__device__ inline void leg_product(Letters let, int m, const float* cs,
-                                   int stride, float2* U) {
+__device__ inline void leg_product(Letters let, int m, const real* cs,
+                                   int stride, cplx* U) {
   if (m == 0) {
-    U[0] = U[3] = make_float2(1.f, 0.f);
-    U[1] = U[2] = make_float2(0.f, 0.f);
+    U[0] = U[3] = mkc(RL(1.), RL(0.));
+    U[1] = U[2] = mkc(RL(0.), RL(0.));
     return;
   }
   rot2(let(0), cs[0], cs[1], U);
   for (int i = 1; i < m; ++i) {
-    float2 R[4], t[4];
+    cplx R[4], t[4];
     rot2(let(i), cs[stride * i], cs[stride * i + 1], R);
     mm2(R, U, t);
 #pragma unroll
@@ -173,8 +222,8 @@ __device__ inline void leg_product(Letters let, int m, const float* cs,
 // grad[gstride i] = Im tr(V_i P_i) with V_{m-1} = v and
 // V_{i-1} = R_i^dag V_i R_i. Overwrites v.
 template <class Letters>
-__device__ inline void leg_grads(Letters let, int m, const float* cs,
-                                 int stride, float2* v, float* grad,
+__device__ inline void leg_grads(Letters let, int m, const real* cs,
+                                 int stride, cplx* v, real* grad,
                                  int gstride) {
   for (int i = m - 1; i >= 0; --i) {
     const int letter = let(i);
@@ -195,21 +244,21 @@ struct Template {
 // are the up and down legs (angles 0, 2, ... and 1, 3, ...), and E acts on
 // the columns: CP scales column 3 by e^{i phi}, CZ negates it, CX swaps
 // columns 2 and 3.
-__device__ inline void block_gate(const Template& t, const float* cs,
-                                  float2* G) {
+__device__ inline void block_gate(const Template& t, const real* cs,
+                                  cplx* G) {
   const BlockLetters let{t.letters};
-  float2 U[4], D[4];
+  cplx U[4], D[4];
   leg_product(let, t.m, cs, 4, U);
   leg_product(let, t.m, cs + 2, 4, D);
-  const float2 phase = t.ent == E_CP ? make_float2(cs[4 * t.m], cs[4 * t.m + 1])
-                                     : make_float2(1.f, 0.f);
+  const cplx phase = t.ent == E_CP ? mkc(cs[4 * t.m], cs[4 * t.m + 1])
+                                     : mkc(RL(1.), RL(0.));
 #pragma unroll
   for (int row = 0; row < 4; ++row)
 #pragma unroll
     for (int col = 0; col < 4; ++col) {
-      float2 w = cmul(U[(row & 2) + (col >> 1)], D[(row & 1) * 2 + (col & 1)]);
+      cplx w = cmul(U[(row & 2) + (col >> 1)], D[(row & 1) * 2 + (col & 1)]);
       if (col == 3 && t.ent == E_CP) w = cmul(w, phase);
-      if (col == 3 && t.ent == E_CZ) w = make_float2(-w.x, -w.y);
+      if (col == 3 && t.ent == E_CZ) w = mkc(-w.x, -w.y);
       G[row * 4 + (t.ent == E_CX && col >= 2 ? 5 - col : col)] = w;
     }
 }
@@ -219,25 +268,25 @@ __device__ inline void block_gate(const Template& t, const float* cs,
 // and Y_D[q,l] = sum_{p,k} X[pq,kl] U[p,k], walked down each leg by
 // leg_grads; the CP angle's is 2 Re sum_pq Gbar[pq,3] (U (x) D)[pq,3]
 // i e^{i phi}.
-__device__ inline void block_grads(const Template& t, const float* cs,
-                                   const float2* gbar, float* grad) {
+__device__ inline void block_grads(const Template& t, const real* cs,
+                                   const cplx* gbar, real* grad) {
   const BlockLetters let{t.letters};
   const bool cp = t.ent == E_CP;
-  float2 U[4], D[4], YU[4], YD[4];
+  cplx U[4], D[4], YU[4], YD[4];
   leg_product(let, t.m, cs, 4, U);
   leg_product(let, t.m, cs + 2, 4, D);
-  const float2 phase = cp ? make_float2(cs[4 * t.m], cs[4 * t.m + 1])
-                          : make_float2(1.f, 0.f);
-  float2 acc = make_float2(0.f, 0.f);
+  const cplx phase = cp ? mkc(cs[4 * t.m], cs[4 * t.m + 1])
+                          : mkc(RL(1.), RL(0.));
+  cplx acc = mkc(RL(0.), RL(0.));
 #pragma unroll
-  for (int e = 0; e < 4; ++e) YU[e] = YD[e] = make_float2(0.f, 0.f);
+  for (int e = 0; e < 4; ++e) YU[e] = YD[e] = mkc(RL(0.), RL(0.));
 #pragma unroll
   for (int row = 0; row < 4; ++row) {
     const int p = row >> 1, q = row & 1;
 #pragma unroll
     for (int col = 0; col < 4; ++col) {
       const int k = col >> 1, l = col & 1;
-      float2 x;
+      cplx x;
       if (col < 2) {
         x = gbar[row * 4 + col];
       } else if (t.ent == E_CX) {
@@ -246,7 +295,7 @@ __device__ inline void block_grads(const Template& t, const float* cs,
         x = gbar[row * 4 + 2];
       } else {
         x = gbar[row * 4 + 3];
-        x = cp ? cmul(x, phase) : make_float2(-x.x, -x.y);
+        x = cp ? cmul(x, phase) : mkc(-x.x, -x.y);
       }
       YU[2 * p + k] = cadd(YU[2 * p + k], cmul(x, D[2 * q + l]));
       YD[2 * q + l] = cadd(YD[2 * q + l], cmul(x, U[2 * p + k]));
@@ -254,8 +303,8 @@ __device__ inline void block_grads(const Template& t, const float* cs,
     if (cp)
       acc = cadd(acc, cmul(gbar[row * 4 + 3], cmul(U[2 * p + 1], D[2 * q + 1])));
   }
-  if (cp) grad[2 * t.m] = 2.f * (-phase.y * acc.x - phase.x * acc.y);
-  float2 v[4];
+  if (cp) grad[2 * t.m] = RL(2.) * (-phase.y * acc.x - phase.x * acc.y);
+  cplx v[4];
   mm2_bt(U, YU, v);
   leg_grads(let, t.m, cs, 4, v, grad, 2);
   mm2_bt(D, YD, v);
@@ -263,32 +312,32 @@ __device__ inline void block_grads(const Template& t, const float* cs,
 }
 
 // Surface gate Rz(a2) Rx(a1) Rz(a0): one leg with the letters z, x, z.
-__device__ inline void surface_gate(const float* cs, float2* G) {
-  float2 U[4];
+__device__ inline void surface_gate(const real* cs, cplx* G) {
+  cplx U[4];
   leg_product(SurfaceLetters{}, 3, cs, 2, U);
 #pragma unroll
   for (int e = 0; e < 4; ++e) G[e] = U[e];
 }
 
 // Its three angle gradients from the gate G and its cotangent Gbar.
-__device__ inline void surface_grads(const float* cs, const float2* G,
-                                     const float2* gbar, float* grad) {
-  float2 v[4];
+__device__ inline void surface_grads(const real* cs, const cplx* G,
+                                     const cplx* gbar, real* grad) {
+  cplx v[4];
   mm2_bt(G, gbar, v);
   leg_grads(SurfaceLetters{}, 3, cs, 2, v, grad, 1);
 }
 
 // ------------------------------------------------------------ reductions
 // Lane L returns the warp-wide sum of v[L] (31 shuffles for 32 values).
-__device__ inline float warp_reduce_scatter32(float (&v)[32]) {
+__device__ inline real warp_reduce_scatter32(real (&v)[32]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int step = 16; step >= 1; step >>= 1) {
     const bool upper = lane & step;
 #pragma unroll
     for (int i = 0; i < step; ++i) {
-      float send = upper ? v[i] : v[i + step];
-      float keep = upper ? v[i + step] : v[i];
+      real send = upper ? v[i] : v[i + step];
+      real keep = upper ? v[i + step] : v[i];
       v[i] = keep + __shfl_xor_sync(kFull, send, step);
     }
   }
@@ -321,22 +370,22 @@ __device__ __forceinline__ void group_rows(int g, int log_c, int sa, int sb,
 
 // A <- G A on the gate's legs.
 template <int K>
-__device__ inline void apply_forward(float2* A, const float2* gsm, int n,
+__device__ inline void apply_forward(cplx* A, const cplx* gsm, int n,
                                      int log_c, int sa, int sb) {
   constexpr int D = 1 << K;
-  float2 G[D * D];
+  cplx G[D * D];
 #pragma unroll
   for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
   const int ngroups = (1 << (n + log_c)) >> K;
   for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
     int idx[D];
     group_rows<K>(g, log_c, sa, sb, idx);
-    float2 a[D];
+    cplx a[D];
 #pragma unroll
     for (int p = 0; p < D; ++p) a[p] = A[idx[p]];
 #pragma unroll
     for (int p = 0; p < D; ++p) {
-      float2 acc = make_float2(0.f, 0.f);
+      cplx acc = mkc(RL(0.), RL(0.));
 #pragma unroll
       for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], a[k]));
       A[idx[p]] = acc;
@@ -347,23 +396,23 @@ __device__ inline void apply_forward(float2* A, const float2* gsm, int n,
 // One step of the adjoint walk through a gate: A <- G^dag A (state before
 // the gate), gb[p,k] += sum M[p] A[k] (dL/dG), M <- G^T M.
 template <int K>
-__device__ inline void apply_backward(float2* A, float2* M, const float2* gsm,
+__device__ inline void apply_backward(cplx* A, cplx* M, const cplx* gsm,
                                       int n, int log_c, int sa, int sb,
-                                      float (&gb)[32]) {
+                                      real (&gb)[32]) {
   constexpr int D = 1 << K;
-  float2 G[D * D];
+  cplx G[D * D];
 #pragma unroll
   for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
   const int ngroups = (1 << (n + log_c)) >> K;
   for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
     int idx[D];
     group_rows<K>(g, log_c, sa, sb, idx);
-    float2 a[D], m[D];
+    cplx a[D], m[D];
 #pragma unroll
     for (int p = 0; p < D; ++p) { a[p] = A[idx[p]]; m[p] = M[idx[p]]; }
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      float2 ak = make_float2(0.f, 0.f), mk = make_float2(0.f, 0.f);
+      cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
 #pragma unroll
       for (int p = 0; p < D; ++p) {
         ak = cadd(ak, cmul(conj2(G[p * D + k]), a[p]));
@@ -371,7 +420,7 @@ __device__ inline void apply_backward(float2* A, float2* M, const float2* gsm,
       }
 #pragma unroll
       for (int p = 0; p < D; ++p) {
-        float2 t = cmul(m[p], ak);
+        cplx t = cmul(m[p], ak);
         gb[2 * (p * D + k)] += t.x;
         gb[2 * (p * D + k) + 1] += t.y;
       }
@@ -389,21 +438,21 @@ __device__ inline void apply_backward(float2* A, float2* M, const float2* gsm,
 // the angle for a rotation, of the angle for a CP phase (the last of a CP
 // block's angles).
 __device__ __forceinline__ void angle_trig(const Template& t, int n, int P,
-                                           const float* params, float* cs) {
+                                           const real* params, real* cs) {
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     const int bi = i - 3 * n;
     const bool phase = t.ent == E_CP && bi >= 0 && bi % t.nba == t.nba - 1;
-    float s, c;
-    sincosf(phase ? params[i] : 0.5f * params[i], &s, &c);
+    real s, c;
+    real_sincos(phase ? params[i] : RL(0.5) * params[i], &s, &c);
     cs[2 * i] = c;
     cs[2 * i + 1] = s;
   }
 }
 
-// The G = n + nb gate matrices (16 float2 each; a surface gate uses the first
+// The G = n + nb gate matrices (16 cplx each; a surface gate uses the first
 // four) from the cos and sin of the angles, one gate per thread.
 __device__ __forceinline__ void build_gates(const Template& t, int n, int G,
-                                            const float* cs, float2* gates) {
+                                            const real* cs, cplx* gates) {
   for (int j = threadIdx.x; j < G; j += blockDim.x) {
     if (j < n) surface_gate(cs + 6 * j, gates + 16 * j);
     else block_gate(t, cs + 2 * (3 * n + t.nba * (j - n)), gates + 16 * j);
@@ -412,7 +461,7 @@ __device__ __forceinline__ void build_gates(const Template& t, int n, int G,
 
 // A <- G_{G-1} ... G_0 A: the surface round, then every block on its
 // placement (qubit 0 the most significant bit). A barrier after every gate.
-__device__ __forceinline__ void forward_chain(float2* A, const float2* gates,
+__device__ __forceinline__ void forward_chain(cplx* A, const cplx* gates,
                                               const int* placements, int n,
                                               int nb, int log_c) {
   for (int q = 0; q < n; ++q) {
@@ -429,19 +478,19 @@ __device__ __forceinline__ void forward_chain(float2* A, const float2* gates,
 
 // The adjoint walk, last gate first: from A = the chain's output and
 // M = dL/dA it rewinds A by unitarity, pulls M back, and leaves every gate's
-// cotangent dL/dG in gbar (32 floats a gate). red: 2 x nw x 32 floats of
+// cotangent dL/dG in gbar (32 reals a gate). red: 2 x nw x 32 reals of
 // cross-warp partials, double-buffered so that a gate costs one barrier.
 // Ends with a barrier.
-__device__ __forceinline__ void adjoint_walk(float2* A, float2* M,
-                                             const float2* gates,
+__device__ __forceinline__ void adjoint_walk(cplx* A, cplx* M,
+                                             const cplx* gates,
                                              const int* placements,
-                                             float* red, float* gbar, int n,
+                                             real* red, real* gbar, int n,
                                              int G, int log_c, int nw) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = G - 1; j >= 0; --j) {
-    float gb[32];
+    real gb[32];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) gb[e] = 0.f;
+    for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
     if (j >= n) {
       const int bb = j - n;
       const int q0 = placements[2 * bb], q1 = placements[2 * bb + 1];
@@ -450,12 +499,12 @@ __device__ __forceinline__ void adjoint_walk(float2* A, float2* M,
     } else {
       apply_backward<1>(A, M, gates + 16 * j, n, log_c, n - 1 - j, 0, gb);
     }
-    float part = warp_reduce_scatter32(gb);
-    float* rb = red + (j & 1) * nw * 32;
+    real part = warp_reduce_scatter32(gb);
+    real* rb = red + (j & 1) * nw * 32;
     rb[warp * 32 + lane] = part;
     __syncthreads();
     if (tid < 32) {
-      float s = 0.f;
+      real s = RL(0.);
       for (int w = 0; w < nw; ++w) s += rb[w * 32 + tid];
       gbar[32 * j + tid] = s;
     }
@@ -478,14 +527,14 @@ __device__ __forceinline__ int tile_to_global(int e, int log_c, int log_ct,
 // and writes it to every block: all blocks then hold the same bits, so that
 // the angles, which every block updates, never drift apart. Begins and ends
 // with a cluster barrier.
-__device__ inline void cluster_sum(float* x, int len) {
+__device__ inline void cluster_sum(real* x, int len) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   cluster.sync();
   for (int i = rank * blockDim.x + threadIdx.x; i < len;
        i += c * blockDim.x) {
-    float s = 0.f;
+    real s = RL(0.);
     for (int q = 0; q < c; ++q) s += *cluster.map_shared_rank(x + i, q);
     for (int q = 0; q < c; ++q) *cluster.map_shared_rank(x + i, q) = s;
   }
@@ -497,14 +546,14 @@ __device__ inline void cluster_sum(float* x, int len) {
 // sums; a block that differs runs another unitary than its peers, and
 // nothing else would show it. Begins and ends with a cluster barrier, so that
 // rank 0's shared memory stays in place while its peers read it.
-__device__ inline void cluster_agree(const float* x, int len) {
+__device__ inline void cluster_agree(const real* x, int len) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (cluster.block_rank() != 0) {
-    const float* x0 = cluster.map_shared_rank(const_cast<float*>(x), 0);
+    const real* x0 = cluster.map_shared_rank(const_cast<real*>(x), 0);
     for (int i = threadIdx.x; i < len; i += blockDim.x)
-      if (__float_as_uint(x[i]) != __float_as_uint(x0[i])) __trap();
+      if (!same_bits(x[i], x0[i])) __trap();
   }
   cluster.sync();
 }
@@ -532,11 +581,11 @@ inline cudaLaunchConfig_t launch_config(unsigned grid, int threads,
 
 // Every angle's gradient from the gates' cotangents, one gate per thread.
 __device__ __forceinline__ void angle_grads(const Template& t, int n, int G,
-                                            const float* cs,
-                                            const float2* gates,
-                                            const float* gbar, float* grad) {
+                                            const real* cs,
+                                            const cplx* gates,
+                                            const real* gbar, real* grad) {
   for (int j = threadIdx.x; j < G; j += blockDim.x) {
-    const float2* gbj = reinterpret_cast<const float2*>(gbar + 32 * j);
+    const cplx* gbj = reinterpret_cast<const cplx*>(gbar + 32 * j);
     if (j < n) {
       surface_grads(cs + 6 * j, gates + 16 * j, gbj, grad + 3 * j);
     } else {

@@ -10,7 +10,7 @@
 // per restart batch. kernels/unitary.py wraps the pair as one
 // torch.autograd.Function.
 //
-//   ansatz_forward: angles (P, B) float32 -> U (B, d, C) complex64: the cos
+//   ansatz_forward: angles (P, B) real -> U (B, d, C) complex: the cos
 //     and sin of each angle once, the gates in factored 2x2 form
 //     (gates.cuh), the surface round and every block applied to the
 //     identity's columns, then a store of the state.
@@ -68,9 +68,18 @@
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
 // TF32's 10-bit mantissa would break the 2e-5 (unitary) and 1e-4
-// (gradient) agreement with the plain float32 version. Why no cluster
+// (gradient) agreement with the plain float32 version (and tensor cores
+// hold no double complex product either). Why no cluster
 // below 7 qubits: a restart's whole layout fits one block there, and a
 // column never needs another block's data.
+//
+// Precision: the file compiles twice (gates.cuh), in float for complex64
+// and with -DCPFLOW_DOUBLE in double for complex128. The double build's
+// tiles take twice the bytes; the column kernels keep every layout up to 6
+// qubits at k = 40, and the row-split vjp of the whole unitary at 8 qubits
+// would need 16 blocks, above the portable 8 (kernels/unitary.py raises).
+// Its kernels hold 122 to 254 registers, the column ones with no local
+// memory (their cos and sin from gates.cuh's real_sincos).
 //
 // The design is an explicit argument of the launch; kernels/unitary.py
 // passes the plan's (cpflow_unitary_design), which it mirrors for the
@@ -83,10 +92,10 @@
 namespace {
 
 struct Args {
-  const float* angles;    // (P, B)
-  float2* U;              // (B, d, C): written by forward, read by vjp
-  const float2* Ubar;     // (B, d, C): dL/dRe U + i dL/dIm U (vjp only)
-  float* grad;            // (P, B): written by vjp
+  const real* angles;    // (P, B)
+  cplx* U;              // (B, d, C): written by forward, read by vjp
+  const cplx* Ubar;     // (B, d, C): dL/dRe U + i dL/dIm U (vjp only)
+  real* grad;            // (P, B): written by vjp
   const int* placements;  // (nb, 2)
   Template tpl;
   int n, nb, log_c, B, cluster_log;
@@ -111,14 +120,14 @@ __host__ __device__ inline Layout make_layout(int n, int nb, int nba,
   L.nt = threads_for(n, L.log_ct);
   L.nw = L.nt / 32;
   const size_t amps = (size_t)1 << (n + L.log_ct);
-  size_t o = amps * sizeof(float2);                // A at offset 0
-  L.off_M = o;        if (vjp) o += amps * sizeof(float2);
-  L.off_gates = o;    o += (size_t)L.G * 16 * sizeof(float2);
-  L.off_gbar = o;     if (vjp) o += (size_t)L.G * 32 * sizeof(float);
-  L.off_red = o;      if (vjp) o += (size_t)2 * L.nw * 32 * sizeof(float);
-  L.off_params = o;   o += (size_t)L.P * sizeof(float);
-  L.off_grad = o;     if (vjp) o += (size_t)L.P * sizeof(float);
-  L.off_cs = o;       o += (size_t)2 * L.P * sizeof(float);
+  size_t o = amps * sizeof(cplx);                // A at offset 0
+  L.off_M = o;        if (vjp) o += amps * sizeof(cplx);
+  L.off_gates = o;    o += (size_t)L.G * 16 * sizeof(cplx);
+  L.off_gbar = o;     if (vjp) o += (size_t)L.G * 32 * sizeof(real);
+  L.off_red = o;      if (vjp) o += (size_t)2 * L.nw * 32 * sizeof(real);
+  L.off_params = o;   o += (size_t)L.P * sizeof(real);
+  L.off_grad = o;     if (vjp) o += (size_t)L.P * sizeof(real);
+  L.off_cs = o;       o += (size_t)2 * L.P * sizeof(real);
   L.bytes = o;
   return L;
 }
@@ -136,8 +145,8 @@ inline int cluster_plan(int n, int nb, int nba, int log_c, bool vjp) {
 // The restart's angles into shared memory, their cos and sin, the gates.
 // Ends with a barrier.
 __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
-                                           int b, float* params, float* cs,
-                                           float2* gates) {
+                                           int b, real* params, real* cs,
+                                           cplx* gates) {
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
     params[i] = a.angles[(size_t)i * a.B + b];
   __syncthreads();
@@ -154,10 +163,10 @@ forward_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
                                false);
-  float2* A = reinterpret_cast<float2*>(smem);
-  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
-  float* params = reinterpret_cast<float*>(smem + L.off_params);
-  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
   const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
   const int b = blockIdx.x >> a.cluster_log;
   const int rank = blockIdx.x & ((1 << a.cluster_log) - 1);
@@ -166,11 +175,11 @@ forward_kernel(Args a) {
   // them
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
     const int g = tile_to_global(e, lc, lt, rank);
-    A[e] = make_float2((g >> lc) == (g & ((1 << lc) - 1)) ? 1.f : 0.f, 0.f);
+    A[e] = mkc((g >> lc) == (g & ((1 << lc) - 1)) ? RL(1.) : RL(0.), RL(0.));
   }
   load_gates(a, L, b, params, cs, gates);
   forward_chain(A, gates, a.placements, a.n, a.nb, lt);
-  float2* out = a.U + ((size_t)b << (a.n + lc));
+  cplx* out = a.U + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x)
     out[tile_to_global(e, lc, lt, rank)] = A[e];
 }
@@ -182,14 +191,14 @@ vjp_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
                                kCluster ? a.cluster_log : 0, true);
-  float2* A = reinterpret_cast<float2*>(smem);
-  float2* M = reinterpret_cast<float2*>(smem + L.off_M);
-  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
-  float* gbar = reinterpret_cast<float*>(smem + L.off_gbar);
-  float* red = reinterpret_cast<float*>(smem + L.off_red);
-  float* params = reinterpret_cast<float*>(smem + L.off_params);
-  float* grad = reinterpret_cast<float*>(smem + L.off_grad);
-  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* red = reinterpret_cast<real*>(smem + L.off_red);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* grad = reinterpret_cast<real*>(smem + L.off_grad);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
   const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
   int b = blockIdx.x, rank = 0;
   if constexpr (kCluster) {
@@ -197,13 +206,13 @@ vjp_kernel(Args a) {
     rank = (int)cooperative_groups::this_cluster().block_rank();
   }
 
-  const float2* u = a.U + ((size_t)b << (a.n + lc));
-  const float2* g = a.Ubar + ((size_t)b << (a.n + lc));
+  const cplx* u = a.U + ((size_t)b << (a.n + lc));
+  const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
     const int at = kCluster ? tile_to_global(e, lc, lt, rank) : e;
     A[e] = u[at];
-    const float2 t = g[at];
-    M[e] = make_float2(0.5f * t.x, -0.5f * t.y);  // M = conj(g) / 2
+    const cplx t = g[at];
+    M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
   }
   load_gates(a, L, b, params, cs, gates);
   adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
@@ -225,16 +234,16 @@ column_forward(Args a) {
   constexpr int C = 1 << N, lanes = column_lanes(N);
   extern __shared__ __align__(16) unsigned char smem[];
   const ColumnLayout L = column_layout(N, a.nb, a.tpl.nba, a.restarts, false);
-  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
-  float* params = reinterpret_cast<float*>(smem + L.off_params);
-  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
   int* codes = reinterpret_cast<int*>(smem + L.off_codes);
   const int r = threadIdx.x / lanes, q = threadIdx.x % lanes;
   const int b0 = blockIdx.x * L.R, b = b0 + r;
-  float2* A = reinterpret_cast<float2*>(smem) + ((size_t)r << (2 * N));
+  cplx* A = reinterpret_cast<cplx*>(smem) + ((size_t)r << (2 * N));
   column_fetch_angles(a.angles, a.B, b0, L, params);
   for (int e = q; e < C * C; e += lanes)  // the identity
-    A[e] = make_float2((e >> N) == (e & (C - 1)) ? 1.f : 0.f, 0.f);
+    A[e] = mkc((e >> N) == (e & (C - 1)) ? RL(1.) : RL(0.), RL(0.));
   column_gates<0>(a.tpl, N, a.placements, L, params, codes, cs, gates);
   if (q < C * column_ways(N)) {  // every lane up to 4 qubits
     Column<N> x{A, nullptr, q & (C - 1)};
@@ -242,9 +251,9 @@ column_forward(Args a) {
   }
   __syncthreads();
   if (b < a.B) {  // the restart's d x C matrix, 16 bytes a lane
-    const float4* from = reinterpret_cast<const float4*>(A);
-    float4* to = reinterpret_cast<float4*>(a.U + ((size_t)b << (2 * N)));
-    for (int e = q; e < C * C / 2; e += lanes) to[e] = from[e];
+    const Vec16* from = reinterpret_cast<const Vec16*>(A);
+    Vec16* to = reinterpret_cast<Vec16*>(a.U + ((size_t)b << (2 * N)));
+    for (int e = q; e < C * C / kPer16; e += lanes) to[e] = from[e];
   }
 }
 
@@ -255,16 +264,16 @@ column_vjp(Args a) {
   constexpr unsigned mask = C >= 32 ? kFull : (1u << C) - 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const ColumnLayout L = column_layout(N, a.nb, a.tpl.nba, a.restarts, true);
-  float2* gates = reinterpret_cast<float2*>(smem + L.off_gates);
-  float* gbar = reinterpret_cast<float*>(smem + L.off_gbar);
-  float* params = reinterpret_cast<float*>(smem + L.off_params);
-  float* cs = reinterpret_cast<float*>(smem + L.off_cs);
-  float* grad = reinterpret_cast<float*>(smem + L.off_grad);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  real* grad = reinterpret_cast<real*>(smem + L.off_grad);
   int* codes = reinterpret_cast<int*>(smem + L.off_codes);
   const int r = threadIdx.x / lanes, q = threadIdx.x % lanes;
   const int b0 = blockIdx.x * L.R, b = b0 + r;
-  float2* A = reinterpret_cast<float2*>(smem) + ((size_t)r << (2 * N));
-  float2* M = reinterpret_cast<float2*>(smem + L.off_M) + ((size_t)r << (2 * N));
+  cplx* A = reinterpret_cast<cplx*>(smem) + ((size_t)r << (2 * N));
+  cplx* M = reinterpret_cast<cplx*>(smem + L.off_M) + ((size_t)r << (2 * N));
   column_fetch_angles(a.angles, a.B, b0, L, params);
   // U and its cotangent copied while the gates are built
   const size_t at = (size_t)min(b, a.B - 1) << (2 * N);
@@ -274,18 +283,18 @@ column_vjp(Args a) {
   column_gates<1>(a.tpl, N, a.placements, L, params, codes, cs, gates);
   if (q < C) {
     for (int row = 0; row < C; ++row) {  // M = conj(g) / 2
-      const float2 t = M[row * C + q];
-      M[row * C + q] = make_float2(0.5f * t.x, -0.5f * t.y);
+      const cplx t = M[row * C + q];
+      M[row * C + q] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);
     }
     Column<N> x{A, M, q};
-    float* gb = gbar + (size_t)(r * L.slots + q / 32) * L.G * 32;
+    real* gb = gbar + (size_t)(r * L.slots + q / 32) * L.G * 32;
     column_walk<LC>(x, gates + r * L.G * 16, codes, gb, N, L.G, mask);
   }
   __syncthreads();
   if (L.slots > 1) {  // the warps of a restart: their partials into slot 0
     for (int i = threadIdx.x; i < L.R * L.G * 32; i += blockDim.x) {
       const int rr = i / (L.G * 32), e = i - rr * L.G * 32;
-      float* x = gbar + (size_t)rr * L.slots * L.G * 32 + e;
+      real* x = gbar + (size_t)rr * L.slots * L.G * 32 + e;
       for (int s = 1; s < L.slots; ++s) x[0] += x[s * L.G * 32];
     }
     __syncthreads();
@@ -293,10 +302,10 @@ column_vjp(Args a) {
   // every angle's gradient, one gate per thread, as gates.cuh's angle_grads
   for (int i = threadIdx.x; i < L.R * L.G; i += blockDim.x) {
     const int rr = i % L.R, j = i / L.R;
-    const float* c = cs + rr * 2 * L.P;
-    const float2* gbj = reinterpret_cast<const float2*>(
+    const real* c = cs + rr * 2 * L.P;
+    const cplx* gbj = reinterpret_cast<const cplx*>(
         gbar + ((size_t)rr * L.slots * L.G + j) * 32);
-    float* gr = grad + rr * L.P;
+    real* gr = grad + rr * L.P;
     if (j < N) {
       surface_grads(c + 6 * j, gates + (rr * L.G + j) * 16, gbj, gr + 3 * j);
     } else {
@@ -431,8 +440,9 @@ int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
 
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
 // product (vjp == 1: reads U and Ubar, writes grad) in the given design
-// (0 row-split, 1 columns) on `stream`. angles and grad: (P, B) float32; U
-// and Ubar: (B, d, C) complex64 with C = 2^log_c, log_c = n or 0; letters:
+// (0 row-split, 1 columns) on `stream`. angles and grad: (P, B) of the
+// build's real type (float, or double with -DCPFLOW_DOUBLE); U and Ubar:
+// (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
 // (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
 // 2 CX; nba: angles per block. In the row-split design each restart runs
 // on the blocks cluster_plan picks: the forward pass's as independent
@@ -445,10 +455,10 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           int num_letters, int ent, int nba, int log_c, int B,
                           int vjp, int design, void* stream) {
   Args a;
-  a.angles = static_cast<const float*>(angles);
-  a.U = static_cast<float2*>(U);
-  a.Ubar = static_cast<const float2*>(Ubar);
-  a.grad = static_cast<float*>(grad);
+  a.angles = static_cast<const real*>(angles);
+  a.U = static_cast<cplx*>(U);
+  a.Ubar = static_cast<const cplx*>(Ubar);
+  a.grad = static_cast<real*>(grad);
   a.placements = static_cast<const int*>(placements);
   a.tpl.letters = static_cast<const int*>(letters);
   a.tpl.m = num_letters;

@@ -1,13 +1,15 @@
 """Builds the CUDA sources of csrc/ with nvcc for sm_90a into ``build/`` and
 loads them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface.
-A library is rebuilt when any file under csrc/ changes (the sources share
-device code through csrc/gates.cuh, so the digest covers them all).
-``build_all`` starts one nvcc per source at the same time; ``load`` builds
-one source if it is not built yet. Nothing here runs when the package is
-imported: a build happens at the first launch of a kernel, or when a caller
-asks for it.
+Each ``csrc/<name>.cu`` becomes two shared libraries with a plain C
+interface: ``<name>``, in float (complex64 amplitudes), and ``<name>_f64``,
+the same source compiled with -DCPFLOW_DOUBLE, in double (complex128; see
+the top of csrc/gates.cuh). BUILDS names them. A library is rebuilt when
+any file under csrc/ changes (the sources share device code through
+csrc/gates.cuh, so the digest covers them all). ``build_all`` starts one
+nvcc per build at the same time; ``load`` builds one if it is not built
+yet. Nothing here runs when the package is imported: a build happens at the
+first launch of a kernel, or when a caller asks for it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 SOURCES = ('sweep', 'unitary')
-INFO: dict = {}  # name -> library path, and nvcc seconds and ptxas report
+F64 = '_f64'  # the suffix of a source's double-precision build
+# build name -> (source, extra nvcc flags)
+BUILDS = {name + suffix: (name, flags) for name in SOURCES
+          for suffix, flags in (('', []), (F64, ['-DCPFLOW_DOUBLE']))}
+INFO: dict = {}  # build -> library path, and nvcc seconds and ptxas report
 _libs: dict = {}
 
 
@@ -40,11 +46,17 @@ def nvcc() -> str:
                        f'with the CUDA toolkit')
 
 
-def command(source: Path, out: Path) -> list:
-    """The nvcc command line that builds one source into a shared library."""
+def command(source: Path, out: Path, flags=()) -> list:
+    """The nvcc command line that builds one source into a shared library
+    (flags: extra nvcc options, such as -DCPFLOW_DOUBLE)."""
     return [nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-            '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o',
-            str(out), str(source)]
+            '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+            *flags, '-o', str(out), str(source)]
+
+
+def name_of(source: str, double: bool) -> str:
+    """The build of csrc/<source>.cu in double (True) or float."""
+    return source + (F64 if double else '')
 
 
 def digest() -> str:
@@ -58,15 +70,16 @@ def digest() -> str:
 
 
 def _start(name: str):
-    """Starts nvcc for csrc/<name>.cu unless its library exists. Returns the
-    library's path and the running job (or None)."""
+    """Starts nvcc for the build `name` (of BUILDS) unless its library
+    exists. Returns the library's path and the running job (or None)."""
+    source, flags = BUILDS[name]
     target = BUILD_DIR / f'libcpflow_{name}_{digest()}.so'
     if target.exists():
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen(command(CSRC / f'{name}.cu', Path(tmp)),
+    proc = subprocess.Popen(command(CSRC / f'{source}.cu', Path(tmp), flags),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     return target, (proc, tmp, time.perf_counter())
@@ -79,7 +92,7 @@ def _finish(name: str, target: Path, job) -> ctypes.CDLL:
         out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f'nvcc failed for {name}.cu '
+            raise RuntimeError(f'nvcc failed for {name} '
                                f'({proc.returncode}):\n{out}\n{err}')
         os.replace(tmp, target)
         info['seconds'] = time.perf_counter() - start
@@ -90,15 +103,16 @@ def _finish(name: str, target: Path, job) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of csrc/<name>.cu, built first if need be."""
+    """The library of the build `name` (of BUILDS), built first if need
+    be."""
     if name not in _libs:
         _finish(name, *_start(name))
     return _libs[name]
 
 
-def build_all(names=SOURCES) -> None:
-    """Builds every source not built yet, all nvcc processes side by side,
-    and loads the libraries."""
+def build_all(names=tuple(BUILDS)) -> None:
+    """Builds every build not built yet (both precisions of every source),
+    all nvcc processes side by side, and loads the libraries."""
     jobs = [(name, *_start(name)) for name in names if name not in _libs]
     try:
         for name, target, job in jobs:

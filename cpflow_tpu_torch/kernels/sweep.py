@@ -16,18 +16,30 @@ preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
 falls back, above MAX_QUBITS (8 qubits for the whole unitary, 12 for a
-state), for float64 and for a penalty other than the piecewise-linear one.
+state; in float64 7 and 12, see below) and for a penalty other than the
+piecewise-linear one.
 
-Routing of ``sweep``, by the tensor's device and the loss:
-  * CPU tensor, any loss: ``sweep_reference``, the plain version;
-  * CUDA tensor, a built-in loss kind: the fused sweep kernel;
+Precision. The kernel computes in the objective's dtype: float32 through
+the float build of csrc/sweep.cu, float64 through its double build (the
+same source compiled with -DCPFLOW_DOUBLE, kernels/build.py), never one
+in the other's place. In double every amplitude tile takes twice the
+shared memory, so the cluster plan doubles its sizes (``smem_bytes``): 7
+qubits take 4 blocks, and 8 qubits would need 16, above the portable
+cluster of 8, so the double build takes the whole unitary up to 7 qubits
+(a state still up to 12) and raises above.
+
+Routing of ``sweep``, by the tensor's device and the objective:
+  * CPU tensor, any objective: ``sweep_reference``, the plain version;
+  * CUDA tensor, a built-in loss kind with the piecewise-linear penalty
+    (or none): the fused sweep kernel;
   * CUDA tensor, a custom loss (a torch callable of one unitary, which
-    cannot enter a fused kernel): the Adam loop of ``sweep_reference``
-    around the objective, whose unitary comes from the hand-written
-    forward and vjp kernels of kernels/unitary.py (never from the plain
-    builder: an objective made with ``plain=True`` is refused), with
-    target_loss checked every TARGET_CHECK_EVERY steps as on the fused
-    route.
+    cannot enter a fused kernel) or any other penalty (a torch callable
+    of the CP angles, such as ops.penalty.cp_penalty_L1): the Adam loop
+    of ``sweep_reference`` around the objective, whose unitary comes from
+    the hand-written forward and vjp kernels of kernels/unitary.py (never
+    from the plain builder: an objective made with ``plain=True`` is
+    refused), with target_loss checked every TARGET_CHECK_EVERY steps as
+    on the fused route.
 
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
@@ -67,11 +79,13 @@ from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
 from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
+F64_LAUNCHES = 0  # those of them that ran the double build
 
 # qubits the kernel takes, per loss (the whole unitary, split over at most
 # 8 blocks, or one column on one block)
 MAX_QUBITS = {'hst': 8, 'disc': 8, 'modulo_identity': 8,
               'modulo_diagonal': 8, 'state': 12}
+DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
               'modulo_diagonal': 4}  # as csrc/sweep.cu numbers them
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
@@ -79,7 +93,9 @@ LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 TARGET_CHECK_EVERY = 50  # kernel steps between host checks of target_loss
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
-_lib = None  # the bound library; set to time another build of the kernel
+# dtype -> the bound library of that precision; set an entry to time
+# another build of the kernel
+_libs: dict = {}
 
 
 class SweepResult(NamedTuple):
@@ -151,16 +167,16 @@ def sweep_reference(objective, params0: torch.Tensor,
 # Build and bind
 # --------------------------------------------------------------------------
 
-def load_library() -> ctypes.CDLL:
-    """Build csrc/sweep.cu for sm_90a (once per version of csrc/) and load
-    it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = build.load('sweep')
+def load_library(dtype=torch.float32) -> ctypes.CDLL:
+    """Build csrc/sweep.cu for sm_90a in the precision of `dtype` (float32
+    or float64; once per version of csrc/) and load it."""
+    if dtype in _libs:
+        return _libs[dtype]
+    double = dtype == torch.float64
+    lib = build.load(build.name_of('sweep', double))
     ptr = ctypes.c_void_p
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
-        ctypes.c_float, ptr]
+        ctypes.c_double if double else ctypes.c_float, ptr]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
     lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
@@ -170,7 +186,7 @@ def load_library() -> ctypes.CDLL:
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
     lib.cpflow_sweep_device.argtypes = [ptr]
     lib.cpflow_sweep_device.restype = ctypes.c_int
-    _lib = lib
+    _libs[dtype] = lib
     return lib
 
 
@@ -183,29 +199,34 @@ CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
 
 
 def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
-               cluster: int = 1) -> int:
+               cluster: int = 1, dtype=torch.float32) -> int:
     """Dynamic shared memory of each block of a restart split over
-    `cluster` blocks, as csrc/sweep.cu's make_layout lays it out: the tile
-    of A and of M (2^n x C / cluster amplitudes each), the gates and their
-    cotangents, the cross-warp partials, the modulo losses' row sums, five
-    arrays of the P angles and the cos and sin of each, 16 scalars."""
+    `cluster` blocks, as csrc/sweep.cu's make_layout lays it out in the
+    build of `dtype`: the tile of A and of M (2^n x C / cluster amplitudes
+    each), the gates and their cotangents, the cross-warp partials, the
+    modulo losses' row sums, five arrays of the P angles and the cos and
+    sin of each, 16 scalars. Every one of them is of the build's real or
+    complex type, so the double build takes twice the float build's."""
     log_c = 0 if kind == 'state' else n
     log_ct = log_c - (cluster.bit_length() - 1)
     P, G = 3 * n + nba * num_blocks, n + num_blocks
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
     rows = (8 << n) if kind.startswith('modulo') else 0
-    return (16 << (n + log_ct)) + 256 * G + 8 * threads + rows + 28 * P + 64
+    single = (16 << (n + log_ct)) + 256 * G + 8 * threads + rows + 28 * P + 64
+    return single * (2 if dtype == torch.float64 else 1)
 
 
-def cluster_plan(n: int, num_blocks: int, nba: int, kind: str):
+def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
+                 dtype=torch.float32):
     """The blocks each restart runs on, as csrc/sweep.cu's cluster_plan
-    picks them: the smallest of 1, 2, 4, 8 whose per-block layout fits one
-    block's shared memory, never a split of the one column of a state, and
-    no more blocks than columns. None if none fits."""
+    picks them in the build of `dtype`: the smallest of 1, 2, 4, 8 whose
+    per-block layout fits one block's shared memory, never a split of the
+    one column of a state, and no more blocks than columns. None if none
+    fits."""
     for c in CLUSTERS:
         if c > 1 and (kind == 'state' or c > 1 << n):
             break
-        if smem_bytes(n, num_blocks, nba, kind, c) <= _SMEM_LIMIT:
+        if smem_bytes(n, num_blocks, nba, kind, c, dtype) <= _SMEM_LIMIT:
             return c
     return None
 
@@ -230,9 +251,9 @@ def _check_objective(objective):
             f'the fused sweep kernel computes the {", ".join(MAX_QUBITS)} '
             f'losses, got {kind!r}: a custom loss (a Python callable) cannot '
             f'enter it, and sweep() routes one to the unitary kernels')
-    if objective.dtype != torch.float32:
-        raise ValueError(f'the sweep kernel computes in float32, the '
-                         f'objective in {objective.dtype}')
+    if objective.dtype not in DTYPES:
+        raise ValueError(f'the sweep kernel computes in float32 or float64, '
+                         f'the objective in {objective.dtype}')
     n, limit = objective.num_qubits, MAX_QUBITS[kind]
     if not 2 <= n <= limit:
         where = 'one block' if kind == 'state' else \
@@ -254,10 +275,17 @@ def _check_objective(objective):
         raise ValueError(f'a {kind!r} loss on {n} qubits needs num_qubits '
                          f'{n} and distinct wires in range({n}), got '
                          f'{spec.num_qubits} and {spec.wires}')
-    if objective.has_penalty and \
-            not isinstance(objective.regularization_func, LinearPenalty):
+    if not linear_penalty(objective):
         raise NotImplementedError(
-            'the sweep kernel computes the piecewise-linear penalty only')
+            'the sweep kernel computes the piecewise-linear penalty only; '
+            'sweep() routes another penalty to the unitary kernels')
+
+
+def linear_penalty(objective) -> bool:
+    """Whether the objective's penalty is the piecewise-linear one that the
+    fused kernel computes (or it has none)."""
+    return not objective.has_penalty or \
+        isinstance(objective.regularization_func, LinearPenalty)
 
 
 def _launch(objective, params0, learning_rate, num_iterations, grad_mask,
@@ -281,6 +309,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
                            f'device has compute capability {major}.{minor}')
     n, spec = objective.num_qubits, objective.unitary_loss_func
     ent, rot = objective.entangling_gate_name, objective.rotation_gates
+    dtype = objective.dtype
     placements = all_placements(objective.placements)
     nb = len(placements)
     nba = num_block_angles(ent, rot)
@@ -289,48 +318,51 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
         raise ValueError(f'params0 must be (P={P}, B), got '
                          f'{tuple(params0.shape)}')
     B = params0.shape[1]
-    params0 = params0.to(config.real_dtype).contiguous()
+    params0 = params0.to(dtype).contiguous()
     if grad_mask is not None:
         if tuple(grad_mask.shape) != (P, B):
             raise ValueError(f'grad_mask must be ({P}, {B}), got '
                              f'{tuple(grad_mask.shape)}')
-        grad_mask = grad_mask.to(device=device,
-                                 dtype=config.real_dtype).contiguous()
+        grad_mask = grad_mask.to(device=device, dtype=dtype).contiguous()
 
     loss = LOSS_CODES[spec.kind]
-    lib = load_library()
+    lib = load_library(dtype)
     cluster = lib.cpflow_sweep_cluster(n, nb, nba, loss)
     if not cluster:
         most = 1 if spec.kind == 'state' else CLUSTERS[-1]
         raise ValueError(
             f'{n} qubits with {nb} blocks need '
             f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, most)} bytes of '
-            f'shared memory per block even on {most} blocks a restart, above '
-            f'{_SMEM_LIMIT}')
+            f'shared memory per block in {dtype} even on {most} blocks a '
+            f'restart, above {_SMEM_LIMIT}' + (
+                ' (float64 doubles every tile: the whole unitary at 8 '
+                'qubits would need a cluster of 16 blocks, above the '
+                'portable 8)' if dtype == torch.float64 else ''))
 
     state = spec.kind == 'state'
     target = torch.as_tensor(np.asarray(spec.target),
-                             dtype=config.complex_dtype)
+                             dtype=config.complex_of(dtype))
     if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
         raise ValueError(f'target of shape {tuple(target.shape)} for a '
                          f'{n}-qubit {spec.kind!r} loss')
     target = torch.view_as_real(target.to(device).contiguous())
     if objective.has_penalty:
-        cp_mask = torch.as_tensor(objective.cp_mask, device=device)
+        cp_mask = torch.as_tensor(objective.cp_mask, dtype=dtype,
+                                  device=device)
         xs, ys = breakpoints(*objective.regularization_func.params)
         r = objective.r
     else:  # a zero mask and r = 0: any curve gives no penalty
-        cp_mask = torch.zeros(P, device=device, dtype=config.real_dtype)
+        cp_mask = torch.zeros(P, device=device, dtype=dtype)
         xs, ys = breakpoints(np.pi / 2, 2.0, .05, .05, .05)
         r = 0.0
     if isinstance(r, torch.Tensor):
         if tuple(r.shape) != (B,):
             raise ValueError(f'r must be a float or of shape ({B},), got '
                              f'{tuple(r.shape)}')
-        r = r.to(device=device, dtype=config.real_dtype).contiguous()
+        r = r.to(device=device, dtype=dtype).contiguous()
     else:
-        r = torch.full((B,), float(r), dtype=config.real_dtype, device=device)
-    pen_tab = torch.tensor(xs + ys, dtype=config.real_dtype, device=device)
+        r = torch.full((B,), float(r), dtype=dtype, device=device)
+    pen_tab = torch.tensor(xs + ys, dtype=dtype, device=device)
     letters = torch.tensor([LETTER_CODES[c] for c in rot] or [0],
                            dtype=torch.int32, device=device)
     wire_map, block_log2 = modulo_tables(n, spec.wires) \
@@ -343,11 +375,11 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     mom1 = torch.zeros_like(params0)
     mom2 = torch.zeros_like(params0)
     best_params = params0.clone()
-    summary = torch.empty((4, B), dtype=config.real_dtype, device=device)
+    summary = torch.empty((4, B), dtype=dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(it_begin, it_end):
-        global LAUNCHES
+        global LAUNCHES, F64_LAUNCHES
         err = lib.cpflow_sweep_launch(
             params.data_ptr(), mom1.data_ptr(), mom2.data_ptr(),
             best_params.data_ptr(), summary.data_ptr(), target.data_ptr(),
@@ -362,6 +394,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
                 f'on {cluster} blocks each)')
         LAUNCHES += 1
+        F64_LAUNCHES += dtype == torch.float64
 
     T = int(num_iterations)
     if B and target_loss is None:
@@ -393,7 +426,7 @@ def occupancy(objective, batch: int, device=None) -> dict:
                            objective.rotation_gates)
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
-        err = load_library().cpflow_sweep_occupancy(
+        err = load_library(objective.dtype).cpflow_sweep_occupancy(
             n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
     if err != 0:
         raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
@@ -415,29 +448,47 @@ def library_device(device) -> int:
     return out.value
 
 
+def route(objective, device) -> str:
+    """Where ``sweep`` takes the objective on a tensor of `device`, as the
+    module docstring says: 'plain' (a CPU tensor: sweep_reference), 'fused'
+    (the fused kernel) or 'unitary' (the Adam loop of sweep_reference over
+    the unitary kernels, for a custom loss or penalty). Raises for a device
+    other than the CPU and the card, and for a plain objective that would
+    need the unitary kernels."""
+    kind = torch.device(device).type
+    if kind == 'cpu':
+        return 'plain'
+    if kind != 'cuda':
+        raise ValueError(f'no sweep for device {device}')
+    if getattr(objective.unitary_loss_func, 'kind', 'custom') != 'custom' \
+            and linear_penalty(objective):
+        return 'fused'
+    if objective.plain:
+        raise ValueError('a custom loss or penalty on the card goes through '
+                         'the unitary kernels; this objective was made with '
+                         'plain=True')
+    return 'unitary'
+
+
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,
           num_iterations: int = 5000, grad_mask: Optional[torch.Tensor] = None,
           target_loss: Optional[float] = None) -> SweepResult:
     """The multi-start Adam sweep of `objective` (a
-    sim.batched.BatchedRegloss) from params0 (P, B), routed as the module
-    docstring says: the plain version for a CPU tensor; for a CUDA tensor
-    the fused kernel (a built-in loss) or the Adam loop over the unitary
-    kernels (a custom loss). Returns a SweepResult."""
-    if params0.device.type == 'cuda':
-        if getattr(objective.unitary_loss_func, 'kind', 'custom') != 'custom':
-            return _launch(objective, params0, learning_rate, num_iterations,
-                           grad_mask, target_loss)
-        if objective.plain:
-            raise ValueError('a custom loss on the card goes through the '
-                             'unitary kernels; this objective was made with '
-                             'plain=True')
+    sim.batched.BatchedRegloss) from params0 (P, B), routed by ``route``:
+    the plain version for a CPU tensor; for a CUDA tensor the fused kernel
+    (a built-in loss and the piecewise-linear penalty) or the Adam loop over
+    the unitary kernels (a custom loss or penalty). Returns a
+    SweepResult."""
+    how = route(objective, params0.device)
+    if how == 'fused':
+        return _launch(objective, params0, learning_rate, num_iterations,
+                       grad_mask, target_loss)
+    if how == 'unitary':
         if grad_mask is not None:
             grad_mask = grad_mask.to(device=params0.device,
                                      dtype=objective.dtype)
         return sweep_reference(objective, params0, learning_rate,
                                num_iterations, grad_mask, target_loss,
                                check_every=TARGET_CHECK_EVERY)
-    if params0.device.type == 'cpu':
-        return sweep_reference(objective, params0, learning_rate,
-                               num_iterations, grad_mask, target_loss)
-    raise ValueError(f'no sweep for device {params0.device}')
+    return sweep_reference(objective, params0, learning_rate, num_iterations,
+                           grad_mask, target_loss)

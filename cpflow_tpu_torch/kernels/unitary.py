@@ -8,21 +8,27 @@ Everything that is not Adam on a built-in loss needs the ansatz in this
 form: a loss given as a Python callable, a history of the optimization, the
 other first-order methods.
 
-  * ``ansatz_forward``: angles (P, B) -> U (B, d, C) complex64, C = 2^n
-    columns (``columns=None``) or the |0...0> column alone (``columns=[0]``);
+  * ``ansatz_forward``: angles (P, B) -> U (B, d, C), C = 2^n columns
+    (``columns=None``) or the |0...0> column alone (``columns=[0]``),
+    complex64 from float32 angles and complex128 from float64 ones;
   * ``ansatz_vjp``: angles, that U and its cotangent -> dL/dangles (P, B),
     by the adjoint walk of the sweep kernel: nothing is stored between the
     two but U itself;
   * ``AnsatzUnitary``: the autograd.Function over the pair;
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
-    ``AnsatzUnitary`` or raises (float32 only, sm_90 only, 2 to 8 qubits
-    for the whole unitary and 2 to 12 for one column); it never falls back.
-    On a CPU tensor it is the plain version,
+    ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 8
+    qubits for the whole unitary, 7 in float64, and 2 to 12 for one
+    column); it never falls back. On a CPU tensor it is the plain version,
     sim.batched.build_unitary_batched under ordinary autograd.
 
 Both kernels are csrc/unitary.cu (built with nvcc for sm_90a at first use,
 bound with ctypes); they share their gate algebra with the sweep kernel
-through csrc/gates.cuh.
+through csrc/gates.cuh. The source builds twice (kernels/build.py): in
+float for float32 angles and in double (-DCPFLOW_DOUBLE) for float64 ones,
+each tensor launching the build of its own dtype and never the other. The
+double build's tiles take twice the shared memory, so every size below
+takes a dtype; the vjp of the whole unitary at 8 qubits would need 16
+blocks a restart in double, above the portable cluster of 8, and raises.
 
 What bounds them, and the two designs. The paths that launch them hand
 over 5 to 800 restarts at 3 and 4 qubits, so the whole batch is resident at
@@ -78,6 +84,8 @@ from cpflow_tpu_torch.sim.batched import build_unitary_batched
 FORWARD_LAUNCHES = 0  # launches of the forward kernel since the last reset
 VJP_LAUNCHES = 0      # launches of the vjp kernel; the plain path adds none
 COLUMN_LAUNCHES = 0   # those of the two that ran the column design
+FORWARD_F64_LAUNCHES = 0  # those of the forward kernel in the double build
+VJP_F64_LAUNCHES = 0      # those of the vjp kernel in the double build
 
 MAX_QUBITS_UNITARY = 8   # the whole unitary, split over at most 8 blocks
 MAX_QUBITS_COLUMN = 12   # one column, on one block
@@ -86,6 +94,7 @@ LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
 DESIGNS = {'rows': 0, 'columns': 1}  # csrc/unitary.cu's numbering
+DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 COLUMN_THREADS = 64      # threads of a column kernel's block
 COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
 # csrc/unitary.cu's kernels, in kernel_of's order
@@ -94,33 +103,41 @@ KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1))
 
 
+def _scale(dtype) -> int:
+    """The bytes of the build's real type over float32's: 1 or 2."""
+    return 2 if dtype == torch.float64 else 1
+
+
 def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
-               cluster: int = 1) -> int:
+               cluster: int = 1, dtype=torch.float32) -> int:
     """Dynamic shared memory of each block of a restart split over
     `cluster` blocks in the row-split design, as csrc/unitary.cu's
-    make_layout lays it out: the tile of A (2^n x 2^log_c / cluster
-    amplitudes), the gates, the angles and the cos and sin of each; the vjp
-    also the tile of M, the gates' cotangents, the cross-warp partials and
-    the gradient."""
+    make_layout lays it out in the build of `dtype`: the tile of A (2^n x
+    2^log_c / cluster amplitudes), the gates, the angles and the cos and sin
+    of each; the vjp also the tile of M, the gates' cotangents, the
+    cross-warp partials and the gradient. All of the build's real or
+    complex type: the double build takes twice the float build's."""
     log_ct = log_c - (cluster.bit_length() - 1)
     P, G = 3 * n + nba * num_blocks, n + num_blocks
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
     out = (8 << (n + log_ct)) + 128 * G + 12 * P
     if vjp:
         out += (8 << (n + log_ct)) + 128 * G + 8 * threads + 4 * P
-    return out
+    return out * _scale(dtype)
 
 
 def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
-                 vjp: bool):
+                 vjp: bool, dtype=torch.float32):
     """The blocks each restart's columns are split over in the row-split
-    design, as csrc/unitary.cu's cluster_plan picks them: the smallest of 1,
-    2, 4, 8 (never more than the 2^log_c columns) whose per-block layout
-    fits one block's shared memory; None if none fits."""
+    design, as csrc/unitary.cu's cluster_plan picks them in the build of
+    `dtype`: the smallest of 1, 2, 4, 8 (never more than the 2^log_c
+    columns) whose per-block layout fits one block's shared memory; None if
+    none fits."""
     for c in CLUSTERS:
         if c > 1 << log_c:
             break
-        if smem_bytes(n, num_blocks, nba, log_c, vjp, c) <= _SMEM_LIMIT:
+        if smem_bytes(n, num_blocks, nba, log_c, vjp, c,
+                      dtype) <= _SMEM_LIMIT:
             return c
     return None
 
@@ -132,57 +149,63 @@ def column_lanes(n: int) -> int:
 
 
 def column_smem_bytes(n: int, num_blocks: int, nba: int, vjp: bool,
-                      restarts: int) -> int:
+                      restarts: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of a block of `restarts` restarts in the column
-    design, as csrc/columns.cuh's column_layout lays it out: per restart its
-    d x d state A, its G gate matrices, its P angles and the cos and sin of
-    each; the vjp also the state's cotangent M, each gate's 32-float
-    cotangent once per warp of the restart, and the gradient; and the G
-    gate codes, once."""
+    design, as csrc/columns.cuh's column_layout lays it out in the build of
+    `dtype`: per restart its d x d state A, its G gate matrices, its P
+    angles and the cos and sin of each; the vjp also the state's cotangent
+    M, each gate's 32-value cotangent once per warp of the restart, and the
+    gradient; and the G gate codes (int32), once. All but the codes are of
+    the build's real or complex type, twice as large in double."""
     P, G = 3 * n + nba * num_blocks, n + num_blocks
     slots = column_lanes(n) // 32
-    out = restarts * ((8 << 2 * n) + 128 * G + 12 * P) + 4 * G
+    out = restarts * ((8 << 2 * n) + 128 * G + 12 * P)
     if vjp:
         out += restarts * ((8 << 2 * n) + 128 * slots * G + 4 * P)
-    return out
+    return out * _scale(dtype) + 4 * G
 
 
 def column_restarts(n: int, num_blocks: int, nba: int, log_c: int,
-                    vjp: bool) -> int:
+                    vjp: bool, dtype=torch.float32) -> int:
     """Restarts a block of the column design holds, as csrc/columns.cuh's
-    column_restarts picks them: 64 threads' worth (2 restarts up to 5
-    qubits, 1 at 6), else 1 where that layout does not fit; 0 where the
-    column design does not take the shape (one column, n outside 2..6, or
-    no layout fits)."""
+    column_restarts picks them in the build of `dtype`: 64 threads' worth
+    (2 restarts up to 5 qubits, 1 at 6), else 1 where that layout does not
+    fit; 0 where the column design does not take the shape (one column, n
+    outside 2..6, or no layout fits)."""
     if log_c != n or not COLUMN_QUBITS[0] <= n <= COLUMN_QUBITS[1]:
         return 0
     r = max(COLUMN_THREADS // column_lanes(n), 1)
     while r >= 1:
-        if column_smem_bytes(n, num_blocks, nba, vjp, r) <= _SMEM_LIMIT:
+        if column_smem_bytes(n, num_blocks, nba, vjp, r,
+                             dtype) <= _SMEM_LIMIT:
             return r
         r //= 2
     return 0
 
 
-def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool):
+def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
+         dtype=torch.float32):
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
-    and its sizes: dict(design 'columns' or 'rows', threads_per_restart,
-    restarts_per_block, threads (a block), smem_bytes (a block),
-    blocks_per_restart); None if neither design holds the shape."""
-    r = column_restarts(n, num_blocks, nba, log_c, vjp)
+    in the build of `dtype`, and its sizes: dict(design 'columns' or 'rows',
+    threads_per_restart, restarts_per_block, threads (a block), smem_bytes
+    (a block), blocks_per_restart); None if neither design holds the
+    shape."""
+    r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
         return dict(design='columns', threads_per_restart=column_lanes(n),
                     restarts_per_block=r, threads=r * column_lanes(n),
-                    smem_bytes=column_smem_bytes(n, num_blocks, nba, vjp, r),
+                    smem_bytes=column_smem_bytes(n, num_blocks, nba, vjp, r,
+                                                 dtype),
                     blocks_per_restart=1)
-    c = cluster_plan(n, num_blocks, nba, log_c, vjp)
+    c = cluster_plan(n, num_blocks, nba, log_c, vjp, dtype)
     if c is None:
         return None
     log_ct = log_c - (c.bit_length() - 1)
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
     return dict(design='rows', threads_per_restart=threads * c,
                 restarts_per_block=1, threads=threads,
-                smem_bytes=smem_bytes(n, num_blocks, nba, log_c, vjp, c),
+                smem_bytes=smem_bytes(n, num_blocks, nba, log_c, vjp, c,
+                                      dtype),
                 blocks_per_restart=c)
 
 
@@ -194,9 +217,10 @@ def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1) -> str:
     return 'ansatz_vjp_cluster' if vjp and cluster > 1 else f'ansatz_{kind}'
 
 
-def load_library() -> ctypes.CDLL:
-    """Build csrc/unitary.cu (once per version of csrc/) and load it."""
-    lib = build.load('unitary')
+def load_library(dtype=torch.float32) -> ctypes.CDLL:
+    """Build csrc/unitary.cu in the precision of `dtype` (float32 or
+    float64; once per version of csrc/) and load it."""
+    lib = build.load(build.name_of('unitary', dtype == torch.float64))
     if lib.cpflow_unitary_launch.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
@@ -221,12 +245,13 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def registers(device) -> dict:
+def registers(device, dtype=torch.float32) -> dict:
     """{kernel name: dict(registers per thread, local_bytes per thread)} of
-    every kernel of csrc/unitary.cu on the CUDA `device`, from the CUDA
-    runtime (KERNELS names them: the row-split forward and vjp, the vjp's
-    cluster build, the column design's forward and vjp at 2 to 6 qubits)."""
-    lib = load_library()
+    every kernel of csrc/unitary.cu's build of `dtype` on the CUDA
+    `device`, from the CUDA runtime (KERNELS names them: the row-split
+    forward and vjp, the vjp's cluster build, the column design's forward
+    and vjp at 2 to 6 qubits)."""
+    lib = load_library(dtype)
     out = {}
     with torch.cuda.device(device):
         if lib.cpflow_unitary_kernel_count() != len(KERNELS):
@@ -242,13 +267,14 @@ def registers(device) -> dict:
     return out
 
 
-def occupancy(name: str, threads: int, nbytes: int, device) -> int:
-    """Resident blocks per SM of the kernel `name` (of KERNELS) at `threads`
-    threads and `nbytes` of dynamic shared memory a block, from the CUDA
-    runtime on `device`."""
+def occupancy(name: str, threads: int, nbytes: int, device,
+              dtype=torch.float32) -> int:
+    """Resident blocks per SM of the kernel `name` (of KERNELS) of the
+    build of `dtype` at `threads` threads and `nbytes` of dynamic shared
+    memory a block, from the CUDA runtime on `device`."""
     out = ctypes.c_int()
     with torch.cuda.device(device):
-        err = load_library().cpflow_unitary_occupancy(
+        err = load_library(dtype).cpflow_unitary_occupancy(
             KERNELS.index(name), threads, nbytes, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f'unitary kernel occupancy query failed: CUDA '
@@ -274,7 +300,7 @@ class _Shape:
     plan are queried once, not at every call."""
 
     def __init__(self, num_qubits, entangling_gate_name, rotation_gates,
-                 placements, columns, B, device, vjp):
+                 placements, columns, B, device, vjp, dtype):
         n = num_qubits
         major, minor = torch.cuda.get_device_capability(device)
         if (major, minor) != (9, 0):
@@ -308,7 +334,9 @@ class _Shape:
         self.P = 3 * n + self.nba * self.nb
         self.B = B
         self.udims = (B, 1 << n, 1 << self.log_c)
-        self.lib = load_library()
+        self.dtype = dtype
+        self.cdtype = config.complex_of(dtype)
+        self.lib = load_library(dtype)
         with torch.cuda.device(device):
             args = (n, self.nb, self.nba, self.log_c, int(vjp))
             self.cluster = self.lib.cpflow_unitary_cluster(*args)
@@ -321,8 +349,11 @@ class _Shape:
                     n, self.nb, self.nba, self.log_c, int(vjp), most)
             raise ValueError(
                 f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
-                f'shared memory per block even on {most} blocks a restart, '
-                f'above {_SMEM_LIMIT}')
+                f'shared memory per block in {dtype} even on {most} blocks a '
+                f'restart, above {_SMEM_LIMIT}' + (
+                    ' (float64 doubles every tile: the whole unitary at 8 '
+                    'qubits would need a cluster of 16 blocks, above the '
+                    'portable 8)' if dtype == torch.float64 else ''))
 
     def launch(self, angles, u, ubar, grad, vjp, design):
         """Launches on the angles' card: the library configures and
@@ -344,9 +375,9 @@ class _Shape:
 
 @functools.lru_cache(maxsize=256)
 def _shape(num_qubits, entangling_gate_name, rotation_gates, placements,
-           columns, B, device, vjp) -> _Shape:
+           columns, B, device, vjp, dtype) -> _Shape:
     return _Shape(num_qubits, entangling_gate_name, rotation_gates,
-                  placements, columns, B, device, vjp)
+                  placements, columns, B, device, vjp, dtype)
 
 
 def _checked(num_qubits, entangling_gate_name, rotation_gates, placements,
@@ -356,16 +387,16 @@ def _checked(num_qubits, entangling_gate_name, rotation_gates, placements,
     if angles.device.type != 'cuda':
         raise ValueError(f'the unitary kernels run on a CUDA tensor, got '
                          f'one on {angles.device}')
-    if angles.dtype != torch.float32:
-        raise ValueError(f'the unitary kernels compute in float32, got '
-                         f'{angles.dtype}')
+    if angles.dtype not in DTYPES:
+        raise ValueError(f'the unitary kernels compute in float32 or '
+                         f'float64, got {angles.dtype}')
     layer, num_layers = placements['layers']
     key = tuple(tuple(p) for p in layer) * num_layers + \
         tuple(tuple(p) for p in placements['free'])
     shape = _shape(num_qubits, entangling_gate_name, rotation_gates, key,
                    None if columns is None else tuple(columns),
                    angles.shape[1] if angles.dim() == 2 else -1,
-                   angles.device, vjp)
+                   angles.device, vjp, angles.dtype)
     if angles.dim() != 2 or angles.shape[0] != shape.P:
         raise ValueError(f'angles must be (P={shape.P}, B), got '
                          f'{tuple(angles.shape)}')
@@ -379,21 +410,23 @@ def ansatz_forward(num_qubits: int, entangling_gate_name: str,
                    rotation_gates: str, placements: dict,
                    angles: torch.Tensor, columns=None,
                    design=None) -> torch.Tensor:
-    """angles (P, B) float32 on the card -> the ansatz unitaries
-    (B, d, C) complex64, one contiguous row-major d x C matrix per restart in
-    the index order of sim.ansatz_kernel.build_unitary; C = 2^n, or 1 with
-    columns=[0]. Launches the forward kernel in the plan's design (or in
-    `design`, 'rows' or 'columns'), or raises."""
-    global FORWARD_LAUNCHES, COLUMN_LAUNCHES
+    """angles (P, B) on the card -> the ansatz unitaries (B, d, C), one
+    contiguous row-major d x C matrix per restart in the index order of
+    sim.ansatz_kernel.build_unitary; C = 2^n, or 1 with columns=[0];
+    complex64 from float32 angles, complex128 from float64 ones, each
+    through its own build. Launches the forward kernel in the plan's design
+    (or in `design`, 'rows' or 'columns'), or raises."""
+    global FORWARD_LAUNCHES, COLUMN_LAUNCHES, FORWARD_F64_LAUNCHES
     angles = angles.detach().contiguous()
     shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
                      placements, angles, columns, False, design)
     design = design or shape.design
-    u = torch.empty(shape.udims, dtype=torch.complex64, device=angles.device)
+    u = torch.empty(shape.udims, dtype=shape.cdtype, device=angles.device)
     if shape.B:
         shape.launch(angles, u, None, None, False, design)
         FORWARD_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
+        FORWARD_F64_LAUNCHES += shape.dtype == torch.float64
     return u
 
 
@@ -404,18 +437,19 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
     """The gradient (P, B) of a real L with respect to the angles, from
     u = ansatz_forward(angles), (B, d, C), and grad_u, (B, d, C): the
     gradient of L with respect to u in PyTorch's convention for complex
-    tensors, dL/dRe u + i dL/dIm u. Launches the vjp kernel in the plan's
-    design (or in `design`), or raises."""
-    global VJP_LAUNCHES, COLUMN_LAUNCHES
+    tensors, dL/dRe u + i dL/dIm u; both complex of the angles' precision.
+    Launches the vjp kernel in the plan's design (or in `design`), or
+    raises."""
+    global VJP_LAUNCHES, COLUMN_LAUNCHES, VJP_F64_LAUNCHES
     angles = angles.detach().contiguous()
     shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
                      placements, angles, columns, True, design)
     design = design or shape.design
     for name, t in (('u', u), ('grad_u', grad_u)):
-        if tuple(t.shape) != shape.udims or t.dtype != torch.complex64 or \
+        if tuple(t.shape) != shape.udims or t.dtype != shape.cdtype or \
                 t.device != angles.device:
-            raise ValueError(f'{name} must be complex64 {shape.udims} on '
-                             f'{angles.device}, got {t.dtype} '
+            raise ValueError(f'{name} must be {shape.cdtype} {shape.udims} '
+                             f'on {angles.device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
     # the column design copies each restart's slab 16 bytes at a time
     u, grad_u = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else
@@ -425,6 +459,7 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
         shape.launch(angles, u, grad_u, grad, True, design)
         VJP_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
+        VJP_F64_LAUNCHES += shape.dtype == torch.float64
     return grad
 
 
@@ -463,7 +498,8 @@ def build_unitary(num_qubits: int, entangling_gate_name: str,
                   dtype=None) -> torch.Tensor:
     """angles (P, B) -> the batched unitary (2,)*n + (cols, B),
     differentiable in the angles: through the kernels for a CUDA tensor
-    (float32 only; it raises otherwise and never falls back), the plain
+    (float32 through the float build, float64 through the double build; it
+    raises on any other dtype and never falls back or casts), the plain
     sim.batched.build_unitary_batched for a CPU tensor."""
     angles = torch.as_tensor(angles)
     if angles.device.type == 'cpu':
@@ -471,9 +507,9 @@ def build_unitary(num_qubits: int, entangling_gate_name: str,
                                      rotation_gates, placements, angles,
                                      columns=columns, dtype=dtype)
     dtype = dtype or config.real_dtype
-    if dtype != torch.float32:
-        raise ValueError(f'the unitary kernels compute in float32, asked '
-                         f'for {dtype}')
+    if dtype not in DTYPES:
+        raise ValueError(f'the unitary kernels compute in float32 or '
+                         f'float64, asked for {dtype}')
     return AnsatzUnitary.apply(angles.to(dtype), num_qubits,
                                entangling_gate_name, rotation_gates,
                                placements, columns)

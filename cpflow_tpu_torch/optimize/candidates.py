@@ -309,7 +309,11 @@ def convert_cp_to_cz(anz, angles, threshold=0.2, *, device=None):
     projected_all = project_cp_angles(
         angles[torch.as_tensor(cp_indices, device=angles.device)],
         threshold=threshold).cpu().numpy()
-    snapped = (projected_all == 0.0) | (projected_all == np.float32(np.pi))
+    # pi as a Python float, as the JAX package compares: numpy takes it in
+    # the array's own precision, so it is float32 pi for a float32 array and
+    # float64 pi for a float64 one (a float32 scalar would be widened to
+    # 3.14159274... against a float64 array and never match)
+    snapped = (projected_all == 0.0) | (projected_all == np.pi)
     projected_values = projected_all[snapped]
     projected_indices = [int(i) for i in cp_indices[snapped]]
     free = [i for i in range(len(angles)) if i not in projected_indices]

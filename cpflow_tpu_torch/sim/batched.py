@@ -290,7 +290,8 @@ class BatchedRegloss:
     objective serves the restarts of several adaptive trials. A state loss
     builds only the |0...0> column (``columns``); a custom loss always
     takes the whole unitary. dtype is the real dtype the objective computes
-    in (default config.real_dtype; the kernels take float32 only).
+    in (default config.real_dtype; the kernels take float32 and float64,
+    each through its own build).
 
     Calling the objective builds the unitary with
     kernels.unitary.build_unitary: on a CUDA tensor through the forward and

@@ -12,10 +12,13 @@
     kernels (csrc/unitary.cu), and ``roofline_model``, the sweep's model
     per restart-iteration under the JAX function's name.
 
-The bound of a kernel is the larger of two times: the float32 operations
-its algorithm needs over the card's float32 rate outside the tensor cores,
-and the bytes it must move (each input read once, each output written
-once) over the card's memory rate.
+The bound of a kernel is the larger of two times: the operations its
+algorithm needs over the card's rate outside the tensor cores for their
+type (float32, or float64 for the double builds), and the bytes it must
+move (each input read once, each output written once) over the card's
+memory rate. Every function of the work and the bound takes the dtype of
+the build (``dtype``, float32 by default): float64 halves the peak rate
+and doubles every real and complex byte.
 """
 
 from __future__ import annotations
@@ -27,10 +30,24 @@ from dataclasses import dataclass, field
 from typing import List
 
 # H100 SXM5 (80 GB HBM3), NVIDIA's published rates for the card at its
-# 700 W board power (H100 datasheet): 67 TFLOP/s float32 outside the
-# tensor cores, 3.35 TB/s of HBM3 bandwidth.
+# 700 W board power (H100 datasheet): 67 TFLOP/s float32 and 34 TFLOP/s
+# float64 outside the tensor cores (the data sheet's "FP64"; its 67 TFLOP/s
+# "FP64 Tensor Core" takes matrix products the kernels do not make), 3.35
+# TB/s of HBM3 bandwidth.
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
+
+
+def precision(dtype='float32'):
+    """(bytes of one real, peak operations per second) of float32 or
+    float64, given as a torch dtype or its name."""
+    name = str(dtype).replace('torch.', '')
+    if name == 'float32':
+        return 4, PEAK_F32
+    if name == 'float64':
+        return 8, PEAK_F64
+    raise ValueError(f'the kernels build in float32 or float64, not {dtype}')
 
 
 @contextlib.contextmanager
@@ -106,7 +123,7 @@ class Throughput:
 # The work and the bound of the kernels
 # --------------------------------------------------------------------------
 
-# float32 operations of one restart-iteration (a complex product 6, a
+# operations of one restart-iteration (a complex product 6, a
 # complex sum 2, a sine or cosine 1). `needed` is what the sweep's
 # algorithm needs, the numerator of its bound:
 #  - per amplitude of the d x C state: a 1q gate's forward pass 14 and its
@@ -132,9 +149,11 @@ class Throughput:
 # and sin (112(m - 1) a block), and the kernel computes the penalty of
 # every angle (masked by cp_mask) in the evaluation and again in the Adam
 # pass (2 x 22 per angle).
-def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None):
-    """dict(P angles, target entries, needed and executed float32
-    operations of one restart-iteration) of a sweep."""
+def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None,
+               dtype='float32'):
+    """dict(P angles, target entries, needed and executed operations of one
+    restart-iteration, and real_bytes and peak of the build's dtype) of a
+    sweep."""
     from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
     d, m = 2 ** n, len(rot)
     P = 3 * n + num_block_angles(ent, rot) * nb
@@ -149,23 +168,25 @@ def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None):
         'cp': 109, 'cz': 16, 'cx': 0}[ent]) * nb + 18 * P
     needed = common + 22 * nb * (ent == 'cp')
     executed = common + 112 * max(m - 1, 0) * nb + 44 * P
-    return dict(P=P, target=amps, needed=needed, executed=executed)
+    real_bytes, peak = precision(dtype)
+    return dict(P=P, target=amps, needed=needed, executed=executed,
+                real_bytes=real_bytes, peak=peak)
 
 
 def bound_ms(work, B, T):
     """(least time in ms, 'operations' or 'bytes') for a sweep of B restarts
     over T steps of sweep_work's `work`: its needed operations over the
-    float32 peak, or the bytes it must move (initial angles, mask, target
-    and r read, best angles and summary written) over the memory rate,
-    whichever is larger."""
-    P = work['P']
-    nbytes = 4 * (3 * P * B + 5 * B + P) + 8 * work['target']
-    t_ops = work['needed'] * B * T / PEAK_F32 * 1e3
+    peak of its dtype, or the bytes it must move (initial angles, mask,
+    target and r read, best angles and summary written) over the memory
+    rate, whichever is larger."""
+    P, rb = work['P'], work['real_bytes']
+    nbytes = rb * (3 * P * B + 5 * B + P) + 2 * rb * work['target']
+    t_ops = work['needed'] * B * T / work['peak'] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-# float32 operations of one forward pass and of one adjoint walk of the
+# operations of one forward pass and of one adjoint walk of the
 # ansatz, with sweep_work's terms: per amplitude of the d x C state a 1q
 # gate costs 14 forwards and 44 in the walk, a 2q gate 30 and 92; the cos and
 # sin of every angle 3; a surface gate's build 112 and its gradients 161; a
@@ -173,9 +194,10 @@ def bound_ms(work, B, T):
 # signs) and its gradients 368 + 102(m - 1) + 2m (+ 85 for CP, 12 for CZ).
 # The walk needs the gates too, so it builds them again; it also halves and
 # conjugates the cotangent (2 per amplitude).
-def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None):
-    """dict(P, amplitudes, forward and vjp float32 operations of one
-    restart, forward and vjp bytes of one restart) of the unitary kernels."""
+def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None, dtype='float32'):
+    """dict(P, amplitudes, forward and vjp operations of one restart,
+    forward and vjp bytes of one restart in `dtype`) of the unitary
+    kernels."""
     from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
     m = len(rot)
     P = 3 * n + num_block_angles(ent, rot) * nb
@@ -186,21 +208,24 @@ def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None):
     vjp = gates + amps * (44 * n + 92 * nb + 2) + 161 * n + (
         368 + 102 * max(m - 1, 0) + 2 * m + {'cp': 85, 'cz': 12, 'cx': 0}[ent]
     ) * nb
+    rb = precision(dtype)[0]
     return dict(P=P, amps=amps, forward=forward, vjp=vjp,
-                forward_bytes=4 * P + 8 * amps,
-                vjp_bytes=8 * P + 16 * amps)
+                forward_bytes=rb * P + 2 * rb * amps,
+                vjp_bytes=2 * rb * P + 4 * rb * amps)
 
 
-def unitary_bound_ms(ops, nbytes, B):
-    """(least time in ms, 'operations' or 'bytes') of B restarts."""
-    t_ops = ops * B / PEAK_F32 * 1e3
+def unitary_bound_ms(ops, nbytes, B, dtype='float32'):
+    """(least time in ms, 'operations' or 'bytes') of B restarts in the
+    build of `dtype`."""
+    t_ops = ops * B / precision(dtype)[1] * 1e3
     t_bytes = nbytes * B / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def roofline_model(num_qubits: int, num_cp_gates: int,
                    rotation_gates: str = 'xyz', kind: str = 'hst',
-                   reversible: bool = True, num_wires=None) -> dict:
+                   reversible: bool = True, num_wires=None,
+                   dtype='float32') -> dict:
     """The fused sweep kernel's work per restart-iteration at the CP
     template of `num_cp_gates` blocks, and its H100 bound.
 
@@ -222,7 +247,8 @@ def roofline_model(num_qubits: int, num_cp_gates: int,
     stored); reversible=False, a stored tape, is no mode of the kernel and
     raises. kind: 'hst', 'disc', 'state', 'modulo_identity' or
     'modulo_diagonal' (num_wires: the wires of a modulo loss, default
-    all).
+    all). dtype: the build, float32 or float64 (the double build's bound
+    divides by the float64 peak and counts 8-byte reals).
 
     Returns {'flops', 'executed_flops', 'hbm_bytes', 'num_angles',
     'bound_ms_per_restart_iteration', 'bound_by'}; the bound is of one
@@ -233,11 +259,11 @@ def roofline_model(num_qubits: int, num_cp_gates: int,
     if kind.startswith('modulo') and num_wires is None:
         num_wires = num_qubits
     work = sweep_work(num_qubits, num_cp_gates, rotation_gates, 'cp', kind,
-                      num_wires)
-    P = work['P']
-    per_restart_bytes = 4 * (3 * P + 5)
-    shared_bytes = 4 * P + 8 * work['target']
-    t_ops = work['needed'] / PEAK_F32 * 1e3
+                      num_wires, dtype)
+    P, rb = work['P'], work['real_bytes']
+    per_restart_bytes = rb * (3 * P + 5)
+    shared_bytes = rb * P + 2 * rb * work['target']
+    t_ops = work['needed'] / work['peak'] * 1e3
     return {'flops': work['needed'], 'executed_flops': work['executed'],
             'hbm_bytes': per_restart_bytes + shared_bytes, 'num_angles': P,
             'bound_ms_per_restart_iteration': t_ops,

@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Compares the machine code of two trees' kernel sources, build by build.
+
+Run from the root of the repository, on a machine with the CUDA toolkit:
+
+    python3 sass_diff.py OLD/cpflow_tpu_torch/csrc cpflow_tpu_torch/csrc
+
+for example with OLD an earlier commit unpacked by ``git archive`` into
+``build/``. Each ``.cu`` file present in both directories is compiled
+with nvcc for sm_90a into a cubin under build/sass/ (all compilers side
+by side), with the flags of kernels/build.py and any extra flags given
+after ``--`` (``-- -DCPFLOW_DOUBLE`` compares the double builds).
+``cuobjdump -sass`` then lists each cubin's instructions; the hash that
+nvcc puts into the names of an unnamed namespace (it differs between two
+paths of one file) is masked. It prints, for every source, the number of
+lines of each listing and whether they are identical, and exits 1 if any
+differs.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+import re
+import subprocess
+import sys
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from cpflow_tpu_torch.kernels import build  # noqa: E402
+
+OUT = ROOT / 'build' / 'sass'
+FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3']
+
+
+def sass(cubin: Path, cuobjdump: str) -> list:
+    """The instructions of a cubin, one stripped line each, names masked."""
+    text = subprocess.run([cuobjdump, '-sass', str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    text = re.sub(r'_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+', 'ANON',
+                  text)
+    return [line.strip() for line in text.splitlines()
+            if line.strip() and 'code for sm' not in line]
+
+
+def main(argv) -> int:
+    extra = argv[argv.index('--') + 1:] if '--' in argv else []
+    dirs = [Path(a) for a in (argv[:argv.index('--')] if '--' in argv
+                              else argv)]
+    if len(dirs) != 2:
+        print(__doc__)
+        return 2
+    OUT.mkdir(parents=True, exist_ok=True)
+    sources = sorted(p.name for p in dirs[0].glob('*.cu')
+                     if (dirs[1] / p.name).exists())
+    jobs = []
+    for side, d in enumerate(dirs):
+        for name in sources:
+            cubin = OUT / f'{side}_{name}.cubin'
+            jobs.append((cubin, subprocess.Popen(
+                [build.nvcc(), '-cubin', *FLAGS, *extra, '-o', str(cubin),
+                 str(d / name)])))
+    if any(proc.wait() != 0 for _, proc in jobs):
+        print('nvcc failed')
+        return 1
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), 'cuobjdump')
+    same = True
+    for name in sources:
+        a, b = (sass(OUT / f'{side}_{name}.cubin', cuobjdump)
+                for side in (0, 1))
+        same &= a == b
+        print(f'{name} {" ".join(extra)}: {len(a)} and {len(b)} lines of '
+              f'SASS, identical: {a == b}')
+    return 0 if same else 1
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))

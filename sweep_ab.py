@@ -90,7 +90,7 @@ def main(argv) -> int:
     times = [[[] for _ in rows] for _ in libs]
     order = list(range(len(libs)))
     for i in order + order[::-1]:
-        sk._lib = libs[i]
+        sk._libs[torch.float32] = libs[i]
         for r, (_, (obj, init, mask), T) in enumerate(rows):
             sk.sweep(obj, init, 0.1, 2, mask)
             ms = min(c.timed(lambda: sk.sweep(obj, init, 0.1, T, mask))[1]

@@ -103,8 +103,9 @@ def test_kernel_refuses_what_it_does_not_compute():
 def test_plain_version_in_float64_through_the_objective_dtype(kind):
     """An objective built with dtype float64 runs the plain sweep in float64
     throughout (the arbiter chip_smoke.py uses on deep templates); it agrees
-    with the float32 objective to float32 rounding, and the kernel refuses
-    it."""
+    with the float32 objective to float32 rounding. The kernel takes both,
+    each through its own build (float64 through the double build), and
+    refuses any other dtype."""
     target = _ghz(3) if kind == 'state' else u_ccz3
     wires = [0, 2] if kind == 'modulo_diagonal' else None
     made = [_problem(3, 4, 'xz', target, 0.002, 5, seed=4, kind=kind,
@@ -119,8 +120,11 @@ def test_plain_version_in_float64_through_the_objective_dtype(kind):
     torch.testing.assert_close(a.regloss0.double(), b.regloss0,
                                atol=1e-5 * scale, rtol=0)
     sk._check_objective(o32)
-    with pytest.raises(ValueError, match='float32'):
-        sk._check_objective(o64)
+    sk._check_objective(o64)
+    o16 = _problem(3, 4, 'xz', target, 0.002, 5, seed=4, kind=kind,
+                   wires=wires, dtype=torch.float16)[0]
+    with pytest.raises(ValueError, match='float32 or float64'):
+        sk._check_objective(o16)
 
 
 def test_synthesize_runs_on_the_card_unless_asked_for_the_cpu():

@@ -207,3 +207,58 @@ def test_no_module_of_the_port_imports_jax():
     assert len(files) > 21
     for path in files:
         assert not pattern.search(path.read_text()), path
+
+
+DOUBLE_SCRIPT = r'''
+import sys
+for name in ('jax', 'jaxlib', 'optax', 'dill', 'cpflow_tpu', 'cpflow'):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from cpflow_tpu_torch import api, config
+from cpflow_tpu_torch.kernels import sweep, unitary
+from cpflow_tpu_torch.ops.gates import u_ccz3
+from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
+from cpflow_tpu_torch.topology import chain_layer
+from cpflow_tpu_torch.utils import profiling
+config.set_precision(True)
+try:
+    synth = api.Synthesize(chain_layer(3), target_unitary=u_ccz3,
+                           device='cpu')
+    opts = api.StaticOptions(num_cp_gates=3, num_samples=4,
+                             num_gd_iterations=5, accepted_num_cz_gates=100,
+                             entry_loss=1.0,
+                             num_gd_iterations_at_verification=5)
+    synth.static(opts, save_results=False, verbose=False)
+    assert set(synth.stage_seconds) == {'sampling', 'verification',
+                                        'decomposition'}
+    ev = synth._raw_and_evaluate(opts)
+    assert ev.angles.dtype == np.float64 and ev.loss.dtype == np.float64
+    objective = synth._objective(synth._ansatz(opts), 0.001)
+    assert objective.dtype == torch.float64
+    assert sweep.route(objective, 'cuda') == 'fused'
+    l1 = api.Synthesize(chain_layer(3), target_unitary=u_ccz3, device='cpu',
+                        cp_regularization_func=cp_penalty_L1)
+    assert sweep.route(l1._objective(l1._ansatz(opts), 0.001),
+                       'cuda') == 'unitary'
+    l1.static(opts, save_results=False, verbose=False)
+    assert sweep.cluster_plan(7, 24, 7, 'hst', torch.float64) == 4
+    assert unitary.plan(8, 16, 7, 8, True, torch.float64) is None
+    assert profiling.bound_ms(profiling.sweep_work(
+        3, 12, dtype=torch.float64), 1024, 2000)[1] == 'operations'
+finally:
+    config.set_precision(False)
+assert config.real_dtype == torch.float32
+print('ok')
+'''
+
+
+def test_port_runs_in_float64_without_jax():
+    """A tiny static synthesis in float64 (config.set_precision(True)), with
+    the piecewise-linear and the L1 penalty, and the double builds' plans
+    and bounds, with the JAX modules blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, '-c', DOUBLE_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('ok')

@@ -150,3 +150,42 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert os.path.getsize(path) > 0
     events = json.loads(path.read_text())['traceEvents']
     assert any('mm' in str(e.get('name', '')) for e in events)
+
+
+def test_float64_peak_and_bytes():
+    """The double builds' bound divides by the H100's float64 rate outside
+    the tensor cores (34 TFLOP/s, half the float32 rate) and counts 8-byte
+    reals and 16-byte amplitudes."""
+    assert prof.PEAK_F64 == 34e12 and prof.PEAK_F64 < prof.PEAK_F32
+    assert prof.precision('float64') == (8, 34e12)
+    assert prof.precision(torch.float32) == (4, prof.PEAK_F32)
+    with pytest.raises(ValueError):
+        prof.precision(torch.float16)
+    w32, w64 = prof.sweep_work(3, 12), prof.sweep_work(3, 12,
+                                                       dtype=torch.float64)
+    assert w64['needed'] == w32['needed'] and w64['real_bytes'] == 8
+    ms32, by32 = prof.bound_ms(w32, 1024, 2000)
+    ms64, by64 = prof.bound_ms(w64, 1024, 2000)
+    assert by32 == by64 == 'operations'
+    assert ms64 == pytest.approx(ms32 * prof.PEAK_F32 / prof.PEAK_F64)
+    # one step moves bytes only: twice the float32 build's
+    assert prof.bound_ms(w64, 1, 0) == (2 * prof.bound_ms(w32, 1, 0)[0],
+                                        'bytes')
+
+
+def test_float64_unitary_bound_and_roofline():
+    u32, u64 = prof.unitary_work(3, 12), prof.unitary_work(
+        3, 12, dtype='float64')
+    assert u64['forward'] == u32['forward'] and u64['vjp'] == u32['vjp']
+    assert u64['forward_bytes'] == 2 * u32['forward_bytes']
+    assert u64['vjp_bytes'] == 2 * u32['vjp_bytes']
+    ms, by = prof.unitary_bound_ms(u64['vjp'], u64['vjp_bytes'], 1024,
+                                   dtype='float64')
+    assert by == 'operations'
+    assert ms == pytest.approx(u64['vjp'] * 1024 / 34e12 * 1e3)
+    m32, m64 = prof.roofline_model(3, 12), prof.roofline_model(
+        3, 12, dtype=torch.float64)
+    assert m64['flops'] == m32['flops']
+    assert m64['hbm_bytes'] == 2 * m32['hbm_bytes']
+    assert m64['bound_ms_per_restart_iteration'] == pytest.approx(
+        m32['bound_ms_per_restart_iteration'] * 67 / 34)
