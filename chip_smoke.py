@@ -176,8 +176,8 @@ with CUDA, and never imports JAX. Phases:
      time; (b) the sweep kernel against its plain float64 version, 60 steps,
      at six shapes (the static CCZ's sampling shape, 5q k=20, a 10q state,
      4q modulo-diagonal, fixed 'cz' with 'xz', 7q on 4 blocks), each plan
-     held against the library's, within F64_LOSS0_TOL and F64_BEST_TOL, and
-     8 qubits refused; (c) ansatz_forward and ansatz_vjp against the plain
+     held against the library's, within F64_LOSS0_TOL and F64_BEST_TOL (8
+     qubits: phase 19); (c) ansatz_forward and ansatz_vjp against the plain
      float64 builder under autograd in both designs at 3q, 5q and 7q (rows
      only), within F64_UNITARY_TOL and F64_GRAD_TOL; then after
      config.set_precision(True): (d) the static CCZ (3q chain, k=12, 1024
@@ -192,10 +192,29 @@ with CUDA, and never imports JAX. Phases:
      timed beside its float32 build in turns (CUDA events) at phase 5's 3q
      and 5q sweep shapes and at 3q k=12 B=1024 and 5q k=20 B=2048 for the
      unitary kernels, with the float64 bound (utils/profiling.py, PEAK_F64).
-     float32 is restored in `finally`.
+     float32 is restored in `finally`;
+ 19. what clusters of 16 blocks (non-portable on Hopper) and a 13-qubit
+     state open: (a) the sweep kernel against its plain version at (G) 8q
+     chain Toffoli-8 'xz' k=16 B=32 in float64 (phase 15's (w)), (H) 7q
+     k=200 B=8 T=10 in float64 and (I) 8q k=240 B=8 T=10 in float32, each
+     on 16 blocks, and (J) the 13q GHZ state k=48 B=64 on one block; the
+     unitary kernels (row-split) at 8q k=16 B=16 in float64 and 8q k=270
+     B=4 in float32, the vjp on 16 blocks, against the plain builder under
+     autograd; each with its plan, the clusters the card holds, its time
+     and its share of the bound; (b) Synthesize.static on the 8q chain for
+     the CX ladder in float64 (k=9, 7 CZ at host loss <= 1e-6), every sweep
+     launch the double build on 16 blocks; (c) a custom loss at 8q in
+     float64 (the ladder's HS test as a torch callable) through the
+     unitary kernels, the vjp on 16 blocks, against the plain float64
+     route; (d) GHZ-13 in float32 with the state loss: Synthesize.static's
+     stages from 1024 random restarts at k=14 (what it finds printed), and
+     the warm-start protocol of 15 (b) from the exact 12-CZ embedding,
+     which must bring a noisy row back to a verified 12-CZ circuit at
+     float64 host state loss <= 1e-6; then 9 qubits whole, 14-qubit states
+     and 13-qubit states in float64 refused, each with its reason.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
-(d)-(f)) runs with
+(d)-(f), 19 (b)-(d)) runs with
 the kernels' launch counts set to 0 just before it and read just after
 (16 (a) and (d) in their own processes). Every shape's
 plan (blocks a restart, shared bytes per block) is held against the
@@ -1138,19 +1157,20 @@ def unitary_shapes():
     ]
 
 
-def unitary_plan(n, nb, nba, log_c, name, dtype=None):
+def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
     """(forward, vjp) plans of the unitary kernels (kernels/unitary.py:plan:
     design, threads a restart, restarts a block, shared bytes a block, blocks
     a restart), each held against the library's own (cpflow_unitary_design,
     and cpflow_unitary_column_restarts and _column_smem_bytes for the column
     design, cpflow_unitary_cluster and _smem_bytes for the row-split one),
-    in the build of `dtype` (default float32)."""
+    in the build of `dtype` (default float32); passes: the vjp flags of
+    the plans to give, both by default."""
     import torch
     from cpflow_tpu_torch.kernels import unitary as uk
     dtype = dtype or torch.float32
     lib = uk.load_library(dtype)
     out = []
-    for vjp in (False, True):
+    for vjp in passes:
         mine = uk.plan(n, nb, nba, log_c, vjp, dtype)
         what = 'vjp' if vjp else 'forward pass'
         design = lib.cpflow_unitary_design(n, nb, nba, log_c, int(vjp))
@@ -1855,12 +1875,12 @@ def build_warm_batch(angles, cp_mask, batch, seed):
     return out, sig_of_row
 
 
-def ladder7():
-    """The 7-qubit CX ladder CX(0,1), then CX(1,2), ..., CX(5,6): 6 CZ on
-    the chain, and no fewer."""
+def cx_ladder(n):
+    """The n-qubit CX ladder CX(0,1), then CX(1,2), ..., CX(n-2,n-1): n - 1
+    CZ on the chain, and no fewer."""
     from cpflow_tpu_torch.circuits.ir import Circuit
-    qc = Circuit(7)
-    for q in range(6):
+    qc = Circuit(n)
+    for q in range(n - 1):
         qc.cx(q, q + 1)
     return qc.unitary()
 
@@ -1912,10 +1932,10 @@ def seven_shapes():
              k=144, target=t7, placements=cz144, B=64, r=0.0001, lr=0.1,
              T=20, arbiter=True, cluster=2),
         dict(name=f'(z1) static sampling 7q chain CX ladder k={LADDER_K} '
-             f'B={LADDER_SAMPLES}', n=7, k=LADDER_K, target=ladder7(),
+             f'B={LADDER_SAMPLES}', n=7, k=LADDER_K, target=cx_ladder(7),
              B=LADDER_SAMPLES, r=StaticOptions.r, lr=0.1, cluster=2),
         dict(name=f'(z2) verification 7q chain CX ladder k={LADDER_K} B=8',
-             n=7, k=LADDER_K, target=ladder7(), B=8, cluster=2, **verify),
+             n=7, k=LADDER_K, target=cx_ladder(7), B=8, cluster=2, **verify),
         dict(name="(z3) verification on the Toffoli-7 composite's 144 "
              "placements B=8", n=7, k=144, target=t7, placements=cz144, B=8,
              T=20, cluster=2, **verify),
@@ -2074,7 +2094,7 @@ def phase_ladder7():
     from cpflow_tpu_torch.api import StaticOptions, Synthesize
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.topology import chain_layer
-    ladder = ladder7()
+    ladder = cx_ladder(7)
     synth = Synthesize(chain_layer(7), target_unitary=ladder)
     options = StaticOptions(num_cp_gates=LADDER_K, num_samples=LADDER_SAMPLES,
                             accepted_num_cz_gates=6)
@@ -2774,15 +2794,9 @@ def phase_double(card):
         check(e0 <= F64_LOSS0_TOL and e <= F64_BEST_TOL,
               f'{s["name"]}: float64 kernel against plain float64: initial '
               f'{e0:.3e}, best {e:.3e}')
+    # 8 qubits in float64 (phase 15's (w), 16 blocks a restart): phase 19
+    # (a), row (G)
     nba = num_block_angles('cp', 'xyz')
-    t8 = multi_controlled_x(8)
-    obj8, _ = make_objective(8, 16, t8, 0.002, rot='xz', dtype=F64)
-    try:
-        sk.sweep(obj8, uniform_inits(3 * 8 + 5 * 16, 4, 0, 'cuda').to(F64),
-                 0.1, 2)
-        raise PhaseError('the float64 sweep took 8 qubits')
-    except ValueError as e:
-        check('cluster of 16' in str(e), f'8q float64 refused for {e}')
 
     # (c) the unitary kernels against the plain float64 builder
     uerr = {'ansatz_forward_f64': 0.0, 'ansatz_vjp_f64': 0.0}
@@ -3006,7 +3020,8 @@ def phase_double(card):
               f'{occ["local_bytes"]} local bytes, {occ["threads"]} threads, '
               f'{occ["smem_bytes"]} shared bytes, {occ["blocks_per_sm"]} '
               f'blocks per SM', flush=True)
-        sweep_rows.append(dict(shape=s['name'], T=T, ms=m64, ms_f32=m32,
+        sweep_rows.append(dict(shape=s['name'], T=T, cluster=occ['cluster'],
+                               ms=m64, ms_f32=m32,
                                plain_ms=plain_ms, plain_T=T_plain,
                                bound_ms=b_ms, bound_by=b_by,
                                registers=occ['registers'],
@@ -3070,7 +3085,8 @@ def phase_double(card):
                   f'{regs64[kname]["registers"]} registers, '
                   f'{regs64[kname]["local_bytes"]} local bytes', flush=True)
             unitary_rows[name].append(dict(
-                shape=f'{n}q chain k={k} B={B}', design=p['design'], ms=m64,
+                shape=f'{n}q chain k={k} B={B}', design=p['design'],
+                cluster=p['blocks_per_restart'], ms=m64,
                 ms_f32=m32, device_ms=d64, device_ms_f32=d32,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 registers=regs64[kname]['registers'],
@@ -3109,6 +3125,630 @@ def phase_double(card):
             'bound_by': row['bound_by'], 'library_ms': None,
             'shapes': unitary_rows[name]})
     return lines
+
+
+# ------------------------------------------------------------ phase 19
+
+# Phase 19's choices, stated before its first run on the card. (b) the 8q
+# CX ladder: LADDER8_SAMPLES restarts of LADDER8_STEPS sampling steps and at
+# most 2000 verification steps, k = 9 on the chain, accepting 7 CZ. (c) the
+# custom loss: B = 8 restarts; the kernels and the plain route held to
+# F64_LOSS0_TOL and F64_BEST_TOL over 60 steps, and over CUSTOM8_STEPS
+# steps to a best loss within CUSTOM8_TOL of each other (float64 roundoff
+# that Adam amplifies: in C.10 a one-ulp change of the initial angles moved
+# the angles by 7.8e-8 after 400 steps, so a loss off its minimum moves by
+# about that much, far above 1e-9 and far below a loss that differs). (d)
+# GHZ-13: the search from GHZ13_SAMPLES random restarts at k = GHZ13_K,
+# GHZ13_STEPS steps, then the warm start from the exact embedding.
+LADDER8_K, LADDER8_SAMPLES, LADDER8_STEPS = 9, 64, 2000
+CUSTOM8_STEPS, CUSTOM8_TOL = 300, 1e-6
+GHZ13_K, GHZ13_SAMPLES, GHZ13_STEPS = 14, 1024, 2000
+
+
+def sixteen_shapes():
+    """Phase 19 (a)'s sweep rows, as phase 3's shapes: the shapes that no
+    cluster of at most 8 blocks holds, each with its dtype (default
+    float32), its steps T where not 60 and the blocks a restart must run
+    on. (G) is phase 15's (w) in float64, which phase 18 refused before
+    clusters of 16; (H) is phase 15's (x) deepened in float64; (I) 8
+    qubits deeper than 8 blocks hold in float32; (J) the 13-qubit state,
+    one block a restart."""
+    import torch
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x
+    t7, t8 = multi_controlled_x(7), multi_controlled_x(8)
+    F64 = torch.float64
+    return [
+        dict(name="(G) 8q chain Toffoli-8 'xz' k=16 B=32 float64", n=8, k=16,
+             target=t8, rot='xz', B=32, r=0.002, lr=0.1, cluster=16,
+             dtype=F64),
+        dict(name='(H) 7q chain Toffoli-7 k=200 B=8 T=10 float64', n=7,
+             k=200, target=t7, B=8, r=0.002, lr=0.1, T=10, cluster=16,
+             dtype=F64),
+        dict(name='(I) 8q chain Toffoli-8 k=240 B=8 T=10', n=8, k=240,
+             target=t8, B=8, r=0.002, lr=0.1, T=10, cluster=16),
+        dict(name='(J) state 13q GHZ k=48 B=64', n=13, k=48, target=ghz(13),
+             kind='state', B=64, r=0.001, lr=0.1, cluster=1),
+    ]
+
+
+def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
+    """Prints one phase 19 (a) sweep row's plan, occupancy, times and share
+    of its bound; returns its timing row."""
+    import torch
+    dtype = s.get('dtype', torch.float32)
+    wires = s.get('wires')
+    work = sweep_work(s['n'], s['k'], s.get('rot', 'xyz'), s.get('ent', 'cp'),
+                      s.get('kind', 'hst'), len(wires) if wires else None,
+                      dtype=dtype)
+    b_ms, b_by = bound_ms(work, s['B'], T)
+    print(f'{label}: {s["name"]} on {card}: {c} block(s) a restart of '
+          f'{occ["threads"]} threads and {occ["smem_bytes"]} shared bytes, '
+          f'{occ["registers"]} registers and {occ["local_bytes"]} local bytes '
+          f'a thread, {occ["blocks_per_sm"]} block(s) per SM, '
+          f'{occ["active_clusters"]} clusters of {c} resident; T={T}: kernel '
+          f'{ms:.2f} ms (CUDA events), plain {plain_ms:.2f} ms; bound '
+          f'{b_ms:.3f} ms by {b_by} ({str(dtype)[6:]}), share '
+          f'{b_ms / ms:.2%}', flush=True)
+    return dict(shape=s['name'], T=T, cluster=c,
+                smem_bytes=occ['smem_bytes'], registers=occ['registers'],
+                active_clusters=occ['active_clusters'], ms=ms,
+                plain_ms=plain_ms, plain_T=T, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_sixteen_sweeps(card):
+    """Phase 19 (a), the sweep: every row of sixteen_shapes against its
+    plain version on the card, the plan held against the library's. The
+    float32 rows as phase 3 holds its shapes (phase_compare: the initial
+    loss within 1e-5, the best losses by drift_ok); the float64 rows within
+    F64_LOSS0_TOL and F64_BEST_TOL, each launch of the double build
+    counted. Every row must run on the blocks it names and the card must
+    hold at least one of its clusters. Returns (largest error of the
+    float32 rows, of the float64 rows, float32 timing rows, float64 timing
+    rows)."""
+    import torch
+    from cpflow_tpu_torch.kernels import sweep as sk
+    F64 = torch.float64
+    rows32, rows64, worst32, worst64 = [], [], 0.0, 0.0
+    for s in sixteen_shapes():
+        dtype = s.get('dtype', torch.float32)
+        T = s.get('T', 60)
+        obj, P = shape_objective(s, dtype)
+        c, nbytes, occ = check_plan(obj, s['B'], s['name'])
+        check(c == s['cluster'] and occ['active_clusters'] >= 1,
+              f'{s["name"]}: {c} blocks a restart, {occ["active_clusters"]} '
+              f'clusters resident')
+        if dtype == torch.float32:
+            err, _, (row,) = phase_compare([s], 'phase 19 (a)')
+            worst32 = max(worst32, err)
+            rows32.append(sweep_row(s, c, occ, row['ms'], row['plain_ms'], T,
+                                    card, 'phase 19 (a)'))
+            continue
+        init = uniform_inits(P, s['B'], s.get('seed', 19), 'cuda').to(F64)
+        before = (sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[c])
+        got, ms = timed(lambda: sk.sweep(obj, init, s['lr'], T))
+        check((sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[c]) ==
+              (before[0] + 1, before[1] + 1) and got.best_loss.dtype == F64,
+              f'{s["name"]}: the double build on {c} blocks did not run')
+        want, plain_ms = timed(lambda: sk.sweep_reference(obj, init, s['lr'],
+                                                          T))
+        e0 = scaled_err(got.regloss0, want.regloss0).max().item()
+        e = scaled_err(got.best_loss, want.best_loss).max().item()
+        worst64 = max(worst64, e)
+        print(f'phase 19 (a): {s["name"]}: initial loss err {e0:.3e} (tol '
+              f'{F64_LOSS0_TOL}), best loss err {e:.3e} (tol {F64_BEST_TOL})',
+              flush=True)
+        check(e0 <= F64_LOSS0_TOL and e <= F64_BEST_TOL,
+              f'{s["name"]}: float64 kernel against plain float64: initial '
+              f'{e0:.3e}, best {e:.3e}')
+        rows64.append(sweep_row(s, c, occ, ms, plain_ms, T, card,
+                                'phase 19 (a)'))
+    return worst32, worst64, rows32, rows64
+
+
+# (n, k, rot, B, dtype, passes) of phase 19 (a)'s unitary rows, passes the
+# vjp flags driven, the last of them on 16 blocks: the vjp in float64 at
+# 8q k=16 and in float32 deeper than 8 blocks hold; the forward pass alone
+# (no cluster: 16 independent blocks) in float64 where only 16 hold it,
+# beyond the vjp's reach
+SIXTEEN_UNITARY = [(8, 16, 'xyz', 16, 'float64', (False, True)),
+                   (8, 270, 'xyz', 4, 'float32', (False, True)),
+                   (8, 240, 'xyz', 2, 'float64', (False,))]
+
+
+def phase_sixteen_unitary(card):
+    """Phase 19 (a), the unitary kernels: ansatz_forward and ansatz_vjp at
+    SIXTEEN_UNITARY's shapes against the plain builder of the same dtype
+    under autograd on the card (a random complex cotangent), each plan held
+    against the library's; the float64 rows within F64_UNITARY_TOL and
+    F64_GRAD_TOL, the float32 ones within phase 12's 2e-5 and 1e-4 (scaled
+    by max(1, |gradient|)); each row's last pass must run on 16 blocks and
+    the card hold at least one of its clusters (the vjp) or blocks (the
+    forward pass). Prints each pass's plan, resident blocks or clusters,
+    its time alone on the card (profiler) and by CUDA events, its bound and
+    share. Returns (largest errors by kernel line name, timing rows by
+    kernel line name)."""
+    import torch
+    from cpflow_tpu_torch.api import Ansatz
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.sim.batched import build_unitary_batched
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    errs, rows = {}, {}
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    for n, k, rot, B, dname, passes in SIXTEEN_UNITARY:
+        dtype = getattr(torch, dname)
+        f64 = dtype == torch.float64
+        suffix = '_f64' if f64 else ''
+        tol_u, tol_g = (F64_UNITARY_TOL, F64_GRAD_TOL) if f64 else (2e-5, 1e-4)
+        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
+        nba = num_block_angles('cp', rot)
+        name = f'{n}q chain k={k} {rot!r} B={B} {dname}'
+        plans = dict(zip(passes, unitary_plan(n, k, nba, n, name, dtype,
+                                              passes)))
+        last = 'vjp' if passes[-1] else 'forward pass'
+        check(plans[passes[-1]]['blocks_per_restart'] == 16,
+              f'{name}: the {last} on '
+              f'{plans[passes[-1]]["blocks_per_restart"]} blocks')
+        vjp_too = True in passes
+        angles = uniform_inits(anz.num_angles, B, 19, 'cuda').to(dtype)
+        ap = angles.clone().requires_grad_(vjp_too)
+        up = build_unitary_batched(n, 'cp', rot, anz.placements, ap,
+                                   dtype=dtype)
+        up = up.reshape(2 ** n, 2 ** n, B).permute(2, 0, 1)
+        if vjp_too:
+            g = torch.randn(up.shape, dtype=up.dtype, device='cuda',
+                            generator=gen)
+            (gp,) = torch.autograd.grad((up * g.conj()).real.sum(), ap,
+                                        retain_graph=True)
+        before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
+                  uk.VJP_LAUNCHES_BY_CLUSTER[16])
+        u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles)
+        eg = 0.0
+        if vjp_too:
+            gk = uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g)
+            eg = ((gk - gp).abs() / gp.abs().clamp(min=1.0)).max().item()
+        torch.cuda.synchronize()
+        check((uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
+               uk.VJP_LAUNCHES_BY_CLUSTER[16]) ==
+              (before[0] + 1, before[1] + vjp_too, before[2] + vjp_too),
+              f'{name}: the kernels did not run (the vjp on 16 blocks)')
+        eu = (u - up.detach()).abs().max().item()
+        check(eu <= tol_u and eg <= tol_g, f'{name}: unitary err {eu:.3e}, '
+              f'gradient err {eg:.3e} (tol {tol_u}, {tol_g})')
+        regs = uk.registers('cuda', dtype)
+        work = unitary_work(n, k, rot, dtype=dtype)
+        for vjp, plan in plans.items():
+            line = ('ansatz_vjp' if vjp else 'ansatz_forward') + suffix
+            errs[line] = max(errs.get(line, 0.0), eg if vjp else eu)
+            c = plan['blocks_per_restart']
+            kname = uk.kernel_name('rows', vjp, n, c)
+            call = (lambda: uk.ansatz_vjp(n, 'cp', rot, anz.placements,
+                                          angles, u, g)) if vjp else \
+                (lambda: uk.ansatz_forward(n, 'cp', rot, anz.placements,
+                                           angles))
+            alone = device_ms(call, TRACE_NAMES[('rows', vjp)])
+            _, ms = timed(call)
+            if vjp:
+                _, plain_ms = timed(lambda: torch.autograd.grad(
+                    (up * g.conj()).real.sum(), ap, retain_graph=True))
+            else:
+                _, plain_ms = timed(lambda: build_unitary_batched(
+                    n, 'cp', rot, anz.placements, angles, dtype=dtype))
+            resident = uk.active_clusters(plan['threads'], plan['smem_bytes'],
+                                          c, 'cuda', dtype) if vjp else \
+                uk.occupancy(kname, plan['threads'], plan['smem_bytes'],
+                             'cuda', dtype)
+            check(resident >= 1, f'{name}: the card holds no {kname} of '
+                  f'{c} blocks')
+            b_ms, b_by = unitary_bound_ms(
+                work['vjp' if vjp else 'forward'],
+                work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
+            share = f'{b_ms / alone:.2%}' if alone else 'not measured'
+            print(f'phase 19 (a): {line} {name} on {card}: {plan_text(plan)}, '
+                  + (f'{resident} clusters of {c} resident' if vjp else
+                     f'{resident} block(s) per SM')
+                  + f', {regs[kname]["registers"]} registers, '
+                  f'{regs[kname]["local_bytes"]} local bytes; unitary err '
+                  f'{eu:.3e}, gradient err {eg:.3e} (tol {tol_u}, {tol_g}); '
+                  f'kernel alone (profiler) {alone} ms, one wrapper call '
+                  f'(CUDA events) {ms:.4f} ms, plain {plain_ms:.3f} ms; bound '
+                  f'{b_ms:.4f} ms by {b_by}, share of the kernel alone '
+                  f'{share}', flush=True)
+            rows.setdefault(line, []).append(dict(
+                shape=name, design='rows', cluster=c,
+                active_clusters=resident if vjp else None, ms=ms,
+                device_ms=alone, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, registers=regs[kname]['registers'],
+                local_bytes=regs[kname]['local_bytes']))
+    return errs, rows
+
+
+def phase_ladder8(dtype=None, samples=LADDER8_SAMPLES, steps=LADDER8_STEPS):
+    """Phase 19 (b): Synthesize.static at 8 qubits on the chain, target the
+    CX ladder (CX(0,1) first, then CX(1,2), ..., CX(6,7)), which needs 7 CZ:
+    k = LADDER8_K, `samples` restarts of `steps` sampling steps, at most
+    2000 verification steps, accepting 7 CZ, in `dtype` (default float64,
+    under config.set_precision(True), float32 restored in `finally`). Needs
+    the kernel in both stages, every launch the build of `dtype` on the
+    plan's blocks (16 in float64, 8 in float32), and a verified 7-CZ
+    decomposition at float64 host loss <= 1e-6. Returns the launches."""
+    import torch
+    from cpflow_tpu_torch import config
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.topology import chain_layer
+    dtype = dtype or torch.float64
+    f64 = dtype == torch.float64
+    ladder = cx_ladder(8)
+    c = sk.cluster_plan(8, LADDER8_K, num_block_angles('cp', 'xyz'), 'hst',
+                        dtype)
+    check(c == (16 if f64 else 8), f'8q ladder: {c} blocks a restart')
+    config.set_precision(f64)
+    try:
+        synth = Synthesize(chain_layer(8), target_unitary=ladder)
+        options = StaticOptions(num_cp_gates=LADDER8_K, num_samples=samples,
+                                num_gd_iterations=steps,
+                                num_gd_iterations_at_verification=2000,
+                                accepted_num_cz_gates=7)
+        sk.LAUNCHES = sk.F64_LAUNCHES = 0
+        sk.LAUNCHES_BY_CLUSTER.clear()
+        start = time.perf_counter()
+        results = synth.static(options, save_results=False, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, n64 = sk.LAUNCHES, sk.F64_LAUNCHES
+        by_cluster = dict(sk.LAUNCHES_BY_CLUSTER)
+    finally:
+        config.set_precision(False)
+    check(launches >= 2 and n64 == (launches if f64 else 0) and
+          by_cluster == {c: launches},
+          f'8q ladder in {dtype}: {launches} launches, {n64} of them float64, '
+          f'by blocks a restart {by_cluster}: not every launch of both stages '
+          f'the {dtype} build on {c} blocks')
+    hosts = sorted((d.cz_count, hst64(d.circuit.unitary(), ladder))
+                   for d in results.decompositions)
+    good = [h for h in hosts if h[1] <= 1e-6]
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 19 (b): static 8q chain CX ladder in {dtype}, k='
+          f'{LADDER8_K}, {samples} samples, {steps} steps: {len(hosts)} '
+          f'verified, CZ counts {dict(Counter(h[0] for h in hosts))}, '
+          f'{len(good)} at host loss <= 1e-6, best {good[:1]}; sweep '
+          f'launches {launches} ({n64} float64) on {c} blocks a restart; '
+          f'wall {wall:.3f} s ({stages})', flush=True)
+    check(good and good[0][0] == 7, f'8q ladder in {dtype}: no 7-CZ '
+          f'decomposition at host loss <= 1e-6: {hosts[:8]}')
+    return launches
+
+
+def phase_custom8(card):
+    """Phase 19 (c): a custom loss at 8 qubits in float64, the 8q CX ladder's
+    HS test as a torch callable, on the chain at k = LADDER8_K: the sweep
+    (sweep() routes a custom loss to the Adam loop over the unitary
+    kernels) from 8 restarts, against the plain float64 route (the same
+    loop over the plain builder, plain=True) from the same angles, both
+    over 60 steps (held to F64_LOSS0_TOL and F64_BEST_TOL) and over
+    CUSTOM8_STEPS steps (best losses within CUSTOM8_TOL). Every launch of
+    the unitary kernels must be the double build, the vjp on 16 blocks, and
+    the plain builder must not be called on the kernels' route. Returns
+    (forward launches, vjp launches)."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import Ansatz, RegularizationOptions
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.ops.penalty import make_regularization_function
+    from cpflow_tpu_torch.sim.batched import make_batched_regloss
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    F64, n, B = torch.float64, 8, 8
+    ladder = on_device(cx_ladder(8))
+    hs = lambda u: 1 - torch.abs((ladder(u).conj() * u).sum()) ** 2 / 65536
+    anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), LADDER8_K))
+    objs = [make_batched_regloss(
+        n, 'cp', 'xyz', anz.placements, hs, cp_mask=anz.cp_mask,
+        r=0.00055, regularization_func=make_regularization_function(
+            RegularizationOptions), dtype=F64, plain=plain)
+        for plain in (False, True)]
+    check(sk.route(objs[0], 'cuda') == 'unitary', '8q custom loss: not '
+          'routed to the unitary kernels')
+    init = uniform_inits(anz.num_angles, B, 190, 'cuda').to(F64)
+    out = {}
+    with PlainBuilderWatch() as watch:
+        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = sk.LAUNCHES = 0
+        uk.FORWARD_F64_LAUNCHES = uk.VJP_F64_LAUNCHES = 0
+        uk.VJP_LAUNCHES_BY_CLUSTER.clear()
+        start = time.perf_counter()
+        for T in (60, CUSTOM8_STEPS):
+            out[T] = sk.sweep(objs[0], init, 0.1, T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
+                  uk.FORWARD_F64_LAUNCHES, uk.VJP_F64_LAUNCHES,
+                  dict(uk.VJP_LAUNCHES_BY_CLUSTER), sk.LAUNCHES, watch.calls)
+    fwd, vjp, f64f, f64v, by_cluster, fused, plain_calls = counts
+    check(fwd > CUSTOM8_STEPS and vjp >= CUSTOM8_STEPS and (f64f, f64v) ==
+          (fwd, vjp) and by_cluster == {16: vjp} and fused == 0 and
+          plain_calls == 0,
+          f'8q custom loss in float64: forward {fwd} ({f64f} float64), vjp '
+          f'{vjp} ({f64v}; by blocks {by_cluster}), fused {fused}, plain '
+          f'builder {plain_calls}')
+    start = time.perf_counter()
+    ref = {T: sk.sweep_reference(objs[1], init, 0.1, T)
+           for T in (60, CUSTOM8_STEPS)}
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - start
+    e0 = scaled_err(out[60].regloss0, ref[60].regloss0).max().item()
+    e60 = scaled_err(out[60].best_loss, ref[60].best_loss).max().item()
+    eT = scaled_err(out[CUSTOM8_STEPS].best_loss,
+                    ref[CUSTOM8_STEPS].best_loss).max().item()
+    best = out[CUSTOM8_STEPS].best_loss
+    print(f'phase 19 (c): custom loss (8q CX ladder HS test, a torch '
+          f'callable) in float64 on {card}, chain k={LADDER8_K} B={B}: '
+          f'initial loss err {e0:.3e} (tol {F64_LOSS0_TOL}), best after 60 '
+          f'steps err {e60:.3e} (tol {F64_BEST_TOL}), after {CUSTOM8_STEPS} '
+          f'err {eT:.3e} (tol {CUSTOM8_TOL}); best losses '
+          f'{np.round(np.sort(best.cpu().numpy()), 6).tolist()}; forward '
+          f'launches {fwd}, vjp {vjp} on 16 blocks, all float64; wall '
+          f'{wall:.3f} s, plain route {plain_wall:.3f} s', flush=True)
+    check(e0 <= F64_LOSS0_TOL and e60 <= F64_BEST_TOL and eT <= CUSTOM8_TOL
+          and bool(torch.isfinite(best).all()),
+          f'8q custom loss in float64 against the plain route: {e0:.3e}, '
+          f'{e60:.3e}, {eT:.3e}')
+    return fwd, vjp
+
+
+def state_of(circuit):
+    """The circuit applied to |0...0> in float64 on the host (qubit 0 the
+    most significant bit): its first column, without the 2^n x 2^n unitary
+    that Circuit.unitary builds (1 GiB at 13 qubits)."""
+    import numpy as np
+    n = circuit.num_qubits
+    psi = np.zeros([2] * n, dtype=np.complex128)
+    psi[(0,) * n] = 1
+    for inst in circuit.instructions:
+        k = len(inst.qubits)
+        g = inst.gate_matrix().astype(np.complex128).reshape([2] * (2 * k))
+        psi = np.tensordot(g, psi, axes=[list(range(k, 2 * k)),
+                                         list(inst.qubits)])
+        psi = np.moveaxis(psi, list(range(k)), list(inst.qubits))
+    return psi.reshape(-1)
+
+
+def ghz_circuits(anz, angles, target):
+    """[(CZ count, float64 host state loss)] of the circuits of verified
+    angles, each CP gate projected as circuits.passes.cp_to_cz_circuit
+    projects it at Decomposition's threshold 1e-6 (near 0 dropped, near pi
+    a CZ, any other angle its two-CZ realization), without that pass's
+    check, which builds two 2^n x 2^n unitaries; the state by state_of."""
+    import math
+    import numpy as np
+    from cpflow_tpu_torch.circuits.ir import Circuit, Instruction
+    from cpflow_tpu_torch.circuits.passes import _residual_cp_as_cz_rz
+    t64 = np.asarray(target, dtype=np.complex128)
+    t64 = t64 / np.linalg.norm(t64)  # the float32 target, unit in float64
+    out = []
+    for a in angles:
+        qc = anz.circuit(list(np.asarray(a, dtype=float)))
+        proj = Circuit(qc.num_qubits)
+        for inst in qc.instructions:
+            if inst.name != 'cp':
+                proj.instructions.append(inst.copy())
+            elif abs(inst.param - math.pi) <= 1e-6:
+                proj.instructions.append(Instruction('cz', inst.qubits))
+            elif abs(inst.param) > 1e-6:
+                proj.instructions.extend(_residual_cp_as_cz_rz(
+                    inst.param, *inst.qubits))
+        out.append((proj.gates_count(['cz']),
+                    float(1 - abs(t64.conj() @ state_of(proj)) ** 2)))
+    return sorted(out)
+
+
+def phase_ghz13_search(k=None, samples=None, steps=None):
+    """Phase 19 (d), the search: GHZ-13 state preparation in float32 on the
+    chain, Synthesize.static's stages with the state loss at k blocks
+    (default GHZ13_K), `samples` restarts (GHZ13_SAMPLES) of `steps`
+    sampling steps (GHZ13_STEPS), accepting 12 CZ (n - 1, the fewest on the
+    chain): the seeded sampling sweep, the entry filter and the
+    verification sweep, as static runs them, each verified angle vector's
+    circuit checked on the host by ghz_circuits (a Decomposition would
+    build the 2^13 x 2^13 unitary, minutes on the host). Needs the kernel
+    on one block a restart; what it finds is printed, not required:
+    random restarts at 13 qubits stall at a product state (loss 0.5), and
+    phase_ghz13_warm holds the 12-CZ state. Returns the launches."""
+    import torch
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.optimize import candidates as cand
+    from cpflow_tpu_torch.topology import chain_layer
+    k, samples = k or GHZ13_K, samples or GHZ13_SAMPLES
+    steps = steps or GHZ13_STEPS
+    target = ghz(13)
+    synth = Synthesize(chain_layer(13), target_state=target)
+    options = StaticOptions(num_cp_gates=k, num_samples=samples,
+                            num_gd_iterations=steps, r=0.001,
+                            accepted_num_cz_gates=12)
+    sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_CLUSTER.clear()
+    start = time.perf_counter()
+    ev = synth._raw_and_evaluate(options)
+    sampled = time.perf_counter() - start
+    prospective = cand.filter_prospective(ev, threshold_cz_count=12,
+                                          threshold_loss=options.entry_loss)
+    found = []
+    if len(prospective):
+        anz = synth._ansatz(options)
+        ver = synth._verify(anz, ev.angles[prospective], options)
+        found = ghz_circuits(anz, ver.best_angles[ver.success], target)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+    under = ev.loss <= options.entry_loss
+    print(f'phase 19 (d): GHZ-13 search on the 13q chain in float32, static '
+          f'k={k}, {samples} samples, {steps} steps: sampled losses (least '
+          f'four) {sorted(round(float(x), 6) for x in ev.loss)[:4]}, CZ '
+          f'counts under entry {dict(Counter(int(c) for c in ev.cz[under]))}'
+          f', {len(prospective)} prospective, verified (CZ, host loss) '
+          f'{found[:4]}; sweep launches {launches} by blocks a restart '
+          f'{by_cluster}; wall {wall:.3f} s (sampling {sampled:.3f} s)',
+          flush=True)
+    check(launches >= 1 and by_cluster == {1: launches},
+          f'GHZ-13 search: {launches} launches, by blocks a restart '
+          f'{by_cluster}')
+    return launches
+
+
+@functools.lru_cache(maxsize=2)
+def ghz_program(n):
+    """(placements, exact angles) of the n-qubit GHZ preparation on the
+    chain, H on qubit 0 then CX(0,1), ..., CX(n-2,n-1), each CX as H CZ H:
+    n - 1 CZ, embedded exactly in the CP ansatz by the port's
+    circuits.to_ansatz.circuit_to_ansatz."""
+    from cpflow_tpu_torch.circuits.ir import Circuit
+    from cpflow_tpu_torch.circuits.to_ansatz import circuit_to_ansatz
+    qc = Circuit(n)
+    qc.h(0)
+    for q in range(n - 1):
+        qc.h(q + 1)
+        qc.cz(q, q + 1)
+        qc.h(q + 1)
+    placements, angles = circuit_to_ansatz(qc)
+    return [list(p) for p in placements], angles
+
+
+def phase_ghz13_warm(B=64, T=500):
+    """Phase 19 (d), from the exact embedding: the warm-start protocol of
+    phase 15 (b) on GHZ-13 in float32 (the state loss, the 12-CZ ladder
+    embedded exactly, k = 12): a warm batch of B (build_warm_batch, seed
+    0) through engine.minimize_fused at r = 1e-4 and the verification's
+    learning rate 0.01 for T steps, then verify_candidates_batch on every
+    row under the entry loss. Needs a noisy row (sigma > 0) that started
+    above the entry loss to end under it and verify as a 12-CZ
+    decomposition at float64 host state loss <= 1e-6, every launch on one
+    block a restart. Returns the launches."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import Ansatz, BasicOptions, LossSpec
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.optimize import candidates as cand
+    from cpflow_tpu_torch.optimize import engine
+    n, target = 13, ghz(13)
+    placements, exact = ghz_program(n)
+    pl = {'layers': [[], 0], 'free': placements}
+    anz = Ansatz(n, 'cp', pl, 'xyz')
+    obj, _ = make_objective(n, len(placements), target, 1e-4, kind='state',
+                            placements=pl)
+    warm, sigma = build_warm_batch(exact.astype(np.float32),
+                                   np.asarray(anz.cp_mask, dtype=np.float64),
+                                   B, 0)
+    entry = BasicOptions.entry_loss
+    spec = LossSpec('state', target=target)
+    sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_CLUSTER.clear()
+    start = time.perf_counter()
+    raw = engine.minimize_fused(obj, torch.tensor(warm, device='cuda'),
+                                learning_rate=0.01, num_iterations=T)
+    loss0 = raw.loss[:, 0].cpu().numpy()
+    best = raw.loss[:, 1].cpu().numpy()
+    below = np.nonzero(best <= entry)[0]
+    check(len(below) > 0, f'GHZ-13: no row under entry {entry}: '
+          f'{np.sort(best)[:4]}')
+    ver = cand.verify_candidates_batch(
+        spec, anz, raw.params[torch.as_tensor(below, device='cuda'), 1]
+        .cpu().numpy(), learning_rate=0.01, num_iterations=2000,
+        target_loss=1e-6, device='cuda')
+    torch.cuda.synchronize()
+    launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+    back = [j for j in np.nonzero(ver.success)[0]
+            if sigma[below[j]] > 0 and loss0[below[j]] > entry]
+    hosts = ghz_circuits(anz, ver.best_angles[back], target)
+    wall = time.perf_counter() - start
+    print(f'phase 19 (d): GHZ-13 from its exact 12-CZ embedding, warm batch '
+          f'of {B}, {T} steps at lr 0.01: {len(below)} rows under entry '
+          f'{entry}, {int(ver.success.sum())} verified, {len(back)} noisy '
+          f'rows brought back from above entry and verified, (CZ, host '
+          f'loss) {hosts[:4]}; sweep launches {launches} by blocks a '
+          f'restart {by_cluster}; wall {wall:.3f} s', flush=True)
+    check(launches >= 2 and by_cluster == {1: launches},
+          f'GHZ-13: {launches} launches, by blocks a restart {by_cluster}')
+    check(hosts and hosts[0][0] == 12 and hosts[0][1] <= 1e-6,
+          f'GHZ-13: no noisy row brought back to a 12-CZ circuit at host '
+          f'loss <= 1e-6: {hosts[:4]}')
+    return launches
+
+
+def phase_sixteen(card):
+    """Phase 19: the shapes that clusters of 16 blocks and a 13-qubit state
+    open. (a) the sweep kernel at sixteen_shapes and the unitary kernels at
+    SIXTEEN_UNITARY against their plain versions; (b) the static 8q CX
+    ladder in float64 (phase_ladder8); (c) a custom loss at 8 qubits in
+    float64 (phase_custom8); (d) GHZ-13 in float32, a search from random
+    restarts (phase_ghz13_search) and the warm start from the exact
+    12-CZ embedding (phase_ghz13_warm); then 9
+    qubits whole, 14-qubit states and 13-qubit states in float64 refused,
+    each with its reason, and no kernel launched by them. Returns (largest
+    errors by kernel line name, timing rows by kernel line name, sweep
+    launches by path and dtype, unitary launches by path)."""
+    start = time.perf_counter()
+    worst32, worst64, rows32, rows64 = phase_sixteen_sweeps(card)
+    errs, rows = phase_sixteen_unitary(card)
+    errs.update(sweep=worst32, sweep_f64=worst64)
+    rows.update(sweep=rows32, sweep_f64=rows64)
+    launches = {'sweep': {}, 'sweep_f64': {}}
+    launches['sweep_f64']['static_ladder8_f64'] = phase_ladder8()
+    launches['sweep']['ghz13_search'] = phase_ghz13_search()
+    launches['sweep']['ghz13_warm'] = phase_ghz13_warm()
+    unitary_launches = {'custom_ladder8_f64': phase_custom8(card)}
+    refuse_beyond_plans()
+    print(f'phase 19: {time.perf_counter() - start:.1f} s', flush=True)
+    return errs, rows, launches, unitary_launches
+
+
+def refuse_beyond_plans():
+    """Phase 19's refusals: 9 qubits whole, a 14-qubit state and a 13-qubit
+    state in float64, by the sweep and by the unitary kernels, each with
+    its reason and no kernel launched."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    F64 = torch.float64
+    before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+    refusals = [
+        ('9q whole unitary, sweep', '2 to 8 qubits', lambda: sk.sweep(
+            make_objective(9, 2, np.eye(512, dtype=np.complex64), 0.0)[0],
+            uniform_inits(3 * 9 + 14, 2, 0, 'cuda'), 0.1, 1)),
+        ('14q state, sweep', '2 to 13 qubits', lambda: sk.sweep(
+            make_objective(14, 2, ghz(14), 0.0, kind='state')[0],
+            uniform_inits(3 * 14 + 14, 2, 0, 'cuda'), 0.1, 1)),
+        ('13q state in float64, sweep', '2 to 12 qubits', lambda: sk.sweep(
+            make_objective(13, 2, ghz(13), 0.0, kind='state', dtype=F64)[0],
+            uniform_inits(3 * 13 + 14, 2, 0, 'cuda').to(F64), 0.1, 1)),
+        ('9q whole unitary, unitary kernels', '2 to 8 qubits',
+         lambda: uk.build_unitary(9, 'cp', 'xyz',
+                                  fill_layers(chain_layer(9), 2),
+                                  uniform_inits(3 * 9 + 14, 2, 0, 'cuda'))),
+        ('14q column, unitary kernels', '2 to 13 qubits',
+         lambda: uk.build_unitary(14, 'cp', 'xyz',
+                                  fill_layers(chain_layer(14), 2),
+                                  uniform_inits(3 * 14 + 14, 2, 0, 'cuda'),
+                                  columns=[0])),
+        ('13q column in float64, unitary kernels', '2 to 12 qubits',
+         lambda: uk.build_unitary(13, 'cp', 'xyz',
+                                  fill_layers(chain_layer(13), 2),
+                                  uniform_inits(3 * 13 + 14, 2, 0, 'cuda'),
+                                  columns=[0], dtype=F64))]
+    for name, want, call in refusals:
+        try:
+            call()
+        except ValueError as e:
+            check(want in str(e), f'{name}: refused for {e}')
+            print(f'phase 19: {name} refused: {e}', flush=True)
+        else:
+            raise PhaseError(f'{name} did not raise')
+    check((sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES) == before,
+          'a refused shape launched a kernel')
 
 
 def main() -> int:
@@ -3177,6 +3817,7 @@ def main() -> int:
         launches.update(attempt({}, phase_mesh, card))
         launches.update(attempt({}, phase_prng, card))
         double_lines = attempt([], phase_double, card)
+        sixteen = attempt(None, phase_sixteen, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
         max_err = max(max_err, seven_err)
@@ -3185,6 +3826,10 @@ def main() -> int:
         check(all(f > 0 for f, _ in unitary_launches.values()) and
               sum(v for _, v in unitary_launches.values()) > 0,
               f'a main path missed the unitary kernels: {unitary_launches}')
+        errs19, rows19, launches19, unitary19 = sixteen
+        check(all(v > 0 for by in launches19.values() for v in by.values())
+              and all(f > 0 and v > 0 for f, v in unitary19.values()),
+              f'a phase 19 path missed its kernel: {launches19}, {unitary19}')
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -3246,6 +3891,20 @@ def main() -> int:
             'shapes': unitary_rows[name]})
     # phase 18's float64 builds, their launches on phase 18's paths
     kernels += double_lines
+    # phase 19: its rows join each kernel's shapes and clusters, its main
+    # paths each kernel's launches, its errors each kernel's largest error
+    for line in kernels:
+        name = line['name']
+        by_path = dict(launches19.get(name, {}))
+        if name.startswith('ansatz_') and name.endswith('_f64'):
+            by_path = {k: v[name.startswith('ansatz_vjp')]
+                       for k, v in unitary19.items()}
+        line['launches_by_path'].update(by_path)
+        line['launches'] += sum(by_path.values())
+        line['max_abs_err'] = max(line['max_abs_err'], errs19.get(name, 0.0))
+        line['shapes'] = line['shapes'] + rows19.get(name, [])
+        line['cluster'] = sorted(set(line.get('cluster', [])) | {
+            r['cluster'] for r in line['shapes'] if 'cluster' in r})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

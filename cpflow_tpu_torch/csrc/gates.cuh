@@ -14,7 +14,9 @@
 // between gates.
 //
 // Above 6 qubits the whole unitary's A and M exceed one block's shared
-// memory. Then a restart runs on a cluster of c = 2^j blocks, and the block
+// memory. Then a restart runs on a cluster of c = 2^j blocks (at most 16:
+// Hopper's portable clusters end at 8, and a kernel takes 16 only with
+// cudaFuncAttributeNonPortableClusterSizeAllowed set), and the block
 // of rank rho owns columns [rho C / c, (rho + 1) C / c) as a row-major
 // d x (C / c) tile. Every gate acts on row bits only, so each block runs the
 // chain and the walk on its own tile, calling the functions below with the
@@ -81,7 +83,7 @@ __device__ __forceinline__ void real_sincos(real x, real* s, real* c) {
 constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemLimit = 232448;  // shared memory one block may use
-constexpr int kMaxClusterLog = 3;      // clusters of at most 8 blocks
+constexpr int kMaxClusterLog = 4;      // clusters of at most 16 blocks
 
 // entanglers, as kernels/sweep.py numbers them
 enum { E_CP, E_CZ, E_CX };

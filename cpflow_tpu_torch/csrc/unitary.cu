@@ -49,18 +49,21 @@
 // (chip_smoke.py phase 12), so a main path's whole batch is resident, and
 // blocks of one restart measured no faster.
 //
-// The row-split design (one column, n <= 12, and the whole unitary at 7
+// The row-split design (one column, n <= 13, and the whole unitary at 7
 // and 8 qubits): one thread block per restart, as in sweep.cu, with
 // gates.cuh's threads per restart, each gate split over the block's threads
 // by amplitude groups with a barrier after it, and in the walk each gate's
 // cotangent reduced over the block before the next gate. Where the block's
 // layout does not fit its shared memory (the forward pass holds A, the vjp
 // A and M, 16 * 4^n bytes for the whole unitary) a restart's columns are
-// split over c = 2, 4 or 8 blocks, each holding a d x (C / c) tile
+// split over c = 2, 4, 8 or 16 blocks, each holding a d x (C / c) tile
 // (gates.cuh), the smallest c that fits (cluster_plan): the forward pass's
 // blocks are independent, each storing its columns of U; the vjp's form a
 // cluster, which sums the gates' cotangents over distributed shared memory
-// in rank order before the angle gradients, and rank 0 writes them. One
+// in rank order before the angle gradients, and rank 0 writes them. A
+// cluster of 16 is non-portable: the vjp's cluster kernel is given
+// cudaFuncAttributeNonPortableClusterSizeAllowed once per device, and a
+// launch whose cluster the card cannot place fails before it starts. One
 // column has too few columns to share out, and at 7 and 8 qubits a column
 // of A and M (4 and 8 KB) and a restart's layout exceed what one lane and
 // one block hold.
@@ -76,8 +79,9 @@
 // Precision: the file compiles twice (gates.cuh), in float for complex64
 // and with -DCPFLOW_DOUBLE in double for complex128. The double build's
 // tiles take twice the bytes; the column kernels keep every layout up to 6
-// qubits at k = 40, and the row-split vjp of the whole unitary at 8 qubits
-// would need 16 blocks, above the portable 8 (kernels/unitary.py raises).
+// qubits at k = 40, the row-split vjp of the whole unitary at 8 qubits
+// takes 16 blocks (up to k = 125 'xyz' blocks), and one column reaches 12
+// qubits (13 in float).
 // Its kernels hold 122 to 254 registers, the column ones with no local
 // memory (their cos and sin from gates.cuh's real_sincos).
 //
@@ -338,16 +342,27 @@ Kernel kernel_of(int which) {
 
 enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1 };
 
-// Dynamic shared memory granted to each kernel on each device so far: the
-// attribute is set once per kernel and size, not before every launch.
+// Dynamic shared memory granted to each kernel on each device so far, and
+// the devices on which the vjp's cluster kernel may take a cluster of 16
+// (non-portable) blocks: each attribute is set once per kernel and device
+// (and size), not before every launch.
 constexpr int kMaxDevices = 64;
+constexpr int kClusterKernel = 2;  // vjp_kernel<true>
 size_t g_granted[kMaxDevices][kKernels];
+bool g_non_portable[kMaxDevices];
 
 cudaError_t grant_smem(int which, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;  // the default allows it
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (which == kClusterKernel && !(dev < kMaxDevices && g_non_portable[dev])) {
+    err = cudaFuncSetAttribute(kernel_of(which),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) g_non_portable[dev] = true;
+  }
+  if (bytes <= 48 * 1024) return cudaSuccess;  // the default allows it
   size_t* granted = dev < kMaxDevices ? &g_granted[dev][which] : nullptr;
   if (granted && *granted >= bytes) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel_of(which),
@@ -396,8 +411,9 @@ bool plan_launch(Args& a, int vjp, int design, Launch& out) {
 
 extern "C" {
 
-// Dynamic shared memory of each of the `cluster` blocks (1, 2, 4 or 8) that
-// hold a restart's columns in the row-split design (vjp: 0 forward, 1 vjp).
+// Dynamic shared memory of each of the `cluster` blocks (1, 2, 4, 8 or 16)
+// that hold a restart's columns in the row-split design (vjp: 0 forward,
+// 1 vjp).
 long long cpflow_unitary_smem_bytes(int n, int num_blocks, int nba, int log_c,
                                     int vjp, int cluster) {
   int log = 0;
@@ -447,7 +463,8 @@ int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
 // 2 CX; nba: angles per block. In the row-split design each restart runs
 // on the blocks cluster_plan picks: the forward pass's as independent
 // blocks, the vjp's as a cluster. Returns cudaErrorInvalidValue if the
-// design does not hold the shape, else cudaGetLastError() after the
+// design does not hold the shape, cudaErrorLaunchOutOfResources if the card
+// cannot place the vjp's cluster, else cudaGetLastError() after the
 // launch.
 int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
@@ -477,6 +494,13 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   const cudaLaunchConfig_t cfg =
       launch_config(l.grid, l.threads, l.bytes, l.cluster,
                     static_cast<cudaStream_t>(stream), &attr);
+  if (l.cluster > 1) {  // a cluster the card cannot place never starts
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel_of(l.which)), &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  }
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(
                                       kernel_of(l.which)), args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -507,6 +531,25 @@ int cpflow_unitary_occupancy(int which, int threads, long long bytes,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel_of(which), threads, (size_t)bytes);
   return (int)err;
+}
+
+// Clusters of `cluster` blocks (2 to 16) of the vjp's cluster kernel, at
+// `threads` threads and `bytes` of dynamic shared memory a block, that the
+// card holds at once (cudaOccupancyMaxActiveClusters), in *clusters.
+// Returns a CUDA error code.
+int cpflow_unitary_clusters(int threads, long long bytes, int cluster,
+                            int* clusters) {
+  if (cluster < 2 || cluster > (1 << kMaxClusterLog))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = grant_smem(kClusterKernel, (size_t)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(
+      (unsigned)cluster, threads, (size_t)bytes, (unsigned)cluster, nullptr,
+      &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel_of(kClusterKernel)),
+      &cfg);
 }
 
 }  // extern "C"

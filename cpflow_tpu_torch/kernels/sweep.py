@@ -15,8 +15,9 @@ modulo-diagonal losses on the whole 2^n x 2^n unitary, and state
 preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
-falls back, above MAX_QUBITS (8 qubits for the whole unitary, 12 for a
-state; in float64 7 and 12, see below) and for a penalty other than the
+falls back, above MAX_QUBITS (8 qubits for the whole unitary; for a state
+13 in float32 and 12 in float64), for a template too deep for the largest
+cluster (``cluster_plan``), and for a penalty other than the
 piecewise-linear one.
 
 Precision. The kernel computes in the objective's dtype: float32 through
@@ -24,9 +25,9 @@ the float build of csrc/sweep.cu, float64 through its double build (the
 same source compiled with -DCPFLOW_DOUBLE, kernels/build.py), never one
 in the other's place. In double every amplitude tile takes twice the
 shared memory, so the cluster plan doubles its sizes (``smem_bytes``): 7
-qubits take 4 blocks, and 8 qubits would need 16, above the portable
-cluster of 8, so the double build takes the whole unitary up to 7 qubits
-(a state still up to 12) and raises above.
+qubits take 4 blocks (8 from k = 103 'xyz' blocks, 16 from k = 177), 8
+qubits 16 (up to k = 101 'xyz' blocks), and a state's one column fits one
+block up to 12 qubits, not 13.
 
 Routing of ``sweep``, by the tensor's device and the objective:
   * CPU tensor, any objective: ``sweep_reference``, the plain version;
@@ -47,14 +48,16 @@ and cotangent, 2^n x C each) and the barriers and block reductions of the
 adjoint walk (few threads per restart, a 31-shuffle warp reduction,
 double-buffered cross-warp partials). A restart runs on one thread block
 where its layout fits one block's shared memory (every shape up to 6
-qubits, and a state up to 12); above that its columns are split over a
-thread-block cluster of 2, 4 or 8 blocks, the smallest that fits
-(``cluster_plan``; 7 qubits take 2, or 4 from 215 'xyz' blocks, 8 qubits
-take 8). On the card the library's own plan decides
-(``cpflow_sweep_cluster``); ``smem_bytes`` and ``cluster_plan`` mirror it
-so that the plan can be checked without a card. Every block of a cluster
-runs Adam on the same angles, and the kernel traps if the blocks end a
-launch with different bits of the Adam state.
+qubits, and a state up to 13); above that its columns are split over a
+thread-block cluster of 2, 4, 8 or 16 blocks, the smallest that fits
+(``cluster_plan``; in float32 7 qubits take 2, or 4 from 215 'xyz' blocks,
+8 qubits take 8, or 16 from 214 'xyz' blocks up to 358). A cluster of 16
+is non-portable on Hopper: the library allows it on its cluster build, and
+a launch whose cluster the card cannot place raises. On the card the
+library's own plan decides (``cpflow_sweep_cluster``); ``smem_bytes`` and
+``cluster_plan`` mirror it so that the plan can be checked without a card.
+Every block of a cluster runs Adam on the same angles, and the kernel traps
+if the blocks end a launch with different bits of the Adam state.
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -66,6 +69,7 @@ steps. Success flags agree; best losses are at most the plain loop's.
 
 from __future__ import annotations
 
+from collections import Counter
 import ctypes
 from typing import NamedTuple, Optional
 
@@ -80,11 +84,10 @@ from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
 F64_LAUNCHES = 0  # those of them that ran the double build
+# those of them by the blocks each restart ran on (a cluster's size, 1 for
+# one block); reset with .clear()
+LAUNCHES_BY_CLUSTER: Counter = Counter()
 
-# qubits the kernel takes, per loss (the whole unitary, split over at most
-# 8 blocks, or one column on one block)
-MAX_QUBITS = {'hst': 8, 'disc': 8, 'modulo_identity': 8,
-              'modulo_diagonal': 8, 'state': 12}
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
               'modulo_diagonal': 4}  # as csrc/sweep.cu numbers them
@@ -195,7 +198,9 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
+# blocks a restart may run on; 16 is a non-portable cluster on Hopper
+CLUSTERS = (1, 2, 4, 8, 16)
+_OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
 
 
 def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
@@ -219,7 +224,7 @@ def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
 def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
                  dtype=torch.float32):
     """The blocks each restart runs on, as csrc/sweep.cu's cluster_plan
-    picks them in the build of `dtype`: the smallest of 1, 2, 4, 8 whose
+    picks them in the build of `dtype`: the smallest of CLUSTERS whose
     per-block layout fits one block's shared memory, never a split of the
     one column of a state, and no more blocks than columns. None if none
     fits."""
@@ -229,6 +234,23 @@ def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
         if smem_bytes(n, num_blocks, nba, kind, c, dtype) <= _SMEM_LIMIT:
             return c
     return None
+
+
+def max_qubits(kind: str, dtype=torch.float32) -> int:
+    """The most qubits the kernel takes for a loss of `kind` in the build of
+    `dtype`: the largest n whose layout with no blocks cluster_plan holds
+    (the whole unitary on up to 16 blocks: 8; a state's one column on one
+    block: 13 in float32, 12 in float64, whose every amplitude takes twice
+    the bytes). A template deep enough may not fit even below that n."""
+    n = 2
+    while cluster_plan(n + 1, 0, 0, kind, dtype) is not None:
+        n += 1
+    return n
+
+
+# qubits the kernel takes, per build and loss
+MAX_QUBITS = {dtype: {kind: max_qubits(kind, dtype) for kind in LOSS_CODES}
+              for dtype in DTYPES}
 
 
 def modulo_tables(n: int, wires):
@@ -246,22 +268,24 @@ def modulo_tables(n: int, wires):
 def _check_objective(objective):
     spec = objective.unitary_loss_func
     kind = getattr(spec, 'kind', None)
-    if kind not in MAX_QUBITS:
+    if kind not in LOSS_CODES:
         raise NotImplementedError(
-            f'the fused sweep kernel computes the {", ".join(MAX_QUBITS)} '
+            f'the fused sweep kernel computes the {", ".join(LOSS_CODES)} '
             f'losses, got {kind!r}: a custom loss (a Python callable) cannot '
             f'enter it, and sweep() routes one to the unitary kernels')
     if objective.dtype not in DTYPES:
         raise ValueError(f'the sweep kernel computes in float32 or float64, '
                          f'the objective in {objective.dtype}')
-    n, limit = objective.num_qubits, MAX_QUBITS[kind]
+    n, limit = objective.num_qubits, MAX_QUBITS[objective.dtype][kind]
     if not 2 <= n <= limit:
-        where = 'one block' if kind == 'state' else \
-            f'a cluster of {CLUSTERS[-1]} blocks'
+        where = "one block (a state's one column is never split" + (
+            ', and float64 doubles its bytes)' if objective.dtype ==
+            torch.float64 else ')') if kind == 'state' else \
+            f'a cluster of {CLUSTERS[-1]} blocks, the largest Hopper launches'
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
-            f'loss, got {n}: above {limit} the state and cotangent exceed the '
-            f'shared memory of {where}')
+            f'loss in {objective.dtype}, got {n}: above {limit} the state '
+            f'and cotangent exceed the shared memory of {where}')
     if objective.entangling_gate_name not in ENTANGLER_CODES or \
             set(objective.rotation_gates) - set(LETTER_CODES):
         raise ValueError(
@@ -334,10 +358,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             f'{n} qubits with {nb} blocks need '
             f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, most)} bytes of '
             f'shared memory per block in {dtype} even on {most} blocks a '
-            f'restart, above {_SMEM_LIMIT}' + (
-                ' (float64 doubles every tile: the whole unitary at 8 '
-                'qubits would need a cluster of 16 blocks, above the '
-                'portable 8)' if dtype == torch.float64 else ''))
+            f'restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
     target = torch.as_tensor(np.asarray(spec.target),
@@ -392,9 +413,14 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
         if err != 0:
             raise RuntimeError(
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
-                f'on {cluster} blocks each)')
+                f'on {cluster} blocks each)' + (
+                    f': the card places no cluster of {cluster} blocks of '
+                    f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, cluster)}'
+                    f' shared bytes each' if err == _OUT_OF_RESOURCES
+                    else ''))
         LAUNCHES += 1
         F64_LAUNCHES += dtype == torch.float64
+        LAUNCHES_BY_CLUSTER[cluster] += 1
 
     T = int(num_iterations)
     if B and target_loss is None:

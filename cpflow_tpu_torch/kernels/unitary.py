@@ -17,9 +17,10 @@ other first-order methods.
   * ``AnsatzUnitary``: the autograd.Function over the pair;
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
     ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 8
-    qubits for the whole unitary, 7 in float64, and 2 to 12 for one
-    column); it never falls back. On a CPU tensor it is the plain version,
-    sim.batched.build_unitary_batched under ordinary autograd.
+    qubits for the whole unitary, and for one column 2 to 13 in float32, 2
+    to 12 in float64: ``MAX_QUBITS``); it never falls back. On a CPU
+    tensor it is the plain version, sim.batched.build_unitary_batched under
+    ordinary autograd.
 
 Both kernels are csrc/unitary.cu (built with nvcc for sm_90a at first use,
 bound with ctypes); they share their gate algebra with the sweep kernel
@@ -27,8 +28,10 @@ through csrc/gates.cuh. The source builds twice (kernels/build.py): in
 float for float32 angles and in double (-DCPFLOW_DOUBLE) for float64 ones,
 each tensor launching the build of its own dtype and never the other. The
 double build's tiles take twice the shared memory, so every size below
-takes a dtype; the vjp of the whole unitary at 8 qubits would need 16
-blocks a restart in double, above the portable cluster of 8, and raises.
+takes a dtype; the vjp of the whole unitary at 8 qubits takes 16 blocks a
+restart in double (up to k = 125 'xyz' blocks), a non-portable cluster on
+Hopper that the library allows on its cluster kernel; a launch whose
+cluster the card cannot place raises.
 
 What bounds them, and the two designs. The paths that launch them hand
 over 5 to 800 restarts at 3 and 4 qubits, so the whole batch is resident at
@@ -43,10 +46,10 @@ cotangent over the restart's lanes by shuffles; a restart takes a warp
 forward pass at 2 to 4 qubits the lanes of a column share its amplitude
 groups with a warp barrier after each gate. Blocks hold two restarts (one
 at 6 qubits, or where the layout does not fit). One column
-(``columns=[0]``, up to 12 qubits) and the whole unitary at 7 and 8 qubits
+(``columns=[0]``, up to 13 qubits) and the whole unitary at 7 and 8 qubits
 keep the row-split design: one block a restart with a barrier after every
 gate, and where its layout exceeds one block's shared memory the restart's
-columns split over c = 2, 4 or 8 blocks (``cluster_plan``; the vjp's
+columns split over c = 2, 4, 8 or 16 blocks (``cluster_plan``; the vjp's
 blocks form a thread-block cluster and sum the gates' cotangents over
 distributed shared memory). No tensor cores: the products are 2x2 and 4x4
 complex, far below a wgmma tile, and TF32 would break the 2e-5 agreement
@@ -71,6 +74,7 @@ plain path, and the backward takes a cotangent of any strides.
 
 from __future__ import annotations
 
+from collections import Counter
 import ctypes
 import functools
 
@@ -86,13 +90,16 @@ VJP_LAUNCHES = 0      # launches of the vjp kernel; the plain path adds none
 COLUMN_LAUNCHES = 0   # those of the two that ran the column design
 FORWARD_F64_LAUNCHES = 0  # those of the forward kernel in the double build
 VJP_F64_LAUNCHES = 0      # those of the vjp kernel in the double build
+# the vjp kernel's launches by the blocks each restart ran on (a cluster's
+# size, 1 for one block or the column design); reset with .clear()
+VJP_LAUNCHES_BY_CLUSTER: Counter = Counter()
 
-MAX_QUBITS_UNITARY = 8   # the whole unitary, split over at most 8 blocks
-MAX_QUBITS_COLUMN = 12   # one column, on one block
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-CLUSTERS = (1, 2, 4, 8)  # blocks a restart may run on
+# blocks a restart may run on; 16 is a non-portable cluster on Hopper
+CLUSTERS = (1, 2, 4, 8, 16)
+_OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
 DESIGNS = {'rows': 0, 'columns': 1}  # csrc/unitary.cu's numbering
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 COLUMN_THREADS = 64      # threads of a column kernel's block
@@ -130,9 +137,9 @@ def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
                  vjp: bool, dtype=torch.float32):
     """The blocks each restart's columns are split over in the row-split
     design, as csrc/unitary.cu's cluster_plan picks them in the build of
-    `dtype`: the smallest of 1, 2, 4, 8 (never more than the 2^log_c
-    columns) whose per-block layout fits one block's shared memory; None if
-    none fits."""
+    `dtype`: the smallest of CLUSTERS (never more than the 2^log_c columns)
+    whose per-block layout fits one block's shared memory; None if none
+    fits."""
     for c in CLUSTERS:
         if c > 1 << log_c:
             break
@@ -140,6 +147,26 @@ def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
                       dtype) <= _SMEM_LIMIT:
             return c
     return None
+
+
+def max_qubits(whole: bool, dtype=torch.float32) -> int:
+    """The most qubits both kernels take for the whole unitary (whole=True)
+    or one column in the build of `dtype`: the largest n whose vjp layout
+    with no blocks cluster_plan holds (the whole unitary on up to 16
+    blocks: 8; one column on one block: 13 in float32, 12 in float64). A
+    template deep enough may not fit even below that n."""
+    n = 2
+    while cluster_plan(n + 1, 0, 0, n + 1 if whole else 0, True,
+                       dtype) is not None:
+        n += 1
+    return n
+
+
+# qubits the kernels take, per build, for the whole unitary ('unitary')
+# and for one column ('column')
+MAX_QUBITS = {dtype: {'unitary': max_qubits(True, dtype),
+                      'column': max_qubits(False, dtype)}
+              for dtype in (torch.float32, torch.float64)}
 
 
 def column_lanes(n: int) -> int:
@@ -242,6 +269,8 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_occupancy.argtypes = [i, i, ctypes.c_longlong,
                                                  ptr]
         lib.cpflow_unitary_occupancy.restype = i
+        lib.cpflow_unitary_clusters.argtypes = [i, ctypes.c_longlong, i, ptr]
+        lib.cpflow_unitary_clusters.restype = i
     return lib
 
 
@@ -282,6 +311,23 @@ def occupancy(name: str, threads: int, nbytes: int, device,
     return out.value
 
 
+def active_clusters(threads: int, nbytes: int, cluster: int, device,
+                    dtype=torch.float32) -> int:
+    """Clusters of `cluster` blocks (2 to 16) of the vjp's cluster kernel
+    (``ansatz_vjp_cluster``) of the build of `dtype`, at `threads` threads
+    and `nbytes` of dynamic shared memory a block, that the card `device`
+    holds at once (cudaOccupancyMaxActiveClusters): 0 where it places
+    none."""
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = load_library(dtype).cpflow_unitary_clusters(
+            threads, nbytes, cluster, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f'unitary kernel cluster query failed: CUDA error '
+                           f'{err}')
+    return out.value
+
+
 @functools.lru_cache(maxsize=64)
 def _tables(placements: tuple, rotation_gates: str, device: torch.device):
     """The block placements and rotation letters as int32 tensors on the
@@ -310,14 +356,16 @@ class _Shape:
         if columns is not None and list(columns) != [0]:
             raise ValueError(f'the unitary kernels build every column or '
                              f'column 0 alone, got columns={columns!r}')
-        limit = MAX_QUBITS_UNITARY if columns is None else MAX_QUBITS_COLUMN
+        limit = MAX_QUBITS[dtype]['unitary' if columns is None else 'column']
         if not 2 <= n <= limit:
             raise ValueError(
                 f'the unitary kernels take 2 to {limit} qubits for '
-                f'{"the whole unitary" if columns is None else "one column"}, '
-                f'got {n}: above that the state and its cotangent exceed the '
-                f'shared memory of {CLUSTERS[-1] if columns is None else 1} '
-                f'block(s)')
+                f'{"the whole unitary" if columns is None else "one column"} '
+                f'in {dtype}, got {n}: above that the state and its '
+                f'cotangent exceed the shared memory of ' + (
+                    f'a cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
+                    f'launches' if columns is None else
+                    'one block (one column is never split)'))
         if entangling_gate_name not in ENTANGLER_CODES or \
                 set(rotation_gates) - set(LETTER_CODES):
             raise ValueError(
@@ -350,10 +398,7 @@ class _Shape:
             raise ValueError(
                 f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
                 f'shared memory per block in {dtype} even on {most} blocks a '
-                f'restart, above {_SMEM_LIMIT}' + (
-                    ' (float64 doubles every tile: the whole unitary at 8 '
-                    'qubits would need a cluster of 16 blocks, above the '
-                    'portable 8)' if dtype == torch.float64 else ''))
+                f'restart, above {_SMEM_LIMIT}')
 
     def launch(self, angles, u, ubar, grad, vjp, design):
         """Launches on the angles' card: the library configures and
@@ -369,8 +414,11 @@ class _Shape:
                 int(vjp), DESIGNS[design],
                 torch.cuda.current_stream(angles.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f'unitary kernel launch failed: CUDA error '
-                               f'{err} ({self.B} restarts, {design} design)')
+            raise RuntimeError(
+                f'unitary kernel launch failed: CUDA error {err} ({self.B} '
+                f'restarts, {design} design)' + (
+                    f': the card places no cluster of {self.cluster} blocks'
+                    if err == _OUT_OF_RESOURCES else ''))
 
 
 @functools.lru_cache(maxsize=256)
@@ -460,6 +508,8 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
         VJP_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
         VJP_F64_LAUNCHES += shape.dtype == torch.float64
+        VJP_LAUNCHES_BY_CLUSTER[1 if design == 'columns' else
+                                shape.cluster] += 1
     return grad
 
 

@@ -323,9 +323,9 @@ def test_bucketed_adaptive_run_in_float64_matches_jax():
 # (32 an amplitude pair of A and M): 6 qubits stay on one block, 7 qubits
 # need 4 (on 2 blocks A and M alone take 256 KB a block) and 8 from
 # k = 103, where the gates and angles, which every block holds whole, have
-# grown; above k = 176 no cluster of 8 holds 7 qubits (None), and 8 qubits
-# would need 16 blocks, above the portable 8 (None); a state stays on one
-# block up to 12 qubits.
+# grown; above k = 176 7 qubits take a (non-portable) cluster of 16 and
+# above k = 214 none holds them (None); 8 qubits take 16 blocks; a state
+# stays on one block up to 12 qubits.
 SWEEP_PLANS = [
     (3, 12, 'xyz', 'hst', 1, 1),
     (6, 40, 'xz', 'modulo_diagonal', 1, 1),
@@ -333,9 +333,9 @@ SWEEP_PLANS = [
     (7, 102, 'xyz', 'hst', 2, 4),
     (7, 103, 'xyz', 'hst', 2, 8),
     (7, 176, 'xyz', 'hst', 2, 8),
-    (7, 177, 'xyz', 'hst', 2, None),
+    (7, 177, 'xyz', 'hst', 2, 16),
     (7, 220, 'xyz', 'hst', 4, None),
-    (8, 16, 'xz', 'hst', 8, None),
+    (8, 16, 'xz', 'hst', 8, 16),
     (12, 60, 'xyz', 'state', 1, 1),
 ]
 
@@ -345,7 +345,7 @@ def test_sweep_plan_in_float64(n, k, rot, kind, c32, c64):
     nba = num_block_angles('cp', rot)
     assert sk.cluster_plan(n, k, nba, kind) == c32
     assert sk.cluster_plan(n, k, nba, kind, dtype=F64) == c64
-    for c in (1, 2, 4, 8):
+    for c in sk.CLUSTERS:
         assert sk.smem_bytes(n, k, nba, kind, c, F64) == \
             2 * sk.smem_bytes(n, k, nba, kind, c)
     if c64 is not None:
@@ -361,7 +361,8 @@ UNITARY_PLANS = [
     (7, 24, 7, False, ('rows', 1, 2)),
     (7, 24, 7, True, ('rows', 1, 4)),
     (8, 16, 8, False, ('rows', 1, 8)),
-    (8, 16, 8, True, None),
+    (8, 16, 8, True, ('rows', 1, 16)),
+    (8, 126, 8, True, None),
     (12, 36, 0, True, ('rows', 1, 1)),
 ]
 

@@ -243,7 +243,8 @@ try:
                        'cuda') == 'unitary'
     l1.static(opts, save_results=False, verbose=False)
     assert sweep.cluster_plan(7, 24, 7, 'hst', torch.float64) == 4
-    assert unitary.plan(8, 16, 7, 8, True, torch.float64) is None
+    assert unitary.plan(8, 16, 7, 8, True,
+                        torch.float64)['blocks_per_restart'] == 16
     assert profiling.bound_ms(profiling.sweep_work(
         3, 12, dtype=torch.float64), 1024, 2000)[1] == 'operations'
 finally:

@@ -176,7 +176,7 @@ def test_check_objective_takes_seven_and_eight_qubits_and_refuses_nine(kind):
     for n in (7, 8):
         sk._check_objective(_objective(n, kind))
     with pytest.raises(ValueError,
-                       match='2 to 8 qubits.*cluster of 8 blocks'):
+                       match='2 to 8 qubits.*cluster of 16 blocks'):
         sk._check_objective(_objective(9, kind))
 
 

@@ -154,17 +154,23 @@ def test_kernels_refuse_float64_and_too_many_qubits_on_card():
     n, ent, rot, pl, _ = CASES['3q-cp-xz']
     a = torch.tensor(_angles('3q-cp-xz'), device='cuda')
     # float64 runs the double build; it is refused where the double build
-    # does not fit, the vjp of the whole unitary at 8 qubits (16 blocks a
-    # restart), and any dtype but float32 and float64 is refused
+    # does not fit, the vjp of the whole unitary at 8 qubits beyond k = 125
+    # 'xyz' blocks (above a block's shared memory even on 16 blocks a
+    # restart, which hold k = 2), and any dtype but float32 and float64 is
+    # refused
     assert uk.build_unitary(n, ent, rot, pl, a.double(),
                             dtype=torch.float64).dtype == torch.complex128
     with pytest.raises(ValueError, match='float32 or float64'):
         uk.build_unitary(n, ent, rot, pl, a.half(), dtype=torch.float16)
-    pl8 = fill_layers(chain_layer(8), 2)
-    a8 = torch.zeros((24 + 14, 2), dtype=torch.float64, device='cuda')
     u8 = torch.zeros((2, 256, 256), dtype=torch.complex128, device='cuda')
-    with pytest.raises(ValueError, match='cluster of 16'):
-        uk.ansatz_vjp(8, 'cp', 'xyz', pl8, a8, u8, u8)
+    a8 = torch.zeros((24 + 14, 2), dtype=torch.float64, device='cuda')
+    before = uk.VJP_LAUNCHES_BY_CLUSTER[16]
+    uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 2), a8, u8, u8)
+    assert uk.VJP_LAUNCHES_BY_CLUSTER[16] == before + 1
+    a8 = torch.zeros((24 + 7 * 126, 2), dtype=torch.float64, device='cuda')
+    with pytest.raises(ValueError, match='even on 16 blocks'):
+        uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 126), a8,
+                      u8, u8)
     pl9 = fill_layers(chain_layer(9), 2)
     a9 = torch.zeros((27 + 14, 2), device='cuda')
     with pytest.raises(ValueError, match='2 to 8 qubits'):
