@@ -197,21 +197,25 @@ with CUDA, and never imports JAX. Phases:
      state open: (a) the sweep kernel against its plain version at (G) 8q
      chain Toffoli-8 'xz' k=16 B=32 in float64 (phase 15's (w)), (H) 7q
      k=200 B=8 T=10 in float64 and (I) 8q k=240 B=8 T=10 in float32, each
-     on 16 blocks, and (J) the 13q GHZ state k=48 B=64 on one block; the
-     unitary kernels (row-split) at 8q k=16 B=16 in float64 and 8q k=270
-     B=4 in float32, the vjp on 16 blocks, against the plain builder under
-     autograd; each with its plan, the clusters the card holds, its time
-     and its share of the bound; (b) Synthesize.static on the 8q chain for
-     the CX ladder in float64 (k=9, 7 CZ at host loss <= 1e-6), every sweep
-     launch the double build on 16 blocks; (c) a custom loss at 8q in
-     float64 (the ladder's HS test as a torch callable) through the
-     unitary kernels, the vjp on 16 blocks, against the plain float64
-     route; (d) GHZ-13 in float32 with the state loss: Synthesize.static's
-     stages from 1024 random restarts at k=14 (what it finds printed), and
-     the warm-start protocol of 15 (b) from the exact 12-CZ embedding,
-     which must bring a noisy row back to a verified 12-CZ circuit at
-     float64 host state loss <= 1e-6; then 9 qubits whole, 14-qubit states
-     and 13-qubit states in float64 refused, each with its reason.
+     on 16 blocks, (J) the 13q GHZ state k=48 B=64 on one block and (K) 8q
+     modulo_diagonal 'xz' k=16 B=32 in float64 on 16 blocks (a float64
+     restart past 1e-9 held to 4 times the distance of the plain route on
+     the host from the card's); the unitary kernels (row-split) at 8q k=16
+     B=16 in float64 and 8q k=270 B=4 in float32, the vjp on 16 blocks, and
+     at a 13q column k=48 B=8 in float32 on one block, against the plain
+     builder under autograd; each with its plan, the clusters or blocks the
+     card holds, its time and its share of the bound; (b) Synthesize.static
+     on the 8q chain for the CX ladder in float64 (k=9, 7 CZ at host loss
+     <= 1e-6), every sweep launch the double build on 16 blocks; (c) a
+     custom loss at 8q in float64 (the ladder's HS test as a torch
+     callable) through the unitary kernels, the vjp on 16 blocks, against
+     the plain float64 route; (d) GHZ-13 in float32 with the state loss
+     through Synthesize.static: from 1024 random restarts at k=14 (what it
+     finds printed), and at k=12 from the noisy rows of 15 (b)'s warm batch
+     around the exact 12-CZ embedding that start above the entry loss,
+     which must give a 12-CZ decomposition at float64 host state loss <=
+     1e-6; then 9 qubits whole, 14-qubit states and 13-qubit states in
+     float64 refused, each with its reason.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
 (d)-(f), 19 (b)-(d)) runs with
@@ -3138,9 +3142,18 @@ def phase_double(card):
 # that Adam amplifies: in C.10 a one-ulp change of the initial angles moved
 # the angles by 7.8e-8 after 400 steps, so a loss off its minimum moves by
 # about that much, far above 1e-9 and far below a loss that differs). (d)
-# GHZ-13: the search from GHZ13_SAMPLES random restarts at k = GHZ13_K,
-# GHZ13_STEPS steps, then the warm start from the exact embedding.
+# GHZ-13: Synthesize.static from GHZ13_SAMPLES random restarts at k =
+# GHZ13_K, GHZ13_STEPS steps, then from a warm start at k = 12.
 LADDER8_K, LADDER8_SAMPLES, LADDER8_STEPS = 9, 64, 2000
+# (a)'s float64 rows: a restart whose best loss is past F64_BEST_TOL of the
+# plain route on the card must be within F64_HOST_FACTOR times the distance
+# of the plain route on the host from it. Phase 18's bounds assumed 60 Adam
+# steps amplify float64 roundoff by a few orders only; at 8 qubits one
+# restart of the modulo loss (K) amplifies it further (first run on the
+# card: the kernel 1.524e-9 from the card's plain route, the host's plain
+# route 2.126e-9 from it, every other restart under 3.2e-12). Two roundoff
+# paths differ from a third by amounts of one order, hence the factor 4.
+F64_HOST_FACTOR = 4.0
 CUSTOM8_STEPS, CUSTOM8_TOL = 300, 1e-6
 GHZ13_K, GHZ13_SAMPLES, GHZ13_STEPS = 14, 1024, 2000
 
@@ -3152,7 +3165,8 @@ def sixteen_shapes():
     on. (G) is phase 15's (w) in float64, which phase 18 refused before
     clusters of 16; (H) is phase 15's (x) deepened in float64; (I) 8
     qubits deeper than 8 blocks hold in float32; (J) the 13-qubit state,
-    one block a restart."""
+    one block a restart; (K) phase 15's (s) at 8 qubits in float64, a
+    modulo loss whose sums read V across the 16 blocks' tiles."""
     import torch
     from cpflow_tpu_torch.ops.gates import multi_controlled_x
     t7, t8 = multi_controlled_x(7), multi_controlled_x(8)
@@ -3168,6 +3182,10 @@ def sixteen_shapes():
              target=t8, B=8, r=0.002, lr=0.1, T=10, cluster=16),
         dict(name='(J) state 13q GHZ k=48 B=64', n=13, k=48, target=ghz(13),
              kind='state', B=64, r=0.001, lr=0.1, cluster=1),
+        dict(name="(K) modulo_diagonal 8q chain Toffoli-8 wires [2, 5, 0] "
+             "'xz' k=16 B=32 float64", n=8, k=16, target=t8,
+             kind='modulo_diagonal', wires=[2, 5, 0], rot='xz', B=32,
+             r=0.00055, lr=0.1, cluster=16, dtype=F64),
     ]
 
 
@@ -3196,15 +3214,17 @@ def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
 
 
 def phase_sixteen_sweeps(card):
-    """Phase 19 (a), the sweep: every row of sixteen_shapes against its
-    plain version on the card, the plan held against the library's. The
-    float32 rows as phase 3 holds its shapes (phase_compare: the initial
-    loss within 1e-5, the best losses by drift_ok); the float64 rows within
-    F64_LOSS0_TOL and F64_BEST_TOL, each launch of the double build
-    counted. Every row must run on the blocks it names and the card must
-    hold at least one of its clusters. Returns (largest error of the
-    float32 rows, of the float64 rows, float32 timing rows, float64 timing
-    rows)."""
+    """Phase 19 (a), the sweep: every row of sixteen_shapes against its plain
+    version on the card, the plan held against the library's. The float32 rows
+    as phase 3 holds its shapes (phase_compare: the initial loss within 1e-5,
+    the best losses by drift_ok); the float64 rows' initial losses within
+    F64_LOSS0_TOL and their best losses within F64_BEST_TOL, or on a restart
+    past it within F64_HOST_FACTOR times the distance of the plain route on the
+    host from the card's (the roundoff of two float64 routes that Adam
+    amplified on that restart); each launch of the double build counted. Every
+    row must run on the blocks it names and the card must hold at least one of
+    its clusters. Returns (largest error of the float32 rows, of the float64
+    rows, float32 timing rows, float64 timing rows)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     F64 = torch.float64
@@ -3232,41 +3252,57 @@ def phase_sixteen_sweeps(card):
         want, plain_ms = timed(lambda: sk.sweep_reference(obj, init, s['lr'],
                                                           T))
         e0 = scaled_err(got.regloss0, want.regloss0).max().item()
-        e = scaled_err(got.best_loss, want.best_loss).max().item()
+        err = scaled_err(got.best_loss, want.best_loss)
+        e = err.max().item()
+        # the restarts past F64_BEST_TOL again through the plain route on
+        # the host: its distance from the card's plain route is the float64
+        # roundoff that Adam amplified on them
+        past = torch.nonzero(err > F64_BEST_TOL).flatten()
+        host = torch.zeros_like(err)
+        if len(past):
+            on_host = sk.sweep_reference(obj, init[:, past].cpu(), s['lr'], T)
+            host[past] = scaled_err(on_host.best_loss.to(err.device),
+                                    want.best_loss[past])
+        tol = torch.clamp(F64_HOST_FACTOR * host, min=F64_BEST_TOL)
         worst64 = max(worst64, e)
         print(f'phase 19 (a): {s["name"]}: initial loss err {e0:.3e} (tol '
-              f'{F64_LOSS0_TOL}), best loss err {e:.3e} (tol {F64_BEST_TOL})',
-              flush=True)
-        check(e0 <= F64_LOSS0_TOL and e <= F64_BEST_TOL,
+              f'{F64_LOSS0_TOL}), best loss err {e:.3e} (tol {F64_BEST_TOL}; '
+              f'{len(past)} restart(s) past it, where the plain route on the '
+              f'host differs from the card\'s by up to '
+              f'{host.max().item():.3e})', flush=True)
+        check(e0 <= F64_LOSS0_TOL and bool((err <= tol).all()),
               f'{s["name"]}: float64 kernel against plain float64: initial '
-              f'{e0:.3e}, best {e:.3e}')
+              f'{e0:.3e}, best {err.tolist()}, the plain route on the host '
+              f'against the card\'s {host.tolist()}')
         rows64.append(sweep_row(s, c, occ, ms, plain_ms, T, card,
                                 'phase 19 (a)'))
     return worst32, worst64, rows32, rows64
 
 
-# (n, k, rot, B, dtype, passes) of phase 19 (a)'s unitary rows, passes the
-# vjp flags driven, the last of them on 16 blocks: the vjp in float64 at
-# 8q k=16 and in float32 deeper than 8 blocks hold; the forward pass alone
-# (no cluster: 16 independent blocks) in float64 where only 16 hold it,
-# beyond the vjp's reach
-SIXTEEN_UNITARY = [(8, 16, 'xyz', 16, 'float64', (False, True)),
-                   (8, 270, 'xyz', 4, 'float32', (False, True)),
-                   (8, 240, 'xyz', 2, 'float64', (False,))]
+# (n, k, rot, B, dtype, passes, columns, blocks) of phase 19 (a)'s unitary
+# rows, passes the vjp flags driven, the last of them on `blocks` blocks a
+# restart: the vjp in float64 at 8q k=16 and in float32 deeper than 8
+# blocks hold; the forward pass alone (no cluster: 16 independent blocks)
+# in float64 where only 16 hold it, beyond the vjp's reach; one column of
+# 13 qubits in float32 (a state, one block a restart)
+SIXTEEN_UNITARY = [(8, 16, 'xyz', 16, 'float64', (False, True), None, 16),
+                   (8, 270, 'xyz', 4, 'float32', (False, True), None, 16),
+                   (8, 240, 'xyz', 2, 'float64', (False,), None, 16),
+                   (13, 48, 'xyz', 8, 'float32', (False, True), [0], 1)]
 
 
 def phase_sixteen_unitary(card):
     """Phase 19 (a), the unitary kernels: ansatz_forward and ansatz_vjp at
-    SIXTEEN_UNITARY's shapes against the plain builder of the same dtype
-    under autograd on the card (a random complex cotangent), each plan held
-    against the library's; the float64 rows within F64_UNITARY_TOL and
-    F64_GRAD_TOL, the float32 ones within phase 12's 2e-5 and 1e-4 (scaled
-    by max(1, |gradient|)); each row's last pass must run on 16 blocks and
-    the card hold at least one of its clusters (the vjp) or blocks (the
-    forward pass). Prints each pass's plan, resident blocks or clusters,
-    its time alone on the card (profiler) and by CUDA events, its bound and
-    share. Returns (largest errors by kernel line name, timing rows by
-    kernel line name)."""
+    SIXTEEN_UNITARY's shapes against the plain builder of the same dtype under
+    autograd on the card (a random complex cotangent), each plan held against
+    the library's; the float64 rows within F64_UNITARY_TOL and F64_GRAD_TOL,
+    the float32 ones within phase 12's 2e-5 and 1e-4 (scaled by max(1,
+    |gradient|)); each row's last pass must run on the blocks it names and the
+    card hold at least one of its clusters (a vjp on more than one block) or
+    blocks. Prints each pass's plan, resident blocks or clusters, its time
+    alone on the card (profiler) and by CUDA events, its bound and share.
+    Returns (largest errors by kernel line name, timing rows by kernel line
+    name)."""
     import torch
     from cpflow_tpu_torch.api import Ansatz
     from cpflow_tpu_torch.kernels import unitary as uk
@@ -3275,57 +3311,63 @@ def phase_sixteen_unitary(card):
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
     errs, rows = {}, {}
     gen = torch.Generator(device='cuda').manual_seed(19)
-    for n, k, rot, B, dname, passes in SIXTEEN_UNITARY:
+    for n, k, rot, B, dname, passes, cols, blocks in SIXTEEN_UNITARY:
         dtype = getattr(torch, dname)
         f64 = dtype == torch.float64
         suffix = '_f64' if f64 else ''
         tol_u, tol_g = (F64_UNITARY_TOL, F64_GRAD_TOL) if f64 else (2e-5, 1e-4)
         anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
         nba = num_block_angles('cp', rot)
-        name = f'{n}q chain k={k} {rot!r} B={B} {dname}'
-        plans = dict(zip(passes, unitary_plan(n, k, nba, n, name, dtype,
-                                              passes)))
+        name = f'{n}q chain k={k} {rot!r} B={B} {dname}' + \
+            (', column 0' if cols else '')
+        plans = dict(zip(passes, unitary_plan(n, k, nba, 0 if cols else n,
+                                              name, dtype, passes)))
         last = 'vjp' if passes[-1] else 'forward pass'
-        check(plans[passes[-1]]['blocks_per_restart'] == 16,
+        check(plans[passes[-1]]['blocks_per_restart'] == blocks,
               f'{name}: the {last} on '
               f'{plans[passes[-1]]["blocks_per_restart"]} blocks')
         vjp_too = True in passes
+        vjp_blocks = plans[True]['blocks_per_restart'] if vjp_too else 1
         angles = uniform_inits(anz.num_angles, B, 19, 'cuda').to(dtype)
         ap = angles.clone().requires_grad_(vjp_too)
         up = build_unitary_batched(n, 'cp', rot, anz.placements, ap,
-                                   dtype=dtype)
-        up = up.reshape(2 ** n, 2 ** n, B).permute(2, 0, 1)
+                                   columns=cols, dtype=dtype)
+        up = up.reshape(2 ** n, len(cols) if cols else 2 ** n, B) \
+            .permute(2, 0, 1)
         if vjp_too:
             g = torch.randn(up.shape, dtype=up.dtype, device='cuda',
                             generator=gen)
             (gp,) = torch.autograd.grad((up * g.conj()).real.sum(), ap,
                                         retain_graph=True)
         before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
-                  uk.VJP_LAUNCHES_BY_CLUSTER[16])
-        u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles)
+                  uk.VJP_LAUNCHES_BY_CLUSTER[vjp_blocks])
+        u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles, cols)
         eg = 0.0
         if vjp_too:
-            gk = uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g)
+            gk = uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g,
+                               cols)
             eg = ((gk - gp).abs() / gp.abs().clamp(min=1.0)).max().item()
         torch.cuda.synchronize()
         check((uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
-               uk.VJP_LAUNCHES_BY_CLUSTER[16]) ==
+               uk.VJP_LAUNCHES_BY_CLUSTER[vjp_blocks]) ==
               (before[0] + 1, before[1] + vjp_too, before[2] + vjp_too),
-              f'{name}: the kernels did not run (the vjp on 16 blocks)')
+              f'{name}: the kernels did not run (the vjp on {vjp_blocks} '
+              f'blocks)')
         eu = (u - up.detach()).abs().max().item()
         check(eu <= tol_u and eg <= tol_g, f'{name}: unitary err {eu:.3e}, '
               f'gradient err {eg:.3e} (tol {tol_u}, {tol_g})')
         regs = uk.registers('cuda', dtype)
-        work = unitary_work(n, k, rot, dtype=dtype)
+        work = unitary_work(n, k, rot, log_c=0 if cols else None,
+                            dtype=dtype)
         for vjp, plan in plans.items():
             line = ('ansatz_vjp' if vjp else 'ansatz_forward') + suffix
             errs[line] = max(errs.get(line, 0.0), eg if vjp else eu)
             c = plan['blocks_per_restart']
             kname = uk.kernel_name('rows', vjp, n, c)
             call = (lambda: uk.ansatz_vjp(n, 'cp', rot, anz.placements,
-                                          angles, u, g)) if vjp else \
+                                          angles, u, g, cols)) if vjp else \
                 (lambda: uk.ansatz_forward(n, 'cp', rot, anz.placements,
-                                           angles))
+                                           angles, cols))
             alone = device_ms(call, TRACE_NAMES[('rows', vjp)])
             _, ms = timed(call)
             if vjp:
@@ -3333,11 +3375,13 @@ def phase_sixteen_unitary(card):
                     (up * g.conj()).real.sum(), ap, retain_graph=True))
             else:
                 _, plain_ms = timed(lambda: build_unitary_batched(
-                    n, 'cp', rot, anz.placements, angles, dtype=dtype))
+                    n, 'cp', rot, anz.placements, angles, columns=cols,
+                    dtype=dtype))
+            in_cluster = vjp and c > 1
             resident = uk.active_clusters(plan['threads'], plan['smem_bytes'],
-                                          c, 'cuda', dtype) if vjp else \
-                uk.occupancy(kname, plan['threads'], plan['smem_bytes'],
-                             'cuda', dtype)
+                                          c, 'cuda', dtype) if in_cluster \
+                else uk.occupancy(kname, plan['threads'], plan['smem_bytes'],
+                                  'cuda', dtype)
             check(resident >= 1, f'{name}: the card holds no {kname} of '
                   f'{c} blocks')
             b_ms, b_by = unitary_bound_ms(
@@ -3345,8 +3389,8 @@ def phase_sixteen_unitary(card):
                 work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
             share = f'{b_ms / alone:.2%}' if alone else 'not measured'
             print(f'phase 19 (a): {line} {name} on {card}: {plan_text(plan)}, '
-                  + (f'{resident} clusters of {c} resident' if vjp else
-                     f'{resident} block(s) per SM')
+                  + (f'{resident} clusters of {c} resident' if in_cluster
+                     else f'{resident} block(s) per SM')
                   + f', {regs[kname]["registers"]} registers, '
                   f'{regs[kname]["local_bytes"]} local bytes; unitary err '
                   f'{eu:.3e}, gradient err {eg:.3e} (tol {tol_u}, {tol_g}); '
@@ -3356,7 +3400,7 @@ def phase_sixteen_unitary(card):
                   f'{share}', flush=True)
             rows.setdefault(line, []).append(dict(
                 shape=name, design='rows', cluster=c,
-                active_clusters=resident if vjp else None, ms=ms,
+                active_clusters=resident if in_cluster else None, ms=ms,
                 device_ms=alone, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, registers=regs[kname]['registers'],
                 local_bytes=regs[kname]['local_bytes']))
@@ -3498,100 +3542,51 @@ def phase_custom8(card):
     return fwd, vjp
 
 
-def state_of(circuit):
-    """The circuit applied to |0...0> in float64 on the host (qubit 0 the
-    most significant bit): its first column, without the 2^n x 2^n unitary
-    that Circuit.unitary builds (1 GiB at 13 qubits)."""
+def ghz_host_loss(d):
+    """The float64 host state loss of Decomposition d's circuit against
+    GHZ-n normalized in float64, from the circuit's state (Circuit.state),
+    beside the package's own d.loss (whose target is the float32 one)."""
     import numpy as np
-    n = circuit.num_qubits
-    psi = np.zeros([2] * n, dtype=np.complex128)
-    psi[(0,) * n] = 1
-    for inst in circuit.instructions:
-        k = len(inst.qubits)
-        g = inst.gate_matrix().astype(np.complex128).reshape([2] * (2 * k))
-        psi = np.tensordot(g, psi, axes=[list(range(k, 2 * k)),
-                                         list(inst.qubits)])
-        psi = np.moveaxis(psi, list(range(k)), list(inst.qubits))
-    return psi.reshape(-1)
-
-
-def ghz_circuits(anz, angles, target):
-    """[(CZ count, float64 host state loss)] of the circuits of verified
-    angles, each CP gate projected as circuits.passes.cp_to_cz_circuit
-    projects it at Decomposition's threshold 1e-6 (near 0 dropped, near pi
-    a CZ, any other angle its two-CZ realization), without that pass's
-    check, which builds two 2^n x 2^n unitaries; the state by state_of."""
-    import math
-    import numpy as np
-    from cpflow_tpu_torch.circuits.ir import Circuit, Instruction
-    from cpflow_tpu_torch.circuits.passes import _residual_cp_as_cz_rz
-    t64 = np.asarray(target, dtype=np.complex128)
-    t64 = t64 / np.linalg.norm(t64)  # the float32 target, unit in float64
-    out = []
-    for a in angles:
-        qc = anz.circuit(list(np.asarray(a, dtype=float)))
-        proj = Circuit(qc.num_qubits)
-        for inst in qc.instructions:
-            if inst.name != 'cp':
-                proj.instructions.append(inst.copy())
-            elif abs(inst.param - math.pi) <= 1e-6:
-                proj.instructions.append(Instruction('cz', inst.qubits))
-            elif abs(inst.param) > 1e-6:
-                proj.instructions.extend(_residual_cp_as_cz_rz(
-                    inst.param, *inst.qubits))
-        out.append((proj.gates_count(['cz']),
-                    float(1 - abs(t64.conj() @ state_of(proj)) ** 2)))
-    return sorted(out)
+    psi = d.circuit.state()
+    t64 = ghz(d.circuit.num_qubits).astype(np.complex128)
+    t64 = t64 / np.linalg.norm(t64)
+    return float(1 - abs(np.vdot(t64, psi)) ** 2)
 
 
 def phase_ghz13_search(k=None, samples=None, steps=None):
-    """Phase 19 (d), the search: GHZ-13 state preparation in float32 on the
-    chain, Synthesize.static's stages with the state loss at k blocks
-    (default GHZ13_K), `samples` restarts (GHZ13_SAMPLES) of `steps`
-    sampling steps (GHZ13_STEPS), accepting 12 CZ (n - 1, the fewest on the
-    chain): the seeded sampling sweep, the entry filter and the
-    verification sweep, as static runs them, each verified angle vector's
-    circuit checked on the host by ghz_circuits (a Decomposition would
-    build the 2^13 x 2^13 unitary, minutes on the host). Needs the kernel
-    on one block a restart; what it finds is printed, not required:
-    random restarts at 13 qubits stall at a product state (loss 0.5), and
-    phase_ghz13_warm holds the 12-CZ state. Returns the launches."""
+    """Phase 19 (d), the search: Synthesize.static for GHZ-13 in float32 on
+    the 13q chain at k blocks (default GHZ13_K), `samples` random restarts
+    (GHZ13_SAMPLES) of `steps` sampling steps (GHZ13_STEPS), accepting 12
+    CZ (n - 1, the fewest on the chain). Needs the kernel on one block a
+    restart; what it finds is printed, not required: random restarts at 13
+    qubits stall at a product state (loss 0.5), in the JAX package too
+    (tests/test_torch_sixteen.py), and phase_ghz13_warm holds the 12-CZ
+    state. Returns the launches."""
     import torch
     from cpflow_tpu_torch.api import StaticOptions, Synthesize
     from cpflow_tpu_torch.kernels import sweep as sk
-    from cpflow_tpu_torch.optimize import candidates as cand
     from cpflow_tpu_torch.topology import chain_layer
     k, samples = k or GHZ13_K, samples or GHZ13_SAMPLES
     steps = steps or GHZ13_STEPS
-    target = ghz(13)
-    synth = Synthesize(chain_layer(13), target_state=target)
+    synth = Synthesize(chain_layer(13), target_state=ghz(13))
     options = StaticOptions(num_cp_gates=k, num_samples=samples,
                             num_gd_iterations=steps, r=0.001,
                             accepted_num_cz_gates=12)
     sk.LAUNCHES = 0
     sk.LAUNCHES_BY_CLUSTER.clear()
     start = time.perf_counter()
-    ev = synth._raw_and_evaluate(options)
-    sampled = time.perf_counter() - start
-    prospective = cand.filter_prospective(ev, threshold_cz_count=12,
-                                          threshold_loss=options.entry_loss)
-    found = []
-    if len(prospective):
-        anz = synth._ansatz(options)
-        ver = synth._verify(anz, ev.angles[prospective], options)
-        found = ghz_circuits(anz, ver.best_angles[ver.success], target)
+    results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
-    under = ev.loss <= options.entry_loss
-    print(f'phase 19 (d): GHZ-13 search on the 13q chain in float32, static '
-          f'k={k}, {samples} samples, {steps} steps: sampled losses (least '
-          f'four) {sorted(round(float(x), 6) for x in ev.loss)[:4]}, CZ '
-          f'counts under entry {dict(Counter(int(c) for c in ev.cz[under]))}'
-          f', {len(prospective)} prospective, verified (CZ, host loss) '
-          f'{found[:4]}; sweep launches {launches} by blocks a restart '
-          f'{by_cluster}; wall {wall:.3f} s (sampling {sampled:.3f} s)',
-          flush=True)
+    found = sorted((d.cz_count, d.loss) for d in results.decompositions)
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 19 (d): GHZ-13 search, Synthesize.static on the 13q chain '
+          f'in float32, k={k}, {samples} samples, {steps} steps: '
+          f'{len(found)} verified, (CZ, loss) {found[:4]}; sweep launches '
+          f'{launches} by blocks a restart {by_cluster}; wall {wall:.3f} s '
+          f'({stages})', flush=True)
     check(launches >= 1 and by_cluster == {1: launches},
           f'GHZ-13 search: {launches} launches, by blocks a restart '
           f'{by_cluster}')
@@ -3617,63 +3612,66 @@ def ghz_program(n):
 
 
 def phase_ghz13_warm(B=64, T=500):
-    """Phase 19 (d), from the exact embedding: the warm-start protocol of
-    phase 15 (b) on GHZ-13 in float32 (the state loss, the 12-CZ ladder
-    embedded exactly, k = 12): a warm batch of B (build_warm_batch, seed
-    0) through engine.minimize_fused at r = 1e-4 and the verification's
-    learning rate 0.01 for T steps, then verify_candidates_batch on every
-    row under the entry loss. Needs a noisy row (sigma > 0) that started
-    above the entry loss to end under it and verify as a 12-CZ
-    decomposition at float64 host state loss <= 1e-6, every launch on one
+    """Phase 19 (d), Synthesize.static from a warm start: GHZ-13 in float32
+    on the 13q chain at k = 12, whose template is the 12-CZ ladder's
+    (ghz_program's placements, embedded exactly). Static's initial angles
+    (initial_angles_array) are the noisy rows of a warm batch of B
+    (build_warm_batch, seed 0: not the exact row, not the random ones)
+    whose float64 host state loss starts above the entry loss; T sampling
+    steps at r = 1e-4 and learning rate 0.01, then static's filter, its
+    verification (at most 2000 steps) and its Decompositions, checked and
+    scored on the circuit's state. Needs a 12-CZ decomposition at host
+    loss <= 1e-6 (the package's and ghz_host_loss), every launch on one
     block a restart. Returns the launches."""
     import numpy as np
     import torch
-    from cpflow_tpu_torch.api import Ansatz, BasicOptions, LossSpec
+    from cpflow_tpu_torch.api import (Ansatz, BasicOptions, LossSpec,
+                                      StaticOptions, Synthesize)
     from cpflow_tpu_torch.kernels import sweep as sk
-    from cpflow_tpu_torch.optimize import candidates as cand
-    from cpflow_tpu_torch.optimize import engine
+    from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
     n, target = 13, ghz(13)
     placements, exact = ghz_program(n)
-    pl = {'layers': [[], 0], 'free': placements}
-    anz = Ansatz(n, 'cp', pl, 'xyz')
-    obj, _ = make_objective(n, len(placements), target, 1e-4, kind='state',
-                            placements=pl)
+    anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), n - 1), 'xyz')
+    check([list(p) for p in all_placements(anz.placements)] == placements,
+          'GHZ-13: the chain template at k = 12 is not the ladder\'s')
     warm, sigma = build_warm_batch(exact.astype(np.float32),
                                    np.asarray(anz.cp_mask, dtype=np.float64),
                                    B, 0)
-    entry = BasicOptions.entry_loss
-    spec = LossSpec('state', target=target)
+    spec, entry = LossSpec('state', target=target), BasicOptions.entry_loss
+    loss0 = np.array([spec.numpy(anz.circuit(list(a.astype(float)))
+                                 .state()[:, None]) for a in warm])
+    rows = np.nonzero((sigma > 0) & (loss0 > entry))[0]
+    check(len(rows) > 0, f'GHZ-13: no noisy row starts above entry {entry}')
+    synth = Synthesize(chain_layer(n), target_state=target)
+    options = StaticOptions(num_cp_gates=n - 1, num_samples=len(rows),
+                            num_gd_iterations=T, learning_rate=0.01, r=1e-4,
+                            num_gd_iterations_at_verification=2000,
+                            accepted_num_cz_gates=n - 1)
     sk.LAUNCHES = 0
     sk.LAUNCHES_BY_CLUSTER.clear()
     start = time.perf_counter()
-    raw = engine.minimize_fused(obj, torch.tensor(warm, device='cuda'),
-                                learning_rate=0.01, num_iterations=T)
-    loss0 = raw.loss[:, 0].cpu().numpy()
-    best = raw.loss[:, 1].cpu().numpy()
-    below = np.nonzero(best <= entry)[0]
-    check(len(below) > 0, f'GHZ-13: no row under entry {entry}: '
-          f'{np.sort(best)[:4]}')
-    ver = cand.verify_candidates_batch(
-        spec, anz, raw.params[torch.as_tensor(below, device='cuda'), 1]
-        .cpu().numpy(), learning_rate=0.01, num_iterations=2000,
-        target_loss=1e-6, device='cuda')
+    results = synth.static(options, save_results=False, verbose=False,
+                           initial_angles_array=warm[rows])
     torch.cuda.synchronize()
-    launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
-    back = [j for j in np.nonzero(ver.success)[0]
-            if sigma[below[j]] > 0 and loss0[below[j]] > entry]
-    hosts = ghz_circuits(anz, ver.best_angles[back], target)
     wall = time.perf_counter() - start
-    print(f'phase 19 (d): GHZ-13 from its exact 12-CZ embedding, warm batch '
-          f'of {B}, {T} steps at lr 0.01: {len(below)} rows under entry '
-          f'{entry}, {int(ver.success.sum())} verified, {len(back)} noisy '
-          f'rows brought back from above entry and verified, (CZ, host '
-          f'loss) {hosts[:4]}; sweep launches {launches} by blocks a '
-          f'restart {by_cluster}; wall {wall:.3f} s', flush=True)
+    launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+    hosts = sorted((d.cz_count, d.loss, ghz_host_loss(d))
+                   for d in results.decompositions)
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'phase 19 (d): GHZ-13, Synthesize.static from a warm start on '
+          f'the 13q chain in float32, k=12: {len(rows)} noisy rows of {B} '
+          f'starting above entry {entry} (host losses '
+          f'{loss0[rows].min():.3g}-{loss0[rows].max():.3g}), {T} steps at '
+          f'lr 0.01: {len(hosts)} verified, (CZ, loss, float64 host loss) '
+          f'{hosts[:3]}; sweep launches {launches} by blocks a restart '
+          f'{by_cluster}; wall {wall:.3f} s ({stages})', flush=True)
     check(launches >= 2 and by_cluster == {1: launches},
           f'GHZ-13: {launches} launches, by blocks a restart {by_cluster}')
-    check(hosts and hosts[0][0] == 12 and hosts[0][1] <= 1e-6,
-          f'GHZ-13: no noisy row brought back to a 12-CZ circuit at host '
-          f'loss <= 1e-6: {hosts[:4]}')
+    check(hosts and hosts[0][0] == 12 and max(hosts[0][1:]) <= 1e-6,
+          f'GHZ-13: no 12-CZ decomposition at host loss <= 1e-6 from noisy '
+          f'rows that started above entry: {hosts[:4]}')
     return launches
 
 
@@ -3682,9 +3680,9 @@ def phase_sixteen(card):
     open. (a) the sweep kernel at sixteen_shapes and the unitary kernels at
     SIXTEEN_UNITARY against their plain versions; (b) the static 8q CX
     ladder in float64 (phase_ladder8); (c) a custom loss at 8 qubits in
-    float64 (phase_custom8); (d) GHZ-13 in float32, a search from random
-    restarts (phase_ghz13_search) and the warm start from the exact
-    12-CZ embedding (phase_ghz13_warm); then 9
+    float64 (phase_custom8); (d) GHZ-13 in float32 through
+    Synthesize.static, from random restarts (phase_ghz13_search) and from
+    a warm start (phase_ghz13_warm); then 9
     qubits whole, 14-qubit states and 13-qubit states in float64 refused,
     each with its reason, and no kernel launched by them. Returns (largest
     errors by kernel line name, timing rows by kernel line name, sweep

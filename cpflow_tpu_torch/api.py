@@ -280,17 +280,28 @@ class Ansatz:
 # Decomposition
 # --------------------------------------------------------------------------
 
+def _on_state(unitary_loss_func) -> bool:
+    """Whether the loss reads the unitary's first column alone (a state
+    target), so that a circuit is checked and scored on its state."""
+    return getattr(unitary_loss_func, 'kind', None) == 'state'
+
+
 class Decomposition:
     """A found decomposition: circuit, host loss, CZ metrics, refinement
-    to Rational and Clifford+T circuits."""
+    to Rational and Clifford+T circuits. For a state target the circuit is
+    checked and scored on its state (Circuit.state), and ``unitary`` is
+    built only when read: at 13 qubits it is 1 GiB and minutes on the
+    host."""
 
     def __init__(self, unitary_loss_func, circuit: Circuit, label: str = '',
                  type: str = 'Approximate'):
         self.unitary_loss_func = unitary_loss_func
         self.circuit = circuit
-        self.unitary = circuit.unitary()
+        self.unitary = None
         self.label = label
-        self.loss = host_loss_adapter(unitary_loss_func)(self.unitary)
+        self.loss = host_loss_adapter(unitary_loss_func)(
+            circuit.state()[:, None] if _on_state(unitary_loss_func)
+            else self.unitary)
         self.type = type
         self.cz_count = circuit.gates_count(['cz'])
         self.cz_depth = circuit.gates_depth(['cz'])
@@ -302,6 +313,20 @@ class Decomposition:
         self._adaptive_options = None
         self._decomposer = None
 
+    @property
+    def unitary(self) -> np.ndarray:
+        """The circuit's 2^n x 2^n matrix, built on first read. It lives
+        under 'unitary' in the instance's dict, as it did when it was a
+        plain attribute, so saved and migrated results load unchanged."""
+        u = self.__dict__.get('unitary')
+        if u is None:
+            u = self.__dict__['unitary'] = self.circuit.unitary()
+        return u
+
+    @unitary.setter
+    def unitary(self, u) -> None:
+        self.__dict__['unitary'] = u
+
     @classmethod
     def _from_cp_circuit(cls, unitary_loss_func, anz: Ansatz, angles,
                          label: str = '') -> 'Decomposition':
@@ -310,8 +335,9 @@ class Decomposition:
         convert 1q runs to ZXZ."""
         angles = np.asarray(angles, dtype=float)
         qc = anz.circuit(list(angles))
-        qc = cp_to_cz_circuit(qc, cp_threshold=1e-6)
-        qc = convert_to_zxz(qc)
+        state = _on_state(unitary_loss_func)
+        qc = cp_to_cz_circuit(qc, cp_threshold=1e-6, state=state)
+        qc = convert_to_zxz(qc, state=state)
         d = cls(unitary_loss_func, qc, label=label)
         d._cp_data = [anz.placements, angles]
         return d

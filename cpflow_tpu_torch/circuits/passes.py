@@ -33,10 +33,15 @@ def hst_distance(u: np.ndarray, v: np.ndarray) -> float:
 
 
 def check_approximation(circuit: Circuit, new_circuit: Circuit,
-                        loss: float = 1e-5) -> None:
+                        loss: float = 1e-5, state: bool = False) -> None:
     """Raise if the transformed circuit drifted from the original
-    (exact_decompositions.py:30-33)."""
-    l = hst_distance(circuit.unitary(), new_circuit.unitary())
+    (exact_decompositions.py:30-33). With `state`, the two are compared on
+    |0...0> alone, 1 - |<a|b>|^2 of their states, as a state target
+    scores them."""
+    if state:
+        l = float(1 - abs(np.vdot(circuit.state(), new_circuit.state())) ** 2)
+    else:
+        l = hst_distance(circuit.unitary(), new_circuit.unitary())
     if not l < loss:
         raise ValueError(
             f'Difference {l} between modified and original circuit is above '
@@ -85,9 +90,11 @@ def _residual_cp_as_cz_rz(theta: float, q0: int, q1: int) -> List[Instruction]:
     return out
 
 
-def cp_to_cz_circuit(circuit: Circuit, cp_threshold: float = 0.2) -> Circuit:
+def cp_to_cz_circuit(circuit: Circuit, cp_threshold: float = 0.2,
+                     state: bool = False) -> Circuit:
     """Project CP gates: near-0 -> removed, near-pi -> CZ, residual ->
-    explicit 2-CZ realization (reference exact_decompositions.py:42-74)."""
+    explicit 2-CZ realization (reference exact_decompositions.py:42-74);
+    checked on the state alone with `state` (check_approximation)."""
     new = Circuit(circuit.num_qubits)
     for inst in circuit.instructions:
         if inst.name != 'cp':
@@ -101,7 +108,7 @@ def cp_to_cz_circuit(circuit: Circuit, cp_threshold: float = 0.2) -> Circuit:
         else:
             new.instructions.extend(
                 _residual_cp_as_cz_rz(a, inst.qubits[0], inst.qubits[1]))
-    check_approximation(circuit, new, loss=1e-5)
+    check_approximation(circuit, new, loss=1e-5, state=state)
     return new
 
 
@@ -109,10 +116,11 @@ def cp_to_cz_circuit(circuit: Circuit, cp_threshold: float = 0.2) -> Circuit:
 # ZXZ conversion
 # --------------------------------------------------------------------------
 
-def convert_to_zxz(circuit: Circuit) -> Circuit:
+def convert_to_zxz(circuit: Circuit, state: bool = False) -> Circuit:
     """Merge maximal runs of 1q gates per wire and re-express each run as
     Rz Rx Rz (reference convert_to_U + convert_to_ZXZ,
-    exact_decompositions.py:133-190)."""
+    exact_decompositions.py:133-190); checked on the state alone with
+    `state` (check_approximation)."""
     n = circuit.num_qubits
     pending: List[Optional[np.ndarray]] = [None] * n
     new = Circuit(n)
@@ -138,7 +146,7 @@ def convert_to_zxz(circuit: Circuit) -> Circuit:
     for q in range(n):
         flush(q)
 
-    check_approximation(circuit, new)
+    check_approximation(circuit, new, state=state)
     return new
 
 

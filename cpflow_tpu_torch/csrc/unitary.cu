@@ -342,16 +342,25 @@ Kernel kernel_of(int which) {
 
 enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1 };
 
-// Dynamic shared memory granted to each kernel on each device so far, and
-// the devices on which the vjp's cluster kernel may take a cluster of 16
-// (non-portable) blocks: each attribute is set once per kernel and device
-// (and size), not before every launch.
+// Dynamic shared memory granted to each kernel on each device so far, the
+// devices on which the vjp's cluster kernel may take a cluster of 16
+// (non-portable) blocks, and the last (threads, bytes) at which each device
+// placed such a cluster: each attribute is set, and the placement asked,
+// once per kernel and device (and size), not before every launch.
 constexpr int kMaxDevices = 64;
 constexpr int kClusterKernel = 2;  // vjp_kernel<true>
+constexpr unsigned kMaxPortableCluster = 8;
 size_t g_granted[kMaxDevices][kKernels];
 bool g_non_portable[kMaxDevices];
+struct Placed {
+  int threads;
+  size_t bytes;
+};
+Placed g_placed[kMaxDevices];
 
 cudaError_t grant_smem(int which, size_t bytes) {
+  // the default allows it, and only the cluster kernel takes one more
+  if (bytes <= 48 * 1024 && which != kClusterKernel) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -362,7 +371,7 @@ cudaError_t grant_smem(int which, size_t bytes) {
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) g_non_portable[dev] = true;
   }
-  if (bytes <= 48 * 1024) return cudaSuccess;  // the default allows it
+  if (bytes <= 48 * 1024) return cudaSuccess;
   size_t* granted = dev < kMaxDevices ? &g_granted[dev][which] : nullptr;
   if (granted && *granted >= bytes) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel_of(which),
@@ -405,6 +414,27 @@ bool plan_launch(Args& a, int vjp, int design, Launch& out) {
   out.cluster = cluster ? 1u << a.cluster_log : 1u;
   out.bytes = L.bytes;
   return true;
+}
+
+// cudaErrorLaunchOutOfResources where the card places no cluster of the
+// launch l (configured as cfg), so that it never starts. Asked of the
+// runtime only for a non-portable cluster, above 8 blocks (a portable one
+// always fits), and then once per device and shape.
+cudaError_t check_placement(const Launch& l, const cudaLaunchConfig_t& cfg) {
+  if (l.cluster <= kMaxPortableCluster) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  Placed* placed = dev < kMaxDevices ? &g_placed[dev] : nullptr;
+  if (placed && placed->threads == l.threads && placed->bytes == l.bytes)
+    return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(kernel_of(l.which)), &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (placed) *placed = {l.threads, l.bytes};
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -494,13 +524,8 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   const cudaLaunchConfig_t cfg =
       launch_config(l.grid, l.threads, l.bytes, l.cluster,
                     static_cast<cudaStream_t>(stream), &attr);
-  if (l.cluster > 1) {  // a cluster the card cannot place never starts
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(
-        &clusters, reinterpret_cast<const void*>(kernel_of(l.which)), &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  }
+  err = check_placement(l, cfg);
+  if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(
                                       kernel_of(l.which)), args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

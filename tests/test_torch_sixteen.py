@@ -14,7 +14,12 @@ against the JAX package on the CPU.
     in float32 against the JAX package's fused sweep, and a tiny static
     CX ladder in float64 through both packages (at 7 qubits: the JAX
     package's compilation at 8 qubits under x64 takes the test past its
-    time).
+    time);
+  * a state target at 13 qubits on the host: Circuit.state, the passes'
+    checks on the state, a Decomposition scored on the state (as the JAX
+    package's at 4 qubits, and at 13 without the 2^13 x 2^13 unitary), and
+    the GHZ-13 search's stall at loss 0.5 in both packages on the same
+    seeds.
 
 The kernels themselves run only on a card: chip_smoke.py phase 19 holds
 the 16-block shapes and the 13-qubit state against their plain versions
@@ -359,3 +364,122 @@ def test_tiny_static_ladder_in_float64_matches_jax():
             == [(g.name, tuple(g.qubits)) for g in b.circuit.instructions]
         assert abs(a.loss - b.loss) <= 1e-10
         assert b.loss <= 1e-6
+
+
+def _random_circuit(n, k, seed):
+    placements = fill_layers(chain_layer(n), k)
+    anz = tapi.Ansatz(n, 'cp', placements, 'xyz')
+    angles = np.random.default_rng(seed).uniform(0, 2 * np.pi, anz.num_angles)
+    return anz.circuit(list(angles))
+
+
+@pytest.mark.parametrize('n', [2, 4, 6])
+def test_circuit_state_is_the_unitarys_first_column(n):
+    """Circuit.state (the circuit on |0...0>, no 2^n x 2^n matrix) equals
+    the first column of Circuit.unitary and of the JAX package's circuit
+    unitary, to float64 roundoff."""
+    from cpflow_tpu.circuits import ir as jir
+    qc = _random_circuit(n, 2 * n, n)
+    jqc = jir.Circuit(n)
+    for g in qc.instructions:
+        jqc.append(g.name, g.qubits, g.param)
+    psi = qc.state()
+    assert psi.shape == (2 ** n,) and psi.dtype == np.complex128
+    np.testing.assert_allclose(psi, qc.unitary()[:, 0], rtol=0, atol=1e-13)
+    np.testing.assert_allclose(psi, jqc.unitary()[:, 0], rtol=0, atol=1e-13)
+
+
+def test_check_approximation_on_the_state():
+    """With state=True two circuits are held to the same state, not the same
+    unitary: a CZ on |00> leaves the state as it is, so the state check
+    passes where the unitary check raises."""
+    from cpflow_tpu_torch.circuits.passes import check_approximation
+    from cpflow_tpu_torch.circuits.ir import Circuit, Instruction
+    qc = _random_circuit(4, 6, 1)
+    changed = Circuit(4, [Instruction('cz', (0, 1))] +
+                      [g.copy() for g in qc.instructions])
+    check_approximation(qc, changed, state=True)
+    with pytest.raises(ValueError, match='above threshold'):
+        check_approximation(qc, changed)
+    flipped = Circuit(4, [Instruction('x', (0,))] +
+                      [g.copy() for g in qc.instructions])
+    with pytest.raises(ValueError, match='above threshold'):
+        check_approximation(qc, flipped, state=True)
+
+
+def test_state_decomposition_matches_jax():
+    """A state target's Decomposition is checked and scored on the circuit's
+    state: at 4 qubits (GHZ-4 on the chain, random angles with CP angles
+    snapped to 0 or pi, as a verification leaves them) the same circuit,
+    CZ count and depth as the JAX package's, which builds the unitary, and
+    host losses within 1e-12; the unitary is built only when read."""
+    n, k = 4, 6
+    placements = fill_layers(chain_layer(n), k)
+    tanz = tapi.Ansatz(n, 'cp', placements, 'xyz')
+    janz = japi.Ansatz(n, 'cp', placements, 'xyz')
+    rng = np.random.default_rng(4)
+    angles = rng.uniform(0, 2 * np.pi, tanz.num_angles)
+    cp = np.nonzero(tanz.cp_mask)[0]
+    angles[cp] = np.pi * rng.integers(0, 2, len(cp))
+    target = chip_smoke.ghz(n)
+    d = tapi.Decomposition._from_cp_circuit(
+        tapi.LossSpec('state', target=target), tanz, angles)
+    jd = japi.Decomposition._from_cp_circuit(
+        japi.LossSpec('state', target=target), janz, angles)
+    assert d.__dict__['unitary'] is None
+    assert (d.cz_count, d.cz_depth) == (jd.cz_count, jd.cz_depth)
+    assert [(g.name, tuple(g.qubits)) for g in d.circuit.instructions] == \
+        [(g.name, tuple(g.qubits)) for g in jd.circuit.instructions]
+    assert abs(d.loss - jd.loss) <= 1e-12
+    np.testing.assert_allclose(d.unitary, np.asarray(jd.unitary), rtol=0,
+                               atol=1e-12)
+
+
+def test_ghz13_decomposition_on_the_state():
+    """The 12-CZ GHZ-13 ladder (chip_smoke.ghz_program), embedded exactly
+    in the 13q chain template at k = 12, becomes a Decomposition of 12 CZ
+    at host loss within 1e-6 of 0 in well under a second: it never builds
+    the 2^13 x 2^13 unitary, which took 1404 s on an H100 machine's host
+    (chip_smoke.py phase 19 (d))."""
+    import time
+    placements, exact = chip_smoke.ghz_program(13)
+    anz = tapi.Ansatz(13, 'cp', fill_layers(chain_layer(13), 12), 'xyz')
+    from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
+    assert [list(p) for p in all_placements(anz.placements)] == placements
+    start = time.perf_counter()
+    d = tapi.Decomposition._from_cp_circuit(
+        tapi.LossSpec('state', target=chip_smoke.ghz(13)), anz, exact)
+    assert time.perf_counter() - start < 5
+    assert d.cz_count == 12 and abs(d.loss) <= 1e-6
+    assert d.__dict__['unitary'] is None
+    assert chip_smoke.ghz_host_loss(d) <= 1e-12
+
+
+GHZ13_SEARCH = dict(num_cp_gates=14, num_samples=2, num_gd_iterations=40,
+                    r=0.001, accepted_num_cz_gates=12, random_seed=0)
+
+
+def test_ghz13_search_stalls_in_both_packages():
+    """The GHZ-13 static search of chip_smoke.py phase 19 (d), k = 14 on the
+    13q chain, at 2 restarts of 40 steps from seed 0 through both packages'
+    sampling stage on the CPU: the same restarts (the port draws the JAX
+    package's angles), the same losses within 1e-5 (float32 over 8192
+    amplitudes), and in both every restart at the product-state plateau
+    (loss near 0.5), so neither passes a candidate to verification. The
+    stall that phase 19 (d) sees at 1024 restarts of 2000 steps on the card
+    is the JAX package's too, not the port's."""
+    from cpflow_tpu.optimize import candidates as jcand
+    from cpflow_tpu_torch.optimize import candidates as tcand
+    target = chip_smoke.ghz(13)
+    jev = japi.Synthesize(chain_layer(13), target_state=target, mesh=None) \
+        ._raw_and_evaluate(japi.StaticOptions(**GHZ13_SEARCH))
+    tev = tapi.Synthesize(chain_layer(13), target_state=target,
+                          device='cpu') \
+        ._raw_and_evaluate(tapi.StaticOptions(**GHZ13_SEARCH))
+    jloss, tloss = np.asarray(jev.loss), np.asarray(tev.loss)
+    print(f'GHZ-13, k=14, 2 restarts, 40 steps: JAX package {jloss}, port '
+          f'{tloss}')
+    np.testing.assert_allclose(tloss, jloss, rtol=0, atol=1e-5)
+    assert ((jloss > 0.49) & (jloss < 0.51)).all()
+    for cand, ev in ((jcand, jev), (tcand, tev)):
+        assert len(cand.filter_prospective(ev, 12, 1e-3)) == 0
