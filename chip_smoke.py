@@ -214,17 +214,38 @@ with CUDA, and never imports JAX. Phases:
      finds printed), and at k=12 from the noisy rows of 15 (b)'s warm batch
      around the exact 12-CZ embedding that start above the entry loss,
      which must give a 12-CZ decomposition at float64 host state loss <=
-     1e-6; then 9 qubits whole, 14-qubit states and 13-qubit states in
-     float64 refused, each with its reason.
+     1e-6;
+ 20. states past one block, a state's one column split by rows over a
+     cluster of 2 to 16 blocks (the row tiles' builds of both sources, in
+     float and in double): (a) the sweep kernel against its plain version
+     at GHZ states on the chain at k = 2n, (L) 14q B=64 on 2 blocks, (M)
+     15q B=32 on 4, (N) 16q B=16 on 8, (O) 17q B=16 on 16 in float32 (as
+     phase 3 holds its shapes), (P) 13q B=32 on 2 and (Q) 16q B=8 on 16 in
+     float64 (as phase 19 (a) holds its float64 rows), and the unitary
+     kernels (one column) at 14-17q in float32 and 13q and 16q in float64
+     against the plain builder under autograd, each with its plan, the
+     clusters the card holds, its time and its share of the bound; (b)
+     GHZ-14 and GHZ-17 in float32 and GHZ-16 in float64 through
+     Synthesize.static from the noisy rows of a warm batch around the
+     exact (n - 1)-CZ embedding, each to n - 1 CZ at float64 host state
+     loss <= 1e-6; (c) GHZ-15 in float32 and GHZ-14 in float64 the same way
+     with cp_penalty_L1, whose sampling runs through the unitary kernels'
+     row tiles (verification through the sweep's); (d) a random-restart
+     GHZ-14 search (k=15, 256 samples, 1000 steps), printed; then 9 qubits
+     whole, 18-qubit states and 17-qubit states in float64 refused, each
+     with its reason.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
-(d)-(f), 19 (b)-(d)) runs with
+(d)-(f), 19 (b)-(d), 20 (b)-(d)) runs with
 the kernels' launch counts set to 0 just before it and read just after
 (16 (a) and (d) in their own processes). Every shape's
 plan (blocks a restart, shared bytes per block) is held against the
 kernels' own. The script prints the card, a JSON line of kernel results
 (sweep, ansatz_forward, ansatz_vjp, and their float64 builds sweep_f64,
-ansatz_forward_f64, ansatz_vjp_f64) and, last, the JSON device line; it
+ansatz_forward_f64, ansatz_vjp_f64; the row tiles' builds
+sweep_row_tiles, ansatz_forward_row_tiles, ansatz_vjp_row_tiles and
+their float64 builds, each name with _f64) and, last, the JSON device
+line; it
 exits non-zero if any phase fails or there is no card. A phase after the
 build and the comparison (phases 2-3) that fails is reported and the
 next one runs; the script then fails at the end, with no result lines.
@@ -1255,7 +1276,9 @@ UNITARY_TIMING = [
 # the kernels' names in the profiler's trace, by design and pass
 TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
                ('columns', False): 'column_forward',
-               ('columns', True): 'column_vjp'}
+               ('columns', True): 'column_vjp',
+               ('row_tiles', False): 'forward_rows_kernel',
+               ('row_tiles', True): 'vjp_rows_kernel'}
 
 
 def designs_alone(calls, repeats=20):
@@ -3213,23 +3236,25 @@ def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
                 plain_ms=plain_ms, plain_T=T, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_sixteen_sweeps(card):
-    """Phase 19 (a), the sweep: every row of sixteen_shapes against its plain
-    version on the card, the plan held against the library's. The float32 rows
+def phase_sixteen_sweeps(card, shapes=None, label='phase 19 (a)'):
+    """Phase 19 (a), the sweep: every row of `shapes` (sixteen_shapes by
+    default) against its plain version on the card, the plan held against
+    the library's. The float32 rows
     as phase 3 holds its shapes (phase_compare: the initial loss within 1e-5,
     the best losses by drift_ok); the float64 rows' initial losses within
     F64_LOSS0_TOL and their best losses within F64_BEST_TOL, or on a restart
     past it within F64_HOST_FACTOR times the distance of the plain route on the
     host from the card's (the roundoff of two float64 routes that Adam
     amplified on that restart); each launch of the double build counted. Every
-    row must run on the blocks it names and the card must hold at least one of
-    its clusters. Returns (largest error of the float32 rows, of the float64
-    rows, float32 timing rows, float64 timing rows)."""
+    row must run on the blocks it names, through the build it names (a
+    state on more than one block: the row tiles' build) and the card must
+    hold at least one of its clusters. Returns (largest error of the float32
+    rows, of the float64 rows, float32 timing rows, float64 timing rows)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     F64 = torch.float64
     rows32, rows64, worst32, worst64 = [], [], 0.0, 0.0
-    for s in sixteen_shapes():
+    for s in sixteen_shapes() if shapes is None else shapes:
         dtype = s.get('dtype', torch.float32)
         T = s.get('T', 60)
         obj, P = shape_objective(s, dtype)
@@ -3237,18 +3262,26 @@ def phase_sixteen_sweeps(card):
         check(c == s['cluster'] and occ['active_clusters'] >= 1,
               f'{s["name"]}: {c} blocks a restart, {occ["active_clusters"]} '
               f'clusters resident')
+        build = ('sweep_row_tiles' if s.get('kind') == 'state' and c > 1
+                 else 'sweep') + ('_f64' if dtype == F64 else '')
+        built = sk.LAUNCHES_BY_BUILD[build]
         if dtype == torch.float32:
-            err, _, (row,) = phase_compare([s], 'phase 19 (a)')
+            err, _, (row,) = phase_compare([s], label)
             worst32 = max(worst32, err)
+            check(sk.LAUNCHES_BY_BUILD[build] > built,
+                  f'{s["name"]}: the {build} build did not run')
             rows32.append(sweep_row(s, c, occ, row['ms'], row['plain_ms'], T,
-                                    card, 'phase 19 (a)'))
+                                    card, label))
             continue
         init = uniform_inits(P, s['B'], s.get('seed', 19), 'cuda').to(F64)
         before = (sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[c])
         got, ms = timed(lambda: sk.sweep(obj, init, s['lr'], T))
-        check((sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[c]) ==
-              (before[0] + 1, before[1] + 1) and got.best_loss.dtype == F64,
-              f'{s["name"]}: the double build on {c} blocks did not run')
+        check((sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[c],
+               sk.LAUNCHES_BY_BUILD[build]) ==
+              (before[0] + 1, before[1] + 1, built + 1) and
+              got.best_loss.dtype == F64,
+              f'{s["name"]}: the double build {build} on {c} blocks did not '
+              f'run')
         want, plain_ms = timed(lambda: sk.sweep_reference(obj, init, s['lr'],
                                                           T))
         e0 = scaled_err(got.regloss0, want.regloss0).max().item()
@@ -3265,7 +3298,7 @@ def phase_sixteen_sweeps(card):
                                     want.best_loss[past])
         tol = torch.clamp(F64_HOST_FACTOR * host, min=F64_BEST_TOL)
         worst64 = max(worst64, e)
-        print(f'phase 19 (a): {s["name"]}: initial loss err {e0:.3e} (tol '
+        print(f'{label}: {s["name"]}: initial loss err {e0:.3e} (tol '
               f'{F64_LOSS0_TOL}), best loss err {e:.3e} (tol {F64_BEST_TOL}; '
               f'{len(past)} restart(s) past it, where the plain route on the '
               f'host differs from the card\'s by up to '
@@ -3274,8 +3307,7 @@ def phase_sixteen_sweeps(card):
               f'{s["name"]}: float64 kernel against plain float64: initial '
               f'{e0:.3e}, best {err.tolist()}, the plain route on the host '
               f'against the card\'s {host.tolist()}')
-        rows64.append(sweep_row(s, c, occ, ms, plain_ms, T, card,
-                                'phase 19 (a)'))
+        rows64.append(sweep_row(s, c, occ, ms, plain_ms, T, card, label))
     return worst32, worst64, rows32, rows64
 
 
@@ -3291,17 +3323,20 @@ SIXTEEN_UNITARY = [(8, 16, 'xyz', 16, 'float64', (False, True), None, 16),
                    (13, 48, 'xyz', 8, 'float32', (False, True), [0], 1)]
 
 
-def phase_sixteen_unitary(card):
+def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
     """Phase 19 (a), the unitary kernels: ansatz_forward and ansatz_vjp at
-    SIXTEEN_UNITARY's shapes against the plain builder of the same dtype under
+    `shapes` (SIXTEEN_UNITARY's by default, the same tuples) against the
+    plain builder of the same dtype under
     autograd on the card (a random complex cotangent), each plan held against
     the library's; the float64 rows within F64_UNITARY_TOL and F64_GRAD_TOL,
     the float32 ones within phase 12's 2e-5 and 1e-4 (scaled by max(1,
     |gradient|)); each row's last pass must run on the blocks it names and the
-    card hold at least one of its clusters (a vjp on more than one block) or
-    blocks. Prints each pass's plan, resident blocks or clusters, its time
-    alone on the card (profiler) and by CUDA events, its bound and share.
-    Returns (largest errors by kernel line name, timing rows by kernel line
+    card hold at least one of its clusters (a vjp on more than one block, or
+    either pass of one column split by rows) or blocks; every pass must run
+    the kernel its plan names. Prints each pass's plan, resident blocks or
+    clusters, its time alone on the card (profiler) and by CUDA events, its
+    bound and share. Returns (largest errors by kernel line name: a row
+    tiles' kernel has a line of its own, timing rows by kernel line
     name)."""
     import torch
     from cpflow_tpu_torch.api import Ansatz
@@ -3311,7 +3346,8 @@ def phase_sixteen_unitary(card):
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
     errs, rows = {}, {}
     gen = torch.Generator(device='cuda').manual_seed(19)
-    for n, k, rot, B, dname, passes, cols, blocks in SIXTEEN_UNITARY:
+    for n, k, rot, B, dname, passes, cols, blocks in (
+            SIXTEEN_UNITARY if shapes is None else shapes):
         dtype = getattr(torch, dname)
         f64 = dtype == torch.float64
         suffix = '_f64' if f64 else ''
@@ -3341,6 +3377,12 @@ def phase_sixteen_unitary(card):
                                         retain_graph=True)
         before = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
                   uk.VJP_LAUNCHES_BY_CLUSTER[vjp_blocks])
+        knames = {vjp: uk.kernel_name('rows', vjp, n,
+                                      plan['blocks_per_restart'],
+                                      cols is not None)
+                  for vjp, plan in plans.items()}
+        by_kernel = {v: uk.LAUNCHES_BY_KERNEL[kn + suffix]
+                     for v, kn in knames.items()}
         u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles, cols)
         eg = 0.0
         if vjp_too:
@@ -3353,6 +3395,9 @@ def phase_sixteen_unitary(card):
               (before[0] + 1, before[1] + vjp_too, before[2] + vjp_too),
               f'{name}: the kernels did not run (the vjp on {vjp_blocks} '
               f'blocks)')
+        check(all(uk.LAUNCHES_BY_KERNEL[kn + suffix] == by_kernel[v] + 1
+                  for v, kn in knames.items()),
+              f'{name}: not the kernels {knames} that the plans name')
         eu = (u - up.detach()).abs().max().item()
         check(eu <= tol_u and eg <= tol_g, f'{name}: unitary err {eu:.3e}, '
               f'gradient err {eg:.3e} (tol {tol_u}, {tol_g})')
@@ -3360,15 +3405,18 @@ def phase_sixteen_unitary(card):
         work = unitary_work(n, k, rot, log_c=0 if cols else None,
                             dtype=dtype)
         for vjp, plan in plans.items():
-            line = ('ansatz_vjp' if vjp else 'ansatz_forward') + suffix
-            errs[line] = max(errs.get(line, 0.0), eg if vjp else eu)
             c = plan['blocks_per_restart']
-            kname = uk.kernel_name('rows', vjp, n, c)
+            kname = knames[vjp]
+            tiles = kname.endswith('row_tiles')
+            line = (kname if tiles else 'ansatz_vjp' if vjp else
+                    'ansatz_forward') + suffix
+            errs[line] = max(errs.get(line, 0.0), eg if vjp else eu)
             call = (lambda: uk.ansatz_vjp(n, 'cp', rot, anz.placements,
                                           angles, u, g, cols)) if vjp else \
                 (lambda: uk.ansatz_forward(n, 'cp', rot, anz.placements,
                                            angles, cols))
-            alone = device_ms(call, TRACE_NAMES[('rows', vjp)])
+            alone = device_ms(call, TRACE_NAMES[('row_tiles' if tiles
+                                                 else 'rows', vjp)])
             _, ms = timed(call)
             if vjp:
                 _, plain_ms = timed(lambda: torch.autograd.grad(
@@ -3377,18 +3425,18 @@ def phase_sixteen_unitary(card):
                 _, plain_ms = timed(lambda: build_unitary_batched(
                     n, 'cp', rot, anz.placements, angles, columns=cols,
                     dtype=dtype))
-            in_cluster = vjp and c > 1
+            in_cluster = c > 1 and (vjp or tiles)
             resident = uk.active_clusters(plan['threads'], plan['smem_bytes'],
-                                          c, 'cuda', dtype) if in_cluster \
-                else uk.occupancy(kname, plan['threads'], plan['smem_bytes'],
-                                  'cuda', dtype)
+                                          c, 'cuda', dtype, kname) \
+                if in_cluster else uk.occupancy(
+                    kname, plan['threads'], plan['smem_bytes'], 'cuda', dtype)
             check(resident >= 1, f'{name}: the card holds no {kname} of '
                   f'{c} blocks')
             b_ms, b_by = unitary_bound_ms(
                 work['vjp' if vjp else 'forward'],
                 work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
             share = f'{b_ms / alone:.2%}' if alone else 'not measured'
-            print(f'phase 19 (a): {line} {name} on {card}: {plan_text(plan)}, '
+            print(f'{label}: {line} {name} on {card}: {plan_text(plan)}, '
                   + (f'{resident} clusters of {c} resident' if in_cluster
                      else f'{resident} block(s) per SM')
                   + f', {regs[kname]["registers"]} registers, '
@@ -3553,25 +3601,29 @@ def ghz_host_loss(d):
     return float(1 - abs(np.vdot(t64, psi)) ** 2)
 
 
-def phase_ghz13_search(k=None, samples=None, steps=None):
-    """Phase 19 (d), the search: Synthesize.static for GHZ-13 in float32 on
-    the 13q chain at k blocks (default GHZ13_K), `samples` random restarts
-    (GHZ13_SAMPLES) of `steps` sampling steps (GHZ13_STEPS), accepting 12
-    CZ (n - 1, the fewest on the chain). Needs the kernel on one block a
-    restart; what it finds is printed, not required: random restarts at 13
-    qubits stall at a product state (loss 0.5), in the JAX package too
-    (tests/test_torch_sixteen.py), and phase_ghz13_warm holds the 12-CZ
-    state. Returns the launches."""
+def phase_ghz_search(k=None, samples=None, steps=None, n=13,
+                     label='phase 19 (d)'):
+    """Phase 19 (d), the search: Synthesize.static for GHZ-n (13 by
+    default) in float32 on the n-qubit chain at k blocks (default
+    GHZ13_K), `samples` random restarts (GHZ13_SAMPLES) of `steps` sampling
+    steps (GHZ13_STEPS), accepting n - 1 CZ (the fewest on the chain).
+    Needs the kernel on the blocks its plan gives a restart; what it finds
+    is printed, not required: random restarts at 13 qubits stall at a
+    product state (loss 0.5), in the JAX package too
+    (tests/test_torch_sixteen.py), and phase_ghz_warm holds the
+    (n - 1)-CZ state. Returns the launches."""
     import torch
     from cpflow_tpu_torch.api import StaticOptions, Synthesize
     from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
     from cpflow_tpu_torch.topology import chain_layer
     k, samples = k or GHZ13_K, samples or GHZ13_SAMPLES
     steps = steps or GHZ13_STEPS
-    synth = Synthesize(chain_layer(13), target_state=ghz(13))
+    c = sk.cluster_plan(n, k, num_block_angles('cp', 'xyz'), 'state')
+    synth = Synthesize(chain_layer(n), target_state=ghz(n))
     options = StaticOptions(num_cp_gates=k, num_samples=samples,
                             num_gd_iterations=steps, r=0.001,
-                            accepted_num_cz_gates=12)
+                            accepted_num_cz_gates=n - 1)
     sk.LAUNCHES = 0
     sk.LAUNCHES_BY_CLUSTER.clear()
     start = time.perf_counter()
@@ -3582,14 +3634,14 @@ def phase_ghz13_search(k=None, samples=None, steps=None):
     found = sorted((d.cz_count, d.loss) for d in results.decompositions)
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
-    print(f'phase 19 (d): GHZ-13 search, Synthesize.static on the 13q chain '
+    print(f'{label}: GHZ-{n} search, Synthesize.static on the {n}q chain '
           f'in float32, k={k}, {samples} samples, {steps} steps: '
           f'{len(found)} verified, (CZ, loss) {found[:4]}; sweep launches '
           f'{launches} by blocks a restart {by_cluster}; wall {wall:.3f} s '
           f'({stages})', flush=True)
-    check(launches >= 1 and by_cluster == {1: launches},
-          f'GHZ-13 search: {launches} launches, by blocks a restart '
-          f'{by_cluster}')
+    check(launches >= 1 and by_cluster == {c: launches},
+          f'GHZ-{n} search: {launches} launches, by blocks a restart '
+          f'{by_cluster}, not all on {c}')
     return launches
 
 
@@ -3611,30 +3663,51 @@ def ghz_program(n):
     return [list(p) for p in placements], angles
 
 
-def phase_ghz13_warm(B=64, T=500):
-    """Phase 19 (d), Synthesize.static from a warm start: GHZ-13 in float32
-    on the 13q chain at k = 12, whose template is the 12-CZ ladder's
-    (ghz_program's placements, embedded exactly). Static's initial angles
+def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
+                   label='phase 19 (d)'):
+    """Phase 19 (d), Synthesize.static from a warm start: GHZ-n (13 by
+    default) on the n-qubit chain at k = n - 1, whose template is the
+    (n - 1)-CZ ladder's (ghz_program's placements, embedded exactly), in
+    `dtype` (default float32; float64 under config.set_precision(True),
+    float32 restored in `finally`). Static's initial angles
     (initial_angles_array) are the noisy rows of a warm batch of B
     (build_warm_batch, seed 0: not the exact row, not the random ones)
     whose float64 host state loss starts above the entry loss; T sampling
     steps at r = 1e-4 and learning rate 0.01, then static's filter, its
     verification (at most 2000 steps) and its Decompositions, checked and
-    scored on the circuit's state. Needs a 12-CZ decomposition at host
-    loss <= 1e-6 (the package's and ghz_host_loss), every launch on one
-    block a restart. Returns the launches."""
+    scored on the circuit's state. With `penalty` (a torch callable of the
+    CP angles, such as cp_penalty_L1) sampling runs through the unitary
+    kernels (one column), never the plain builder, and verification (no
+    penalty) through the sweep. Needs an (n - 1)-CZ decomposition at host
+    loss <= 1e-6 (the package's and ghz_host_loss), every sweep launch on
+    the blocks the plan gives a restart, of the build its plan names (a
+    state on more than one block: the row tiles'), and every unitary launch
+    the kernel its plan names. Returns the launches, by kernel line name
+    (sweep, sweep_row_tiles, ansatz_vjp_row_tiles_f64, ...)."""
     import numpy as np
     import torch
+    from cpflow_tpu_torch import config
     from cpflow_tpu_torch.api import (Ansatz, BasicOptions, LossSpec,
                                       StaticOptions, Synthesize)
     from cpflow_tpu_torch.kernels import sweep as sk
-    from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
-    n, target = 13, ghz(13)
+    dtype = dtype or torch.float32
+    f64 = dtype == torch.float64
+    suffix = '_f64' if f64 else ''
+    target = ghz(n)
     placements, exact = ghz_program(n)
     anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), n - 1), 'xyz')
     check([list(p) for p in all_placements(anz.placements)] == placements,
-          'GHZ-13: the chain template at k = 12 is not the ladder\'s')
+          f'GHZ-{n}: the chain template at k = {n - 1} is not the ladder\'s')
+    nba = num_block_angles('cp', 'xyz')
+    c = sk.cluster_plan(n, n - 1, nba, 'state', dtype)
+    build = ('sweep_row_tiles' if c > 1 else 'sweep') + suffix
+    kernels = {vjp: uk.kernel_name('rows', vjp, n, uk.plan(
+        n, n - 1, nba, 0, vjp, dtype)['blocks_per_restart'], True) + suffix
+        for vjp in (False, True)}
     warm, sigma = build_warm_batch(exact.astype(np.float32),
                                    np.asarray(anz.cp_mask, dtype=np.float64),
                                    B, 0)
@@ -3642,37 +3715,67 @@ def phase_ghz13_warm(B=64, T=500):
     loss0 = np.array([spec.numpy(anz.circuit(list(a.astype(float)))
                                  .state()[:, None]) for a in warm])
     rows = np.nonzero((sigma > 0) & (loss0 > entry))[0]
-    check(len(rows) > 0, f'GHZ-13: no noisy row starts above entry {entry}')
-    synth = Synthesize(chain_layer(n), target_state=target)
-    options = StaticOptions(num_cp_gates=n - 1, num_samples=len(rows),
-                            num_gd_iterations=T, learning_rate=0.01, r=1e-4,
-                            num_gd_iterations_at_verification=2000,
-                            accepted_num_cz_gates=n - 1)
-    sk.LAUNCHES = 0
-    sk.LAUNCHES_BY_CLUSTER.clear()
-    start = time.perf_counter()
-    results = synth.static(options, save_results=False, verbose=False,
-                           initial_angles_array=warm[rows])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+    check(len(rows) > 0, f'GHZ-{n}: no noisy row starts above entry {entry}')
+    config.set_precision(f64)
+    try:
+        synth = Synthesize(chain_layer(n), target_state=target,
+                           **({'cp_regularization_func': penalty}
+                              if penalty else {}))
+        options = StaticOptions(num_cp_gates=n - 1, num_samples=len(rows),
+                                num_gd_iterations=T, learning_rate=0.01,
+                                r=1e-4, num_gd_iterations_at_verification=2000,
+                                accepted_num_cz_gates=n - 1)
+        with PlainBuilderWatch() as watch:
+            sk.LAUNCHES = 0
+            sk.LAUNCHES_BY_CLUSTER.clear()
+            sk.LAUNCHES_BY_BUILD.clear()
+            uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
+            uk.LAUNCHES_BY_KERNEL.clear()
+            start = time.perf_counter()
+            results = synth.static(options, save_results=False,
+                                   verbose=False,
+                                   initial_angles_array=warm[rows])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+            by_build, by_kernel = (dict(sk.LAUNCHES_BY_BUILD),
+                                   dict(uk.LAUNCHES_BY_KERNEL))
+            unitary = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+    finally:
+        config.set_precision(False)
     hosts = sorted((d.cz_count, d.loss, ghz_host_loss(d))
                    for d in results.decompositions)
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
-    print(f'phase 19 (d): GHZ-13, Synthesize.static from a warm start on '
-          f'the 13q chain in float32, k=12: {len(rows)} noisy rows of {B} '
-          f'starting above entry {entry} (host losses '
+    how = f' with {penalty.__name__} (sampling through the unitary ' \
+        f'kernels, {unitary[0]} forward and {unitary[1]} vjp launches ' \
+        f'{by_kernel})' if penalty else ''
+    print(f'{label}: GHZ-{n}, Synthesize.static from a warm start on the '
+          f'{n}q chain in {str(dtype)[6:]}{how}, k={n - 1}: {len(rows)} noisy '
+          f'rows of {B} starting above entry {entry} (host losses '
           f'{loss0[rows].min():.3g}-{loss0[rows].max():.3g}), {T} steps at '
           f'lr 0.01: {len(hosts)} verified, (CZ, loss, float64 host loss) '
           f'{hosts[:3]}; sweep launches {launches} by blocks a restart '
-          f'{by_cluster}; wall {wall:.3f} s ({stages})', flush=True)
-    check(launches >= 2 and by_cluster == {1: launches},
-          f'GHZ-13: {launches} launches, by blocks a restart {by_cluster}')
-    check(hosts and hosts[0][0] == 12 and max(hosts[0][1:]) <= 1e-6,
-          f'GHZ-13: no 12-CZ decomposition at host loss <= 1e-6 from noisy '
-          f'rows that started above entry: {hosts[:4]}')
-    return launches
+          f'{by_cluster}, by build {by_build}; wall {wall:.3f} s ({stages})',
+          flush=True)
+    check(launches >= (1 if penalty else 2) and by_cluster == {c: launches}
+          and by_build == {build: launches},
+          f'GHZ-{n}: {launches} launches, by blocks a restart {by_cluster}, '
+          f'by build {by_build}, not all {build} on {c}')
+    if penalty:
+        check(watch.calls == 0 and unitary[0] > T and unitary[1] >= T and
+              by_kernel == {kernels[False]: unitary[0],
+                            kernels[True]: unitary[1]},
+              f'GHZ-{n} with {penalty.__name__}: plain builder {watch.calls}, '
+              f'forward {unitary[0]}, vjp {unitary[1]} by kernel {by_kernel}, '
+              f'not all {kernels}')
+    check(hosts and hosts[0][0] == n - 1 and max(hosts[0][1:]) <= 1e-6,
+          f'GHZ-{n}: no {n - 1}-CZ decomposition at host loss <= 1e-6 from '
+          f'noisy rows that started above entry: {hosts[:4]}')
+    out = {build: launches}
+    if penalty:
+        out.update({kernels[False]: unitary[0], kernels[True]: unitary[1]})
+    return out
 
 
 def phase_sixteen(card):
@@ -3681,12 +3784,10 @@ def phase_sixteen(card):
     SIXTEEN_UNITARY against their plain versions; (b) the static 8q CX
     ladder in float64 (phase_ladder8); (c) a custom loss at 8 qubits in
     float64 (phase_custom8); (d) GHZ-13 in float32 through
-    Synthesize.static, from random restarts (phase_ghz13_search) and from
-    a warm start (phase_ghz13_warm); then 9
-    qubits whole, 14-qubit states and 13-qubit states in float64 refused,
-    each with its reason, and no kernel launched by them. Returns (largest
-    errors by kernel line name, timing rows by kernel line name, sweep
-    launches by path and dtype, unitary launches by path)."""
+    Synthesize.static, from random restarts (phase_ghz_search) and from
+    a warm start (phase_ghz_warm). Returns (largest errors by kernel
+    line name, timing rows by kernel line name, sweep launches by path and
+    dtype, unitary launches by path)."""
     start = time.perf_counter()
     worst32, worst64, rows32, rows64 = phase_sixteen_sweeps(card)
     errs, rows = phase_sixteen_unitary(card)
@@ -3694,16 +3795,91 @@ def phase_sixteen(card):
     rows.update(sweep=rows32, sweep_f64=rows64)
     launches = {'sweep': {}, 'sweep_f64': {}}
     launches['sweep_f64']['static_ladder8_f64'] = phase_ladder8()
-    launches['sweep']['ghz13_search'] = phase_ghz13_search()
-    launches['sweep']['ghz13_warm'] = phase_ghz13_warm()
+    launches['sweep']['ghz13_search'] = phase_ghz_search()
+    launches['sweep']['ghz13_warm'] = phase_ghz_warm()['sweep']
     unitary_launches = {'custom_ladder8_f64': phase_custom8(card)}
-    refuse_beyond_plans()
     print(f'phase 19: {time.perf_counter() - start:.1f} s', flush=True)
     return errs, rows, launches, unitary_launches
 
 
+def split_shapes():
+    """Phase 20 (a)'s sweep rows, as phase 3's shapes: GHZ states on the
+    chain at k = 2n, each on the blocks its plan splits its one column over
+    by rows: (L) 14q B=64 on 2, (M) 15q B=32 on 4, (N) 16q B=16 on 8 and
+    (O) 17q B=16 on 16 in float32; (P) 13q B=32 on 2 and (Q) 16q B=8 on 16
+    in float64; 60 steps at 14 and 15 qubits (13 in float64), 30 above."""
+    import torch
+    out = []
+    for tag, n, B, c, dtype in [('L', 14, 64, 2, None), ('M', 15, 32, 4, None),
+                                ('N', 16, 16, 8, None),
+                                ('O', 17, 16, 16, None),
+                                ('P', 13, 32, 2, torch.float64),
+                                ('Q', 16, 8, 16, torch.float64)]:
+        out.append(dict(
+            name=f'({tag}) state {n}q GHZ k={2 * n} B={B}' +
+            (' float64' if dtype else ''), n=n, k=2 * n, target=ghz(n),
+            kind='state', B=B, r=0.001, lr=0.1, T=60 if n < 16 else 30,
+            cluster=c, **({'dtype': dtype} if dtype else {})))
+    return out
+
+
+# phase 20 (a)'s unitary rows, as SIXTEEN_UNITARY's: one column of a GHZ
+# chain template at k = 2n, the vjp on the blocks named (the forward pass,
+# which holds no M, on half as many)
+SPLIT_UNITARY = [(14, 28, 'xyz', 8, 'float32', (False, True), [0], 2),
+                 (15, 30, 'xyz', 8, 'float32', (False, True), [0], 4),
+                 (16, 32, 'xyz', 4, 'float32', (False, True), [0], 8),
+                 (17, 34, 'xyz', 4, 'float32', (False, True), [0], 16),
+                 (13, 26, 'xyz', 4, 'float64', (False, True), [0], 2),
+                 (16, 32, 'xyz', 2, 'float64', (False, True), [0], 16)]
+# the kernel lines of the row tiles' builds
+ROW_TILE_LINES = ('sweep_row_tiles', 'ansatz_forward_row_tiles',
+                  'ansatz_vjp_row_tiles')
+GHZ14_SEARCH = dict(k=15, samples=256, steps=1000)
+
+
+def phase_split(card):
+    """Phase 20: states past one block, a state's one column split by rows
+    over a cluster of 2 to 16 blocks (the row tiles' builds). (a) the sweep
+    kernel at split_shapes and the unitary kernels at SPLIT_UNITARY against
+    their plain versions, each with its plan and the clusters the card
+    holds; (b) GHZ-14 and GHZ-17 in float32 and GHZ-16 in float64 through
+    Synthesize.static from a warm start (phase_ghz_warm), each to n - 1
+    CZ; (c) GHZ-15 in float32 and GHZ-14 in float64 the same way with
+    cp_penalty_L1, whose sampling runs through the unitary kernels' row
+    tiles; (d) a random-restart GHZ-14 search, printed (ROADMAP A.19); then
+    18-qubit states in float32 and 17-qubit ones in float64, and 9 qubits
+    whole, refused. Returns (largest errors by kernel line name, timing
+    rows by kernel line name, launches by kernel line name and path)."""
+    import torch
+    from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
+    start = time.perf_counter()
+    shapes = split_shapes()
+    worst32, worst64, rows32, rows64 = phase_sixteen_sweeps(
+        card, shapes, 'phase 20 (a)')
+    errs, rows = phase_sixteen_unitary(card, SPLIT_UNITARY, 'phase 20 (a)')
+    errs.update(sweep_row_tiles=worst32, sweep_row_tiles_f64=worst64)
+    rows.update(sweep_row_tiles=rows32, sweep_row_tiles_f64=rows64)
+    launches = {}
+    for path, (n, dtype, penalty) in {
+            'ghz14_warm': (14, None, None), 'ghz17_warm': (17, None, None),
+            'ghz16_warm_f64': (16, torch.float64, None),
+            'ghz15_l1_warm': (15, None, cp_penalty_L1),
+            'ghz14_l1_warm_f64': (14, torch.float64, cp_penalty_L1)}.items():
+        for line, count in phase_ghz_warm(
+                B=32, T=300 if penalty else 500, n=n, dtype=dtype,
+                penalty=penalty, label=f'phase 20 ({"c" if penalty else "b"})'
+        ).items():
+            launches.setdefault(line, {})[path] = count
+    launches['sweep_row_tiles']['ghz14_search'] = phase_ghz_search(
+        n=14, label='phase 20 (d)', **GHZ14_SEARCH)
+    refuse_beyond_plans()
+    print(f'phase 20: {time.perf_counter() - start:.1f} s', flush=True)
+    return errs, rows, launches
+
+
 def refuse_beyond_plans():
-    """Phase 19's refusals: 9 qubits whole, a 14-qubit state and a 13-qubit
+    """Phase 20's refusals: 9 qubits whole, an 18-qubit state and a 17-qubit
     state in float64, by the sweep and by the unitary kernels, each with
     its reason and no kernel launched."""
     import numpy as np
@@ -3717,32 +3893,32 @@ def refuse_beyond_plans():
         ('9q whole unitary, sweep', '2 to 8 qubits', lambda: sk.sweep(
             make_objective(9, 2, np.eye(512, dtype=np.complex64), 0.0)[0],
             uniform_inits(3 * 9 + 14, 2, 0, 'cuda'), 0.1, 1)),
-        ('14q state, sweep', '2 to 13 qubits', lambda: sk.sweep(
-            make_objective(14, 2, ghz(14), 0.0, kind='state')[0],
-            uniform_inits(3 * 14 + 14, 2, 0, 'cuda'), 0.1, 1)),
-        ('13q state in float64, sweep', '2 to 12 qubits', lambda: sk.sweep(
-            make_objective(13, 2, ghz(13), 0.0, kind='state', dtype=F64)[0],
-            uniform_inits(3 * 13 + 14, 2, 0, 'cuda').to(F64), 0.1, 1)),
+        ('18q state, sweep', '2 to 17 qubits', lambda: sk.sweep(
+            make_objective(18, 2, ghz(18), 0.0, kind='state')[0],
+            uniform_inits(3 * 18 + 14, 2, 0, 'cuda'), 0.1, 1)),
+        ('17q state in float64, sweep', '2 to 16 qubits', lambda: sk.sweep(
+            make_objective(17, 2, ghz(17), 0.0, kind='state', dtype=F64)[0],
+            uniform_inits(3 * 17 + 14, 2, 0, 'cuda').to(F64), 0.1, 1)),
         ('9q whole unitary, unitary kernels', '2 to 8 qubits',
          lambda: uk.build_unitary(9, 'cp', 'xyz',
                                   fill_layers(chain_layer(9), 2),
                                   uniform_inits(3 * 9 + 14, 2, 0, 'cuda'))),
-        ('14q column, unitary kernels', '2 to 13 qubits',
-         lambda: uk.build_unitary(14, 'cp', 'xyz',
-                                  fill_layers(chain_layer(14), 2),
-                                  uniform_inits(3 * 14 + 14, 2, 0, 'cuda'),
+        ('18q column, unitary kernels', '2 to 17 qubits',
+         lambda: uk.build_unitary(18, 'cp', 'xyz',
+                                  fill_layers(chain_layer(18), 2),
+                                  uniform_inits(3 * 18 + 14, 2, 0, 'cuda'),
                                   columns=[0])),
-        ('13q column in float64, unitary kernels', '2 to 12 qubits',
-         lambda: uk.build_unitary(13, 'cp', 'xyz',
-                                  fill_layers(chain_layer(13), 2),
-                                  uniform_inits(3 * 13 + 14, 2, 0, 'cuda'),
+        ('17q column in float64, unitary kernels', '2 to 16 qubits',
+         lambda: uk.build_unitary(17, 'cp', 'xyz',
+                                  fill_layers(chain_layer(17), 2),
+                                  uniform_inits(3 * 17 + 14, 2, 0, 'cuda'),
                                   columns=[0], dtype=F64))]
     for name, want, call in refusals:
         try:
             call()
         except ValueError as e:
             check(want in str(e), f'{name}: refused for {e}')
-            print(f'phase 19: {name} refused: {e}', flush=True)
+            print(f'phase 20: {name} refused: {e}', flush=True)
         else:
             raise PhaseError(f'{name} did not raise')
     check((sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES) == before,
@@ -3816,6 +3992,7 @@ def main() -> int:
         launches.update(attempt({}, phase_prng, card))
         double_lines = attempt([], phase_double, card)
         sixteen = attempt(None, phase_sixteen, card)
+        split = attempt(None, phase_split, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
         max_err = max(max_err, seven_err)
@@ -3828,6 +4005,12 @@ def main() -> int:
         check(all(v > 0 for by in launches19.values() for v in by.values())
               and all(f > 0 and v > 0 for f, v in unitary19.values()),
               f'a phase 19 path missed its kernel: {launches19}, {unitary19}')
+        errs20, rows20, launches20 = split
+        lines20 = [line + suffix for line in ROW_TILE_LINES
+                   for suffix in ('', '_f64')]
+        check(all(sum(launches20.get(line, {}).values()) > 0
+                  for line in lines20),
+              f'a row tiles\' build missed the phase 20 paths: {launches20}')
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -3903,6 +4086,32 @@ def main() -> int:
         line['shapes'] = line['shapes'] + rows19.get(name, [])
         line['cluster'] = sorted(set(line.get('cluster', [])) | {
             r['cluster'] for r in line['shapes'] if 'cluster' in r})
+    # phase 20: a line for each build of the row tiles (a state's one column
+    # split by rows), its numbers from its widest shape (the last of its
+    # rows, on 16 blocks) and its launches from phase 20's paths; phase
+    # 20's rows of an older build (the 14q column's forward pass on one
+    # block) join that build's line
+    for line in kernels:
+        line['shapes'] = line['shapes'] + rows20.get(line['name'], [])
+        line['max_abs_err'] = max(line['max_abs_err'],
+                                  errs20.get(line['name'], 0.0))
+    for name in lines20:
+        rows = rows20[name]
+        sweep = name.startswith('sweep')
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'cpflow_tpu_torch/csrc/' + (
+                'sweep.cu' if sweep else 'unitary.cu'),
+            **({'build': '-DCPFLOW_DOUBLE'} if name.endswith('_f64') else {}),
+            'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317'
+            if sweep else 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(launches20[name].values()),
+            'launches_by_path': launches20[name],
+            'max_abs_err': errs20[name], 'ms': rows[-1]['ms'],
+            'plain_ms': rows[-1]['plain_ms'],
+            'bound_ms': rows[-1]['bound_ms'],
+            'bound_by': rows[-1]['bound_by'], 'library_ms': None,
+            'cluster': sorted({r['cluster'] for r in rows}), 'shapes': rows})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -49,7 +49,7 @@
 // (chip_smoke.py phase 12), so a main path's whole batch is resident, and
 // blocks of one restart measured no faster.
 //
-// The row-split design (one column, n <= 13, and the whole unitary at 7
+// The row-split design (one column, n <= 17, and the whole unitary at 7
 // and 8 qubits): one thread block per restart, as in sweep.cu, with
 // gates.cuh's threads per restart, each gate split over the block's threads
 // by amplitude groups with a barrier after it, and in the walk each gate's
@@ -60,28 +60,37 @@
 // (gates.cuh), the smallest c that fits (cluster_plan): the forward pass's
 // blocks are independent, each storing its columns of U; the vjp's form a
 // cluster, which sums the gates' cotangents over distributed shared memory
-// in rank order before the angle gradients, and rank 0 writes them. A
-// cluster of 16 is non-portable: the vjp's cluster kernel is given
-// cudaFuncAttributeNonPortableClusterSizeAllowed once per device, and a
-// launch whose cluster the card cannot place fails before it starts. One
-// column has too few columns to share out, and at 7 and 8 qubits a column
-// of A and M (4 and 8 KB) and a restart's layout exceed what one lane and
-// one block hold.
+// in rank order before the angle gradients, and rank 0 writes them. One
+// column has too few columns to share out: above 13 qubits (12 in double)
+// its rows are split instead, d / c a block (gates.cuh, row tiles), and
+// both passes become clusters (forward_rows_kernel, vjp_rows_kernel),
+// whose blocks meet at every gate with a leg on a split row bit; the vjp
+// sums its cotangents as the tiles of columns do. The vjp splits a qubit
+// sooner than the forward pass, which holds no M: at k = 2n 'xyz' 14, 15,
+// 16, 17 qubits take 2, 4, 8, 16 blocks in the vjp and 1, 2, 4, 8 in the
+// forward pass. A cluster of 16 is non-portable: each cluster kernel is
+// given cudaFuncAttributeNonPortableClusterSizeAllowed once per device,
+// and a launch whose cluster the card cannot place fails before it
+// starts. At 7 and 8 qubits a column of A and M (4 and 8 KB) and a
+// restart's layout exceed what one lane and one block hold.
 //
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
 // TF32's 10-bit mantissa would break the 2e-5 (unitary) and 1e-4
 // (gradient) agreement with the plain float32 version (and tensor cores
-// hold no double complex product either). Why no cluster
-// below 7 qubits: a restart's whole layout fits one block there, and a
-// column never needs another block's data.
+// hold no double complex product either). Why no cluster for the whole
+// unitary below 7 qubits: a restart's whole layout fits one block there,
+// and a column never needs another block's data; one column split by rows
+// does, at every gate on a split bit, and takes a cluster only past one
+// block's shared memory.
 //
 // Precision: the file compiles twice (gates.cuh), in float for complex64
 // and with -DCPFLOW_DOUBLE in double for complex128. The double build's
 // tiles take twice the bytes; the column kernels keep every layout up to 6
 // qubits at k = 40, the row-split vjp of the whole unitary at 8 qubits
-// takes 16 blocks (up to k = 125 'xyz' blocks), and one column reaches 12
-// qubits (13 in float).
+// takes 16 blocks (up to k = 125 'xyz' blocks), and one column fits one
+// block up to 12 qubits (13 in float) and 16 blocks up to 16 (17 in
+// float).
 // Its kernels hold 122 to 254 registers, the column ones with no local
 // memory (their cos and sin from gates.cuh's real_sincos).
 //
@@ -136,11 +145,13 @@ __host__ __device__ inline Layout make_layout(int n, int nb, int nba,
   return L;
 }
 
-// log2 of the smallest split of the columns whose blocks' layout fits a
-// block's shared memory (at most kMaxClusterLog, never more than the
-// columns); -1 if none fits.
+// log2 of the smallest split of a restart whose blocks' layout fits a
+// block's shared memory (at most kMaxClusterLog): of the columns, never
+// more than there are, or of one column by rows (log_c = 0), never to
+// tiles of fewer than 4 rows; -1 if none fits.
 inline int cluster_plan(int n, int nb, int nba, int log_c, bool vjp) {
-  const int most = log_c < kMaxClusterLog ? log_c : kMaxClusterLog;
+  const int parts = log_c ? log_c : n - 2;  // log2 of the most tiles
+  const int most = parts < kMaxClusterLog ? parts : kMaxClusterLog;
   for (int j = 0; j <= most; ++j)
     if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit) return j;
   return -1;
@@ -160,10 +171,22 @@ __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
   __syncthreads();
 }
 
+// Where entry e of a block's tile lies in the restart's d x C whole: a tile
+// of columns (tile_to_global), or with kRows a tile of the rows of one
+// column, 2^log_rows of them a block (gates.cuh, row tiles).
+template <bool kRows>
+__device__ __forceinline__ int whole_entry(int e, int lc, int lt, int n,
+                                           int rank) {
+  if constexpr (kRows) return (rank << (n + lt)) + e;
+  return tile_to_global(e, lc, lt, rank);
+}
+
 // Block blockIdx.x holds the tile of rank blockIdx.x mod c of restart
-// blockIdx.x / c; the blocks of a restart need nothing of each other.
-__global__ void __launch_bounds__(kMaxThreads)
-forward_kernel(Args a) {
+// blockIdx.x / c. Tiles of columns need nothing of each other; tiles of the
+// rows of one column (kRows) form a cluster, which meets at every gate with
+// a leg on a split bit.
+template <bool kRows>
+__device__ __forceinline__ void forward_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
                                false);
@@ -178,20 +201,28 @@ forward_kernel(Args a) {
   // the identity's first C columns, row-major d x C, the block's tile of
   // them
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int g = tile_to_global(e, lc, lt, rank);
+    const int g = whole_entry<kRows>(e, lc, lt, a.n, rank);
     A[e] = mkc((g >> lc) == (g & ((1 << lc) - 1)) ? RL(1.) : RL(0.), RL(0.));
   }
   load_gates(a, L, b, params, cs, gates);
-  forward_chain(A, gates, a.placements, a.n, a.nb, lt);
+  if constexpr (kRows)
+    forward_chain_rows(A, gates, a.placements, a.n, a.nb, a.n + lt);
+  else
+    forward_chain(A, gates, a.placements, a.n, a.nb, lt);
   cplx* out = a.U + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x)
-    out[tile_to_global(e, lc, lt, rank)] = A[e];
+    out[whole_entry<kRows>(e, lc, lt, a.n, rank)] = A[e];
 }
 
-// kCluster: the restart's columns split over the blocks of a cluster.
-template <bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads)
-vjp_kernel(Args a) {
+forward_kernel(Args a) {
+  forward_body<false>(a);
+}
+
+// kCluster: the restart split over the blocks of a cluster, by columns, or
+// with kRows its one column by rows.
+template <bool kCluster, bool kRows>
+__device__ __forceinline__ void vjp_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
                                kCluster ? a.cluster_log : 0, true);
@@ -213,19 +244,40 @@ vjp_kernel(Args a) {
   const cplx* u = a.U + ((size_t)b << (a.n + lc));
   const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int at = kCluster ? tile_to_global(e, lc, lt, rank) : e;
+    const int at = kCluster ? whole_entry<kRows>(e, lc, lt, a.n, rank) : e;
     A[e] = u[at];
     const cplx t = g[at];
     M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
   }
   load_gates(a, L, b, params, cs, gates);
-  adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
+  if constexpr (kRows)
+    adjoint_walk_rows(A, M, gates, a.placements, red, gbar, a.n, L.G,
+                      a.n + lt, L.nw);
+  else
+    adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
   if constexpr (kCluster) cluster_sum(gbar, 32 * L.G);
   angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
   __syncthreads();
   if (rank != 0) return;
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
     a.grad[(size_t)i * a.B + b] = grad[i];
+}
+
+template <bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads)
+vjp_kernel(Args a) {
+  vjp_body<kCluster, false>(a);
+}
+
+// The row tiles' kernels: one column split by rows over a cluster.
+__global__ void __launch_bounds__(kMaxThreads)
+forward_rows_kernel(Args a) {
+  forward_body<true>(a);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+vjp_rows_kernel(Args a) {
+  vjp_body<true, true>(a);
 }
 
 // ------------------------------------------------------ the column design
@@ -326,50 +378,60 @@ column_vjp(Args a) {
 
 using Kernel = void (*)(Args);
 
-// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster (the
-// row-split design); 3 + n - 2 the column forward pass at n qubits, 8 + n - 2
-// the column vjp.
-constexpr int kKernels = 3 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster of tiles of
+// columns (the row-split design); 3 + n - 2 the column forward pass at n
+// qubits, 8 + n - 2 the column vjp; 13 forward and 14 vjp of one column
+// split by rows over a cluster (the row-split design's row tiles).
+constexpr int kKernels = 5 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+constexpr int kForwardRows = kKernels - 2, kVjpRows = kKernels - 1;
 Kernel kernel_of(int which) {
   const Kernel kernels[kKernels] = {
       forward_kernel,    vjp_kernel<false>, vjp_kernel<true>,
       column_forward<2>, column_forward<3>, column_forward<4>,
       column_forward<5>, column_forward<6>, column_vjp<2>,
       column_vjp<3>,     column_vjp<4>,     column_vjp<5>,
-      column_vjp<6>};
+      column_vjp<6>,     forward_rows_kernel, vjp_rows_kernel};
   return kernels[which];
 }
 
 enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1 };
 
-// Dynamic shared memory granted to each kernel on each device so far, the
-// devices on which the vjp's cluster kernel may take a cluster of 16
-// (non-portable) blocks, and the last (threads, bytes) at which each device
-// placed such a cluster: each attribute is set, and the placement asked,
-// once per kernel and device (and size), not before every launch.
+// Dynamic shared memory granted to each kernel on each device so far,
+// whether each cluster kernel may take a cluster of 16 (non-portable)
+// blocks on each device, and the last (threads, bytes) at which each device
+// placed such a cluster of each kernel: each attribute is set, and the
+// placement asked, once per kernel and device (and size), not before every
+// launch.
 constexpr int kMaxDevices = 64;
 constexpr int kClusterKernel = 2;  // vjp_kernel<true>
 constexpr unsigned kMaxPortableCluster = 8;
 size_t g_granted[kMaxDevices][kKernels];
-bool g_non_portable[kMaxDevices];
+bool g_non_portable[kMaxDevices][kKernels];
 struct Placed {
   int threads;
   size_t bytes;
 };
-Placed g_placed[kMaxDevices];
+Placed g_placed[kMaxDevices][kKernels];
+
+// The kernels launched as clusters.
+inline bool is_cluster_kernel(int which) {
+  return which == kClusterKernel || which == kForwardRows ||
+         which == kVjpRows;
+}
 
 cudaError_t grant_smem(int which, size_t bytes) {
-  // the default allows it, and only the cluster kernel takes one more
-  if (bytes <= 48 * 1024 && which != kClusterKernel) return cudaSuccess;
+  // the default allows it, and only the cluster kernels take one more
+  const bool cluster = is_cluster_kernel(which);
+  if (bytes <= 48 * 1024 && !cluster) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (which == kClusterKernel && !(dev < kMaxDevices && g_non_portable[dev])) {
+  if (cluster && !(dev < kMaxDevices && g_non_portable[dev][which])) {
     err = cudaFuncSetAttribute(kernel_of(which),
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) g_non_portable[dev] = true;
+    if (dev < kMaxDevices) g_non_portable[dev][which] = true;
   }
   if (bytes <= 48 * 1024) return cudaSuccess;
   size_t* granted = dev < kMaxDevices ? &g_granted[dev][which] : nullptr;
@@ -407,8 +469,9 @@ bool plan_launch(Args& a, int vjp, int design, Launch& out) {
   a.cluster_log = cluster_plan(n, nb, nba, a.log_c, vjp != 0);
   if (a.cluster_log < 0) return false;
   const Layout L = make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0);
-  const bool cluster = vjp && a.cluster_log > 0;
-  out.which = vjp ? 1 + cluster : 0;
+  const bool tiles = a.log_c == 0 && a.cluster_log > 0;  // of rows
+  const bool cluster = tiles || (vjp && a.cluster_log > 0);
+  out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 + cluster : 0;
   out.threads = L.nt;
   out.grid = (unsigned)a.B << a.cluster_log;
   out.cluster = cluster ? 1u << a.cluster_log : 1u;
@@ -425,7 +488,7 @@ cudaError_t check_placement(const Launch& l, const cudaLaunchConfig_t& cfg) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  Placed* placed = dev < kMaxDevices ? &g_placed[dev] : nullptr;
+  Placed* placed = dev < kMaxDevices ? &g_placed[dev][l.which] : nullptr;
   if (placed && placed->threads == l.threads && placed->bytes == l.bytes)
     return cudaSuccess;
   int clusters = 0;
@@ -491,10 +554,11 @@ int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
 // (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
 // (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
 // 2 CX; nba: angles per block. In the row-split design each restart runs
-// on the blocks cluster_plan picks: the forward pass's as independent
-// blocks, the vjp's as a cluster. Returns cudaErrorInvalidValue if the
+// on the blocks cluster_plan picks: the forward pass's tiles of columns as
+// independent blocks, the vjp's as a cluster, and one column's tiles of
+// rows as a cluster in both passes. Returns cudaErrorInvalidValue if the
 // design does not hold the shape, cudaErrorLaunchOutOfResources if the card
-// cannot place the vjp's cluster, else cudaGetLastError() after the
+// cannot place a non-portable cluster, else cudaGetLastError() after the
 // launch.
 int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
@@ -558,23 +622,24 @@ int cpflow_unitary_occupancy(int which, int threads, long long bytes,
   return (int)err;
 }
 
-// Clusters of `cluster` blocks (2 to 16) of the vjp's cluster kernel, at
-// `threads` threads and `bytes` of dynamic shared memory a block, that the
-// card holds at once (cudaOccupancyMaxActiveClusters), in *clusters.
-// Returns a CUDA error code.
-int cpflow_unitary_clusters(int threads, long long bytes, int cluster,
-                            int* clusters) {
-  if (cluster < 2 || cluster > (1 << kMaxClusterLog))
+// Clusters of `cluster` blocks (2 to 16) of the cluster kernel `which`
+// (kernel_of's numbering: 2, 13 or 14), at `threads` threads and `bytes` of
+// dynamic shared memory a block, that the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *clusters. Returns a CUDA error
+// code.
+int cpflow_unitary_clusters(int which, int threads, long long bytes,
+                            int cluster, int* clusters) {
+  if (cluster < 2 || cluster > (1 << kMaxClusterLog) || which < 0 ||
+      which >= kKernels || !is_cluster_kernel(which))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = grant_smem(kClusterKernel, (size_t)bytes);
+  cudaError_t err = grant_smem(which, (size_t)bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
       (unsigned)cluster, threads, (size_t)bytes, (unsigned)cluster, nullptr,
       &attr);
   return (int)cudaOccupancyMaxActiveClusters(
-      clusters, reinterpret_cast<const void*>(kernel_of(kClusterKernel)),
-      &cfg);
+      clusters, reinterpret_cast<const void*>(kernel_of(which)), &cfg);
 }
 
 }  // extern "C"

@@ -16,7 +16,7 @@ preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
 falls back, above MAX_QUBITS (8 qubits for the whole unitary; for a state
-13 in float32 and 12 in float64), for a template too deep for the largest
+17 in float32 and 16 in float64), for a template too deep for the largest
 cluster (``cluster_plan``), and for a penalty other than the
 piecewise-linear one.
 
@@ -27,7 +27,7 @@ in the other's place. In double every amplitude tile takes twice the
 shared memory, so the cluster plan doubles its sizes (``smem_bytes``): 7
 qubits take 4 blocks (8 from k = 103 'xyz' blocks, 16 from k = 177), 8
 qubits 16 (up to k = 101 'xyz' blocks), and a state's one column fits one
-block up to 12 qubits, not 13.
+block up to 12 qubits, not 13, and 16 blocks up to 16, not 17.
 
 Routing of ``sweep``, by the tensor's device and the objective:
   * CPU tensor, any objective: ``sweep_reference``, the plain version;
@@ -48,10 +48,14 @@ and cotangent, 2^n x C each) and the barriers and block reductions of the
 adjoint walk (few threads per restart, a 31-shuffle warp reduction,
 double-buffered cross-warp partials). A restart runs on one thread block
 where its layout fits one block's shared memory (every shape up to 6
-qubits, and a state up to 13); above that its columns are split over a
-thread-block cluster of 2, 4, 8 or 16 blocks, the smallest that fits
-(``cluster_plan``; in float32 7 qubits take 2, or 4 from 215 'xyz' blocks,
-8 qubits take 8, or 16 from 214 'xyz' blocks up to 358). A cluster of 16
+qubits, and a state up to 13); above that it is split over a thread-block
+cluster of 2, 4, 8 or 16 blocks, the smallest that fits (``cluster_plan``):
+the whole unitary by columns (in float32 7 qubits take 2, or 4 from 215
+'xyz' blocks, 8 qubits take 8, or 16 from 214 'xyz' blocks up to 358), a
+state's one column by rows, each block holding 2^n / c of them (the
+kernel's fourth build, the row tiles; at the GHZ ladder's depths 14, 15,
+16 and 17 qubits take 2, 4, 8 and 16 blocks), its blocks meeting at every
+gate on one of the top log2(c) qubits. A cluster of 16
 is non-portable on Hopper: the library allows it on its cluster build, and
 a launch whose cluster the card cannot place raises. On the card the
 library's own plan decides (``cpflow_sweep_cluster``); ``smem_bytes`` and
@@ -87,6 +91,10 @@ F64_LAUNCHES = 0  # those of them that ran the double build
 # those of them by the blocks each restart ran on (a cluster's size, 1 for
 # one block); reset with .clear()
 LAUNCHES_BY_CLUSTER: Counter = Counter()
+# those of them by build: 'sweep' (one block or tiles of columns) or
+# 'sweep_row_tiles' (a state split by rows), '_f64' added for the double
+# build; reset with .clear()
+LAUNCHES_BY_BUILD: Counter = Counter()
 
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
@@ -208,7 +216,8 @@ def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
     """Dynamic shared memory of each block of a restart split over
     `cluster` blocks, as csrc/sweep.cu's make_layout lays it out in the
     build of `dtype`: the tile of A and of M (2^n x C / cluster amplitudes
-    each), the gates and their cotangents, the cross-warp partials, the
+    each: C / cluster columns, or for a state 2^n / cluster rows of its
+    one column), the gates and their cotangents, the cross-warp partials, the
     modulo losses' row sums, five arrays of the P angles and the cos and
     sin of each, 16 scalars. Every one of them is of the build's real or
     complex type, so the double build takes twice the float build's."""
@@ -225,11 +234,11 @@ def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
                  dtype=torch.float32):
     """The blocks each restart runs on, as csrc/sweep.cu's cluster_plan
     picks them in the build of `dtype`: the smallest of CLUSTERS whose
-    per-block layout fits one block's shared memory, never a split of the
-    one column of a state, and no more blocks than columns. None if none
-    fits."""
+    per-block layout fits one block's shared memory, no more blocks than
+    columns, and for a state, whose one column is split by rows, tiles of
+    at least 4 rows. None if none fits."""
     for c in CLUSTERS:
-        if c > 1 and (kind == 'state' or c > 1 << n):
+        if c > (1 << (n - 2) if kind == 'state' else 1 << n):
             break
         if smem_bytes(n, num_blocks, nba, kind, c, dtype) <= _SMEM_LIMIT:
             return c
@@ -239,9 +248,10 @@ def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
 def max_qubits(kind: str, dtype=torch.float32) -> int:
     """The most qubits the kernel takes for a loss of `kind` in the build of
     `dtype`: the largest n whose layout with no blocks cluster_plan holds
-    (the whole unitary on up to 16 blocks: 8; a state's one column on one
-    block: 13 in float32, 12 in float64, whose every amplitude takes twice
-    the bytes). A template deep enough may not fit even below that n."""
+    (the whole unitary on up to 16 blocks: 8; a state's one column split by
+    rows over up to 16 blocks: 17 in float32, 16 in float64, whose every
+    amplitude takes twice the bytes). A template deep enough may not fit
+    even below that n."""
     n = 2
     while cluster_plan(n + 1, 0, 0, kind, dtype) is not None:
         n += 1
@@ -278,14 +288,14 @@ def _check_objective(objective):
                          f'the objective in {objective.dtype}')
     n, limit = objective.num_qubits, MAX_QUBITS[objective.dtype][kind]
     if not 2 <= n <= limit:
-        where = "one block (a state's one column is never split" + (
-            ', and float64 doubles its bytes)' if objective.dtype ==
-            torch.float64 else ')') if kind == 'state' else \
-            f'a cluster of {CLUSTERS[-1]} blocks, the largest Hopper launches'
+        what = 'split by rows' if kind == 'state' else 'split by columns'
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
             f'loss in {objective.dtype}, got {n}: above {limit} the state '
-            f'and cotangent exceed the shared memory of {where}')
+            f'and cotangent exceed the shared memory of a cluster of '
+            f'{CLUSTERS[-1]} blocks, the largest Hopper launches, even '
+            f'{what}' + (' (float64 doubles their bytes)' if
+                         objective.dtype == torch.float64 else ''))
     if objective.entangling_gate_name not in ENTANGLER_CODES or \
             set(objective.rotation_gates) - set(LETTER_CODES):
         raise ValueError(
@@ -353,7 +363,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     lib = load_library(dtype)
     cluster = lib.cpflow_sweep_cluster(n, nb, nba, loss)
     if not cluster:
-        most = 1 if spec.kind == 'state' else CLUSTERS[-1]
+        most = CLUSTERS[-1]
         raise ValueError(
             f'{n} qubits with {nb} blocks need '
             f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, most)} bytes of '
@@ -361,6 +371,8 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             f'restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
+    build_name = ('sweep_row_tiles' if state and cluster > 1 else 'sweep') + (
+        '_f64' if dtype == torch.float64 else '')
     target = torch.as_tensor(np.asarray(spec.target),
                              dtype=config.complex_of(dtype))
     if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
@@ -421,6 +433,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
         LAUNCHES += 1
         F64_LAUNCHES += dtype == torch.float64
         LAUNCHES_BY_CLUSTER[cluster] += 1
+        LAUNCHES_BY_BUILD[build_name] += 1
 
     T = int(num_iterations)
     if B and target_loss is None:

@@ -17,8 +17,8 @@ other first-order methods.
   * ``AnsatzUnitary``: the autograd.Function over the pair;
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
     ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 8
-    qubits for the whole unitary, and for one column 2 to 13 in float32, 2
-    to 12 in float64: ``MAX_QUBITS``); it never falls back. On a CPU
+    qubits for the whole unitary, and for one column 2 to 17 in float32, 2
+    to 16 in float64: ``MAX_QUBITS``); it never falls back. On a CPU
     tensor it is the plain version, sim.batched.build_unitary_batched under
     ordinary autograd.
 
@@ -30,7 +30,7 @@ each tensor launching the build of its own dtype and never the other. The
 double build's tiles take twice the shared memory, so every size below
 takes a dtype; the vjp of the whole unitary at 8 qubits takes 16 blocks a
 restart in double (up to k = 125 'xyz' blocks), a non-portable cluster on
-Hopper that the library allows on its cluster kernel; a launch whose
+Hopper that the library allows on its cluster kernels; a launch whose
 cluster the card cannot place raises.
 
 What bounds them, and the two designs. The paths that launch them hand
@@ -46,15 +46,19 @@ cotangent over the restart's lanes by shuffles; a restart takes a warp
 forward pass at 2 to 4 qubits the lanes of a column share its amplitude
 groups with a warp barrier after each gate. Blocks hold two restarts (one
 at 6 qubits, or where the layout does not fit). One column
-(``columns=[0]``, up to 13 qubits) and the whole unitary at 7 and 8 qubits
+(``columns=[0]``, up to 17 qubits) and the whole unitary at 7 and 8 qubits
 keep the row-split design: one block a restart with a barrier after every
-gate, and where its layout exceeds one block's shared memory the restart's
-columns split over c = 2, 4, 8 or 16 blocks (``cluster_plan``; the vjp's
-blocks form a thread-block cluster and sum the gates' cotangents over
-distributed shared memory). No tensor cores: the products are 2x2 and 4x4
-complex, far below a wgmma tile, and TF32 would break the 2e-5 agreement
-with the plain version; no cluster below 7 qubits, where a restart fits
-one block. The reasons and measurements are at the top of csrc/unitary.cu
+gate, and where its layout exceeds one block's shared memory the restart
+splits over c = 2, 4, 8 or 16 blocks (``cluster_plan``): the whole
+unitary's columns (the vjp's blocks form a thread-block cluster and sum
+the gates' cotangents over distributed shared memory), or one column's
+rows, 2^n / c a block, in both passes as a cluster whose blocks meet at
+every gate on one of the top log2(c) qubits (the row tiles' kernels,
+``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``). No tensor
+cores: the products are 2x2 and 4x4 complex, far below a wgmma tile, and
+TF32 would break the 2e-5 agreement with the plain version; no cluster
+for the whole unitary below 7 qubits, where a restart fits one block. The
+reasons and measurements are at the top of csrc/unitary.cu
 and csrc/columns.cuh. ``plan`` mirrors the library's choice
 (``cpflow_unitary_design`` and its sizes) for checks without a card; the
 wrappers always launch the plan's design, and a caller may ask for the
@@ -93,6 +97,9 @@ VJP_F64_LAUNCHES = 0      # those of the vjp kernel in the double build
 # the vjp kernel's launches by the blocks each restart ran on (a cluster's
 # size, 1 for one block or the column design); reset with .clear()
 VJP_LAUNCHES_BY_CLUSTER: Counter = Counter()
+# launches of both kernels by the kernel of KERNELS that ran, '_f64' added
+# for the double build; reset with .clear()
+LAUNCHES_BY_KERNEL: Counter = Counter()
 
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
@@ -107,7 +114,8 @@ COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
 # csrc/unitary.cu's kernels, in kernel_of's order
 KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     f'ansatz_{k}_columns_{n}q' for k in ('forward', 'vjp')
-    for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1))
+    for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1)) + (
+    'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles')
 
 
 def _scale(dtype) -> int:
@@ -120,7 +128,8 @@ def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     """Dynamic shared memory of each block of a restart split over
     `cluster` blocks in the row-split design, as csrc/unitary.cu's
     make_layout lays it out in the build of `dtype`: the tile of A (2^n x
-    2^log_c / cluster amplitudes), the gates, the angles and the cos and sin
+    2^log_c / cluster amplitudes: 2^log_c / cluster columns, or for one
+    column 2^n / cluster rows), the gates, the angles and the cos and sin
     of each; the vjp also the tile of M, the gates' cotangents, the
     cross-warp partials and the gradient. All of the build's real or
     complex type: the double build takes twice the float build's."""
@@ -135,13 +144,14 @@ def smem_bytes(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
 
 def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
                  vjp: bool, dtype=torch.float32):
-    """The blocks each restart's columns are split over in the row-split
-    design, as csrc/unitary.cu's cluster_plan picks them in the build of
-    `dtype`: the smallest of CLUSTERS (never more than the 2^log_c columns)
-    whose per-block layout fits one block's shared memory; None if none
-    fits."""
+    """The blocks each restart is split over in the row-split design, as
+    csrc/unitary.cu's cluster_plan picks them in the build of `dtype`: the
+    smallest of CLUSTERS whose per-block layout fits one block's shared
+    memory, never more than the 2^log_c columns, or for one column
+    (log_c = 0) split by rows, never tiles of fewer than 4 rows; None if
+    none fits."""
     for c in CLUSTERS:
-        if c > 1 << log_c:
+        if c > (1 << log_c if log_c else 1 << (n - 2)):
             break
         if smem_bytes(n, num_blocks, nba, log_c, vjp, c,
                       dtype) <= _SMEM_LIMIT:
@@ -153,8 +163,9 @@ def max_qubits(whole: bool, dtype=torch.float32) -> int:
     """The most qubits both kernels take for the whole unitary (whole=True)
     or one column in the build of `dtype`: the largest n whose vjp layout
     with no blocks cluster_plan holds (the whole unitary on up to 16
-    blocks: 8; one column on one block: 13 in float32, 12 in float64). A
-    template deep enough may not fit even below that n."""
+    blocks: 8; one column split by rows over up to 16 blocks: 17 in
+    float32, 16 in float64). A template deep enough may not fit even below
+    that n."""
     n = 2
     while cluster_plan(n + 1, 0, 0, n + 1 if whole else 0, True,
                        dtype) is not None:
@@ -236,11 +247,15 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
                 blocks_per_restart=c)
 
 
-def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1) -> str:
-    """The name in KERNELS of the kernel a launch of this design runs."""
+def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1,
+                column: bool = False) -> str:
+    """The name in KERNELS of the kernel a launch of this design runs
+    (column: one column, columns=[0])."""
     kind = 'vjp' if vjp else 'forward'
     if design == 'columns':
         return f'ansatz_{kind}_columns_{n}q'
+    if column and cluster > 1:
+        return f'ansatz_{kind}_row_tiles'
     return 'ansatz_vjp_cluster' if vjp and cluster > 1 else f'ansatz_{kind}'
 
 
@@ -269,7 +284,8 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_occupancy.argtypes = [i, i, ctypes.c_longlong,
                                                  ptr]
         lib.cpflow_unitary_occupancy.restype = i
-        lib.cpflow_unitary_clusters.argtypes = [i, ctypes.c_longlong, i, ptr]
+        lib.cpflow_unitary_clusters.argtypes = [i, i, ctypes.c_longlong, i,
+                                                ptr]
         lib.cpflow_unitary_clusters.restype = i
     return lib
 
@@ -312,16 +328,17 @@ def occupancy(name: str, threads: int, nbytes: int, device,
 
 
 def active_clusters(threads: int, nbytes: int, cluster: int, device,
-                    dtype=torch.float32) -> int:
-    """Clusters of `cluster` blocks (2 to 16) of the vjp's cluster kernel
-    (``ansatz_vjp_cluster``) of the build of `dtype`, at `threads` threads
+                    dtype=torch.float32, name='ansatz_vjp_cluster') -> int:
+    """Clusters of `cluster` blocks (2 to 16) of the cluster kernel `name`
+    (``ansatz_vjp_cluster``, ``ansatz_forward_row_tiles`` or
+    ``ansatz_vjp_row_tiles``) of the build of `dtype`, at `threads` threads
     and `nbytes` of dynamic shared memory a block, that the card `device`
     holds at once (cudaOccupancyMaxActiveClusters): 0 where it places
     none."""
     out = ctypes.c_int()
     with torch.cuda.device(device):
         err = load_library(dtype).cpflow_unitary_clusters(
-            threads, nbytes, cluster, ctypes.byref(out))
+            KERNELS.index(name), threads, nbytes, cluster, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f'unitary kernel cluster query failed: CUDA error '
                            f'{err}')
@@ -362,10 +379,9 @@ class _Shape:
                 f'the unitary kernels take 2 to {limit} qubits for '
                 f'{"the whole unitary" if columns is None else "one column"} '
                 f'in {dtype}, got {n}: above that the state and its '
-                f'cotangent exceed the shared memory of ' + (
-                    f'a cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
-                    f'launches' if columns is None else
-                    'one block (one column is never split)'))
+                f'cotangent exceed the shared memory of a cluster of '
+                f'{CLUSTERS[-1]} blocks, the largest Hopper launches, even '
+                f'split by {"columns" if columns is None else "rows"}')
         if entangling_gate_name not in ENTANGLER_CODES or \
                 set(rotation_gates) - set(LETTER_CODES):
             raise ValueError(
@@ -391,7 +407,7 @@ class _Shape:
             code = self.lib.cpflow_unitary_design(*args)
         self.design = {v: k for k, v in DESIGNS.items()}[code]
         if not self.cluster:
-            most = min(CLUSTERS[-1], 1 << self.log_c)
+            most = min(CLUSTERS[-1], 1 << (self.log_c or n - 2))
             with torch.cuda.device(device):
                 nbytes = self.lib.cpflow_unitary_smem_bytes(
                     n, self.nb, self.nba, self.log_c, int(vjp), most)
@@ -399,6 +415,13 @@ class _Shape:
                 f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
                 f'shared memory per block in {dtype} even on {most} blocks a '
                 f'restart, above {_SMEM_LIMIT}')
+
+    def kernel(self, vjp, design) -> str:
+        """The name in KERNELS of the kernel a launch runs, '_f64' added
+        for the double build."""
+        return kernel_name(design, vjp, self.n, self.cluster,
+                           self.log_c == 0) + (
+            '_f64' if self.dtype == torch.float64 else '')
 
     def launch(self, angles, u, ubar, grad, vjp, design):
         """Launches on the angles' card: the library configures and
@@ -472,6 +495,7 @@ def ansatz_forward(num_qubits: int, entangling_gate_name: str,
     u = torch.empty(shape.udims, dtype=shape.cdtype, device=angles.device)
     if shape.B:
         shape.launch(angles, u, None, None, False, design)
+        LAUNCHES_BY_KERNEL[shape.kernel(False, design)] += 1
         FORWARD_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
         FORWARD_F64_LAUNCHES += shape.dtype == torch.float64
@@ -505,6 +529,7 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
     grad = torch.empty_like(angles)
     if shape.B:
         shape.launch(angles, u, grad_u, grad, True, design)
+        LAUNCHES_BY_KERNEL[shape.kernel(True, design)] += 1
         VJP_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
         VJP_F64_LAUNCHES += shape.dtype == torch.float64

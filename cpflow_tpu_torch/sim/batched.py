@@ -168,10 +168,15 @@ def build_unitary_batched(num_qubits: int, entangling_gate_name: str,
         entangling_gate_name, rotation_gates,
         angles[3 * n:].reshape(-1, nba, B).transpose(0, 1))    # (4, 4, k, B)
 
-    eye = torch.eye(d, dtype=config.complex_of(angles.dtype),
-                    device=angles.device)
-    if columns is not None:
-        eye = eye[:, list(columns)]
+    if columns is None:
+        eye = torch.eye(d, dtype=config.complex_of(angles.dtype),
+                        device=angles.device)
+    else:  # those columns alone: the identity is 2^n x 2^n (at 17 qubits
+        # 128 GiB in complex64)
+        eye = torch.zeros((d, len(columns)),
+                          dtype=config.complex_of(angles.dtype),
+                          device=angles.device)
+        eye[list(columns), torch.arange(len(columns))] = 1
     ncols = eye.shape[1]
     u = eye.reshape([2] * n + [ncols, 1]).expand([2] * n + [ncols, B])
     for q in range(n):

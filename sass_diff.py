@@ -10,11 +10,13 @@ for example with OLD an earlier commit unpacked by ``git archive`` into
 with nvcc for sm_90a into a cubin under build/sass/ (all compilers side
 by side), with the flags of kernels/build.py and any extra flags given
 after ``--`` (``-- -DCPFLOW_DOUBLE`` compares the double builds).
-``cuobjdump -sass`` then lists each cubin's instructions; the hash that
-nvcc puts into the names of an unnamed namespace (it differs between two
-paths of one file) is masked. It prints, for every source, the number of
-lines of each listing and whether they are identical, and exits 1 if any
-differs.
+``cuobjdump -sass`` then lists each cubin's instructions, kernel by
+kernel; the hash that nvcc puts into the names of an unnamed namespace (it
+differs between two paths of one file) is masked. It prints, for every
+source, each kernel of the first tree with the number of lines of its
+listing in each tree and whether they are identical, then the kernels that
+only the second tree has, and exits 1 if a kernel of the first tree
+differs or is gone from the second.
 """
 
 from __future__ import annotations
@@ -34,14 +36,22 @@ OUT = ROOT / 'build' / 'sass'
 FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3']
 
 
-def sass(cubin: Path, cuobjdump: str) -> list:
-    """The instructions of a cubin, one stripped line each, names masked."""
+def sass(cubin: Path, cuobjdump: str) -> dict:
+    """{kernel name: its instructions, one stripped line each} of a cubin,
+    names masked."""
     text = subprocess.run([cuobjdump, '-sass', str(cubin)], check=True,
                           capture_output=True, text=True).stdout
     text = re.sub(r'_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+', 'ANON',
                   text)
-    return [line.strip() for line in text.splitlines()
-            if line.strip() and 'code for sm' not in line]
+    kernels, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith('Function :'):
+            name = line.split(':', 1)[1].strip()
+            kernels[name] = []
+        elif line and name is not None:
+            kernels[name].append(line)
+    return kernels
 
 
 def main(argv) -> int:
@@ -69,9 +79,15 @@ def main(argv) -> int:
     for name in sources:
         a, b = (sass(OUT / f'{side}_{name}.cubin', cuobjdump)
                 for side in (0, 1))
-        same &= a == b
-        print(f'{name} {" ".join(extra)}: {len(a)} and {len(b)} lines of '
-              f'SASS, identical: {a == b}')
+        for kernel, lines in a.items():
+            other = b.get(kernel)
+            same &= lines == other
+            print(f'{name} {" ".join(extra)}: {kernel}: {len(lines)} and '
+                  f'{len(other) if other is not None else "no"} lines of '
+                  f'SASS, identical: {lines == other}')
+        for kernel in sorted(set(b) - set(a)):
+            print(f'{name} {" ".join(extra)}: {kernel}: new, {len(b[kernel])} '
+                  f'lines of SASS')
     return 0 if same else 1
 
 

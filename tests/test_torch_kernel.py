@@ -67,8 +67,8 @@ def test_kernel_refuses_what_it_does_not_compute():
     eye = lambda n: np.eye(2 ** n, dtype=np.complex64)
     for obj, limit in [
             (_problem(9, 2, 'xyz', eye(9), 0.0, 1, seed=0)[0], 8),
-            (_problem(14, 2, 'xyz', _ghz(14), 0.0, 1, seed=0,
-                      kind='state')[0], 13),
+            (_problem(18, 2, 'xyz', _ghz(18), 0.0, 1, seed=0,
+                      kind='state')[0], 17),
             (_problem(9, 2, 'xz', eye(9), 0.0, 1, seed=0,
                       kind='modulo_diagonal', wires=[0, 1])[0], 8)]:
         with pytest.raises(ValueError, match=f'2 to {limit} qubits'):

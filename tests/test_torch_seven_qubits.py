@@ -148,7 +148,9 @@ def test_cluster_plan_splits_seven_and_eight_qubits():
     assert sk.cluster_plan(8, 16, 7, 'hst') == 8
     assert sk.cluster_plan(8, 16, 4, 'modulo_diagonal') == 8
     assert sk.cluster_plan(12, 36, 7, 'state') == 1
-    assert sk.cluster_plan(14, 2, 7, 'state') is None  # never split
+    # a state's one column is split by rows past one block (row tiles)
+    assert sk.cluster_plan(14, 2, 7, 'state') == 2
+    assert sk.cluster_plan(18, 2, 7, 'state') is None
     assert sk.cluster_plan(9, 2, 7, 'hst') is None
     for s in chip_smoke.seven_shapes():
         nb, nba = _nb_nba(s)

@@ -5,11 +5,13 @@ against the JAX package on the CPU.
   * the sweep's and the unitary kernels' plans with clusters of up to 16
     blocks keep every plan that clusters of up to 8 gave, and take 16
     only where no cluster of 8 held the shape (every n from 2 to 8, k up
-    to 300, both rotation strings, both dtypes);
+    to 300, both rotation strings, both dtypes), but for a state (one
+    column), which since row tiles splits by rows where one block does not
+    hold it (tests/test_torch_state_split.py);
   * the new edges, each named by the bytes of one block;
-  * the limits: a state of 13 qubits in float32 but not in float64, no
-    state of 14 qubits and no whole unitary of 9, each refused with its
-    reason;
+  * the limits: a state of 13 qubits in float32 and 12 in float64 on one
+    block; no state of 18 qubits in float32 or 17 in float64, and no whole
+    unitary of 9, each refused with its reason;
   * the plain fused sweep at 8 qubits in float64 and on a 13-qubit state
     in float32 against the JAX package's fused sweep, and a tiny static
     CX ladder in float64 through both packages (at 7 qubits: the JAX
@@ -76,7 +78,8 @@ def double():
 # --------------------------------------------------------------- the plans
 
 def _old_sweep_plan(n, k, nba, kind, dtype):
-    """The sweep's plan as clusters of at most 8 blocks gave it."""
+    """The sweep's plan as clusters of at most 8 blocks gave it, before row
+    tiles split a state."""
     for c in (1, 2, 4, 8):
         if c > 1 and (kind == 'state' or c > 1 << n):
             break
@@ -87,7 +90,7 @@ def _old_sweep_plan(n, k, nba, kind, dtype):
 
 def _old_unitary_plan(n, k, nba, log_c, vjp, dtype):
     """The unitary kernels' row-split plan as clusters of at most 8 gave
-    it."""
+    it, before row tiles split one column."""
     for c in (1, 2, 4, 8):
         if c > 1 << log_c:
             break
@@ -101,7 +104,8 @@ def _old_unitary_plan(n, k, nba, log_c, vjp, dtype):
 def test_sweep_plan_keeps_every_old_plan(rot, dtype):
     """For n = 2..8 and k = 0..300 at every loss: where a cluster of at
     most 8 held the shape, the plan is the old one; where none did, it is
-    16 blocks or None, and 16 blocks fit."""
+    16 blocks or None, and 16 blocks fit; a state that one block did not
+    hold takes the smallest row split that fits."""
     nba = num_block_angles('cp', rot)
     taken = 0
     for n in range(2, 9):
@@ -111,12 +115,17 @@ def test_sweep_plan_keeps_every_old_plan(rot, dtype):
                 new = sk.cluster_plan(n, k, nba, kind, dtype)
                 if old is not None:
                     assert new == old, (n, k, kind)
+                elif kind == 'state':
+                    fits = [c for c in sk.CLUSTERS[1:] if c <= 1 << (n - 2)
+                            and sk.smem_bytes(n, k, nba, kind, c,
+                                              dtype) <= LIMIT]
+                    assert new == (fits[0] if fits else None), (n, k)
                 else:
                     assert new in (16, None), (n, k, kind)
                     if new == 16:
                         taken += 1
-                        assert kind != 'state' and \
-                            sk.smem_bytes(n, k, nba, kind, 16, dtype) <= LIMIT
+                        assert sk.smem_bytes(n, k, nba, kind, 16,
+                                             dtype) <= LIMIT
     assert taken > 0  # clusters of 16 take shapes no cluster of 8 held
 
 
@@ -124,7 +133,8 @@ def test_sweep_plan_keeps_every_old_plan(rot, dtype):
 @pytest.mark.parametrize('rot', ['xyz', 'xz'])
 def test_unitary_plan_keeps_every_old_plan(rot, dtype):
     """The same for the unitary kernels' row-split plan, the forward pass
-    and the vjp, the whole unitary and one column."""
+    and the vjp, the whole unitary and one column (which, where one block
+    did not hold it, takes the smallest row split that fits)."""
     nba = num_block_angles('cp', rot)
     taken = 0
     for n in range(2, 9):
@@ -135,6 +145,11 @@ def test_unitary_plan_keeps_every_old_plan(rot, dtype):
                     new = uk.cluster_plan(n, k, nba, log_c, vjp, dtype)
                     if old is not None:
                         assert new == old, (n, k, log_c, vjp)
+                    elif log_c == 0:
+                        fits = [c for c in uk.CLUSTERS[1:]
+                                if c <= 1 << (n - 2) and uk.smem_bytes(
+                                    n, k, nba, 0, vjp, c, dtype) <= LIMIT]
+                        assert new == (fits[0] if fits else None), (n, k)
                     else:
                         assert new in (16, None), (n, k, log_c, vjp)
                         taken += new == 16
@@ -202,16 +217,18 @@ def test_plan_edges(edge, nbytes):
 
 def test_max_qubits_by_dtype():
     """What the plans hold with no blocks: the whole unitary to 8 qubits in
-    both builds (on 16 blocks), a state's one column to 13 qubits in
+    both builds (on 16 blocks); a state's one column to 13 qubits in
     float32 and to 12 in float64, whose every amplitude takes twice the
-    bytes, on one block."""
-    for dtype, state in ((F32, 13), (F64, 12)):
+    bytes, on one block, and split by rows over 16 blocks to 17 and 16."""
+    for dtype, state in ((F32, 17), (F64, 16)):
         assert sk.MAX_QUBITS[dtype] == {
             'hst': 8, 'state': state, 'disc': 8, 'modulo_identity': 8,
             'modulo_diagonal': 8}
         assert uk.MAX_QUBITS[dtype] == {'unitary': 8, 'column': state}
     assert sk.smem_bytes(14, 0, 7, 'state') > LIMIT
     assert sk.smem_bytes(13, 0, 7, 'state', dtype=F64) > LIMIT
+    assert sk.smem_bytes(18, 0, 7, 'state', 16) > LIMIT
+    assert sk.smem_bytes(17, 0, 7, 'state', 16, F64) > LIMIT
     assert sk.smem_bytes(9, 0, 7, 'hst', 16) > LIMIT
 
 
@@ -228,29 +245,29 @@ def test_sweep_takes_a_13_qubit_state_in_float32():
 
 
 @pytest.mark.parametrize('n,kind,dtype,reason', [
-    (14, 'state', F32, r"2 to 13 qubits for a 'state' loss in "
-     r"torch.float32, got 14: .* one block \(a state's one column is never "
-     r"split\)"),
-    (13, 'state', F64, r"2 to 12 qubits for a 'state' loss in "
-     r"torch.float64, got 13: .*never split, and float64 doubles its "
-     r"bytes"),
+    (18, 'state', F32, r"2 to 17 qubits for a 'state' loss in "
+     r"torch.float32, got 18: .*a cluster of 16 blocks, the largest Hopper "
+     r"launches, even split by rows$"),
+    (17, 'state', F64, r"2 to 16 qubits for a 'state' loss in "
+     r"torch.float64, got 17: .*even split by rows \(float64 doubles their "
+     r"bytes\)"),
     (9, 'hst', F32, r"2 to 8 qubits for a 'hst' loss in torch.float32, got "
      r"9: .*a cluster of 16 blocks, the largest Hopper launches"),
     (9, 'hst', F64, r"2 to 8 qubits .* torch.float64, got 9"),
-], ids=['state14', 'state13_float64', 'whole9', 'whole9_float64'])
+], ids=['state18', 'state17_float64', 'whole9', 'whole9_float64'])
 def test_sweep_refuses_beyond_its_plans(n, kind, dtype, reason):
     with pytest.raises(ValueError, match=reason):
         sk._check_objective(_objective(n, kind, dtype))
 
 
 @pytest.mark.parametrize('n,columns,dtype,reason', [
-    (14, [0], F32, r'2 to 13 qubits for one column in torch.float32, got '
-     r'14: .*one block \(one column is never split\)'),
-    (13, [0], F64, r'2 to 12 qubits for one column in torch.float64, got '
-     r'13'),
+    (18, [0], F32, r'2 to 17 qubits for one column in torch.float32, got '
+     r'18: .*a cluster of 16 blocks, .*even split by rows'),
+    (17, [0], F64, r'2 to 16 qubits for one column in torch.float64, got '
+     r'17'),
     (9, None, F32, r'2 to 8 qubits for the whole unitary in torch.float32, '
-     r'got 9: .*a cluster of 16 blocks'),
-], ids=['column14', 'column13_float64', 'whole9'])
+     r'got 9: .*a cluster of 16 blocks.*even split by columns'),
+], ids=['column18', 'column17_float64', 'whole9'])
 def test_unitary_kernels_refuse_beyond_their_plans(monkeypatch, n, columns,
                                                    dtype, reason):
     """The unitary kernels' shape check on a card (its capability check

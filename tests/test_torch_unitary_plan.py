@@ -88,7 +88,12 @@ def test_a_layout_too_large_takes_one_restart_then_the_row_split():
 
 
 def test_the_kernel_names_follow_the_library_order():
-    assert len(uk.KERNELS) == 13
+    assert len(uk.KERNELS) == 15
+    assert uk.KERNELS[13:] == ('ansatz_forward_row_tiles',
+                               'ansatz_vjp_row_tiles')
+    assert uk.kernel_name('rows', False, 15, 2, column=True) == \
+        'ansatz_forward_row_tiles'
+    assert uk.kernel_name('rows', True, 13, 1, column=True) == 'ansatz_vjp'
     assert uk.KERNELS[:3] == ('ansatz_forward', 'ansatz_vjp',
                               'ansatz_vjp_cluster')
     assert uk.kernel_name('columns', False, 2) == uk.KERNELS[3]
