@@ -22,7 +22,10 @@
 // chain and the walk on its own tile, calling the functions below with the
 // tile's log_c = n - j; what crosses columns (the sums over entries, each
 // gate's cotangent, the modulo losses' entries) goes through distributed
-// shared memory (tile_to_global, cluster_sum).
+// shared memory (tile_to_global, cluster_sum). Past what a cluster of 16
+// holds, the same tiles run on independent blocks with no cluster (the
+// column tiles of sweep.cu and unitary.cu), and what crosses them goes
+// through global memory, summed by a second kernel in tile order.
 //
 // A state's one column (C = 1) above 13 qubits (12 in double) exceeds one
 // block too. It cannot be split by columns, so it is split by rows: the

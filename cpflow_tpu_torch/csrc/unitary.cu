@@ -74,6 +74,15 @@
 // starts. At 7 and 8 qubits a column of A and M (4 and 8 KB) and a
 // restart's layout exceed what one lane and one block hold.
 //
+// The column tiles (the whole unitary past what a cluster of 16 holds: 9
+// qubits and up, in float to 13 and in double to 12): a restart's columns
+// on 2^j independent blocks, no cluster, the fewest tiles that fit
+// (tile_log; the vjp's tiles of 16, 8 and 4 columns at 9, 10 and 11 qubits
+// in float, 8, 4 and 2 in double). The forward pass's tiles never meet; the
+// vjp's meet in the sum of the gates' cotangents, which a second kernel
+// forms in tile order from shares the tiles leave in global memory (the
+// column tiles section below).
+//
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
 // TF32's 10-bit mantissa would break the 2e-5 (unitary) and 1e-4
@@ -376,25 +385,118 @@ column_vjp(Args a) {
   }
 }
 
-using Kernel = void (*)(Args);
+// ------------------------------------------------------ the column tiles
+// The whole unitary past what a cluster of 16 blocks holds (9 qubits and
+// up; at 8 qubits in double past k = 125): a restart's columns split into
+// 2^j tiles of d x 2^(n - j), the fewest whose layout fits a block
+// (tile_log), each on a block of its own with no cluster. The forward pass
+// needs nothing more: its tiles never meet (forward_tiles_kernel, the row-
+// split forward body on 2^j tiles). The vjp's tiles meet only in the sum of
+// each gate's cotangent: vjp_tiles_kernel walks each tile and writes its
+// share of every gate's cotangent to global memory, and vjp_tile_sum_kernel,
+// a block a restart, sums the shares in tile order (so that no bit depends
+// on the order the blocks ran in), then forms the angle gradients.
+
+struct TileArgs {
+  Args a;          // cluster_log: log2 of the tiles a restart
+  real* partials;  // (B, tiles, 32 G): each tile's share of the cotangents
+};
+
+// log2 of the fewest tiles of the whole unitary's columns (log_c = n) whose
+// layout fits a block; -1 for one column or if none fits.
+inline int tile_log(int n, int nb, int nba, int log_c, bool vjp) {
+  if (!log_c) return -1;
+  for (int j = 0; j <= log_c; ++j)
+    if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit) return j;
+  return -1;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+forward_tiles_kernel(Args a) {
+  forward_body<false>(a);
+}
+
+// Block blockIdx.x holds tile blockIdx.x mod 2^j of restart blockIdx.x / 2^j.
+__global__ void __launch_bounds__(kMaxThreads)
+vjp_tiles_kernel(TileArgs ta) {
+  const Args& a = ta.a;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
+                               true);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* red = reinterpret_cast<real*>(smem + L.off_red);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
+  const int b = blockIdx.x >> a.cluster_log;
+  const int t = blockIdx.x & ((1 << a.cluster_log) - 1);
+  const cplx* u = a.U + ((size_t)b << (a.n + lc));
+  const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
+  for (int e = threadIdx.x; e < amps; e += blockDim.x) {
+    const int at = tile_to_global(e, lc, lt, t);
+    A[e] = u[at];
+    const cplx x = g[at];
+    M[e] = mkc(RL(0.5) * x.x, RL(-0.5) * x.y);  // M = conj(g) / 2
+  }
+  load_gates(a, L, b, params, cs, gates);
+  adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
+  real* out = ta.partials + (size_t)blockIdx.x * 32 * L.G;
+  for (int i = threadIdx.x; i < 32 * L.G; i += blockDim.x) out[i] = gbar[i];
+}
+
+// Block b: restart b's tiles' shares summed in tile order, then its angle
+// gradients, as vjp_body forms them.
+__global__ void __launch_bounds__(kMaxThreads)
+vjp_tile_sum_kernel(TileArgs ta) {
+  const Args& a = ta.a;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
+                               true);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* grad = reinterpret_cast<real*>(smem + L.off_grad);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int b = blockIdx.x, tiles = 1 << a.cluster_log, len = 32 * L.G;
+  const real* part = ta.partials + (size_t)b * tiles * len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    real s = RL(0.);
+    for (int q = 0; q < tiles; ++q) s += part[(size_t)q * len + i];
+    gbar[i] = s;
+  }
+  load_gates(a, L, b, params, cs, gates);
+  angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
+  __syncthreads();
+  for (int i = threadIdx.x; i < L.P; i += blockDim.x)
+    a.grad[(size_t)i * a.B + b] = grad[i];
+}
 
 // 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster of tiles of
 // columns (the row-split design); 3 + n - 2 the column forward pass at n
-// qubits, 8 + n - 2 the column vjp; 13 forward and 14 vjp of one column
+// qubits, 8 + n - 2 the column vjp; 13 the forward pass, 14 the vjp's walk
+// and 15 its sum on the column tiles; 16 forward and 17 vjp of one column
 // split by rows over a cluster (the row-split design's row tiles).
-constexpr int kKernels = 5 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
-constexpr int kForwardRows = kKernels - 2, kVjpRows = kKernels - 1;
-Kernel kernel_of(int which) {
-  const Kernel kernels[kKernels] = {
-      forward_kernel,    vjp_kernel<false>, vjp_kernel<true>,
-      column_forward<2>, column_forward<3>, column_forward<4>,
-      column_forward<5>, column_forward<6>, column_vjp<2>,
-      column_vjp<3>,     column_vjp<4>,     column_vjp<5>,
-      column_vjp<6>,     forward_rows_kernel, vjp_rows_kernel};
+constexpr int kKernels = 8 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
+constexpr int kForwardRows = 16, kVjpRows = 17;
+const void* kernel_of(int which) {
+  const void* kernels[kKernels] = {
+      (const void*)forward_kernel,       (const void*)vjp_kernel<false>,
+      (const void*)vjp_kernel<true>,     (const void*)column_forward<2>,
+      (const void*)column_forward<3>,    (const void*)column_forward<4>,
+      (const void*)column_forward<5>,    (const void*)column_forward<6>,
+      (const void*)column_vjp<2>,        (const void*)column_vjp<3>,
+      (const void*)column_vjp<4>,        (const void*)column_vjp<5>,
+      (const void*)column_vjp<6>,        (const void*)forward_tiles_kernel,
+      (const void*)vjp_tiles_kernel,     (const void*)vjp_tile_sum_kernel,
+      (const void*)forward_rows_kernel,  (const void*)vjp_rows_kernel};
   return kernels[which];
 }
 
-enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1 };
+enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1, DESIGN_TILES = 2 };
 
 // Dynamic shared memory granted to each kernel on each device so far,
 // whether each cluster kernel may take a cluster of 16 (non-portable)
@@ -539,12 +641,86 @@ long long cpflow_unitary_column_smem_bytes(int n, int num_blocks, int nba,
 }
 
 // The plan's design for a shape: 1 the column design (the whole unitary at
-// 2 to 6 qubits, where its layout fits), else 0 the row-split design.
+// 2 to 6 qubits, where its layout fits), else 0 the row-split design where
+// one block or a cluster holds it, else 2 the column tiles where they hold
+// it, else 0.
 int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
                           int vjp) {
-  return column_restarts(n, num_blocks, nba, log_c, vjp != 0) > 0
-             ? DESIGN_COLUMNS
-             : DESIGN_ROWS;
+  if (column_restarts(n, num_blocks, nba, log_c, vjp != 0) > 0)
+    return DESIGN_COLUMNS;
+  if (cluster_plan(n, num_blocks, nba, log_c, vjp != 0) < 0 &&
+      tile_log(n, num_blocks, nba, log_c, vjp != 0) >= 0)
+    return DESIGN_TILES;
+  return DESIGN_ROWS;
+}
+
+// The tiles a restart's columns are split into on the column tiles
+// (tile_log: the fewest whose layout fits a block), 0 for one column or
+// where none fits.
+int cpflow_unitary_tiles(int n, int num_blocks, int nba, int log_c,
+                         int vjp) {
+  const int log = tile_log(n, num_blocks, nba, log_c, vjp != 0);
+  return log < 0 ? 0 : 1 << log;
+}
+
+// The reals of the partials buffer each restart of the vjp needs on the
+// column tiles: tiles x 32 G; 0 where they do not take the shape.
+long long cpflow_unitary_tile_partials(int n, int num_blocks, int nba,
+                                       int log_c) {
+  const int log = tile_log(n, num_blocks, nba, log_c, true);
+  return log < 0 ? 0 : (32LL * (n + num_blocks)) << log;
+}
+
+// cpflow_unitary_launch on the column tiles, with the same arguments and
+// `partials`, a device buffer of B x cpflow_unitary_tile_partials reals
+// (the vjp only; null for the forward pass): the forward pass
+// (forward_tiles_kernel), or the vjp's walk (vjp_tiles_kernel) then its sum
+// (vjp_tile_sum_kernel), on `stream`. Returns cudaErrorInvalidValue for a
+// shape the tiles do not take, else the first CUDA error of the launches.
+int cpflow_unitary_tiles_launch(const void* angles, void* U,
+                                const void* Ubar, void* grad, void* partials,
+                                const void* placements, const void* letters,
+                                int n, int num_blocks, int num_letters,
+                                int ent, int nba, int log_c, int B, int vjp,
+                                void* stream) {
+  TileArgs ta;
+  Args& a = ta.a;
+  a.angles = static_cast<const real*>(angles);
+  a.U = static_cast<cplx*>(U);
+  a.Ubar = static_cast<const cplx*>(Ubar);
+  a.grad = static_cast<real*>(grad);
+  a.placements = static_cast<const int*>(placements);
+  a.tpl.letters = static_cast<const int*>(letters);
+  a.tpl.m = num_letters;
+  a.tpl.ent = ent;
+  a.tpl.nba = nba;
+  a.n = n;
+  a.nb = num_blocks;
+  a.log_c = log_c;
+  a.B = B;
+  a.restarts = 1;
+  a.cluster_log = tile_log(n, num_blocks, nba, log_c, vjp != 0);
+  ta.partials = static_cast<real*>(partials);
+  if (a.cluster_log < 0) return (int)cudaErrorInvalidValue;
+  const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
+                               vjp != 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)B << a.cluster_log;
+  cudaError_t err;
+  if (!vjp) {
+    err = grant_smem(kForwardTiles, L.bytes);
+    if (err != cudaSuccess) return (int)err;
+    forward_tiles_kernel<<<blocks, L.nt, L.bytes, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  err = grant_smem(kVjpTiles, L.bytes);
+  if (err == cudaSuccess) err = grant_smem(kVjpTileSum, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  vjp_tiles_kernel<<<blocks, L.nt, L.bytes, s>>>(ta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  vjp_tile_sum_kernel<<<B, L.nt, L.bytes, s>>>(ta);
+  return (int)cudaGetLastError();
 }
 
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
@@ -623,7 +799,7 @@ int cpflow_unitary_occupancy(int which, int threads, long long bytes,
 }
 
 // Clusters of `cluster` blocks (2 to 16) of the cluster kernel `which`
-// (kernel_of's numbering: 2, 13 or 14), at `threads` threads and `bytes` of
+// (kernel_of's numbering: 2, 16 or 17), at `threads` threads and `bytes` of
 // dynamic shared memory a block, that the card holds at once
 // (cudaOccupancyMaxActiveClusters), in *clusters. Returns a CUDA error
 // code.

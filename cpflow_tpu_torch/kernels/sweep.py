@@ -15,9 +15,10 @@ modulo-diagonal losses on the whole 2^n x 2^n unitary, and state
 preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
-falls back, above MAX_QUBITS (8 qubits for the whole unitary; for a state
-17 in float32 and 16 in float64), for a template too deep for the largest
-cluster (``cluster_plan``), and for a penalty other than the
+falls back, above MAX_QUBITS (for the HS test and disc losses 13 qubits in
+float32 and 12 in float64; for the modulo losses 8; for a state 17 in
+float32 and 16 in float64), for a template too deep for every plan
+(``cluster_plan``, ``tile_plan``), and for a penalty other than the
 piecewise-linear one.
 
 Precision. The kernel computes in the objective's dtype: float32 through
@@ -55,7 +56,17 @@ the whole unitary by columns (in float32 7 qubits take 2, or 4 from 215
 state's one column by rows, each block holding 2^n / c of them (the
 kernel's fourth build, the row tiles; at the GHZ ladder's depths 14, 15,
 16 and 17 qubits take 2, 4, 8 and 16 blocks), its blocks meeting at every
-gate on one of the top log2(c) qubits. A cluster of 16
+gate on one of the top log2(c) qubits. Where no cluster holds the whole
+unitary (9 qubits and up, and deeper templates at 7 and 8), the HS test and
+disc losses take the column tiles (``tile_plan``): a restart's columns
+split into tiles on independent blocks, the fewest that fit, and two
+kernels a step, one a block per tile (the chain, the tile's share of the
+sum s and the walk from conj(T)) and one a block per restart (the shares
+summed in tile order, the gradient and Adam), which meet through global
+memory. Tiles of 16, 8, 4, 2 and 1 columns take a restart to 9, 10, 11, 12
+and 13 qubits in float32 (8, 4, 2 and 1 to 12 in float64). The modulo
+losses read V across columns: they take no tiles and stop at 8 qubits
+(ROADMAP A.16b). A cluster of 16
 is non-portable on Hopper: the library allows it on its cluster build, and
 a launch whose cluster the card cannot place raises. On the card the
 library's own plan decides (``cpflow_sweep_cluster``); ``smem_bytes`` and
@@ -89,11 +100,12 @@ from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 LAUNCHES = 0  # kernel launches since the last reset; the plain path adds none
 F64_LAUNCHES = 0  # those of them that ran the double build
 # those of them by the blocks each restart ran on (a cluster's size, 1 for
-# one block); reset with .clear()
+# one block, 'tiles' for the column tiles); reset with .clear()
 LAUNCHES_BY_CLUSTER: Counter = Counter()
-# those of them by build: 'sweep' (one block or tiles of columns) or
-# 'sweep_row_tiles' (a state split by rows), '_f64' added for the double
-# build; reset with .clear()
+# those of them by build: 'sweep' (one block or a cluster's tiles of
+# columns), 'sweep_row_tiles' (a state split by rows) or
+# 'sweep_column_tiles' (columns on independent blocks), '_f64' added for the
+# double build; reset with .clear()
 LAUNCHES_BY_BUILD: Counter = Counter()
 
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
@@ -101,6 +113,7 @@ LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
               'modulo_diagonal': 4}  # as csrc/sweep.cu numbers them
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
+TILE_LOSSES = ('hst', 'disc')  # the losses the column tiles take
 TARGET_CHECK_EVERY = 50  # kernel steps between host checks of target_loss
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -197,6 +210,15 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
     lib.cpflow_sweep_device.argtypes = [ptr]
     lib.cpflow_sweep_device.restype = ctypes.c_int
+    lib.cpflow_sweep_tiles.argtypes = [ctypes.c_int] * 4
+    lib.cpflow_sweep_tiles.restype = ctypes.c_int
+    lib.cpflow_sweep_tile_partials.argtypes = [ctypes.c_int] * 4
+    lib.cpflow_sweep_tile_partials.restype = ctypes.c_longlong
+    lib.cpflow_sweep_tiles_launch.argtypes = \
+        lib.cpflow_sweep_launch.argtypes[:-1] + [ptr, ptr]
+    lib.cpflow_sweep_tiles_launch.restype = ctypes.c_int
+    lib.cpflow_sweep_tiles_occupancy.argtypes = [ctypes.c_int] * 4 + [ptr]
+    lib.cpflow_sweep_tiles_occupancy.restype = ctypes.c_int
     _libs[dtype] = lib
     return lib
 
@@ -245,15 +267,37 @@ def cluster_plan(n: int, num_blocks: int, nba: int, kind: str,
     return None
 
 
+def tile_plan(n: int, num_blocks: int, nba: int, kind: str,
+              dtype=torch.float32):
+    """(columns a tile, tiles a restart) of the column tiles, as
+    csrc/sweep.cu's tile_plan picks them in the build of `dtype`: the fewest
+    tiles whose per-block layout (smem_bytes with that many blocks) fits
+    one block's shared memory. None where cluster_plan holds the shape (it
+    keeps its plan), for a loss other than TILE_LOSSES, and where even
+    tiles of one column do not fit. A tile's A and M take 16 d w bytes
+    (32 in float64), so the shallow templates take tiles of 128 KB: in
+    float32 16, 8, 4, 2 and 1 columns at 9 to 13 qubits, in float64 8, 4,
+    2 and 1 at 9 to 12."""
+    if kind not in TILE_LOSSES or \
+            cluster_plan(n, num_blocks, nba, kind, dtype) is not None:
+        return None
+    for j in range(n + 1):
+        if smem_bytes(n, num_blocks, nba, kind, 1 << j, dtype) <= _SMEM_LIMIT:
+            return 1 << (n - j), 1 << j
+    return None
+
+
 def max_qubits(kind: str, dtype=torch.float32) -> int:
     """The most qubits the kernel takes for a loss of `kind` in the build of
-    `dtype`: the largest n whose layout with no blocks cluster_plan holds
-    (the whole unitary on up to 16 blocks: 8; a state's one column split by
-    rows over up to 16 blocks: 17 in float32, 16 in float64, whose every
-    amplitude takes twice the bytes). A template deep enough may not fit
-    even below that n."""
+    `dtype`: the largest n whose layout with no blocks a plan holds (the
+    HS test and disc on column tiles of one column: 13 in float32, 12 in
+    float64; the modulo losses on up to 16 blocks: 8; a state's one column
+    split by rows over up to 16 blocks: 17 in float32, 16 in float64,
+    whose every amplitude takes twice the bytes). A template deep enough
+    may not fit even below that n."""
     n = 2
-    while cluster_plan(n + 1, 0, 0, kind, dtype) is not None:
+    while cluster_plan(n + 1, 0, 0, kind, dtype) is not None or \
+            tile_plan(n + 1, 0, 0, kind, dtype) is not None:
         n += 1
     return n
 
@@ -288,14 +332,24 @@ def _check_objective(objective):
                          f'the objective in {objective.dtype}')
     n, limit = objective.num_qubits, MAX_QUBITS[objective.dtype][kind]
     if not 2 <= n <= limit:
-        what = 'split by rows' if kind == 'state' else 'split by columns'
+        double = ' (float64 doubles their bytes)' if \
+            objective.dtype == torch.float64 else ''
+        if kind == 'state':
+            why = (f'the state and cotangent exceed the shared memory of a '
+                   f'cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
+                   f'launches, even split by rows{double}')
+        elif kind in TILE_LOSSES:
+            why = (f'one column of the state and cotangent exceeds the '
+                   f'shared memory of a block, even on column tiles of one '
+                   f'column each{double}')
+        else:
+            why = (f'the state and cotangent exceed the shared memory of a '
+                   f'cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
+                   f'launches, and the column tiles take no modulo loss, '
+                   f'whose sums read V across columns (ROADMAP A.16b)')
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
-            f'loss in {objective.dtype}, got {n}: above {limit} the state '
-            f'and cotangent exceed the shared memory of a cluster of '
-            f'{CLUSTERS[-1]} blocks, the largest Hopper launches, even '
-            f'{what}' + (' (float64 doubles their bytes)' if
-                         objective.dtype == torch.float64 else ''))
+            f'loss in {objective.dtype}, got {n}: above {limit} {why}')
     if objective.entangling_gate_name not in ENTANGLER_CODES or \
             set(objective.rotation_gates) - set(LETTER_CODES):
         raise ValueError(
@@ -362,16 +416,19 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     loss = LOSS_CODES[spec.kind]
     lib = load_library(dtype)
     cluster = lib.cpflow_sweep_cluster(n, nb, nba, loss)
-    if not cluster:
-        most = CLUSTERS[-1]
+    tiles = 0 if cluster else lib.cpflow_sweep_tiles(n, nb, nba, loss)
+    if not cluster and not tiles:
+        most = 1 << n if spec.kind in TILE_LOSSES else CLUSTERS[-1]
         raise ValueError(
             f'{n} qubits with {nb} blocks need '
             f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, most)} bytes of '
-            f'shared memory per block in {dtype} even on {most} blocks a '
-            f'restart, above {_SMEM_LIMIT}')
+            f'shared memory per block in {dtype} even on {most} '
+            + ('tiles of one column' if most > CLUSTERS[-1] else 'blocks')
+            + f' a restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
-    build_name = ('sweep_row_tiles' if state and cluster > 1 else 'sweep') + (
+    build_name = ('sweep_column_tiles' if tiles else 'sweep_row_tiles'
+                  if state and cluster > 1 else 'sweep') + (
         '_f64' if dtype == torch.float64 else '')
     target = torch.as_tensor(np.asarray(spec.target),
                              dtype=config.complex_of(dtype))
@@ -409,30 +466,38 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     mom2 = torch.zeros_like(params0)
     best_params = params0.clone()
     summary = torch.empty((4, B), dtype=dtype, device=device)
+    # the column tiles' shares of each step's cotangents and sum
+    partials = torch.empty(B * lib.cpflow_sweep_tile_partials(
+        n, nb, nba, loss), dtype=dtype, device=device) if tiles else None
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(it_begin, it_end):
         global LAUNCHES, F64_LAUNCHES
-        err = lib.cpflow_sweep_launch(
-            params.data_ptr(), mom1.data_ptr(), mom2.data_ptr(),
-            best_params.data_ptr(), summary.data_ptr(), target.data_ptr(),
-            cp_mask.data_ptr(),
-            grad_mask.data_ptr() if grad_mask is not None else None,
-            plc.data_ptr(), pen_tab.data_ptr(), r.data_ptr(),
-            letters.data_ptr(), wire_map.data_ptr(), n, nb, len(rot),
-            ENTANGLER_CODES[ent], nba, loss, block_log2, B, it_begin, it_end,
-            float(learning_rate), stream)
+        args = (params.data_ptr(), mom1.data_ptr(), mom2.data_ptr(),
+                best_params.data_ptr(), summary.data_ptr(), target.data_ptr(),
+                cp_mask.data_ptr(),
+                grad_mask.data_ptr() if grad_mask is not None else None,
+                plc.data_ptr(), pen_tab.data_ptr(), r.data_ptr(),
+                letters.data_ptr(), wire_map.data_ptr(), n, nb, len(rot),
+                ENTANGLER_CODES[ent], nba, loss, block_log2, B, it_begin,
+                it_end, float(learning_rate))
+        if tiles:
+            err = lib.cpflow_sweep_tiles_launch(*args, partials.data_ptr(),
+                                                stream)
+        else:
+            err = lib.cpflow_sweep_launch(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
-                f'on {cluster} blocks each)' + (
+                + (f'on {tiles} column tiles each)' if tiles else
+                   f'on {cluster} blocks each)') + (
                     f': the card places no cluster of {cluster} blocks of '
                     f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, cluster)}'
                     f' shared bytes each' if err == _OUT_OF_RESOURCES
-                    else ''))
+                    and not tiles else ''))
         LAUNCHES += 1
         F64_LAUNCHES += dtype == torch.float64
-        LAUNCHES_BY_CLUSTER[cluster] += 1
+        LAUNCHES_BY_CLUSTER['tiles' if tiles else cluster] += 1
         LAUNCHES_BY_BUILD[build_name] += 1
 
     T = int(num_iterations)
@@ -457,21 +522,35 @@ def occupancy(objective, batch: int, device=None) -> dict:
     shared memory bytes per block, resident blocks per SM, the blocks a
     restart runs on (`cluster`) and the clusters of that many blocks the
     card holds at once (cudaOccupancyMaxActiveClusters; a lone block counts
-    as a cluster of one)."""
+    as a cluster of one). On the column tiles (no cluster: `cluster` 1) the
+    numbers are the tile kernel's, `active_clusters` its blocks resident on
+    the card, and `tiles`, `columns`, `adam_registers` and
+    `adam_local_bytes` are added (the second kernel's registers and local
+    bytes)."""
     _check_objective(objective)
     n, spec = objective.num_qubits, objective.unitary_loss_func
     nb = len(all_placements(objective.placements))
     nba = num_block_angles(objective.entangling_gate_name,
                            objective.rotation_gates)
-    out = (ctypes.c_int * 7)()
+    lib, loss = load_library(objective.dtype), LOSS_CODES[spec.kind]
     with torch.cuda.device(device):
-        err = load_library(objective.dtype).cpflow_sweep_occupancy(
-            n, nb, nba, LOSS_CODES[spec.kind], int(batch), out)
+        if lib.cpflow_sweep_cluster(n, nb, nba, loss) or \
+                not lib.cpflow_sweep_tiles(n, nb, nba, loss):
+            out = (ctypes.c_int * 7)()
+            err = lib.cpflow_sweep_occupancy(n, nb, nba, loss, int(batch),
+                                             out)
+        else:
+            out = (ctypes.c_int * 9)()
+            err = lib.cpflow_sweep_tiles_occupancy(n, nb, nba, loss, out)
     if err != 0:
         raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
                            f'{err}')
-    return dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
-                     'blocks_per_sm', 'cluster', 'active_clusters'), out))
+    got = dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
+                    'blocks_per_sm', 'cluster', 'active_clusters'), out))
+    if len(out) == 9:
+        got.update(cluster=1, tiles=out[5], columns=(1 << n) // out[5],
+                   adam_registers=out[7], adam_local_bytes=out[8])
+    return got
 
 
 def library_device(device) -> int:

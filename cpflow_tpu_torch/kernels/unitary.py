@@ -16,9 +16,10 @@ other first-order methods.
     two but U itself;
   * ``AnsatzUnitary``: the autograd.Function over the pair;
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
-    ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 8
-    qubits for the whole unitary, and for one column 2 to 17 in float32, 2
-    to 16 in float64: ``MAX_QUBITS``); it never falls back. On a CPU
+    ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 13
+    qubits for the whole unitary in float32 and 2 to 12 in float64, and
+    for one column 2 to 17 in float32, 2 to 16 in float64:
+    ``MAX_QUBITS``); it never falls back. On a CPU
     tensor it is the plain version, sim.batched.build_unitary_batched under
     ordinary autograd.
 
@@ -54,7 +55,15 @@ unitary's columns (the vjp's blocks form a thread-block cluster and sum
 the gates' cotangents over distributed shared memory), or one column's
 rows, 2^n / c a block, in both passes as a cluster whose blocks meet at
 every gate on one of the top log2(c) qubits (the row tiles' kernels,
-``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``). No tensor
+``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``). Where no
+cluster holds the whole unitary (9 qubits and up, and 8 qubits in float64
+past k = 125 'xyz' blocks) the column tiles take it (``tile_plan``, design
+'tiles'): a restart's columns split into tiles on independent blocks, the
+fewest that fit, with no cluster; the forward pass's tiles never meet
+(``ansatz_forward_column_tiles``), the vjp's walk each tile and leave its
+share of the gates' cotangents in global memory, which a second kernel sums
+in tile order before the angle gradients (``ansatz_vjp_column_tiles``, the
+pair). No tensor
 cores: the products are 2x2 and 4x4 complex, far below a wgmma tile, and
 TF32 would break the 2e-5 agreement with the plain version; no cluster
 for the whole unitary below 7 qubits, where a restart fits one block. The
@@ -95,7 +104,8 @@ COLUMN_LAUNCHES = 0   # those of the two that ran the column design
 FORWARD_F64_LAUNCHES = 0  # those of the forward kernel in the double build
 VJP_F64_LAUNCHES = 0      # those of the vjp kernel in the double build
 # the vjp kernel's launches by the blocks each restart ran on (a cluster's
-# size, 1 for one block or the column design); reset with .clear()
+# size, 1 for one block or the column design, 'tiles' for the column
+# tiles); reset with .clear()
 VJP_LAUNCHES_BY_CLUSTER: Counter = Counter()
 # launches of both kernels by the kernel of KERNELS that ran, '_f64' added
 # for the double build; reset with .clear()
@@ -107,7 +117,7 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # blocks a restart may run on; 16 is a non-portable cluster on Hopper
 CLUSTERS = (1, 2, 4, 8, 16)
 _OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
-DESIGNS = {'rows': 0, 'columns': 1}  # csrc/unitary.cu's numbering
+DESIGNS = {'rows': 0, 'columns': 1, 'tiles': 2}  # csrc/unitary.cu's numbering
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 COLUMN_THREADS = 64      # threads of a column kernel's block
 COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
@@ -115,7 +125,8 @@ COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
 KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     f'ansatz_{k}_columns_{n}q' for k in ('forward', 'vjp')
     for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1)) + (
-    'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles')
+    'ansatz_forward_column_tiles', 'ansatz_vjp_column_tiles',
+    'ansatz_vjp_tile_sum', 'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles')
 
 
 def _scale(dtype) -> int:
@@ -159,16 +170,39 @@ def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
     return None
 
 
+def tile_plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
+              dtype=torch.float32):
+    """(columns a tile, tiles a restart) where the plan takes the column
+    tiles, as csrc/unitary.cu's tile_log picks them in the build of
+    `dtype`: the whole unitary (log_c = n) that no cluster of up to 16
+    blocks holds (cluster_plan), split into the fewest tiles whose
+    per-block layout fits one block; None elsewhere. The vjp's tile holds A
+    and M (16 d w bytes, 32 in float64), the forward pass's A alone: at
+    k = 10 'xyz' the vjp takes tiles of 16, 8, 4, 2 and 1 columns at 9 to
+    13 qubits in float32 (8, 4, 2, 1 at 9 to 12 in float64), the forward
+    pass twice as wide (at 9 qubits in float32 a cluster's plan of 16
+    blocks still holds it)."""
+    if log_c != n or cluster_plan(n, num_blocks, nba, log_c, vjp,
+                                  dtype) is not None:
+        return None
+    for j in range(n + 1):
+        if smem_bytes(n, num_blocks, nba, log_c, vjp, 1 << j,
+                      dtype) <= _SMEM_LIMIT:
+            return 1 << (n - j), 1 << j
+    return None
+
+
 def max_qubits(whole: bool, dtype=torch.float32) -> int:
     """The most qubits both kernels take for the whole unitary (whole=True)
     or one column in the build of `dtype`: the largest n whose vjp layout
-    with no blocks cluster_plan holds (the whole unitary on up to 16
-    blocks: 8; one column split by rows over up to 16 blocks: 17 in
-    float32, 16 in float64). A template deep enough may not fit even below
-    that n."""
+    with no blocks a plan holds (the whole unitary on column tiles of one
+    column: 13 in float32, 12 in float64; one column split by rows over up
+    to 16 blocks: 17 in float32, 16 in float64). A template deep enough
+    may not fit even below that n."""
     n = 2
     while cluster_plan(n + 1, 0, 0, n + 1 if whole else 0, True,
-                       dtype) is not None:
+                       dtype) is not None or \
+            (whole and tile_plan(n + 1, 0, 0, n + 1, True, dtype)):
         n += 1
     return n
 
@@ -224,9 +258,9 @@ def column_restarts(n: int, num_blocks: int, nba: int, log_c: int,
 def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
          dtype=torch.float32):
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
-    in the build of `dtype`, and its sizes: dict(design 'columns' or 'rows',
-    threads_per_restart, restarts_per_block, threads (a block), smem_bytes
-    (a block), blocks_per_restart); None if neither design holds the
+    in the build of `dtype`, and its sizes: dict(design 'columns', 'rows'
+    or 'tiles', threads_per_restart, restarts_per_block, threads (a block),
+    smem_bytes (a block), blocks_per_restart); None if no design holds the
     shape."""
     r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
@@ -236,11 +270,15 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
                                                  dtype),
                     blocks_per_restart=1)
     c = cluster_plan(n, num_blocks, nba, log_c, vjp, dtype)
+    design = 'rows'
     if c is None:
-        return None
+        tiles = tile_plan(n, num_blocks, nba, log_c, vjp, dtype)
+        if tiles is None:
+            return None
+        c, design = tiles[1], 'tiles'
     log_ct = log_c - (c.bit_length() - 1)
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
-    return dict(design='rows', threads_per_restart=threads * c,
+    return dict(design=design, threads_per_restart=threads * c,
                 restarts_per_block=1, threads=threads,
                 smem_bytes=smem_bytes(n, num_blocks, nba, log_c, vjp, c,
                                       dtype),
@@ -254,6 +292,8 @@ def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1,
     kind = 'vjp' if vjp else 'forward'
     if design == 'columns':
         return f'ansatz_{kind}_columns_{n}q'
+    if design == 'tiles':
+        return f'ansatz_{kind}_column_tiles'
     if column and cluster > 1:
         return f'ansatz_{kind}_row_tiles'
     return 'ansatz_vjp_cluster' if vjp and cluster > 1 else f'ansatz_{kind}'
@@ -287,6 +327,13 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_clusters.argtypes = [i, i, ctypes.c_longlong, i,
                                                 ptr]
         lib.cpflow_unitary_clusters.restype = i
+        lib.cpflow_unitary_tiles.argtypes = [i] * 5
+        lib.cpflow_unitary_tiles.restype = i
+        lib.cpflow_unitary_tile_partials.argtypes = [i] * 4
+        lib.cpflow_unitary_tile_partials.restype = ctypes.c_longlong
+        lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + [i] * 8 + [
+            ptr]
+        lib.cpflow_unitary_tiles_launch.restype = i
     return lib
 
 
@@ -378,10 +425,13 @@ class _Shape:
             raise ValueError(
                 f'the unitary kernels take 2 to {limit} qubits for '
                 f'{"the whole unitary" if columns is None else "one column"} '
-                f'in {dtype}, got {n}: above that the state and its '
-                f'cotangent exceed the shared memory of a cluster of '
-                f'{CLUSTERS[-1]} blocks, the largest Hopper launches, even '
-                f'split by {"columns" if columns is None else "rows"}')
+                f'in {dtype}, got {n}: above that ' + (
+                    'one column of the state and its cotangent exceeds the '
+                    'shared memory of a block, even on column tiles of one '
+                    'column each' if columns is None else
+                    f'the state and its cotangent exceed the shared memory '
+                    f'of a cluster of {CLUSTERS[-1]} blocks, the largest '
+                    f'Hopper launches, even split by rows'))
         if entangling_gate_name not in ENTANGLER_CODES or \
                 set(rotation_gates) - set(LETTER_CODES):
             raise ValueError(
@@ -405,20 +455,26 @@ class _Shape:
             args = (n, self.nb, self.nba, self.log_c, int(vjp))
             self.cluster = self.lib.cpflow_unitary_cluster(*args)
             code = self.lib.cpflow_unitary_design(*args)
+            # the column tiles' count, and the partials a restart of the
+            # vjp leaves on them
+            self.tiles = self.lib.cpflow_unitary_tiles(*args)
+            self.partials = self.lib.cpflow_unitary_tile_partials(*args[:4])
         self.design = {v: k for k, v in DESIGNS.items()}[code]
-        if not self.cluster:
-            most = min(CLUSTERS[-1], 1 << (self.log_c or n - 2))
+        if not self.cluster and self.design != 'tiles':
+            most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
                 nbytes = self.lib.cpflow_unitary_smem_bytes(
                     n, self.nb, self.nba, self.log_c, int(vjp), most)
             raise ValueError(
                 f'{n} qubits with {self.nb} blocks need {nbytes} bytes of '
-                f'shared memory per block in {dtype} even on {most} blocks a '
-                f'restart, above {_SMEM_LIMIT}')
+                f'shared memory per block in {dtype} even on {most} '
+                + ('tiles of one column' if self.log_c else 'blocks')
+                + f' a restart, above {_SMEM_LIMIT}')
 
     def kernel(self, vjp, design) -> str:
-        """The name in KERNELS of the kernel a launch runs, '_f64' added
-        for the double build."""
+        """The name in KERNELS of the kernel a launch runs (on the column
+        tiles the vjp's walk, which its sum follows), '_f64' added for the
+        double build."""
         return kernel_name(design, vjp, self.n, self.cluster,
                            self.log_c == 0) + (
             '_f64' if self.dtype == torch.float64 else '')
@@ -427,15 +483,29 @@ class _Shape:
         """Launches on the angles' card: the library configures and
         launches on the current device, so that device is made theirs."""
         plc, letters = _tables(self.placements, self.rot, angles.device)
+        stream = torch.cuda.current_stream(angles.device).cuda_stream
         with torch.cuda.device(angles.device):
-            err = self.lib.cpflow_unitary_launch(
-                angles.data_ptr(), u.data_ptr(),
-                ubar.data_ptr() if ubar is not None else None,
-                grad.data_ptr() if grad is not None else None,
-                plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
-                len(self.rot), self.ent, self.nba, self.log_c, self.B,
-                int(vjp), DESIGNS[design],
-                torch.cuda.current_stream(angles.device).cuda_stream)
+            if design == 'tiles':
+                # the vjp's tiles' shares of the gates' cotangents
+                partials = torch.empty(
+                    self.B * self.partials, dtype=self.dtype,
+                    device=angles.device) if vjp else None
+                err = self.lib.cpflow_unitary_tiles_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    ubar.data_ptr() if ubar is not None else None,
+                    grad.data_ptr() if grad is not None else None,
+                    partials.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(),
+                    self.n, self.nb, len(self.rot), self.ent, self.nba,
+                    self.log_c, self.B, int(vjp), stream)
+            else:
+                err = self.lib.cpflow_unitary_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    ubar.data_ptr() if ubar is not None else None,
+                    grad.data_ptr() if grad is not None else None,
+                    plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
+                    len(self.rot), self.ent, self.nba, self.log_c, self.B,
+                    int(vjp), DESIGNS[design], stream)
         if err != 0:
             raise RuntimeError(
                 f'unitary kernel launch failed: CUDA error {err} ({self.B} '
@@ -486,7 +556,7 @@ def ansatz_forward(num_qubits: int, entangling_gate_name: str,
     sim.ansatz_kernel.build_unitary; C = 2^n, or 1 with columns=[0];
     complex64 from float32 angles, complex128 from float64 ones, each
     through its own build. Launches the forward kernel in the plan's design
-    (or in `design`, 'rows' or 'columns'), or raises."""
+    (or in `design`, 'rows', 'columns' or 'tiles'), or raises."""
     global FORWARD_LAUNCHES, COLUMN_LAUNCHES, FORWARD_F64_LAUNCHES
     angles = angles.detach().contiguous()
     shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
@@ -533,8 +603,8 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
         VJP_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
         VJP_F64_LAUNCHES += shape.dtype == torch.float64
-        VJP_LAUNCHES_BY_CLUSTER[1 if design == 'columns' else
-                                shape.cluster] += 1
+        VJP_LAUNCHES_BY_CLUSTER[1 if design == 'columns' else 'tiles' if
+                                design == 'tiles' else shape.cluster] += 1
     return grad
 
 

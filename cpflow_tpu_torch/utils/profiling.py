@@ -148,7 +148,10 @@ class Throughput:
 # the gradient pass rebuilds both legs of every block from the stored cos
 # and sin (112(m - 1) a block), and the kernel computes the penalty of
 # every angle (masked by cp_mask) in the evaluation and again in the Adam
-# pass (2 x 22 per angle).
+# pass (2 x 22 per angle). Both count one restart-iteration once, whatever
+# the design: the blocks of a cluster, and the column tiles past it, each
+# build the restart's gates again, which neither counts, so that a bound
+# means the same for every design.
 def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None,
                dtype='float32'):
     """dict(P angles, target entries, needed and executed operations of one

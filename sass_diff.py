@@ -12,7 +12,9 @@ by side), with the flags of kernels/build.py and any extra flags given
 after ``--`` (``-- -DCPFLOW_DOUBLE`` compares the double builds).
 ``cuobjdump -sass`` then lists each cubin's instructions, kernel by
 kernel; the hash that nvcc puts into the names of an unnamed namespace (it
-differs between two paths of one file) is masked. It prints, for every
+differs between two paths of one file) is masked, and runs of blanks are
+collapsed (cuobjdump pads every line of a listing to the width of its
+widest, which a new kernel's longer lines change). It prints, for every
 source, each kernel of the first tree with the number of lines of its
 listing in each tree and whether they are identical, then the kernels that
 only the second tree has, and exits 1 if a kernel of the first tree
@@ -37,15 +39,15 @@ FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3']
 
 
 def sass(cubin: Path, cuobjdump: str) -> dict:
-    """{kernel name: its instructions, one stripped line each} of a cubin,
-    names masked."""
+    """{kernel name: its instructions, one line each with its blanks
+    collapsed} of a cubin, names masked."""
     text = subprocess.run([cuobjdump, '-sass', str(cubin)], check=True,
                           capture_output=True, text=True).stdout
     text = re.sub(r'_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+', 'ANON',
                   text)
     kernels, name = {}, None
     for line in text.splitlines():
-        line = line.strip()
+        line = ' '.join(line.split())
         if line.startswith('Function :'):
             name = line.split(':', 1)[1].strip()
             kernels[name] = []

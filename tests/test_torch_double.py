@@ -362,7 +362,7 @@ UNITARY_PLANS = [
     (7, 24, 7, True, ('rows', 1, 4)),
     (8, 16, 8, False, ('rows', 1, 8)),
     (8, 16, 8, True, ('rows', 1, 16)),
-    (8, 126, 8, True, None),
+    (8, 126, 8, True, ('tiles', 1, 32)),
     (12, 36, 0, True, ('rows', 1, 1)),
 ]
 

@@ -163,10 +163,14 @@ def test_cluster_plan_splits_seven_and_eight_qubits():
     assert uk.cluster_plan(8, 16, 4, 8, True) == 8
     assert uk.cluster_plan(12, 36, 7, 0, True) == 1
     assert uk.cluster_plan(9, 2, 7, 9, True) is None
+    # where no cluster holds the whole unitary, the column tiles do
+    assert uk.plan(9, 2, 7, 9, True)['design'] == 'tiles'
 
 
 def _objective(n, kind):
-    eye = np.eye(2 ** n, dtype=np.complex64)
+    """The check reads the template and the loss's wires, never the
+    target: past 9 qubits a placeholder stands for the 2^n x 2^n one."""
+    eye = np.eye(2 ** n if n <= 9 else 2, dtype=np.complex64)
     spec = LossSpec(kind, target=eye) if not kind.startswith('modulo') \
         else LossSpec(kind, target=eye, num_qubits=n, wires=[0, n - 1])
     return make_batched_regloss(n, 'cp', 'xz', fill_layers(chain_layer(n), 2),
@@ -175,11 +179,23 @@ def _objective(n, kind):
 
 @pytest.mark.parametrize('kind', WHOLE)
 def test_check_objective_takes_seven_and_eight_qubits_and_refuses_nine(kind):
+    """7 and 8 qubits on clusters. Past them the HS test and disc take the
+    column tiles to their limit, 13 qubits in float32, and refuse 14; the
+    modulo losses, which read V across columns and take no tiles, still
+    refuse 9 (ROADMAP A.16b)."""
     for n in (7, 8):
         sk._check_objective(_objective(n, kind))
-    with pytest.raises(ValueError,
-                       match='2 to 8 qubits.*cluster of 16 blocks'):
-        sk._check_objective(_objective(9, kind))
+    if kind.startswith('modulo'):
+        with pytest.raises(ValueError, match='2 to 8 qubits.*cluster of 16 '
+                           'blocks.*no modulo loss.*A.16b'):
+            sk._check_objective(_objective(9, kind))
+        return
+    assert sk.MAX_QUBITS[torch.float32][kind] == 13
+    for n in (9, 13):
+        sk._check_objective(_objective(n, kind))
+    with pytest.raises(ValueError, match='2 to 13 qubits.*got 14.*even on '
+                       'column tiles of one column each'):
+        sk._check_objective(_objective(14, kind))
 
 
 def test_warm_batch_is_the_warm_start_scripts_bit_for_bit():

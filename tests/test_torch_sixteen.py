@@ -217,14 +217,16 @@ def test_plan_edges(edge, nbytes):
 
 def test_max_qubits_by_dtype():
     """What the plans hold with no blocks: the whole unitary to 8 qubits in
-    both builds (on 16 blocks); a state's one column to 13 qubits in
-    float32 and to 12 in float64, whose every amplitude takes twice the
-    bytes, on one block, and split by rows over 16 blocks to 17 and 16."""
-    for dtype, state in ((F32, 17), (F64, 16)):
+    both builds on 16 blocks for the modulo losses, and on the column tiles
+    to 13 in float32 and 12 in float64 for the HS test and disc; a state's
+    one column to 13 qubits in float32 and to 12 in float64, whose every
+    amplitude takes twice the bytes, on one block, and split by rows over
+    16 blocks to 17 and 16."""
+    for dtype, state, whole in ((F32, 17, 13), (F64, 16, 12)):
         assert sk.MAX_QUBITS[dtype] == {
-            'hst': 8, 'state': state, 'disc': 8, 'modulo_identity': 8,
-            'modulo_diagonal': 8}
-        assert uk.MAX_QUBITS[dtype] == {'unitary': 8, 'column': state}
+            'hst': whole, 'state': state, 'disc': whole,
+            'modulo_identity': 8, 'modulo_diagonal': 8}
+        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': state}
     assert sk.smem_bytes(14, 0, 7, 'state') > LIMIT
     assert sk.smem_bytes(13, 0, 7, 'state', dtype=F64) > LIMIT
     assert sk.smem_bytes(18, 0, 7, 'state', 16) > LIMIT
@@ -233,10 +235,13 @@ def test_max_qubits_by_dtype():
 
 
 def _objective(n, kind, dtype=None):
+    """The check reads the template and the loss's wires, never the target:
+    past 9 qubits a placeholder stands for the 2^n x 2^n one."""
     target = chip_smoke.ghz(n) if kind == 'state' else \
-        np.eye(2 ** n, dtype=np.complex64)
+        np.eye(2 ** n if n <= 9 else 2, dtype=np.complex64)
+    wires = [0, n - 1] if kind.startswith('modulo') else None
     return chip_smoke.make_objective(n, 2, target, 0.0, kind=kind,
-                                     dtype=dtype)[0]
+                                     wires=wires, dtype=dtype)[0]
 
 
 def test_sweep_takes_a_13_qubit_state_in_float32():
@@ -251,10 +256,19 @@ def test_sweep_takes_a_13_qubit_state_in_float32():
     (17, 'state', F64, r"2 to 16 qubits for a 'state' loss in "
      r"torch.float64, got 17: .*even split by rows \(float64 doubles their "
      r"bytes\)"),
-    (9, 'hst', F32, r"2 to 8 qubits for a 'hst' loss in torch.float32, got "
-     r"9: .*a cluster of 16 blocks, the largest Hopper launches"),
-    (9, 'hst', F64, r"2 to 8 qubits .* torch.float64, got 9"),
-], ids=['state18', 'state17_float64', 'whole9', 'whole9_float64'])
+    (9, 'modulo_diagonal', F32, r"2 to 8 qubits for a 'modulo_diagonal' "
+     r"loss in torch.float32, got 9: .*a cluster of 16 blocks, the largest "
+     r"Hopper launches, and the column tiles take no modulo loss.*A.16b"),
+    (9, 'modulo_identity', F64, r"2 to 8 qubits .* torch.float64, got 9: "
+     r".*A.16b"),
+    (14, 'hst', F32, r"2 to 13 qubits for a 'hst' loss in torch.float32, got "
+     r"14: above 13 one column of the state and cotangent exceeds the shared "
+     r"memory of a block, even on column tiles of one column each$"),
+    (13, 'disc', F64, r"2 to 12 qubits for a 'disc' loss in torch.float64, "
+     r"got 13: .*even on column tiles of one column each \(float64 doubles "
+     r"their bytes\)"),
+], ids=['state18', 'state17_float64', 'whole9', 'whole9_float64', 'whole14',
+        'whole13_float64'])
 def test_sweep_refuses_beyond_its_plans(n, kind, dtype, reason):
     with pytest.raises(ValueError, match=reason):
         sk._check_objective(_objective(n, kind, dtype))
@@ -265,9 +279,11 @@ def test_sweep_refuses_beyond_its_plans(n, kind, dtype, reason):
      r'18: .*a cluster of 16 blocks, .*even split by rows'),
     (17, [0], F64, r'2 to 16 qubits for one column in torch.float64, got '
      r'17'),
-    (9, None, F32, r'2 to 8 qubits for the whole unitary in torch.float32, '
-     r'got 9: .*a cluster of 16 blocks.*even split by columns'),
-], ids=['column18', 'column17_float64', 'whole9'])
+    (14, None, F32, r'2 to 13 qubits for the whole unitary in torch.float32, '
+     r'got 14: .*even on column tiles of one column each'),
+    (13, None, F64, r'2 to 12 qubits for the whole unitary in torch.float64, '
+     r'got 13'),
+], ids=['column18', 'column17_float64', 'whole14', 'whole13_float64'])
 def test_unitary_kernels_refuse_beyond_their_plans(monkeypatch, n, columns,
                                                    dtype, reason):
     """The unitary kernels' shape check on a card (its capability check

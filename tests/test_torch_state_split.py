@@ -184,11 +184,13 @@ def test_state_plan_edges(edge, nbytes):
 def test_max_qubits_of_a_state():
     """What the plans hold with no blocks: a state's one column to 17
     qubits in float32 and 16 in float64, split by rows over 16 blocks; the
-    whole unitary to 8 as before."""
-    for dtype, state in ((F32, 17), (F64, 16)):
+    whole unitary to 13 and 12 on the column tiles (the HS test and disc),
+    the modulo losses to 8 as before."""
+    for dtype, state, whole in ((F32, 17, 13), (F64, 16, 12)):
         assert sk.MAX_QUBITS[dtype]['state'] == state
-        assert uk.MAX_QUBITS[dtype] == {'unitary': 8, 'column': state}
-        assert sk.MAX_QUBITS[dtype]['hst'] == 8
+        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': state}
+        assert sk.MAX_QUBITS[dtype]['hst'] == whole
+        assert sk.MAX_QUBITS[dtype]['modulo_diagonal'] == 8
 
 
 def _objective(n, dtype=None):

@@ -153,11 +153,11 @@ def test_kernels_refuse_float64_and_too_many_qubits_on_card():
         pytest.skip('needs an NVIDIA Hopper card')
     n, ent, rot, pl, _ = CASES['3q-cp-xz']
     a = torch.tensor(_angles('3q-cp-xz'), device='cuda')
-    # float64 runs the double build; it is refused where the double build
-    # does not fit, the vjp of the whole unitary at 8 qubits beyond k = 125
-    # 'xyz' blocks (above a block's shared memory even on 16 blocks a
-    # restart, which hold k = 2), and any dtype but float32 and float64 is
-    # refused
+    # float64 runs the double build; the vjp of the whole unitary at 8
+    # qubits past k = 125 'xyz' blocks (above a block's shared memory even
+    # on 16 blocks a restart, which hold k = 2) takes the column tiles, and
+    # is refused past k = 297, above a block's shared memory even on 256
+    # tiles of one column; any dtype but float32 and float64 is refused
     assert uk.build_unitary(n, ent, rot, pl, a.double(),
                             dtype=torch.float64).dtype == torch.complex128
     with pytest.raises(ValueError, match='float32 or float64'):
@@ -168,10 +168,21 @@ def test_kernels_refuse_float64_and_too_many_qubits_on_card():
     uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 2), a8, u8, u8)
     assert uk.VJP_LAUNCHES_BY_CLUSTER[16] == before + 1
     a8 = torch.zeros((24 + 7 * 126, 2), dtype=torch.float64, device='cuda')
-    with pytest.raises(ValueError, match='even on 16 blocks'):
-        uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 126), a8,
+    before = uk.VJP_LAUNCHES_BY_CLUSTER['tiles']
+    uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 126), a8, u8,
+                  u8)
+    assert uk.VJP_LAUNCHES_BY_CLUSTER['tiles'] == before + 1
+    a8 = torch.zeros((24 + 7 * 298, 2), dtype=torch.float64, device='cuda')
+    with pytest.raises(ValueError, match='even on 256 tiles of one column'):
+        uk.ansatz_vjp(8, 'cp', 'xyz', fill_layers(chain_layer(8), 298), a8,
                       u8, u8)
+    # the whole unitary to 13 qubits in float32: 9 takes the column tiles,
+    # 14 is refused before anything is launched
     pl9 = fill_layers(chain_layer(9), 2)
     a9 = torch.zeros((27 + 14, 2), device='cuda')
-    with pytest.raises(ValueError, match='2 to 8 qubits'):
-        uk.build_unitary(9, 'cp', 'xyz', pl9, a9)
+    assert tuple(uk.build_unitary(9, 'cp', 'xyz', pl9, a9).shape) == \
+        (2,) * 9 + (512, 2)
+    a14 = torch.zeros((42 + 14, 2), device='cuda')
+    with pytest.raises(ValueError, match='2 to 13 qubits'):
+        uk.build_unitary(14, 'cp', 'xyz', fill_layers(chain_layer(14), 2),
+                         a14)

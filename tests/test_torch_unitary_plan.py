@@ -88,8 +88,11 @@ def test_a_layout_too_large_takes_one_restart_then_the_row_split():
 
 
 def test_the_kernel_names_follow_the_library_order():
-    assert len(uk.KERNELS) == 15
-    assert uk.KERNELS[13:] == ('ansatz_forward_row_tiles',
+    assert len(uk.KERNELS) == 18
+    assert uk.KERNELS[13:16] == ('ansatz_forward_column_tiles',
+                                 'ansatz_vjp_column_tiles',
+                                 'ansatz_vjp_tile_sum')
+    assert uk.KERNELS[16:] == ('ansatz_forward_row_tiles',
                                'ansatz_vjp_row_tiles')
     assert uk.kernel_name('rows', False, 15, 2, column=True) == \
         'ansatz_forward_row_tiles'
@@ -101,7 +104,8 @@ def test_the_kernel_names_follow_the_library_order():
     assert uk.kernel_name('rows', True, 7, 2) == 'ansatz_vjp_cluster'
     assert uk.kernel_name('rows', True, 4, 1) == 'ansatz_vjp'
     assert uk.kernel_name('rows', False, 8, 4) == 'ansatz_forward'
-    assert uk.DESIGNS == {'rows': 0, 'columns': 1}
+    assert uk.kernel_name('tiles', True, 9) == 'ansatz_vjp_column_tiles'
+    assert uk.DESIGNS == {'rows': 0, 'columns': 1, 'tiles': 2}
 
 
 def _column_sincos_constants():
