@@ -245,8 +245,9 @@ with CUDA, and never imports JAX. Phases:
      (W) 13q in float32 (k=2 B=1 T=4), then on the tiles what the other
      routes take at 9 qubits: (X) a bucketed sweep with r and a template
      mask per trial, (Y) fixed 'cz' blocks with 'xz', (Z) fixed 'cx' blocks
-     with 'y', each with its tiles, columns a tile,
-     blocks resident, registers and local bytes, time, bound and share, and
+     with 'y', each with its tiles, columns a tile, threads,
+     blocks resident, registers and local bytes, time (the fastest of three
+     calls after a warm-up), bound and share, and
      two launches on the same inputs giving the same bits; (b) the unitary
      kernels at 9, 10 and 11 qubits in both precisions, 12 in float64 and
      13 in float32, against the plain builder under autograd (a float32
@@ -259,11 +260,13 @@ with CUDA, and never imports JAX. Phases:
      a torch callable, at 9 qubits in float64 and at 10 in float32 through
      the unitary kernels' column tiles, against the plain route; (e) the
      whole unitary one qubit past its limit (14 qubits in float32, 13 in
-     float64) and a modulo loss at 9 qubits (ROADMAP A.16b) refused, no
-     kernel launched.
+     float64) and a modulo loss at 14 qubits refused, no kernel launched;
+     (f) a 9-qubit modulo_diagonal sweep in float32 and in float64, which
+     sweep() routes to the unitary kernels (ROADMAP A.16b), against the
+     plain float64 route.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
-(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c) and (d)) runs with
+(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c), (d) and (f)) runs with
 the kernels' launch counts set to 0 just before it and read just after
 (16 (a) and (d) in their own processes). Every shape's
 plan (blocks a restart, shared bytes per block) is held against the
@@ -431,12 +434,24 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def device_ms(fn, kernel_name, repeats=20):
-    """Mean time in ms that the kernels whose name contains `kernel_name`
-    take on the card over `repeats` calls of fn, from torch.profiler's
-    trace of the card; None if the trace holds no such kernel. Unlike
-    `timed`, which brackets the call on the stream and so includes whatever
-    the host needs to launch it, this is the kernel alone."""
+def best_of(fn, calls=1):
+    """(output, ms) of fn timed as `timed` does; with calls > 1 after one
+    untimed warm-up call, the fastest of `calls` timed calls (their outputs
+    are the same: every call starts from the same inputs). One timed call
+    alone may hold a kernel's first launch in the process."""
+    if calls == 1:
+        return timed(fn)
+    fn()
+    runs = [timed(fn) for _ in range(calls)]
+    return min(runs, key=lambda run: run[1])
+
+
+def device_kernels(fn, repeats=20):
+    """{event name: (launches, ms on the card in all)} over `repeats` calls
+    of fn after an untimed one, from torch.profiler's trace of the card
+    (host-side events have 0 ms). Unlike `timed`, which brackets the call
+    on the stream and so includes whatever the host needs to launch it,
+    these are the kernels alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -445,15 +460,24 @@ def device_ms(fn, kernel_name, repeats=20):
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    events = {}
     for event in prof.key_averages():
-        if kernel_name in event.key:
-            spent = getattr(event, 'self_device_time_total', None)
-            if spent is None:
-                spent = event.self_cuda_time_total
-            total_us += spent
-            count += event.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+        spent = getattr(event, 'self_device_time_total', None)
+        if spent is None:
+            spent = event.self_cuda_time_total
+        count, ms = events.get(event.key, (0, 0.0))
+        events[event.key] = (count + event.count, ms + spent / 1e3)
+    return events
+
+
+def device_ms(fn, kernel_name, repeats=20):
+    """Mean time in ms that the kernels whose name contains `kernel_name`
+    take on the card over `repeats` calls of fn (device_kernels); None if
+    the trace holds no such kernel."""
+    found = [v for k, v in device_kernels(fn, repeats).items()
+             if kernel_name in k]
+    count, total = sum(c for c, _ in found), sum(ms for _, ms in found)
+    return total / count if count and total > 0 else None
 
 
 # ----------------------------------------------------------------- phases
@@ -600,8 +624,10 @@ def check_plan(obj, B, name):
     (cluster_plan, smem_bytes) must agree with the kernel's
     (cpflow_sweep_cluster, cpflow_sweep_smem_bytes, and the cluster of the
     build it launches), in the build of the objective's dtype; on the
-    column tiles (tile_plan) the tiles a restart, against
-    cpflow_sweep_tiles and the occupancy's. Returns (blocks a restart,
+    column tiles (tile_plan) the tiles a restart, the tile kernel's shared
+    bytes (tile_smem_bytes) and threads (tile_threads), against
+    cpflow_sweep_tiles, cpflow_sweep_tile_smem_bytes and the occupancy's.
+    Returns (blocks a restart,
     shared bytes per block, the occupancy)."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
@@ -611,17 +637,20 @@ def check_plan(obj, B, name):
     nba = num_block_angles(obj.entangling_gate_name, obj.rotation_gates)
     tiles = sk.tile_plan(n, nb, nba, kind, dtype=obj.dtype)
     if tiles is not None:
-        t = tiles[1]
-        mine = sk.smem_bytes(n, nb, nba, kind, t, obj.dtype)
+        w, t = tiles
+        mine = sk.tile_smem_bytes(n, nb, w, obj.dtype)
         lib = sk.load_library(obj.dtype)
         code = sk.LOSS_CODES[kind]
         occ = sk.occupancy(obj, B)
-        check(mine == lib.cpflow_sweep_smem_bytes(n, nb, nba, code, t) ==
+        check(mine == lib.cpflow_sweep_tile_smem_bytes(n, nb, nba, code) ==
               occ['smem_bytes'] and t == lib.cpflow_sweep_tiles(
                   n, nb, nba, code) == occ['tiles'] and
+              occ['threads'] == sk.tile_threads(n, w, obj.dtype) and
               not lib.cpflow_sweep_cluster(n, nb, nba, code),
-              f'{name}: the plan says {t} column tiles of {mine} bytes, the '
-              f'kernel {occ.get("tiles")} of {occ["smem_bytes"]} bytes')
+              f'{name}: the plan says {t} column tiles of {mine} bytes and '
+              f'{sk.tile_threads(n, w, obj.dtype)} threads, the kernel '
+              f'{occ.get("tiles")} of {occ["smem_bytes"]} bytes and '
+              f'{occ["threads"]} threads')
         return t, mine, occ
     c = sk.cluster_plan(n, nb, nba, kind, dtype=obj.dtype)
     mine = sk.smem_bytes(n, nb, nba, kind, c, obj.dtype)
@@ -668,7 +697,8 @@ def phase_compare(shapes=None, label='phase 3'):
         check(c == s.get('cluster', 1), f'{s["name"]}: {c} blocks a '
               f'restart, not {s.get("cluster", 1)}')
         before = sk.LAUNCHES
-        out, ms = timed(lambda: sk.sweep(obj, init, s['lr'], T, mask, tl))
+        out, ms = best_of(lambda: sk.sweep(obj, init, s['lr'], T, mask, tl),
+                          s.get('calls', 1))
         check(sk.LAUNCHES > before, f'{s["name"]}: kernel not launched')
         ref, plain_ms = timed(lambda: sk.sweep_reference(
             obj, init, s['lr'], T, mask, tl))
@@ -2222,7 +2252,7 @@ def phase_seven(card):
     plain version at rows (q)-(z3) (phase_compare), on clusters of 2, 4 and
     8 blocks; (b) the Toffoli-7 program (phase_toffoli7); (c) the static 7q
     ladder (phase_ladder7); the whole unitary one qubit past the column
-    tiles' limit and a modulo loss at 9 qubits refused
+    tiles' limit and a modulo loss past the unitary kernels' limit refused
     (refuse_whole_beyond). Returns (largest error of (a), the timing rows,
     the launches of (b) and (c))."""
     start = time.perf_counter()
@@ -3284,7 +3314,8 @@ def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
     print(f'{label}: {s["name"]} on {card}: {plan} of '
           f'{occ["threads"]} threads and {occ["smem_bytes"]} shared bytes, '
           f'{occ["registers"]} registers and {occ["local_bytes"]} local bytes '
-          f'a thread, {occ["blocks_per_sm"]} block(s) per SM, {resident}; '
+          f'a thread, {occ["blocks_per_sm"]} block(s) and '
+          f'{occ["warps_per_sm"]} warps per SM, {resident}; '
           f'T={T}: kernel {ms:.2f} ms (CUDA events), plain {plain_ms:.2f} ms; '
           f'bound {b_ms:.3f} ms by {b_by} ({str(dtype)[6:]}), share '
           f'{b_ms / ms:.2%}', flush=True)
@@ -3295,6 +3326,7 @@ def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
     if tiles:
         row.update(cluster=1, tiles=occ['tiles'], columns=occ['columns'],
                    local_bytes=occ['local_bytes'],
+                   warps_per_sm=occ['warps_per_sm'],
                    adam_registers=occ['adam_registers'])
     return row
 
@@ -3341,10 +3373,12 @@ def phase_sixteen_sweeps(card, shapes=None, label='phase 19 (a)'):
             continue
         init = uniform_inits(P, s['B'], s.get('seed', 19), 'cuda').to(F64)
         before = (sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[key])
-        got, ms = timed(lambda: sk.sweep(obj, init, s['lr'], T))
+        calls = s.get('calls', 1)
+        got, ms = best_of(lambda: sk.sweep(obj, init, s['lr'], T), calls)
+        runs = calls + (calls > 1)  # and the warm-up
         check((sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[key],
                sk.LAUNCHES_BY_BUILD[build]) ==
-              (before[0] + 1, before[1] + 1, built + 1) and
+              (before[0] + runs, before[1] + runs, built + runs) and
               got.best_loss.dtype == F64,
               f'{s["name"]}: the double build {build} on {c} blocks did not '
               f'run')
@@ -3947,9 +3981,10 @@ def phase_split(card):
     cp_penalty_L1, whose sampling runs through the unitary kernels' row
     tiles; (d) a random-restart GHZ-14 search, printed (ROADMAP A.19); then
     18-qubit states in float32 and 17-qubit ones in float64, the whole
-    unitary one qubit past its limit and a modulo loss at 9 qubits,
-    refused. Returns (largest errors by kernel line name, timing
-    rows by kernel line name, launches by kernel line name and path)."""
+    unitary one qubit past its limit and a modulo loss past the unitary
+    kernels' limit, refused. Returns (largest errors by kernel line name,
+    timing rows by kernel line name, launches by kernel line name and
+    path)."""
     import torch
     from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
     start = time.perf_counter()
@@ -3981,7 +4016,7 @@ def refuse_beyond_plans():
     """Phase 20's refusals: an 18-qubit state and a 17-qubit state in
     float64, by the sweep and by the unitary kernels, each with its reason
     and no kernel launched; then the whole unitary's (refuse_whole_beyond:
-    one qubit past the column tiles' limit, a modulo loss at 9)."""
+    one qubit past the column tiles' limit, a modulo loss at 14)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.kernels import unitary as uk
@@ -4030,17 +4065,30 @@ def nine_shapes():
     (one column a tile); then what the other routes take, on the tiles:
     (X) a bucketed 9q sweep, k<=10, B = 2 x 4 with r and a template mask
     per trial, (Y) fixed 'cz' blocks with 'xz' and (Z) fixed 'cx' blocks
-    with 'y' on the 9q chain for its CX ladder, k=8 B=8, each 30 steps.
+    with 'y' on the 9q chain for its CX ladder, k=8 B=8, each 30 steps;
+    and the deepest templates below 7 qubits, past 16 blocks, 20 steps,
+    where a gate has fewer amplitude groups than a column has lanes
+    (tiles.cuh): (Z3) 6q k=243 and (Z4) 5q k=251 in float64, B=2, and
+    (Z1) 6q k=500 and (Z2) 5q k=508 in float32, B=16, on 32 tiles of 2 or
+    1 columns. At these depths (some 1500 angles) 20 steps of Adam at a
+    rate of 0.1 carry float32 rounding in the flat directions to about
+    1e-3 in the plain route as in the kernel, so that no rule of phase 3
+    tells them apart (PERF.md, PR 16); the float32 rows take a rate of
+    1e-4, where each step moves every angle by about the rate in the
+    direction of its gradient's sign and the loss stays in its linear
+    range: they hold the float32 gradient's signs and sizes, the float64
+    rows the whole sweep.
     The float32 rows are arbiter shapes (phase 3's
     rule, as_close_as_plain where drift_ok misses): the loss sums 2^2n
     entries, and after 60 steps at 9 qubits plain float32's median distance
     from plain float64 is most of drift_ok's 1e-5 (7.6e-6 on (R), the
     kernel's 2.4e-6; measured on one H100), so two float32 routes can be 1.8e-5
-    apart while each meets drift_ok against float64."""
+    apart while each meets drift_ok against float64. Each row is timed as
+    the fastest of NINE_CALLS calls after a warm-up call (best_of)."""
     import torch
     from cpflow_tpu_torch.ops.gates import multi_controlled_x
     F64 = torch.float64
-    return [
+    rows = [
         dict(name='(R) 9q chain Toffoli-9 k=10 B=8', n=9, k=10,
              target=multi_controlled_x(9), B=8, r=0.002, lr=0.1, cluster=32,
              arbiter=True),
@@ -4069,7 +4117,20 @@ def nine_shapes():
         dict(name="(Z) 'cx' blocks 'y' 9q chain CX ladder k=8 B=8", n=9, k=8,
              target=cx_ladder(9), ent='cx', rot='y', B=8, r=0.0, lr=0.1,
              T=30, cluster=32, arbiter=True),
+        dict(name='(Z1) 6q chain Toffoli-6 k=500 B=16 lr=1e-4', n=6, k=500,
+             target=multi_controlled_x(6), B=16, r=0.002, lr=1e-4, T=20,
+             cluster=32, arbiter=True),
+        dict(name='(Z2) 5q chain Toffoli-5 k=508 B=16 lr=1e-4', n=5, k=508,
+             target=multi_controlled_x(5), B=16, r=0.002, lr=1e-4, T=20,
+             cluster=32, arbiter=True),
+        dict(name='(Z3) 6q chain Toffoli-6 k=243 B=2 float64', n=6, k=243,
+             target=multi_controlled_x(6), B=2, r=0.002, lr=0.1, T=20,
+             cluster=32, dtype=F64),
+        dict(name='(Z4) 5q chain Toffoli-5 k=251 B=2 float64', n=5, k=251,
+             target=multi_controlled_x(5), B=2, r=0.002, lr=0.1, T=20,
+             cluster=32, dtype=F64),
     ]
+    return [dict(row, calls=NINE_CALLS) for row in rows]
 
 
 # phase 21 (b)'s unitary rows, as SIXTEEN_UNITARY's: the vjp on the column
@@ -4088,6 +4149,7 @@ NINE_UNITARY = [(9, 10, 'xyz', 4, 'float32', (False, True), None, 32),
 COLUMN_TILE_LINES = ('sweep_column_tiles', 'ansatz_forward_column_tiles',
                      'ansatz_vjp_column_tiles')
 LADDER9_K, LADDER9_SAMPLES, LADDER9_STEPS = 10, 32, 2000
+NINE_CALLS = 3  # timed calls of each phase 21 (a) row, after a warm-up
 CUSTOM9_STEPS = 300
 
 
@@ -4317,12 +4379,86 @@ def custom_ladder_run(n, k, dtype, B, steps, label, card):
     return {kinds[False]: fwd, kinds[True]: vjp}
 
 
+MODULO9_WIRES = [2, 7, 0]  # phase 21 (f)'s modulo_diagonal wires
+
+
+def modulo_nine_run(dtype, card, B=4, k=4, T=20):
+    """Phase 21 (f): a 9-qubit modulo_diagonal sweep (the Toffoli-9 on
+    MODULO9_WIRES, the chain at k blocks, B restarts, T steps), which no
+    plan of the fused kernel holds: sweep() must route it to the unitary
+    kernels (route 'unitary', ROADMAP A.16b), every launch of them in
+    `dtype` and none of the fused kernel or the plain builder, and it is
+    held against the plain float64 route from the same angles: in float64
+    within F64_LOSS0_TOL and F64_BEST_TOL, in float32 the initial losses
+    within 1e-5 and the best ones by drift_ok, each scaled by max(1, |loss|)
+    (the modulo losses start near d = 512). Returns {kernel line:
+    launches}."""
+    import torch
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x
+    F64 = torch.float64
+    n = 9
+    objs = {}
+    for dt, plain in ((dtype, False), (F64, True)):
+        obj, P = make_objective(n, k, multi_controlled_x(n), 0.002,
+                                kind='modulo_diagonal', wires=MODULO9_WIRES,
+                                dtype=dt)
+        obj.plain = plain  # the kernels' route, and the plain reference
+        objs[plain] = obj
+    check(sk.route(objs[False], 'cuda') == 'unitary',
+          f'phase 21 (f): a 9q modulo loss in {dtype} not routed to the '
+          f'unitary kernels')
+    suffix = '_f64' if dtype == F64 else ''
+    init = uniform_inits(P, B, 29, 'cuda').to(dtype)
+    with PlainBuilderWatch() as watch:
+        uk.LAUNCHES_BY_KERNEL.clear()
+        sk.LAUNCHES = 0
+        start = time.perf_counter()
+        got = sk.sweep(objs[False], init, 0.1, T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        by_kernel = dict(uk.LAUNCHES_BY_KERNEL)
+        fused, plain_calls = sk.LAUNCHES, watch.calls
+    check(fused == 0 and plain_calls == 0 and len(by_kernel) == 2 and
+          all(name.endswith(suffix) and v >= T for name, v in
+              by_kernel.items()),
+          f'phase 21 (f): launches by kernel {by_kernel}, fused {fused}, '
+          f'plain builder {plain_calls}')
+    start = time.perf_counter()
+    ref = sk.sweep_reference(objs[True], init.to(F64), 0.1, T)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - start
+    e0 = scaled_err(got.regloss0.double(), ref.regloss0)
+    e = scaled_err(got.best_loss.double(), ref.best_loss)
+    if dtype == F64:
+        ok = (e0.max().item() <= F64_LOSS0_TOL and
+              e.max().item() <= F64_BEST_TOL)
+        rule = f'tol {F64_LOSS0_TOL} and {F64_BEST_TOL}'
+    else:
+        ok = e0.max().item() <= 1e-5 and drift_ok(e)[0]
+        rule = 'initial within 1e-5, best by drift_ok'
+    print(f'phase 21 (f): 9q modulo_diagonal (wires {MODULO9_WIRES}) in '
+          f'{str(dtype)[6:]} on {card}, chain k={k} B={B} T={T}, through the '
+          f'unitary kernels {by_kernel}: initial loss err '
+          f'{e0.max().item():.3e}, best loss err {e.max().item():.3e} against '
+          f'plain float64 ({rule}); best losses '
+          f'{[round(x, 4) for x in got.best_loss.tolist()]}; wall {wall:.3f} '
+          f's, plain float64 {plain_wall:.3f} s', flush=True)
+    check(ok and bool(torch.isfinite(got.best_loss).all()),
+          f'phase 21 (f): 9q modulo in {dtype} against plain float64: '
+          f'{e0.tolist()}, {e.tolist()}')
+    return by_kernel
+
+
 def refuse_whole_beyond(label, dtypes=None):
     """The refusals of the whole unitary: one qubit past MAX_QUBITS for the
     sweep (the HS test) and for the unitary kernels, in each dtype of
-    `dtypes` (float32 by default), and a modulo loss at 9 qubits (ROADMAP
-    A.16b), each with its reason, before any kernel is launched (the
-    targets are placeholders: nothing reads them)."""
+    `dtypes` (float32 by default), and a modulo loss one qubit past the
+    unitary kernels' limit (the fused kernel takes it to 8 qubits, the
+    unitary kernels past that, ROADMAP A.16b), each with its reason, before
+    any kernel is launched (the targets are placeholders: nothing reads
+    them)."""
     import numpy as np
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
@@ -4330,11 +4466,14 @@ def refuse_whole_beyond(label, dtypes=None):
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
     before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
     eye = np.eye(2, dtype=np.complex64)
-    refusals = [('9q modulo_identity, sweep', '2 to 8 qubits.*A.16b',
+    past = uk.MAX_QUBITS[torch.float32]['unitary'] + 1
+    refusals = [(f'{past}q modulo_identity, sweep',
+                 f'2 to 8 qubits.*got {past}.*A.16b.*unitary kernels.*to '
+                 f'{past - 1} qubits',
                  lambda: sk.sweep(
-                     make_objective(9, 2, eye, 0.0, kind='modulo_identity',
-                                    wires=[0, 8])[0],
-                     uniform_inits(3 * 9 + 14, 2, 0, 'cuda'), 0.1, 1))]
+                     make_objective(past, 2, eye, 0.0, kind='modulo_identity',
+                                    wires=[0, past - 1])[0],
+                     uniform_inits(3 * past + 14, 2, 0, 'cuda'), 0.1, 1))]
     for dtype in dtypes or (torch.float32,):
         n = sk.MAX_QUBITS[dtype]['hst'] + 1
         check(n - 1 == uk.MAX_QUBITS[dtype]['unitary'],
@@ -4373,7 +4512,9 @@ def phase_nine(card):
     from warm rows (phase_ladder9_warm); (d) a custom loss at 9q in float64
     and at 10q in float32 through the unitary kernels' tiles
     (custom_ladder_run); (e) the refusals past the limits
-    (refuse_whole_beyond). Returns (largest errors by kernel line name,
+    (refuse_whole_beyond); (f) a 9q modulo_diagonal sweep, routed to the
+    unitary kernels, in float32 and float64 (modulo_nine_run). Returns
+    (largest errors by kernel line name,
     timing rows by kernel line name, launches by kernel line name and
     path)."""
     import torch
@@ -4395,6 +4536,10 @@ def phase_nine(card):
                 *args, f'phase 21 (d) {path}', card).items():
             launches.setdefault(line, {})[path] = count
     refuse_whole_beyond('phase 21 (e)', (torch.float32, torch.float64))
+    for path, dtype in (('modulo9', torch.float32),
+                        ('modulo9_f64', torch.float64)):
+        for line, count in modulo_nine_run(dtype, card).items():
+            launches.setdefault(line, {})[path] = count
     print(f'phase 21: {time.perf_counter() - start:.1f} s', flush=True)
     return errs, rows, launches
 
@@ -4603,6 +4748,10 @@ def main() -> int:
         line['shapes'] = line['shapes'] + rows21.get(line['name'], [])
         line['max_abs_err'] = max(line['max_abs_err'],
                                   errs21.get(line['name'], 0.0))
+        if line['name'] not in lines21:  # (f)'s 9q forward pass, 16 blocks
+            by_path = launches21.get(line['name'], {})
+            line['launches_by_path'].update(by_path)
+            line['launches'] += sum(by_path.values())
     for name in lines21:
         rows = rows21[name]
         sweep = name.startswith('sweep')

@@ -1,0 +1,314 @@
+// Device code of sweep.cu's column tiles (the multi-start Adam sweep's
+// port, csrc/sweep.cu, for the whole unitary past what a cluster of 16
+// blocks holds): a tile's columns owned by warps.
+//
+// A tile holds w columns of a restart's d x d state A and cotangent M
+// (d = 2^n), column-major in shared memory with a column stride of d + 1
+// amplitudes (the pad keeps the block-wide passes over the tile, which walk
+// the target row by row, free of bank conflicts). Every gate acts on row
+// bits only, so a column never meets another under a gate: each column
+// belongs to a group of gw = nw / w warps of the block's nw, which runs the
+// chain and the walk on it alone, its lanes dealing out the column's
+// amplitude groups, with a barrier of its own between two gates (a warp
+// barrier where gw = 1, else a named barrier, bar.sync, of the group's
+// 32 gw threads) and never the block's. At one column a tile the group is
+// the whole block.
+//
+// The walk leaves each gate's cotangent share. A warp sums its lanes'
+// shares by shuffles (columns.cuh's reduce_step, 31 of them for the 32
+// reals of a block) and stores them in its slot of a ring in shared memory
+// that holds kTileRing gates; every kTileRing gates the block meets at two
+// barriers and sums the warps' slots in warp order into global memory, one
+// entry a thread. The order of every sum is fixed, so that two launches on
+// the same inputs give the same bits.
+//
+// The gate matrices reach the tile already built: one bulk copy
+// (cp.async.bulk, completing on an mbarrier) brings the restart's G x 16
+// complex entries from global memory, where sweep.cu's Adam kernel left
+// them after its update (or its prologue kernel before the first step).
+//
+// What bounds it. A tile's A and M (128 KB) leave one block an SM, so the
+// warps in flight are the block's: 16 in float, where 512 threads held to
+// 128 registers fill the SM's registers (8 in double). The work is 4x4 and
+// 2x2 complex products on shared memory, about 48 complex multiply-adds
+// per amplitude group of a two-qubit gate in the walk and 16 forward, so
+// the issue of the float32 (or float64) operations bounds it; the gates'
+// products with the state take four fused multiply-adds a complex term
+// (cmac) where cadd of cmul took six, and no block barrier or cross-warp
+// sum stands between two gates.
+
+#pragma once
+
+#include <cstdint>
+
+#include "columns.cuh"
+
+namespace {
+
+// Threads of a tile's block, and how many of them a float build holds to
+// 128 registers (512 threads fill an SM's 65,536); the double build's walk
+// needs about 250 registers, so it takes 256 threads.
+#ifdef CPFLOW_DOUBLE
+constexpr int kTileThreads = 256;
+#else
+constexpr int kTileThreads = 512;
+#endif
+constexpr int kTileRing = 16;     // gates between two sums of the warps' slots
+constexpr int kTileSegment = 32;  // tiles one segment sum adds (sweep.cu)
+
+// Threads of a block of the tiles of 2^log_w columns (at most kTileThreads
+// / 32 of them): one per 4 amplitudes, at least a warp a column, at most
+// kTileThreads. From 7 qubits every lane has an amplitude group of every
+// gate; below, where only very deep templates take tiles, the lanes past a
+// gate's groups idle on it (tile_forward, tile_backward).
+__host__ __device__ inline int tile_threads(int n, int log_w) {
+  const int quarter = 1 << (n + log_w - 2), least = 32 << log_w;
+  const int t = quarter > least ? quarter : least;
+  return t < kTileThreads ? t : kTileThreads;
+}
+
+struct TileLayout {
+  int d, w, S, nt, nw, gw, G;  // S: column stride; gw: warps a column
+  size_t off_M, off_gates, off_ring, off_sw, off_bar, off_bits, bytes;
+};
+
+// The tile kernel's shared memory for G = n + nb gates and tiles of 2^log_w
+// columns: A and M (w columns of d + 1 amplitudes each), the gates (16
+// complex each, 16-byte aligned for the bulk copy), the ring (nw warps x
+// kTileRing gates x 32 reals), each warp's share of s (2 reals), the
+// mbarrier and a flag (16 bytes), each gate's two row bits (2 ints).
+__host__ __device__ inline TileLayout tile_layout(int n, int nb, int log_w) {
+  TileLayout L;
+  L.d = 1 << n;
+  L.w = 1 << log_w;
+  L.S = L.d + 1;
+  L.nt = tile_threads(n, log_w);
+  L.nw = L.nt / 32;
+  L.gw = L.nw / L.w;
+  L.G = n + nb;
+  size_t o = (size_t)L.w * L.S * sizeof(cplx);  // A at offset 0
+  L.off_M = o;      o += (size_t)L.w * L.S * sizeof(cplx);
+  o = (o + 15) & ~(size_t)15;
+  L.off_gates = o;  o += (size_t)L.G * 16 * sizeof(cplx);
+  L.off_ring = o;   o += (size_t)L.nw * kTileRing * 32 * sizeof(real);
+  L.off_sw = o;     o += (size_t)L.nw * 2 * sizeof(real);
+  L.off_bar = o;    o += 16;
+  L.off_bits = o;   o += (size_t)L.G * 2 * sizeof(int);
+  L.bytes = o;
+  return L;
+}
+
+// ------------------------------------------------------- bulk copy
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Thread 0: makes *bar an mbarrier of one arrival, visible to the async
+// proxy; the caller's barrier then publishes it to the block.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0: arrives on *bar expecting `bytes` and starts the copy of them
+// from global src to shared dst (both 16-byte aligned, bytes a multiple of
+// 16), which completes the phase.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of parity `phase` of *bar has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+  }
+}
+
+// ------------------------------------------------- a column's gates
+// The barrier of the warps of column `col`: a warp barrier, or named
+// barrier 1 + col of the group's 32 gw threads.
+__device__ __forceinline__ void column_sync(int col, int gw) {
+  if (gw == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + col), "r"(32 * gw) : "memory");
+}
+
+// acc + a b and acc + conj(a) b in four fused multiply-adds each (cadd of
+// cmul rounds a b first and takes six instructions: two FMUL, two FFMA and
+// two FADD). For the gates' products with the state, whose terms do not
+// cancel as a rule; the walk's cotangent sums keep cadd of cmul.
+__device__ __forceinline__ cplx cmac(cplx acc, cplx a, cplx b) {
+  acc.x = fma(a.x, b.x, acc.x);
+  acc.x = fma(-a.y, b.y, acc.x);
+  acc.y = fma(a.x, b.y, acc.y);
+  acc.y = fma(a.y, b.x, acc.y);
+  return acc;
+}
+__device__ __forceinline__ cplx cmac_conj(cplx acc, cplx a, cplx b) {
+  acc.x = fma(a.x, b.x, acc.x);
+  acc.x = fma(a.y, b.y, acc.x);
+  acc.y = fma(a.x, b.y, acc.y);
+  acc.y = fma(-a.y, b.x, acc.y);
+  return acc;
+}
+
+// The rows of a K-qubit gate on row bits sa (, sb), as gate_row lays them
+// out: amplitude p of group g lies at row spread(g) + bit[p], where spread
+// inserts a zero bit at each leg. A lane's groups g = gl + i gL (gl < gL,
+// both powers of two) have disjoint bits, so spread(g) = spread(gl) +
+// spread(i gL): the lane's part once a gate, the step's part, the same on
+// every lane, once a group.
+template <int K>
+struct GateRows {
+  int lo, hi, lane, bit[1 << K];
+  __device__ __forceinline__ GateRows(int sa, int sb, int gl) {
+    lo = K == 1 || sa < sb ? sa : sb;
+    hi = K == 1 ? 31 : (sa < sb ? sb : sa);
+    lane = spread(gl);
+#pragma unroll
+    for (int p = 0; p < (1 << K); ++p)
+      bit[p] = K == 1 ? p << sa : ((p >> 1) << sa) | ((p & 1) << sb);
+  }
+  __device__ __forceinline__ int spread(int g) const {
+    return K == 1 ? ins0(g, lo) : ins0(ins0(g, lo), hi);
+  }
+};
+
+// X <- G X on a column X of d = 2^n amplitudes: lane gl of the column's gL
+// takes groups gl, gl + gL, ... of the gate's 2^(n - K); where there are
+// fewer groups than lanes (below 7 qubits) lane gl >= 2^(n - K) takes none.
+template <int K>
+__device__ __forceinline__ void tile_forward(cplx* X, const cplx* g, int n,
+                                             int sa, int sb, int gl, int gL) {
+  constexpr int D = 1 << K;
+  if (gl >= (1 << (n - K))) return;  // more lanes than groups: this one idles
+  cplx G[16];
+  load_gate<K>(g, G);
+  const GateRows<K> rows(sa, sb, gl);
+  for (int step = 0; step < (1 << (n - K)); step += gL) {
+    const int r0 = rows.lane + rows.spread(step);
+    cplx x[D];
+#pragma unroll
+    for (int p = 0; p < D; ++p) x[p] = X[r0 + rows.bit[p]];
+#pragma unroll
+    for (int p = 0; p < D; ++p) {
+      cplx acc = mkc(RL(0.), RL(0.));
+#pragma unroll
+      for (int k = 0; k < D; ++k) acc = cmac(acc, G[p * D + k], x[k]);
+      X[r0 + rows.bit[p]] = acc;
+    }
+  }
+}
+
+// One step of the walk on a column: X <- G^dag X, gb[p,k] += Y[p] X[k]
+// (Y at the gate's output, X at its input), Y <- G^T Y.
+template <int K>
+__device__ __forceinline__ void tile_backward(cplx* X, cplx* Y, const cplx* g,
+                                              int n, int sa, int sb, int gl,
+                                              int gL, real (&gb)[32]) {
+  constexpr int D = 1 << K;
+  if (gl >= (1 << (n - K))) return;  // idles, its shares 0
+  cplx G[16];
+  load_gate<K>(g, G);
+  const GateRows<K> rows(sa, sb, gl);
+  for (int step = 0; step < (1 << (n - K)); step += gL) {
+    const int r0 = rows.lane + rows.spread(step);
+    cplx x[D], y[D];
+#pragma unroll
+    for (int p = 0; p < D; ++p) {
+      x[p] = X[r0 + rows.bit[p]];
+      y[p] = Y[r0 + rows.bit[p]];
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
+#pragma unroll
+      for (int p = 0; p < D; ++p) {
+        ak = cmac_conj(ak, G[p * D + k], x[p]);
+        mk = cmac(mk, G[p * D + k], y[p]);
+      }
+#pragma unroll
+      for (int p = 0; p < D; ++p) {  // the product first: near a fit its
+        const cplx t = cmul(y[p], ak);  // parts cancel, and cmac would round
+        gb[2 * (p * D + k)] += t.x;     // each term at the sum's size
+        gb[2 * (p * D + k) + 1] += t.y;
+      }
+      X[r0 + rows.bit[k]] = ak;
+      Y[r0 + rows.bit[k]] = mk;
+    }
+  }
+}
+
+// The chain on the warp's column: gates 0 .. G-1, bits[j] their row bits.
+__device__ __forceinline__ void tile_chain(cplx* X, const cplx* gates,
+                                           const int2* bits, int n, int G,
+                                           int col, int gw, int gl, int gL) {
+  for (int j = 0; j < n; ++j) {
+    tile_forward<1>(X, gates + 16 * j, n, bits[j].x, 0, gl, gL);
+    column_sync(col, gw);
+  }
+  for (int j = n; j < G; ++j) {
+    tile_forward<2>(X, gates + 16 * j, n, bits[j].x, bits[j].y, gl, gL);
+    column_sync(col, gw);
+  }
+}
+
+// The walk's sum of the warps' slots of gates j0 .. min(j0 + kTileRing, G)
+// - 1, in warp order, into out[32 j + e] (a surface gate's 8 reals; its
+// other 24 are written 0), one entry a thread, between two block barriers:
+// the first so that every warp's slots are in, the second so that none is
+// overwritten before it is read.
+__device__ __forceinline__ void tile_flush(const real* ring, real* out,
+                                           int j0, int n, int G, int nw) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTileRing * 32; i += blockDim.x) {
+    const int r = i >> 5, e = i & 31, j = j0 + r;
+    if (j >= G) break;
+    real s = RL(0.);
+    if (j >= n || e < 8)
+      for (int w = 0; w < nw; ++w) s += ring[(w * kTileRing + r) * 32 + e];
+    out[32 * j + e] = s;
+  }
+  __syncthreads();
+}
+
+// Sum of count values p[0], p[stride], ... (count a power of two) in a
+// fixed order: four running sums over every fourth value, then (s0 + s1) +
+// (s2 + s3). Sixteen loads stand in flight at once. Reads past L1, where
+// other blocks of the same launch wrote the values.
+__device__ __forceinline__ real sum_fixed(const real* p, int count,
+                                          size_t stride) {
+  real s[4] = {RL(0.), RL(0.), RL(0.), RL(0.)};
+  if (count < 4) {
+    for (int q = 0; q < count; ++q) s[q] += __ldcg(p + (size_t)q * stride);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < count; q += 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += __ldcg(p + (size_t)(q + i) * stride);
+    }
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+}  // namespace

@@ -16,8 +16,9 @@ preparation on its |0...0> column only. The penalty weight r is given per
 restart: a float r is expanded to every restart, a (B,) tensor r (several
 adaptive trials side by side) is passed as it is. It raises, and never
 falls back, above MAX_QUBITS (for the HS test and disc losses 13 qubits in
-float32 and 12 in float64; for the modulo losses 8; for a state 17 in
-float32 and 16 in float64), for a template too deep for every plan
+float32 and 12 in float64; for the modulo losses 8, past which ``sweep``
+routes them to the unitary kernels; for a state 17 in float32 and 16 in
+float64), for a template too deep for every plan
 (``cluster_plan``, ``tile_plan``), and for a penalty other than the
 piecewise-linear one.
 
@@ -33,7 +34,9 @@ block up to 12 qubits, not 13, and 16 blocks up to 16, not 17.
 Routing of ``sweep``, by the tensor's device and the objective:
   * CPU tensor, any objective: ``sweep_reference``, the plain version;
   * CUDA tensor, a built-in loss kind with the piecewise-linear penalty
-    (or none): the fused sweep kernel;
+    (or none): the fused sweep kernel, unless no plan of it holds the
+    shape and the unitary kernels' plans do (the modulo losses at 9 to 13
+    qubits, 9 to 12 in float64), which takes the route below;
   * CUDA tensor, a custom loss (a torch callable of one unitary, which
     cannot enter a fused kernel) or any other penalty (a torch callable
     of the CP angles, such as ops.penalty.cp_penalty_L1): the Adam loop
@@ -61,12 +64,16 @@ unitary (9 qubits and up, and deeper templates at 7 and 8), the HS test and
 disc losses take the column tiles (``tile_plan``): a restart's columns
 split into tiles on independent blocks, the fewest that fit, and two
 kernels a step, one a block per tile (the chain, the tile's share of the
-sum s and the walk from conj(T)) and one a block per restart (the shares
-summed in tile order, the gradient and Adam), which meet through global
+sum s and the walk from conj(T), each column of the tile run by its own
+warps with no block barrier between gates, csrc/tiles.cuh;
+``tile_threads``, ``tile_smem_bytes``) and one a block per restart (the
+shares summed in a fixed order, the gradient, Adam, and the next step's
+gate matrices), which meet through a workspace in global
 memory. Tiles of 16, 8, 4, 2 and 1 columns take a restart to 9, 10, 11, 12
 and 13 qubits in float32 (8, 4, 2 and 1 to 12 in float64). The modulo
-losses read V across columns: they take no tiles and stop at 8 qubits
-(ROADMAP A.16b). A cluster of 16
+losses read V across columns: the fused kernel takes them to 8 qubits, and
+past that ``route`` sends them to the unitary kernels, whose plans hold the
+whole unitary to 13 qubits (12 in float64; ROADMAP A.16b). A cluster of 16
 is non-portable on Hopper: the library allows it on its cluster build, and
 a launch whose cluster the card cannot place raises. On the card the
 library's own plan decides (``cpflow_sweep_cluster``); ``smem_bytes`` and
@@ -93,6 +100,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
+from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, breakpoints
 from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
 from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
@@ -194,10 +202,15 @@ def sweep_reference(objective, params0: torch.Tensor,
 def load_library(dtype=torch.float32) -> ctypes.CDLL:
     """Build csrc/sweep.cu for sm_90a in the precision of `dtype` (float32
     or float64; once per version of csrc/) and load it."""
-    if dtype in _libs:
-        return _libs[dtype]
-    double = dtype == torch.float64
-    lib = build.load(build.name_of('sweep', double))
+    if dtype not in _libs:
+        double = dtype == torch.float64
+        _libs[dtype] = bind(build.load(build.name_of('sweep', double)), double)
+    return _libs[dtype]
+
+
+def bind(lib: ctypes.CDLL, double: bool) -> ctypes.CDLL:
+    """Sets the argument and result types of the sweep library's functions
+    (`double`: its double build). Returns lib."""
     ptr = ctypes.c_void_p
     lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_double if double else ctypes.c_float, ptr]
@@ -212,14 +225,15 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
     lib.cpflow_sweep_device.restype = ctypes.c_int
     lib.cpflow_sweep_tiles.argtypes = [ctypes.c_int] * 4
     lib.cpflow_sweep_tiles.restype = ctypes.c_int
-    lib.cpflow_sweep_tile_partials.argtypes = [ctypes.c_int] * 4
-    lib.cpflow_sweep_tile_partials.restype = ctypes.c_longlong
+    lib.cpflow_sweep_tile_workspace.argtypes = [ctypes.c_int] * 5
+    lib.cpflow_sweep_tile_workspace.restype = ctypes.c_longlong
+    lib.cpflow_sweep_tile_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.cpflow_sweep_tile_smem_bytes.restype = ctypes.c_longlong
     lib.cpflow_sweep_tiles_launch.argtypes = \
         lib.cpflow_sweep_launch.argtypes[:-1] + [ptr, ptr]
     lib.cpflow_sweep_tiles_launch.restype = ctypes.c_int
     lib.cpflow_sweep_tiles_occupancy.argtypes = [ctypes.c_int] * 4 + [ptr]
     lib.cpflow_sweep_tiles_occupancy.restype = ctypes.c_int
-    _libs[dtype] = lib
     return lib
 
 
@@ -272,7 +286,10 @@ def tile_plan(n: int, num_blocks: int, nba: int, kind: str,
     """(columns a tile, tiles a restart) of the column tiles, as
     csrc/sweep.cu's tile_plan picks them in the build of `dtype`: the fewest
     tiles whose per-block layout (smem_bytes with that many blocks) fits
-    one block's shared memory. None where cluster_plan holds the shape (it
+    one block's shared memory and whose tile kernel's layout
+    (tile_smem_bytes) fits it with a warp for every column (tile_threads);
+    the second test never decides today, and keeps the tile kernel from a
+    launch that would not fit. None where cluster_plan holds the shape (it
     keeps its plan), for a loss other than TILE_LOSSES, and where even
     tiles of one column do not fit. A tile's A and M take 16 d w bytes
     (32 in float64), so the shallow templates take tiles of 128 KB: in
@@ -282,9 +299,39 @@ def tile_plan(n: int, num_blocks: int, nba: int, kind: str,
             cluster_plan(n, num_blocks, nba, kind, dtype) is not None:
         return None
     for j in range(n + 1):
-        if smem_bytes(n, num_blocks, nba, kind, 1 << j, dtype) <= _SMEM_LIMIT:
-            return 1 << (n - j), 1 << j
+        w = 1 << (n - j)
+        if smem_bytes(n, num_blocks, nba, kind, 1 << j, dtype) \
+                <= _SMEM_LIMIT and 32 * w <= TILE_THREADS[dtype] and \
+                tile_smem_bytes(n, num_blocks, w, dtype) <= _SMEM_LIMIT:
+            return w, 1 << j
     return None
+
+
+# the column tiles' kernel (csrc/tiles.cuh): threads a block at most, by
+# build; gates between two sums of the warps' cotangent slots
+TILE_THREADS = {torch.float32: 512, torch.float64: 256}
+TILE_RING = 16
+
+
+def tile_threads(n: int, columns: int, dtype=torch.float32) -> int:
+    """Threads of a block of sweep_tile_kernel on tiles of `columns`
+    columns, as csrc/tiles.cuh's tile_threads: one per 4 amplitudes, at
+    least a warp a column, at most TILE_THREADS of the build."""
+    return min(TILE_THREADS[dtype], max(32 * columns, columns << n >> 2))
+
+
+def tile_smem_bytes(n: int, num_blocks: int, columns: int,
+                    dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block of sweep_tile_kernel, as
+    csrc/tiles.cuh's tile_layout lays it out: A and M (`columns` columns of
+    2^n + 1 amplitudes), aligned to 16 bytes, the G gates, the ring of the
+    warps' cotangent slots (warps x TILE_RING gates x 32 reals), each warp's
+    share of s (2 reals), an mbarrier and a flag (16 bytes) and each gate's
+    row bits (2 ints)."""
+    f = 2 if dtype == torch.float64 else 1
+    G, warps = n + num_blocks, tile_threads(n, columns, dtype) // 32
+    o = -(-2 * columns * ((1 << n) + 1) * 8 * f // 16) * 16
+    return o + 128 * f * G + (32 * TILE_RING + 2) * warps * 4 * f + 16 + 8 * G
 
 
 def max_qubits(kind: str, dtype=torch.float32) -> int:
@@ -346,7 +393,10 @@ def _check_objective(objective):
             why = (f'the state and cotangent exceed the shared memory of a '
                    f'cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
                    f'launches, and the column tiles take no modulo loss, '
-                   f'whose sums read V across columns (ROADMAP A.16b)')
+                   f'whose sums read V across columns (ROADMAP A.16b); '
+                   f'sweep() takes it to the unitary kernels, which hold '
+                   f'the whole unitary to '
+                   f'{uk.MAX_QUBITS[objective.dtype]["unitary"]} qubits')
         raise ValueError(
             f'the sweep kernel takes 2 to {limit} qubits for a {kind!r} '
             f'loss in {objective.dtype}, got {n}: above {limit} {why}')
@@ -466,9 +516,10 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     mom2 = torch.zeros_like(params0)
     best_params = params0.clone()
     summary = torch.empty((4, B), dtype=dtype, device=device)
-    # the column tiles' shares of each step's cotangents and sum
-    partials = torch.empty(B * lib.cpflow_sweep_tile_partials(
-        n, nb, nba, loss), dtype=dtype, device=device) if tiles else None
+    # the column tiles' workspace: each restart's gates, the tiles' shares
+    # of each step's cotangents and sum, the segments' sums and counts (0)
+    work = torch.zeros(lib.cpflow_sweep_tile_workspace(n, nb, nba, loss, B),
+                       dtype=dtype, device=device) if tiles else None
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(it_begin, it_end):
@@ -482,7 +533,7 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
                 ENTANGLER_CODES[ent], nba, loss, block_log2, B, it_begin,
                 it_end, float(learning_rate))
         if tiles:
-            err = lib.cpflow_sweep_tiles_launch(*args, partials.data_ptr(),
+            err = lib.cpflow_sweep_tiles_launch(*args, work.data_ptr(),
                                                 stream)
         else:
             err = lib.cpflow_sweep_launch(*args, stream)
@@ -519,7 +570,8 @@ def occupancy(objective, batch: int, device=None) -> dict:
     `objective` launches on `device` (default: the current CUDA device)
     takes of one SM, from the CUDA runtime: registers
     and local memory bytes (stack and spills) per thread, threads and
-    shared memory bytes per block, resident blocks per SM, the blocks a
+    shared memory bytes per block, resident blocks and warps per SM, the
+    blocks a
     restart runs on (`cluster`) and the clusters of that many blocks the
     card holds at once (cudaOccupancyMaxActiveClusters; a lone block counts
     as a cluster of one). On the column tiles (no cluster: `cluster` 1) the
@@ -547,6 +599,7 @@ def occupancy(objective, batch: int, device=None) -> dict:
                            f'{err}')
     got = dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
                     'blocks_per_sm', 'cluster', 'active_clusters'), out))
+    got['warps_per_sm'] = got['blocks_per_sm'] * got['threads'] // 32
     if len(out) == 9:
         got.update(cluster=1, tiles=out[5], columns=(1 << n) // out[5],
                    adam_registers=out[7], adam_local_bytes=out[8])
@@ -570,7 +623,8 @@ def route(objective, device) -> str:
     """Where ``sweep`` takes the objective on a tensor of `device`, as the
     module docstring says: 'plain' (a CPU tensor: sweep_reference), 'fused'
     (the fused kernel) or 'unitary' (the Adam loop of sweep_reference over
-    the unitary kernels, for a custom loss or penalty). Raises for a device
+    the unitary kernels, for a custom loss or penalty, and for a built-in
+    loss that only the unitary kernels' plans hold). Raises for a device
     other than the CPU and the card, and for a plain objective that would
     need the unitary kernels."""
     kind = torch.device(device).type
@@ -578,14 +632,39 @@ def route(objective, device) -> str:
         return 'plain'
     if kind != 'cuda':
         raise ValueError(f'no sweep for device {device}')
-    if getattr(objective.unitary_loss_func, 'kind', 'custom') != 'custom' \
-            and linear_penalty(objective):
-        return 'fused'
+    loss = getattr(objective.unitary_loss_func, 'kind', 'custom')
+    what = 'a custom loss or penalty'
+    if loss != 'custom' and linear_penalty(objective):
+        if not _unitary_only(objective):
+            return 'fused'  # the fused kernel, or its refusal
+        what = (f'a {loss!r} loss at {objective.num_qubits} qubits, which no '
+                f'plan of the fused kernel holds,')
     if objective.plain:
-        raise ValueError('a custom loss or penalty on the card goes through '
-                         'the unitary kernels; this objective was made with '
-                         'plain=True')
+        raise ValueError(f'{what} on the card goes through the unitary '
+                         f'kernels; this objective was made with plain=True')
     return 'unitary'
+
+
+def _unitary_only(objective) -> bool:
+    """Whether a built-in loss with the piecewise-linear penalty is held by
+    the unitary kernels' plans (forward pass and vjp) and by no plan of the
+    fused kernel (cluster_plan, tile_plan): the modulo losses past 8 qubits
+    (to 13 in float32, 12 in float64), which the column tiles cannot take
+    because their sums read V across columns."""
+    dtype, n = objective.dtype, objective.num_qubits
+    ent, rot = objective.entangling_gate_name, objective.rotation_gates
+    if dtype not in DTYPES or ent not in ENTANGLER_CODES or \
+            set(rot) - set(LETTER_CODES):
+        return False
+    kind = objective.unitary_loss_func.kind
+    nb = len(all_placements(objective.placements))
+    nba = num_block_angles(ent, rot)
+    if cluster_plan(n, nb, nba, kind, dtype) is not None or \
+            tile_plan(n, nb, nba, kind, dtype) is not None:
+        return False
+    log_c = 0 if kind == 'state' else n
+    return all(uk.plan(n, nb, nba, log_c, vjp, dtype) is not None
+               for vjp in (False, True))
 
 
 def sweep(objective, params0: torch.Tensor, learning_rate: float = 0.1,

@@ -4,8 +4,8 @@ blocks, kernels/sweep.py and kernels/unitary.py, ``tile_plan``).
 
   * the plans: the tiles' documented sizes, every shape that a cluster of
     at most 16 blocks held keeping its plan, the new limits, and the
-    refusals beyond them (and of the modulo losses at 9 qubits, ROADMAP
-    A.16b);
+    refusals beyond them, and the modulo losses routed past 8 qubits to
+    the unitary kernels (ROADMAP A.16b);
   * the port's plain sweep against the JAX package's
     engine.minimize_fused(reversible=True) at 9 qubits (HS test and disc,
     float32 and float64) and at 10 and 11 (HS test), with the tolerances of
@@ -207,18 +207,44 @@ def test_sweep_takes_the_new_limit_and_refuses_one_more(dtype):
             sk._check_objective(_objective(limit + 1, kind, dtype))
 
 
+def _routed(n, kind, dtype):
+    """_objective, made as the API makes it (not plain): on the card its
+    unitary would come from the unitary kernels."""
+    obj = _objective(n, kind, dtype)
+    obj.plain = False
+    return obj
+
+
 @pytest.mark.parametrize('kind', ['modulo_identity', 'modulo_diagonal'])
 def test_modulo_losses_stop_at_eight_qubits(kind):
-    """The modulo losses read V across columns, which the column tiles do
-    not share: 8 qubits (on a cluster of 16 blocks) and no more, with the
-    reason naming ROADMAP A.16b."""
+    """The fused kernel takes the modulo losses to 8 qubits (on a cluster of
+    16 blocks) and no more: they read V across columns, which the column
+    tiles do not share (ROADMAP A.16b). Past 8 qubits ``route`` sends them
+    to the unitary kernels ('unitary': the Adam loop over their unitary,
+    the modulo loss taken in torch on it), whose column tiles hold the whole
+    unitary to 13 qubits in float32 and 12 in float64; one qubit past that
+    no plan holds them, ``route`` leaves them to the fused kernel, and its
+    check refuses them, naming both limits. ``torch.device('cuda')`` needs
+    no card: the route is chosen from the plans alone."""
+    cuda = torch.device('cuda')
     for dtype in (F32, F64):
+        limit = uk.MAX_QUBITS[dtype]['unitary']
         sk._check_objective(_objective(8, kind, dtype))
+        assert sk.route(_routed(8, kind, dtype), cuda) == 'fused'
         assert sk.tile_plan(9, 2, XYZ, kind, dtype) is None
-        with pytest.raises(ValueError, match=(
-                rf"2 to 8 qubits for a '{kind}' loss in {dtype}, got 9: "
-                rf".*the column tiles take no modulo loss.*ROADMAP A.16b")):
-            sk._check_objective(_objective(9, kind, dtype))
+        for n in (9, limit):
+            assert sk.route(_routed(n, kind, dtype), cuda) == 'unitary'
+        assert sk.route(_routed(limit + 1, kind, dtype), cuda) == 'fused'
+        with pytest.raises(ValueError, match='no plan of the fused kernel '
+                           'holds.*plain=True'):
+            sk.route(_objective(9, kind, dtype), cuda)
+        for n in (9, limit + 1):
+            with pytest.raises(ValueError, match=(
+                    rf"2 to 8 qubits for a '{kind}' loss in {dtype}, got "
+                    rf"{n}: .*the column tiles take no modulo loss.*ROADMAP "
+                    rf"A.16b\); sweep\(\) takes it to the unitary kernels, "
+                    rf"which hold the whole unitary to {limit} qubits")):
+                sk._check_objective(_objective(n, kind, dtype))
 
 
 @pytest.mark.parametrize('dtype', [F32, F64], ids=['float32', 'float64'])
@@ -257,10 +283,11 @@ def test_sweep_work_at_the_tiles_shapes(n, k, needed):
 
 # ------------------------------------------------- parity with the JAX package
 
-def _sweep_both(n, k, kind, B, T, seed, dtype):
+def _sweep_both(n, k, kind, B, T, seed, dtype, wires=None):
     """(port RawResult, JAX RawResult) of the plain sweep on the n-qubit
     chain with k blocks, target the n-qubit Toffoli, from the same numpy
-    angles, in `dtype` (float64: both packages in double precision)."""
+    angles, in `dtype` (float64: both packages in double precision); a
+    modulo loss on `wires`."""
     placements = fill_layers(chain_layer(n), k)
     P = 3 * n + XYZ * k
     cp_mask = np.zeros(P, dtype=np.float32)
@@ -268,13 +295,15 @@ def _sweep_both(n, k, kind, B, T, seed, dtype):
     inits = np.random.default_rng(seed).uniform(0, 2 * np.pi, (B, P))
     inits = inits.astype(np.float64 if dtype == F64 else np.float32)
     target = multi_controlled_x(n)
+    kw = dict(target=target) if wires is None else \
+        dict(target=target, num_qubits=n, wires=wires)
     with double() if dtype == F64 else contextlib.nullcontext():
         obj = tbt.make_batched_regloss(
-            n, 'cp', 'xyz', placements, tapi.LossSpec(kind, target=target),
+            n, 'cp', 'xyz', placements, tapi.LossSpec(kind, **kw),
             cp_mask=cp_mask, regularization_func=LinearPenalty(*PEN),
             r=0.002)
         jf = jbt.make_batched_regloss(
-            n, 'cp', 'xyz', placements, japi.LossSpec(kind, target=target),
+            n, 'cp', 'xyz', placements, japi.LossSpec(kind, **kw),
             cp_mask=jnp.asarray(cp_mask),
             regularization_func=lambda a: j_penalty(a, *PEN), r=0.002,
             reversible=True)
@@ -296,6 +325,20 @@ def _sweep_both(n, k, kind, B, T, seed, dtype):
          '10q-hst', '11q-hst'])
 def test_plain_sweep_past_a_cluster_matches_jax_engine(n, kind, dtype, B):
     raw, jraw = _sweep_both(n, 2, kind, B=B, T=4, seed=90 + n, dtype=dtype)
+    _assert_close(raw, jraw)
+    assert (raw.regloss[:, 1] < raw.regloss[:, 0]).all()
+
+
+def test_plain_modulo_sweep_at_nine_qubits_matches_jax_engine():
+    """A 9-qubit modulo_diagonal sweep, the loss that ``route`` sends to the
+    unitary kernels past 8 qubits: the plain version (the loss taken in
+    torch on the whole unitary, as the 'unitary' route takes it on the
+    kernels' output) against the JAX engine, 2 restarts, 4 steps, wires
+    (2, 7, 0). Tolerance (_assert_close): the initial regularized losses
+    within 1e-5 and those after the steps within 1e-4, both scaled by
+    max(1, |loss|), the modulo losses starting near d = 512."""
+    raw, jraw = _sweep_both(9, 2, 'modulo_diagonal', B=2, T=4, seed=99,
+                            dtype=F32, wires=[2, 7, 0])
     _assert_close(raw, jraw)
     assert (raw.regloss[:, 1] < raw.regloss[:, 0]).all()
 
