@@ -225,7 +225,12 @@ with CUDA, and never imports JAX. Phases:
      float64 (as phase 19 (a) holds its float64 rows), and the unitary
      kernels (one column) at 14-17q in float32 and 13q and 16q in float64
      against the plain builder under autograd, each with its plan, the
-     clusters the card holds, its time and its share of the bound; (b)
+     clusters the card holds, its time and its share of the bound; then
+     the row tiles' edges (split_edge_shapes, SPLIT_EDGE_UNITARY: the
+     shortest segments, a ring of one gate, lanes past a gate's groups,
+     the split qubits back to back, 'xz', 'cz' and 'cx'), each held to its
+     plan's warps, segment and ring, and two launches of the sweep and of
+     the vjp on the same inputs giving the same bits; (b)
      GHZ-14 and GHZ-17 in float32 and GHZ-16 in float64 through
      Synthesize.static from the noisy rows of a warm batch around the
      exact (n - 1)-CZ embedding, each to n - 1 CZ at float64 host state
@@ -288,6 +293,7 @@ The kernels' work and bounds come from cpflow_tpu_torch/utils/profiling.py.
 from __future__ import annotations
 
 from collections import Counter
+import ctypes
 import functools
 import json
 import math
@@ -626,9 +632,11 @@ def check_plan(obj, B, name):
     build it launches), in the build of the objective's dtype; on the
     column tiles (tile_plan) the tiles a restart, the tile kernel's shared
     bytes (tile_smem_bytes) and threads (tile_threads), against
-    cpflow_sweep_tiles, cpflow_sweep_tile_smem_bytes and the occupancy's.
-    Returns (blocks a restart,
-    shared bytes per block, the occupancy)."""
+    cpflow_sweep_tiles, cpflow_sweep_tile_smem_bytes and the occupancy's;
+    on the row tiles (a state on more than one block) the launch's threads,
+    shared bytes, warps, segment, ring and rows a block (row_plan) against
+    cpflow_sweep_row_plan and the occupancy's. Returns (blocks a restart,
+    shared bytes per block of the plan, the occupancy)."""
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                     num_block_angles)
@@ -658,10 +666,24 @@ def check_plan(obj, B, name):
     theirs = lib.cpflow_sweep_cluster(n, nb, nba, sk.LOSS_CODES[kind])
     card = lib.cpflow_sweep_smem_bytes(n, nb, nba, sk.LOSS_CODES[kind], c)
     occ = sk.occupancy(obj, B)
-    check(mine == card == occ['smem_bytes'] and c == theirs == occ['cluster'],
-          f'{name}: the plan says {c} blocks of {mine} bytes, the kernel '
-          f'{theirs} ({occ["cluster"]}) blocks of {card} '
-          f'({occ["smem_bytes"]}) bytes')
+    launched = mine  # the bytes a block launches with
+    rows = sk.row_plan(n, nb, nba, obj.dtype) if kind == 'state' else None
+    if rows is not None:
+        got = (ctypes.c_int * 6)()
+        check(lib.cpflow_sweep_row_plan(n, nb, nba, got) == 0,
+              f'{name}: no row plan')
+        want = [rows[key] for key in ('threads', 'smem_bytes', 'warps',
+                                      'segment', 'ring', 'log_rows')]
+        check(list(got) == want and occ['threads'] == rows['threads'],
+              f'{name}: the row plan says (threads, bytes, warps, segment, '
+              f'ring, log2 rows) {want}, the kernel {list(got)}, '
+              f'{occ["threads"]} threads')
+        launched = rows['smem_bytes']
+    check(mine == card and launched == occ['smem_bytes'] and
+          c == theirs == occ['cluster'],
+          f'{name}: the plan says {c} blocks of {mine} bytes ({launched} '
+          f'launched), the kernel {theirs} ({occ["cluster"]}) blocks of '
+          f'{card} ({occ["smem_bytes"]}) bytes')
     return c, mine, occ
 
 
@@ -1294,6 +1316,22 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
                 check(theirs == 0, f'{name}: the kernels put the {what} on '
                       f'a cluster of {theirs}, the plan on column tiles')
                 theirs = lib.cpflow_unitary_tiles(n, nb, nba, log_c, int(vjp))
+            rows = uk.row_plan(n, nb, nba, dtype) if vjp and not log_c \
+                else None
+            if rows is not None:  # the row tiles' vjp: its launch's plan
+                got = (ctypes.c_int * 6)()
+                check(lib.cpflow_unitary_row_plan(n, nb, nba, got) == 0,
+                      f'{name}: no row plan for the vjp')
+                want = [rows[key] for key in ('threads', 'smem_bytes',
+                                              'warps', 'segment', 'ring',
+                                              'log_rows')]
+                check(list(got) == want and mine['threads'] == got[0] and
+                      card == uk.smem_bytes(n, nb, nba, log_c, True, c,
+                                            dtype),
+                      f'{name}: the row plan says (threads, bytes, warps, '
+                      f'segment, ring, log2 rows) {want}, the kernels '
+                      f'{list(got)}; the plan\'s layout {card} bytes')
+                card = got[1]
             check(c == theirs and card == mine['smem_bytes'],
                   f'{name}: the plan says {c} blocks of {mine["smem_bytes"]} '
                   f'bytes for the {what}, the kernels {theirs} blocks of '
@@ -3955,6 +3993,52 @@ def split_shapes():
     return out
 
 
+def split_edge_shapes():
+    """Phase 20 (a)'s rows at the edges of the row tiles' design (rows.cuh),
+    as split_shapes' with the plan they must run on (cluster, and the
+    segment: log2 of a warp's rows, and where it is the edge, the ring of
+    cotangent slots). (Q1) and (Q2): the shortest segments of 16 warps in
+    float32, a 12q state on 2 blocks at k = 424 (segments of 128 rows, a
+    ring of one gate) and a 13q one at k = 215 (256 rows); (Q3) and (Q4)
+    the same in float64, 11q at k = 208 (a ring of one gate) and 12q at
+    k = 100; (Q5) and (Q6) 9q states on 16 blocks of 32 rows, one warp each,
+    whose lanes outnumber a two-qubit gate's 8 groups (the lanes past them
+    idle), in float32 at k = 505 and float64 at k = 248; (Q7) a 16q state on
+    8 blocks, its layer a burst of six blocks on the three split qubits back
+    to back (both orders of each pair) before the chain; (Q8)-(Q10) the 14q GHZ chain at k = 28 with 'xz', and with the CZ and
+    CX entanglers. The deep float32 rows take a rate of 1e-4, as phase 21's
+    deepest rows do: over thousands of angles float32 drifts in the flat
+    directions at 0.1 (PERF.md, Findings)."""
+    import torch
+    F64 = torch.float64
+    burst = [[0, 1], [1, 2], [0, 2], [2, 1], [1, 0], [2, 0]]
+    split3 = burst + [[q, q + 1] for q in range(15)]
+    rows = [
+        ('Q1', 12, 424, 4, None, 7, 1e-4, dict(ring=1)),
+        ('Q2', 13, 215, 8, None, 8, 1e-4, {}),
+        ('Q3', 11, 208, 4, F64, 7, 0.1, dict(ring=1)),
+        ('Q4', 12, 100, 8, F64, 8, 0.1, {}),
+        ('Q5', 9, 505, 4, None, 5, 1e-4, {}),
+        ('Q6', 9, 248, 4, F64, 5, 0.1, {}),
+        ('Q7', 16, 30, 16, None, 9, 0.1, dict(layer=split3)),
+        ('Q8', 14, 28, 16, None, 9, 0.1, dict(rot='xz')),
+        ('Q9', 14, 28, 16, None, 9, 0.1, dict(ent='cz')),
+        ('Q10', 14, 28, 16, None, 9, 0.1, dict(ent='cx'))]
+    out = []
+    for tag, n, k, B, dtype, seg, lr, extra in rows:
+        c = {12: 2, 13: 2, 11: 2, 9: 16, 16: 8, 14: 2}[n]
+        what = (" 'xz'" if extra.get('rot') else
+                f" {extra['ent']!r}" if 'ent' in extra else
+                ', split qubits back to back' if 'layer' in extra else '')
+        T = 10 if k > 200 else 30
+        out.append(dict(
+            name=f'({tag}) state {n}q GHZ{what} k={k} B={B} T={T}' +
+            (' float64' if dtype else ''), n=n, k=k, target=ghz(n),
+            kind='state', B=B, r=0.001, lr=lr, T=T, cluster=c, segment=seg,
+            **extra, **({'dtype': dtype} if dtype else {})))
+    return out
+
+
 # phase 20 (a)'s unitary rows, as SIXTEEN_UNITARY's: one column of a GHZ
 # chain template at k = 2n, the vjp on the blocks named (the forward pass,
 # which holds no M, on half as many)
@@ -3964,6 +4048,14 @@ SPLIT_UNITARY = [(14, 28, 'xyz', 8, 'float32', (False, True), [0], 2),
                  (17, 34, 'xyz', 4, 'float32', (False, True), [0], 16),
                  (13, 26, 'xyz', 4, 'float64', (False, True), [0], 2),
                  (16, 32, 'xyz', 2, 'float64', (False, True), [0], 16)]
+# the vjp at the row tiles' edges (rows.cuh): 16 warps of 128 rows and a
+# ring of two gates (12q k=511), one warp of 32 rows on each of 16 blocks
+# (9q k=621), in float64 a ring of one gate (11q k=257) and 16 blocks of 32
+# rows (9q k=305); the vjp alone, the forward pass giving its U
+SPLIT_EDGE_UNITARY = [(12, 511, 'xyz', 2, 'float32', (True,), [0], 2),
+                      (9, 621, 'xyz', 2, 'float32', (True,), [0], 16),
+                      (11, 257, 'xyz', 2, 'float64', (True,), [0], 2),
+                      (9, 305, 'xyz', 2, 'float64', (True,), [0], 16)]
 # the kernel lines of the row tiles' builds
 ROW_TILE_LINES = ('sweep_row_tiles', 'ansatz_forward_row_tiles',
                   'ansatz_vjp_row_tiles')
@@ -3988,12 +4080,24 @@ def phase_split(card):
     import torch
     from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
     start = time.perf_counter()
-    shapes = split_shapes()
+    shapes, edges = split_shapes(), split_edge_shapes()
     worst32, worst64, rows32, rows64 = phase_sixteen_sweeps(
         card, shapes, 'phase 20 (a)')
+    e32, e64, edge32, edge64 = phase_sixteen_sweeps(card, edges,
+                                                    'phase 20 (a)')
+    phase_nine_bits(shapes + edges, 'phase 20 (a)')
     errs, rows = phase_sixteen_unitary(card, SPLIT_UNITARY, 'phase 20 (a)')
-    errs.update(sweep_row_tiles=worst32, sweep_row_tiles_f64=worst64)
-    rows.update(sweep_row_tiles=rows32, sweep_row_tiles_f64=rows64)
+    edge_errs, edge_rows = phase_sixteen_unitary(card, SPLIT_EDGE_UNITARY,
+                                                 'phase 20 (a)')
+    phase_split_vjp_bits(SPLIT_UNITARY + SPLIT_EDGE_UNITARY)
+    for line, err in edge_errs.items():
+        errs[line] = max(errs.get(line, 0.0), err)
+    for line, got in edge_rows.items():  # a line's numbers: its last row
+        rows[line] = got + rows.get(line, [])
+    errs.update(sweep_row_tiles=max(worst32, e32),
+                sweep_row_tiles_f64=max(worst64, e64))
+    rows.update(sweep_row_tiles=edge32 + rows32,
+                sweep_row_tiles_f64=edge64 + rows64)
     launches = {}
     for path, (n, dtype, penalty) in {
             'ghz14_warm': (14, None, None), 'ghz17_warm': (17, None, None),
@@ -4010,6 +4114,30 @@ def phase_split(card):
     refuse_beyond_plans()
     print(f'phase 20: {time.perf_counter() - start:.1f} s', flush=True)
     return errs, rows, launches
+
+
+def phase_split_vjp_bits(shapes):
+    """Phase 20 (a): two launches of the vjp on the same inputs give the same
+    bits at every row of `shapes` (SPLIT_UNITARY's tuples): each warp's
+    share of a gate's cotangent is summed in warp order, the blocks' in rank
+    order."""
+    import torch
+    from cpflow_tpu_torch.api import Ansatz
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    gen = torch.Generator(device='cuda').manual_seed(20)
+    for n, k, rot, B, dname, _, cols, _ in shapes:
+        dtype = getattr(torch, dname)
+        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
+        angles = uniform_inits(anz.num_angles, B, 20, 'cuda').to(dtype)
+        u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles, cols)
+        g = torch.randn(u.shape, dtype=u.dtype, device='cuda', generator=gen)
+        a, b = (uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g,
+                              cols) for _ in range(2))
+        check(torch.equal(a, b), f'{n}q k={k} {dname}: two vjp launches on '
+              f'the same inputs differ')
+    print(f'phase 20 (a): two vjp launches on the same inputs gave the same '
+          f'bits at all {len(shapes)} rows', flush=True)
 
 
 def refuse_beyond_plans():
@@ -4153,10 +4281,11 @@ NINE_CALLS = 3  # timed calls of each phase 21 (a) row, after a warm-up
 CUSTOM9_STEPS = 300
 
 
-def phase_nine_bits(shapes):
-    """Phase 21 (a): two launches of the sweep on the same inputs give the
-    same bits at every row of `shapes` (T = 10): the tiles' shares are
-    summed in tile order, whatever order the blocks ran in."""
+def phase_nine_bits(shapes, label='phase 21 (a)'):
+    """Phase 21 (a) (and 20 (a)): two launches of the sweep on the same
+    inputs give the same bits at every row of `shapes` (T = 10): the
+    tiles' shares are summed in tile order, whatever order the blocks ran
+    in."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     for s in shapes:
@@ -4167,7 +4296,7 @@ def phase_nine_bits(shapes):
                 for _ in range(2))
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f'{s["name"]}: two launches on the same inputs differ')
-    print(f'phase 21 (a): two launches on the same inputs gave the same bits '
+    print(f'{label}: two launches on the same inputs gave the same bits '
           f'at all {len(shapes)} rows', flush=True)
 
 

@@ -609,16 +609,16 @@ __device__ __forceinline__ void angle_grads(const Template& t, int n, int G,
 // A state's one column split by rows over a cluster of c = 2^j blocks: the
 // block of rank rho holds rows [rho d / c, (rho + 1) d / c) as its tile of
 // 2^log_rows rows (log_rows = n - j), so the top j row bits, qubits
-// 0 ... j - 1, name the block. A gate whose legs lie on the tile's bits runs
-// on each block's own tile as forward_chain and adjoint_walk run it (with n
-// = log_rows), followed by a block barrier. A gate with a leg on a split bit
-// runs its groups over the whole cluster, between two cluster barriers: the
-// block of rank rho takes the rho-th c-th of the groups, and each group is
-// read and written by one thread, through distributed shared memory where a
-// row lies in another block. In the walk every block adds what its threads
-// saw of a gate's cotangent into its gbar, whichever tiles the groups lay
-// in; cluster_sum adds the blocks' gbar after the walk, as it does for
-// tiles of columns.
+// 0 ... j - 1, name the block. The forward pass of unitary.cu
+// (forward_rows_kernel) runs the chain below: a gate whose legs lie on the
+// tile's bits runs on each block's own tile as forward_chain runs it (with
+// n = log_rows), followed by a block barrier; a gate with a leg on a split
+// bit runs its groups over the whole cluster, between two cluster barriers:
+// the block of rank rho takes the rho-th c-th of the groups, and each group
+// is read and written by one thread, through distributed shared memory
+// where a row lies in another block. The sweep's row tiles and the vjp's
+// (sweep_rows_kernel, vjp_rows_kernel) run the warps' design of rows.cuh
+// instead.
 
 // Whether a K-qubit gate on row bits sa(, sb) has a leg on a split bit.
 template <int K>
@@ -664,52 +664,6 @@ __device__ inline void apply_forward_split(cplx* A, const cplx* gsm, int n,
   }
 }
 
-// apply_backward on a gate with a leg on a split bit, over the cluster; gb
-// takes the thread's share of the gate's cotangent.
-template <int K>
-__device__ inline void apply_backward_split(cplx* A, cplx* M,
-                                            const cplx* gsm, int n,
-                                            int log_rows, int sa, int sb,
-                                            real (&gb)[32]) {
-  constexpr int D = 1 << K;
-  cplx G[D * D];
-#pragma unroll
-  for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
-  const int per = ((1 << n) >> K) >> (n - log_rows);
-  const int first =
-      (int)cooperative_groups::this_cluster().block_rank() * per;
-  for (int g = first + threadIdx.x; g < first + per; g += blockDim.x) {
-    int idx[D];
-    group_rows<K>(g, 0, sa, sb, idx);
-    cplx *at[D], *mt[D];
-    cplx a[D], m[D];
-#pragma unroll
-    for (int p = 0; p < D; ++p) {
-      at[p] = row_in_cluster(A, idx[p], log_rows);
-      mt[p] = row_in_cluster(M, idx[p], log_rows);
-      a[p] = *at[p];
-      m[p] = *mt[p];
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
-#pragma unroll
-      for (int p = 0; p < D; ++p) {
-        ak = cadd(ak, cmul(conj2(G[p * D + k]), a[p]));
-        mk = cadd(mk, cmul(G[p * D + k], m[p]));
-      }
-#pragma unroll
-      for (int p = 0; p < D; ++p) {
-        cplx t = cmul(m[p], ak);
-        gb[2 * (p * D + k)] += t.x;
-        gb[2 * (p * D + k) + 1] += t.y;
-      }
-      *at[k] = ak;
-      *mt[k] = mk;
-    }
-  }
-}
-
 // One gate of the forward chain on a state split by rows, with its
 // barriers: a gate on the tile's bits then a block barrier; one on a split
 // bit after a cluster barrier (unless the last gate ended with one, *synced)
@@ -749,64 +703,6 @@ __device__ __forceinline__ void forward_chain_rows(cplx* A,
     gate_rows<2>(A, gates + 16 * (n + b), n, log_rows, n - 1 - q0,
                  n - 1 - q1, &synced);
   }
-}
-
-// adjoint_walk on a state split by rows over the cluster: the same walk,
-// each gate on a split bit over the cluster between cluster barriers (the
-// second of them also the barrier before the cross-warp partials are read).
-// Leaves in each block's gbar the block's share of every gate's cotangent,
-// for cluster_sum. Ends with a block barrier; the last cluster barrier
-// follows the last gate on a split bit.
-__device__ __forceinline__ void adjoint_walk_rows(cplx* A, cplx* M,
-                                                  const cplx* gates,
-                                                  const int* placements,
-                                                  real* red, real* gbar,
-                                                  int n, int G, int log_rows,
-                                                  int nw) {
-  namespace cg = cooperative_groups;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  bool synced = false;
-  for (int j = G - 1; j >= 0; --j) {
-    real gb[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
-    bool split;
-    if (j >= n) {
-      const int bb = j - n;
-      const int sa = n - 1 - placements[2 * bb];
-      const int sb = n - 1 - placements[2 * bb + 1];
-      split = on_split_bit<2>(log_rows, sa, sb);
-      if (split && !synced) cg::this_cluster().sync();
-      if (split)
-        apply_backward_split<2>(A, M, gates + 16 * j, n, log_rows, sa, sb,
-                                gb);
-      else
-        apply_backward<2>(A, M, gates + 16 * j, log_rows, 0, sa, sb, gb);
-    } else {
-      const int sa = n - 1 - j;
-      split = on_split_bit<1>(log_rows, sa, 0);
-      if (split && !synced) cg::this_cluster().sync();
-      if (split)
-        apply_backward_split<1>(A, M, gates + 16 * j, n, log_rows, sa, 0,
-                                gb);
-      else
-        apply_backward<1>(A, M, gates + 16 * j, log_rows, 0, sa, 0, gb);
-    }
-    real part = warp_reduce_scatter32(gb);
-    real* rb = red + (j & 1) * nw * 32;
-    rb[warp * 32 + lane] = part;
-    if (split)
-      cg::this_cluster().sync();
-    else
-      __syncthreads();
-    synced = split;
-    if (tid < 32) {
-      real s = RL(0.);
-      for (int w = 0; w < nw; ++w) s += rb[w * 32 + tid];
-      gbar[32 * j + tid] = s;
-    }
-  }
-  __syncthreads();
 }
 
 }  // namespace

@@ -63,9 +63,13 @@
 // in rank order before the angle gradients, and rank 0 writes them. One
 // column has too few columns to share out: above 13 qubits (12 in double)
 // its rows are split instead, d / c a block (gates.cuh, row tiles), and
-// both passes become clusters (forward_rows_kernel, vjp_rows_kernel),
-// whose blocks meet at every gate with a leg on a split row bit; the vjp
-// sums its cotangents as the tiles of columns do. The vjp splits a qubit
+// both passes become clusters (forward_rows_kernel, vjp_rows_kernel). The
+// forward pass's blocks meet at every gate with a leg on a split row bit;
+// the vjp's rows are owned by warps (rows.cuh), which run each gate on a
+// warp's own segment and swap in the bits a gate needs from outside it,
+// inside the block or with another block, as the wrapper's table says
+// (kernels/rows.py), and it sums its cotangents as the tiles of columns
+// do. The vjp splits a qubit
 // sooner than the forward pass, which holds no M: at k = 2n 'xyz' 14, 15,
 // 16, 17 qubits take 2, 4, 8, 16 blocks in the vjp and 1, 2, 4, 8 in the
 // forward pass. A cluster of 16 is non-portable: each cluster kernel is
@@ -110,6 +114,7 @@
 
 #include "gates.cuh"
 #include "columns.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -122,6 +127,14 @@ struct Args {
   Template tpl;
   int n, nb, log_c, B, cluster_log;
   int restarts;           // restarts a block (column design)
+};
+
+// vjp_rows_kernel's arguments: the row schedule (rows.cuh; the wrapper's
+// table, nops int4 of it in device memory) and the row tiles' plan.
+struct RowArgs : Args {
+  const int4* ops;
+  int nops;
+  RowPlan plan;
 };
 
 struct Layout {
@@ -166,15 +179,41 @@ inline int cluster_plan(int n, int nb, int nba, int log_c, bool vjp) {
   return -1;
 }
 
-// The restart's angles into shared memory, their cos and sin, the gates.
-// Ends with a barrier.
+// The layout of vjp_rows_kernel, one column split by rows over the cluster
+// of 2^cluster_log blocks that cluster_plan picks: make_layout's, whose
+// bytes decide the plan, with the threads and the ring of cotangent slots
+// of the row tiles (rows.cuh: row_plan, which *plan receives) in place of
+// the cross-warp partials, in what the plan's layout leaves of a block's
+// shared memory.
+__host__ __device__ inline Layout row_layout(int n, int nb, int nba,
+                                             int cluster_log,
+                                             RowPlan* plan) {
+  Layout L = make_layout(n, nb, nba, 0, cluster_log, true);
+  const size_t red = (size_t)2 * L.nw * 32 * sizeof(real);
+  *plan = row_plan(n - cluster_log, kSmemLimit - (L.bytes - red));
+  L.nt = 32 * plan->warps;
+  L.nw = plan->warps;
+  size_t o = L.off_red + (size_t)32 * plan->warps * plan->ring * sizeof(real);
+  L.off_params = o;   o += (size_t)L.P * sizeof(real);
+  L.off_grad = o;     o += (size_t)L.P * sizeof(real);
+  L.off_cs = o;       o += (size_t)2 * L.P * sizeof(real);
+  L.bytes = o;
+  return L;
+}
+
+// The restart's angles into shared memory, their cos and sin (with kRows
+// without local memory, rows.cuh), the gates. Ends with a barrier.
+template <bool kRows = false>
 __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
                                            int b, real* params, real* cs,
                                            cplx* gates) {
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
     params[i] = a.angles[(size_t)i * a.B + b];
   __syncthreads();
-  angle_trig(a.tpl, a.n, L.P, params, cs);
+  if constexpr (kRows)
+    row_angle_trig(a.tpl, a.n, L.P, params, cs);
+  else
+    angle_trig(a.tpl, a.n, L.P, params, cs);
   __syncthreads();
   build_gates(a.tpl, a.n, L.G, cs, gates);
   __syncthreads();
@@ -229,12 +268,15 @@ forward_kernel(Args a) {
 }
 
 // kCluster: the restart split over the blocks of a cluster, by columns, or
-// with kRows its one column by rows.
+// with kRows its one column by rows (rows.cuh, a RowArgs in a).
 template <bool kCluster, bool kRows>
 __device__ __forceinline__ void vjp_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
-                               kCluster ? a.cluster_log : 0, true);
+  RowPlan plan;
+  const Layout L = kRows ? row_layout(a.n, a.nb, a.tpl.nba, a.cluster_log,
+                                      &plan)
+                         : make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
+                                       kCluster ? a.cluster_log : 0, true);
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
@@ -258,11 +300,12 @@ __device__ __forceinline__ void vjp_body(const Args& a) {
     const cplx t = g[at];
     M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
   }
-  load_gates(a, L, b, params, cs, gates);
-  if constexpr (kRows)
-    adjoint_walk_rows(A, M, gates, a.placements, red, gbar, a.n, L.G,
-                      a.n + lt, L.nw);
-  else
+  load_gates<kRows>(a, L, b, params, cs, gates);
+  if constexpr (kRows) {
+    const RowArgs& ra = static_cast<const RowArgs&>(a);
+    row_walk(A, M, gates, ra.ops, ra.nops, red, gbar, a.n, L.G, ra.plan,
+             a.n + lt, rank);
+  } else
     adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
   if constexpr (kCluster) cluster_sum(gbar, 32 * L.G);
   angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
@@ -284,9 +327,10 @@ forward_rows_kernel(Args a) {
   forward_body<true>(a);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-vjp_rows_kernel(Args a) {
-  vjp_body<true, true>(a);
+// each block's rows owned by its warps (rows.cuh)
+__global__ void __launch_bounds__(kRowThreads, 1)
+vjp_rows_kernel(RowArgs ra) {
+  vjp_body<true, true>(ra);
 }
 
 // ------------------------------------------------------ the column design
@@ -553,7 +597,7 @@ struct Launch {
   size_t bytes;
 };
 
-bool plan_launch(Args& a, int vjp, int design, Launch& out) {
+bool plan_launch(RowArgs& a, int vjp, int design, Launch& out) {
   const int n = a.n, nb = a.nb, nba = a.tpl.nba;
   if (design == DESIGN_COLUMNS) {
     a.cluster_log = 0;
@@ -570,8 +614,10 @@ bool plan_launch(Args& a, int vjp, int design, Launch& out) {
   a.restarts = 1;
   a.cluster_log = cluster_plan(n, nb, nba, a.log_c, vjp != 0);
   if (a.cluster_log < 0) return false;
-  const Layout L = make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0);
   const bool tiles = a.log_c == 0 && a.cluster_log > 0;  // of rows
+  const Layout L =
+      tiles && vjp ? row_layout(n, nb, nba, a.cluster_log, &a.plan)
+                   : make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0);
   const bool cluster = tiles || (vjp && a.cluster_log > 0);
   out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 + cluster : 0;
   out.threads = L.nt;
@@ -723,9 +769,31 @@ int cpflow_unitary_tiles_launch(const void* angles, void* U,
   return (int)cudaGetLastError();
 }
 
+// The row tiles' plan of the vjp of one column that cluster_plan splits by
+// rows (rows.cuh, row_layout): out[0] threads and out[1] dynamic shared
+// memory bytes a block, out[2] warps, out[3] log2 of a warp's rows (the
+// segment bits a row schedule runs its gates on), out[4] gates in the ring,
+// out[5] log2 of a block's rows. Returns cudaErrorInvalidValue where the
+// column is not split by rows.
+int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int* out) {
+  const int log = cluster_plan(n, num_blocks, nba, 0, true);
+  if (log <= 0) return (int)cudaErrorInvalidValue;
+  RowPlan plan;
+  const Layout L = row_layout(n, num_blocks, nba, log, &plan);
+  out[0] = L.nt;
+  out[1] = (int)L.bytes;
+  out[2] = plan.warps;
+  out[3] = plan.seg;
+  out[4] = plan.ring;
+  out[5] = n - log;
+  return 0;
+}
+
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
 // product (vjp == 1: reads U and Ubar, writes grad) in the given design
-// (0 row-split, 1 columns) on `stream`. angles and grad: (P, B) of the
+// (0 row-split, 1 columns) on `stream`. The vjp of one column split by
+// rows takes row_ops, the row schedule (rows.cuh) of row_nops int4 for the
+// segment bits cpflow_unitary_row_plan gives. angles and grad: (P, B) of the
 // build's real type (float, or double with -DCPFLOW_DOUBLE); U and Ubar:
 // (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
 // (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
@@ -740,8 +808,9 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
                           const void* letters, int n, int num_blocks,
                           int num_letters, int ent, int nba, int log_c, int B,
-                          int vjp, int design, void* stream) {
-  Args a;
+                          int vjp, int design, void* stream,
+                          const void* row_ops, int row_nops) {
+  RowArgs a;
   a.angles = static_cast<const real*>(angles);
   a.U = static_cast<cplx*>(U);
   a.Ubar = static_cast<const cplx*>(Ubar);
@@ -755,11 +824,17 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   a.nb = num_blocks;
   a.log_c = log_c;
   a.B = B;
+  a.ops = static_cast<const int4*>(row_ops);
+  a.nops = row_nops;
   Launch l;
   if (!plan_launch(a, vjp, design, l)) return (int)cudaErrorInvalidValue;
+  const bool rows = l.which == kVjpRows;
+  if (rows && (!row_ops || row_nops < n + num_blocks))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = grant_smem(l.which, l.bytes);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a};
+  Args plain = a;  // the other kernels take Args
+  void* args[] = {rows ? static_cast<void*>(&a) : static_cast<void*>(&plain)};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       launch_config(l.grid, l.threads, l.bytes, l.cluster,

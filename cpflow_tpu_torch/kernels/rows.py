@@ -1,0 +1,135 @@
+"""The row tiles' host side: the plan of a block and the schedule of bit
+swaps that the wrappers of sweep_rows_kernel (kernels/sweep.py) and
+vjp_rows_kernel (kernels/unitary.py) hand to the kernel.
+
+A state's one column split by rows over a cluster of blocks (2^log_rows
+rows a block) is owned by the block's warps, 2^segment contiguous rows each
+(csrc/rows.cuh). A gate whose legs lie on the segment's bits runs on a
+warp's own rows with no block or cluster barrier, so the row bits are kept
+under a permutation, and before a gate that needs a bit outside the
+segment that bit is swapped with a segment bit the gate does not use: the
+one whose next use lies furthest ahead (Belady's rule, which makes the
+fewest swaps for a known sequence of uses). The swaps depend only on the
+template and the segment, so ``schedule`` computes them once, here, as a
+table of ops; ``plan`` and ``launch`` mirror the kernels' choice of warps,
+segment, ring and shared bytes, so that the tables and the layouts can be
+checked without a card (on the card the library's own plan decides:
+cpflow_sweep_row_plan, cpflow_unitary_row_plan).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# csrc/rows.cuh: threads a block at most, by build; log2 of the fewest rows
+# a warp owns while warps are split off; gates in the ring of cotangent
+# slots at most
+THREADS = {torch.float32: 512, torch.float64: 256}
+SEGMENT_MIN = 7
+RING_MAX = 16
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+
+
+def plan(log_rows: int, spare: int, dtype=torch.float32) -> dict:
+    """csrc/rows.cuh's row_plan for a tile of 2^log_rows rows whose ring may
+    take `spare` bytes: dict(warps, segment (log2 of a warp's rows), ring
+    (gates between two sums of the warps' slots)). A warp for every
+    2^SEGMENT_MIN rows up to THREADS of the build, halved while a ring of
+    one gate does not fit; the ring the largest power of two up to
+    RING_MAX that fits."""
+    real = 8 if dtype == torch.float64 else 4
+    lw = 0
+    while lw < log_rows - SEGMENT_MIN and 64 << lw <= THREADS[dtype]:
+        lw += 1
+    while lw > 0 and (32 << lw) * real > spare:
+        lw -= 1
+    ring = RING_MAX
+    while ring > 1 and (32 * ring << lw) * real > spare:
+        ring //= 2
+    return dict(warps=1 << lw, segment=log_rows - lw, ring=ring)
+
+
+def launch(cluster: int, log_rows: int, plan_bytes: int, dtype) -> dict:
+    """The launch of a block of the row tiles whose plan's layout takes
+    `plan_bytes` (with its 2 x warps x 32 reals of cross-warp partials, the
+    warps one per 16 rows between 1 and 8): ``plan`` in what that layout
+    leaves of a block's shared memory, the partials out and the ring in.
+    dict(cluster, log_rows, warps, segment, ring, threads, smem_bytes)."""
+    real = 8 if dtype == torch.float64 else 4
+    partials = 2 * min(max((1 << log_rows) // 16, 32), 256) * real
+    rest = plan_bytes - partials
+    p = plan(log_rows, SMEM_LIMIT - rest, dtype)
+    return dict(cluster=cluster, log_rows=log_rows, threads=32 * p['warps'],
+                smem_bytes=rest + 32 * p['warps'] * p['ring'] * real, **p)
+
+
+def gate_bits(n: int, placements) -> list:
+    """The row bits of each of the n + len(placements) gates, as the kernels
+    number them (qubit q on row bit n - 1 - q): (bit,) for the surface gate
+    on each qubit, then (up leg, down leg) for each block."""
+    return [(n - 1 - q,) for q in range(n)] + \
+        [(n - 1 - int(a), n - 1 - int(b)) for a, b in placements]
+
+
+@functools.lru_cache(maxsize=64)
+def schedule(n: int, placements: tuple, segment: int) -> np.ndarray:
+    """The row schedule of a template for a segment of 2^segment rows:
+    (ops, 4) int32 rows in the chain's order, (j, a, b, 0) for gate j on row
+    bits a (its first leg) and b (its second; 0 for a surface gate), both
+    below `segment`, and (-1, s, b, 0) for the swap of segment bit s with
+    bit b > s. The table ends on the identity: the walk, which runs it
+    backward, starts from the rows in natural order, and each gate meets
+    its legs where the chain left them. Computed from the walk's end: the
+    gates in reverse order from the identity, each bit that a gate needs
+    outside the segment swapped in for the segment bit, not of the gate,
+    whose next use lies furthest ahead (ties: the higher bit, so that a
+    float32 swap copies 16 bytes)."""
+    if segment < 2:
+        raise ValueError(f'a segment of {1 << segment} rows holds no '
+                         f'two-qubit gate')
+    gates = gate_bits(n, placements)
+    walk = range(len(gates) - 1, -1, -1)
+    uses = [[] for _ in range(n)]
+    for t, j in enumerate(walk):
+        for bit in gates[j]:
+            uses[bit].append(t)
+    ahead = [0] * n  # the index in uses[bit] of its next use
+    where = list(range(n))  # bit -> the row bit it lies on
+    held = list(range(n))   # row bit -> the bit it holds
+    never = len(gates)
+    ops = []
+    for t, j in enumerate(walk):
+        need = gates[j]
+        for bit in range(n):
+            while ahead[bit] < len(uses[bit]) and uses[bit][ahead[bit]] <= t:
+                ahead[bit] += 1
+
+        def next_use(v):
+            y = held[v]
+            return uses[y][ahead[y]] if ahead[y] < len(uses[y]) else never
+
+        for bit in need:
+            if where[bit] < segment:
+                continue
+            v = max((v for v in range(segment) if held[v] not in need),
+                    key=lambda v: (next_use(v), v))
+            p, y = where[bit], held[v]
+            ops.append((-1, v, p, 0))
+            held[v], held[p] = bit, y
+            where[bit], where[y] = v, p
+        ops.append((j, where[need[0]], where[need[1]] if len(need) > 1 else 0,
+                    0))
+    table = np.array(ops[::-1], dtype=np.int32)
+    table.setflags(write=False)
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def device_schedule(n: int, placements: tuple, segment: int,
+                    device: torch.device) -> torch.Tensor:
+    """``schedule`` as an int32 tensor on `device`, made once a key."""
+    return torch.tensor(schedule(n, placements, segment), dtype=torch.int32,
+                        device=device).contiguous()

@@ -58,10 +58,12 @@ the whole unitary by columns (in float32 7 qubits take 2, or 4 from 215
 'xyz' blocks, 8 qubits take 8, or 16 from 214 'xyz' blocks up to 358), a
 state's one column by rows, each block holding 2^n / c of them (the
 kernel's fourth build, the row tiles; at the GHZ ladder's depths 14, 15,
-16 and 17 qubits take 2, 4, 8 and 16 blocks), its blocks meeting at every
-gate on one of the top log2(c) qubits. Where no cluster holds the whole
-unitary (9 qubits and up, and deeper templates at 7 and 8), the HS test and
-disc losses take the column tiles (``tile_plan``): a restart's columns
+16 and 17 qubits take 2, 4, 8 and 16 blocks), each block's rows owned by
+its warps, every gate on a warp's own rows and the bits it needs swapped
+in beforehand as a table says that the wrapper computes once a call
+(kernels/rows.py; ``row_plan`` mirrors the launch). Where no cluster
+holds the whole unitary (9 qubits and up, and deeper templates at 7 and
+8), the HS test and disc losses take the column tiles (``tile_plan``): a restart's columns
 split into tiles on independent blocks, the fewest that fit, and two
 kernels a step, one a block per tile (the chain, the tile's share of the
 sum s and the walk from conj(T), each column of the tile run by its own
@@ -100,6 +102,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
+from cpflow_tpu_torch.kernels import rows as rk
 from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, breakpoints
 from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
@@ -212,9 +215,12 @@ def bind(lib: ctypes.CDLL, double: bool) -> ctypes.CDLL:
     """Sets the argument and result types of the sweep library's functions
     (`double`: its double build). Returns lib."""
     ptr = ctypes.c_void_p
-    lib.cpflow_sweep_launch.argtypes = [ptr] * 13 + [ctypes.c_int] * 10 + [
-        ctypes.c_double if double else ctypes.c_float, ptr]
+    common = [ptr] * 13 + [ctypes.c_int] * 10 + [
+        ctypes.c_double if double else ctypes.c_float]
+    lib.cpflow_sweep_launch.argtypes = common + [ptr, ptr, ctypes.c_int]
     lib.cpflow_sweep_launch.restype = ctypes.c_int
+    lib.cpflow_sweep_row_plan.argtypes = [ctypes.c_int] * 3 + [ptr]
+    lib.cpflow_sweep_row_plan.restype = ctypes.c_int
     lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.cpflow_sweep_cluster.argtypes = [ctypes.c_int] * 4
@@ -229,8 +235,7 @@ def bind(lib: ctypes.CDLL, double: bool) -> ctypes.CDLL:
     lib.cpflow_sweep_tile_workspace.restype = ctypes.c_longlong
     lib.cpflow_sweep_tile_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.cpflow_sweep_tile_smem_bytes.restype = ctypes.c_longlong
-    lib.cpflow_sweep_tiles_launch.argtypes = \
-        lib.cpflow_sweep_launch.argtypes[:-1] + [ptr, ptr]
+    lib.cpflow_sweep_tiles_launch.argtypes = common + [ptr, ptr]
     lib.cpflow_sweep_tiles_launch.restype = ctypes.c_int
     lib.cpflow_sweep_tiles_occupancy.argtypes = [ctypes.c_int] * 4 + [ptr]
     lib.cpflow_sweep_tiles_occupancy.restype = ctypes.c_int
@@ -332,6 +337,21 @@ def tile_smem_bytes(n: int, num_blocks: int, columns: int,
     G, warps = n + num_blocks, tile_threads(n, columns, dtype) // 32
     o = -(-2 * columns * ((1 << n) + 1) * 8 * f // 16) * 16
     return o + 128 * f * G + (32 * TILE_RING + 2) * warps * 4 * f + 16 + 8 * G
+
+
+def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32):
+    """The row tiles' launch of a state that cluster_plan splits by rows
+    over c > 1 blocks, as csrc/sweep.cu's row_layout lays it out in the
+    build of `dtype` (cpflow_sweep_row_plan on the card): dict(cluster,
+    log_rows, warps, segment, ring, threads, smem_bytes), the plan's layout
+    (smem_bytes) with the warps' ring of cotangent slots in place of its
+    cross-warp partials, in what the plan leaves of a block's shared memory
+    (kernels/rows.py:launch). None where the state is not split by rows."""
+    c = cluster_plan(n, num_blocks, nba, 'state', dtype)
+    if c is None or c == 1:
+        return None
+    return rk.launch(c, n - (c.bit_length() - 1),
+                     smem_bytes(n, num_blocks, nba, 'state', c, dtype), dtype)
 
 
 def max_qubits(kind: str, dtype=torch.float32) -> int:
@@ -520,6 +540,16 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     # of each step's cotangents and sum, the segments' sums and counts (0)
     work = torch.zeros(lib.cpflow_sweep_tile_workspace(n, nb, nba, loss, B),
                        dtype=dtype, device=device) if tiles else None
+    # the row tiles' schedule, for the segment of the library's plan
+    ops = None
+    if state and cluster > 1:
+        got = (ctypes.c_int * 6)()
+        err = lib.cpflow_sweep_row_plan(n, nb, nba, got)
+        if err != 0:
+            raise RuntimeError(f'sweep kernel row plan query failed: CUDA '
+                               f'error {err}')
+        ops = rk.device_schedule(n, tuple(map(tuple, placements)), got[3],
+                                 device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(it_begin, it_end):
@@ -536,7 +566,9 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             err = lib.cpflow_sweep_tiles_launch(*args, work.data_ptr(),
                                                 stream)
         else:
-            err = lib.cpflow_sweep_launch(*args, stream)
+            err = lib.cpflow_sweep_launch(
+                *args, stream, ops.data_ptr() if ops is not None else None,
+                len(ops) if ops is not None else 0)
         if err != 0:
             raise RuntimeError(
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '

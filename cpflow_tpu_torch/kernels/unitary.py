@@ -53,9 +53,11 @@ gate, and where its layout exceeds one block's shared memory the restart
 splits over c = 2, 4, 8 or 16 blocks (``cluster_plan``): the whole
 unitary's columns (the vjp's blocks form a thread-block cluster and sum
 the gates' cotangents over distributed shared memory), or one column's
-rows, 2^n / c a block, in both passes as a cluster whose blocks meet at
-every gate on one of the top log2(c) qubits (the row tiles' kernels,
-``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``). Where no
+rows, 2^n / c a block, in both passes as a cluster (the row tiles'
+kernels, ``ansatz_forward_row_tiles``, whose blocks meet at every gate on
+one of the top log2(c) qubits, and ``ansatz_vjp_row_tiles``, whose rows
+are owned by warps that swap in the bits a gate needs as the wrapper's
+table says: kernels/rows.py, ``row_plan``). Where no
 cluster holds the whole unitary (9 qubits and up, and 8 qubits in float64
 past k = 125 'xyz' blocks) the column tiles take it (``tile_plan``, design
 'tiles'): a restart's columns split into tiles on independent blocks, the
@@ -95,6 +97,7 @@ import torch
 
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
+from cpflow_tpu_torch.kernels import rows as rk
 from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
 from cpflow_tpu_torch.sim.batched import build_unitary_batched
 
@@ -192,6 +195,22 @@ def tile_plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     return None
 
 
+def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32):
+    """The row tiles' launch of the vjp of one column that cluster_plan
+    splits by rows over c > 1 blocks, as csrc/unitary.cu's row_layout lays
+    it out in the build of `dtype` (cpflow_unitary_row_plan on the card):
+    dict(cluster, log_rows, warps, segment, ring, threads, smem_bytes), the
+    plan's layout with the warps' ring of cotangent slots in place of its
+    cross-warp partials, in what the plan leaves of a block's shared
+    memory (kernels/rows.py:launch). None where the column is not split by
+    rows. The forward pass keeps the row-split design's threads."""
+    c = cluster_plan(n, num_blocks, nba, 0, True, dtype)
+    if c is None or c == 1:
+        return None
+    return rk.launch(c, n - (c.bit_length() - 1),
+                     smem_bytes(n, num_blocks, nba, 0, True, c, dtype), dtype)
+
+
 def max_qubits(whole: bool, dtype=torch.float32) -> int:
     """The most qubits both kernels take for the whole unitary (whole=True)
     or one column in the build of `dtype`: the largest n whose vjp layout
@@ -278,10 +297,12 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
         c, design = tiles[1], 'tiles'
     log_ct = log_c - (c.bit_length() - 1)
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
+    nbytes = smem_bytes(n, num_blocks, nba, log_c, vjp, c, dtype)
+    if vjp and not log_c and c > 1:  # the row tiles' vjp
+        rows = row_plan(n, num_blocks, nba, dtype)
+        threads, nbytes = rows['threads'], rows['smem_bytes']
     return dict(design=design, threads_per_restart=threads * c,
-                restarts_per_block=1, threads=threads,
-                smem_bytes=smem_bytes(n, num_blocks, nba, log_c, vjp, c,
-                                      dtype),
+                restarts_per_block=1, threads=threads, smem_bytes=nbytes,
                 blocks_per_restart=c)
 
 
@@ -305,8 +326,11 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
     lib = build.load(build.name_of('unitary', dtype == torch.float64))
     if lib.cpflow_unitary_launch.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+        lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [
+            ptr, ptr, i]
         lib.cpflow_unitary_launch.restype = i
+        lib.cpflow_unitary_row_plan.argtypes = [i] * 3 + [ptr]
+        lib.cpflow_unitary_row_plan.restype = i
         lib.cpflow_unitary_smem_bytes.argtypes = [i] * 6
         lib.cpflow_unitary_smem_bytes.restype = ctypes.c_longlong
         lib.cpflow_unitary_cluster.argtypes = [i] * 5
@@ -460,6 +484,19 @@ class _Shape:
             self.tiles = self.lib.cpflow_unitary_tiles(*args)
             self.partials = self.lib.cpflow_unitary_tile_partials(*args[:4])
         self.design = {v: k for k, v in DESIGNS.items()}[code]
+        # the row tiles' schedule (the vjp of one column split by rows),
+        # for the segment of the library's plan
+        self.ops = None
+        if vjp and not self.log_c and self.cluster > 1:
+            got = (ctypes.c_int * 6)()
+            with torch.cuda.device(device):
+                err = self.lib.cpflow_unitary_row_plan(n, self.nb, self.nba,
+                                                       got)
+            if err != 0:
+                raise RuntimeError(f'unitary kernel row plan query failed: '
+                                   f'CUDA error {err}')
+            self.ops = rk.device_schedule(n, self.placements, got[3],
+                                          device)
         if not self.cluster and self.design != 'tiles':
             most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
@@ -505,7 +542,10 @@ class _Shape:
                     grad.data_ptr() if grad is not None else None,
                     plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
                     len(self.rot), self.ent, self.nba, self.log_c, self.B,
-                    int(vjp), DESIGNS[design], stream)
+                    int(vjp), DESIGNS[design], stream,
+                    self.ops.data_ptr() if vjp and self.ops is not None
+                    else None, len(self.ops) if vjp and self.ops is not None
+                    else 0)
         if err != 0:
             raise RuntimeError(
                 f'unitary kernel launch failed: CUDA error {err} ({self.B} '

@@ -1,24 +1,23 @@
 #!/usr/bin/env python3
 """Times builds of the sweep kernel against each other, in turns, on one
-NVIDIA Hopper card, and profiles the column tiles' step.
+NVIDIA Hopper card, and profiles the column tiles' and the row tiles' steps.
 
 Run from the root of the repository:
 
     python3 sweep_ab.py OLD/cpflow_tpu_torch/csrc/sweep.cu \\
         cpflow_tpu_torch/csrc/sweep.cu
     python3 sweep_ab.py --tiles OLD/.../sweep.cu cpflow_tpu_torch/csrc/sweep.cu
-    python3 sweep_ab.py --tiles --profile cpflow_tpu_torch/csrc/sweep.cu
+    python3 sweep_ab.py --rows --profile OLD/.../sweep.cu \\
+        cpflow_tpu_torch/csrc/sweep.cu
 
-for example with OLD an earlier commit unpacked by ``git archive`` into
+for example with OLD the parent commit unpacked by ``git archive`` into
 ``build/``. Each source must export the functions this tree's
-kernels/sweep.py binds (``bind``); a source from before the cluster build,
-which lacks cpflow_sweep_cluster, is given a stand-in that answers one, and
-one from before the tiles' workspace (cpflow_sweep_tile_workspace, the
-column tiles of an older design) one that sizes its partials alone, and
-one that answers 0 for the tile kernel's shared bytes, which only
-chip_smoke.py's plan check reads. Each is built with nvcc for sm_90a into
-build/ab/ (with ``--tiles`` also its double build, -DCPFLOW_DOUBLE; all
-builds side by side) and its ptxas report printed.
+kernels/sweep.py binds (``bind``); the parent's, from before the row
+schedule, lacks cpflow_sweep_row_plan and is given a stand-in that answers
+this tree's plan (kernels/sweep.py:row_plan), whose schedule its
+sweep_rows_kernel never reads. Each is built with nvcc for sm_90a into
+build/ab/ (with ``--tiles`` or ``--rows`` also its double build,
+-DCPFLOW_DOUBLE; all builds side by side) and its ptxas report printed.
 
 Without ``--tiles`` every build times the kernel alone (CUDA events, the
 faster of two calls after a warm-up) at chip_smoke.py's phase-5 shapes and
@@ -28,15 +27,20 @@ each). With ``--tiles`` it times the column tiles' rows of chip_smoke.py
 phase 21 (a) at their T, in both precisions: each call (CUDA events, the
 fastest of three calls after a warm-up call), and the tile kernels alone
 on the card in one call (torch.profiler, chip_smoke.device_kernels), which
-leaves out the wrapper's copy of the target to the card. The builds run in
-turns (A B ... B A); it prints one row per shape with every build's times
-in ms, the bound (utils/profiling.py) and the share of the fastest call.
+leaves out the wrapper's copy of the target to the card. With ``--rows``
+it does the same for the row tiles: chip_smoke.py phase 20 (a)'s sweep
+rows (L)-(Q) and the GHZ-14 search's shape (phase 20 (d): 14q k=15
+B=256 T=1000) in float32 and in float64, the kernel alone being
+sweep_rows_kernel. The builds run in turns (A B ... B A); it prints one
+row per shape with every build's times in ms, the bound
+(utils/profiling.py) and the share of the fastest call.
 
-``--profile`` then traces one call of each tiles row with each build
-(chip_smoke.device_kernels): every kernel's launches, total and mean time
-on the card, their sum against the call's span on the stream (CUDA events),
-whose rest is the card's idle share, and the tile kernel's registers, local
-bytes and resident blocks (``sk.occupancy``).
+``--profile`` then traces one call of each tiles or rows row with each
+build (chip_smoke.device_kernels): every kernel's launches, total and mean
+time on the card, their sum against the call's span on the stream (CUDA
+events), whose rest is the card's idle share, and the kernel's registers,
+local bytes, threads, warps and resident blocks or clusters
+(``sk.occupancy``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ def start_build(source: Path, double: bool):
 
 
 def finish_build(source: Path, double: bool, out: Path, proc) -> ctypes.CDLL:
+    import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     _, err = proc.communicate()
     if proc.returncode != 0:
@@ -77,17 +82,12 @@ def finish_build(source: Path, double: bool, out: Path, proc) -> ctypes.CDLL:
     print(f'{source}{" (double)" if double else ""}:\n  ' +
           '\n  '.join(report), flush=True)
     lib = ctypes.CDLL(str(out))
-    if not hasattr(lib, 'cpflow_sweep_cluster'):
-        lib.cpflow_sweep_cluster = lambda *shape: 1
-    if not hasattr(lib, 'cpflow_sweep_tile_workspace') and \
-            hasattr(lib, 'cpflow_sweep_tile_partials'):
-        partials = lib.cpflow_sweep_tile_partials
-        partials.argtypes = [ctypes.c_int] * 4
-        partials.restype = ctypes.c_longlong
-        lib.cpflow_sweep_tile_workspace = \
-            lambda n, nb, nba, loss, B: B * partials(n, nb, nba, loss)
-    if not hasattr(lib, 'cpflow_sweep_tile_smem_bytes'):
-        lib.cpflow_sweep_tile_smem_bytes = lambda *shape: 0
+    if not hasattr(lib, 'cpflow_sweep_row_plan'):  # the parent's
+        def row_plan(n, nb, nba, got, dtype=(torch.float64 if double else
+                                             torch.float32)):
+            got[3] = sk.row_plan(n, nb, nba, dtype)['segment']
+            return 0
+        lib.cpflow_sweep_row_plan = row_plan
     return sk.bind(lib, double)
 
 
@@ -116,6 +116,21 @@ def tile_shapes():
     return [(s['name'], s, s.get('T', 60)) for s in c.nine_shapes()]
 
 
+def row_shapes():
+    """[(label, shape dict, steps)]: chip_smoke.py phase 20 (a)'s rows, then
+    the GHZ-14 search's shape (phase 20 (d)) in float32 and float64."""
+    import torch
+    import chip_smoke as c
+    search = dict(name='(d) GHZ-14 search 14q k=15 B=256', n=14,
+                  k=c.GHZ14_SEARCH['k'], target=c.ghz(14), kind='state',
+                  B=c.GHZ14_SEARCH['samples'], r=0.001, lr=0.1,
+                  T=c.GHZ14_SEARCH['steps'])
+    return [(s['name'], s, s['T']) for s in c.split_shapes()] + [
+        (search['name'], search, search['T']),
+        (search['name'] + ' float64', dict(search, dtype=torch.float64),
+         search['T'])]
+
+
 def inputs(s, seed):
     """(objective, initial angles, mask) of a shape in its dtype."""
     import torch
@@ -128,11 +143,12 @@ def inputs(s, seed):
     return obj, init, mask
 
 
-def tile_ms(call):
-    """ms the column tiles' kernels take on the card in one call."""
+def kernel_ms(call, name):
+    """ms the kernels whose name holds `name` take on the card in one
+    call."""
     import chip_smoke as c
-    return sum(ms for name, (_, ms) in c.device_kernels(call, 1).items()
-               if 'sweep_tile' in name)
+    return sum(ms for key, (_, ms) in c.device_kernels(call, 1).items()
+               if name in key)
 
 
 def profile(rows, card):
@@ -150,15 +166,17 @@ def profile(rows, card):
                    for name, (count, ms) in events.items() if ms > 0]
         span = spans[-1]
         busy = sum(k[2] for k in kernels)
+        where = (f'{occ["tiles"]} tiles of {occ["columns"]} columns; second '
+                 f'kernel {occ["adam_registers"]} registers' if 'tiles' in occ
+                 else f'{occ["cluster"]} blocks a restart, '
+                 f'{occ["active_clusters"]} clusters resident')
         print(f'{label} T={T}: span {span:.3f} ms, on the card (kernels '
               f'and copies) {busy:.3f} ms, '
-              f'idle {max(0.0, 1 - busy / span):.1%}; tile kernel '
+              f'idle {max(0.0, 1 - busy / span):.1%}; kernel '
               f'{occ["registers"]} registers, {occ["local_bytes"]} local '
               f'bytes, {occ["threads"]} threads, {occ["blocks_per_sm"]} '
-              f'block(s) and {occ["warps_per_sm"]} warps per SM, '
-              f'{occ.get("tiles")} tiles of '
-              f'{occ.get("columns")} columns; second kernel '
-              f'{occ.get("adam_registers")} registers', flush=True)
+              f'block(s) and {occ["warps_per_sm"]} warps per SM, {where}',
+              flush=True)
         for name, count, ms in sorted(kernels, key=lambda k: -k[2]):
             print(f'  {name}: {count} launches, {ms:.3f} ms, '
                   f'{ms / count * 1e3:.1f} us each, {ms / busy:.1%}',
@@ -171,12 +189,13 @@ def main(argv) -> int:
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.utils.profiling import bound_ms
     tiles = '--tiles' in argv
+    split = '--rows' in argv  # the row tiles
     prof = '--profile' in argv
     sources = [Path(a) for a in argv if not a.startswith('--')]
     if not sources or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
-    precisions = (False, True) if tiles else (False,)
+    precisions = (False, True) if tiles or split else (False,)
     jobs = [(src, double, *start_build(src, double)) for src in sources
             for double in precisions]
     built = [finish_build(*job) for job in jobs]
@@ -184,16 +203,18 @@ def main(argv) -> int:
                      built[i:i + len(precisions)]))
             for i in range(0, len(built), len(precisions))]
     card = c.card_line()
-    if tiles:
+    alone_name = 'sweep_tile' if tiles else 'sweep_rows_kernel'
+    if tiles or split:
         rows = [(label, (*inputs(s, s.get('seed', 7)), s), T)
-                for label, s, T in tile_shapes()]
+                for label, s, T in (tile_shapes() if tiles else
+                                    row_shapes())]
         calls = 3
     else:
         rows = [(label, (*c.shape_inputs(s, s.get('seed', 7)), s), T)
                 for label, s, T in shapes()]
         calls = 2
     times = [[[] for _ in rows] for _ in libs]
-    alone = [[[] for _ in rows] for _ in libs]  # --tiles: the kernels alone
+    alone = [[[] for _ in rows] for _ in libs]  # the kernels alone
     order = list(range(len(libs)))
     for i in order + order[::-1]:
         sk._libs.update(libs[i])
@@ -202,12 +223,13 @@ def main(argv) -> int:
             call = lambda: sk.sweep(obj, init, lr, T, mask)
             sk.sweep(obj, init, lr, 2, mask)
             times[i][r].append(min(c.timed(call)[1] for _ in range(calls)))
-            if tiles:
-                alone[i][r].append(tile_ms(call))
+            if tiles or split:
+                alone[i][r].append(kernel_ms(call, alone_name))
     print(card)
     for r, (label, (_, _, _, s), T) in enumerate(rows):
         work = c.shape_work(s) if 'dtype' not in s else \
-            c.sweep_work(s['n'], s['k'], dtype=s['dtype'])
+            c.sweep_work(s['n'], s['k'], kind=s.get('kind', 'hst'),
+                         dtype=s['dtype'])
         b_ms, by = bound_ms(work, s['B'], T)
         best = min(min(t[r]) for t in times)
         print(f'{label} T={T}: ' + '; '.join(
@@ -215,10 +237,10 @@ def main(argv) -> int:
             for i in range(len(libs))) +
             (' (kernels alone ' + '; '.join(
                 ' / '.join(f'{ms:.2f}' for ms in alone[i][r])
-                for i in range(len(libs))) + ')' if tiles else '') +
+                for i in range(len(libs))) + ')' if tiles or split else '') +
             f' (bound {b_ms:.3f} ms by {by}, fastest {b_ms / best:.2%})',
             flush=True)
-    if prof and tiles:
+    if prof and (tiles or split):
         for source, lib in zip(sources, libs):
             sk._libs.update(lib)
             print(f'{source}:')

@@ -91,7 +91,36 @@ def test_state_plans_split_by_rows(dtype):
             assert sk.smem_bytes(n, k, NBA, 'state', c // 2, dtype) > LIMIT
         p = uk.plan(n, k, NBA, 0, True, dtype)
         assert p['design'] == 'rows' and p['blocks_per_restart'] == c
-        assert p['threads'] == 256 and p['threads_per_restart'] == 256 * c
+        # split by rows, the vjp's blocks take the row tiles' warps
+        # (kernels/rows.py): 16 in float32, 8 in float64
+        threads = 512 if c > 1 and dtype == F32 else 256
+        assert p['threads'] == threads and \
+            p['threads_per_restart'] == threads * c
+
+
+@pytest.mark.parametrize('dtype', [F32, F64], ids=['float32', 'float64'])
+def test_row_tiles_keep_every_state_plan(dtype):
+    """The warps' design of the row tiles (kernels/rows.py) changes no
+    plan: at k = 2n the sweep's blocks a restart for a state are one block
+    up to 13 qubits in float32 (12 in float64), then 2, 4, 8 and 16 a qubit
+    apart, none past; at k = n, 2n and 4n the vjp's plan agrees with the
+    sweep's, and each split's launch of the row tiles fits a block with
+    the plan's blocks."""
+    top = 17 if dtype == F32 else 16
+    for n in range(2, top + 2):
+        for k in (2 * n, n, 4 * n):
+            c = sk.cluster_plan(n, k, NBA, 'state', dtype)
+            if k == 2 * n:
+                assert c == (None if n > top else 1 if n <= top - 4 else
+                             {top - 3: 2, top - 2: 4, top - 1: 8,
+                              top: 16}[n])
+            assert uk.cluster_plan(n, k, NBA, 0, True, dtype) == c
+            for row in (sk.row_plan(n, k, NBA, dtype),
+                        uk.row_plan(n, k, NBA, dtype)):
+                assert (row is None) == (c is None or c == 1)
+                if row is not None:
+                    assert row['cluster'] == c and \
+                        row['smem_bytes'] <= LIMIT
 
 
 def test_row_tiles_have_at_least_four_rows():
