@@ -229,8 +229,9 @@ with CUDA, and never imports JAX. Phases:
      the row tiles' edges (split_edge_shapes, SPLIT_EDGE_UNITARY: the
      shortest segments, a ring of one gate, lanes past a gate's groups,
      the split qubits back to back, 'xz', 'cz' and 'cx'), each held to its
-     plan's warps, segment and ring, and two launches of the sweep and of
-     the vjp on the same inputs giving the same bits; (b)
+     plan's warps, segment and ring, and two launches of the sweep, of
+     the unitary kernels' forward pass and of their vjp on the same inputs
+     giving the same bits; (b)
      GHZ-14 and GHZ-17 in float32 and GHZ-16 in float64 through
      Synthesize.static from the noisy rows of a warm batch around the
      exact (n - 1)-CZ embedding, each to n - 1 CZ at float64 host state
@@ -256,7 +257,9 @@ with CUDA, and never imports JAX. Phases:
      two launches on the same inputs giving the same bits; (b) the unitary
      kernels at 9, 10 and 11 qubits in both precisions, 12 in float64 and
      13 in float32, against the plain builder under autograd (a float32
-     gradient past 1e-4 held to the plain float64 one); (c)
+     gradient past 1e-4 held to the plain float64 one), the vjp's three
+     kernels (its prologue, the tiles' walk, the sum) each timed, and two
+     launches of each pass on the same inputs giving the same bits; (c)
      Synthesize.static for the 9q CX ladder (8 CZ) in float32 from 32
      random restarts of 2000 steps at k=10, every sweep launch of both
      stages on the column tiles, and in float64 from warm rows around its
@@ -1316,21 +1319,43 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
                 check(theirs == 0, f'{name}: the kernels put the {what} on '
                       f'a cluster of {theirs}, the plan on column tiles')
                 theirs = lib.cpflow_unitary_tiles(n, nb, nba, log_c, int(vjp))
-            rows = uk.row_plan(n, nb, nba, dtype) if vjp and not log_c \
+            rows = uk.row_plan(n, nb, nba, dtype, vjp) if not log_c \
                 else None
-            if rows is not None:  # the row tiles' vjp: its launch's plan
+            if rows is not None:  # the row tiles: the pass's launch's plan
                 got = (ctypes.c_int * 6)()
-                check(lib.cpflow_unitary_row_plan(n, nb, nba, got) == 0,
-                      f'{name}: no row plan for the vjp')
+                check(lib.cpflow_unitary_row_plan(n, nb, nba, int(vjp),
+                                                  got) == 0,
+                      f'{name}: no row plan for the {what}')
                 want = [rows[key] for key in ('threads', 'smem_bytes',
                                               'warps', 'segment', 'ring',
                                               'log_rows')]
                 check(list(got) == want and mine['threads'] == got[0] and
-                      card == uk.smem_bytes(n, nb, nba, log_c, True, c,
+                      card == uk.smem_bytes(n, nb, nba, log_c, vjp, c,
                                             dtype),
                       f'{name}: the row plan says (threads, bytes, warps, '
-                      f'segment, ring, log2 rows) {want}, the kernels '
-                      f'{list(got)}; the plan\'s layout {card} bytes')
+                      f'segment, ring, log2 rows) {want} for the {what}, '
+                      f'the kernels {list(got)}; the plan\'s layout {card} '
+                      f'bytes')
+                card = got[1]
+            if vjp and mine['design'] == 'tiles':  # the vjp's tile kernel
+                got = (ctypes.c_int * 4)()
+                check(lib.cpflow_unitary_tile_layout(n, nb, nba, log_c,
+                                                     got) == 0,
+                      f'{name}: no tile layout for the vjp')
+                w = (1 << n) // c
+                want = [mine['threads'], mine['smem_bytes'], c,
+                        uk.tk.sum_smem_bytes(n, nb, nba, dtype)]
+                work = uk.tk.vjp_workspace(n, nb, nba, c, dtype)
+                check(list(got) == want and card == uk.smem_bytes(
+                          n, nb, nba, log_c, True, c, dtype) and
+                      lib.cpflow_unitary_tile_partials(n, nb, nba,
+                                                       log_c) == work and
+                      mine['threads'] == uk.tk.tile_threads(n, w, dtype),
+                      f'{name}: the tile plan says (threads, bytes, tiles, '
+                      f'sum bytes) {want} and {work} reals of workspace a '
+                      f'restart, the kernels {list(got)} and '
+                      f'{lib.cpflow_unitary_tile_partials(n, nb, nba, log_c)}'
+                      f'; the plan\'s layout {card} bytes')
                 card = got[1]
             check(c == theirs and card == mine['smem_bytes'],
                   f'{name}: the plan says {c} blocks of {mine["smem_bytes"]} '
@@ -1401,6 +1426,15 @@ TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
                ('row_tiles', True): 'vjp_rows_kernel',
                ('tiles', False): 'forward_tiles_kernel',
                ('tiles', True): 'vjp_tiles_kernel'}
+# the kernels (KERNELS names) whose redesign left no local memory, in both
+# builds: the row tiles' and the column tiles' vjp (with its prologue and
+# sum), the row tiles' forward pass
+NO_LOCAL = ('ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
+            'ansatz_vjp_column_tiles')
+# the column tiles' vjp: its three kernels, by KERNELS name and trace name
+TILE_VJP_PARTS = (('ansatz_vjp_tile_gates', 'vjp_tile_gates_kernel'),
+                  ('ansatz_vjp_column_tiles', 'vjp_tiles_kernel'),
+                  ('ansatz_vjp_tile_sum', 'vjp_tile_sum_kernel'))
 
 
 def designs_alone(calls, repeats=20):
@@ -3576,12 +3610,30 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                                           angles, u, g, cols)) if vjp else \
                 (lambda: uk.ansatz_forward(n, 'cp', rot, anz.placements,
                                            angles, cols))
-            alone = device_ms(call, TRACE_NAMES[(
-                'tiles' if columns else 'row_tiles' if tiles else 'rows',
-                vjp)])
-            if columns and vjp and alone is not None:  # and the tiles' sum
-                summed = device_ms(call, 'vjp_tile_sum_kernel')
-                alone = None if summed is None else alone + summed
+            parts = None
+            if columns and vjp:  # the prologue, the tiles' walk, the sum
+                events = device_kernels(call)
+                parts = {}
+                for part, kernel in TILE_VJP_PARTS:
+                    found = [v for key, v in events.items() if kernel in key]
+                    count = sum(c for c, _ in found)
+                    total = sum(t for _, t in found)
+                    parts[part] = dict(
+                        kernel=kernel, device_ms=total / count if count and
+                        total > 0 else None,
+                        registers=regs[part]['registers'],
+                        local_bytes=regs[part]['local_bytes'])
+                got = [v['device_ms'] for v in parts.values()]
+                alone = None if None in got else sum(got)
+            else:
+                alone = device_ms(call, TRACE_NAMES[(
+                    'tiles' if columns else 'row_tiles' if tiles else 'rows',
+                    vjp)])
+            check(kname not in NO_LOCAL or regs[kname]['local_bytes'] == 0
+                  and all(v['local_bytes'] == 0 for v in
+                          (parts or {}).values()),
+                  f'{name}: {kname} uses local memory: {regs[kname]}, '
+                  f'{parts}')
             _, ms = timed(call)
             if vjp:
                 _, plain_ms = timed(lambda: torch.autograd.grad(
@@ -3606,10 +3658,10 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                      else f'{resident} block(s) per SM')
                   + f', {regs[kname]["registers"]} registers, '
                   f'{regs[kname]["local_bytes"]} local bytes'
-                  + (f' (the sum: {regs["ansatz_vjp_tile_sum"]["registers"]} '
-                     f'registers, '
-                     f'{regs["ansatz_vjp_tile_sum"]["local_bytes"]} local '
-                     f'bytes)' if columns and vjp else '')
+                  + (' (' + ', '.join(
+                      f'{v["kernel"]} {v["registers"]} registers, '
+                      f'{v["local_bytes"]} local bytes, {v["device_ms"]} ms'
+                      for v in parts.values()) + ')' if parts else '')
                   + f'; unitary err {eu:.3e}, gradient err {eg:.3e} (tol '
                   f'{tol_u}, {tol_g}){arbiter}; '
                   f'kernel alone (profiler) {alone} ms, one wrapper call '
@@ -3621,7 +3673,8 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                 active_clusters=resident if in_cluster else None, ms=ms,
                 device_ms=alone, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, registers=regs[kname]['registers'],
-                local_bytes=regs[kname]['local_bytes']))
+                local_bytes=regs[kname]['local_bytes'],
+                **({'parts': parts} if parts else {})))
     return errs, rows
 
 
@@ -4116,11 +4169,12 @@ def phase_split(card):
     return errs, rows, launches
 
 
-def phase_split_vjp_bits(shapes):
-    """Phase 20 (a): two launches of the vjp on the same inputs give the same
-    bits at every row of `shapes` (SPLIT_UNITARY's tuples): each warp's
-    share of a gate's cotangent is summed in warp order, the blocks' in rank
-    order."""
+def phase_split_vjp_bits(shapes, label='phase 20 (a)'):
+    """Phase 20 (a) (and 21 (b)): two launches of the forward pass, and two
+    of the vjp, on the same inputs give the same bits at every row of
+    `shapes` (SPLIT_UNITARY's or NINE_UNITARY's tuples): the row tiles sum
+    each warp's share of a gate's cotangent in warp order and the blocks'
+    in rank order, the column tiles sum the tiles' shares in tile order."""
     import torch
     from cpflow_tpu_torch.api import Ansatz
     from cpflow_tpu_torch.kernels import unitary as uk
@@ -4130,14 +4184,18 @@ def phase_split_vjp_bits(shapes):
         dtype = getattr(torch, dname)
         anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
         angles = uniform_inits(anz.num_angles, B, 20, 'cuda').to(dtype)
-        u = uk.ansatz_forward(n, 'cp', rot, anz.placements, angles, cols)
+        u, u2 = (uk.ansatz_forward(n, 'cp', rot, anz.placements, angles,
+                                   cols) for _ in range(2))
+        check(torch.equal(u, u2), f'{n}q k={k} {dname}: two forward '
+              f'launches on the same inputs differ')
+        del u2
         g = torch.randn(u.shape, dtype=u.dtype, device='cuda', generator=gen)
         a, b = (uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g,
                               cols) for _ in range(2))
         check(torch.equal(a, b), f'{n}q k={k} {dname}: two vjp launches on '
               f'the same inputs differ')
-    print(f'phase 20 (a): two vjp launches on the same inputs gave the same '
-          f'bits at all {len(shapes)} rows', flush=True)
+    print(f'{label}: two forward and two vjp launches on the same inputs '
+          f'gave the same bits at all {len(shapes)} rows', flush=True)
 
 
 def refuse_beyond_plans():
@@ -4636,7 +4694,8 @@ def phase_nine(card):
     on the column tiles. (a) the sweep kernel at nine_shapes against its
     plain version (phase_sixteen_sweeps) and two launches on the same inputs
     (phase_nine_bits); (b) the unitary kernels at NINE_UNITARY against the
-    plain builder (phase_sixteen_unitary); (c) Synthesize.static for the 9q
+    plain builder (phase_sixteen_unitary), and two launches of each on the
+    same inputs (phase_split_vjp_bits); (c) Synthesize.static for the 9q
     CX ladder in float32 from random restarts (phase_ladder9) and in float64
     from warm rows (phase_ladder9_warm); (d) a custom loss at 9q in float64
     and at 10q in float32 through the unitary kernels' tiles
@@ -4653,6 +4712,7 @@ def phase_nine(card):
         card, shapes, 'phase 21 (a)')
     phase_nine_bits(shapes)
     errs, rows = phase_sixteen_unitary(card, NINE_UNITARY, 'phase 21 (b)')
+    phase_split_vjp_bits(NINE_UNITARY, 'phase 21 (b)')
     errs.update(sweep_column_tiles=worst32, sweep_column_tiles_f64=worst64)
     rows.update(sweep_column_tiles=rows32, sweep_column_tiles_f64=rows64)
     launches = {'sweep_column_tiles': {'static_ladder9': phase_ladder9()},
@@ -4897,6 +4957,8 @@ def main() -> int:
             'plain_ms': rows[0]['plain_ms'], 'bound_ms': rows[0]['bound_ms'],
             'bound_by': rows[0]['bound_by'], 'library_ms': None,
             'tiles': sorted({r.get('tiles', r['cluster']) for r in rows}),
+            # the vjp's three kernels (prologue, walk, sum) at its first row
+            **({'parts': rows[0]['parts']} if 'parts' in rows[0] else {}),
             'shapes': rows})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

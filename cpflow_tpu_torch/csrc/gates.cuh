@@ -609,100 +609,10 @@ __device__ __forceinline__ void angle_grads(const Template& t, int n, int G,
 // A state's one column split by rows over a cluster of c = 2^j blocks: the
 // block of rank rho holds rows [rho d / c, (rho + 1) d / c) as its tile of
 // 2^log_rows rows (log_rows = n - j), so the top j row bits, qubits
-// 0 ... j - 1, name the block. The forward pass of unitary.cu
-// (forward_rows_kernel) runs the chain below: a gate whose legs lie on the
-// tile's bits runs on each block's own tile as forward_chain runs it (with
-// n = log_rows), followed by a block barrier; a gate with a leg on a split
-// bit runs its groups over the whole cluster, between two cluster barriers:
-// the block of rank rho takes the rho-th c-th of the groups, and each group
-// is read and written by one thread, through distributed shared memory
-// where a row lies in another block. The sweep's row tiles and the vjp's
-// (sweep_rows_kernel, vjp_rows_kernel) run the warps' design of rows.cuh
-// instead.
-
-// Whether a K-qubit gate on row bits sa(, sb) has a leg on a split bit.
-template <int K>
-__device__ __forceinline__ bool on_split_bit(int log_rows, int sa, int sb) {
-  return sa >= log_rows || (K == 2 && sb >= log_rows);
-}
-
-// The address of global row r of a state split by rows: row r mod 2^log_rows
-// of the tile of the block of rank r / 2^log_rows.
-__device__ __forceinline__ cplx* row_in_cluster(cplx* X, int r, int log_rows) {
-  return cooperative_groups::this_cluster().map_shared_rank(
-      X + (r & ((1 << log_rows) - 1)), r >> log_rows);
-}
-
-// A <- G A on a gate with a leg on a split bit, over the cluster.
-template <int K>
-__device__ inline void apply_forward_split(cplx* A, const cplx* gsm, int n,
-                                           int log_rows, int sa, int sb) {
-  constexpr int D = 1 << K;
-  cplx G[D * D];
-#pragma unroll
-  for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
-  const int per = ((1 << n) >> K) >> (n - log_rows);  // groups a block
-  const int first =
-      (int)cooperative_groups::this_cluster().block_rank() * per;
-  for (int g = first + threadIdx.x; g < first + per; g += blockDim.x) {
-    int idx[D];
-    group_rows<K>(g, 0, sa, sb, idx);
-    cplx* at[D];
-    cplx a[D];
-#pragma unroll
-    for (int p = 0; p < D; ++p) {
-      at[p] = row_in_cluster(A, idx[p], log_rows);
-      a[p] = *at[p];
-    }
-#pragma unroll
-    for (int p = 0; p < D; ++p) {
-      cplx acc = mkc(RL(0.), RL(0.));
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], a[k]));
-      *at[p] = acc;
-    }
-  }
-}
-
-// One gate of the forward chain on a state split by rows, with its
-// barriers: a gate on the tile's bits then a block barrier; one on a split
-// bit after a cluster barrier (unless the last gate ended with one, *synced)
-// and before another.
-template <int K>
-__device__ __forceinline__ void gate_rows(cplx* A, const cplx* gsm, int n,
-                                          int log_rows, int sa, int sb,
-                                          bool* synced) {
-  namespace cg = cooperative_groups;
-  if (on_split_bit<K>(log_rows, sa, sb)) {
-    if (!*synced) cg::this_cluster().sync();
-    apply_forward_split<K>(A, gsm, n, log_rows, sa, sb);
-    cg::this_cluster().sync();
-    *synced = true;
-  } else {
-    apply_forward<K>(A, gsm, log_rows, 0, sa, sb);
-    __syncthreads();
-    *synced = false;
-  }
-}
-
-// forward_chain on a state split by rows over the cluster, each block
-// holding a tile of 2^log_rows rows. Begins with a cluster barrier if the
-// first gate has a leg on a split bit; ends with a barrier, a cluster
-// barrier after the last such gate, so that no block reads another's tile
-// after it.
-__device__ __forceinline__ void forward_chain_rows(cplx* A,
-                                                   const cplx* gates,
-                                                   const int* placements,
-                                                   int n, int nb,
-                                                   int log_rows) {
-  bool synced = false;
-  for (int q = 0; q < n; ++q)
-    gate_rows<1>(A, gates + 16 * q, n, log_rows, n - 1 - q, 0, &synced);
-  for (int b = 0; b < nb; ++b) {
-    const int q0 = placements[2 * b], q1 = placements[2 * b + 1];
-    gate_rows<2>(A, gates + 16 * (n + b), n, log_rows, n - 1 - q0,
-                 n - 1 - q1, &synced);
-  }
-}
+// 0 ... j - 1, name the block, and a gate with a leg on one of them crosses
+// blocks. Every kernel of the row tiles (sweep.cu's sweep_rows_kernel,
+// unitary.cu's forward_rows_kernel and vjp_rows_kernel) runs the warps'
+// design of rows.cuh: each block's rows owned by its warps, and the bits a
+// gate needs brought onto a warp's own rows by swaps beforehand.
 
 }  // namespace

@@ -31,7 +31,10 @@
 // ends on the identity, so that the chain leaves the state in natural order
 // (the loss reads the target as it is) and the walk starts from it (the
 // vjp loads U as it is); it starts wherever the schedule needs, and e_0, the
-// chain's input, is row 0 under every permutation.
+// chain's input, is row 0 under every permutation. The forward pass's
+// table (forward_rows_kernel) starts with the surface round already done:
+// from e_0 it leaves a product state, which row_product writes in the
+// table's first permutation, so that no bit is swapped for it.
 //
 // The walk's cotangents. A warp sums its lanes' shares of a gate's 32 reals
 // by shuffles (columns.cuh's reduce_step, in registers: no local memory)
@@ -180,6 +183,39 @@ __device__ __forceinline__ void row_swap(cplx* A, cplx* M, int s, int b,
 }
 
 // ------------------------------------------------ the chain and the walk
+// The state the surface round leaves from e_0, forward_rows_kernel's start
+// (the first n ops of its table, kernels/rows.py:schedule with forward):
+// a product of each qubit's amplitudes, the first column of its surface
+// gate, qubit n - 1 - ops[v].z on row bit v. Each warp fills its own
+// segment, lane l its rows l, l + 32, ...: the factors of the bits a
+// lane's rows share once, the others' a row. The caller's warp barrier
+// follows.
+__device__ __forceinline__ void row_product(cplx* A, const cplx* gates,
+                                            const int4* ops, int n,
+                                            const RowPlan& p, int log_rows,
+                                            int rank) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int low = p.seg < 5 ? p.seg : 5;  // the bits that name a lane
+  if (lane >= 1 << low) return;
+  const int row0 = (rank << log_rows) | (warp << p.seg) | lane;
+  cplx c = mkc(RL(1.), RL(0.));
+  for (int v = 0; v < n; ++v) {
+    if (v >= low && v < p.seg) continue;
+    const int q = n - 1 - __ldg(&ops[v].z);
+    c = cmul(c, gates[16 * q + 2 * ((row0 >> v) & 1)]);
+  }
+  cplx* X = A + (warp << p.seg);
+  for (int i = 0; i < 1 << (p.seg - low); ++i) {
+    const int e = lane | (i << low);
+    cplx a = c;
+    for (int v = low; v < p.seg; ++v) {
+      const int q = n - 1 - __ldg(&ops[v].z);
+      a = cmul(a, gates[16 * q + 2 * ((e >> v) & 1)]);
+    }
+    X[e] = a;
+  }
+}
+
 // A <- G_{G-1} ... G_0 A on the block's row tile: the schedule's ops in
 // order, each gate on its warp's segment, a warp barrier after it. Ends with
 // a block barrier.

@@ -311,4 +311,60 @@ __device__ __forceinline__ real sum_fixed(const real* p, int count,
   return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
+// The walk on a column by its warps, last gate first (tile_backward): every
+// warp's sum of each gate's cotangent share into its ring slot, and every
+// kTileRing gates the slots summed into out (tile_flush). unitary.cu's vjp
+// tiles call it and the next; sweep.cu's sweep_tile_kernel has the same
+// lines inline, where moving them here changed its machine code.
+__device__ __forceinline__ void tile_walk(cplx* X, cplx* Y, const cplx* gates,
+                                          const int2* bits, real* ring,
+                                          real* out, int n, int G, int col,
+                                          int gw, int gl, int gL, int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = G - 1; j >= n; --j) {
+    real gb[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
+    tile_backward<2>(X, Y, gates + 16 * j, n, bits[j].x, bits[j].y, gl, gL,
+                     gb);
+    int base = 0;
+    reduce_step<16, 32>(gb, lane, base, kFull);
+    ring[(warp * kTileRing + j % kTileRing) * 32 + base] = gb[0];
+    column_sync(col, gw);
+    if (j % kTileRing == 0) tile_flush(ring, out, j, n, G, nw);
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    real gb[32];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gb[e] = RL(0.);
+    tile_backward<1>(X, Y, gates + 16 * j, n, bits[j].x, 0, gl, gL, gb);
+    int base = 0;
+    reduce_step<16, 8>(gb, lane, base, kFull);
+    if ((lane & 3) == 0)
+      ring[(warp * kTileRing + j % kTileRing) * 32 + base] = gb[0];
+    column_sync(col, gw);
+    if (j % kTileRing == 0) tile_flush(ring, out, j, n, G, nw);
+  }
+}
+
+// Past kTileSegment tiles a restart: the last tile of segment `seg` to
+// finish (an atomic count) adds the segment's kTileSegment tiles' shares, E
+// reals each at stride E from parts, in tile order into out (sum_fixed), and
+// sets the count back to 0. `last` is a flag in shared memory. Ends the
+// block's work.
+__device__ __forceinline__ void tile_segment_sum(const real* parts,
+                                                 real* out, unsigned* count,
+                                                 int* last, int E) {
+  const int tid = threadIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(count, 1u) == kTileSegment - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < E; i += blockDim.x)
+    out[i] = sum_fixed(parts + i, kTileSegment, E);
+  if (tid == 0) *count = 0;
+}
+
 }  // namespace

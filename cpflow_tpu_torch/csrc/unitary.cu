@@ -63,13 +63,12 @@
 // in rank order before the angle gradients, and rank 0 writes them. One
 // column has too few columns to share out: above 13 qubits (12 in double)
 // its rows are split instead, d / c a block (gates.cuh, row tiles), and
-// both passes become clusters (forward_rows_kernel, vjp_rows_kernel). The
-// forward pass's blocks meet at every gate with a leg on a split row bit;
-// the vjp's rows are owned by warps (rows.cuh), which run each gate on a
-// warp's own segment and swap in the bits a gate needs from outside it,
-// inside the block or with another block, as the wrapper's table says
-// (kernels/rows.py), and it sums its cotangents as the tiles of columns
-// do. The vjp splits a qubit
+// both passes become clusters (forward_rows_kernel, vjp_rows_kernel). In
+// both, each block's rows are owned by its warps (rows.cuh), which run each
+// gate on a warp's own segment and swap in the bits a gate needs from
+// outside it, inside the block or with another block, as the wrapper's
+// table for the pass's segment says (kernels/rows.py); the vjp sums its
+// cotangents as the tiles of columns do. The vjp splits a qubit
 // sooner than the forward pass, which holds no M: at k = 2n 'xyz' 14, 15,
 // 16, 17 qubits take 2, 4, 8, 16 blocks in the vjp and 1, 2, 4, 8 in the
 // forward pass. A cluster of 16 is non-portable: each cluster kernel is
@@ -83,9 +82,10 @@
 // on 2^j independent blocks, no cluster, the fewest tiles that fit
 // (tile_log; the vjp's tiles of 16, 8 and 4 columns at 9, 10 and 11 qubits
 // in float, 8, 4 and 2 in double). The forward pass's tiles never meet; the
-// vjp's meet in the sum of the gates' cotangents, which a second kernel
-// forms in tile order from shares the tiles leave in global memory (the
-// column tiles section below).
+// vjp's run the design of tiles.cuh (a tile's columns owned by warps, the
+// gates built once a call by a prologue) and meet in the sum of the gates'
+// cotangents, which a last kernel forms in a fixed order from shares the
+// tiles leave in global memory (the column tiles section below).
 //
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
@@ -104,8 +104,9 @@
 // takes 16 blocks (up to k = 125 'xyz' blocks), and one column fits one
 // block up to 12 qubits (13 in float) and 16 blocks up to 16 (17 in
 // float).
-// Its kernels hold 122 to 254 registers, the column ones with no local
-// memory (their cos and sin from gates.cuh's real_sincos).
+// Its kernels hold 122 to 254 registers, the column ones, the row tiles'
+// and the column tiles' vjp with no local memory (their cos and sin from
+// gates.cuh's real_sincos).
 //
 // The design is an explicit argument of the launch; kernels/unitary.py
 // passes the plan's (cpflow_unitary_design), which it mirrors for the
@@ -129,7 +130,7 @@ struct Args {
   int restarts;           // restarts a block (column design)
 };
 
-// vjp_rows_kernel's arguments: the row schedule (rows.cuh; the wrapper's
+// The row tiles' arguments: the row schedule (rows.cuh; the wrapper's
 // table, nops int4 of it in device memory) and the row tiles' plan.
 struct RowArgs : Args {
   const int4* ops;
@@ -201,6 +202,22 @@ __host__ __device__ inline Layout row_layout(int n, int nb, int nba,
   return L;
 }
 
+// The layout of forward_rows_kernel, one column split by rows over the
+// cluster of 2^cluster_log blocks that cluster_plan picks for the forward
+// pass: make_layout's, whose bytes decide the plan, with the row tiles'
+// warps (rows.cuh: row_plan, which *plan receives) and no ring, for the
+// chain sums no cotangent.
+__host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
+                                                     int cluster_log,
+                                                     RowPlan* plan) {
+  Layout L = make_layout(n, nb, nba, 0, cluster_log, false);
+  *plan = row_plan(n - cluster_log, ~(size_t)0);
+  plan->ring = 0;
+  L.nt = 32 * plan->warps;
+  L.nw = plan->warps;
+  return L;
+}
+
 // The restart's angles into shared memory, their cos and sin (with kRows
 // without local memory, rows.cuh), the gates. Ends with a barrier.
 template <bool kRows = false>
@@ -229,11 +246,8 @@ __device__ __forceinline__ int whole_entry(int e, int lc, int lt, int n,
   return tile_to_global(e, lc, lt, rank);
 }
 
-// Block blockIdx.x holds the tile of rank blockIdx.x mod c of restart
-// blockIdx.x / c. Tiles of columns need nothing of each other; tiles of the
-// rows of one column (kRows) form a cluster, which meets at every gate with
-// a leg on a split bit.
-template <bool kRows>
+// Block blockIdx.x holds the tile of columns of rank blockIdx.x mod c of
+// restart blockIdx.x / c. The tiles need nothing of each other.
 __device__ __forceinline__ void forward_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
@@ -249,22 +263,19 @@ __device__ __forceinline__ void forward_body(const Args& a) {
   // the identity's first C columns, row-major d x C, the block's tile of
   // them
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int g = whole_entry<kRows>(e, lc, lt, a.n, rank);
+    const int g = whole_entry<false>(e, lc, lt, a.n, rank);
     A[e] = mkc((g >> lc) == (g & ((1 << lc) - 1)) ? RL(1.) : RL(0.), RL(0.));
   }
   load_gates(a, L, b, params, cs, gates);
-  if constexpr (kRows)
-    forward_chain_rows(A, gates, a.placements, a.n, a.nb, a.n + lt);
-  else
-    forward_chain(A, gates, a.placements, a.n, a.nb, lt);
+  forward_chain(A, gates, a.placements, a.n, a.nb, lt);
   cplx* out = a.U + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x)
-    out[whole_entry<kRows>(e, lc, lt, a.n, rank)] = A[e];
+    out[whole_entry<false>(e, lc, lt, a.n, rank)] = A[e];
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
 forward_kernel(Args a) {
-  forward_body<false>(a);
+  forward_body(a);
 }
 
 // kCluster: the restart split over the blocks of a cluster, by columns, or
@@ -321,10 +332,37 @@ vjp_kernel(Args a) {
   vjp_body<kCluster, false>(a);
 }
 
-// The row tiles' kernels: one column split by rows over a cluster.
-__global__ void __launch_bounds__(kMaxThreads)
-forward_rows_kernel(Args a) {
-  forward_body<true>(a);
+// The row tiles' kernels: one column split by rows over a cluster, each
+// block's rows owned by its warps (rows.cuh). The forward pass runs the
+// chain on the wrapper's table (its forward form: n start ops, then the
+// blocks') from e_0: the surface round's product state in the table's
+// first permutation (row_product), then the blocks, to U's column in
+// natural order (the table ends on the identity), which each block stores
+// 16 bytes a copy.
+__global__ void __launch_bounds__(kRowThreads, 1)
+forward_rows_kernel(RowArgs ra) {
+  const Args& a = ra;
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowPlan plan;
+  const Layout L =
+      forward_row_layout(a.n, a.nb, a.tpl.nba, a.cluster_log, &plan);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int log_rows = a.n - a.cluster_log;
+  const int b = blockIdx.x >> a.cluster_log;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  load_gates<true>(a, L, b, params, cs, gates);
+  row_product(A, gates, ra.ops, a.n, ra.plan, log_rows, rank);
+  __syncwarp();
+  row_chain(A, gates, ra.ops + a.n, ra.nops - a.n, a.n, ra.plan, log_rows,
+            rank);
+  const Vec16* from = reinterpret_cast<const Vec16*>(A);
+  Vec16* to = reinterpret_cast<Vec16*>(a.U + ((size_t)b << a.n) +
+                                       ((size_t)rank << log_rows));
+  for (int e = threadIdx.x; e < (1 << log_rows) / kPer16; e += blockDim.x)
+    to[e] = from[e];
 }
 
 // each block's rows owned by its warps (rows.cuh)
@@ -436,85 +474,225 @@ column_vjp(Args a) {
 // (tile_log), each on a block of its own with no cluster. The forward pass
 // needs nothing more: its tiles never meet (forward_tiles_kernel, the row-
 // split forward body on 2^j tiles). The vjp's tiles meet only in the sum of
-// each gate's cotangent: vjp_tiles_kernel walks each tile and writes its
-// share of every gate's cotangent to global memory, and vjp_tile_sum_kernel,
-// a block a restart, sums the shares in tile order (so that no bit depends
-// on the order the blocks ran in), then forms the angle gradients.
+// each gate's cotangent, and run the design of tiles.cuh, as sweep.cu's
+// column tiles do; a call enqueues three kernels:
+//   vjp_tile_gates_kernel, a block a restart: the cos and sin of its angles
+//     and its gate matrices into the workspace, and its segments' counts
+//     set to 0;
+//   vjp_tiles_kernel, a block a (restart, tile): the gates by one bulk copy,
+//     the tile's A = U and M = conj(Ubar) / 2 column-major, the walk on each
+//     column by its own warps with no block barrier or cross-warp sum
+//     between gates, each gate's cotangent share summed by shuffles into the
+//     ring and every kTileRing gates the tile's shares into the workspace;
+//     past kTileSegment tiles the last tile of each segment to finish (an
+//     atomic count) adds the segment's shares in tile order;
+//   vjp_tile_sum_kernel, a block a restart: the tiles' shares (or the
+//     segments' sums) added in a fixed order, an entry a thread, and the
+//     angle gradients from the gates and the cos and sin the prologue left.
+// Every sum runs in a fixed order, so that no bit depends on the order the
+// blocks ran in.
 
 struct TileArgs {
-  Args a;          // cluster_log: log2 of the tiles a restart
-  real* partials;  // (B, tiles, 32 G): each tile's share of the cotangents
+  Args a;      // cluster_log: log2 of the tiles a restart
+  real* work;  // the vjp's workspace (vjp_work), B restarts' of it
 };
 
+// The vjp's workspace of a restart on 2^tile_log tiles, offsets in reals
+// from the restart's start, restart b's at b * per: its gate matrices (32 G
+// reals, first, so that they are 16-byte aligned for the bulk copy), the
+// cos and sin of its angles (2 P), each tile's shares of the gates'
+// cotangents (E = 32 G reals), each segment's sums (S segments; none at
+// kTileSegment tiles or fewer, where the sum kernel adds the tiles'
+// shares itself) and one count (an unsigned int) a segment; per rounded up
+// to 16 bytes.
+struct VjpWork {
+  int G, P, E, Q, S;
+  size_t cs, parts, segs, counts, per;
+};
+
+__host__ __device__ inline VjpWork vjp_work(int n, int nb, int nba,
+                                            int tile_log) {
+  VjpWork W;
+  W.G = n + nb;
+  W.P = 3 * n + nba * nb;
+  W.E = 32 * W.G;
+  W.Q = 1 << tile_log;
+  W.S = W.Q > kTileSegment ? W.Q / kTileSegment : 0;
+  W.cs = (size_t)32 * W.G;
+  W.parts = W.cs + (size_t)2 * W.P;
+  W.segs = W.parts + (size_t)W.Q * W.E;
+  W.counts = W.segs + (size_t)W.S * W.E;
+  const size_t end = W.counts + ((size_t)W.S * sizeof(unsigned) +
+                                 sizeof(real) - 1) / sizeof(real);
+  constexpr size_t r16 = 16 / sizeof(real);
+  W.per = (end + r16 - 1) / r16 * r16;
+  return W;
+}
+
+// Shared memory of the prologue and the sum kernel: the gates (at offset
+// 0), their cotangents, the gradient, the angles and their cos and sin.
+struct SumLayout {
+  size_t off_gbar, off_grad, off_params, off_cs, bytes;
+};
+
+__host__ __device__ inline SumLayout sum_layout(int G, int P) {
+  SumLayout L;
+  size_t o = (size_t)G * 16 * sizeof(cplx);
+  L.off_gbar = o;    o += (size_t)G * 32 * sizeof(real);
+  L.off_grad = o;    o += (size_t)P * sizeof(real);
+  L.off_params = o;  o += (size_t)P * sizeof(real);
+  L.off_cs = o;      o += (size_t)2 * P * sizeof(real);
+  L.bytes = o;
+  return L;
+}
+
 // log2 of the fewest tiles of the whole unitary's columns (log_c = n) whose
-// layout fits a block; -1 for one column or if none fits.
+// make_layout fits a block (the rule of the first tile kernels), and for
+// the vjp whose tile kernel's own layout (tiles.cuh) fits with a warp for
+// every column; -1 for one column or if none fits.
 inline int tile_log(int n, int nb, int nba, int log_c, bool vjp) {
   if (!log_c) return -1;
   for (int j = 0; j <= log_c; ++j)
-    if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit) return j;
+    if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit &&
+        (!vjp || ((32 << (n - j)) <= kTileThreads &&
+                  tile_layout(n, nb, n - j).bytes <= kSmemLimit)))
+      return j;
   return -1;
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
 forward_tiles_kernel(Args a) {
-  forward_body<false>(a);
+  forward_body(a);
 }
 
-// Block blockIdx.x holds tile blockIdx.x mod 2^j of restart blockIdx.x / 2^j.
+// The vjp's prologue: restart blockIdx.x's cos and sin (without local
+// memory, rows.cuh) and gate matrices into its workspace, its segments'
+// counts set to 0.
 __global__ void __launch_bounds__(kMaxThreads)
+vjp_tile_gates_kernel(TileArgs ta) {
+  const Args& a = ta.a;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const VjpWork W = vjp_work(a.n, a.nb, a.tpl.nba, a.cluster_log);
+  const SumLayout L = sum_layout(W.G, W.P);
+  cplx* gates = reinterpret_cast<cplx*>(smem);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int b = blockIdx.x;
+  real* work = ta.work + (size_t)b * W.per;
+  for (int i = threadIdx.x; i < W.P; i += blockDim.x)
+    params[i] = a.angles[(size_t)i * a.B + b];
+  __syncthreads();
+  row_angle_trig(a.tpl, a.n, W.P, params, cs);
+  __syncthreads();
+  build_gates(a.tpl, a.n, W.G, cs, gates);
+  __syncthreads();
+  const real* g = reinterpret_cast<const real*>(gates);
+  for (int i = threadIdx.x; i < 32 * W.G; i += blockDim.x) work[i] = g[i];
+  for (int i = threadIdx.x; i < 2 * W.P; i += blockDim.x)
+    work[W.cs + i] = cs[i];
+  unsigned* counts = reinterpret_cast<unsigned*>(work + W.counts);
+  for (int i = threadIdx.x; i < W.S; i += blockDim.x) counts[i] = 0;
+}
+
+// Block blockIdx.x holds tile t = blockIdx.x mod 2^j of restart
+// blockIdx.x / 2^j: the walk on its columns, its shares into the workspace.
+__global__ void __launch_bounds__(kTileThreads, 1)
 vjp_tiles_kernel(TileArgs ta) {
   const Args& a = ta.a;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
-                               true);
+  const int n = a.n, tl = a.cluster_log, lw = n - tl;
+  const TileLayout L = tile_layout(n, a.nb, lw);
+  const VjpWork W = vjp_work(n, a.nb, a.tpl.nba, tl);
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
-  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
-  real* red = reinterpret_cast<real*>(smem + L.off_red);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
-  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
-  const int b = blockIdx.x >> a.cluster_log;
-  const int t = blockIdx.x & ((1 << a.cluster_log) - 1);
-  const cplx* u = a.U + ((size_t)b << (a.n + lc));
-  const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
-  for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int at = tile_to_global(e, lc, lt, t);
-    A[e] = u[at];
-    const cplx x = g[at];
-    M[e] = mkc(RL(0.5) * x.x, RL(-0.5) * x.y);  // M = conj(g) / 2
+  real* ring = reinterpret_cast<real*>(smem + L.off_ring);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.off_bar);
+  int* last = reinterpret_cast<int*>(smem + L.off_bar + 8);
+  int2* bits = reinterpret_cast<int2*>(smem + L.off_bits);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x >> tl, t = blockIdx.x & (W.Q - 1);
+  const int d = L.d, w = L.w, S = L.S, G = L.G;
+  real* work = ta.work + (size_t)b * W.per;
+
+  // the restart's gates, one bulk copy; meanwhile each gate's row bits and
+  // the tile's A = U and M = conj(Ubar) / 2, read row by row in runs of w
+  if (tid == 0) mbar_init(bar);
+  __syncthreads();
+  if (tid == 0)
+    bulk_load(gates, work, (unsigned)(G * 16 * sizeof(cplx)), bar);
+  for (int j = tid; j < G; j += nt)
+    bits[j] = j < n ? make_int2(n - 1 - j, 0)
+                    : make_int2(n - 1 - __ldg(&a.placements[2 * (j - n)]),
+                                n - 1 - __ldg(&a.placements[2 * (j - n) + 1]));
+  const cplx* u = a.U + ((size_t)b << (2 * n)) + (t << lw);
+  const cplx* g = a.Ubar + ((size_t)b << (2 * n)) + (t << lw);
+  for (int e = tid; e < w * d; e += nt) {
+    const int r = e >> lw, c = e & (w - 1);
+    const size_t at = ((size_t)r << n) + c;
+    A[c * S + r] = __ldg(u + at);
+    const cplx x = __ldg(g + at);
+    M[c * S + r] = mkc(RL(0.5) * x.x, RL(-0.5) * x.y);
   }
-  load_gates(a, L, b, params, cs, gates);
-  adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
-  real* out = ta.partials + (size_t)blockIdx.x * 32 * L.G;
-  for (int i = threadIdx.x; i < 32 * L.G; i += blockDim.x) out[i] = gbar[i];
+  mbar_wait(bar, 0);
+  __syncthreads();
+
+  // the walk, last gate first, each column by its warps: every warp's sum
+  // of each gate's cotangent share into its ring slot, and every kTileRing
+  // gates the slots summed into the tile's shares
+  const int gw = L.gw, col = warp / gw;
+  const int gl = (warp % gw) * 32 + lane, gL = 32 * gw;
+  cplx* X = A + col * S;
+  cplx* Y = M + col * S;
+  real* out = work + W.parts + (size_t)t * W.E;
+  tile_walk(X, Y, gates, bits, ring, out, n, G, col, gw, gl, gL, L.nw);
+  if (W.S == 0) return;
+  const int seg = t / kTileSegment;
+  tile_segment_sum(work + W.parts + (size_t)seg * kTileSegment * W.E,
+                   work + W.segs + (size_t)seg * W.E,
+                   reinterpret_cast<unsigned*>(work + W.counts) + seg, last,
+                   W.E);
 }
 
-// Block b: restart b's tiles' shares summed in tile order, then its angle
-// gradients, as vjp_body forms them.
+// sum_fixed for 4 values or more; 1 or 2 in order (the same sum), with no
+// dynamic index into sum_fixed's running sums, which the double build
+// kept in local memory.
+__device__ __forceinline__ real sum_tiles(const real* p, int count,
+                                          size_t stride) {
+  if (count >= 4) return sum_fixed(p, count, stride);
+  real s = __ldcg(p);
+  for (int q = 1; q < count; ++q) s += __ldcg(p + (size_t)q * stride);
+  return s;
+}
+
+// Restart blockIdx.x's angle gradients: its tiles' shares (or its segments'
+// sums, in segment order) added in a fixed order, an entry a thread, then
+// angle_grads on the gates and the cos and sin of its workspace.
 __global__ void __launch_bounds__(kMaxThreads)
 vjp_tile_sum_kernel(TileArgs ta) {
   const Args& a = ta.a;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
-                               true);
-  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  const VjpWork W = vjp_work(a.n, a.nb, a.tpl.nba, a.cluster_log);
+  const SumLayout L = sum_layout(W.G, W.P);
+  cplx* gates = reinterpret_cast<cplx*>(smem);
   real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
   real* grad = reinterpret_cast<real*>(smem + L.off_grad);
   real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  const int b = blockIdx.x, tiles = 1 << a.cluster_log, len = 32 * L.G;
-  const real* part = ta.partials + (size_t)b * tiles * len;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    real s = RL(0.);
-    for (int q = 0; q < tiles; ++q) s += part[(size_t)q * len + i];
-    gbar[i] = s;
-  }
-  load_gates(a, L, b, params, cs, gates);
-  angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
+  const int b = blockIdx.x;
+  const real* work = ta.work + (size_t)b * W.per;
+  real* g = reinterpret_cast<real*>(gates);
+  for (int i = threadIdx.x; i < 32 * W.G; i += blockDim.x) g[i] = work[i];
+  for (int i = threadIdx.x; i < 2 * W.P; i += blockDim.x)
+    cs[i] = work[W.cs + i];
+  const int count = W.S ? W.S : W.Q;
+  const real* part = work + (W.S ? W.segs : W.parts);
+  for (int i = threadIdx.x; i < W.E; i += blockDim.x)
+    gbar[i] = sum_tiles(part + i, count, W.E);
   __syncthreads();
-  for (int i = threadIdx.x; i < L.P; i += blockDim.x)
+  angle_grads(a.tpl, a.n, W.G, cs, gates, gbar, grad);
+  __syncthreads();
+  for (int i = threadIdx.x; i < W.P; i += blockDim.x)
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
@@ -522,10 +700,11 @@ vjp_tile_sum_kernel(TileArgs ta) {
 // columns (the row-split design); 3 + n - 2 the column forward pass at n
 // qubits, 8 + n - 2 the column vjp; 13 the forward pass, 14 the vjp's walk
 // and 15 its sum on the column tiles; 16 forward and 17 vjp of one column
-// split by rows over a cluster (the row-split design's row tiles).
-constexpr int kKernels = 8 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+// split by rows over a cluster (the row-split design's row tiles); 18 the
+// column tiles' vjp prologue.
+constexpr int kKernels = 9 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
 constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
-constexpr int kForwardRows = 16, kVjpRows = 17;
+constexpr int kForwardRows = 16, kVjpRows = 17, kVjpTileGates = 18;
 const void* kernel_of(int which) {
   const void* kernels[kKernels] = {
       (const void*)forward_kernel,       (const void*)vjp_kernel<false>,
@@ -536,7 +715,8 @@ const void* kernel_of(int which) {
       (const void*)column_vjp<4>,        (const void*)column_vjp<5>,
       (const void*)column_vjp<6>,        (const void*)forward_tiles_kernel,
       (const void*)vjp_tiles_kernel,     (const void*)vjp_tile_sum_kernel,
-      (const void*)forward_rows_kernel,  (const void*)vjp_rows_kernel};
+      (const void*)forward_rows_kernel,  (const void*)vjp_rows_kernel,
+      (const void*)vjp_tile_gates_kernel};
   return kernels[which];
 }
 
@@ -616,8 +796,9 @@ bool plan_launch(RowArgs& a, int vjp, int design, Launch& out) {
   if (a.cluster_log < 0) return false;
   const bool tiles = a.log_c == 0 && a.cluster_log > 0;  // of rows
   const Layout L =
-      tiles && vjp ? row_layout(n, nb, nba, a.cluster_log, &a.plan)
-                   : make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0);
+      !tiles ? make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0)
+      : vjp  ? row_layout(n, nb, nba, a.cluster_log, &a.plan)
+             : forward_row_layout(n, nb, nba, a.cluster_log, &a.plan);
   const bool cluster = tiles || (vjp && a.cluster_log > 0);
   out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 + cluster : 0;
   out.threads = L.nt;
@@ -709,22 +890,43 @@ int cpflow_unitary_tiles(int n, int num_blocks, int nba, int log_c,
   return log < 0 ? 0 : 1 << log;
 }
 
-// The reals of the partials buffer each restart of the vjp needs on the
-// column tiles: tiles x 32 G; 0 where they do not take the shape.
+// The reals of the workspace each restart of the vjp needs on the column
+// tiles (vjp_work: its gates, the cos and sin of its angles, its tiles'
+// shares, its segments' sums and counts); 0 where they do not take the
+// shape.
 long long cpflow_unitary_tile_partials(int n, int num_blocks, int nba,
                                        int log_c) {
   const int log = tile_log(n, num_blocks, nba, log_c, true);
-  return log < 0 ? 0 : (32LL * (n + num_blocks)) << log;
+  return log < 0 ? 0 : (long long)vjp_work(n, num_blocks, nba, log).per;
+}
+
+// The vjp's launches on the column tiles: out[0] threads and out[1] dynamic
+// shared memory bytes a block of vjp_tiles_kernel (tile_layout), out[2]
+// tiles a restart, out[3] dynamic shared memory bytes a block of the
+// prologue and the sum kernel (sum_layout). Returns cudaErrorInvalidValue
+// where the column tiles do not take the shape.
+int cpflow_unitary_tile_layout(int n, int num_blocks, int nba, int log_c,
+                               int* out) {
+  const int log = tile_log(n, num_blocks, nba, log_c, true);
+  if (log < 0) return (int)cudaErrorInvalidValue;
+  const TileLayout T = tile_layout(n, num_blocks, n - log);
+  const VjpWork W = vjp_work(n, num_blocks, nba, log);
+  out[0] = T.nt;
+  out[1] = (int)T.bytes;
+  out[2] = 1 << log;
+  out[3] = (int)sum_layout(W.G, W.P).bytes;
+  return 0;
 }
 
 // cpflow_unitary_launch on the column tiles, with the same arguments and
-// `partials`, a device buffer of B x cpflow_unitary_tile_partials reals
-// (the vjp only; null for the forward pass): the forward pass
-// (forward_tiles_kernel), or the vjp's walk (vjp_tiles_kernel) then its sum
+// `work`, a device buffer of B x cpflow_unitary_tile_partials reals (the
+// vjp only; null for the forward pass; its contents need no setting): the
+// forward pass (forward_tiles_kernel), or the vjp's prologue
+// (vjp_tile_gates_kernel), walk (vjp_tiles_kernel) and sum
 // (vjp_tile_sum_kernel), on `stream`. Returns cudaErrorInvalidValue for a
 // shape the tiles do not take, else the first CUDA error of the launches.
 int cpflow_unitary_tiles_launch(const void* angles, void* U,
-                                const void* Ubar, void* grad, void* partials,
+                                const void* Ubar, void* grad, void* work,
                                 const void* placements, const void* letters,
                                 int n, int num_blocks, int num_letters,
                                 int ent, int nba, int log_c, int B, int vjp,
@@ -746,40 +948,50 @@ int cpflow_unitary_tiles_launch(const void* angles, void* U,
   a.B = B;
   a.restarts = 1;
   a.cluster_log = tile_log(n, num_blocks, nba, log_c, vjp != 0);
-  ta.partials = static_cast<real*>(partials);
+  ta.work = static_cast<real*>(work);
   if (a.cluster_log < 0) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
-                               vjp != 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)B << a.cluster_log;
   cudaError_t err;
   if (!vjp) {
+    const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
+                                 false);
     err = grant_smem(kForwardTiles, L.bytes);
     if (err != cudaSuccess) return (int)err;
     forward_tiles_kernel<<<blocks, L.nt, L.bytes, s>>>(a);
     return (int)cudaGetLastError();
   }
-  err = grant_smem(kVjpTiles, L.bytes);
-  if (err == cudaSuccess) err = grant_smem(kVjpTileSum, L.bytes);
+  const TileLayout T = tile_layout(n, num_blocks, n - a.cluster_log);
+  const VjpWork W = vjp_work(n, num_blocks, nba, a.cluster_log);
+  const size_t sum_bytes = sum_layout(W.G, W.P).bytes;
+  err = grant_smem(kVjpTileGates, sum_bytes);
+  if (err == cudaSuccess) err = grant_smem(kVjpTiles, T.bytes);
+  if (err == cudaSuccess) err = grant_smem(kVjpTileSum, sum_bytes);
   if (err != cudaSuccess) return (int)err;
-  vjp_tiles_kernel<<<blocks, L.nt, L.bytes, s>>>(ta);
+  vjp_tile_gates_kernel<<<B, kMaxThreads, sum_bytes, s>>>(ta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  vjp_tile_sum_kernel<<<B, L.nt, L.bytes, s>>>(ta);
+  vjp_tiles_kernel<<<blocks, T.nt, T.bytes, s>>>(ta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  vjp_tile_sum_kernel<<<B, kMaxThreads, sum_bytes, s>>>(ta);
   return (int)cudaGetLastError();
 }
 
-// The row tiles' plan of the vjp of one column that cluster_plan splits by
-// rows (rows.cuh, row_layout): out[0] threads and out[1] dynamic shared
+// The row tiles' plan of the forward pass (vjp == 0) or the vjp (vjp == 1)
+// of one column that cluster_plan splits by rows (rows.cuh;
+// forward_row_layout, row_layout): out[0] threads and out[1] dynamic shared
 // memory bytes a block, out[2] warps, out[3] log2 of a warp's rows (the
-// segment bits a row schedule runs its gates on), out[4] gates in the ring,
-// out[5] log2 of a block's rows. Returns cudaErrorInvalidValue where the
-// column is not split by rows.
-int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int* out) {
-  const int log = cluster_plan(n, num_blocks, nba, 0, true);
+// segment bits a row schedule runs its gates on), out[4] gates in the ring
+// (0 in the forward pass), out[5] log2 of a block's rows. Returns
+// cudaErrorInvalidValue where the column is not split by rows.
+int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int vjp,
+                            int* out) {
+  const int log = cluster_plan(n, num_blocks, nba, 0, vjp != 0);
   if (log <= 0) return (int)cudaErrorInvalidValue;
   RowPlan plan;
-  const Layout L = row_layout(n, num_blocks, nba, log, &plan);
+  const Layout L = vjp ? row_layout(n, num_blocks, nba, log, &plan)
+                       : forward_row_layout(n, num_blocks, nba, log, &plan);
   out[0] = L.nt;
   out[1] = (int)L.bytes;
   out[2] = plan.warps;
@@ -791,9 +1003,10 @@ int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int* out) {
 
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
 // product (vjp == 1: reads U and Ubar, writes grad) in the given design
-// (0 row-split, 1 columns) on `stream`. The vjp of one column split by
+// (0 row-split, 1 columns) on `stream`. Either pass of one column split by
 // rows takes row_ops, the row schedule (rows.cuh) of row_nops int4 for the
-// segment bits cpflow_unitary_row_plan gives. angles and grad: (P, B) of the
+// segment bits cpflow_unitary_row_plan gives that pass (the forward pass's
+// in its forward form, kernels/rows.py:schedule). angles and grad: (P, B) of the
 // build's real type (float, or double with -DCPFLOW_DOUBLE); U and Ubar:
 // (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
 // (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
@@ -828,7 +1041,7 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   a.nops = row_nops;
   Launch l;
   if (!plan_launch(a, vjp, design, l)) return (int)cudaErrorInvalidValue;
-  const bool rows = l.which == kVjpRows;
+  const bool rows = l.which == kVjpRows || l.which == kForwardRows;
   if (rows && (!row_ops || row_nops < n + num_blocks))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = grant_smem(l.which, l.bytes);

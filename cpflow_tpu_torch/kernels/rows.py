@@ -1,6 +1,7 @@
 """The row tiles' host side: the plan of a block and the schedule of bit
-swaps that the wrappers of sweep_rows_kernel (kernels/sweep.py) and
-vjp_rows_kernel (kernels/unitary.py) hand to the kernel.
+swaps that the wrappers of sweep_rows_kernel (kernels/sweep.py),
+forward_rows_kernel and vjp_rows_kernel (kernels/unitary.py) hand to the
+kernel.
 
 A state's one column split by rows over a cluster of blocks (2^log_rows
 rows a block) is owned by the block's warps, 2^segment contiguous rows each
@@ -33,17 +34,20 @@ RING_MAX = 16
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
-def plan(log_rows: int, spare: int, dtype=torch.float32) -> dict:
+def plan(log_rows: int, spare=None, dtype=torch.float32) -> dict:
     """csrc/rows.cuh's row_plan for a tile of 2^log_rows rows whose ring may
     take `spare` bytes: dict(warps, segment (log2 of a warp's rows), ring
     (gates between two sums of the warps' slots)). A warp for every
     2^SEGMENT_MIN rows up to THREADS of the build, halved while a ring of
     one gate does not fit; the ring the largest power of two up to
-    RING_MAX that fits."""
+    RING_MAX that fits. spare=None: no ring (ring 0; the forward pass sums
+    no cotangent), the warps never halved."""
     real = 8 if dtype == torch.float64 else 4
     lw = 0
     while lw < log_rows - SEGMENT_MIN and 64 << lw <= THREADS[dtype]:
         lw += 1
+    if spare is None:
+        return dict(warps=1 << lw, segment=log_rows - lw, ring=0)
     while lw > 0 and (32 << lw) * real > spare:
         lw -= 1
     ring = RING_MAX
@@ -52,12 +56,19 @@ def plan(log_rows: int, spare: int, dtype=torch.float32) -> dict:
     return dict(warps=1 << lw, segment=log_rows - lw, ring=ring)
 
 
-def launch(cluster: int, log_rows: int, plan_bytes: int, dtype) -> dict:
+def launch(cluster: int, log_rows: int, plan_bytes: int, dtype,
+           vjp: bool = True) -> dict:
     """The launch of a block of the row tiles whose plan's layout takes
-    `plan_bytes` (with its 2 x warps x 32 reals of cross-warp partials, the
-    warps one per 16 rows between 1 and 8): ``plan`` in what that layout
-    leaves of a block's shared memory, the partials out and the ring in.
-    dict(cluster, log_rows, warps, segment, ring, threads, smem_bytes)."""
+    `plan_bytes`. The vjp's (with its 2 x warps x 32 reals of cross-warp
+    partials, the warps one per 16 rows between 1 and 8): ``plan`` in what
+    that layout leaves of a block's shared memory, the partials out and the
+    ring in. The forward pass's (vjp=False): ``plan`` with no ring, in the
+    plan's bytes. dict(cluster, log_rows, warps, segment, ring, threads,
+    smem_bytes)."""
+    if not vjp:
+        p = plan(log_rows, None, dtype)
+        return dict(cluster=cluster, log_rows=log_rows,
+                    threads=32 * p['warps'], smem_bytes=plan_bytes, **p)
     real = 8 if dtype == torch.float64 else 4
     partials = 2 * min(max((1 << log_rows) // 16, 32), 256) * real
     rest = plan_bytes - partials
@@ -74,34 +85,25 @@ def gate_bits(n: int, placements) -> list:
         [(n - 1 - int(a), n - 1 - int(b)) for a, b in placements]
 
 
-@functools.lru_cache(maxsize=64)
-def schedule(n: int, placements: tuple, segment: int) -> np.ndarray:
-    """The row schedule of a template for a segment of 2^segment rows:
-    (ops, 4) int32 rows in the chain's order, (j, a, b, 0) for gate j on row
-    bits a (its first leg) and b (its second; 0 for a surface gate), both
-    below `segment`, and (-1, s, b, 0) for the swap of segment bit s with
-    bit b > s. The table ends on the identity: the walk, which runs it
-    backward, starts from the rows in natural order, and each gate meets
-    its legs where the chain left them. Computed from the walk's end: the
-    gates in reverse order from the identity, each bit that a gate needs
-    outside the segment swapped in for the segment bit, not of the gate,
-    whose next use lies furthest ahead (ties: the higher bit, so that a
-    float32 swap copies 16 bytes)."""
-    if segment < 2:
-        raise ValueError(f'a segment of {1 << segment} rows holds no '
-                         f'two-qubit gate')
-    gates = gate_bits(n, placements)
-    walk = range(len(gates) - 1, -1, -1)
+def _belady(gates: list, order, held: list, segment: int) -> list:
+    """The ops that run gates[j] for j in `order` from the permutation
+    `held` (row bit -> the bit it holds; updated in place), each bit that a
+    gate needs outside the segment swapped in for the segment bit, not of
+    the gate, whose next use lies furthest ahead (ties: the higher bit, so
+    that a float32 swap copies 16 bytes): (-1, s, b, 0) then (j, a, b, 0)
+    as in ``schedule``, in the order of `order`."""
+    n = len(held)
     uses = [[] for _ in range(n)]
-    for t, j in enumerate(walk):
+    for t, j in enumerate(order):
         for bit in gates[j]:
             uses[bit].append(t)
     ahead = [0] * n  # the index in uses[bit] of its next use
-    where = list(range(n))  # bit -> the row bit it lies on
-    held = list(range(n))   # row bit -> the bit it holds
+    where = [0] * n  # bit -> the row bit it lies on
+    for v, bit in enumerate(held):
+        where[bit] = v
     never = len(gates)
     ops = []
-    for t, j in enumerate(walk):
+    for t, j in enumerate(order):
         need = gates[j]
         for bit in range(n):
             while ahead[bit] < len(uses[bit]) and uses[bit][ahead[bit]] <= t:
@@ -122,14 +124,46 @@ def schedule(n: int, placements: tuple, segment: int) -> np.ndarray:
             where[bit], where[y] = v, p
         ops.append((j, where[need[0]], where[need[1]] if len(need) > 1 else 0,
                     0))
-    table = np.array(ops[::-1], dtype=np.int32)
+    return ops
+
+
+@functools.lru_cache(maxsize=64)
+def schedule(n: int, placements: tuple, segment: int,
+             forward: bool = False) -> np.ndarray:
+    """The row schedule of a template for a segment of 2^segment rows:
+    (ops, 4) int32 rows in the chain's order, (j, a, b, 0) for gate j on row
+    bits a (its first leg) and b (its second; 0 for a surface gate), both
+    below `segment`, and (-1, s, b, 0) for the swap of segment bit s with
+    bit b > s. The table ends on the identity: the walk, which runs it
+    backward, starts from the rows in natural order, and each gate meets
+    its legs where the chain left them. Computed from the walk's end, the
+    gates in reverse order from the identity (``_belady``).
+
+    forward=True: the table of forward_rows_kernel, whose chain starts
+    from e_0. The surface round from e_0 leaves a product state, each
+    qubit's amplitudes the first column of its surface gate, so the table
+    starts with n rows (-2, v, b, 0), row bit v holding the bit b (qubit
+    n - 1 - b, whose surface gate is gate n - 1 - b), and runs the blocks
+    alone, their schedule computed as the walk's from the identity at the
+    end."""
+    if segment < 2:
+        raise ValueError(f'a segment of {1 << segment} rows holds no '
+                         f'two-qubit gate')
+    gates = gate_bits(n, placements)
+    held = list(range(n))
+    ops = _belady(gates, range(len(gates) - 1, n - 1 if forward else -1, -1),
+                  held, segment)[::-1]
+    if forward:  # where the chain starts: the walk's last permutation
+        ops = [(-2, v, bit, 0) for v, bit in enumerate(held)] + ops
+    table = np.array(ops, dtype=np.int32).reshape(-1, 4)
     table.setflags(write=False)
     return table
 
 
 @functools.lru_cache(maxsize=64)
 def device_schedule(n: int, placements: tuple, segment: int,
-                    device: torch.device) -> torch.Tensor:
+                    device: torch.device,
+                    forward: bool = False) -> torch.Tensor:
     """``schedule`` as an int32 tensor on `device`, made once a key."""
-    return torch.tensor(schedule(n, placements, segment), dtype=torch.int32,
-                        device=device).contiguous()
+    return torch.tensor(schedule(n, placements, segment, forward),
+                        dtype=torch.int32, device=device).contiguous()

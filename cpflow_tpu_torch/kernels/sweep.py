@@ -103,6 +103,8 @@ import torch
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
 from cpflow_tpu_torch.kernels import rows as rk
+from cpflow_tpu_torch.kernels.tiles import (  # noqa: F401 (re-exported)
+    TILE_RING, TILE_THREADS, tile_smem_bytes, tile_threads)
 from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.ops.penalty import LinearPenalty, breakpoints
 from cpflow_tpu_torch.ops.losses import _shift_indices, wire_permutation
@@ -310,33 +312,6 @@ def tile_plan(n: int, num_blocks: int, nba: int, kind: str,
                 tile_smem_bytes(n, num_blocks, w, dtype) <= _SMEM_LIMIT:
             return w, 1 << j
     return None
-
-
-# the column tiles' kernel (csrc/tiles.cuh): threads a block at most, by
-# build; gates between two sums of the warps' cotangent slots
-TILE_THREADS = {torch.float32: 512, torch.float64: 256}
-TILE_RING = 16
-
-
-def tile_threads(n: int, columns: int, dtype=torch.float32) -> int:
-    """Threads of a block of sweep_tile_kernel on tiles of `columns`
-    columns, as csrc/tiles.cuh's tile_threads: one per 4 amplitudes, at
-    least a warp a column, at most TILE_THREADS of the build."""
-    return min(TILE_THREADS[dtype], max(32 * columns, columns << n >> 2))
-
-
-def tile_smem_bytes(n: int, num_blocks: int, columns: int,
-                    dtype=torch.float32) -> int:
-    """Dynamic shared memory of a block of sweep_tile_kernel, as
-    csrc/tiles.cuh's tile_layout lays it out: A and M (`columns` columns of
-    2^n + 1 amplitudes), aligned to 16 bytes, the G gates, the ring of the
-    warps' cotangent slots (warps x TILE_RING gates x 32 reals), each warp's
-    share of s (2 reals), an mbarrier and a flag (16 bytes) and each gate's
-    row bits (2 ints)."""
-    f = 2 if dtype == torch.float64 else 1
-    G, warps = n + num_blocks, tile_threads(n, columns, dtype) // 32
-    o = -(-2 * columns * ((1 << n) + 1) * 8 * f // 16) * 16
-    return o + 128 * f * G + (32 * TILE_RING + 2) * warps * 4 * f + 16 + 8 * G
 
 
 def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32):

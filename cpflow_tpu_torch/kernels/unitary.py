@@ -54,18 +54,20 @@ splits over c = 2, 4, 8 or 16 blocks (``cluster_plan``): the whole
 unitary's columns (the vjp's blocks form a thread-block cluster and sum
 the gates' cotangents over distributed shared memory), or one column's
 rows, 2^n / c a block, in both passes as a cluster (the row tiles'
-kernels, ``ansatz_forward_row_tiles``, whose blocks meet at every gate on
-one of the top log2(c) qubits, and ``ansatz_vjp_row_tiles``, whose rows
-are owned by warps that swap in the bits a gate needs as the wrapper's
-table says: kernels/rows.py, ``row_plan``). Where no
+kernels, ``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``, whose
+rows are owned by warps that swap in the bits a gate needs as the
+wrapper's table for the pass's segment says: kernels/rows.py,
+``row_plan``). Where no
 cluster holds the whole unitary (9 qubits and up, and 8 qubits in float64
 past k = 125 'xyz' blocks) the column tiles take it (``tile_plan``, design
 'tiles'): a restart's columns split into tiles on independent blocks, the
 fewest that fit, with no cluster; the forward pass's tiles never meet
-(``ansatz_forward_column_tiles``), the vjp's walk each tile and leave its
-share of the gates' cotangents in global memory, which a second kernel sums
-in tile order before the angle gradients (``ansatz_vjp_column_tiles``, the
-pair). No tensor
+(``ansatz_forward_column_tiles``); the vjp (``ansatz_vjp_column_tiles``)
+is three kernels on csrc/tiles.cuh's design: a prologue that builds each
+restart's gates once into a workspace, the tiles' walk, each column owned
+by warps, leaving each tile's share of the gates' cotangents there, and a
+last kernel that sums the shares in a fixed order and forms the angle
+gradients (kernels/tiles.py mirrors their layouts). No tensor
 cores: the products are 2x2 and 4x4 complex, far below a wgmma tile, and
 TF32 would break the 2e-5 agreement with the plain version; no cluster
 for the whole unitary below 7 qubits, where a restart fits one block. The
@@ -98,6 +100,7 @@ import torch
 from cpflow_tpu_torch import config
 from cpflow_tpu_torch.kernels import build
 from cpflow_tpu_torch.kernels import rows as rk
+from cpflow_tpu_torch.kernels import tiles as tk
 from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
 from cpflow_tpu_torch.sim.batched import build_unitary_batched
 
@@ -129,7 +132,8 @@ KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     f'ansatz_{k}_columns_{n}q' for k in ('forward', 'vjp')
     for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1)) + (
     'ansatz_forward_column_tiles', 'ansatz_vjp_column_tiles',
-    'ansatz_vjp_tile_sum', 'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles')
+    'ansatz_vjp_tile_sum', 'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
+    'ansatz_vjp_tile_gates')
 
 
 def _scale(dtype) -> int:
@@ -184,31 +188,42 @@ def tile_plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     k = 10 'xyz' the vjp takes tiles of 16, 8, 4, 2 and 1 columns at 9 to
     13 qubits in float32 (8, 4, 2, 1 at 9 to 12 in float64), the forward
     pass twice as wide (at 9 qubits in float32 a cluster's plan of 16
-    blocks still holds it)."""
+    blocks still holds it). The vjp's tiles must also hold its tile
+    kernel's own layout (kernels/tiles.py:tile_smem_bytes) with a warp for
+    every column; that test never decides at the shapes the tests walk, so
+    the vjp keeps the tiles of the first tile kernels."""
     if log_c != n or cluster_plan(n, num_blocks, nba, log_c, vjp,
                                   dtype) is not None:
         return None
     for j in range(n + 1):
+        w = 1 << (n - j)
         if smem_bytes(n, num_blocks, nba, log_c, vjp, 1 << j,
-                      dtype) <= _SMEM_LIMIT:
-            return 1 << (n - j), 1 << j
+                      dtype) <= _SMEM_LIMIT and (not vjp or (
+                          32 * w <= tk.TILE_THREADS[dtype] and
+                          tk.tile_smem_bytes(n, num_blocks, w, dtype)
+                          <= _SMEM_LIMIT)):
+            return w, 1 << j
     return None
 
 
-def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32):
-    """The row tiles' launch of the vjp of one column that cluster_plan
-    splits by rows over c > 1 blocks, as csrc/unitary.cu's row_layout lays
-    it out in the build of `dtype` (cpflow_unitary_row_plan on the card):
-    dict(cluster, log_rows, warps, segment, ring, threads, smem_bytes), the
-    plan's layout with the warps' ring of cotangent slots in place of its
-    cross-warp partials, in what the plan leaves of a block's shared
-    memory (kernels/rows.py:launch). None where the column is not split by
-    rows. The forward pass keeps the row-split design's threads."""
-    c = cluster_plan(n, num_blocks, nba, 0, True, dtype)
+def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32,
+             vjp: bool = True):
+    """The row tiles' launch of the vjp (or with vjp=False the forward
+    pass) of one column that cluster_plan splits by rows over c > 1 blocks
+    for that pass, as csrc/unitary.cu's row_layout (forward_row_layout)
+    lays it out in the build of `dtype` (cpflow_unitary_row_plan on the
+    card): dict(cluster, log_rows, warps, segment, ring, threads,
+    smem_bytes). The vjp's: the plan's layout with the warps' ring of
+    cotangent slots in place of its cross-warp partials, in what the plan
+    leaves of a block's shared memory; the forward pass's: the plan's
+    layout with the warps and no ring (kernels/rows.py:launch). None where
+    the column is not split by rows."""
+    c = cluster_plan(n, num_blocks, nba, 0, vjp, dtype)
     if c is None or c == 1:
         return None
     return rk.launch(c, n - (c.bit_length() - 1),
-                     smem_bytes(n, num_blocks, nba, 0, True, c, dtype), dtype)
+                     smem_bytes(n, num_blocks, nba, 0, vjp, c, dtype), dtype,
+                     vjp)
 
 
 def max_qubits(whole: bool, dtype=torch.float32) -> int:
@@ -298,9 +313,13 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     log_ct = log_c - (c.bit_length() - 1)
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
     nbytes = smem_bytes(n, num_blocks, nba, log_c, vjp, c, dtype)
-    if vjp and not log_c and c > 1:  # the row tiles' vjp
-        rows = row_plan(n, num_blocks, nba, dtype)
+    if not log_c and c > 1:  # the row tiles
+        rows = row_plan(n, num_blocks, nba, dtype, vjp)
         threads, nbytes = rows['threads'], rows['smem_bytes']
+    if vjp and design == 'tiles':  # the vjp's tile kernel (tiles.cuh)
+        w = 1 << log_ct
+        threads = tk.tile_threads(n, w, dtype)
+        nbytes = tk.tile_smem_bytes(n, num_blocks, w, dtype)
     return dict(design=design, threads_per_restart=threads * c,
                 restarts_per_block=1, threads=threads, smem_bytes=nbytes,
                 blocks_per_restart=c)
@@ -329,7 +348,7 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [
             ptr, ptr, i]
         lib.cpflow_unitary_launch.restype = i
-        lib.cpflow_unitary_row_plan.argtypes = [i] * 3 + [ptr]
+        lib.cpflow_unitary_row_plan.argtypes = [i] * 4 + [ptr]
         lib.cpflow_unitary_row_plan.restype = i
         lib.cpflow_unitary_smem_bytes.argtypes = [i] * 6
         lib.cpflow_unitary_smem_bytes.restype = ctypes.c_longlong
@@ -355,6 +374,8 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_tiles.restype = i
         lib.cpflow_unitary_tile_partials.argtypes = [i] * 4
         lib.cpflow_unitary_tile_partials.restype = ctypes.c_longlong
+        lib.cpflow_unitary_tile_layout.argtypes = [i] * 4 + [ptr]
+        lib.cpflow_unitary_tile_layout.restype = i
         lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + [i] * 8 + [
             ptr]
         lib.cpflow_unitary_tiles_launch.restype = i
@@ -479,24 +500,24 @@ class _Shape:
             args = (n, self.nb, self.nba, self.log_c, int(vjp))
             self.cluster = self.lib.cpflow_unitary_cluster(*args)
             code = self.lib.cpflow_unitary_design(*args)
-            # the column tiles' count, and the partials a restart of the
-            # vjp leaves on them
+            # the column tiles' count, and the reals of the workspace a
+            # restart of the vjp takes on them
             self.tiles = self.lib.cpflow_unitary_tiles(*args)
-            self.partials = self.lib.cpflow_unitary_tile_partials(*args[:4])
+            self.work = self.lib.cpflow_unitary_tile_partials(*args[:4])
         self.design = {v: k for k, v in DESIGNS.items()}[code]
-        # the row tiles' schedule (the vjp of one column split by rows),
-        # for the segment of the library's plan
+        # the row tiles' schedule (either pass of one column split by
+        # rows), for the segment of the library's plan of that pass
         self.ops = None
-        if vjp and not self.log_c and self.cluster > 1:
+        if not self.log_c and self.cluster > 1:
             got = (ctypes.c_int * 6)()
             with torch.cuda.device(device):
                 err = self.lib.cpflow_unitary_row_plan(n, self.nb, self.nba,
-                                                       got)
+                                                       int(vjp), got)
             if err != 0:
                 raise RuntimeError(f'unitary kernel row plan query failed: '
                                    f'CUDA error {err}')
             self.ops = rk.device_schedule(n, self.placements, got[3],
-                                          device)
+                                          device, forward=not vjp)
         if not self.cluster and self.design != 'tiles':
             most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
@@ -523,15 +544,17 @@ class _Shape:
         stream = torch.cuda.current_stream(angles.device).cuda_stream
         with torch.cuda.device(angles.device):
             if design == 'tiles':
-                # the vjp's tiles' shares of the gates' cotangents
-                partials = torch.empty(
-                    self.B * self.partials, dtype=self.dtype,
+                # the vjp's workspace: the gates, the tiles' shares of the
+                # gates' cotangents, the segments' sums and counts (the
+                # prologue sets what needs setting)
+                work = torch.empty(
+                    self.B * self.work, dtype=self.dtype,
                     device=angles.device) if vjp else None
                 err = self.lib.cpflow_unitary_tiles_launch(
                     angles.data_ptr(), u.data_ptr(),
                     ubar.data_ptr() if ubar is not None else None,
                     grad.data_ptr() if grad is not None else None,
-                    partials.data_ptr() if vjp else None, plc.data_ptr(),
+                    work.data_ptr() if vjp else None, plc.data_ptr(),
                     letters.data_ptr(),
                     self.n, self.nb, len(self.rot), self.ent, self.nba,
                     self.log_c, self.B, int(vjp), stream)
@@ -543,9 +566,8 @@ class _Shape:
                     plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
                     len(self.rot), self.ent, self.nba, self.log_c, self.B,
                     int(vjp), DESIGNS[design], stream,
-                    self.ops.data_ptr() if vjp and self.ops is not None
-                    else None, len(self.ops) if vjp and self.ops is not None
-                    else 0)
+                    self.ops.data_ptr() if self.ops is not None else None,
+                    len(self.ops) if self.ops is not None else 0)
         if err != 0:
             raise RuntimeError(
                 f'unitary kernel launch failed: CUDA error {err} ({self.B} '

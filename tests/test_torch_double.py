@@ -36,6 +36,7 @@ from cpflow_tpu.sim import batched as jbt
 from cpflow_tpu_torch import api as tapi
 from cpflow_tpu_torch import config as tconfig
 from cpflow_tpu_torch.kernels import sweep as sk
+from cpflow_tpu_torch.kernels import tiles as tk
 from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.ops import penalty as tpenalty
 from cpflow_tpu_torch.ops.gates import cz_mat, u_ccz3, u_toff3
@@ -387,8 +388,15 @@ def test_unitary_plan_in_float64(n, k, log_c, vjp, want):
         assert got['smem_bytes'] == 2 * (
             uk.column_smem_bytes(n, k, nba, vjp, r) - 4 * G) + 4 * G
     else:
-        assert got['smem_bytes'] == 2 * uk.smem_bytes(
-            n, k, nba, log_c, vjp, got['blocks_per_restart'])
+        c = got['blocks_per_restart']
+        assert uk.smem_bytes(n, k, nba, log_c, vjp, c, F64) == \
+            2 * uk.smem_bytes(n, k, nba, log_c, vjp, c)
+        if got['design'] == 'tiles' and vjp:  # tiles.cuh's tile kernel
+            assert got['smem_bytes'] == tk.tile_smem_bytes(
+                n, k, (1 << n) // c, F64)
+        else:
+            assert got['smem_bytes'] == 2 * uk.smem_bytes(
+                n, k, nba, log_c, vjp, c)
 
 
 # ----------------------------------------------------- checks and routing

@@ -101,8 +101,11 @@ def test_tile_plan_takes_a_restart_past_a_cluster(n, dtype, want):
     p = uk.plan(n, 10, XYZ, n, True, dtype)
     assert (p['design'], p['blocks_per_restart'], p['restarts_per_block']) \
         == ('tiles', tiles, 1)
-    assert p['smem_bytes'] == uk.smem_bytes(n, 10, XYZ, n, True, tiles,
-                                            dtype) <= LIMIT
+    # the plan's layout fits; the vjp launches its tile kernel's (tiles.cuh)
+    assert uk.smem_bytes(n, 10, XYZ, n, True, tiles, dtype) <= LIMIT
+    assert (p['threads'], p['smem_bytes']) == (
+        sk.tile_threads(n, w, dtype), sk.tile_smem_bytes(n, 10, w, dtype))
+    assert p['smem_bytes'] <= LIMIT
 
 
 def test_the_forward_pass_takes_tiles_twice_as_wide():

@@ -385,3 +385,160 @@ def test_phase_20_edge_rows_run_on_the_plans_they_name(name):
     assert (p['cluster'], p['segment']) == (s['cluster'], s['segment'])
     if 'ring' in s:
         assert p['ring'] == s['ring']
+
+
+# ------------------------------------------------ the forward pass's rows
+
+# SPLIT_UNITARY's forward passes: (qubits, k, dtype, blocks, segment), the
+# 14q float32 and 13q float64 forward passes on one block (no row tiles)
+FORWARD_ROWS = [(14, 28, F32, 1, None), (15, 30, F32, 2, 10),
+                (16, 32, F32, 4, 10), (17, 34, F32, 8, 10),
+                (13, 26, F64, 1, None), (16, 32, F64, 8, 10)]
+
+
+@pytest.mark.parametrize('n,k,dtype,c,seg', FORWARD_ROWS)
+def test_forward_row_plan_at_split_unitary_shapes(n, k, dtype, c, seg):
+    """forward_rows_kernel's launch (row_plan with vjp=False, as
+    forward_row_layout lays it out) at chip_smoke.py's SPLIT_UNITARY rows:
+    the forward pass on half the vjp's blocks, as before; split by rows,
+    16 warps of 1024 rows in float32 and 8 of 1024 in float64, no ring,
+    the plan's own layout's bytes, under a block's shared memory."""
+    assert [s[:2] + (s[4],) for s in chip_smoke.SPLIT_UNITARY] == \
+        [(m, kk, str(dt).split('.')[1]) for m, kk, dt, *_ in FORWARD_ROWS]
+    assert uk.cluster_plan(n, k, NBA, 0, False, dtype) == c
+    p = uk.row_plan(n, k, NBA, dtype, vjp=False)
+    if seg is None:
+        assert p is None
+        return
+    warps = 16 if dtype == F32 else 8
+    assert (p['cluster'], p['log_rows'], p['warps'], p['segment'],
+            p['ring'], p['threads']) == (c, n - c.bit_length() + 1, warps,
+                                         seg, 0, 32 * warps)
+    assert p['smem_bytes'] == uk.smem_bytes(n, k, NBA, 0, False, c, dtype) \
+        <= LIMIT
+    up = uk.plan(n, k, NBA, 0, False, dtype)
+    assert (up['threads'], up['smem_bytes'], up['blocks_per_restart']) == \
+        (32 * warps, p['smem_bytes'], c)
+
+
+@pytest.mark.parametrize('n,dtype', [(n, F32) for n in range(8, 18)] +
+                         [(n, F64) for n in range(8, 17)])
+def test_forward_row_plan_fits_and_keeps_its_blocks(n, dtype):
+    """At every depth k up to the deepest any plan takes, wherever the
+    forward pass's plan splits a column by rows: the blocks are the
+    smallest cluster whose layout (make_layout's, unchanged) fits, the
+    row tiles' launch takes that layout's bytes, under a block's shared
+    memory, with a warp for every 2^SEGMENT_MIN rows up to the build's
+    threads, a segment of at least 4 rows and no ring."""
+    for k in range(0, 700):
+        c = uk.cluster_plan(n, k, NBA, 0, False, dtype)
+        fits = [m for m in uk.CLUSTERS if m <= 1 << (n - 2) and
+                uk.smem_bytes(n, k, NBA, 0, False, m, dtype) <= LIMIT]
+        assert c == (fits[0] if fits else None)
+        p = uk.row_plan(n, k, NBA, dtype, vjp=False)
+        if c is None or c == 1:
+            assert p is None
+            continue
+        log_rows = n - c.bit_length() + 1
+        assert p['cluster'] == c and p['log_rows'] == log_rows
+        assert p['smem_bytes'] == uk.smem_bytes(n, k, NBA, 0, False, c,
+                                                dtype) <= LIMIT
+        assert p['ring'] == 0 and p['segment'] >= 2
+        assert p['threads'] == 32 * p['warps'] == min(
+            32 << max(log_rows - rk.SEGMENT_MIN, 0), rk.THREADS[dtype])
+        assert p['segment'] == log_rows - p['warps'].bit_length() + 1
+
+
+@pytest.mark.parametrize('n,k,dtype,c,seg,layer',
+                         [s + ('chain',) for s in FORWARD_ROWS
+                          if s[4] is not None] +
+                         [(10, 16, F32, 4, 3, 'random'),
+                          (9, 0, F64, 2, 2, 'chain')])
+def test_forward_schedule_puts_every_gate_on_the_segment(n, k, dtype, c, seg,
+                                                         layer):
+    """The forward pass's table (its own segment; on the chain at k = 2n,
+    and on random pairs and with no blocks at all): n start rows, row bit v
+    holding a permutation's bit, the first block's bits on the segment;
+    then, replayed from that permutation, every block in the template's
+    order with its legs on the segment bits where its qubits lie, every
+    swap a segment bit with a higher one, no surface gate (the start's
+    product state holds the surface round), the chain ending on the
+    identity; and fewer swaps than the walk's table."""
+    placements = tuple(map(tuple, random_pairs(n, k, n + k))) \
+        if layer == 'random' else placements_of(n, k)[1]
+    table = rk.schedule(n, placements, seg, forward=True)
+    bits = rk.gate_bits(n, placements)
+    assert [(int(op[0]), int(op[1]), int(op[3])) for op in table[:n]] == \
+        [(-2, v, 0) for v in range(n)]
+    held = [int(op[2]) for op in table[:n]]
+    assert sorted(held) == list(range(n))
+    if k:
+        assert set(bits[n]) <= set(held[:seg])
+    gates = []
+    for j, a, b, _ in table[n:]:
+        if j < 0:
+            assert j == -1 and 0 <= a < seg and a < b < n
+            held[a], held[b] = held[b], held[a]
+            continue
+        gates.append(j)
+        assert a < seg and b < seg
+        assert (held[a], held[b]) == bits[j]
+    assert gates == list(range(n, len(bits)))
+    assert held == list(range(n))
+    swaps = int((table[:, 0] == -1).sum())
+    assert swaps < int((rk.schedule(n, placements, seg)[:, 0] == -1).sum())
+
+
+def scheduled_forward_column(n, ent, rot, placements, angles, seg, cluster):
+    """Column 0 of the ansatz, the chain run over the forward pass's row
+    schedule on a simulated cluster of `cluster` blocks as
+    forward_rows_kernel runs it: the surface round's product state from e_0
+    in the table's first permutation (rows.cuh's row_product: row bit v's
+    factor the first column of the surface gate of the qubit it holds),
+    then the table's swaps, inside the tiles or between blocks as rows.cuh
+    indexes them, and blocks; the rows in natural order at the end."""
+    log_rows = n - (cluster.bit_length() - 1)
+    table = rk.schedule(n, placements, seg, forward=True)
+    gates = gate_matrices(n, ent, rot, placements, angles)
+    rows = torch.arange(1 << n)
+    x = torch.ones(1 << n, dtype=gates[0].dtype)
+    for v, (_, _, b, _) in enumerate(table[:n]):
+        x = x * gates[n - 1 - b][(rows >> v) & 1, 0]
+    for j, a, b, _ in table[n:]:
+        if j < 0:
+            x = swap_bits(x.reshape(cluster, -1), a, b, log_rows).reshape(-1)
+        else:
+            x = apply(x, gates[j], (a,) if j < n else (a, b))
+    return x
+
+
+@pytest.mark.parametrize('dtype', [F32, F64], ids=['float32', 'float64'])
+@pytest.mark.parametrize('n,cluster,seg,layer,ent,rot', PLAIN)
+def test_forward_schedule_matches_the_jax_column(n, cluster, seg, layer, ent,
+                                                 rot, dtype):
+    """The forward pass's chain over the schedule, as the kernel runs it,
+    gives the JAX package's column 0 (cpflow_tpu.sim.batched's builder on
+    the CPU, under x64 for float64) on seeded numpy angles at k = 2n,
+    within TOL of the dtype."""
+    k = 2 * n
+    if layer == 'random':
+        pl = fill_layers(random_pairs(n, k, 7 * n + cluster), k)
+    else:
+        pl = fill_layers(chain_layer(n), k)
+    placements = tuple(map(tuple, all_placements(pl)))
+    rng = np.random.default_rng(300 * n + seg)
+    P = 3 * n + num_block_angles(ent, rot) * k
+    angles = rng.uniform(0, 2 * np.pi, P)
+    x = scheduled_forward_column(n, ent, rot, placements,
+                                 torch.tensor(angles, dtype=dtype), seg,
+                                 cluster)
+    f64 = dtype == F64
+    with jax.enable_x64(f64):
+        jconfig.set_precision(f64)
+        try:
+            col = jbt.build_unitary_batched(
+                n, ent, rot, pl, jnp.asarray(angles[:, None]), columns=[0])
+            col = np.asarray(col).reshape(-1)
+        finally:
+            jconfig.set_precision(False)
+    assert np.abs(x.numpy() - col).max() <= TOL[dtype]

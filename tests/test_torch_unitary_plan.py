@@ -88,12 +88,12 @@ def test_a_layout_too_large_takes_one_restart_then_the_row_split():
 
 
 def test_the_kernel_names_follow_the_library_order():
-    assert len(uk.KERNELS) == 18
+    assert len(uk.KERNELS) == 19
     assert uk.KERNELS[13:16] == ('ansatz_forward_column_tiles',
                                  'ansatz_vjp_column_tiles',
                                  'ansatz_vjp_tile_sum')
     assert uk.KERNELS[16:] == ('ansatz_forward_row_tiles',
-                               'ansatz_vjp_row_tiles')
+                               'ansatz_vjp_row_tiles', 'ansatz_vjp_tile_gates')
     assert uk.kernel_name('rows', False, 15, 2, column=True) == \
         'ansatz_forward_row_tiles'
     assert uk.kernel_name('rows', True, 13, 1, column=True) == 'ansatz_vjp'

@@ -23,17 +23,33 @@ difference of each build's U and gradient from the row-split design's.
         cpflow_tpu_torch/csrc/unitary.cu
 
 times the row tiles instead (one column split by rows over a cluster): at
-every row of chip_smoke.py's SPLIT_UNITARY, in its precision (each source
-is built in float and in double), the builds in turns (A B ... B A), the
-vjp (vjp_rows_kernel) and the forward pass beside it (the row tiles'
-forward_rows_kernel, or forward_kernel where the forward pass fits one
-block) alone on the card, the mean over 20 launches of each by
-torch.profiler (chip_smoke.device_ms). Each launch hands the kernel this
-tree's row schedule (kernels/rows.py) for the segment of this tree's plan,
-which a source from before the schedule never reads. It prints one row
-per shape: each build's ms in turns, the bound of the vjp
-(chip_smoke.unitary_bound_ms) and its share of the fastest, and the largest
-difference of each build's gradient from the first build's.
+every row of chip_smoke.py's SPLIT_UNITARY and at the paths' shapes
+(ROW_PATHS: the GHZ-15 and float64 GHZ-14 L1 runs of phase 20 (c)), in
+its precision (each source is built in float and in double), the builds
+in turns (A B ... B A), the vjp (vjp_rows_kernel) and the forward pass
+beside it (the row tiles' forward_rows_kernel, or forward_kernel where the
+forward pass fits one block) alone on the card, the mean over 20 launches
+of each by torch.profiler (chip_smoke.device_ms). Each launch hands the
+kernel this tree's row schedule (kernels/rows.py) for the segment of this
+tree's plan of its pass, which a source whose kernel does not run the
+schedule never reads. It prints one row per shape: each build's ms in
+turns, the bounds of both passes (chip_smoke.unitary_bound_ms) and their
+shares of the fastest, and the largest difference of each build's U and
+gradient from the first build's.
+
+    python3 unitary_ab.py --tiles OLD/cpflow_tpu_torch/csrc/unitary.cu \\
+        cpflow_tpu_torch/csrc/unitary.cu
+
+times the column tiles (the whole unitary past what a cluster of 16 blocks
+holds) the same way, at every row of chip_smoke.py's NINE_UNITARY and at
+the paths' shapes (TILE_PATHS: phase 21 (d)'s custom losses at 9 qubits in
+float64 and 10 in float32, phase 21 (f)'s 9-qubit modulo runs): the vjp's
+kernels alone (its prologue where the source has one, the tiles' walk and
+the sum, each and together) and the forward pass beside them, each build
+with its own workspace (cpflow_unitary_tile_partials), and the bound of
+the vjp. Its last path, phase 19 (c)'s custom loss at 8 qubits in float64,
+runs the vjp on a cluster of 16 blocks (vjp_kernel, timed alone) beside
+the forward pass.
 """
 
 from __future__ import annotations
@@ -82,9 +98,21 @@ def build(source: Path, double: bool = False) -> ctypes.CDLL:
     return lib
 
 
+# the paths' shapes of the row tiles (phase 20 (c)'s L1 runs: GHZ-n on the
+# chain at k = n - 1, 32 restarts) and of the column tiles (phase 21 (d)'s
+# custom losses, (f)'s modulo runs), as (n, k, rotations, B, dtype, name)
+ROW_PATHS = [(15, 14, 'xyz', 32, 'float32', 'GHZ-15 L1'),
+             (14, 13, 'xyz', 32, 'float64', 'GHZ-14 L1')]
+TILE_PATHS = [(9, 8, 'xyz', 8, 'float64', 'custom 9q'),
+              (10, 9, 'xyz', 4, 'float32', 'custom 10q'),
+              (9, 4, 'xyz', 4, 'float32', 'modulo 9q'),
+              (9, 4, 'xyz', 4, 'float64', 'modulo 9q'),
+              (8, 9, 'xyz', 8, 'float64', 'custom 8q')]
+
+
 def rows_main(sources) -> int:
     """--rows: the row tiles' vjp and forward pass of every build at
-    SPLIT_UNITARY, in turns."""
+    SPLIT_UNITARY and ROW_PATHS, in turns."""
     import torch
     import chip_smoke as c
     from cpflow_tpu_torch.kernels import rows as rk
@@ -97,16 +125,21 @@ def rows_main(sources) -> int:
     print(f'{c.card_line()}; builds: '
           + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
     gen = torch.Generator(device='cuda').manual_seed(20)
-    for n, k, rot, B, dname, _, _, blocks in c.SPLIT_UNITARY:
+    shapes = [(n, k, rot, B, dname, '') for n, k, rot, B, dname, *_ in
+              c.SPLIT_UNITARY] + ROW_PATHS
+    for n, k, rot, B, dname, path in shapes:
         dtype = getattr(torch, dname)
         nba = num_block_angles('cp', rot)
+        blocks = uk.row_plan(n, k, nba, dtype)['cluster']
         pl = tuple(map(tuple, all_placements(fill_layers(chain_layer(n), k))))
         plc = torch.tensor(pl, dtype=torch.int32, device='cuda')
         letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
                                dtype=torch.int32, device='cuda')
-        ops = rk.device_schedule(n, pl, uk.row_plan(n, k, nba,
-                                                    dtype)['segment'],
-                                 torch.device('cuda'))
+        ops = {}  # each pass's schedule, for its plan's segment
+        for vjp in (False, True):
+            plan = uk.row_plan(n, k, nba, dtype, vjp)
+            ops[vjp] = None if plan is None else rk.device_schedule(
+                n, pl, plan['segment'], torch.device('cuda'), not vjp)
         angles = c.uniform_inits(3 * n + nba * k, B, 20, 'cuda').to(dtype)
         cdtype = torch.complex128 if dtype == torch.float64 else \
             torch.complex64
@@ -120,14 +153,15 @@ def rows_main(sources) -> int:
                 w.data_ptr() if vjp else None,
                 grad.data_ptr() if vjp else None, plc.data_ptr(),
                 letters.data_ptr(), n, k, len(rot), 0, nba, 0, B, int(vjp),
-                0, torch.cuda.current_stream().cuda_stream, ops.data_ptr(),
-                len(ops))
+                0, torch.cuda.current_stream().cuda_stream,
+                ops[vjp].data_ptr() if ops[vjp] is not None else None,
+                len(ops[vjp]) if ops[vjp] is not None else 0)
             if err:
                 raise RuntimeError(f'launch failed: CUDA error {err}')
 
         order = list(range(len(libs)))
         out = [{False: [], True: []} for _ in libs]
-        first, diff = None, [0.0] * len(libs)
+        first, diff = None, [(0.0, 0.0)] * len(libs)
         for i in order + order[::-1]:
             lib = libs[i][dtype]
             grad = torch.empty_like(angles)
@@ -135,24 +169,151 @@ def rows_main(sources) -> int:
             launch(lib, True, grad)
             torch.cuda.synchronize()
             if first is None:
-                first = grad.clone()
-            scale = first.abs().clamp(min=1.0)
-            diff[i] = max(diff[i], ((grad - first).abs() / scale).max().item())
+                first = u.clone(), grad.clone()
+            scale = first[1].abs().clamp(min=1.0)
+            diff[i] = (max(diff[i][0], (u - first[0]).abs().max().item()),
+                       max(diff[i][1],
+                           ((grad - first[1]).abs() / scale).max().item()))
             out[i][False].append(c.device_ms(lambda: launch(lib, False),
                                              'forward'))
             out[i][True].append(c.device_ms(lambda: launch(lib, True, grad),
                                              'vjp_rows_kernel'))
         work = c.unitary_work(n, k, rot, log_c=0, dtype=dtype)
-        b_ms, by = c.unitary_bound_ms(work['vjp'], work['vjp_bytes'], B,
-                                      dtype=dtype)
-        best = min(min(o[True]) for o in out)
-        print(f'{n}q chain k={k} {rot!r} B={B} {dname}, column 0, vjp on '
-              f'{blocks} blocks: ' + '; '.join(
+        bounds = {vjp: c.unitary_bound_ms(
+            work['vjp' if vjp else 'forward'],
+            work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
+            for vjp in (False, True)}
+        best = {vjp: min(min(o[vjp]) for o in out) for vjp in (False, True)}
+        print(f'{path + ": " if path else ""}{n}q chain k={k} {rot!r} B={B} '
+              f'{dname}, column 0, vjp on {blocks} blocks: ' + '; '.join(
                   f'build {i} vjp ' + ' / '.join(f'{ms:.4f}' for ms in
                                                  o[True]) +
                   ' forward ' + ' / '.join(f'{ms:.4f}' for ms in o[False]) +
-                  f' ms (gradient off build 0 by {diff[i]:.1e})'
-                  for i, o in enumerate(out)) +
+                  f' ms (U off build 0 by {diff[i][0]:.1e}, gradient by '
+                  f'{diff[i][1]:.1e})'
+                  for i, o in enumerate(out)) + ' (' + ', '.join(
+                      f'{"vjp" if vjp else "forward"} bound {b:.4f} ms by '
+                      f'{by}, fastest {b / best[vjp]:.2%}'
+                      for vjp, (b, by) in bounds.items()) + ')',
+              flush=True)
+    return 0
+
+
+def tiles_main(sources) -> int:
+    """--tiles: the column tiles' vjp (its kernels each and together) and
+    the forward pass of every build at NINE_UNITARY and TILE_PATHS, in
+    turns."""
+    import torch
+    import chip_smoke as c
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    libs = [{dt: build(s, dt == torch.float64)
+             for dt in (torch.float32, torch.float64)} for s in sources]
+    for per_dtype in libs:
+        for lib in per_dtype.values():
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + \
+                [i] * 8 + [ptr]
+            lib.cpflow_unitary_tiles_launch.restype = i
+            lib.cpflow_unitary_tile_partials.argtypes = [i] * 4
+            lib.cpflow_unitary_tile_partials.restype = ctypes.c_longlong
+    print(f'{c.card_line()}; builds: '
+          + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    shapes = [(n, k, rot, B, dname, '') for n, k, rot, B, dname, *_ in
+              c.NINE_UNITARY] + TILE_PATHS
+    parts = ('vjp_tile_gates_kernel', 'vjp_tiles_kernel',
+             'vjp_tile_sum_kernel')
+    for n, k, rot, B, dname, path in shapes:
+        dtype = getattr(torch, dname)
+        cdtype = torch.complex128 if dtype == torch.float64 else \
+            torch.complex64
+        nba = num_block_angles('cp', rot)
+        pl = tuple(map(tuple, all_placements(fill_layers(chain_layer(n), k))))
+        plc = torch.tensor(pl, dtype=torch.int32, device='cuda')
+        letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
+                               dtype=torch.int32, device='cuda')
+        angles = c.uniform_inits(3 * n + nba * k, B, 21, 'cuda').to(dtype)
+        w = torch.randn((B, 1 << n, 1 << n), generator=gen, dtype=cdtype,
+                        device='cuda')
+        u = torch.empty_like(w)
+        on_tiles = {vjp: uk.plan(n, k, nba, n, vjp, dtype)['design'] ==
+                    'tiles' for vjp in (False, True)}
+        blocks = uk.plan(n, k, nba, n, True, dtype)['blocks_per_restart']
+
+        def launch(lib, vjp, grad=None, work=None):
+            stream = torch.cuda.current_stream().cuda_stream
+            if on_tiles[vjp]:
+                err = lib.cpflow_unitary_tiles_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    w.data_ptr() if vjp else None,
+                    grad.data_ptr() if vjp else None,
+                    work.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(), n, k, len(rot), 0, nba, n, B,
+                    int(vjp), stream)
+            else:  # the row-split plan: independent blocks, or a cluster
+                err = lib.cpflow_unitary_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    w.data_ptr() if vjp else None,
+                    grad.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(), n, k, len(rot), 0, nba, n, B,
+                    int(vjp), 0, stream, None, 0)
+            if err:
+                raise RuntimeError(f'launch failed: CUDA error {err}')
+
+        order = list(range(len(libs)))
+        out = [{'forward': [], 'vjp': [], **{p: [] for p in parts}}
+               for _ in libs]
+        first, diff = None, [(0.0, 0.0)] * len(libs)
+        for i in order + order[::-1]:
+            lib = libs[i][dtype]
+            grad = torch.empty_like(angles)
+            work = torch.empty(
+                max(B * lib.cpflow_unitary_tile_partials(n, k, nba, n), 1),
+                dtype=dtype, device='cuda')
+            launch(lib, False)
+            launch(lib, True, grad, work)
+            torch.cuda.synchronize()
+            if first is None:
+                first = u.clone(), grad.clone()
+            scale = first[1].abs().clamp(min=1.0)
+            diff[i] = (max(diff[i][0], (u - first[0]).abs().max().item()),
+                       max(diff[i][1],
+                           ((grad - first[1]).abs() / scale).max().item()))
+            out[i]['forward'].append(c.device_ms(lambda: launch(lib, False),
+                                                 'forward'))
+            events = c.device_kernels(lambda: launch(lib, True, grad, work))
+            total = 0.0
+            if not on_tiles[True]:  # the cluster's vjp_kernel alone
+                found = [v for key, v in events.items()
+                         if 'vjp_kernel' in key]
+                total = sum(t for _, t in found) / sum(x for x, _ in found)
+            for part in parts if on_tiles[True] else ():
+                found = [v for key, v in events.items() if part in key]
+                count = sum(x for x, _ in found)
+                ms = sum(t for _, t in found) / count if count else 0.0
+                out[i][part].append(ms)
+                total += ms
+            out[i]['vjp'].append(total)
+            del work
+        work = c.unitary_work(n, k, rot, dtype=dtype)
+        b_ms, by = c.unitary_bound_ms(work['vjp'], work['vjp_bytes'], B,
+                                      dtype=dtype)
+        best = min(min(o['vjp']) for o in out)
+        print(f'{path + ": " if path else ""}{n}q chain k={k} {rot!r} B={B} '
+              f'{dname}, vjp on {blocks} ' + (
+                  'tiles' if on_tiles[True] else 'blocks of a cluster') +
+              ': ' + '; '.join(
+                  f'build {i} vjp ' + ' / '.join(
+                      f'{ms:.4f}' for ms in o['vjp']) + ' (' + ', '.join(
+                      f'{part} ' + '/'.join(f'{ms:.4f}' for ms in o[part])
+                      for part in parts if o[part]) + ') forward ' +
+                  ' / '.join(
+                      f'{ms:.4f}' for ms in o['forward']) +
+                  f' ms (U off build 0 by {diff[i][0]:.1e}, gradient by '
+                  f'{diff[i][1]:.1e})' for i, o in enumerate(out)) +
               f' (vjp bound {b_ms:.4f} ms by {by}, fastest {b_ms / best:.2%})',
               flush=True)
     return 0
@@ -172,6 +333,8 @@ def main(argv) -> int:
         return 1
     if '--rows' in argv:
         return rows_main([Path(a) for a in argv if a != '--rows'])
+    if '--tiles' in argv:
+        return tiles_main([Path(a) for a in argv if a != '--tiles'])
     sources = [Path(a) for a in argv] or \
         [Path('cpflow_tpu_torch/csrc/unitary.cu')]
     libs = [build(s) for s in sources]
