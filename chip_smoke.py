@@ -77,7 +77,9 @@ with CUDA, and never imports JAX. Phases:
      (kernels/unitary.py) against their plain version on the card at
      fifteen templates, each through the design the plan gives it (the
      column design, one lane per column, for the whole unitary at 2 to 6
-     qubits; the row-split design for one column and for 7 and 8 qubits),
+     qubits; the row-split design's plan for one column and for the vjp at
+     7 and 8 qubits, on a cluster on tiles.cuh's warps; the column tiles
+     for the forward pass from 7 qubits),
      the plan held against the library's: at B=256, 3q k=12 'xyz' cp, 5q
      k=20 'xz' cp, 6q connected k=40 (the largest layout on one block), 4q
      'cz' blocks with 'y', 10q k=36 column 0; then every template of phases
@@ -93,7 +95,8 @@ with CUDA, and never imports JAX. Phases:
      k=24 B=64, 8q k=16 B=16, and the three that phases 13 and 14 launch
      most: 3q k=8 'xz' B=200, 4q k=10 B=100, 3q connected k=10 B=800), the
      row-split design timed in turns with the column design wherever the
-     plan takes the latter;
+     plan takes the latter, and at 7 and 8 qubits two launches of each
+     pass on the same inputs giving the same bits;
  13. the custom-loss path: the reference notebook's GHZ-4 and
      relative-phase Toffoli-3 syntheses with the losses as torch callables
      (adaptive, k in [0, 10], stopping at 3 CZ, max_evals cut to 8), which
@@ -201,16 +204,19 @@ with CUDA, and never imports JAX. Phases:
      on 16 blocks, (J) the 13q GHZ state k=48 B=64 on one block and (K) 8q
      modulo_diagonal 'xz' k=16 B=32 in float64 on 16 blocks (a float64
      restart past 1e-9 held to 4 times the distance of the plain route on
-     the host from the card's); the unitary kernels (row-split) at 8q k=16
-     B=16 in float64 and 8q k=270 B=4 in float32, the vjp on 16 blocks, and
-     at a 13q column k=48 B=8 in float32 on one block, against the plain
-     builder under autograd; each with its plan, the clusters or blocks the
-     card holds, its time and its share of the bound; (b) Synthesize.static
+     the host from the card's); the unitary kernels at 8q k=16 B=16 in
+     float64 and 8q k=270 B=4 in float32, the vjp on a cluster of 16 blocks
+     and the forward pass on the column tiles, and at a 13q column k=48 B=8
+     in float32 on one block, against the plain builder under autograd;
+     each with its plan, the clusters or blocks the card holds, its time and
+     its share of the bound, and two launches of each pass at 8 qubits on
+     the same inputs giving the same bits; (b) Synthesize.static
      on the 8q chain for the CX ladder in float64 (k=9, 7 CZ at host loss
      <= 1e-6), every sweep launch the double build on 16 blocks; (c) a
      custom loss at 8q in float64 (the ladder's HS test as a torch
-     callable) through the unitary kernels, the vjp on 16 blocks, against
-     the plain float64 route; (d) GHZ-13 in float32 with the state loss
+     callable) through the unitary kernels, the forward pass on the column
+     tiles and the vjp on a cluster of 16 blocks, against the plain float64
+     route; (d) GHZ-13 in float32 with the state loss
      through Synthesize.static: from 1024 random restarts at k=14 (what it
      finds printed), and at k=12 from the noisy rows of 15 (b)'s warm batch
      around the exact 12-CZ embedding that start above the entry loss,
@@ -1286,7 +1292,8 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
     design, threads a restart, restarts a block, shared bytes a block, blocks
     a restart), each held against the library's own (cpflow_unitary_design,
     and cpflow_unitary_column_restarts and _column_smem_bytes for the column
-    design, cpflow_unitary_cluster and _smem_bytes for the row-split one),
+    design, cpflow_unitary_cluster and _smem_bytes for the row-split one,
+    cpflow_unitary_warp_layout for the kernels on tiles.cuh's warps),
     in the build of `dtype` (default float32); passes: the vjp flags of
     the plans to give, both by default."""
     import torch
@@ -1356,6 +1363,19 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
                       f'restart, the kernels {list(got)} and '
                       f'{lib.cpflow_unitary_tile_partials(n, nb, nba, log_c)}'
                       f'; the plan\'s layout {card} bytes')
+                card = got[1]
+            if 'ring' in mine:  # the kernels on tiles.cuh's warps
+                got = (ctypes.c_int * 6)()
+                check(lib.cpflow_unitary_warp_layout(n, nb, nba, log_c,
+                                                     int(vjp), got) == 0,
+                      f'{name}: no warp layout for the {what}')
+                want = [mine['threads'], mine['smem_bytes'], c,
+                        mine['columns_per_warp'], mine['warps_per_column'],
+                        mine['ring']]
+                check(list(got) == want,
+                      f'{name}: the plan says (threads, bytes, blocks, '
+                      f'columns a warp, warps a column, ring) {want} for the '
+                      f'{what}, the kernels {list(got)}')
                 card = got[1]
             check(c == theirs and card == mine['smem_bytes'],
                   f'{name}: the plan says {c} blocks of {mine["smem_bytes"]} '
@@ -1428,9 +1448,11 @@ TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
                ('tiles', True): 'vjp_tiles_kernel'}
 # the kernels (KERNELS names) whose redesign left no local memory, in both
 # builds: the row tiles' and the column tiles' vjp (with its prologue and
-# sum), the row tiles' forward pass
+# sum), the row tiles' forward pass, the vjp on a cluster and the column
+# tiles' forward pass
 NO_LOCAL = ('ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
-            'ansatz_vjp_column_tiles')
+            'ansatz_vjp_column_tiles', 'ansatz_vjp_cluster',
+            'ansatz_forward_column_tiles')
 # the column tiles' vjp: its three kernels, by KERNELS name and trace name
 TILE_VJP_PARTS = (('ansatz_vjp_tile_gates', 'vjp_tile_gates_kernel'),
                   ('ansatz_vjp_column_tiles', 'vjp_tiles_kernel'),
@@ -1506,7 +1528,8 @@ def phase_unitary(card):
     from cpflow_tpu_torch.topology import (chain_layer, connected_layer,
                                            fill_layers)
     dev = 'cuda'
-    worst = {'ansatz_forward': 0.0, 'ansatz_vjp': 0.0}
+    worst = {'ansatz_forward': 0.0, 'ansatz_vjp': 0.0,
+             'ansatz_forward_column_tiles': 0.0}
     regs = uk.registers(dev)
     stacks = column_ptxas()
     local = {k: v['local_bytes'] for k, v in regs.items() if 'columns' in k}
@@ -1607,7 +1630,9 @@ def phase_unitary(card):
                   f'from float64 central differences by {max(errs)}')
             line += f'; against float64 central differences {max(errs):.2e}'
         print(line, flush=True)
-        worst['ansatz_forward'] = max(worst['ansatz_forward'], err_f)
+        fline = 'ansatz_forward' + (
+            '_column_tiles' if plans[0]['design'] == 'tiles' else '')
+        worst[fline] = max(worst[fline], err_f)
         worst['ansatz_vjp'] = max(
             worst['ansatz_vjp'], (g_k - g_p).abs().max().item(),
             (h_k - h_p).abs().max().item())
@@ -1636,29 +1661,40 @@ def phase_unitary(card):
             pv.append(timed(lambda: torch.autograd.grad(
                 u_p, a_p, grad_outputs=w_p))[1])
         both = plans[0]['design'] == 'columns'
-        turns = ['rows', 'columns', 'columns', 'rows'] if both else ['rows']
+        # where the plan is not the column design, each pass in its plan's
+        # (7 and 8 qubits: the forward pass on the column tiles, the vjp on
+        # a cluster)
+        turns = ['rows', 'columns', 'columns', 'rows'] if both else [None]
         calls, call_ms = [], {}
         for design in turns:
             f = functools.partial(uk.ansatz_forward, *tpl, angles,
                                   design=design)
             v = functools.partial(uk.ansatz_vjp, *tpl, angles, u, w,
                                   design=design)
-            calls += [(design, False, f), (design, True, v)]
             for vjp, fn in ((False, f), (True, v)):
-                call_ms.setdefault((design, vjp), []).append(
+                key = design or plans[vjp]['design']
+                calls.append((key, vjp, fn))
+                call_ms.setdefault((key, vjp), []).append(
                     min(timed(fn)[1] for _ in range(2)))
         alone = designs_alone(calls)
+        if n >= 7:  # two launches on the same inputs, the same bits
+            check(torch.equal(uk.ansatz_forward(*tpl, angles),
+                              uk.ansatz_forward(*tpl, angles)) and
+                  torch.equal(uk.ansatz_vjp(*tpl, angles, u, w),
+                              uk.ansatz_vjp(*tpl, angles, u, w)),
+                  f'{name}: two launches on the same inputs differ')
         for kernel, vjp, plain, ops, nbytes in [
                 ('ansatz_forward', False, min(pf[1:]), work['forward'],
                  work['forward_bytes']),
                 ('ansatz_vjp', True, min(pv[1:]), work['vjp'],
                  work['vjp_bytes'])]:
             p = plans[vjp]
+            kernel += '_column_tiles' if p['design'] == 'tiles' else ''
             b_ms, b_by = unitary_bound_ms(ops, nbytes, Bt)
             row = dict(shape=name, design=p['design'],
                        cluster=p['blocks_per_restart'], bound_ms=b_ms,
                        bound_by=b_by, plain_ms=plain)
-            for design in turns[:2]:
+            for design in turns[:2] if both else [p['design']]:
                 kname = uk.kernel_name(design, vjp, n, p['blocks_per_restart'])
                 threads, nbytes_block = p['threads'], p['smem_bytes']
                 if design != p['design']:   # the row-split design's sizes
@@ -1675,6 +1711,9 @@ def phase_unitary(card):
                     f'{prefix}local_bytes': regs[kname]['local_bytes'],
                     f'{prefix}blocks_per_sm': uk.occupancy(
                         kname, threads, nbytes_block, dev)})
+                check(kname not in NO_LOCAL or
+                      regs[kname]['local_bytes'] == 0,
+                      f'{name}: {kname} uses local memory: {regs[kname]}')
             on_card = row['device_ms']
             shown = 'not measured' if on_card is None else \
                 f'{on_card:.4f} ms (share of bound {b_ms / on_card:.2%})'
@@ -1697,7 +1736,7 @@ def phase_unitary(card):
                 if old and on_card:
                     text += f'; columns / rows {on_card / old:.3f}'
             print(text, flush=True)
-            rows[kernel].append(row)
+            rows.setdefault(kernel, []).append(row)
     ratios = [(r['shape'], kernel, r['device_ms'] / r['rows_device_ms'])
               for kernel, rs in rows.items() for r in rs
               if r.get('rows_device_ms') and r['device_ms']]
@@ -2991,23 +3030,33 @@ def phase_double(card):
         g = torch.randn(up.shape, dtype=up.dtype, device='cuda',
                         generator=gen)
         (gp,) = torch.autograd.grad((up * g.conj()).real.sum(), ap)
-        for design in sorted({fwd_plan['design'], 'rows'}):
+        # each pass in its plan's design, and where that is the column
+        # design in the row-split one too (from 7 qubits the forward pass
+        # runs on the column tiles alone)
+        pairs = [(fwd_plan['design'], vjp_plan['design'])]
+        if fwd_plan['design'] == 'columns':
+            pairs.append(('rows', 'rows'))
+        for fdesign, design in pairs:
             u = uk.ansatz_forward(n, 'cp', 'xyz', anz.placements, angles,
-                                  design=design)
+                                  design=fdesign)
             gk = uk.ansatz_vjp(n, 'cp', 'xyz', anz.placements, angles, u, g,
                                design=design)
             torch.cuda.synchronize()
             eu = (u - up.detach()).abs().max().item()
             eg = ((gk - gp).abs() / gp.abs().clamp(min=1.0)).max().item()
-            uerr['ansatz_forward_f64'] = max(uerr['ansatz_forward_f64'], eu)
+            fline = 'ansatz_forward' + (
+                '_column_tiles_f64' if fdesign == 'tiles' else '_f64')
+            uerr[fline] = max(uerr.get(fline, 0.0), eu)
             uerr['ansatz_vjp_f64'] = max(uerr['ansatz_vjp_f64'], eg)
-            print(f'phase 18 (c): {n}q k={k} B=32 {design} design '
+            print(f'phase 18 (c): {n}q k={k} B=32 forward {fdesign}, vjp '
+                  f'{design} design '
                   f'(forward {plan_text(fwd_plan)}; vjp {plan_text(vjp_plan)})'
                   f': unitary err {eu:.3e} (tol {F64_UNITARY_TOL}), gradient '
                   f'err {eg:.3e} (tol {F64_GRAD_TOL})', flush=True)
             check(u.dtype == torch.complex128 and eu <= F64_UNITARY_TOL and
                   eg <= F64_GRAD_TOL,
-                  f'{n}q {design}: float64 unitary kernels against plain: '
+                  f'{n}q {fdesign}/{design}: float64 unitary kernels '
+                  f'against plain: '
                   f'{eu:.3e}, {eg:.3e}')
 
     launches = {}
@@ -3745,9 +3794,11 @@ def phase_custom8(card):
     loop over the plain builder, plain=True) from the same angles, both
     over 60 steps (held to F64_LOSS0_TOL and F64_BEST_TOL) and over
     CUSTOM8_STEPS steps (best losses within CUSTOM8_TOL). Every launch of
-    the unitary kernels must be the double build, the vjp on 16 blocks, and
-    the plain builder must not be called on the kernels' route. Returns
-    (forward launches, vjp launches)."""
+    the unitary kernels must be the double build, the forward pass on the
+    column tiles and the vjp on a cluster of 16 blocks, and the plain
+    builder must not be called on the kernels' route. Returns the launches
+    by kernel line (the forward pass's ansatz_forward_column_tiles_f64, the
+    vjp's ansatz_vjp_f64)."""
     import numpy as np
     import torch
     from cpflow_tpu_torch.api import Ansatz, RegularizationOptions
@@ -3773,6 +3824,7 @@ def phase_custom8(card):
         uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = sk.LAUNCHES = 0
         uk.FORWARD_F64_LAUNCHES = uk.VJP_F64_LAUNCHES = 0
         uk.VJP_LAUNCHES_BY_CLUSTER.clear()
+        uk.LAUNCHES_BY_KERNEL.clear()
         start = time.perf_counter()
         for T in (60, CUSTOM8_STEPS):
             out[T] = sk.sweep(objs[0], init, 0.1, T)
@@ -3780,14 +3832,19 @@ def phase_custom8(card):
         wall = time.perf_counter() - start
         counts = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES,
                   uk.FORWARD_F64_LAUNCHES, uk.VJP_F64_LAUNCHES,
-                  dict(uk.VJP_LAUNCHES_BY_CLUSTER), sk.LAUNCHES, watch.calls)
-    fwd, vjp, f64f, f64v, by_cluster, fused, plain_calls = counts
+                  dict(uk.VJP_LAUNCHES_BY_CLUSTER),
+                  dict(uk.LAUNCHES_BY_KERNEL), sk.LAUNCHES, watch.calls)
+    fwd, vjp, f64f, f64v, by_cluster, by_kernel, fused, plain_calls = counts
+    # the forward pass on the column tiles, the vjp on a cluster of 16
+    lines = {'ansatz_forward_column_tiles_f64': fwd, 'ansatz_vjp_f64': vjp}
     check(fwd > CUSTOM8_STEPS and vjp >= CUSTOM8_STEPS and (f64f, f64v) ==
-          (fwd, vjp) and by_cluster == {16: vjp} and fused == 0 and
+          (fwd, vjp) and by_cluster == {16: vjp} and by_kernel == {
+              'ansatz_forward_column_tiles_f64': fwd,
+              'ansatz_vjp_cluster_f64': vjp} and fused == 0 and
           plain_calls == 0,
           f'8q custom loss in float64: forward {fwd} ({f64f} float64), vjp '
-          f'{vjp} ({f64v}; by blocks {by_cluster}), fused {fused}, plain '
-          f'builder {plain_calls}')
+          f'{vjp} ({f64v}; by blocks {by_cluster}), by kernel {by_kernel}, '
+          f'fused {fused}, plain builder {plain_calls}')
     start = time.perf_counter()
     ref = {T: sk.sweep_reference(objs[1], init, 0.1, T)
            for T in (60, CUSTOM8_STEPS)}
@@ -3804,13 +3861,14 @@ def phase_custom8(card):
           f'steps err {e60:.3e} (tol {F64_BEST_TOL}), after {CUSTOM8_STEPS} '
           f'err {eT:.3e} (tol {CUSTOM8_TOL}); best losses '
           f'{np.round(np.sort(best.cpu().numpy()), 6).tolist()}; forward '
-          f'launches {fwd}, vjp {vjp} on 16 blocks, all float64; wall '
+          f'launches {fwd} on the column tiles, vjp {vjp} on a cluster of 16 '
+          f'blocks, all float64; wall '
           f'{wall:.3f} s, plain route {plain_wall:.3f} s', flush=True)
     check(e0 <= F64_LOSS0_TOL and e60 <= F64_BEST_TOL and eT <= CUSTOM8_TOL
           and bool(torch.isfinite(best).all()),
           f'8q custom loss in float64 against the plain route: {e0:.3e}, '
           f'{e60:.3e}, {eT:.3e}')
-    return fwd, vjp
+    return lines
 
 
 def ghz_host_loss(d):
@@ -4014,6 +4072,8 @@ def phase_sixteen(card):
     start = time.perf_counter()
     worst32, worst64, rows32, rows64 = phase_sixteen_sweeps(card)
     errs, rows = phase_sixteen_unitary(card)
+    phase_split_vjp_bits([s for s in SIXTEEN_UNITARY if s[0] <= 8],
+                         'phase 19 (a)')
     errs.update(sweep=worst32, sweep_f64=worst64)
     rows.update(sweep=rows32, sweep_f64=rows64)
     launches = {'sweep': {}, 'sweep_f64': {}}
@@ -4170,17 +4230,19 @@ def phase_split(card):
 
 
 def phase_split_vjp_bits(shapes, label='phase 20 (a)'):
-    """Phase 20 (a) (and 21 (b)): two launches of the forward pass, and two
-    of the vjp, on the same inputs give the same bits at every row of
-    `shapes` (SPLIT_UNITARY's or NINE_UNITARY's tuples): the row tiles sum
-    each warp's share of a gate's cotangent in warp order and the blocks'
-    in rank order, the column tiles sum the tiles' shares in tile order."""
+    """Phase 20 (a) (and 19 (a), 21 (b)): two launches of the forward pass,
+    and two of the vjp where a row drives it, on the same inputs give the
+    same bits at every row of `shapes` (SPLIT_UNITARY's, SIXTEEN_UNITARY's
+    or NINE_UNITARY's tuples): the row tiles sum each warp's share of a
+    gate's cotangent in warp order and the blocks' in rank order, the vjp on
+    a cluster its warps' in warp order and its blocks' in rank order, the
+    column tiles the tiles' shares in tile order."""
     import torch
     from cpflow_tpu_torch.api import Ansatz
     from cpflow_tpu_torch.kernels import unitary as uk
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
     gen = torch.Generator(device='cuda').manual_seed(20)
-    for n, k, rot, B, dname, _, cols, _ in shapes:
+    for n, k, rot, B, dname, passes, cols, _ in shapes:
         dtype = getattr(torch, dname)
         anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
         angles = uniform_inits(anz.num_angles, B, 20, 'cuda').to(dtype)
@@ -4189,6 +4251,8 @@ def phase_split_vjp_bits(shapes, label='phase 20 (a)'):
         check(torch.equal(u, u2), f'{n}q k={k} {dname}: two forward '
               f'launches on the same inputs differ')
         del u2
+        if True not in passes:  # a row of the forward pass alone
+            continue
         g = torch.randn(u.shape, dtype=u.dtype, device='cuda', generator=gen)
         a, b = (uk.ansatz_vjp(n, 'cp', rot, anz.placements, angles, u, g,
                               cols) for _ in range(2))
@@ -4321,8 +4385,7 @@ def nine_shapes():
 
 # phase 21 (b)'s unitary rows, as SIXTEEN_UNITARY's: the vjp on the column
 # tiles (the last field: its tiles a restart); the forward pass, which holds
-# no M, on tiles twice as wide, or at 9 qubits in float32 on the 16
-# independent blocks of the row-split plan
+# no M, on tiles twice as wide
 NINE_UNITARY = [(9, 10, 'xyz', 4, 'float32', (False, True), None, 32),
                 (9, 10, 'xyz', 4, 'float64', (False, True), None, 64),
                 (10, 12, 'xyz', 2, 'float32', (False, True), None, 128),
@@ -4812,7 +4875,8 @@ def main() -> int:
               f'a main path missed the unitary kernels: {unitary_launches}')
         errs19, rows19, launches19, unitary19 = sixteen
         check(all(v > 0 for by in launches19.values() for v in by.values())
-              and all(f > 0 and v > 0 for f, v in unitary19.values()),
+              and all(v > 0 for by in unitary19.values()
+                      for v in by.values()),
               f'a phase 19 path missed its kernel: {launches19}, {unitary19}')
         errs20, rows20, launches20 = split
         lines20 = [line + suffix for line in ROW_TILE_LINES
@@ -4893,9 +4957,8 @@ def main() -> int:
     for line in kernels:
         name = line['name']
         by_path = dict(launches19.get(name, {}))
-        if name.startswith('ansatz_') and name.endswith('_f64'):
-            by_path = {k: v[name.startswith('ansatz_vjp')]
-                       for k, v in unitary19.items()}
+        by_path.update({path: by[name] for path, by in unitary19.items()
+                        if name in by})
         line['launches_by_path'].update(by_path)
         line['launches'] += sum(by_path.values())
         line['max_abs_err'] = max(line['max_abs_err'], errs19.get(name, 0.0))
@@ -4929,18 +4992,20 @@ def main() -> int:
             'bound_by': rows[-1]['bound_by'], 'library_ms': None,
             'cluster': sorted({r['cluster'] for r in rows}), 'shapes': rows})
     # phase 21: a line for each build of the column tiles (the whole unitary
-    # on independent blocks past a cluster of 16), its numbers from its first
-    # row (9 qubits, 10 for the float32 forward pass) and its launches from
-    # phase 21's paths; phase 21's rows of an older build (the 9q forward
-    # pass on 16 blocks) join that build's line
+    # on independent blocks), its numbers from its first row (9 qubits) and
+    # its launches from phase 21's paths; the forward pass's lines also take
+    # its 7q and 8q rows of phases 12 and 19 and phase 19 (c)'s launches
     for line in kernels:
         line['shapes'] = line['shapes'] + rows21.get(line['name'], [])
         line['max_abs_err'] = max(line['max_abs_err'],
                                   errs21.get(line['name'], 0.0))
-        if line['name'] not in lines21:  # (f)'s 9q forward pass, 16 blocks
-            by_path = launches21.get(line['name'], {})
-            line['launches_by_path'].update(by_path)
-            line['launches'] += sum(by_path.values())
+    for name in lines21:
+        launches21.setdefault(name, {}).update(
+            {path: by[name] for path, by in unitary19.items() if name in by})
+        errs21[name] = max(errs21.get(name, 0.0), errs19.get(name, 0.0),
+                           (unitary_err or {}).get(name, 0.0))
+        rows21[name] = rows21.get(name, []) + \
+            (unitary_rows or {}).get(name, []) + rows19.get(name, [])
     for name in lines21:
         rows = rows21[name]
         sweep = name.startswith('sweep')

@@ -40,6 +40,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "columns.cuh"
 
@@ -365,6 +366,334 @@ __device__ __forceinline__ void tile_segment_sum(const real* parts,
   for (int i = tid; i < E; i += blockDim.x)
     out[i] = sum_fixed(parts + i, kTileSegment, E);
   if (tid == 0) *count = 0;
+}
+
+// ------------------------------------------- the unitary kernels' warps
+// unitary.cu's tiles of the whole unitary (the forward pass's column tiles,
+// and the vjp on a cluster at 7 and 8 qubits) hold w = 2 ... 128 columns
+// on the nw warps of a block of tile_threads. Where w <= nw a column has
+// its group of gw = nw / w warps, as above. Where w > nw (7 to 9 qubits) a
+// warp owns cw = w / nw columns, c0 ... c0 + cw - 1: it runs a gate on all
+// of them, its lanes dealing out each column's amplitude groups, then a
+// warp barrier; in the walk it sums a gate's cotangent over its columns in
+// registers before its lanes' shuffles. Neither regime has a block barrier
+// between two gates. Functions of their own, so that the sweep's tile
+// kernel above keeps its machine code.
+struct WarpColumns {
+  int c0, cw;  // the warp's first column, and its columns
+  int gw;      // warps a column (column_sync's group of column c0)
+  int gl, gL;  // the thread's lane among the column's gL
+};
+
+__host__ __device__ inline int tile_columns_a_warp(int w, int nw) {
+  return w > nw ? w / nw : 1;
+}
+
+__device__ __forceinline__ WarpColumns warp_columns(int w, int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  WarpColumns o;
+  if (w > nw) {
+    o.cw = w / nw;
+    o.c0 = warp * o.cw;
+    o.gw = 1;
+    o.gl = lane;
+    o.gL = 32;
+  } else {
+    o.gw = nw / w;
+    o.c0 = warp / o.gw;
+    o.cw = 1;
+    o.gl = (warp % o.gw) * 32 + lane;
+    o.gL = 32 * o.gw;
+  }
+  return o;
+}
+
+// The row bits of gate j: a surface gate's on qubit j, a block's on its
+// placement (qubit q on row bit n - 1 - q).
+__device__ __forceinline__ int2 gate_bits(const int* placements, int n,
+                                          int j) {
+  if (j < n) return make_int2(n - 1 - j, 0);
+  return make_int2(n - 1 - __ldg(&placements[2 * (j - n)]),
+                   n - 1 - __ldg(&placements[2 * (j - n) + 1]));
+}
+
+// The rows of a K-qubit gate's amplitude groups, as GateRows, with lane
+// gl taking its group's amplitudes in the order p ^ rho. The lanes of one
+// shared-memory wavefront (16 in float, 8 in double: 2^kBankBits complex
+// values of 128 bytes) read consecutive groups of a column; a gate leg on
+// a row bit below kBankBits leaves their rows on fewer banks, so rho XORs
+// the p bits of those legs with the lane's group bits that land at or
+// above kBankBits, and the wavefront's rows fall on distinct banks. The
+// gate's entries are taken in the same order (swiz_gate).
+#ifdef CPFLOW_DOUBLE
+constexpr int kBankBits = 3;
+#else
+constexpr int kBankBits = 4;
+#endif
+
+template <int K>
+struct SwizRows {
+  int lo, hi, lane, rho, bit[1 << K];
+  __device__ __forceinline__ SwizRows(int sa, int sb, int gl) {
+    lo = K == 1 || sa < sb ? sa : sb;
+    hi = K == 1 ? 31 : (sa < sb ? sb : sa);
+    lane = spread(gl);
+    const bool la = sa < kBankBits, lb = K == 2 && sb < kBankBits;
+    const int m = (int)la + (int)lb;
+    const int h = (gl >> (kBankBits - m)) & ((1 << m) - 1);
+    rho = K == 1 ? h : (la && !lb ? h << 1 : h);
+#pragma unroll
+    for (int p = 0; p < (1 << K); ++p) {
+      const int q = p ^ rho;
+      bit[p] = K == 1 ? q << sa : ((q >> 1) << sa) | ((q & 1) << sb);
+    }
+  }
+  __device__ __forceinline__ int spread(int g) const {
+    return K == 1 ? ins0(g, lo) : ins0(ins0(g, lo), hi);
+  }
+};
+
+// The gate's entries in a lane's order: G'[p][k] = G[p ^ rho][k ^ rho].
+template <int K>
+__device__ __forceinline__ void swiz_gate(const cplx* g, int rho,
+                                          cplx (&G)[16]) {
+  constexpr int D = 1 << K;
+#pragma unroll
+  for (int p = 0; p < D; ++p)
+#pragma unroll
+    for (int k = 0; k < D; ++k) G[p * D + k] = g[(p ^ rho) * D + (k ^ rho)];
+}
+
+// Swaps complex entries e and e ^ M of v (N of them) where c holds.
+template <int M, int N>
+__device__ __forceinline__ void swap_entries(real (&v)[32], bool c) {
+  constexpr int low = M & -M;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if (e & low) continue;
+    const int f = e ^ M;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const real a = v[2 * e + h], b = v[2 * f + h];
+      v[2 * e + h] = c ? b : a;
+      v[2 * f + h] = c ? a : b;
+    }
+  }
+}
+
+// Whether a gate on row bits sa (, sb) has a leg below kBankBits, and so
+// takes its amplitudes in each lane's order (SwizRows); the others take
+// them in the natural order (GateRows), the gate by load_gate.
+template <int K>
+__device__ __forceinline__ bool low_leg(int sa, int sb) {
+  return sa < kBankBits || (K == 2 && sb < kBankBits);
+}
+
+// The lane's rows and gate of either order.
+template <int K, bool kSwiz>
+using RowsOf =
+    typename std::conditional<kSwiz, SwizRows<K>, GateRows<K>>::type;
+
+template <int K, bool kSwiz>
+__device__ __forceinline__ void gate_of(const cplx* g,
+                                        const RowsOf<K, kSwiz>& rows,
+                                        cplx (&G)[16]) {
+  if constexpr (kSwiz)
+    swiz_gate<K>(g, rows.rho, G);
+  else
+    load_gate<K>(g, G);
+}
+
+// X <- G X on the warp's columns X, X + S, ... (tile_forward on each, the
+// gate loaded once; with kSwiz the amplitudes in each lane's order).
+template <int K, bool kSwiz>
+__device__ __forceinline__ void warp_forward(cplx* X, int S, const cplx* g,
+                                             int n, int sa, int sb,
+                                             const WarpColumns& wc) {
+  constexpr int D = 1 << K;
+  if (wc.gl >= (1 << (n - K))) return;  // more lanes than groups
+  const RowsOf<K, kSwiz> rows(sa, sb, wc.gl);
+  cplx G[16];
+  gate_of<K, kSwiz>(g, rows, G);
+  for (int c = 0; c < wc.cw; ++c, X += S)
+    for (int step = 0; step < (1 << (n - K)); step += wc.gL) {
+      const int r0 = rows.lane + rows.spread(step);
+      cplx x[D];
+#pragma unroll
+      for (int p = 0; p < D; ++p) x[p] = X[r0 + rows.bit[p]];
+#pragma unroll
+      for (int p = 0; p < D; ++p) {
+        cplx acc = mkc(RL(0.), RL(0.));
+#pragma unroll
+        for (int k = 0; k < D; ++k) acc = cmac(acc, G[p * D + k], x[k]);
+        X[r0 + rows.bit[p]] = acc;
+      }
+    }
+}
+
+// One step of the walk on the warp's columns (tile_backward on each, the
+// gate loaded once): the cotangent shares of all of them summed into gb,
+// column by column; with kSwiz the amplitudes in each lane's order, and gb
+// then put back in the natural order.
+template <int K, bool kSwiz>
+__device__ __forceinline__ void warp_backward(cplx* X, cplx* Y, int S,
+                                              const cplx* g, int n, int sa,
+                                              int sb, const WarpColumns& wc,
+                                              real (&gb)[32]) {
+  constexpr int D = 1 << K;
+  if (wc.gl >= (1 << (n - K))) return;  // idles, its shares 0
+  const RowsOf<K, kSwiz> rows(sa, sb, wc.gl);
+  cplx G[16];
+  gate_of<K, kSwiz>(g, rows, G);
+  for (int c = 0; c < wc.cw; ++c, X += S, Y += S)
+    for (int step = 0; step < (1 << (n - K)); step += wc.gL) {
+      const int r0 = rows.lane + rows.spread(step);
+      cplx x[D], y[D];
+#pragma unroll
+      for (int p = 0; p < D; ++p) {
+        x[p] = X[r0 + rows.bit[p]];
+        y[p] = Y[r0 + rows.bit[p]];
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
+#pragma unroll
+        for (int p = 0; p < D; ++p) {
+          ak = cmac_conj(ak, G[p * D + k], x[p]);
+          mk = cmac(mk, G[p * D + k], y[p]);
+        }
+#pragma unroll
+        for (int p = 0; p < D; ++p) {  // the product first, as tile_backward
+          const cplx t = cmul(y[p], ak);
+          gb[2 * (p * D + k)] += t.x;
+          gb[2 * (p * D + k) + 1] += t.y;
+        }
+        X[r0 + rows.bit[k]] = ak;
+        Y[r0 + rows.bit[k]] = mk;
+      }
+    }
+  if constexpr (kSwiz) {  // entry (p, k) of gb holds (p ^ rho, k ^ rho)
+    if (K == 2) {  // rho's bit 0 toggles the sb leg's, bit 1 the sa leg's
+      swap_entries<5, 16>(gb, rows.rho & 1);
+      swap_entries<10, 16>(gb, rows.rho & 2);
+    } else {
+      swap_entries<3, 4>(gb, rows.rho & 1);
+    }
+  }
+}
+
+// The surface round on the identity's columns C0, C0 + 1, ... of the
+// warp's (X, X + S, ...), in one pass instead of n: entry r of column C is
+// the product over q of G_q[r's bit, C's bit] on row bit n - 1 - q (from
+// e_C each gate's other amplitude is 0). The lane's rows r = gl + i gL
+// share their low log2(gL) bits, so the factors of those qubits are taken
+// once a column.
+__device__ __forceinline__ void warp_product(cplx* X, int S,
+                                             const cplx* gates, int n,
+                                             int C0, const WarpColumns& wc) {
+  int lg = 0;
+  while ((1 << lg) < wc.gL && lg < n) ++lg;
+  for (int c = 0; c < wc.cw; ++c, X += S) {
+    const int C = C0 + c;
+    cplx lo = mkc(RL(1.), RL(0.));
+    for (int s = 0; s < lg; ++s)
+      lo = cmul(lo, gates[16 * (n - 1 - s) + 2 * ((wc.gl >> s) & 1) +
+                          ((C >> s) & 1)]);
+    for (int r = wc.gl; r < (1 << n); r += wc.gL) {
+      cplx v = lo;
+      for (int s = lg; s < n; ++s)
+        v = cmul(v, gates[16 * (n - 1 - s) + 2 * ((r >> s) & 1) +
+                          ((C >> s) & 1)]);
+      X[r] = v;
+    }
+  }
+}
+
+// Gates j0 .. G - 1 of the chain on the warp's columns, a column_sync
+// after each.
+__device__ __forceinline__ void warp_chain(cplx* X, int S, const cplx* gates,
+                                           const int* placements, int n,
+                                           int j0, int G,
+                                           const WarpColumns& wc) {
+  for (int j = j0; j < n; ++j) {
+    const int s = n - 1 - j;
+    if (low_leg<1>(s, 0))
+      warp_forward<1, true>(X, S, gates + 16 * j, n, s, 0, wc);
+    else
+      warp_forward<1, false>(X, S, gates + 16 * j, n, s, 0, wc);
+    column_sync(wc.c0, wc.gw);
+  }
+  for (int j = j0 > n ? j0 : n; j < G; ++j) {
+    const int2 bits = gate_bits(placements, n, j);
+    if (low_leg<2>(bits.x, bits.y))
+      warp_forward<2, true>(X, S, gates + 16 * j, n, bits.x, bits.y, wc);
+    else
+      warp_forward<2, false>(X, S, gates + 16 * j, n, bits.x, bits.y, wc);
+    column_sync(wc.c0, wc.gw);
+  }
+}
+
+// tile_flush with a ring of R gates (a power of two, at most kTileRing),
+// into out in shared memory: the warps' slots of gates j0 .. min(j0 + R,
+// G) - 1 summed in warp order between two block barriers.
+__device__ __forceinline__ void ring_flush(const real* ring, int R,
+                                           real* out, int j0, int n, int G,
+                                           int nw) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * 32; i += blockDim.x) {
+    const int r = i >> 5, e = i & 31, j = j0 + r;
+    if (j >= G) break;
+    real s = RL(0.);
+    if (j >= n || e < 8)
+      for (int w = 0; w < nw; ++w) s += ring[(w * R + r) * 32 + e];
+    out[32 * j + e] = s;
+  }
+  __syncthreads();
+}
+
+// The walk on the warp's columns (X, Y: its first column of A and M),
+// last gate first: each gate's cotangent summed over the warp's columns in
+// registers, then over its lanes by shuffles into its slot of a ring of R
+// gates, and every R gates the slots summed in warp order into gbar
+// (ring_flush). Ends with a block barrier.
+__device__ __forceinline__ void warp_walk(cplx* X, cplx* Y, int S,
+                                          const cplx* gates,
+                                          const int* placements, real* ring,
+                                          int R, real* gbar, int n, int G,
+                                          int nw, const WarpColumns& wc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = G - 1; j >= n; --j) {
+    real gb[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
+    const int2 bits = gate_bits(placements, n, j);
+    if (low_leg<2>(bits.x, bits.y))
+      warp_backward<2, true>(X, Y, S, gates + 16 * j, n, bits.x, bits.y, wc,
+                             gb);
+    else
+      warp_backward<2, false>(X, Y, S, gates + 16 * j, n, bits.x, bits.y,
+                              wc, gb);
+    int base = 0;
+    reduce_step<16, 32>(gb, lane, base, kFull);
+    ring[(warp * R + j % R) * 32 + base] = gb[0];
+    column_sync(wc.c0, wc.gw);
+    if (j % R == 0) ring_flush(ring, R, gbar, j, n, G, nw);
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    real gb[32];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gb[e] = RL(0.);
+    const int s = n - 1 - j;
+    if (low_leg<1>(s, 0))
+      warp_backward<1, true>(X, Y, S, gates + 16 * j, n, s, 0, wc, gb);
+    else
+      warp_backward<1, false>(X, Y, S, gates + 16 * j, n, s, 0, wc, gb);
+    int base = 0;
+    reduce_step<16, 8>(gb, lane, base, kFull);
+    if ((lane & 3) == 0) ring[(warp * R + j % R) * 32 + base] = gb[0];
+    column_sync(wc.c0, wc.gw);
+    if (j % R == 0) ring_flush(ring, R, gbar, j, n, G, nw);
+  }
 }
 
 }  // namespace

@@ -49,18 +49,21 @@
 // (chip_smoke.py phase 12), so a main path's whole batch is resident, and
 // blocks of one restart measured no faster.
 //
-// The row-split design (one column, n <= 17, and the whole unitary at 7
-// and 8 qubits): one thread block per restart, as in sweep.cu, with
-// gates.cuh's threads per restart, each gate split over the block's threads
-// by amplitude groups with a barrier after it, and in the walk each gate's
-// cotangent reduced over the block before the next gate. Where the block's
-// layout does not fit its shared memory (the forward pass holds A, the vjp
+// The row-split design (one column, n <= 17, and the vjp of the whole
+// unitary at 7 and 8 qubits): one thread block per restart, as in sweep.cu,
+// with gates.cuh's threads per restart, each gate split over the block's
+// threads by amplitude groups with a barrier after it, and in the walk each
+// gate's cotangent reduced over the block before the next gate (the first
+// design, which one column on one block and the templates below 7 qubits
+// too deep for the column design keep: forward_kernel, vjp_kernel<false>).
+// Where the block's layout does not fit its shared memory (the vjp holds
 // A and M, 16 * 4^n bytes for the whole unitary) a restart's columns are
-// split over c = 2, 4, 8 or 16 blocks, each holding a d x (C / c) tile
-// (gates.cuh), the smallest c that fits (cluster_plan): the forward pass's
-// blocks are independent, each storing its columns of U; the vjp's form a
-// cluster, which sums the gates' cotangents over distributed shared memory
-// in rank order before the angle gradients, and rank 0 writes them. One
+// split over c = 2, 4, 8 or 16 blocks of a cluster, the smallest c whose
+// make_layout fits (cluster_plan), each block holding d x (d / c) of them
+// on tiles.cuh's warps (vjp_kernel<true>, below): no block barrier or
+// cross-warp sum between two gates, the gates built once a cluster, and
+// the gates' cotangents summed over distributed shared memory in rank
+// order before the angle gradients. One
 // column has too few columns to share out: above 13 qubits (12 in double)
 // its rows are split instead, d / c a block (gates.cuh, row tiles), and
 // both passes become clusters (forward_rows_kernel, vjp_rows_kernel). In
@@ -77,15 +80,17 @@
 // starts. At 7 and 8 qubits a column of A and M (4 and 8 KB) and a
 // restart's layout exceed what one lane and one block hold.
 //
-// The column tiles (the whole unitary past what a cluster of 16 holds: 9
-// qubits and up, in float to 13 and in double to 12): a restart's columns
-// on 2^j independent blocks, no cluster, the fewest tiles that fit
-// (tile_log; the vjp's tiles of 16, 8 and 4 columns at 9, 10 and 11 qubits
-// in float, 8, 4 and 2 in double). The forward pass's tiles never meet; the
-// vjp's run the design of tiles.cuh (a tile's columns owned by warps, the
-// gates built once a call by a prologue) and meet in the sum of the gates'
-// cotangents, which a last kernel forms in a fixed order from shares the
-// tiles leave in global memory (the column tiles section below).
+// The column tiles (the forward pass of the whole unitary from 7 qubits;
+// the vjp past what a cluster of 16 holds: 9 qubits and up, in float to 13
+// and in double to 12): a restart's columns on 2^j independent blocks, no
+// cluster, the fewest tiles that fit (forward_tile_log, tile_log; the vjp's
+// tiles of 16, 8 and 4 columns at 9, 10 and 11 qubits in float, 8, 4 and 2
+// in double, the forward pass's twice as wide). Both run the design of
+// tiles.cuh (a tile's columns owned by warps). The forward pass's tiles
+// never meet; the vjp's (the gates built once a call by a prologue) meet
+// in the sum of the gates' cotangents, which a last kernel forms in a
+// fixed order from shares the tiles leave in global memory (the column
+// tiles section below).
 //
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
@@ -104,9 +109,9 @@
 // takes 16 blocks (up to k = 125 'xyz' blocks), and one column fits one
 // block up to 12 qubits (13 in float) and 16 blocks up to 16 (17 in
 // float).
-// Its kernels hold 122 to 254 registers, the column ones, the row tiles'
-// and the column tiles' vjp with no local memory (their cos and sin from
-// gates.cuh's real_sincos).
+// Its kernels hold 122 to 254 registers, all but the first design's
+// (forward_kernel, vjp_kernel<false>) with no local memory (their cos and
+// sin from gates.cuh's real_sincos).
 //
 // The design is an explicit argument of the launch; kernels/unitary.py
 // passes the plan's (cpflow_unitary_design), which it mirrors for the
@@ -218,6 +223,82 @@ __host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
   return L;
 }
 
+// The layout of the kernels on tiles.cuh's warps (the forward pass's
+// column tiles, forward_tiles_kernel, and the vjp on a cluster,
+// vjp_kernel<true>): a block holds w = 2^log_w columns of the whole
+// unitary, column-major with a column stride of S = d + 1 amplitudes, in
+// tile_threads(n, log_w) threads: A (and the vjp's M), the gates (16
+// complex each, 16-byte aligned), the vjp's gates' cotangents gbar (32
+// reals each) and the ring of its warps' cotangent slots (nw warps x ring
+// gates x 32 reals), the cos and sin of the angles, and P reals that hold
+// the angles and then the vjp's gradient.
+struct WarpLayout {
+  int d, w, S, nt, nw, G, P, ring;
+  size_t off_M, off_gates, off_gbar, off_ring, off_cs, off_pg, bytes;
+};
+
+__host__ __device__ inline WarpLayout warp_layout(int n, int nb, int nba,
+                                                  int log_w, bool vjp,
+                                                  int ring) {
+  WarpLayout L;
+  L.d = 1 << n;
+  L.w = 1 << log_w;
+  L.S = L.d + 1;
+  L.nt = tile_threads(n, log_w);
+  L.nw = L.nt / 32;
+  L.G = n + nb;
+  L.P = 3 * n + nba * nb;
+  L.ring = vjp ? ring : 0;
+  size_t o = (size_t)L.w * L.S * sizeof(cplx);  // A at offset 0
+  L.off_M = o;      if (vjp) o += (size_t)L.w * L.S * sizeof(cplx);
+  o = (o + 15) & ~(size_t)15;
+  L.off_gates = o;  o += (size_t)L.G * 16 * sizeof(cplx);
+  L.off_gbar = o;   if (vjp) o += (size_t)L.G * 32 * sizeof(real);
+  L.off_ring = o;   o += (size_t)L.nw * L.ring * 32 * sizeof(real);
+  L.off_cs = o;     o += (size_t)2 * L.P * sizeof(real);
+  L.off_pg = o;     o += (size_t)L.P * sizeof(real);
+  L.bytes = o;
+  return L;
+}
+
+// The ring of the vjp on a cluster of blocks of 2^log_w columns: the most
+// gates of kTileRing, 8, 4, 2, 1 whose warp_layout fits a block; 0 if none
+// does (never where cluster_plan takes the shape: kernels/tiles.py).
+__host__ __device__ inline int cluster_ring(int n, int nb, int nba,
+                                            int log_w) {
+  for (int r = kTileRing; r >= 1; r >>= 1)
+    if (warp_layout(n, nb, nba, log_w, true, r).bytes <= kSmemLimit) return r;
+  return 0;
+}
+
+// log2 of the forward pass's column tiles of the whole unitary (log_c = n):
+// the fewest tiles whose warp_layout fits a block; -1 for one column.
+inline int forward_tile_log(int n, int nb, int nba, int log_c) {
+  if (!log_c) return -1;
+  for (int j = 0; j <= log_c; ++j)
+    if (warp_layout(n, nb, nba, n - j, false, 0).bytes <= kSmemLimit)
+      return j;
+  return -1;
+}
+
+// log2 of the forward pass's tiles that store together (a cluster of
+// them): 0 where a tile's run of w amplitudes of a row fills a 32-byte
+// sector, else as many as fill one.
+__host__ __device__ inline int store_pairs_log(int w) {
+  int lp = 0;
+  while (((size_t)w << lp) * sizeof(cplx) < 32) ++lp;
+  return lp;
+}
+
+// Whether the forward pass runs on the column tiles: the whole unitary
+// from 7 qubits, and below where no split of the row-split design holds
+// it (past the column design's depths).
+inline bool forward_on_tiles(int n, int nb, int nba, int log_c) {
+  return log_c &&
+         (n >= 7 || cluster_plan(n, nb, nba, log_c, false) < 0) &&
+         forward_tile_log(n, nb, nba, log_c) >= 0;
+}
+
 // The restart's angles into shared memory, their cos and sin (with kRows
 // without local memory, rows.cuh), the gates. Ends with a barrier.
 template <bool kRows = false>
@@ -278,16 +359,16 @@ forward_kernel(Args a) {
   forward_body(a);
 }
 
-// kCluster: the restart split over the blocks of a cluster, by columns, or
-// with kRows its one column by rows (rows.cuh, a RowArgs in a).
-template <bool kCluster, bool kRows>
+// The vjp of one block a restart (vjp_kernel<false>), or with kRows of
+// one column split by rows over a cluster (rows.cuh, a RowArgs in a).
+template <bool kRows>
 __device__ __forceinline__ void vjp_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   RowPlan plan;
   const Layout L = kRows ? row_layout(a.n, a.nb, a.tpl.nba, a.cluster_log,
                                       &plan)
-                         : make_layout(a.n, a.nb, a.tpl.nba, a.log_c,
-                                       kCluster ? a.cluster_log : 0, true);
+                         : make_layout(a.n, a.nb, a.tpl.nba, a.log_c, 0,
+                                       true);
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
@@ -298,7 +379,7 @@ __device__ __forceinline__ void vjp_body(const Args& a) {
   real* cs = reinterpret_cast<real*>(smem + L.off_cs);
   const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
   int b = blockIdx.x, rank = 0;
-  if constexpr (kCluster) {
+  if constexpr (kRows) {
     b = blockIdx.x >> a.cluster_log;
     rank = (int)cooperative_groups::this_cluster().block_rank();
   }
@@ -306,7 +387,7 @@ __device__ __forceinline__ void vjp_body(const Args& a) {
   const cplx* u = a.U + ((size_t)b << (a.n + lc));
   const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
   for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int at = kCluster ? whole_entry<kRows>(e, lc, lt, a.n, rank) : e;
+    const int at = kRows ? whole_entry<kRows>(e, lc, lt, a.n, rank) : e;
     A[e] = u[at];
     const cplx t = g[at];
     M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
@@ -318,7 +399,7 @@ __device__ __forceinline__ void vjp_body(const Args& a) {
              a.n + lt, rank);
   } else
     adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
-  if constexpr (kCluster) cluster_sum(gbar, 32 * L.G);
+  if constexpr (kRows) cluster_sum(gbar, 32 * L.G);
   angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
   __syncthreads();
   if (rank != 0) return;
@@ -326,10 +407,102 @@ __device__ __forceinline__ void vjp_body(const Args& a) {
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
+// Gate j's matrix from the cos and sin of the angles (build_gates' body).
+__device__ __forceinline__ void build_gate(const Template& t, int n, int j,
+                                           const real* cs, cplx* gates) {
+  if (j < n) surface_gate(cs + 6 * j, gates + 16 * j);
+  else block_gate(t, cs + 2 * (3 * n + t.nba * (j - n)), gates + 16 * j);
+}
+
+// The vjp of the whole unitary on a cluster of c = 2^cluster_log blocks
+// (7 and 8 qubits; below, templates past the column design's depths): the
+// block of rank rho holds columns [rho w, (rho + 1) w), w = d / c, on
+// tiles.cuh's warps (warp_layout), each warp owning cw = w / nw columns (or
+// a column its gw warps). The tile's A = U and M = conj(Ubar) / 2 are read
+// row by row in runs of w. The gates are built once a cluster: rank rho
+// builds gates j = rho mod c, and after a cluster barrier each block
+// copies the others' over distributed shared memory. The walk (warp_walk)
+// has no block barrier or cross-warp sum between two gates: each warp sums
+// a gate's cotangent over its columns in registers and its lanes by
+// shuffles into its ring slot, and every `ring` gates the block sums the
+// slots in warp order into its own gbar; cluster_sum then adds the
+// blocks' gbar in rank order, and rank rho forms the angle gradients of
+// its gates. Every sum runs in a fixed order, so that two launches on the
+// same inputs give the same bits.
+__device__ __forceinline__ void vjp_cluster_body(const Args& a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, lw = n - a.cluster_log, c = 1 << a.cluster_log;
+  const WarpLayout L = warp_layout(n, a.nb, a.tpl.nba, lw, true,
+                                   cluster_ring(n, a.nb, a.tpl.nba, lw));
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* ring = reinterpret_cast<real*>(smem + L.off_ring);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  real* pg = reinterpret_cast<real*>(smem + L.off_pg);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rank = (int)cluster.block_rank(), b = blockIdx.x >> a.cluster_log;
+  const int d = L.d, w = L.w, S = L.S, G = L.G;
+
+  // the tile's U and Ubar, row by row in runs of w, copied asynchronously
+  // while the angles' cos and sin and the gates are formed
+  const cplx* u = a.U + ((size_t)b << (2 * n)) + (rank << lw);
+  const cplx* g = a.Ubar + ((size_t)b << (2 * n)) + (rank << lw);
+  for (int e = tid; e < w * d; e += nt) {
+    const int r = e >> lw, col = e & (w - 1);
+    const size_t at = ((size_t)r << n) + col;
+    __pipeline_memcpy_async(A + col * S + r, u + at, sizeof(cplx));
+    __pipeline_memcpy_async(M + col * S + r, g + at, sizeof(cplx));
+  }
+  __pipeline_commit();
+  for (int i = tid; i < L.P; i += nt) pg[i] = a.angles[(size_t)i * a.B + b];
+  __syncthreads();
+  row_angle_trig(a.tpl, n, L.P, pg, cs);
+  __syncthreads();
+  for (int j = rank + c * tid; j < G; j += c * nt)
+    build_gate(a.tpl, n, j, cs, gates);
+  cluster.sync();
+  for (int i = tid; i < 16 * G; i += nt) {  // the others' gates
+    const int owner = (i >> 4) & (c - 1);
+    if (owner != rank) gates[i] = *cluster.map_shared_rank(gates + i, owner);
+  }
+  __pipeline_wait_prior(0);
+  for (int e = tid; e < w * d; e += nt) {  // M = conj(Ubar) / 2, in place
+    const int r = e >> lw, col = e & (w - 1);
+    const cplx x = M[col * S + r];
+    M[col * S + r] = mkc(RL(0.5) * x.x, RL(-0.5) * x.y);
+  }
+  __syncthreads();
+
+  const WarpColumns wc = warp_columns(w, L.nw);
+  warp_walk(A + wc.c0 * S, M + wc.c0 * S, S, gates, a.placements, ring,
+            L.ring, gbar, n, G, L.nw, wc);
+  cluster_sum(gbar, 32 * G);
+  // the angle gradients of this rank's gates, each written by its thread
+  for (int j = rank + c * tid; j < G; j += c * nt) {
+    const cplx* gbj = reinterpret_cast<const cplx*>(gbar + 32 * j);
+    const int off = j < n ? 3 * j : 3 * n + a.tpl.nba * (j - n);
+    const int count = j < n ? 3 : a.tpl.nba;
+    if (j < n) surface_grads(cs + 6 * j, gates + 16 * j, gbj, pg + off);
+    else block_grads(a.tpl, cs + 2 * off, gbj, pg + off);
+    for (int i = 0; i < count; ++i)
+      a.grad[(size_t)(off + i) * a.B + b] = pg[off + i];
+  }
+}
+
+// kCluster: the restart's columns split over the blocks of a cluster
+// (vjp_cluster_body, 512 threads in float at most 128 registers, 256 in
+// double), else one block a restart (the first design).
 template <bool kCluster>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kCluster ? kTileThreads : kMaxThreads)
 vjp_kernel(Args a) {
-  vjp_body<kCluster, false>(a);
+  if constexpr (kCluster)
+    vjp_cluster_body(a);
+  else
+    vjp_body<false>(a);
 }
 
 // The row tiles' kernels: one column split by rows over a cluster, each
@@ -368,7 +541,7 @@ forward_rows_kernel(RowArgs ra) {
 // each block's rows owned by its warps (rows.cuh)
 __global__ void __launch_bounds__(kRowThreads, 1)
 vjp_rows_kernel(RowArgs ra) {
-  vjp_body<true, true>(ra);
+  vjp_body<true>(ra);
 }
 
 // ------------------------------------------------------ the column design
@@ -472,10 +645,10 @@ column_vjp(Args a) {
 // up; at 8 qubits in double past k = 125): a restart's columns split into
 // 2^j tiles of d x 2^(n - j), the fewest whose layout fits a block
 // (tile_log), each on a block of its own with no cluster. The forward pass
-// needs nothing more: its tiles never meet (forward_tiles_kernel, the row-
-// split forward body on 2^j tiles). The vjp's tiles meet only in the sum of
-// each gate's cotangent, and run the design of tiles.cuh, as sweep.cu's
-// column tiles do; a call enqueues three kernels:
+// needs nothing more: its tiles never meet (forward_tiles_kernel, from 7
+// qubits, on its own tiles: forward_tile_log). The vjp's tiles meet only
+// in the sum of each gate's cotangent, and run the design of tiles.cuh, as
+// sweep.cu's column tiles do; a call enqueues three kernels:
 //   vjp_tile_gates_kernel, a block a restart: the cos and sin of its angles
 //     and its gate matrices into the workspace, and its segments' counts
 //     set to 0;
@@ -547,22 +720,82 @@ __host__ __device__ inline SumLayout sum_layout(int G, int P) {
 }
 
 // log2 of the fewest tiles of the whole unitary's columns (log_c = n) whose
-// make_layout fits a block (the rule of the first tile kernels), and for
-// the vjp whose tile kernel's own layout (tiles.cuh) fits with a warp for
+// make_layout of the vjp fits a block (the rule of the first tile kernels)
+// and whose tile kernel's own layout (tiles.cuh) fits with a warp for
 // every column; -1 for one column or if none fits.
-inline int tile_log(int n, int nb, int nba, int log_c, bool vjp) {
+inline int tile_log(int n, int nb, int nba, int log_c) {
   if (!log_c) return -1;
   for (int j = 0; j <= log_c; ++j)
-    if (make_layout(n, nb, nba, log_c, j, vjp).bytes <= kSmemLimit &&
-        (!vjp || ((32 << (n - j)) <= kTileThreads &&
-                  tile_layout(n, nb, n - j).bytes <= kSmemLimit)))
+    if (make_layout(n, nb, nba, log_c, j, true).bytes <= kSmemLimit &&
+        (32 << (n - j)) <= kTileThreads &&
+        tile_layout(n, nb, n - j).bytes <= kSmemLimit)
       return j;
   return -1;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The forward pass on the column tiles: block blockIdx.x holds tile t =
+// blockIdx.x mod 2^j of restart blockIdx.x / 2^j, columns [t w, (t + 1) w)
+// on tiles.cuh's warps (warp_layout, no M): its own cos and sin (without
+// local memory, rows.cuh) and gates, the surface round's product state on
+// the identity's columns in one pass (warp_product), the blocks' chain on
+// each warp's columns (a warp barrier a gate, none of the block's), and a
+// store of the tile into U's rows in runs of w. Where a run is less than a
+// 32-byte sector (2 columns in float at 13 qubits), a cluster of 2 or 4
+// tiles stores together, each block a share of the rows of all their
+// columns, so that no sector is written in parts (store_pairs_log): with
+// runs of 16 bytes the store took about half of the 13-qubit forward
+// pass.
+__global__ void __launch_bounds__(kTileThreads, 1)
 forward_tiles_kernel(Args a) {
-  forward_body(a);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, tl = a.cluster_log, lw = n - tl;
+  const WarpLayout L = warp_layout(n, a.nb, a.tpl.nba, lw, false, 0);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  real* params = reinterpret_cast<real*>(smem + L.off_pg);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b = blockIdx.x >> tl, t = blockIdx.x & ((1 << tl) - 1);
+  const int d = L.d, w = L.w, S = L.S;
+
+  for (int i = tid; i < L.P; i += nt)
+    params[i] = a.angles[(size_t)i * a.B + b];
+  __syncthreads();
+  row_angle_trig(a.tpl, n, L.P, params, cs);
+  __syncthreads();
+  build_gates(a.tpl, n, L.G, cs, gates);
+  __syncthreads();
+
+  const WarpColumns wc = warp_columns(w, L.nw);
+  cplx* X = A + wc.c0 * S;
+  warp_product(X, S, gates, n, (t << lw) + wc.c0, wc);
+  column_sync(wc.c0, wc.gw);
+  warp_chain(X, S, gates, a.placements, n, n, L.G, wc);
+  __syncthreads();
+  const int lp = store_pairs_log(w);
+  if (!lp) {  // runs of w of each row, whole sectors
+    cplx* out = a.U + ((size_t)b << (2 * n)) + (t << lw);
+    for (int e = tid; e < w * d; e += nt) {
+      const int r = e >> lw, c = e & (w - 1);
+      out[((size_t)r << n) + c] = A[c * S + r];
+    }
+    return;
+  }
+  // A tile's run of a row is less than a sector: the 2^lp tiles of a
+  // cluster each store d / 2^lp rows of all their columns, the others' over
+  // distributed shared memory, so that every sector is written whole.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = t & ((1 << lp) - 1), lr = n - lp, ls = lw + lp;
+  cplx* out = a.U + ((size_t)b << (2 * n)) + ((t - rank) << lw) +
+              ((size_t)rank << (lr + n));
+  for (int e = tid; e < (1 << (lr + ls)); e += nt) {
+    const int r = e >> ls, cc = e & ((1 << ls) - 1);
+    const cplx* from = cluster.map_shared_rank(A, cc >> lw);
+    out[((size_t)r << n) + cc] = from[(cc & (w - 1)) * S + (rank << lr) + r];
+  }
+  cluster.sync();
 }
 
 // The vjp's prologue: restart blockIdx.x's cos and sin (without local
@@ -696,12 +929,12 @@ vjp_tile_sum_kernel(TileArgs ta) {
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
-// 0 forward, 1 vjp on one block a restart, 2 vjp on a cluster of tiles of
-// columns (the row-split design); 3 + n - 2 the column forward pass at n
-// qubits, 8 + n - 2 the column vjp; 13 the forward pass, 14 the vjp's walk
-// and 15 its sum on the column tiles; 16 forward and 17 vjp of one column
-// split by rows over a cluster (the row-split design's row tiles); 18 the
-// column tiles' vjp prologue.
+// 0 forward, 1 vjp on one block a restart (the row-split design), 2 vjp on
+// a cluster of tiles of columns (tiles.cuh's warps); 3 + n - 2 the column
+// forward pass at n qubits, 8 + n - 2 the column vjp; 13 the forward pass,
+// 14 the vjp's walk and 15 its sum on the column tiles; 16 forward and 17
+// vjp of one column split by rows over a cluster (the row-split design's
+// row tiles); 18 the column tiles' vjp prologue.
 constexpr int kKernels = 9 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
 constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
 constexpr int kForwardRows = 16, kVjpRows = 17, kVjpTileGates = 18;
@@ -791,19 +1024,32 @@ bool plan_launch(RowArgs& a, int vjp, int design, Launch& out) {
     return true;
   }
   if (design != DESIGN_ROWS) return false;
+  // the forward pass of the whole unitary from 7 qubits runs on the column
+  // tiles alone (cpflow_unitary_tiles_launch)
+  if (!vjp && forward_on_tiles(n, nb, nba, a.log_c)) return false;
   a.restarts = 1;
   a.cluster_log = cluster_plan(n, nb, nba, a.log_c, vjp != 0);
   if (a.cluster_log < 0) return false;
   const bool tiles = a.log_c == 0 && a.cluster_log > 0;  // of rows
+  const bool cluster = tiles || (vjp && a.cluster_log > 0);
+  out.grid = (unsigned)a.B << a.cluster_log;
+  out.cluster = cluster ? 1u << a.cluster_log : 1u;
+  if (cluster && !tiles) {  // the vjp of the whole unitary on a cluster
+    const int lw = n - a.cluster_log;
+    const WarpLayout W = warp_layout(n, nb, nba, lw, true,
+                                     cluster_ring(n, nb, nba, lw));
+    if (!W.ring || W.bytes > kSmemLimit) return false;
+    out.which = kClusterKernel;
+    out.threads = W.nt;
+    out.bytes = W.bytes;
+    return true;
+  }
   const Layout L =
       !tiles ? make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0)
       : vjp  ? row_layout(n, nb, nba, a.cluster_log, &a.plan)
              : forward_row_layout(n, nb, nba, a.cluster_log, &a.plan);
-  const bool cluster = tiles || (vjp && a.cluster_log > 0);
-  out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 + cluster : 0;
+  out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 : 0;
   out.threads = L.nt;
-  out.grid = (unsigned)a.B << a.cluster_log;
-  out.cluster = cluster ? 1u << a.cluster_log : 1u;
   out.bytes = L.bytes;
   return true;
 }
@@ -845,9 +1091,11 @@ long long cpflow_unitary_smem_bytes(int n, int num_blocks, int nba, int log_c,
 }
 
 // The blocks a restart's columns are split over in the row-split design
-// (cluster_plan), 0 if no split fits.
+// (cluster_plan), 0 if no split fits or the forward pass runs on the column
+// tiles.
 int cpflow_unitary_cluster(int n, int num_blocks, int nba, int log_c,
                            int vjp) {
+  if (!vjp && forward_on_tiles(n, num_blocks, nba, log_c)) return 0;
   const int log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
   return log < 0 ? 0 : 1 << log;
 }
@@ -868,26 +1116,60 @@ long long cpflow_unitary_column_smem_bytes(int n, int num_blocks, int nba,
 }
 
 // The plan's design for a shape: 1 the column design (the whole unitary at
-// 2 to 6 qubits, where its layout fits), else 0 the row-split design where
-// one block or a cluster holds it, else 2 the column tiles where they hold
-// it, else 0.
+// 2 to 6 qubits, where its layout fits), else for the forward pass 2 the
+// column tiles for the whole unitary from 7 qubits (forward_on_tiles),
+// else 0 the row-split design where one block or a cluster holds it, else
+// 2 the column tiles where they hold it, else 0.
 int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
                           int vjp) {
   if (column_restarts(n, num_blocks, nba, log_c, vjp != 0) > 0)
     return DESIGN_COLUMNS;
-  if (cluster_plan(n, num_blocks, nba, log_c, vjp != 0) < 0 &&
-      tile_log(n, num_blocks, nba, log_c, vjp != 0) >= 0)
+  if (!vjp)
+    return forward_on_tiles(n, num_blocks, nba, log_c) ? DESIGN_TILES
+                                                       : DESIGN_ROWS;
+  if (cluster_plan(n, num_blocks, nba, log_c, true) < 0 &&
+      tile_log(n, num_blocks, nba, log_c) >= 0)
     return DESIGN_TILES;
   return DESIGN_ROWS;
 }
 
-// The tiles a restart's columns are split into on the column tiles
-// (tile_log: the fewest whose layout fits a block), 0 for one column or
-// where none fits.
+// The tiles a restart's columns are split into on the column tiles (the
+// vjp's tile_log, the forward pass's forward_tile_log: the fewest whose
+// layout fits a block), 0 for one column or where none fits.
 int cpflow_unitary_tiles(int n, int num_blocks, int nba, int log_c,
                          int vjp) {
-  const int log = tile_log(n, num_blocks, nba, log_c, vjp != 0);
+  const int log = vjp ? tile_log(n, num_blocks, nba, log_c)
+                      : forward_tile_log(n, num_blocks, nba, log_c);
   return log < 0 ? 0 : 1 << log;
+}
+
+// The launch of a kernel on tiles.cuh's warps (warp_layout): the forward
+// pass on the column tiles (vjp == 0, where forward_on_tiles) or the vjp
+// of the whole unitary on a cluster (vjp == 1, where cluster_plan splits
+// it): out[0] threads and out[1] dynamic shared memory bytes a block,
+// out[2] blocks a restart, out[3] columns a warp, out[4] warps a column,
+// out[5] gates in the ring (0 in the forward pass). Returns
+// cudaErrorInvalidValue where neither takes the shape.
+int cpflow_unitary_warp_layout(int n, int num_blocks, int nba, int log_c,
+                               int vjp, int* out) {
+  int log = -1, ring = 0;
+  if (!vjp && forward_on_tiles(n, num_blocks, nba, log_c)) {
+    log = forward_tile_log(n, num_blocks, nba, log_c);
+  } else if (vjp && log_c) {
+    log = cluster_plan(n, num_blocks, nba, log_c, true);
+    if (log > 0) ring = cluster_ring(n, num_blocks, nba, n - log);
+    if (!ring) return (int)cudaErrorInvalidValue;
+  }
+  if (log < 0) return (int)cudaErrorInvalidValue;
+  const WarpLayout L = warp_layout(n, num_blocks, nba, n - log, vjp != 0,
+                                   ring);
+  out[0] = L.nt;
+  out[1] = (int)L.bytes;
+  out[2] = 1 << log;
+  out[3] = tile_columns_a_warp(L.w, L.nw);
+  out[4] = L.w < L.nw ? L.nw / L.w : 1;
+  out[5] = ring;
+  return 0;
 }
 
 // The reals of the workspace each restart of the vjp needs on the column
@@ -896,7 +1178,7 @@ int cpflow_unitary_tiles(int n, int num_blocks, int nba, int log_c,
 // shape.
 long long cpflow_unitary_tile_partials(int n, int num_blocks, int nba,
                                        int log_c) {
-  const int log = tile_log(n, num_blocks, nba, log_c, true);
+  const int log = tile_log(n, num_blocks, nba, log_c);
   return log < 0 ? 0 : (long long)vjp_work(n, num_blocks, nba, log).per;
 }
 
@@ -907,7 +1189,7 @@ long long cpflow_unitary_tile_partials(int n, int num_blocks, int nba,
 // where the column tiles do not take the shape.
 int cpflow_unitary_tile_layout(int n, int num_blocks, int nba, int log_c,
                                int* out) {
-  const int log = tile_log(n, num_blocks, nba, log_c, true);
+  const int log = tile_log(n, num_blocks, nba, log_c);
   if (log < 0) return (int)cudaErrorInvalidValue;
   const TileLayout T = tile_layout(n, num_blocks, n - log);
   const VjpWork W = vjp_work(n, num_blocks, nba, log);
@@ -947,19 +1229,23 @@ int cpflow_unitary_tiles_launch(const void* angles, void* U,
   a.log_c = log_c;
   a.B = B;
   a.restarts = 1;
-  a.cluster_log = tile_log(n, num_blocks, nba, log_c, vjp != 0);
+  a.cluster_log = vjp ? tile_log(n, num_blocks, nba, log_c)
+                      : forward_tile_log(n, num_blocks, nba, log_c);
   ta.work = static_cast<real*>(work);
   if (a.cluster_log < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)B << a.cluster_log;
   cudaError_t err;
   if (!vjp) {
-    const Layout L = make_layout(n, num_blocks, nba, log_c, a.cluster_log,
-                                 false);
+    const WarpLayout L = warp_layout(n, num_blocks, nba, n - a.cluster_log,
+                                     false, 0);
     err = grant_smem(kForwardTiles, L.bytes);
     if (err != cudaSuccess) return (int)err;
-    forward_tiles_kernel<<<blocks, L.nt, L.bytes, s>>>(a);
-    return (int)cudaGetLastError();
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config(
+        blocks, L.nt, L.bytes, 1u << store_pairs_log(L.w), s, &attr);
+    err = cudaLaunchKernelEx(&cfg, forward_tiles_kernel, a);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
   }
   const TileLayout T = tile_layout(n, num_blocks, n - a.cluster_log);
   const VjpWork W = vjp_work(n, num_blocks, nba, a.cluster_log);
@@ -1011,9 +1297,10 @@ int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int vjp,
 // (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
 // (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
 // 2 CX; nba: angles per block. In the row-split design each restart runs
-// on the blocks cluster_plan picks: the forward pass's tiles of columns as
-// independent blocks, the vjp's as a cluster, and one column's tiles of
-// rows as a cluster in both passes. Returns cudaErrorInvalidValue if the
+// on the blocks cluster_plan picks: the vjp's tiles of columns as a
+// cluster, and one column's tiles of rows as a cluster in both passes (the
+// forward pass of the whole unitary from 7 qubits runs on the column tiles:
+// cpflow_unitary_tiles_launch). Returns cudaErrorInvalidValue if the
 // design does not hold the shape, cudaErrorLaunchOutOfResources if the card
 // cannot place a non-portable cluster, else cudaGetLastError() after the
 // launch.

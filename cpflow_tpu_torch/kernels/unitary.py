@@ -47,23 +47,28 @@ cotangent over the restart's lanes by shuffles; a restart takes a warp
 forward pass at 2 to 4 qubits the lanes of a column share its amplitude
 groups with a warp barrier after each gate. Blocks hold two restarts (one
 at 6 qubits, or where the layout does not fit). One column
-(``columns=[0]``, up to 17 qubits) and the whole unitary at 7 and 8 qubits
-keep the row-split design: one block a restart with a barrier after every
-gate, and where its layout exceeds one block's shared memory the restart
-splits over c = 2, 4, 8 or 16 blocks (``cluster_plan``): the whole
-unitary's columns (the vjp's blocks form a thread-block cluster and sum
-the gates' cotangents over distributed shared memory), or one column's
-rows, 2^n / c a block, in both passes as a cluster (the row tiles'
-kernels, ``ansatz_forward_row_tiles`` and ``ansatz_vjp_row_tiles``, whose
-rows are owned by warps that swap in the bits a gate needs as the
-wrapper's table for the pass's segment says: kernels/rows.py,
-``row_plan``). Where no
-cluster holds the whole unitary (9 qubits and up, and 8 qubits in float64
-past k = 125 'xyz' blocks) the column tiles take it (``tile_plan``, design
-'tiles'): a restart's columns split into tiles on independent blocks, the
-fewest that fit, with no cluster; the forward pass's tiles never meet
-(``ansatz_forward_column_tiles``); the vjp (``ansatz_vjp_column_tiles``)
-is three kernels on csrc/tiles.cuh's design: a prologue that builds each
+(``columns=[0]``, up to 17 qubits) and the vjp of the whole unitary at 7
+and 8 qubits keep the row-split design's plan: one block a restart with a
+barrier after every gate (the first design, ``ansatz_forward`` and
+``ansatz_vjp``, which one column on one block and templates below 7
+qubits too deep for the column design keep), and where its layout exceeds
+one block's shared memory the restart splits over c = 2, 4, 8 or 16
+blocks (``cluster_plan``): the whole unitary's columns, the vjp's blocks
+a thread-block cluster on csrc/tiles.cuh's warps (``ansatz_vjp_cluster``:
+each warp owns columns, no block barrier between gates, the gates built
+once a cluster, the gates' cotangents summed over distributed shared
+memory in rank order), or one column's rows, 2^n / c a block, in both
+passes as a cluster (the row tiles' kernels, ``ansatz_forward_row_tiles``
+and ``ansatz_vjp_row_tiles``, whose rows are owned by warps that swap in
+the bits a gate needs as the wrapper's table for the pass's segment says:
+kernels/rows.py, ``row_plan``). The forward pass of the whole unitary
+from 7 qubits runs on the column tiles (``tile_plan``, design 'tiles',
+``ansatz_forward_column_tiles``): a restart's columns split into tiles on
+independent blocks, the fewest whose layout on tiles.cuh's warps fits,
+each tile never meeting another. Where no cluster holds the vjp (9 qubits
+and up, and 8 qubits in float64 past k = 125 'xyz' blocks) the column
+tiles take it too: the vjp (``ansatz_vjp_column_tiles``) is three
+kernels on csrc/tiles.cuh's design: a prologue that builds each
 restart's gates once into a workspace, the tiles' walk, each column owned
 by warps, leaving each tile's share of the gates' cotangents there, and a
 last kernel that sums the shares in a fixed order and forms the angle
@@ -75,7 +80,8 @@ reasons and measurements are at the top of csrc/unitary.cu
 and csrc/columns.cuh. ``plan`` mirrors the library's choice
 (``cpflow_unitary_design`` and its sizes) for checks without a card; the
 wrappers always launch the plan's design, and a caller may ask for the
-row-split one (``design='rows'``) to compare the two.
+row-split one (``design='rows'``) to compare the two where it takes the
+shape (not the forward pass of the whole unitary from 7 qubits).
 
 The cotangent convention. PyTorch hands a backward the gradient of a real L
 with respect to a complex tensor as dL/dRe + i dL/dIm. The kernels' walk
@@ -177,31 +183,59 @@ def cluster_plan(n: int, num_blocks: int, nba: int, log_c: int,
     return None
 
 
+def forward_tiles(n: int, num_blocks: int, nba: int, dtype=torch.float32):
+    """(columns a tile, tiles a restart) of the forward pass of the whole
+    unitary on the column tiles, as csrc/unitary.cu's forward_tile_log
+    picks them in the build of `dtype`: the fewest tiles whose layout on
+    tiles.cuh's warps (kernels/tiles.py:warp_smem_bytes: A alone, padded
+    by a row a column) fits one block; None if none does."""
+    for j in range(n + 1):
+        w = 1 << (n - j)
+        if tk.warp_smem_bytes(n, num_blocks, nba, w, False, 0,
+                              dtype) <= _SMEM_LIMIT:
+            return w, 1 << j
+    return None
+
+
+def forward_on_tiles(n: int, num_blocks: int, nba: int, log_c: int,
+                     dtype=torch.float32) -> bool:
+    """Whether the forward pass runs on the column tiles, as csrc/
+    unitary.cu's forward_on_tiles decides: the whole unitary from 7 qubits
+    (and below where no split of the row-split design holds it)."""
+    return log_c == n and (n >= 7 or cluster_plan(
+        n, num_blocks, nba, log_c, False, dtype) is None) and \
+        forward_tiles(n, num_blocks, nba, dtype) is not None
+
+
 def tile_plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
               dtype=torch.float32):
     """(columns a tile, tiles a restart) where the plan takes the column
-    tiles, as csrc/unitary.cu's tile_log picks them in the build of
-    `dtype`: the whole unitary (log_c = n) that no cluster of up to 16
-    blocks holds (cluster_plan), split into the fewest tiles whose
-    per-block layout fits one block; None elsewhere. The vjp's tile holds A
-    and M (16 d w bytes, 32 in float64), the forward pass's A alone: at
-    k = 10 'xyz' the vjp takes tiles of 16, 8, 4, 2 and 1 columns at 9 to
-    13 qubits in float32 (8, 4, 2, 1 at 9 to 12 in float64), the forward
-    pass twice as wide (at 9 qubits in float32 a cluster's plan of 16
-    blocks still holds it). The vjp's tiles must also hold its tile
-    kernel's own layout (kernels/tiles.py:tile_smem_bytes) with a warp for
-    every column; that test never decides at the shapes the tests walk, so
-    the vjp keeps the tiles of the first tile kernels."""
+    tiles, as csrc/unitary.cu picks them in the build of `dtype`; None
+    elsewhere. The forward pass: the whole unitary from 7 qubits
+    (forward_on_tiles), on forward_tiles. The vjp (tile_log): the whole
+    unitary (log_c = n) that no cluster of up to 16 blocks holds
+    (cluster_plan), split into the fewest tiles whose per-block layout
+    fits one block. The vjp's tile holds A and M (16 d w bytes, 32 in
+    float64), the forward pass's A alone: at k = 10 'xyz' the vjp takes
+    tiles of 16, 8, 4, 2 and 1 columns at 9 to 13 qubits in float32 (8, 4,
+    2, 1 at 9 to 12 in float64), the forward pass twice as wide. The vjp's
+    tiles must also hold its tile kernel's own layout
+    (kernels/tiles.py:tile_smem_bytes) with a warp for every column; that
+    test never decides at the shapes the tests walk, so the vjp keeps the
+    tiles of the first tile kernels."""
+    if not vjp:
+        return forward_tiles(n, num_blocks, nba, dtype) if forward_on_tiles(
+            n, num_blocks, nba, log_c, dtype) else None
     if log_c != n or cluster_plan(n, num_blocks, nba, log_c, vjp,
                                   dtype) is not None:
         return None
     for j in range(n + 1):
         w = 1 << (n - j)
         if smem_bytes(n, num_blocks, nba, log_c, vjp, 1 << j,
-                      dtype) <= _SMEM_LIMIT and (not vjp or (
+                      dtype) <= _SMEM_LIMIT and (
                           32 * w <= tk.TILE_THREADS[dtype] and
                           tk.tile_smem_bytes(n, num_blocks, w, dtype)
-                          <= _SMEM_LIMIT)):
+                          <= _SMEM_LIMIT):
             return w, 1 << j
     return None
 
@@ -294,7 +328,10 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
     in the build of `dtype`, and its sizes: dict(design 'columns', 'rows'
     or 'tiles', threads_per_restart, restarts_per_block, threads (a block),
-    smem_bytes (a block), blocks_per_restart); None if no design holds the
+    smem_bytes (a block), blocks_per_restart; for the kernels on
+    tiles.cuh's warps, the forward pass's column tiles and the vjp on a
+    cluster, also columns_per_warp, warps_per_column and ring, as
+    cpflow_unitary_warp_layout gives them); None if no design holds the
     shape."""
     r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
@@ -303,26 +340,35 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
                     smem_bytes=column_smem_bytes(n, num_blocks, nba, vjp, r,
                                                  dtype),
                     blocks_per_restart=1)
-    c = cluster_plan(n, num_blocks, nba, log_c, vjp, dtype)
-    design = 'rows'
+    c = None if not vjp and forward_on_tiles(
+        n, num_blocks, nba, log_c, dtype) else cluster_plan(
+            n, num_blocks, nba, log_c, vjp, dtype)
+    design, extra = 'rows', {}
     if c is None:
         tiles = tile_plan(n, num_blocks, nba, log_c, vjp, dtype)
         if tiles is None:
             return None
         c, design = tiles[1], 'tiles'
     log_ct = log_c - (c.bit_length() - 1)
+    w = 1 << max(log_ct, 0)  # columns a block (log_ct < 0: rows of one)
     threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
     nbytes = smem_bytes(n, num_blocks, nba, log_c, vjp, c, dtype)
     if not log_c and c > 1:  # the row tiles
         rows = row_plan(n, num_blocks, nba, dtype, vjp)
         threads, nbytes = rows['threads'], rows['smem_bytes']
-    if vjp and design == 'tiles':  # the vjp's tile kernel (tiles.cuh)
-        w = 1 << log_ct
+    elif vjp and design == 'tiles':  # the vjp's tile kernel (tiles.cuh)
         threads = tk.tile_threads(n, w, dtype)
         nbytes = tk.tile_smem_bytes(n, num_blocks, w, dtype)
+    elif design == 'tiles' or (vjp and c > 1):  # on tiles.cuh's warps
+        ring = tk.cluster_ring(n, num_blocks, nba, w, dtype) if vjp else 0
+        threads = tk.tile_threads(n, w, dtype)
+        nbytes = tk.warp_smem_bytes(n, num_blocks, nba, w, vjp, ring, dtype)
+        extra = dict(columns_per_warp=tk.columns_a_warp(n, w, dtype),
+                     warps_per_column=tk.warps_a_column(n, w, dtype),
+                     ring=ring)
     return dict(design=design, threads_per_restart=threads * c,
                 restarts_per_block=1, threads=threads, smem_bytes=nbytes,
-                blocks_per_restart=c)
+                blocks_per_restart=c, **extra)
 
 
 def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1,
@@ -376,6 +422,8 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_tile_partials.restype = ctypes.c_longlong
         lib.cpflow_unitary_tile_layout.argtypes = [i] * 4 + [ptr]
         lib.cpflow_unitary_tile_layout.restype = i
+        lib.cpflow_unitary_warp_layout.argtypes = [i] * 5 + [ptr]
+        lib.cpflow_unitary_warp_layout.restype = i
         lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + [i] * 8 + [
             ptr]
         lib.cpflow_unitary_tiles_launch.restype = i
@@ -606,6 +654,13 @@ def _checked(num_qubits, entangling_gate_name, rotation_gates, placements,
     if design not in (None, *DESIGNS):
         raise ValueError(f'design must be one of {sorted(DESIGNS)}, got '
                          f'{design!r}')
+    if design == 'rows' and not vjp and shape.design == 'tiles':
+        raise ValueError(
+            f'the forward pass of the whole unitary at {shape.n} qubits with '
+            f'{shape.nb} blocks runs on the column tiles alone (from 7 '
+            f'qubits, and below them where no split of the row-split design '
+            f'holds it): design=\'rows\' is refused; pass design=None or '
+            f'\'tiles\'')
     return shape
 
 

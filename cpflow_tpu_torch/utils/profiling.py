@@ -195,7 +195,11 @@ def bound_ms(work, B, T):
 # sin of every angle 3; a surface gate's build 112 and its gradients 161; a
 # block's build 112(m - 1) + 96 (+ 24 for CP's phase column, 4 for CZ's
 # signs) and its gradients 368 + 102(m - 1) + 2m (+ 85 for CP, 12 for CZ).
-# The walk needs the gates too, so it builds them again; it also halves and
+# The forward pass needs no gate pass for the surface round: on the
+# identity's columns (or on e_0) it leaves a product state, the Kronecker
+# product of the surface gates (of their first columns), which takes one
+# complex multiply (6) an amplitude once each half's factors are made. The
+# walk needs the gates too, so it builds them again; it also halves and
 # conjugates the cotangent (2 per amplitude).
 def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None, dtype='float32'):
     """dict(P, amplitudes, forward and vjp operations of one restart,
@@ -207,7 +211,7 @@ def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None, dtype='float32'):
     amps = 2 ** (n + (n if log_c is None else log_c))
     gates = 3 * P + 112 * n + (112 * max(m - 1, 0) + 96 + {
         'cp': 24, 'cz': 4, 'cx': 0}[ent]) * nb
-    forward = amps * (14 * n + 30 * nb) + gates
+    forward = amps * (6 + 30 * nb) + gates
     vjp = gates + amps * (44 * n + 92 * nb + 2) + 161 * n + (
         368 + 102 * max(m - 1, 0) + 2 * m + {'cp': 85, 'cz': 12, 'cx': 0}[ent]
     ) * nb

@@ -359,9 +359,9 @@ UNITARY_PLANS = [
     (3, 12, 3, True, ('columns', 2, 1)),
     (5, 20, 5, True, ('columns', 2, 1)),
     (6, 40, 6, True, ('columns', 1, 1)),
-    (7, 24, 7, False, ('rows', 1, 2)),
+    (7, 24, 7, False, ('tiles', 1, 2)),
     (7, 24, 7, True, ('rows', 1, 4)),
-    (8, 16, 8, False, ('rows', 1, 8)),
+    (8, 16, 8, False, ('tiles', 1, 8)),
     (8, 16, 8, True, ('rows', 1, 16)),
     (8, 126, 8, True, ('tiles', 1, 32)),
     (12, 36, 0, True, ('rows', 1, 1)),
@@ -394,6 +394,9 @@ def test_unitary_plan_in_float64(n, k, log_c, vjp, want):
         if got['design'] == 'tiles' and vjp:  # tiles.cuh's tile kernel
             assert got['smem_bytes'] == tk.tile_smem_bytes(
                 n, k, (1 << n) // c, F64)
+        elif 'ring' in got:  # the forward pass's tiles and the vjp on a
+            assert got['smem_bytes'] == tk.warp_smem_bytes(  # cluster
+                n, k, nba, (1 << n) // c, vjp, got['ring'], F64)
         else:
             assert got['smem_bytes'] == 2 * uk.smem_bytes(
                 n, k, nba, log_c, vjp, c)
@@ -523,8 +526,10 @@ def test_kernel_in_float64_matches_plain(case):
 
 
 @pytest.mark.cuda
+# design None: each pass in its plan's (at 7 qubits the forward pass on the
+# column tiles, the vjp on a cluster)
 @pytest.mark.parametrize('n,k,design', [(3, 12, 'columns'), (3, 12, 'rows'),
-                                        (5, 20, 'columns'), (7, 24, 'rows')])
+                                        (5, 20, 'columns'), (7, 24, None)])
 def test_unitary_kernels_in_float64_match_plain(n, k, design):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the double build runs only there')

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from cpflow_tpu_torch.api import LossSpec
+from cpflow_tpu_torch.api import Ansatz, LossSpec
 from cpflow_tpu_torch.kernels import sweep as sk
 from cpflow_tpu_torch.ops.gates import cz_mat, multi_controlled_x, u_ccz3
 from cpflow_tpu_torch.ops.penalty import LinearPenalty
@@ -272,3 +272,26 @@ def test_launches_land_on_the_tensors_card():
         torch.testing.assert_close(out.best_reg.cpu(), first.best_reg.cpu(),
                                    atol=0, rtol=0)
     assert torch.cuda.current_device() == before
+
+
+@pytest.mark.cuda
+def test_unitary_forward_refuses_rows_from_seven_qubits():
+    """From 7 qubits the forward pass of the whole unitary runs on the
+    column tiles alone: the wrapper refuses design='rows' there with a
+    ValueError that says so, and runs the plan's design otherwise."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py phase 12 '
+                    'runs the forward pass at 7 and 8 qubits')
+    from cpflow_tpu_torch.kernels import unitary as uk
+    n, k = 7, 24
+    anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k))
+    angles = torch.tensor(np.random.default_rng(6).uniform(
+        0, 2 * np.pi, (anz.num_angles, 4)), dtype=torch.float32,
+        device='cuda')
+    with pytest.raises(ValueError, match='column tiles alone'):
+        uk.ansatz_forward(n, 'cp', 'xyz', anz.placements, angles,
+                          design='rows')
+    u = uk.ansatz_forward(n, 'cp', 'xyz', anz.placements, angles)
+    torch.cuda.synchronize()
+    assert u.shape == (4, 2 ** n, 2 ** n)
+    assert torch.isfinite(torch.view_as_real(u)).all()

@@ -38,6 +38,7 @@ from cpflow_tpu.sim import batched as jbt
 from cpflow_tpu_torch import api as tapi
 from cpflow_tpu_torch import config as tconfig
 from cpflow_tpu_torch.kernels import sweep as sk
+from cpflow_tpu_torch.kernels import tiles as tk
 from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.ops.gates import multi_controlled_x
 from cpflow_tpu_torch.ops.penalty import LinearPenalty
@@ -109,12 +110,13 @@ def test_tile_plan_takes_a_restart_past_a_cluster(n, dtype, want):
 
 
 def test_the_forward_pass_takes_tiles_twice_as_wide():
-    """The forward pass holds A alone: at 9 qubits in float32 a cluster's
-    plan of 16 independent blocks still holds it (the old forward kernel),
-    from 10 qubits (and at 9 in float64) tiles twice as wide as the vjp's."""
+    """The forward pass holds A alone: from 7 qubits it runs on the column
+    tiles (at 9 qubits in float32 on the 16 tiles of the cluster's plan that
+    held it before), from 10 qubits (and at 9 in float64) tiles twice as
+    wide as the vjp's."""
     p = uk.plan(9, 10, XYZ, 9, False)
-    assert (p['design'], p['blocks_per_restart']) == ('rows', 16)
-    assert uk.tile_plan(9, 10, XYZ, 9, False) is None
+    assert (p['design'], p['blocks_per_restart']) == ('tiles', 16)
+    assert uk.tile_plan(9, 10, XYZ, 9, False) == (32, 16)
     assert uk.tile_plan(10, 10, XYZ, 10, False) == (16, 64)
     assert uk.tile_plan(11, 10, XYZ, 11, False) == (8, 256)
     assert uk.tile_plan(9, 10, XYZ, 9, False, F64) == (16, 32)
@@ -146,10 +148,16 @@ def test_every_shape_a_cluster_held_keeps_its_plan():
                     for vjp in (False, True):
                         p = uk.plan(n, k, nba, n, vjp, dtype)
                         c = uk.cluster_plan(n, k, nba, n, vjp, dtype)
-                        if c is not None:
+                        if c is not None and (vjp or n < 7):
                             assert p['design'] in ('columns', 'rows')
-                        elif p is not None:
-                            assert p['design'] == 'tiles'
+                        elif p is not None:  # from 7 qubits the forward
+                            assert p['design'] == 'tiles'  # pass's tiles
+                            # the cluster plan's tiles, or twice as many
+                            # where its padded layout does not fit
+                            t = p['blocks_per_restart']
+                            assert c is None or t == c or t == 2 * c and \
+                                tk.warp_smem_bytes(n, k, nba, (1 << n) // c,
+                                                   False, 0, dtype) > LIMIT
                         assert uk.tile_plan(n, k, nba, 0, vjp, dtype) is None
     assert taken > 0
     # the deep templates phase 19 and the float64 tests refused before

@@ -42,11 +42,11 @@ def test_bound_of_the_static_shape():
 def test_unitary_work_at_the_3q_row():
     w = prof.unitary_work(3, 12)
     assert (w['P'], w['amps'], w['forward'], w['vjp']) == \
-        (93, 64, 30_471, 92_414)
+        (93, 64, 28_167, 92_414)
     assert (w['forward_bytes'], w['vjp_bytes']) == (4 * 93 + 8 * 64,
                                                     8 * 93 + 16 * 64)
     ms, by = prof.unitary_bound_ms(w['forward'], w['forward_bytes'], 1024)
-    assert by == 'operations' and round(ms, 5) == 0.00047
+    assert by == 'operations' and round(ms, 5) == 0.00043
     ms, by = prof.unitary_bound_ms(w['vjp'], w['vjp_bytes'], 1024)
     assert by == 'operations' and round(ms, 5) == 0.00141
     assert prof.unitary_work(10, 36, log_c=0)['amps'] == 2 ** 10

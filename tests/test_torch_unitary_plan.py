@@ -1,12 +1,14 @@
 """The plan of the unitary kernels (kernels/unitary.py), without a card.
 
 csrc/unitary.cu launches the column design (csrc/columns.cuh: one lane per
-column of a restart) for the whole unitary at 2 to 6 qubits and the
-row-split design for one column and for 7 and 8 qubits; ``plan`` mirrors
-that choice and its sizes for checks without a card, and chip_smoke.py
-phase 12 holds the mirror against the library's own answers on the card.
-Here the mirror is held to the documented design at every template phase
-12 runs, and its shared-memory layout is checked term by term."""
+column of a restart) for the whole unitary at 2 to 6 qubits, the row-split
+design's plan for one column and for the vjp at 7 and 8 qubits (on a
+cluster of blocks on csrc/tiles.cuh's warps), and the column tiles for the
+forward pass from 7 qubits; ``plan`` mirrors that choice and its sizes for
+checks without a card, and chip_smoke.py phase 12 holds the mirror against
+the library's own answers on the card. Here the mirror is held to the
+documented design at every template phase 12 runs, and its shared-memory
+layout is checked term by term."""
 
 import re
 from pathlib import Path
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from cpflow_tpu_torch.kernels import tiles as tk
 from cpflow_tpu_torch.kernels import unitary as uk
 from cpflow_tpu_torch.sim.ansatz_kernel import all_placements, num_block_angles
 
@@ -39,17 +42,32 @@ def test_every_phase_12_template_gets_its_documented_design(vjp):
             assert p['restarts_per_block'] == (1 if n == 6 else 2), s['name']
             assert p['threads'] == 64 and p['blocks_per_restart'] == 1
             assert p['smem_bytes'] <= LIMIT
-        else:  # one column, and 7 and 8 qubits: the row-split design
-            assert p['design'] == 'rows', s['name']
+        elif log_c == n and not vjp:  # 7 and 8 qubits: the column tiles
+            assert p['design'] == 'tiles', s['name']
             assert p['restarts_per_block'] == 1
-            assert p['blocks_per_restart'] == \
+            w, tiles = uk.tile_plan(n, nb, nba, log_c, vjp)
+            assert p['blocks_per_restart'] == tiles == \
                 uk.cluster_plan(n, nb, nba, log_c, vjp)
-            assert p['smem_bytes'] == uk.smem_bytes(
-                n, nb, nba, log_c, vjp, p['blocks_per_restart'])
+            assert p['smem_bytes'] == tk.warp_smem_bytes(n, nb, nba, w,
+                                                         False) <= LIMIT
+        else:  # one column, and the vjp at 7 and 8 qubits: the row-split
+            assert p['design'] == 'rows', s['name']  # design's plan
+            assert p['restarts_per_block'] == 1
+            c = p['blocks_per_restart']
+            assert c == uk.cluster_plan(n, nb, nba, log_c, vjp)
+            if log_c and c > 1:  # a cluster on tiles.cuh's warps
+                w = (1 << n) // c
+                assert p['smem_bytes'] == tk.warp_smem_bytes(
+                    n, nb, nba, w, True, p['ring']) <= LIMIT
+                assert p['ring'] == tk.cluster_ring(n, nb, nba, w) >= 1
+            else:
+                assert p['smem_bytes'] == uk.smem_bytes(
+                    n, nb, nba, log_c, vjp, c)
     # the timing shapes of phase 12 too
     for _, n, k, _, rot, _ in chip_smoke.UNITARY_TIMING:
         p = uk.plan(n, k, num_block_angles('cp', rot), n, vjp)
-        assert p['design'] == ('columns' if n <= 6 else 'rows')
+        assert p['design'] == ('columns' if n <= 6 else
+                               'rows' if vjp else 'tiles')
 
 
 def test_the_column_layout_term_by_term():

@@ -50,6 +50,21 @@ with its own workspace (cpflow_unitary_tile_partials), and the bound of
 the vjp. Its last path, phase 19 (c)'s custom loss at 8 qubits in float64,
 runs the vjp on a cluster of 16 blocks (vjp_kernel, timed alone) beside
 the forward pass.
+
+    python3 unitary_ab.py --cluster OLD/cpflow_tpu_torch/csrc/unitary.cu \
+        cpflow_tpu_torch/csrc/unitary.cu
+
+times the kernels of the whole unitary from 7 qubits that run outside the
+column design and the vjp's column tiles (CLUSTER_SHAPES: the 7q and 8q
+rows of chip_smoke.py's UNITARY_TIMING and SIXTEEN_UNITARY, phase 19 (c)'s
+path, every row of NINE_UNITARY and the column tiles' paths): the vjp on a
+cluster (vjp_kernel) where the plan puts it there, and the forward pass at
+every row, each launched as the build's own plan says
+(cpflow_unitary_design: the column tiles, or the row-split plan's
+independent blocks), in turns (A B ... B A), each kernel alone by
+torch.profiler (the mean of 20 launches). Where cpflow_unitary_tiles_launch
+also takes a cluster row, the column tiles' three-kernel vjp of each build
+is timed beside it as a yardstick.
 """
 
 from __future__ import annotations
@@ -319,6 +334,177 @@ def tiles_main(sources) -> int:
     return 0
 
 
+# --cluster's shapes, (n, k, rotations, B, dtype, name): the 7q and 8q rows
+# of UNITARY_TIMING and SIXTEEN_UNITARY, phase 19 (c)'s custom loss, then
+# NINE_UNITARY's rows and the column tiles' paths (TILE_PATHS), whose
+# forward pass the column tiles run
+def cluster_shapes():
+    import chip_smoke as c
+    out = [(n, k, rot, B, 'float32', name)
+           for name, n, k, B, rot, _ in c.UNITARY_TIMING if n >= 7]
+    out += [(n, k, rot, B, dname, 'SIXTEEN_UNITARY')
+            for n, k, rot, B, dname, _, cols, _ in c.SIXTEEN_UNITARY
+            if cols is None]
+    out += [TILE_PATHS[-1]]
+    out += [(n, k, rot, B, dname, 'NINE_UNITARY')
+            for n, k, rot, B, dname, *_ in c.NINE_UNITARY]
+    return out + TILE_PATHS[:-1]
+
+
+def cluster_main(sources) -> int:
+    """--cluster: the vjp on a cluster, the forward pass of the whole
+    unitary from 7 qubits and the column tiles' vjp as a yardstick, every
+    build at cluster_shapes(), in turns."""
+    import torch
+    import chip_smoke as c
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    libs = [{dt: build(s, dt == torch.float64)
+             for dt in (torch.float32, torch.float64)} for s in sources]
+    for per_dtype in libs:
+        for lib in per_dtype.values():
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + \
+                [i] * 8 + [ptr]
+            lib.cpflow_unitary_tiles_launch.restype = i
+            lib.cpflow_unitary_tile_partials.argtypes = [i] * 4
+            lib.cpflow_unitary_tile_partials.restype = ctypes.c_longlong
+            lib.cpflow_unitary_design.argtypes = [i] * 5
+            lib.cpflow_unitary_design.restype = i
+            lib.cpflow_unitary_tiles.argtypes = [i] * 5
+            lib.cpflow_unitary_tiles.restype = i
+    print(f'{c.card_line()}; builds: '
+          + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    parts = ('vjp_tile_gates_kernel', 'vjp_tiles_kernel',
+             'vjp_tile_sum_kernel')
+    for n, k, rot, B, dname, path in cluster_shapes():
+        dtype = getattr(torch, dname)
+        cdtype = torch.complex128 if dtype == torch.float64 else \
+            torch.complex64
+        nba = num_block_angles('cp', rot)
+        pl = tuple(map(tuple, all_placements(fill_layers(chain_layer(n), k))))
+        plc = torch.tensor(pl, dtype=torch.int32, device='cuda')
+        letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
+                               dtype=torch.int32, device='cuda')
+        angles = c.uniform_inits(3 * n + nba * k, B, 19, 'cuda').to(dtype)
+        w = torch.randn((B, 1 << n, 1 << n), generator=gen, dtype=cdtype,
+                        device='cuda')
+        u = torch.empty_like(w)
+        plans = {vjp: uk.plan(n, k, nba, n, vjp, dtype)
+                 for vjp in (False, True)}
+        cluster = plans[True] is not None and plans[True]['design'] == \
+            'rows' and plans[True]['blocks_per_restart'] > 1
+        yard = cluster and libs[-1][dtype].cpflow_unitary_tiles(
+            n, k, nba, n, 1) > 0
+
+        def launch(lib, vjp, grad=None, work=None, tiles=False):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tiles or not vjp and lib.cpflow_unitary_design(
+                    n, k, nba, n, 0) == 2:
+                err = lib.cpflow_unitary_tiles_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    w.data_ptr() if vjp else None,
+                    grad.data_ptr() if vjp else None,
+                    work.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(), n, k, len(rot), 0, nba, n, B,
+                    int(vjp), stream)
+            else:  # the row-split plan: independent blocks, or a cluster
+                err = lib.cpflow_unitary_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    w.data_ptr() if vjp else None,
+                    grad.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(), n, k, len(rot), 0, nba, n, B,
+                    int(vjp), 0, stream, None, 0)
+            if err:
+                raise RuntimeError(f'launch failed: CUDA error {err}')
+
+        def alone(calls):
+            """{key: mean ms of its kernels alone on the card} for calls,
+            a list of (key, kernel names, fn), from one torch.profiler
+            trace of 20 rounds of every fn in turn (traced again, at most
+            twice more, where the profiler leaves a kernel out; then the
+            run fails, so that every time is of the kernels alone)."""
+            for _ in range(3):
+                events = c.device_kernels(lambda: [fn() for _, _, fn in calls])
+                got = {}
+                for key, names, _ in calls:
+                    total = 0.0
+                    for name in names:
+                        found = [v for k, v in events.items() if name in k]
+                        count, ms = sum(x for x, _ in found), sum(
+                            t for _, t in found)
+                        if not count or ms <= 0:
+                            break
+                        total += ms / count
+                    else:
+                        got[key] = total
+                if len(got) == len(calls):
+                    return got
+            keys = [key for key, _, _ in calls]
+            raise RuntimeError(f'the profiler left out a kernel of {keys} in '
+                               f'three traces at {n}q k={k} B={B} {dname}')
+
+        order = list(range(len(libs)))
+        out = [{'forward': [], 'vjp': [], 'yard': []} for _ in libs]
+        first, diff = None, [(0.0, 0.0)] * len(libs)
+        for i in order + order[::-1]:
+            lib = libs[i][dtype]
+            grad = torch.empty_like(angles)
+            work = torch.empty(
+                max(B * lib.cpflow_unitary_tile_partials(n, k, nba, n), 1),
+                dtype=dtype, device='cuda')
+            launch(lib, False)
+            if cluster:
+                launch(lib, True, grad)
+            torch.cuda.synchronize()
+            if first is None:
+                first = u.clone(), grad.clone()
+            scale = first[1].abs().clamp(min=1.0)
+            diff[i] = (max(diff[i][0], (u - first[0]).abs().max().item()),
+                       max(diff[i][1], ((grad - first[1]).abs() / scale)
+                           .max().item()) if cluster else 0.0)
+            calls = [('forward', ('forward',), lambda: launch(lib, False))]
+            if cluster:
+                calls.append(('vjp', ('vjp_kernel',),
+                              lambda: launch(lib, True, grad)))
+            if yard:
+                calls.append(('yard', parts, lambda: launch(
+                    lib, True, grad, work, tiles=True)))
+            for key, ms in alone(calls).items():
+                out[i][key].append(ms)
+            del work
+        work = c.unitary_work(n, k, rot, dtype=dtype)
+        bounds = {vjp: c.unitary_bound_ms(
+            work['vjp' if vjp else 'forward'],
+            work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
+            for vjp in (False, True)}
+        best = {key: min(min(o[key]) for o in out)
+                for key in ('forward', 'vjp') if out[0][key]}
+        print(f'{path}: {n}q chain k={k} {rot!r} B={B} {dname}, forward on '
+              f'{plans[False]["blocks_per_restart"]} '
+              f'{plans[False]["design"]}' + (
+                  f', vjp on a cluster of '
+                  f'{plans[True]["blocks_per_restart"]}' if cluster else '')
+              + ': ' + '; '.join(
+                  f'build {i}' + (' vjp ' + ' / '.join(
+                      f'{ms:.4f}' for ms in o['vjp']) if o['vjp'] else '')
+                  + ' forward ' + ' / '.join(
+                      f'{ms:.4f}' for ms in o['forward'])
+                  + (' (column tiles\' vjp ' + ' / '.join(
+                      f'{ms:.4f}' for ms in o['yard']) + ')' if o['yard']
+                     else '')
+                  + f' ms (U off build 0 by {diff[i][0]:.1e}, gradient by '
+                  f'{diff[i][1]:.1e})' for i, o in enumerate(out)) + ' (' +
+              ', '.join(f'{key} bound {bounds[key == "vjp"][0]:.4f} ms by '
+                        f'{bounds[key == "vjp"][1]}, fastest '
+                        f'{bounds[key == "vjp"][0] / ms:.2%}'
+                        for key, ms in best.items()) + ')', flush=True)
+    return 0
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -335,6 +521,8 @@ def main(argv) -> int:
         return rows_main([Path(a) for a in argv if a != '--rows'])
     if '--tiles' in argv:
         return tiles_main([Path(a) for a in argv if a != '--tiles'])
+    if '--cluster' in argv:
+        return cluster_main([Path(a) for a in argv if a != '--cluster'])
     sources = [Path(a) for a in argv] or \
         [Path('cpflow_tpu_torch/csrc/unitary.cu')]
     libs = [build(s) for s in sources]
