@@ -277,21 +277,36 @@ with CUDA, and never imports JAX. Phases:
      float64) and a modulo loss at 14 qubits refused, no kernel launched;
      (f) a 9-qubit modulo_diagonal sweep in float32 and in float64, which
      sweep() routes to the unitary kernels (ROADMAP A.16b), against the
-     plain float64 route.
+     plain float64 route;
+ 22. the pair on one block (forward_block_kernel, vjp_block_kernel, kernel
+     lines ansatz_forward and ansatz_vjp: the row-split design's plan with
+     no cluster, on rows.cuh's warps): (a) the unitary kernels at
+     BLOCK_UNITARY's rows (one column at 13q k=48 B=8 and 14q k=28 in
+     float32, 12q k=24 and 13q k=26 in float64, 4q k=6 B=100, 9q k=16
+     B=32; the whole unitary past the column design's depths, the vjp at
+     6q k=400 in float32 and k=130 in float64 and 3q k=750, the forward
+     pass at 6q k=1190, one rotation letter) against the plain builder
+     under autograd (phase_sixteen_unitary: plans, phase 12's and phase
+     19's tolerances, times, bounds, 0 local bytes) and two launches of
+     each pass on the same inputs giving the same bits; (b) GHZ-13 in
+     float32 and GHZ-12 in float64 through Synthesize.static from a warm
+     start with cp_penalty_L1, both passes on one block; (c) GHZ-4 from
+     phase 7's 100 random restarts with cp_penalty_L1, 3 CZ at host loss
+     <= 1e-6, sampling through the pair and never the plain builder.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
-(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c), (d) and (f)) runs with
-the kernels' launch counts set to 0 just before it and read just after
-(16 (a) and (d) in their own processes). Every shape's
-plan (blocks a restart, shared bytes per block) is held against the
-kernels' own. The script prints the card, a JSON line of kernel results
+(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c), (d) and (f), 22 (b) and (c)) runs
+with the kernels' launch counts set to 0 just before it and read just
+after (16 (a) and (d) in their own processes). Every shape's plan (blocks
+a restart, shared bytes per block) is held against the kernels' own. The script prints the card, a JSON line of kernel results
 (sweep, ansatz_forward, ansatz_vjp, and their float64 builds sweep_f64,
 ansatz_forward_f64, ansatz_vjp_f64; the row tiles' builds
 sweep_row_tiles, ansatz_forward_row_tiles, ansatz_vjp_row_tiles and
 their float64 builds, each name with _f64; the column tiles' builds
 sweep_column_tiles, ansatz_forward_column_tiles, ansatz_vjp_column_tiles
-and their float64 builds) and, last, the JSON device line; it
-exits non-zero if any phase fails or there is no card. A phase after the
+and their float64 builds; the pair on one block, ansatz_forward_one_block
+and ansatz_vjp_one_block, and their float64 builds) and, last, the JSON
+device line; it exits non-zero if any phase fails or there is no card. A phase after the
 build and the comparison (phases 2-3) that fails is reported and the
 next one runs; the script then fails at the end, with no result lines.
 The kernels' work and bounds come from cpflow_tpu_torch/utils/profiling.py.
@@ -487,12 +502,16 @@ def device_kernels(fn, repeats=20):
 
 def device_ms(fn, kernel_name, repeats=20):
     """Mean time in ms that the kernels whose name contains `kernel_name`
-    take on the card over `repeats` calls of fn (device_kernels); None if
-    the trace holds no such kernel."""
-    found = [v for k, v in device_kernels(fn, repeats).items()
-             if kernel_name in k]
-    count, total = sum(c for c, _ in found), sum(ms for _, ms in found)
-    return total / count if count and total > 0 else None
+    take on the card over `repeats` calls of fn (device_kernels), traced
+    again, three times at most, where the profiler leaves the kernel out
+    of a trace; None if no trace holds it."""
+    for _ in range(3):
+        found = [v for k, v in device_kernels(fn, repeats).items()
+                 if kernel_name in k]
+        count, total = sum(c for c, _ in found), sum(ms for _, ms in found)
+        if count and total > 0:
+            return total / count
+    return None
 
 
 # ----------------------------------------------------------------- phases
@@ -1326,12 +1345,13 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
                 check(theirs == 0, f'{name}: the kernels put the {what} on '
                       f'a cluster of {theirs}, the plan on column tiles')
                 theirs = lib.cpflow_unitary_tiles(n, nb, nba, log_c, int(vjp))
-            rows = uk.row_plan(n, nb, nba, dtype, vjp) if not log_c \
-                else None
-            if rows is not None:  # the row tiles: the pass's launch's plan
+            rows = uk.rows_launch(n, nb, nba, log_c, vjp, dtype) \
+                if mine['design'] == 'rows' else None
+            if rows is not None:  # on rows.cuh's warps: the pass's launch's
+                # plan (one block, the row tiles, the whole unitary's tiles)
                 got = (ctypes.c_int * 6)()
-                check(lib.cpflow_unitary_row_plan(n, nb, nba, int(vjp),
-                                                  got) == 0,
+                check(lib.cpflow_unitary_row_plan(n, nb, nba, log_c,
+                                                  int(vjp), got) == 0,
                       f'{name}: no row plan for the {what}')
                 want = [rows[key] for key in ('threads', 'smem_bytes',
                                               'warps', 'segment', 'ring',
@@ -1438,8 +1458,13 @@ UNITARY_TIMING = [
     ('3q connected k=10 B=800 (the bucketed relative-phase Toffoli-3)', 3,
      10, 800, 'xyz', 'connected'),
 ]
-# the kernels' names in the profiler's trace, by design and pass
-TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
+# the kernels' names in the profiler's trace, by design (trace_key) and
+# pass: 'rows' the row-split design's one block a restart (and the forward
+# pass of the whole unitary on its plan's blocks), 'cluster' its vjp on a
+# cluster, 'row_tiles' one column split by rows over a cluster
+TRACE_NAMES = {('rows', False): 'forward_block_kernel',
+               ('rows', True): 'vjp_block_kernel',
+               ('cluster', True): 'vjp_kernel',
                ('columns', False): 'column_forward',
                ('columns', True): 'column_vjp',
                ('row_tiles', False): 'forward_rows_kernel',
@@ -1448,11 +1473,21 @@ TRACE_NAMES = {('rows', False): 'forward_kernel', ('rows', True): 'vjp_kernel',
                ('tiles', True): 'vjp_tiles_kernel'}
 # the kernels (KERNELS names) whose redesign left no local memory, in both
 # builds: the row tiles' and the column tiles' vjp (with its prologue and
-# sum), the row tiles' forward pass, the vjp on a cluster and the column
-# tiles' forward pass
+# sum), the row tiles' forward pass, the vjp on a cluster, the column
+# tiles' forward pass and the pair on one block
 NO_LOCAL = ('ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
             'ansatz_vjp_column_tiles', 'ansatz_vjp_cluster',
-            'ansatz_forward_column_tiles')
+            'ansatz_forward_column_tiles', 'ansatz_forward', 'ansatz_vjp')
+
+
+def trace_key(design, vjp, blocks=1, column=False):
+    """TRACE_NAMES' design key of a launch of `design` on `blocks` blocks a
+    restart (column: one column, columns=[0])."""
+    if design == 'rows' and blocks > 1 and column:
+        return 'row_tiles'
+    if design == 'rows' and blocks > 1 and vjp:
+        return 'cluster'
+    return design
 # the column tiles' vjp: its three kernels, by KERNELS name and trace name
 TILE_VJP_PARTS = (('ansatz_vjp_tile_gates', 'vjp_tile_gates_kernel'),
                   ('ansatz_vjp_column_tiles', 'vjp_tiles_kernel'),
@@ -1666,6 +1701,15 @@ def phase_unitary(card):
         # a cluster)
         turns = ['rows', 'columns', 'columns', 'rows'] if both else [None]
         calls, call_ms = [], {}
+        # each pass's plan in its design, and in the row-split one
+        launch_of = {(p['design'], vjp): p
+                     for vjp, p in zip((False, True), plans)}
+        if both:  # the row-split design's launch (rows.cuh's warps)
+            for vjp in (False, True):
+                q = uk.rows_launch(n, k, nba, n, vjp)
+                launch_of[('rows', vjp)] = dict(
+                    blocks_per_restart=q['cluster'], threads=q['threads'],
+                    smem_bytes=q['smem_bytes'])
         for design in turns:
             f = functools.partial(uk.ansatz_forward, *tpl, angles,
                                   design=design)
@@ -1673,7 +1717,9 @@ def phase_unitary(card):
                                   design=design)
             for vjp, fn in ((False, f), (True, v)):
                 key = design or plans[vjp]['design']
-                calls.append((key, vjp, fn))
+                calls.append((trace_key(
+                    key, vjp, launch_of[(key, vjp)]['blocks_per_restart']),
+                              vjp, fn))
                 call_ms.setdefault((key, vjp), []).append(
                     min(timed(fn)[1] for _ in range(2)))
         alone = designs_alone(calls)
@@ -1695,18 +1741,16 @@ def phase_unitary(card):
                        cluster=p['blocks_per_restart'], bound_ms=b_ms,
                        bound_by=b_by, plain_ms=plain)
             for design in turns[:2] if both else [p['design']]:
-                kname = uk.kernel_name(design, vjp, n, p['blocks_per_restart'])
-                threads, nbytes_block = p['threads'], p['smem_bytes']
-                if design != p['design']:   # the row-split design's sizes
-                    c = uk.cluster_plan(n, k, nba, n, vjp)
-                    threads = min(max((1 << n) ** 2 // 16, 32), 256)
-                    nbytes_block = uk.smem_bytes(n, k, nba, n, vjp, c)
-                    kname = uk.kernel_name(design, vjp, n, c)
+                q = launch_of[(design, vjp)]  # the row-split design's sizes
+                c = q['blocks_per_restart']  # where it is not the plan's
+                kname = uk.kernel_name(design, vjp, n, c)
+                threads, nbytes_block = q['threads'], q['smem_bytes']
                 ms = call_ms[(design, vjp)]
                 prefix = '' if design == p['design'] else 'rows_'
                 row.update({
                     f'{prefix}ms': sum(ms) / len(ms),
-                    f'{prefix}device_ms': alone[(design, vjp)],
+                    f'{prefix}device_ms': alone[(trace_key(design, vjp, c),
+                                                 vjp)],
                     f'{prefix}registers': regs[kname]['registers'],
                     f'{prefix}local_bytes': regs[kname]['local_bytes'],
                     f'{prefix}blocks_per_sm': uk.occupancy(
@@ -3558,7 +3602,13 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
     16 holds) the sum of a float32 gradient runs over 2^2n entries, so
     where it misses 1e-4 against plain float32 the plain float64 gradient
     arbitrates: the kernel's error against it within 1e-4 or within twice
-    plain float32's (as_close_as_plain's factor). Prints each pass's plan,
+    plain float32's (as_close_as_plain's factor). The whole unitary on
+    rows.cuh's warps (templates past the column design's depths, 100 to
+    1100 blocks of gates, whose float32 rounding grows with depth in both
+    versions): where the kernel's unitary or gradient misses against plain
+    float32, it must meet the same tolerance against plain float64; both
+    float32 versions' errors against plain float64 are printed at every
+    such row. Prints each pass's plan,
     resident blocks or clusters, its time alone on the card (profiler) and
     by CUDA events, its bound and share. Returns (largest errors by kernel
     line name: a row tiles' and a column tiles' kernel have lines of their
@@ -3626,22 +3676,49 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                   for v, kn in knames.items()),
               f'{name}: not the kernels {knames} that the plans name')
         eu = (u - up.detach()).abs().max().item()
+        # the whole unitary on rows.cuh's warps: templates past the column
+        # design's depths, 300 to 1100 blocks of gates in float32 rounding
+        deep = not f64 and cols is None and all(
+            trace_key(p['design'], v, p['blocks_per_restart']) == 'rows'
+            for v, p in plans.items())
         arbiter = ''
-        if eg > tol_g and not f64 and vjp_blocks == 'tiles':
-            a64 = angles.double().requires_grad_(True)
+        if deep or (eg > tol_g and not f64 and vjp_blocks == 'tiles'):
+            # the plain float64 builder arbitrates where the kernel misses
+            # against plain float32: on the column tiles within twice plain
+            # float32's error against it (as_close_as_plain's factor), on
+            # rows.cuh's warps within the same tolerance
+            a64 = angles.double().requires_grad_(vjp_too)
             u64 = build_unitary_batched(n, 'cp', rot, anz.placements, a64,
-                                        dtype=torch.float64)
-            u64 = u64.reshape(2 ** n, 2 ** n, B).permute(2, 0, 1)
-            (g64,) = torch.autograd.grad(
-                (u64 * g.to(u64.dtype).conj()).real.sum(), a64)
+                                        columns=cols, dtype=torch.float64)
+            u64 = u64.reshape(2 ** n, len(cols) if cols else 2 ** n, B) \
+                .permute(2, 0, 1)
+            notes = []
+            if deep:
+                ek = (u.to(u64.dtype) - u64.detach()).abs().max().item()
+                ep = (up.detach().to(u64.dtype) - u64.detach()).abs() \
+                    .max().item()
+                notes.append(f'unitary: kernel {ek:.3e}, plain float32 '
+                             f'{ep:.3e}' + (f' (the kernel {eu:.3e} against '
+                                            f'plain float32)' if eu > tol_u
+                                            else ''))
+                if eu > tol_u:
+                    eu = ek
+            if vjp_too and (deep or eg > tol_g):
+                (g64,) = torch.autograd.grad(
+                    (u64 * g.to(u64.dtype).conj()).real.sum(), a64)
+                scale = g64.abs().clamp(min=1.0)
+                ek = ((gk.double() - g64).abs() / scale).max().item()
+                ep = ((gp.double() - g64).abs() / scale).max().item()
+                notes.append(f'gradient: kernel {ek:.3e}, plain float32 '
+                             f'{ep:.3e}' + (f' (the kernel {eg:.3e} against '
+                                            f'plain float32)' if eg > tol_g
+                                            else ''))
+                if eg > tol_g:
+                    eg = ek
+                    tol_g = tol_g if deep else max(tol_g, 2 * ep)
             del u64
-            scale = g64.abs().clamp(min=1.0)
-            ek = ((gk.double() - g64).abs() / scale).max().item()
-            ep = ((gp.double() - g64).abs() / scale).max().item()
-            arbiter = (f' (float64 arbiter: kernel {ek:.3e}, plain float32 '
-                       f'{ep:.3e} against plain float64)')
-            eg = ek
-            tol_g = max(tol_g, 2 * ep)
+            arbiter = (f' (against plain float64: {"; ".join(notes)})'
+                       if notes else '')
         check(eu <= tol_u and eg <= tol_g, f'{name}: unitary err {eu:.3e}, '
               f'gradient err {eg:.3e} (tol {tol_u}, {tol_g}){arbiter}')
         regs = uk.registers('cuda', dtype)
@@ -3675,9 +3752,8 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                 got = [v['device_ms'] for v in parts.values()]
                 alone = None if None in got else sum(got)
             else:
-                alone = device_ms(call, TRACE_NAMES[(
-                    'tiles' if columns else 'row_tiles' if tiles else 'rows',
-                    vjp)])
+                alone = device_ms(call, TRACE_NAMES[(trace_key(
+                    plan['design'], vjp, c, cols is not None), vjp)])
             check(kname not in NO_LOCAL or regs[kname]['local_bytes'] == 0
                   and all(v['local_bytes'] == 0 for v in
                           (parts or {}).values()),
@@ -4796,6 +4872,127 @@ def phase_nine(card):
     return errs, rows, launches
 
 
+# Phase 22 (a)'s rows, as SIXTEEN_UNITARY's tuples: one column on one block
+# (phase 19 (a)'s 13q row, the forward pass at 14 qubits, float64 at 12 and
+# 13 qubits, the GHZ-4 path's 4q shape, 9q, and phase 22 (b)'s two paths'
+# shapes) and the whole unitary past the column design's depths, with one
+# rotation letter (3 angles a block) and with 'xyz' (9), each in its own
+# one-block window (the vjp in float32 and float64, the forward pass in
+# float32), and the forward pass on the row-split plan's 2 and 4
+# independent blocks (6q k=1000 'xyz', 3q k=1093 'xyz', float64 6q k=600
+# 'y')
+BLOCK_UNITARY = [(13, 48, 'xyz', 8, 'float32', (False, True), [0], 1),
+                 (14, 28, 'xyz', 8, 'float32', (False,), [0], 1),
+                 (12, 24, 'xyz', 8, 'float64', (False, True), [0], 1),
+                 (13, 26, 'xyz', 8, 'float64', (False,), [0], 1),
+                 (4, 6, 'xyz', 100, 'float32', (False, True), [0], 1),
+                 (9, 16, 'xyz', 32, 'float32', (False, True), [0], 1),
+                 (13, 12, 'xyz', 18, 'float32', (False, True), [0], 1),
+                 (12, 11, 'xyz', 17, 'float64', (False, True), [0], 1),
+                 (6, 400, 'y', 4, 'float32', (True,), None, 1),
+                 (6, 130, 'y', 4, 'float64', (True,), None, 1),
+                 (6, 1190, 'y', 2, 'float32', (False,), None, 1),
+                 (3, 750, 'y', 2, 'float32', (True,), None, 1),
+                 (6, 400, 'xyz', 4, 'float32', (True,), None, 1),
+                 (6, 110, 'xyz', 4, 'float64', (True,), None, 1),
+                 (6, 930, 'xyz', 2, 'float32', (False,), None, 1),
+                 (3, 622, 'xyz', 2, 'float32', (True,), None, 1),
+                 (6, 1000, 'xyz', 2, 'float32', (False,), None, 2),
+                 (3, 1093, 'xyz', 2, 'float32', (False,), None, 4),
+                 (6, 600, 'y', 2, 'float64', (False,), None, 2)]
+# the kernel lines of the pair on one block
+BLOCK_LINES = ('ansatz_forward', 'ansatz_vjp')
+
+
+def phase_ghz4_l1(r=0.001, label='phase 22 (c)'):
+    """Phase 22 (c): phase 7's GHZ-4 (the 4q chain, k=6, 100 random
+    restarts, r) with cp_penalty_L1, whose sampling runs through the
+    unitary kernels (one column on one block) and verification through the
+    sweep kernel. Needs a 3-CZ decomposition at float64 host state loss <=
+    1e-6, no call of the plain builder, and every unitary launch the kernel
+    line its plan names. Returns the launches by kernel line name."""
+    import numpy as np
+    import torch
+    from cpflow_tpu_torch.api import StaticOptions, Synthesize
+    from cpflow_tpu_torch.kernels import sweep as sk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.topology import chain_layer
+    target = ghz(4).astype(np.complex128)
+    synth = Synthesize(chain_layer(4), target_state=target,
+                       cp_regularization_func=cp_penalty_L1)
+    options = StaticOptions(num_cp_gates=6, num_samples=100,
+                            accepted_num_cz_gates=3, r=r)
+    nba = num_block_angles('cp', 'xyz')
+    kernels = {vjp: uk.kernel_name('rows', vjp, 4, uk.plan(
+        4, 6, nba, 0, vjp)['blocks_per_restart'], True)
+        for vjp in (False, True)}
+    with PlainBuilderWatch() as watch:
+        sk.LAUNCHES = 0
+        uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
+        uk.LAUNCHES_BY_KERNEL.clear()
+        start = time.perf_counter()
+        results = synth.static(options, save_results=False, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, by_kernel = sk.LAUNCHES, dict(uk.LAUNCHES_BY_KERNEL)
+        unitary = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+    hosts = sorted((d.cz_count, ghz_host_loss(d))
+                   for d in results.decompositions)
+    good = [h for h in hosts if h[0] == 3 and h[1] <= 1e-6]
+    stages = ', '.join(f'{k} {v:.3f} s'
+                       for k, v in synth.stage_seconds.items())
+    print(f'{label}: GHZ-4, Synthesize.static on the 4q chain with '
+          f'cp_penalty_L1, k=6, 100 random restarts, r={r}: '
+          f'{len(hosts)} verified, {len(good)} at 3 CZ, (CZ, float64 host '
+          f'loss) {hosts[:3]}; unitary launches {unitary[0]} forward and '
+          f'{unitary[1]} vjp {by_kernel}, plain builder {watch.calls}; '
+          f'sweep launches {launches}; wall {wall:.3f} s ({stages})',
+          flush=True)
+    check(watch.calls == 0 and unitary[0] > 0 and unitary[1] > 0 and
+          by_kernel == {kernels[False]: unitary[0],
+                        kernels[True]: unitary[1]} and launches >= 1,
+          f'GHZ-4 with cp_penalty_L1: plain builder {watch.calls}, forward '
+          f'{unitary[0]}, vjp {unitary[1]} by kernel {by_kernel}, not all '
+          f'{kernels}; sweep {launches}')
+    check(good, f'GHZ-4 with cp_penalty_L1: no 3-CZ decomposition at host '
+          f'loss <= 1e-6: {hosts[:4]}')
+    return {kernels[False]: unitary[0], kernels[True]: unitary[1],
+            'sweep': launches}
+
+
+def phase_block(card):
+    """Phase 22: the pair on one block (forward_block_kernel,
+    vjp_block_kernel on rows.cuh's warps: one column, and the whole unitary
+    held column-major with whole columns a warp and no swap, the forward
+    pass also on the plan's independent blocks). (a) the unitary kernels at BLOCK_UNITARY against
+    the plain builder (phase_sixteen_unitary: plans, tolerances, times,
+    bounds) and two launches of each on the same inputs
+    (phase_split_vjp_bits); (b) GHZ-13 in float32 and GHZ-12 in float64
+    through Synthesize.static from a warm start with cp_penalty_L1
+    (phase_ghz_warm), both passes on one block; (c) GHZ-4 from random
+    restarts with cp_penalty_L1 (phase_ghz4_l1). Returns (largest errors by
+    kernel line name, timing rows by kernel line name, launches by kernel
+    line name and path)."""
+    import torch
+    from cpflow_tpu_torch.ops.penalty import cp_penalty_L1
+    start = time.perf_counter()
+    errs, rows = phase_sixteen_unitary(card, BLOCK_UNITARY, 'phase 22 (a)')
+    phase_split_vjp_bits(BLOCK_UNITARY, 'phase 22 (a)')
+    launches = {}
+    for path, (n, dtype) in {'ghz13_l1_warm': (13, None),
+                             'ghz12_l1_warm_f64': (12, torch.float64)}.items():
+        for line, count in phase_ghz_warm(
+                B=32, T=300, n=n, dtype=dtype, penalty=cp_penalty_L1,
+                label='phase 22 (b)').items():
+            launches.setdefault(line, {})[path] = count
+    for line, count in phase_ghz4_l1().items():
+        launches.setdefault(line, {})['static_ghz4_l1'] = count
+    print(f'phase 22: {time.perf_counter() - start:.1f} s', flush=True)
+    return errs, rows, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4865,6 +5062,7 @@ def main() -> int:
         sixteen = attempt(None, phase_sixteen, card)
         split = attempt(None, phase_split, card)
         nine = attempt(None, phase_nine, card)
+        block = attempt(None, phase_block, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
         max_err = max(max_err, seven_err)
@@ -4891,6 +5089,13 @@ def main() -> int:
                   for line in lines21),
               f'a column tiles\' build missed the phase 21 paths: '
               f'{launches21}')
+        errs22, rows22, launches22 = block
+        lines22 = [line + suffix for line in BLOCK_LINES
+                   for suffix in ('', '_f64')]
+        check(all(sum(launches22.get(line, {}).values()) > 0
+                  for line in lines22),
+              f'the pair on one block missed the phase 22 paths: '
+              f'{launches22}')
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -5025,6 +5230,33 @@ def main() -> int:
             # the vjp's three kernels (prologue, walk, sum) at its first row
             **({'parts': rows[0]['parts']} if 'parts' in rows[0] else {}),
             'shapes': rows})
+    # phase 22: a line for each build of the pair on one block (kernel
+    # lines ansatz_forward and ansatz_vjp), its numbers from its first row
+    # (the 13q column in float32, the 12q column in float64) and its
+    # launches from phase 22's paths, whose sweep launches join the sweep's
+    # lines
+    for line in kernels:
+        by_path = launches22.get(line['name'])
+        if by_path and line['name'].startswith('sweep'):
+            line['launches_by_path'].update(by_path)
+            line['launches'] += sum(by_path.values())
+    for name in lines22:
+        rows = rows22[name]
+        kind, suffix = name.split('_f64')[0], '_f64' * name.endswith('_f64')
+        kernels.append({
+            'name': f'{kind}_one_block{suffix}', 'route': 'cuda',
+            'line': name, 'kernel': TRACE_NAMES[('rows', 'vjp' in kind)],
+            'source': 'cpflow_tpu_torch/csrc/unitary.cu',
+            **({'build': '-DCPFLOW_DOUBLE'} if suffix else {}),
+            'replaces': 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(launches22[name].values()),
+            'launches_by_path': launches22[name],
+            'max_abs_err': errs22[name], 'ms': rows[0]['ms'],
+            'device_ms': rows[0]['device_ms'],
+            'plain_ms': rows[0]['plain_ms'], 'bound_ms': rows[0]['bound_ms'],
+            'bound_by': rows[0]['bound_by'], 'library_ms': None,
+            'registers': rows[0]['registers'],
+            'local_bytes': rows[0]['local_bytes'], 'shapes': rows})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

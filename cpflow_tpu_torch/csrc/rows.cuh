@@ -1,7 +1,13 @@
 // Device code of the row tiles' walk and chain (sweep.cu's
 // sweep_rows_kernel and unitary.cu's vjp_rows_kernel): a state's one column
 // split by rows over a cluster of c = 2^j blocks, each block's tile of
-// 2^log_rows rows owned by its warps.
+// 2^log_rows rows owned by its warps. unitary.cu's one-block kernels
+// (forward_block_kernel, vjp_block_kernel) run the same code with c = 1
+// and none of the cluster's (kOneBlock), on one column or on the whole
+// unitary held column-major, whose "rows" are then the 2^(n + log w)
+// entries of its w columns, whole columns a warp, so that its table has no
+// swap; their gates take the lanes' own order on long segments (row_gate's
+// kSwiz).
 //
 // A block holds rows [rho 2^log_rows, (rho + 1) 2^log_rows) of the d = 2^n
 // amplitudes (gates.cuh, row tiles), and each of its W warps owns a
@@ -67,6 +73,9 @@ constexpr int kRowSegmentMin = 7;  // log2 of a segment's rows while warps
                                    // are split off: a two-qubit gate's 32
                                    // groups, one a lane
 constexpr int kRowRingMax = 16;    // gates between two sums of the slots
+constexpr int kRowSwizMin = 8;     // log2 of the fewest rows a warp owns
+                                   // where row_gate takes the lanes' own
+                                   // order
 
 // A block of the row tiles: its warps, log2 of a warp's rows, the gates
 // its ring of cotangent slots holds.
@@ -163,23 +172,26 @@ __device__ __forceinline__ void swap_split_bit(cplx* A, cplx* M, int s,
 
 // The swap of segment bit s with bit b, of the tile (b < log_rows) between
 // two block barriers, or of the rank (b - log_rows) between two cluster
-// barriers; on A, and on M with kM.
-template <bool kM>
+// barriers; on A, and on M with kM. Without kCluster (one block a restart:
+// log_rows = n, every bit the tile's) no cluster code is compiled in.
+template <bool kM, bool kCluster = true>
 __device__ __forceinline__ void row_swap(cplx* A, cplx* M, int s, int b,
                                          int log_rows, int rank) {
   const bool wide = kPer16 == 1 || s > 0;  // 16 bytes a copy
-  if (b < log_rows) {
+  if (!kCluster || b < log_rows) {
     __syncthreads();
     if (wide) swap_tile_bits<Vec16, kM>(A, M, s, b, log_rows);
     else swap_tile_bits<cplx, kM>(A, M, s, b, log_rows);
     __syncthreads();
     return;
   }
-  namespace cg = cooperative_groups;
-  cg::this_cluster().sync();
-  if (wide) swap_split_bit<Vec16, kM>(A, M, s, b - log_rows, log_rows, rank);
-  else swap_split_bit<cplx, kM>(A, M, s, b - log_rows, log_rows, rank);
-  cg::this_cluster().sync();
+  if constexpr (kCluster) {
+    namespace cg = cooperative_groups;
+    cg::this_cluster().sync();
+    if (wide) swap_split_bit<Vec16, kM>(A, M, s, b - log_rows, log_rows, rank);
+    else swap_split_bit<cplx, kM>(A, M, s, b - log_rows, log_rows, rank);
+    cg::this_cluster().sync();
+  }
 }
 
 // ------------------------------------------------ the chain and the walk
@@ -216,9 +228,45 @@ __device__ __forceinline__ void row_product(cplx* A, const cplx* gates,
   }
 }
 
+// A K-qubit gate on the warp's segment X of 2^seg rows (Y: its rows of M),
+// forward, or in the walk with its share of the cotangent into gb:
+// tiles.cuh's tile_forward and tile_backward; with kSwiz (the one-block
+// kernels of unitary.cu), where a warp owns at least 2^kRowSwizMin rows
+// and the gate has a leg on a row bit below kBankBits, its warp_forward
+// and warp_backward, whose lanes take the gate's amplitudes in an order of
+// their own, so that a wavefront's rows fall on distinct banks. On a
+// shorter segment a lane has one or two amplitude groups of a gate, and
+// the order's own work outweighs the conflicts it saves (at 9 qubits 10%
+// slower, at 4 qubits 14%; at 13 qubits 1.16 times faster: PERF.md §6).
+template <int K, bool kSwiz>
+__device__ __forceinline__ void row_gate(cplx* X, const cplx* g, int seg,
+                                         int sa, int sb, int lane) {
+  if (kSwiz && seg >= kRowSwizMin && low_leg<K>(sa, sb)) {
+    const WarpColumns wc{0, 1, 1, lane, 32};
+    warp_forward<K, true>(X, 0, g, seg, sa, sb, wc);
+  } else {
+    tile_forward<K>(X, g, seg, sa, sb, lane, 32);
+  }
+}
+
+template <int K, bool kSwiz>
+__device__ __forceinline__ void row_gate_back(cplx* X, cplx* Y, const cplx* g,
+                                              int seg, int sa, int sb,
+                                              int lane, real (&gb)[32]) {
+  if (kSwiz && seg >= kRowSwizMin && low_leg<K>(sa, sb)) {
+    const WarpColumns wc{0, 1, 1, lane, 32};
+    warp_backward<K, true>(X, Y, 0, g, seg, sa, sb, wc, gb);
+  } else {
+    tile_backward<K>(X, Y, g, seg, sa, sb, lane, 32, gb);
+  }
+}
+
 // A <- G_{G-1} ... G_0 A on the block's row tile: the schedule's ops in
 // order, each gate on its warp's segment, a warp barrier after it. Ends with
-// a block barrier.
+// a block barrier. kOneBlock (unitary.cu's one-block kernels): the swaps
+// without cluster code (row_swap's kCluster false) and the gates in the
+// lanes' own order (row_gate's kSwiz).
+template <bool kOneBlock = false>
 __device__ __forceinline__ void row_chain(cplx* A, const cplx* gates,
                                           const int4* ops, int nops, int n,
                                           const RowPlan& p, int log_rows,
@@ -228,13 +276,13 @@ __device__ __forceinline__ void row_chain(cplx* A, const cplx* gates,
   for (int i = 0; i < nops; ++i) {
     const int4 op = __ldg(ops + i);
     if (op.x < 0) {
-      row_swap<false>(A, nullptr, op.y, op.z, log_rows, rank);
+      row_swap<false, !kOneBlock>(A, nullptr, op.y, op.z, log_rows, rank);
       continue;
     }
     if (op.x < n)
-      tile_forward<1>(X, gates + 16 * op.x, p.seg, op.y, 0, lane, 32);
+      row_gate<1, kOneBlock>(X, gates + 16 * op.x, p.seg, op.y, 0, lane);
     else
-      tile_forward<2>(X, gates + 16 * op.x, p.seg, op.y, op.z, lane, 32);
+      row_gate<2, kOneBlock>(X, gates + 16 * op.x, p.seg, op.y, op.z, lane);
     __syncwarp();
   }
   __syncthreads();
@@ -265,6 +313,8 @@ __device__ __forceinline__ void row_flush(const real* ring, real* gbar,
 // pulled back, the warp's share of the gate's cotangent into its ring
 // slot), each swap on A and M. Leaves the block's share of every gate's
 // cotangent in gbar, for cluster_sum. Ends with a block barrier.
+// kOneBlock: as row_chain.
+template <bool kOneBlock = false>
 __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
                                          const int4* ops, int nops,
                                          real* ring, real* gbar, int n,
@@ -277,7 +327,7 @@ __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
   for (int i = nops - 1; i >= 0; --i) {
     const int4 op = __ldg(ops + i);
     if (op.x < 0) {
-      row_swap<true>(A, M, op.y, op.z, log_rows, rank);
+      row_swap<true, !kOneBlock>(A, M, op.y, op.z, log_rows, rank);
       continue;
     }
     const int j = op.x, slot = j & (p.ring - 1);
@@ -286,13 +336,15 @@ __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
     if (j >= n) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
-      tile_backward<2>(X, Y, gates + 16 * j, p.seg, op.y, op.z, lane, 32, gb);
+      row_gate_back<2, kOneBlock>(X, Y, gates + 16 * j, p.seg, op.y, op.z, lane,
+                              gb);
       reduce_step<16, 32>(gb, lane, base, kFull);
       slots[slot * 32 + base] = gb[0];
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) gb[e] = RL(0.);
-      tile_backward<1>(X, Y, gates + 16 * j, p.seg, op.y, 0, lane, 32, gb);
+      row_gate_back<1, kOneBlock>(X, Y, gates + 16 * j, p.seg, op.y, 0, lane,
+                              gb);
       reduce_step<16, 8>(gb, lane, base, kFull);
       if ((lane & 3) == 0) slots[slot * 32 + base] = gb[0];
     }

@@ -50,28 +50,37 @@
 // blocks of one restart measured no faster.
 //
 // The row-split design (one column, n <= 17, and the vjp of the whole
-// unitary at 7 and 8 qubits): one thread block per restart, as in sweep.cu,
-// with gates.cuh's threads per restart, each gate split over the block's
-// threads by amplitude groups with a barrier after it, and in the walk each
-// gate's cotangent reduced over the block before the next gate (the first
-// design, which one column on one block and the templates below 7 qubits
-// too deep for the column design keep: forward_kernel, vjp_kernel<false>).
-// Where the block's layout does not fit its shared memory (the vjp holds
-// A and M, 16 * 4^n bytes for the whole unitary) a restart's columns are
-// split over c = 2, 4, 8 or 16 blocks of a cluster, the smallest c whose
-// make_layout fits (cluster_plan), each block holding d x (d / c) of them
-// on tiles.cuh's warps (vjp_kernel<true>, below): no block barrier or
-// cross-warp sum between two gates, the gates built once a cluster, and
-// the gates' cotangents summed over distributed shared memory in rank
-// order before the angle gradients. One
-// column has too few columns to share out: above 13 qubits (12 in double)
-// its rows are split instead, d / c a block (gates.cuh, row tiles), and
-// both passes become clusters (forward_rows_kernel, vjp_rows_kernel). In
-// both, each block's rows are owned by its warps (rows.cuh), which run each
-// gate on a warp's own segment and swap in the bits a gate needs from
-// outside it, inside the block or with another block, as the wrapper's
-// table for the pass's segment says (kernels/rows.py); the vjp sums its
-// cotangents as the tiles of columns do. The vjp splits a qubit
+// unitary at 7 and 8 qubits): its plan (make_layout, cluster_plan) gives
+// each restart one thread block, or where that layout does not fit one
+// block's shared memory (the vjp holds A and M, 16 * 4^n bytes for the
+// whole unitary) c = 2, 4, 8 or 16 blocks, the smallest c whose layout
+// fits. No kernel of the design keeps its first form (a block barrier after
+// every gate, each gate's cotangent reduced over the block before the
+// next): each runs on the warps of rows.cuh or tiles.cuh. One block a
+// restart (forward_block_kernel, vjp_block_kernel) runs rows.cuh's warps
+// with no cluster: one column, every bit a gate needs swapped in inside
+// the block (at 7 qubits or fewer one warp owns the column and nothing is
+// swapped); the whole unitary (templates below 7 qubits too deep for the
+// column design) held column-major with no pad, so that a warp's segment
+// holds whole columns, every lane has an amplitude group of every gate
+// down to 6 qubits, and the table has no swap (tiles.cuh's warps, a column
+// or more a warp, leave half the lanes idle below 7 qubits: 1.23 to 1.40
+// times the first design's time at 6 qubits, PERF.md); its forward pass
+// runs the same way on each of the plan's c independent blocks, d / c
+// columns each. On a cluster, a restart's columns are split over its c
+// blocks, each holding d x (d / c) of them on tiles.cuh's warps
+// (vjp_kernel, below): no block barrier or cross-warp sum between
+// two gates, the gates built once a cluster, and the gates' cotangents
+// summed over distributed shared memory in rank order before the angle
+// gradients. One column has too few columns to
+// share out: above 13 qubits (12 in double) its rows are split instead,
+// d / c a block (gates.cuh, row tiles), and both passes become clusters
+// (forward_rows_kernel, vjp_rows_kernel). In both, each block's rows are
+// owned by its warps (rows.cuh), which run each gate on a warp's own
+// segment and swap in the bits a gate needs from outside it, inside the
+// block or with another block, as the wrapper's table for the pass's
+// segment says (kernels/rows.py); the vjp sums its cotangents as the tiles
+// of columns do. The vjp splits a qubit
 // sooner than the forward pass, which holds no M: at k = 2n 'xyz' 14, 15,
 // 16, 17 qubits take 2, 4, 8, 16 blocks in the vjp and 1, 2, 4, 8 in the
 // forward pass. A cluster of 16 is non-portable: each cluster kernel is
@@ -109,9 +118,8 @@
 // takes 16 blocks (up to k = 125 'xyz' blocks), and one column fits one
 // block up to 12 qubits (13 in float) and 16 blocks up to 16 (17 in
 // float).
-// Its kernels hold 122 to 254 registers, all but the first design's
-// (forward_kernel, vjp_kernel<false>) with no local memory (their cos and
-// sin from gates.cuh's real_sincos).
+// No kernel holds local memory (the cos and sin from rows.cuh's
+// row_angle_trig, columns.cuh's column_sincos or gates.cuh's real_sincos).
 //
 // The design is an explicit argument of the launch; kernels/unitary.py
 // passes the plan's (cpflow_unitary_design), which it mirrors for the
@@ -144,23 +152,26 @@ struct RowArgs : Args {
 };
 
 struct Layout {
-  int P, G, nt, nw, log_ct;  // log_ct: log2 of a block's columns
+  int P, G, nt, nw;
   size_t off_M, off_gates, off_gbar, off_red, off_params, off_grad, off_cs,
       bytes;
 };
 
-// Shared memory of one block of a restart split over 2^cluster_log blocks;
-// the forward pass keeps no M, gbar, red and grad.
+// The row-split design's plan: shared memory of one block of a restart
+// split over 2^cluster_log blocks as its first kernels laid it out (A, M,
+// the gates, gbar, 2 x nw x 32 reals of cross-warp partials in red, the
+// angles, the gradient, the cos and sin; the forward pass keeps no M,
+// gbar, red and grad). Its bytes decide cluster_plan, which the kernels
+// keep; the row layouts below take it with red made their ring.
 __host__ __device__ inline Layout make_layout(int n, int nb, int nba,
                                               int log_c, int cluster_log,
                                               bool vjp) {
   Layout L;
   L.P = 3 * n + nba * nb;
   L.G = n + nb;
-  L.log_ct = log_c - cluster_log;
-  L.nt = threads_for(n, L.log_ct);
+  L.nt = threads_for(n, log_c - cluster_log);
   L.nw = L.nt / 32;
-  const size_t amps = (size_t)1 << (n + L.log_ct);
+  const size_t amps = (size_t)1 << (n + log_c - cluster_log);
   size_t o = amps * sizeof(cplx);                // A at offset 0
   L.off_M = o;        if (vjp) o += amps * sizeof(cplx);
   L.off_gates = o;    o += (size_t)L.G * 16 * sizeof(cplx);
@@ -185,18 +196,20 @@ inline int cluster_plan(int n, int nb, int nba, int log_c, bool vjp) {
   return -1;
 }
 
-// The layout of vjp_rows_kernel, one column split by rows over the cluster
-// of 2^cluster_log blocks that cluster_plan picks: make_layout's, whose
-// bytes decide the plan, with the threads and the ring of cotangent slots
-// of the row tiles (rows.cuh: row_plan, which *plan receives) in place of
-// the cross-warp partials, in what the plan's layout leaves of a block's
-// shared memory.
+// The layout of the vjp on rows.cuh's warps (vjp_rows_kernel: one column
+// split by rows over the cluster of 2^cluster_log blocks that cluster_plan
+// picks; vjp_block_kernel: one column, or the whole unitary's 2^log_c
+// columns, on one block): make_layout's, whose bytes decide the plan, with
+// the threads and the ring of cotangent slots of rows.cuh's row_plan
+// (which *plan receives) for the block's 2^(n + log_c - cluster_log)
+// amplitudes in place of the cross-warp partials, in what the plan's
+// layout leaves of a block's shared memory.
 __host__ __device__ inline Layout row_layout(int n, int nb, int nba,
-                                             int cluster_log,
+                                             int log_c, int cluster_log,
                                              RowPlan* plan) {
-  Layout L = make_layout(n, nb, nba, 0, cluster_log, true);
+  Layout L = make_layout(n, nb, nba, log_c, cluster_log, true);
   const size_t red = (size_t)2 * L.nw * 32 * sizeof(real);
-  *plan = row_plan(n - cluster_log, kSmemLimit - (L.bytes - red));
+  *plan = row_plan(n + log_c - cluster_log, kSmemLimit - (L.bytes - red));
   L.nt = 32 * plan->warps;
   L.nw = plan->warps;
   size_t o = L.off_red + (size_t)32 * plan->warps * plan->ring * sizeof(real);
@@ -207,16 +220,19 @@ __host__ __device__ inline Layout row_layout(int n, int nb, int nba,
   return L;
 }
 
-// The layout of forward_rows_kernel, one column split by rows over the
-// cluster of 2^cluster_log blocks that cluster_plan picks for the forward
-// pass: make_layout's, whose bytes decide the plan, with the row tiles'
-// warps (rows.cuh: row_plan, which *plan receives) and no ring, for the
-// chain sums no cotangent.
+// The layout of the forward pass on rows.cuh's warps
+// (forward_rows_kernel: one column split by rows over the cluster that
+// cluster_plan picks for the forward pass; forward_block_kernel: one
+// column on one block, or the whole unitary's 2^log_c columns on the
+// plan's 2^cluster_log independent blocks): make_layout's, whose bytes
+// decide the plan, with the warps of rows.cuh's row_plan (which *plan
+// receives) and no ring, for the chain sums no cotangent.
 __host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
+                                                     int log_c,
                                                      int cluster_log,
                                                      RowPlan* plan) {
-  Layout L = make_layout(n, nb, nba, 0, cluster_log, false);
-  *plan = row_plan(n - cluster_log, ~(size_t)0);
+  Layout L = make_layout(n, nb, nba, log_c, cluster_log, false);
+  *plan = row_plan(n + log_c - cluster_log, ~(size_t)0);
   plan->ring = 0;
   L.nt = 32 * plan->warps;
   L.nw = plan->warps;
@@ -225,7 +241,7 @@ __host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
 
 // The layout of the kernels on tiles.cuh's warps (the forward pass's
 // column tiles, forward_tiles_kernel, and the vjp on a cluster,
-// vjp_kernel<true>): a block holds w = 2^log_w columns of the whole
+// vjp_kernel): a block holds w = 2^log_w columns of the whole
 // unitary, column-major with a column stride of S = d + 1 amplitudes, in
 // tile_threads(n, log_w) threads: A (and the vjp's M), the gates (16
 // complex each, 16-byte aligned), the vjp's gates' cotangents gbar (32
@@ -299,108 +315,116 @@ inline bool forward_on_tiles(int n, int nb, int nba, int log_c) {
          forward_tile_log(n, nb, nba, log_c) >= 0;
 }
 
-// The restart's angles into shared memory, their cos and sin (with kRows
-// without local memory, rows.cuh), the gates. Ends with a barrier.
-template <bool kRows = false>
+// The restart's angles into shared memory, their cos and sin (without local
+// memory, rows.cuh), the gates. Ends with a barrier.
 __device__ __forceinline__ void load_gates(const Args& a, const Layout& L,
                                            int b, real* params, real* cs,
                                            cplx* gates) {
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
     params[i] = a.angles[(size_t)i * a.B + b];
   __syncthreads();
-  if constexpr (kRows)
-    row_angle_trig(a.tpl, a.n, L.P, params, cs);
-  else
-    angle_trig(a.tpl, a.n, L.P, params, cs);
+  row_angle_trig(a.tpl, a.n, L.P, params, cs);
   __syncthreads();
   build_gates(a.tpl, a.n, L.G, cs, gates);
   __syncthreads();
 }
 
-// Where entry e of a block's tile lies in the restart's d x C whole: a tile
-// of columns (tile_to_global), or with kRows a tile of the rows of one
-// column, 2^log_rows of them a block (gates.cuh, row tiles).
-template <bool kRows>
-__device__ __forceinline__ int whole_entry(int e, int lc, int lt, int n,
-                                           int rank) {
-  if constexpr (kRows) return (rank << (n + lt)) + e;
-  return tile_to_global(e, lc, lt, rank);
+// The block's rank in its cluster; 0 without kCluster.
+template <bool kCluster>
+__device__ __forceinline__ int rank_of() {
+  if constexpr (kCluster)
+    return (int)cooperative_groups::this_cluster().block_rank();
+  return 0;
 }
 
-// Block blockIdx.x holds the tile of columns of rank blockIdx.x mod c of
-// restart blockIdx.x / c. The tiles need nothing of each other.
-__device__ __forceinline__ void forward_body(const Args& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(a.n, a.nb, a.tpl.nba, a.log_c, a.cluster_log,
-                               false);
-  cplx* A = reinterpret_cast<cplx*>(smem);
-  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
-  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
-  const int b = blockIdx.x >> a.cluster_log;
-  const int rank = blockIdx.x & ((1 << a.cluster_log) - 1);
-
-  // the identity's first C columns, row-major d x C, the block's tile of
-  // them
-  for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int g = whole_entry<false>(e, lc, lt, a.n, rank);
-    A[e] = mkc((g >> lc) == (g & ((1 << lc) - 1)) ? RL(1.) : RL(0.), RL(0.));
+// The columns [c0, c0 + w) of the identity after the surface round, on
+// the block's tile (column-major, entry (c - c0) 2^n + r, no pad): entry r
+// of column C is the product over the qubits of G_q[r's bit, C's bit] on
+// row bit n - 1 - q (from e_C each gate's other amplitude is 0). Only for
+// a table with no swap (a segment that holds every row bit: the whole
+// unitary's, or one column owned by one warp), which starts on the
+// identity. Each warp fills its own segment.
+__device__ __forceinline__ void unitary_product(cplx* A, const cplx* gates,
+                                                int n, const RowPlan& p,
+                                                int c0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = lane; e < 1 << p.seg; e += 32) {
+    const int at = (warp << p.seg) | e;
+    const int r = at & ((1 << n) - 1), C = c0 + (at >> n);
+    cplx v = mkc(RL(1.), RL(0.));
+    for (int s = 0; s < n; ++s)
+      v = cmul(v, gates[16 * (n - 1 - s) + 2 * ((r >> s) & 1) +
+                        ((C >> s) & 1)]);
+    A[at] = v;
   }
-  load_gates(a, L, b, params, cs, gates);
-  forward_chain(A, gates, a.placements, a.n, a.nb, lt);
-  cplx* out = a.U + ((size_t)b << (a.n + lc));
-  for (int e = threadIdx.x; e < amps; e += blockDim.x)
-    out[whole_entry<false>(e, lc, lt, a.n, rank)] = A[e];
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-forward_kernel(Args a) {
-  forward_body(a);
-}
-
-// The vjp of one block a restart (vjp_kernel<false>), or with kRows of
-// one column split by rows over a cluster (rows.cuh, a RowArgs in a).
-template <bool kRows>
-__device__ __forceinline__ void vjp_body(const Args& a) {
+// The vjp on rows.cuh's warps: one column split by rows over a cluster
+// (kCluster, vjp_rows_kernel: the block of rank rho holds rows [rho
+// 2^log_rows, (rho + 1) 2^log_rows)), or on one block with no cluster code
+// (vjp_block_kernel) one column (log_c = 0) or the whole unitary (log_c =
+// n: its columns column-major, 2^n rows each, so that a warp's segment
+// holds whole columns and the table no swap), A = U and M = conj(Ubar) / 2
+// copied while the gates are built. The walk (row_walk) runs the wrapper's
+// table backward, its gates in each lane's order on one block (rows.cuh's
+// row_gate), and with kCluster the blocks' gbar are summed in rank order
+// (cluster_sum) before the angle gradients.
+template <bool kCluster>
+__device__ __forceinline__ void vjp_rows_body(const RowArgs& ra) {
+  const Args& a = ra;
   extern __shared__ __align__(16) unsigned char smem[];
   RowPlan plan;
-  const Layout L = kRows ? row_layout(a.n, a.nb, a.tpl.nba, a.cluster_log,
-                                      &plan)
-                         : make_layout(a.n, a.nb, a.tpl.nba, a.log_c, 0,
-                                       true);
+  const Layout L = row_layout(a.n, a.nb, a.tpl.nba, kCluster ? 0 : a.log_c,
+                              a.cluster_log, &plan);
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
   real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
-  real* red = reinterpret_cast<real*>(smem + L.off_red);
+  real* ring = reinterpret_cast<real*>(smem + L.off_red);
   real* params = reinterpret_cast<real*>(smem + L.off_params);
   real* grad = reinterpret_cast<real*>(smem + L.off_grad);
   real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  const int lc = a.log_c, lt = L.log_ct, amps = 1 << (a.n + lt);
-  int b = blockIdx.x, rank = 0;
-  if constexpr (kRows) {
-    b = blockIdx.x >> a.cluster_log;
-    rank = (int)cooperative_groups::this_cluster().block_rank();
-  }
+  const int lc = kCluster ? 0 : a.log_c, n = a.n;
+  const int log_rows = n + lc - a.cluster_log, amps = 1 << log_rows;
+  const int b = blockIdx.x >> a.cluster_log, rank = rank_of<kCluster>();
 
-  const cplx* u = a.U + ((size_t)b << (a.n + lc));
-  const cplx* g = a.Ubar + ((size_t)b << (a.n + lc));
-  for (int e = threadIdx.x; e < amps; e += blockDim.x) {
-    const int at = kRows ? whole_entry<kRows>(e, lc, lt, a.n, rank) : e;
-    A[e] = u[at];
-    const cplx t = g[at];
-    M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
+  const cplx* u = a.U + ((size_t)b << (n + lc));
+  const cplx* g = a.Ubar + ((size_t)b << (n + lc));
+  if constexpr (kCluster) {
+    for (int e = threadIdx.x; e < amps; e += blockDim.x) {
+      const int at = (rank << log_rows) + e;
+      A[e] = u[at];
+      const cplx t = g[at];
+      M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);  // M = conj(g) / 2
+    }
+    load_gates(a, L, b, params, cs, gates);
+  } else {
+    if (!lc) {  // the column, 16 bytes a copy
+      for (int e = kPer16 * threadIdx.x; e < amps; e += kPer16 * blockDim.x) {
+        __pipeline_memcpy_async(A + e, u + e, 16);
+        __pipeline_memcpy_async(M + e, g + e, 16);
+      }
+    } else {  // U's rows into the tile's columns, an entry a copy
+      for (int e = threadIdx.x; e < amps; e += blockDim.x) {
+        const int at = ((e & ((1 << n) - 1)) << n) | (e >> n);
+        __pipeline_memcpy_async(A + e, u + at, sizeof(cplx));
+        __pipeline_memcpy_async(M + e, g + at, sizeof(cplx));
+      }
+    }
+    __pipeline_commit();
+    load_gates(a, L, b, params, cs, gates);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // every thread's copies landed
+    for (int e = threadIdx.x; e < amps; e += blockDim.x) {
+      const cplx t = M[e];  // M = conj(g) / 2, in place
+      M[e] = mkc(RL(0.5) * t.x, RL(-0.5) * t.y);
+    }
+    __syncthreads();
   }
-  load_gates<kRows>(a, L, b, params, cs, gates);
-  if constexpr (kRows) {
-    const RowArgs& ra = static_cast<const RowArgs&>(a);
-    row_walk(A, M, gates, ra.ops, ra.nops, red, gbar, a.n, L.G, ra.plan,
-             a.n + lt, rank);
-  } else
-    adjoint_walk(A, M, gates, a.placements, red, gbar, a.n, L.G, lt, L.nw);
-  if constexpr (kRows) cluster_sum(gbar, 32 * L.G);
-  angle_grads(a.tpl, a.n, L.G, cs, gates, gbar, grad);
+  row_walk<!kCluster>(A, M, gates, ra.ops, ra.nops, ring, gbar, n, L.G,
+                      ra.plan, log_rows, rank);
+  if constexpr (kCluster) cluster_sum(gbar, 32 * L.G);
+  angle_grads(a.tpl, n, L.G, cs, gates, gbar, grad);
   __syncthreads();
   if (rank != 0) return;
   for (int i = threadIdx.x; i < L.P; i += blockDim.x)
@@ -493,55 +517,88 @@ __device__ __forceinline__ void vjp_cluster_body(const Args& a) {
   }
 }
 
-// kCluster: the restart's columns split over the blocks of a cluster
+// The restart's columns split over the blocks of a cluster
 // (vjp_cluster_body, 512 threads in float at most 128 registers, 256 in
-// double), else one block a restart (the first design).
-template <bool kCluster>
-__global__ void __launch_bounds__(kCluster ? kTileThreads : kMaxThreads)
-vjp_kernel(Args a) {
-  if constexpr (kCluster)
-    vjp_cluster_body(a);
-  else
-    vjp_body<false>(a);
+// double); one block a restart is vjp_block_kernel.
+__global__ void __launch_bounds__(kTileThreads) vjp_kernel(Args a) {
+  vjp_cluster_body(a);
 }
 
-// The row tiles' kernels: one column split by rows over a cluster, each
-// block's rows owned by its warps (rows.cuh). The forward pass runs the
-// chain on the wrapper's table (its forward form: n start ops, then the
-// blocks') from e_0: the surface round's product state in the table's
-// first permutation (row_product), then the blocks, to U's column in
-// natural order (the table ends on the identity), which each block stores
-// 16 bytes a copy.
-__global__ void __launch_bounds__(kRowThreads, 1)
-forward_rows_kernel(RowArgs ra) {
+// The forward pass on rows.cuh's warps: one column split by rows over a
+// cluster (kCluster, forward_rows_kernel), or with no cluster code
+// (forward_block_kernel) one column on one block, or the whole unitary's
+// columns on the plan's 2^cluster_log independent blocks, block t of a
+// restart holding columns [t w, (t + 1) w), column-major. The chain runs on
+// the wrapper's table (its forward form: n start ops, then the blocks')
+// from the surface round's product state, on e_0 in the table's first
+// permutation (row_product) or on the identity's columns
+// (unitary_product), its gates in each lane's order without kCluster
+// (rows.cuh's row_gate), to U's column in natural order (the table ends on
+// the identity), stored 16 bytes a copy, or to the tile's columns, stored
+// into U's rows in runs of w.
+template <bool kCluster>
+__device__ __forceinline__ void forward_rows_body(const RowArgs& ra) {
   const Args& a = ra;
   extern __shared__ __align__(16) unsigned char smem[];
   RowPlan plan;
+  const int lc = kCluster ? 0 : a.log_c, n = a.n;
   const Layout L =
-      forward_row_layout(a.n, a.nb, a.tpl.nba, a.cluster_log, &plan);
+      forward_row_layout(n, a.nb, a.tpl.nba, lc, a.cluster_log, &plan);
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
   real* params = reinterpret_cast<real*>(smem + L.off_params);
   real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  const int log_rows = a.n - a.cluster_log;
+  const int log_rows = n + lc - a.cluster_log;
   const int b = blockIdx.x >> a.cluster_log;
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
-  load_gates<true>(a, L, b, params, cs, gates);
-  row_product(A, gates, ra.ops, a.n, ra.plan, log_rows, rank);
+  const int rank = kCluster ? rank_of<kCluster>()
+                            : blockIdx.x & ((1 << a.cluster_log) - 1);
+  load_gates(a, L, b, params, cs, gates);
+  if (kCluster || ra.plan.seg < n)  // in the table's start permutation
+    row_product(A, gates, ra.ops, n, ra.plan, log_rows, rank);
+  else  // whole columns a warp (one column: one warp): no swap
+    unitary_product(A, gates, n, ra.plan, rank << (log_rows - n));
   __syncwarp();
-  row_chain(A, gates, ra.ops + a.n, ra.nops - a.n, a.n, ra.plan, log_rows,
-            rank);
-  const Vec16* from = reinterpret_cast<const Vec16*>(A);
-  Vec16* to = reinterpret_cast<Vec16*>(a.U + ((size_t)b << a.n) +
-                                       ((size_t)rank << log_rows));
-  for (int e = threadIdx.x; e < (1 << log_rows) / kPer16; e += blockDim.x)
-    to[e] = from[e];
+  row_chain<!kCluster>(A, gates, ra.ops + n, ra.nops - n, n, ra.plan,
+                       log_rows, rank);
+  if (kCluster || !lc) {
+    const Vec16* from = reinterpret_cast<const Vec16*>(A);
+    Vec16* to = reinterpret_cast<Vec16*>(a.U + ((size_t)b << (n + lc)) +
+                                         ((size_t)rank << log_rows));
+    for (int e = threadIdx.x; e < (1 << log_rows) / kPer16; e += blockDim.x)
+      to[e] = from[e];
+    return;
+  }
+  const int lw = log_rows - n;  // the tile's 2^lw columns into U's rows
+  cplx* out = a.U + ((size_t)b << (2 * n)) + (rank << lw);
+  for (int e = threadIdx.x; e < 1 << log_rows; e += blockDim.x) {
+    const int r = e >> lw, c = e & ((1 << lw) - 1);
+    out[((size_t)r << n) + c] = A[(c << n) + r];
+  }
 }
 
-// each block's rows owned by its warps (rows.cuh)
+// The row tiles' kernels: one column split by rows over a cluster, each
+// block's rows owned by its warps (rows.cuh).
+__global__ void __launch_bounds__(kRowThreads, 1)
+forward_rows_kernel(RowArgs ra) {
+  forward_rows_body<true>(ra);
+}
+
 __global__ void __launch_bounds__(kRowThreads, 1)
 vjp_rows_kernel(RowArgs ra) {
-  vjp_body<true>(ra);
+  vjp_rows_body<true>(ra);
+}
+
+// One block a restart in the row-split design's plan, with no cluster (and
+// the forward pass of the whole unitary on that plan's independent
+// blocks): rows.cuh's warps on one column or on whole columns.
+__global__ void __launch_bounds__(kRowThreads, 1)
+forward_block_kernel(RowArgs ra) {
+  forward_rows_body<false>(ra);
+}
+
+__global__ void __launch_bounds__(kRowThreads, 1)
+vjp_block_kernel(RowArgs ra) {
+  vjp_rows_body<false>(ra);
 }
 
 // ------------------------------------------------------ the column design
@@ -929,19 +986,21 @@ vjp_tile_sum_kernel(TileArgs ta) {
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
-// 0 forward, 1 vjp on one block a restart (the row-split design), 2 vjp on
-// a cluster of tiles of columns (tiles.cuh's warps); 3 + n - 2 the column
+// 0 forward, 1 vjp on one block a restart (the row-split design's plan
+// with no cluster: forward_block_kernel, vjp_block_kernel), 2 vjp on a
+// cluster of tiles of columns (tiles.cuh's warps); 3 + n - 2 the column
 // forward pass at n qubits, 8 + n - 2 the column vjp; 13 the forward pass,
 // 14 the vjp's walk and 15 its sum on the column tiles; 16 forward and 17
 // vjp of one column split by rows over a cluster (the row-split design's
 // row tiles); 18 the column tiles' vjp prologue.
 constexpr int kKernels = 9 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+constexpr int kForwardBlock = 0, kVjpBlock = 1;
 constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
 constexpr int kForwardRows = 16, kVjpRows = 17, kVjpTileGates = 18;
 const void* kernel_of(int which) {
   const void* kernels[kKernels] = {
-      (const void*)forward_kernel,       (const void*)vjp_kernel<false>,
-      (const void*)vjp_kernel<true>,     (const void*)column_forward<2>,
+      (const void*)forward_block_kernel, (const void*)vjp_block_kernel,
+      (const void*)vjp_kernel,     (const void*)column_forward<2>,
       (const void*)column_forward<3>,    (const void*)column_forward<4>,
       (const void*)column_forward<5>,    (const void*)column_forward<6>,
       (const void*)column_vjp<2>,        (const void*)column_vjp<3>,
@@ -962,7 +1021,7 @@ enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1, DESIGN_TILES = 2 };
 // placement asked, once per kernel and device (and size), not before every
 // launch.
 constexpr int kMaxDevices = 64;
-constexpr int kClusterKernel = 2;  // vjp_kernel<true>
+constexpr int kClusterKernel = 2;  // vjp_kernel
 constexpr unsigned kMaxPortableCluster = 8;
 size_t g_granted[kMaxDevices][kKernels];
 bool g_non_portable[kMaxDevices][kKernels];
@@ -1030,25 +1089,28 @@ bool plan_launch(RowArgs& a, int vjp, int design, Launch& out) {
   a.restarts = 1;
   a.cluster_log = cluster_plan(n, nb, nba, a.log_c, vjp != 0);
   if (a.cluster_log < 0) return false;
-  const bool tiles = a.log_c == 0 && a.cluster_log > 0;  // of rows
-  const bool cluster = tiles || (vjp && a.cluster_log > 0);
-  out.grid = (unsigned)a.B << a.cluster_log;
-  out.cluster = cluster ? 1u << a.cluster_log : 1u;
-  if (cluster && !tiles) {  // the vjp of the whole unitary on a cluster
-    const int lw = n - a.cluster_log;
+  const int cl = a.cluster_log;
+  out.grid = (unsigned)a.B << cl;
+  if (a.log_c && vjp && cl) {  // the whole unitary's vjp on a cluster
+    const int lw = n - cl;
     const WarpLayout W = warp_layout(n, nb, nba, lw, true,
                                      cluster_ring(n, nb, nba, lw));
     if (!W.ring || W.bytes > kSmemLimit) return false;
     out.which = kClusterKernel;
     out.threads = W.nt;
     out.bytes = W.bytes;
+    out.cluster = 1u << cl;
     return true;
   }
-  const Layout L =
-      !tiles ? make_layout(n, nb, nba, a.log_c, a.cluster_log, vjp != 0)
-      : vjp  ? row_layout(n, nb, nba, a.cluster_log, &a.plan)
-             : forward_row_layout(n, nb, nba, a.cluster_log, &a.plan);
-  out.which = tiles ? (vjp ? kVjpRows : kForwardRows) : vjp ? 1 : 0;
+  // rows.cuh's warps: one column on one block or split by rows over a
+  // cluster (the row tiles), the whole unitary's vjp on one block and its
+  // forward pass on the plan's independent blocks
+  const Layout L = vjp ? row_layout(n, nb, nba, a.log_c, cl, &a.plan)
+                       : forward_row_layout(n, nb, nba, a.log_c, cl, &a.plan);
+  const bool tiles = !a.log_c && cl;  // of rows
+  out.which = tiles ? (vjp ? kVjpRows : kForwardRows)
+                    : (vjp ? kVjpBlock : kForwardBlock);
+  out.cluster = tiles ? 1u << cl : 1u;
   out.threads = L.nt;
   out.bytes = L.bytes;
   return true;
@@ -1264,46 +1326,56 @@ int cpflow_unitary_tiles_launch(const void* angles, void* U,
   return (int)cudaGetLastError();
 }
 
-// The row tiles' plan of the forward pass (vjp == 0) or the vjp (vjp == 1)
-// of one column that cluster_plan splits by rows (rows.cuh;
-// forward_row_layout, row_layout): out[0] threads and out[1] dynamic shared
-// memory bytes a block, out[2] warps, out[3] log2 of a warp's rows (the
-// segment bits a row schedule runs its gates on), out[4] gates in the ring
-// (0 in the forward pass), out[5] log2 of a block's rows. Returns
-// cudaErrorInvalidValue where the column is not split by rows.
-int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int vjp,
-                            int* out) {
-  const int log = cluster_plan(n, num_blocks, nba, 0, vjp != 0);
-  if (log <= 0) return (int)cudaErrorInvalidValue;
+// The plan on rows.cuh's warps of the forward pass (vjp == 0) or the vjp
+// (vjp == 1) in the row-split design: one column (log_c = 0) on the one
+// block or the cluster that cluster_plan gives it, the whole unitary
+// (log_c = n) below 7 qubits, its vjp on one block and its forward pass on
+// the plan's blocks (forward_row_layout, row_layout): out[0] threads and
+// out[1] dynamic shared memory bytes a block, out[2] warps, out[3] log2 of
+// a warp's amplitudes (the segment bits a row schedule runs its gates on;
+// whole columns of the whole unitary), out[4] gates in the ring (0 in the
+// forward pass), out[5] log2 of a block's amplitudes. Returns
+// cudaErrorInvalidValue where the pass does not run on rows.cuh's warps.
+int cpflow_unitary_row_plan(int n, int num_blocks, int nba, int log_c,
+                            int vjp, int* out) {
+  if (!vjp && forward_on_tiles(n, num_blocks, nba, log_c))
+    return (int)cudaErrorInvalidValue;
+  const int log = cluster_plan(n, num_blocks, nba, log_c, vjp != 0);
+  if (log < 0 || (log_c && vjp && log)) return (int)cudaErrorInvalidValue;
   RowPlan plan;
-  const Layout L = vjp ? row_layout(n, num_blocks, nba, log, &plan)
-                       : forward_row_layout(n, num_blocks, nba, log, &plan);
+  const Layout L =
+      vjp ? row_layout(n, num_blocks, nba, log_c, log, &plan)
+          : forward_row_layout(n, num_blocks, nba, log_c, log, &plan);
   out[0] = L.nt;
   out[1] = (int)L.bytes;
   out[2] = plan.warps;
   out[3] = plan.seg;
   out[4] = plan.ring;
-  out[5] = n - log;
+  out[5] = n + log_c - log;
   return 0;
 }
 
 // Launches the forward pass (vjp == 0: writes U) or the vector-Jacobian
 // product (vjp == 1: reads U and Ubar, writes grad) in the given design
-// (0 row-split, 1 columns) on `stream`. Either pass of one column split by
-// rows takes row_ops, the row schedule (rows.cuh) of row_nops int4 for the
-// segment bits cpflow_unitary_row_plan gives that pass (the forward pass's
-// in its forward form, kernels/rows.py:schedule). angles and grad: (P, B) of the
-// build's real type (float, or double with -DCPFLOW_DOUBLE); U and Ubar:
-// (B, d, C) complex64 (complex128) with C = 2^log_c, log_c = n or 0; letters:
-// (num_letters,) rotation letters 0, 1, 2 for x, y, z; ent: 0 CP, 1 CZ,
-// 2 CX; nba: angles per block. In the row-split design each restart runs
-// on the blocks cluster_plan picks: the vjp's tiles of columns as a
-// cluster, and one column's tiles of rows as a cluster in both passes (the
-// forward pass of the whole unitary from 7 qubits runs on the column tiles:
-// cpflow_unitary_tiles_launch). Returns cudaErrorInvalidValue if the
-// design does not hold the shape, cudaErrorLaunchOutOfResources if the card
-// cannot place a non-portable cluster, else cudaGetLastError() after the
-// launch.
+// (0 row-split, 1 columns) on `stream`. Either pass of one column (on one
+// block or split by rows) takes row_ops, the row schedule (rows.cuh) of
+// row_nops int4 for the segment bits cpflow_unitary_row_plan gives that
+// pass (the forward pass's in its forward form, kernels/rows.py:schedule).
+// angles and grad: (P, B) of the build's real type (float, or double with
+// -DCPFLOW_DOUBLE); U and Ubar: (B, d, C) complex64 (complex128) with C =
+// 2^log_c, log_c = n or 0; letters: (num_letters,) rotation letters 0, 1,
+// 2 for x, y, z; ent: 0 CP, 1 CZ, 2 CX; nba: angles per block. In the
+// row-split design each restart runs on the blocks cluster_plan picks: one
+// block with no cluster (forward_block_kernel, vjp_block_kernel), the
+// vjp's tiles of columns as a cluster, one column's tiles of rows as a
+// cluster in both passes, and the forward pass of the whole unitary below
+// 7 qubits on the plan's tiles of columns as independent blocks
+// (forward_block_kernel; from 7 qubits it runs on the column tiles:
+// cpflow_unitary_tiles_launch). Every pass on rows.cuh's warps takes the
+// row schedule (the whole unitary's for segment n: no swap).
+// Returns cudaErrorInvalidValue if the design does not hold the shape,
+// cudaErrorLaunchOutOfResources if the card cannot place a non-portable
+// cluster, else cudaGetLastError() after the launch.
 int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
                           void* grad, const void* placements,
                           const void* letters, int n, int num_blocks,
@@ -1326,9 +1398,12 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   a.B = B;
   a.ops = static_cast<const int4*>(row_ops);
   a.nops = row_nops;
+  a.plan = RowPlan{0, 0, 0};
   Launch l;
   if (!plan_launch(a, vjp, design, l)) return (int)cudaErrorInvalidValue;
-  const bool rows = l.which == kVjpRows || l.which == kForwardRows;
+  // the kernels on rows.cuh's warps: RowArgs, with the schedule
+  const bool rows = l.which == kVjpRows || l.which == kForwardRows ||
+                    l.which == kVjpBlock || l.which == kForwardBlock;
   if (rows && (!row_ops || row_nops < n + num_blocks))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = grant_smem(l.which, l.bytes);

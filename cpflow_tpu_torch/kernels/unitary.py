@@ -48,13 +48,15 @@ forward pass at 2 to 4 qubits the lanes of a column share its amplitude
 groups with a warp barrier after each gate. Blocks hold two restarts (one
 at 6 qubits, or where the layout does not fit). One column
 (``columns=[0]``, up to 17 qubits) and the vjp of the whole unitary at 7
-and 8 qubits keep the row-split design's plan: one block a restart with a
-barrier after every gate (the first design, ``ansatz_forward`` and
-``ansatz_vjp``, which one column on one block and templates below 7
-qubits too deep for the column design keep), and where its layout exceeds
-one block's shared memory the restart splits over c = 2, 4, 8 or 16
-blocks (``cluster_plan``): the whole unitary's columns, the vjp's blocks
-a thread-block cluster on csrc/tiles.cuh's warps (``ansatz_vjp_cluster``:
+and 8 qubits keep the row-split design's plan: one block a restart
+(``ansatz_forward`` and ``ansatz_vjp``, on csrc/rows.cuh's warps,
+``rows_launch``: one column, every bit a gate needs swapped in inside the
+block; templates below 7 qubits too deep for the column design, the whole
+unitary's columns column-major with whole columns a warp, the forward pass
+on each of the plan's blocks), and where its layout exceeds one block's
+shared memory the restart splits over c = 2, 4, 8 or 16 blocks
+(``cluster_plan``): the whole unitary's columns, the vjp's blocks a
+thread-block cluster on csrc/tiles.cuh's warps (``ansatz_vjp_cluster``:
 each warp owns columns, no block barrier between gates, the gates built
 once a cluster, the gates' cotangents summed over distributed shared
 memory in rank order), or one column's rows, 2^n / c a block, in both
@@ -240,24 +242,40 @@ def tile_plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     return None
 
 
+def rows_launch(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
+                dtype=torch.float32):
+    """The launch on csrc/rows.cuh's warps of a pass in the row-split
+    design, on the c blocks cluster_plan gives it, as csrc/unitary.cu's
+    row_layout (forward_row_layout) lays it out in the build of `dtype`
+    (cpflow_unitary_row_plan on the card): one column (log_c = 0) on one
+    block or split by rows over a cluster, the whole unitary (log_c = n)
+    below 7 qubits, its vjp on one block and its forward pass on each of
+    the plan's blocks (2^log_rows = 2^(n + log_c) / c amplitudes a block,
+    whole columns a warp). dict(cluster, log_rows, warps, segment, ring,
+    threads, smem_bytes): the vjp's, the plan's layout with the warps' ring
+    of cotangent slots in place of its cross-warp partials, in what the
+    plan leaves of a block's shared memory; the forward pass's, the plan's
+    layout with the warps and no ring (kernels/rows.py:launch). None where
+    the pass does not run on rows.cuh's warps."""
+    if log_c and not vjp and forward_on_tiles(n, num_blocks, nba, log_c,
+                                              dtype):
+        return None
+    c = cluster_plan(n, num_blocks, nba, log_c, vjp, dtype)
+    if c is None or (log_c and vjp and c > 1):
+        return None
+    return rk.launch(c, n + log_c - (c.bit_length() - 1),
+                     smem_bytes(n, num_blocks, nba, log_c, vjp, c, dtype),
+                     dtype, vjp)
+
+
 def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32,
              vjp: bool = True):
     """The row tiles' launch of the vjp (or with vjp=False the forward
     pass) of one column that cluster_plan splits by rows over c > 1 blocks
-    for that pass, as csrc/unitary.cu's row_layout (forward_row_layout)
-    lays it out in the build of `dtype` (cpflow_unitary_row_plan on the
-    card): dict(cluster, log_rows, warps, segment, ring, threads,
-    smem_bytes). The vjp's: the plan's layout with the warps' ring of
-    cotangent slots in place of its cross-warp partials, in what the plan
-    leaves of a block's shared memory; the forward pass's: the plan's
-    layout with the warps and no ring (kernels/rows.py:launch). None where
-    the column is not split by rows."""
-    c = cluster_plan(n, num_blocks, nba, 0, vjp, dtype)
-    if c is None or c == 1:
-        return None
-    return rk.launch(c, n - (c.bit_length() - 1),
-                     smem_bytes(n, num_blocks, nba, 0, vjp, c, dtype), dtype,
-                     vjp)
+    for that pass (``rows_launch``); None where the column is not split by
+    rows."""
+    got = rows_launch(n, num_blocks, nba, 0, vjp, dtype)
+    return got if got is not None and got['cluster'] > 1 else None
 
 
 def max_qubits(whole: bool, dtype=torch.float32) -> int:
@@ -328,11 +346,12 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
     in the build of `dtype`, and its sizes: dict(design 'columns', 'rows'
     or 'tiles', threads_per_restart, restarts_per_block, threads (a block),
-    smem_bytes (a block), blocks_per_restart; for the kernels on
-    tiles.cuh's warps, the forward pass's column tiles and the vjp on a
-    cluster, also columns_per_warp, warps_per_column and ring, as
+    smem_bytes (a block), blocks_per_restart; for the kernels of the whole
+    unitary on tiles.cuh's warps, the forward pass's column tiles and the
+    vjp on a cluster, also columns_per_warp, warps_per_column and ring, as
     cpflow_unitary_warp_layout gives them); None if no design holds the
-    shape."""
+    shape. The launches on rows.cuh's warps (every other of the row-split
+    design): rows_launch, row_plan."""
     r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
         return dict(design='columns', threads_per_restart=column_lanes(n),
@@ -349,17 +368,15 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
         if tiles is None:
             return None
         c, design = tiles[1], 'tiles'
-    log_ct = log_c - (c.bit_length() - 1)
-    w = 1 << max(log_ct, 0)  # columns a block (log_ct < 0: rows of one)
-    threads = min(max((1 << (n + log_ct)) // 16, 32), 256)
-    nbytes = smem_bytes(n, num_blocks, nba, log_c, vjp, c, dtype)
-    if not log_c and c > 1:  # the row tiles
-        rows = row_plan(n, num_blocks, nba, dtype, vjp)
+    w = (1 << n) // c
+    if design == 'rows' and not (log_c and vjp and c > 1):  # rows.cuh's
+        rows = rows_launch(n, num_blocks, nba, log_c, vjp, dtype)  # warps
         threads, nbytes = rows['threads'], rows['smem_bytes']
     elif vjp and design == 'tiles':  # the vjp's tile kernel (tiles.cuh)
         threads = tk.tile_threads(n, w, dtype)
         nbytes = tk.tile_smem_bytes(n, num_blocks, w, dtype)
-    elif design == 'tiles' or (vjp and c > 1):  # on tiles.cuh's warps
+    else:  # on tiles.cuh's warps: the forward pass's column tiles, the
+        # vjp on a cluster
         ring = tk.cluster_ring(n, num_blocks, nba, w, dtype) if vjp else 0
         threads = tk.tile_threads(n, w, dtype)
         nbytes = tk.warp_smem_bytes(n, num_blocks, nba, w, vjp, ring, dtype)
@@ -394,7 +411,7 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_launch.argtypes = [ptr] * 6 + [i] * 9 + [
             ptr, ptr, i]
         lib.cpflow_unitary_launch.restype = i
-        lib.cpflow_unitary_row_plan.argtypes = [i] * 4 + [ptr]
+        lib.cpflow_unitary_row_plan.argtypes = [i] * 5 + [ptr]
         lib.cpflow_unitary_row_plan.restype = i
         lib.cpflow_unitary_smem_bytes.argtypes = [i] * 6
         lib.cpflow_unitary_smem_bytes.restype = ctypes.c_longlong
@@ -553,19 +570,8 @@ class _Shape:
             self.tiles = self.lib.cpflow_unitary_tiles(*args)
             self.work = self.lib.cpflow_unitary_tile_partials(*args[:4])
         self.design = {v: k for k, v in DESIGNS.items()}[code]
-        # the row tiles' schedule (either pass of one column split by
-        # rows), for the segment of the library's plan of that pass
-        self.ops = None
-        if not self.log_c and self.cluster > 1:
-            got = (ctypes.c_int * 6)()
-            with torch.cuda.device(device):
-                err = self.lib.cpflow_unitary_row_plan(n, self.nb, self.nba,
-                                                       int(vjp), got)
-            if err != 0:
-                raise RuntimeError(f'unitary kernel row plan query failed: '
-                                   f'CUDA error {err}')
-            self.ops = rk.device_schedule(n, self.placements, got[3],
-                                          device, forward=not vjp)
+        self.vjp = vjp
+        self.ops = None  # the row schedule, made by row_ops when first used
         if not self.cluster and self.design != 'tiles':
             most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
@@ -585,10 +591,31 @@ class _Shape:
                            self.log_c == 0) + (
             '_f64' if self.dtype == torch.float64 else '')
 
+    def row_ops(self, device):
+        """The row schedule of this pass on rows.cuh's warps in the
+        row-split design (the plan's, or design='rows' asked for), for the
+        segment of the library's plan of that pass (the whole unitary's
+        segment holds whole columns: its table is for segment n, with no
+        swap); made at the first launch that asks for it. None where the
+        pass takes no schedule (the vjp of the whole unitary on a
+        cluster)."""
+        if self.ops is None:
+            got = (ctypes.c_int * 6)()
+            with torch.cuda.device(device):
+                err = self.lib.cpflow_unitary_row_plan(
+                    self.n, self.nb, self.nba, self.log_c, int(self.vjp),
+                    got)
+            if err == 0:
+                self.ops = rk.device_schedule(self.n, self.placements,
+                                              min(got[3], self.n), device,
+                                              forward=not self.vjp)
+        return self.ops
+
     def launch(self, angles, u, ubar, grad, vjp, design):
         """Launches on the angles' card: the library configures and
         launches on the current device, so that device is made theirs."""
         plc, letters = _tables(self.placements, self.rot, angles.device)
+        ops = self.row_ops(angles.device) if design == 'rows' else None
         stream = torch.cuda.current_stream(angles.device).cuda_stream
         with torch.cuda.device(angles.device):
             if design == 'tiles':
@@ -614,8 +641,8 @@ class _Shape:
                     plc.data_ptr(), letters.data_ptr(), self.n, self.nb,
                     len(self.rot), self.ent, self.nba, self.log_c, self.B,
                     int(vjp), DESIGNS[design], stream,
-                    self.ops.data_ptr() if self.ops is not None else None,
-                    len(self.ops) if self.ops is not None else 0)
+                    ops.data_ptr() if ops is not None else None,
+                    len(ops) if ops is not None else 0)
         if err != 0:
             raise RuntimeError(
                 f'unitary kernel launch failed: CUDA error {err} ({self.B} '

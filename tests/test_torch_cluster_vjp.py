@@ -1,5 +1,5 @@
 """The whole unitary's kernels on csrc/tiles.cuh's warps (csrc/unitary.cu):
-the vjp on a cluster at 7 and 8 qubits (vjp_kernel<true>) and the forward
+the vjp on a cluster at 7 and 8 qubits (vjp_kernel) and the forward
 pass on the column tiles from 7 qubits (forward_tiles_kernel), without a
 card.
 
@@ -177,7 +177,7 @@ def _butterfly(x):
 
 
 def cluster_vjp(n, ent, rot, placements, angles, u, ubar, blocks, dtype):
-    """One restart's angle gradients as vjp_kernel<true> forms them on a
+    """One restart's angle gradients as vjp_kernel forms them on a
     cluster of `blocks` blocks: A = U and M = conj(Ubar) / 2, the walk last
     gate first (A rewound by G^dag, M pulled back by G^T); each gate's
     cotangent share M[p] A[k] of every amplitude group of every column,

@@ -397,9 +397,9 @@ def test_unitary_plan_in_float64(n, k, log_c, vjp, want):
         elif 'ring' in got:  # the forward pass's tiles and the vjp on a
             assert got['smem_bytes'] == tk.warp_smem_bytes(  # cluster
                 n, k, nba, (1 << n) // c, vjp, got['ring'], F64)
-        else:
-            assert got['smem_bytes'] == 2 * uk.smem_bytes(
-                n, k, nba, log_c, vjp, c)
+        else:  # one column on rows.cuh's warps, one block or a cluster
+            rows = uk.rows_launch(n, k, nba, log_c, vjp, F64)
+            assert got['smem_bytes'] == rows['smem_bytes']
 
 
 # ----------------------------------------------------- checks and routing

@@ -91,9 +91,9 @@ def test_state_plans_split_by_rows(dtype):
             assert sk.smem_bytes(n, k, NBA, 'state', c // 2, dtype) > LIMIT
         p = uk.plan(n, k, NBA, 0, True, dtype)
         assert p['design'] == 'rows' and p['blocks_per_restart'] == c
-        # split by rows, the vjp's blocks take the row tiles' warps
-        # (kernels/rows.py): 16 in float32, 8 in float64
-        threads = 512 if c > 1 and dtype == F32 else 256
+        # on one block or split by rows, the vjp's blocks take the row
+        # tiles' warps (kernels/rows.py): 16 in float32, 8 in float64
+        threads = 512 if dtype == F32 else 256
         assert p['threads'] == threads and \
             p['threads_per_restart'] == threads * c
 

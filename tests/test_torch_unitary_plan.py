@@ -60,9 +60,11 @@ def test_every_phase_12_template_gets_its_documented_design(vjp):
                 assert p['smem_bytes'] == tk.warp_smem_bytes(
                     n, nb, nba, w, True, p['ring']) <= LIMIT
                 assert p['ring'] == tk.cluster_ring(n, nb, nba, w) >= 1
-            else:
-                assert p['smem_bytes'] == uk.smem_bytes(
-                    n, nb, nba, log_c, vjp, c)
+            else:  # one column on rows.cuh's warps, one block or a cluster
+                rows = uk.rows_launch(n, nb, nba, log_c, vjp)
+                assert (p['threads'], p['smem_bytes']) == (
+                    rows['threads'], rows['smem_bytes'])
+                assert p['smem_bytes'] <= LIMIT
     # the timing shapes of phase 12 too
     for _, n, k, _, rot, _ in chip_smoke.UNITARY_TIMING:
         p = uk.plan(n, k, num_block_angles('cp', rot), n, vjp)

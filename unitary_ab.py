@@ -65,6 +65,20 @@ independent blocks), in turns (A B ... B A), each kernel alone by
 torch.profiler (the mean of 20 launches). Where cpflow_unitary_tiles_launch
 also takes a cluster row, the column tiles' three-kernel vjp of each build
 is timed beside it as a yardstick.
+
+    python3 unitary_ab.py --block OLD/cpflow_tpu_torch/csrc/unitary.cu \
+        cpflow_tpu_torch/csrc/unitary.cu
+
+times the pair on one block (the row-split design's plan with no
+cluster: one column, and the whole unitary past the column design's
+depths) at every row of chip_smoke.py's BLOCK_UNITARY: each pass the row
+drives, launched in the row-split design, every build in turns (A B ... B
+A), each kernel alone by torch.profiler (the mean of 20 launches), with
+the bound of each pass (chip_smoke.unitary_bound_ms). Each launch takes
+this tree's row schedule for the segment of this tree's plan of the pass
+on rows.cuh's warps (kernels/unitary.py:rows_launch; the whole unitary's
+for segment n), which a source that does not run the schedule never
+reads; a vjp row's U is this tree's forward pass of the same angles.
 """
 
 from __future__ import annotations
@@ -505,6 +519,105 @@ def cluster_main(sources) -> int:
     return 0
 
 
+def block_main(sources) -> int:
+    """--block: the pair on one block, every build at BLOCK_UNITARY's rows,
+    in turns."""
+    import torch
+    import chip_smoke as c
+    from cpflow_tpu_torch.kernels import rows as rk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    libs = [{dt: build(s, dt == torch.float64)
+             for dt in (torch.float32, torch.float64)} for s in sources]
+    print(f'{c.card_line()}; builds: '
+          + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    dev = torch.device('cuda')
+    for n, k, rot, B, dname, passes, cols, _ in c.BLOCK_UNITARY:
+        dtype = getattr(torch, dname)
+        cdtype = torch.complex128 if dtype == torch.float64 else \
+            torch.complex64
+        nba = num_block_angles('cp', rot)
+        log_c = 0 if cols else n
+        layer = fill_layers(chain_layer(n), k)
+        pl = tuple(map(tuple, all_placements(layer)))
+        plc = torch.tensor(pl, dtype=torch.int32, device=dev)
+        letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
+                               dtype=torch.int32, device=dev)
+        ops = {vjp: rk.device_schedule(n, pl, min(uk.rows_launch(
+            n, k, nba, log_c, vjp, dtype)['segment'], n), dev, not vjp)
+            for vjp in passes}
+        angles = c.uniform_inits(3 * n + nba * k, B, 22, 'cuda').to(dtype)
+        w = torch.randn((B, 1 << n, 1 << log_c), generator=gen,
+                        dtype=cdtype, device=dev)
+        u = uk.ansatz_forward(n, 'cp', rot, layer, angles, cols).contiguous()
+        torch.cuda.synchronize()
+
+        def launch(lib, vjp, out, grad=None):
+            err = lib.cpflow_unitary_launch(
+                angles.data_ptr(), out.data_ptr(),
+                w.data_ptr() if vjp else None,
+                grad.data_ptr() if vjp else None, plc.data_ptr(),
+                letters.data_ptr(), n, k, len(rot), 0, nba, log_c, B,
+                int(vjp), 0, torch.cuda.current_stream().cuda_stream,
+                ops[vjp].data_ptr(), len(ops[vjp]))
+            if err:
+                raise RuntimeError(f'launch failed: CUDA error {err}')
+
+        order = list(range(len(libs)))
+        out = [{vjp: [] for vjp in passes} for _ in libs]
+        first, diff = {}, [[0.0, 0.0] for _ in libs]
+        for i in order + order[::-1]:
+            lib = libs[i][dtype]
+            mine = torch.empty_like(u)
+            grad = torch.empty_like(angles)
+            if False in passes:
+                launch(lib, False, mine)
+            if True in passes:
+                launch(lib, True, u, grad)
+            torch.cuda.synchronize()
+            got = (mine, grad)
+            for part, vjp in enumerate((False, True)):
+                if vjp not in passes:
+                    continue
+                if vjp not in first:
+                    first[vjp] = got[part].clone()
+                scale = first[vjp].abs().clamp(min=1.0) if vjp else 1.0
+                err = ((got[part] - first[vjp]).abs() / scale).max().item()
+                diff[i][part] = max(diff[i][part], err)
+            for vjp in passes:
+                name = 'vjp' if vjp else 'forward'
+                ms = c.device_ms(lambda: launch(lib, vjp, u if vjp else mine,
+                                                grad), name)
+                if ms is None:
+                    raise RuntimeError(f'the profiler left out the {name} '
+                                       f'kernel in three traces at {n}q k={k}')
+                out[i][vjp].append(ms)
+        work = c.unitary_work(n, k, rot, log_c=0 if cols else None,
+                              dtype=dtype)
+        bounds = {vjp: c.unitary_bound_ms(
+            work['vjp' if vjp else 'forward'],
+            work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
+            for vjp in passes}
+        best = {vjp: min(min(o[vjp]) for o in out) for vjp in passes}
+        print(f'{n}q chain k={k} {rot!r} B={B} {dname}'
+              + (', column 0' if cols else ', the whole unitary') + ': '
+              + '; '.join(
+                  f'build {i} ' + ' '.join(
+                      f'{"vjp" if vjp else "forward"} ' + ' / '.join(
+                          f'{ms:.4f}' for ms in o[vjp]) for vjp in passes)
+                  + f' ms (U off build 0 by {diff[i][0]:.1e}, gradient by '
+                  f'{diff[i][1]:.1e})' for i, o in enumerate(out)) + ' ('
+              + ', '.join(f'{"vjp" if vjp else "forward"} bound {b:.4f} ms '
+                          f'by {by}, fastest {b / best[vjp]:.2%}, last build '
+                          f'/ first {min(out[-1][vjp]) / min(out[0][vjp]):.3f}'
+                          for vjp, (b, by) in bounds.items()) + ')',
+              flush=True)
+    return 0
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -523,6 +636,8 @@ def main(argv) -> int:
         return tiles_main([Path(a) for a in argv if a != '--tiles'])
     if '--cluster' in argv:
         return cluster_main([Path(a) for a in argv if a != '--cluster'])
+    if '--block' in argv:
+        return block_main([Path(a) for a in argv if a != '--block'])
     sources = [Path(a) for a in argv] or \
         [Path('cpflow_tpu_torch/csrc/unitary.cu')]
     libs = [build(s) for s in sources]
