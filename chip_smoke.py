@@ -244,9 +244,12 @@ with CUDA, and never imports JAX. Phases:
      loss <= 1e-6; (c) GHZ-15 in float32 and GHZ-14 in float64 the same way
      with cp_penalty_L1, whose sampling runs through the unitary kernels'
      row tiles (verification through the sweep's); (d) a random-restart
-     GHZ-14 search (k=15, 256 samples, 1000 steps), printed; then 18-qubit
-     states and 17-qubit states in float64 refused, each with its reason,
-     and the whole unitary's refusals of phase 15;
+     GHZ-14 search (k=15, 256 samples, 1000 steps), printed; then a state
+     one qubit past the unitary kernels' cap (25 qubits, 24 in float64)
+     refused by the sweep and by the unitary kernels, a column whose U
+     exceeds the card's free memory (24 qubits, 1024 restarts) refused
+     before it is allocated, each with its reason, and the whole unitary's
+     refusals of phase 15;
  21. the whole unitary past what a cluster of 16 blocks holds, on the
      column tiles (a restart's columns split into tiles on independent
      blocks, two kernels a step that meet through global memory; the
@@ -292,10 +295,25 @@ with CUDA, and never imports JAX. Phases:
      float32 and GHZ-12 in float64 through Synthesize.static from a warm
      start with cp_penalty_L1, both passes on one block; (c) GHZ-4 from
      phase 7's 100 random restarts with cp_penalty_L1, 3 CZ at host loss
-     <= 1e-6, sampling through the pair and never the plain builder.
+     <= 1e-6, sampling through the pair and never the plain builder;
+ 23. one column past a cluster, on the global row tiles
+     (forward_global_kernel, vjp_global_kernel and the vjp's sum,
+     vjp_global_sum_kernel; kernel lines ansatz_forward_global_rows and
+     ansatz_vjp_global_rows): (a) the unitary kernels at GLOBAL_UNITARY's
+     rows (the GHZ ladder's template at 18 and 20 qubits in float32, 17
+     and 19 in float64, a random template at 20 and 19, and the cap's
+     width, 24 and 23, shallow) against the plain builder under autograd
+     (the float64 arbiter where plain float32 drifts), each row's passes
+     printed, and two launches of each pass on the same inputs giving the
+     same bits; (b) there, each kernel alone on the card beside its bound,
+     with registers and local bytes; (c) GHZ-20 in float32 and GHZ-18 in
+     float64 through Synthesize.static from a warm start, sampling and
+     verification through the global row tiles, never the plain builder,
+     each to n - 1 CZ at float64 host state loss <= 1e-6.
 
 Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
-(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c), (d) and (f), 22 (b) and (c)) runs
+(d)-(f), 19 (b)-(d), 20 (b)-(d), 21 (c), (d) and (f), 22 (b) and (c), 23
+(c)) runs
 with the kernels' launch counts set to 0 just before it and read just
 after (16 (a) and (d) in their own processes). Every shape's plan (blocks
 a restart, shared bytes per block) is held against the kernels' own. The script prints the card, a JSON line of kernel results
@@ -305,7 +323,9 @@ sweep_row_tiles, ansatz_forward_row_tiles, ansatz_vjp_row_tiles and
 their float64 builds, each name with _f64; the column tiles' builds
 sweep_column_tiles, ansatz_forward_column_tiles, ansatz_vjp_column_tiles
 and their float64 builds; the pair on one block, ansatz_forward_one_block
-and ansatz_vjp_one_block, and their float64 builds) and, last, the JSON
+and ansatz_vjp_one_block, and their float64 builds; the global row
+tiles, ansatz_forward_global_rows and ansatz_vjp_global_rows, and their
+float64 builds) and, last, the JSON
 device line; it exits non-zero if any phase fails or there is no card. A phase after the
 build and the comparison (phases 2-3) that fails is reported and the
 next one runs; the script then fails at the end, with no result lines.
@@ -512,6 +532,51 @@ def device_ms(fn, kernel_name, repeats=20):
         if count and total > 0:
             return total / count
     return None
+
+
+def traced_calls(fn, launches, repeats=20):
+    """({trace name: ms on the card a call of fn}, {trace name: launches
+    kept}, whether the trace kept them all) for kernels that one call
+    launches a known number of times (`launches`: {trace name: launches a
+    call}). The profiler loses launches now and then (in some states of a
+    process one launch of every trace), and a sum over the launches
+    kept, divided by the calls, would read fast. So: from a trace of
+    `repeats` calls (device_kernels) that kept all repeats x launches of
+    each, traced again, three times at most, where one lacks any; where
+    none kept them all, from the trace that kept the most, each kernel's
+    mean over the launches kept times its launches a call. A kernel the
+    trace never shows has None."""
+    best = None
+    for _ in range(3):
+        events = device_kernels(fn, repeats)
+        got = {}
+        for name in launches:
+            found = [v for k, v in events.items() if name in k]
+            got[name] = (sum(c for c, _ in found), sum(ms for _, ms in found))
+        kept = {name: count for name, (count, _) in got.items()}
+        if all(count == repeats * launches[name] and ms > 0
+               for name, (count, ms) in got.items()):
+            return ({name: ms / repeats for name, (_, ms) in got.items()},
+                    kept, True)
+        if best is None or sum(kept.values()) > \
+                sum(c for c, _ in best.values()):
+            best = got
+    return ({name: ms / count * launches[name] if count and ms > 0 else None
+             for name, (count, ms) in best.items()},
+            {name: count for name, (count, _) in best.items()}, False)
+
+
+def global_launches(fn):
+    """{uk.KERNELS name ('_f64' added for the double build): kernel launches
+    of one call of fn} by uk.GLOBAL_PASSES: a pass each of the global row
+    tiles' passes, one sum a vjp call."""
+    import torch
+    from cpflow_tpu_torch.kernels import unitary as uk
+    before = dict(uk.GLOBAL_PASSES)
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in uk.GLOBAL_PASSES.items()
+            if v != before.get(k, 0)}
 
 
 # ----------------------------------------------------------------- phases
@@ -1327,7 +1392,26 @@ def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
         check(mine is not None and uk.DESIGNS[mine['design']] == design,
               f'{name}: the plan says {mine} for the {what}, the kernels '
               f'design {design}')
-        if mine['design'] == 'columns':
+        if mine['design'] == 'global_rows':
+            got = (ctypes.c_int * 8)()
+            check(lib.cpflow_unitary_global_plan(n, nb, nba, int(vjp),
+                                                 got) == 0,
+                  f'{name}: no global row plan for the {what}')
+            want = [mine[key] for key in (
+                'threads', 'smem_bytes', 'warps', 'segment', 'ring',
+                'log_rows', 'blocks_per_restart', 'sum_smem_bytes')]
+            work = uk.global_work(n, nb, nba, dtype) if vjp else None
+            check(list(got) == want and (
+                      not vjp or
+                      lib.cpflow_unitary_global_work(n, nb, nba) == work) and
+                  lib.cpflow_unitary_cluster(n, nb, nba, log_c,
+                                             int(vjp)) == 0,
+                  f'{name}: the plan says (threads, bytes, warps, segment, '
+                  f'ring, log2 rows, tiles, sum bytes) {want} and {work} '
+                  f'reals of workspace a restart for the {what}, the '
+                  f'kernels {list(got)} and '
+                  f'{lib.cpflow_unitary_global_work(n, nb, nba)}')
+        elif mine['design'] == 'columns':
             r = lib.cpflow_unitary_column_restarts(n, nb, nba, log_c,
                                                    int(vjp))
             card = lib.cpflow_unitary_column_smem_bytes(n, nb, nba, int(vjp),
@@ -1414,6 +1498,11 @@ def plan_text(p):
         return (f'column tiles, {p["blocks_per_restart"]} blocks of '
                 f'{p["threads"]} threads a restart, {p["smem_bytes"]} bytes '
                 f'a block')
+    if p['design'] == 'global_rows':
+        return (f'global row tiles, {p["blocks_per_restart"]} tiles of '
+                f'2^{p["log_rows"]} rows a restart, blocks of {p["threads"]} '
+                f'threads (segments of 2^{p["segment"]} rows, a ring of '
+                f'{p["ring"]}), {p["smem_bytes"]} bytes a block')
     return (f'rows, {p["blocks_per_restart"]} block(s) of {p["threads"]} '
             f'threads a restart, {p["smem_bytes"]} bytes a block')
 
@@ -1470,14 +1559,18 @@ TRACE_NAMES = {('rows', False): 'forward_block_kernel',
                ('row_tiles', False): 'forward_rows_kernel',
                ('row_tiles', True): 'vjp_rows_kernel',
                ('tiles', False): 'forward_tiles_kernel',
-               ('tiles', True): 'vjp_tiles_kernel'}
+               ('tiles', True): 'vjp_tiles_kernel',
+               ('global_rows', False): 'forward_global_kernel',
+               ('global_rows', True): 'vjp_global_kernel'}
 # the kernels (KERNELS names) whose redesign left no local memory, in both
 # builds: the row tiles' and the column tiles' vjp (with its prologue and
 # sum), the row tiles' forward pass, the vjp on a cluster, the column
-# tiles' forward pass and the pair on one block
+# tiles' forward pass, the pair on one block and the global row tiles' pair
+# (with the vjp's sum)
 NO_LOCAL = ('ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
             'ansatz_vjp_column_tiles', 'ansatz_vjp_cluster',
-            'ansatz_forward_column_tiles', 'ansatz_forward', 'ansatz_vjp')
+            'ansatz_forward_column_tiles', 'ansatz_forward', 'ansatz_vjp',
+            'ansatz_forward_global_rows', 'ansatz_vjp_global_rows')
 
 
 def trace_key(design, vjp, blocks=1, column=False):
@@ -1492,6 +1585,12 @@ def trace_key(design, vjp, blocks=1, column=False):
 TILE_VJP_PARTS = (('ansatz_vjp_tile_gates', 'vjp_tile_gates_kernel'),
                   ('ansatz_vjp_column_tiles', 'vjp_tiles_kernel'),
                   ('ansatz_vjp_tile_sum', 'vjp_tile_sum_kernel'))
+# the global row tiles' kernels, the same way: the forward pass's passes,
+# the vjp's passes and its sum
+GLOBAL_PARTS = {
+    False: (('ansatz_forward_global_rows', 'forward_global_kernel'),),
+    True: (('ansatz_vjp_global_rows', 'vjp_global_kernel'),
+           ('ansatz_vjp_global_sum', 'vjp_global_sum_kernel'))}
 
 
 def designs_alone(calls, repeats=20):
@@ -3582,6 +3681,19 @@ def phase_sixteen_sweeps(card, shapes=None, label='phase 19 (a)'):
 # blocks hold; the forward pass alone (no cluster: 16 independent blocks)
 # in float64 where only 16 hold it, beyond the vjp's reach; one column of
 # 13 qubits in float32 (a state, one block a restart)
+def shape_layers(n, k, layer=()):
+    """The placements of a unitary row of k blocks: on the n-qubit chain,
+    or with layer ['random'] on k random distinct qubit pairs, either leg
+    order, seeded by n and k."""
+    import numpy as np
+    from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    if not layer:
+        return fill_layers(chain_layer(n), k)
+    rng = np.random.default_rng(1000 * n + k)
+    return fill_layers([list(map(int, rng.choice(n, 2, replace=False)))
+                        for _ in range(k)], k)
+
+
 SIXTEEN_UNITARY = [(8, 16, 'xyz', 16, 'float64', (False, True), None, 16),
                    (8, 270, 'xyz', 4, 'float32', (False, True), None, 16),
                    (8, 240, 'xyz', 2, 'float64', (False,), None, 16),
@@ -3618,19 +3730,18 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
     from cpflow_tpu_torch.kernels import unitary as uk
     from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
     from cpflow_tpu_torch.sim.batched import build_unitary_batched
-    from cpflow_tpu_torch.topology import chain_layer, fill_layers
     errs, rows = {}, {}
     gen = torch.Generator(device='cuda').manual_seed(19)
-    for n, k, rot, B, dname, passes, cols, blocks in (
+    for n, k, rot, B, dname, passes, cols, blocks, *layer in (
             SIXTEEN_UNITARY if shapes is None else shapes):
         dtype = getattr(torch, dname)
         f64 = dtype == torch.float64
         suffix = '_f64' if f64 else ''
         tol_u, tol_g = (F64_UNITARY_TOL, F64_GRAD_TOL) if f64 else (2e-5, 1e-4)
-        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
+        anz = Ansatz(n, 'cp', shape_layers(n, k, layer), rot)
         nba = num_block_angles('cp', rot)
-        name = f'{n}q chain k={k} {rot!r} B={B} {dname}' + \
-            (', column 0' if cols else '')
+        name = f'{n}q {layer[0] if layer else "chain"} k={k} {rot!r} B={B} ' \
+            f'{dname}' + (', column 0' if cols else '')
         plans = dict(zip(passes, unitary_plan(n, k, nba, 0 if cols else n,
                                               name, dtype, passes)))
         last = 'vjp' if passes[-1] else 'forward pass'
@@ -3639,8 +3750,9 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
               f'{plans[passes[-1]]["blocks_per_restart"]} blocks')
         vjp_too = True in passes
         vjp_blocks = plans[True]['blocks_per_restart'] if vjp_too else 1
-        if vjp_too and plans[True]['design'] == 'tiles':
-            vjp_blocks = 'tiles'  # the key of uk.VJP_LAUNCHES_BY_CLUSTER
+        if vjp_too and plans[True]['design'] in ('tiles', 'global_rows'):
+            # the key of uk.VJP_LAUNCHES_BY_CLUSTER
+            vjp_blocks = plans[True]['design']
         angles = uniform_inits(anz.num_angles, B, 19, 'cuda').to(dtype)
         ap = angles.clone().requires_grad_(vjp_too)
         up = build_unitary_batched(n, 'cp', rot, anz.placements, ap,
@@ -3682,11 +3794,13 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
             trace_key(p['design'], v, p['blocks_per_restart']) == 'rows'
             for v, p in plans.items())
         arbiter = ''
-        if deep or (eg > tol_g and not f64 and vjp_blocks == 'tiles'):
+        if deep or (eg > tol_g and not f64 and
+                    vjp_blocks in ('tiles', 'global_rows')):
             # the plain float64 builder arbitrates where the kernel misses
-            # against plain float32: on the column tiles within twice plain
-            # float32's error against it (as_close_as_plain's factor), on
-            # rows.cuh's warps within the same tolerance
+            # against plain float32: on the column tiles and the global row
+            # tiles (sums over 2^2n or 2^18 and more entries) within twice
+            # plain float32's error against it (as_close_as_plain's
+            # factor), on rows.cuh's warps within the same tolerance
             a64 = angles.double().requires_grad_(vjp_too)
             u64 = build_unitary_batched(n, 'cp', rot, anz.placements, a64,
                                         columns=cols, dtype=torch.float64)
@@ -3729,15 +3843,40 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
             kname = knames[vjp]
             tiles = kname.endswith('row_tiles')
             columns = plan['design'] == 'tiles'  # the column tiles
-            line = (kname if tiles or columns else 'ansatz_vjp' if vjp else
-                    'ansatz_forward') + suffix
+            wide = plan['design'] == 'global_rows'  # the global row tiles
+            line = (kname if tiles or columns or wide else 'ansatz_vjp' if
+                    vjp else 'ansatz_forward') + suffix
             errs[line] = max(errs.get(line, 0.0), eg if vjp else eu)
             call = (lambda: uk.ansatz_vjp(n, 'cp', rot, anz.placements,
                                           angles, u, g, cols)) if vjp else \
                 (lambda: uk.ansatz_forward(n, 'cp', rot, anz.placements,
                                            angles, cols))
-            parts = None
-            if columns and vjp:  # the prologue, the tiles' walk, the sum
+            parts, traced = None, ''
+            if wide:  # a call's passes (and the vjp's sum), timed from a
+                # trace that kept every launch of each: ms a call
+                per = global_launches(call)
+                pairs = GLOBAL_PARTS[vjp]
+                want = {kernel: per.get(part + suffix, 0)
+                        for part, kernel in pairs}
+                got, kept, whole = traced_calls(call, want)
+                check(None not in got.values(),
+                      f'{name}: in three traces of 20 calls the profiler '
+                      f'kept {kept} of the launches {want} a call makes')
+                alone = sum(got.values())
+                traced = f', launches a call {want}, ' + (
+                    'all kept in 20 calls' if whole else
+                    f'the profiler kept {kept} of 20 calls\' in three '
+                    f'traces: the mean a launch kept times the launches a '
+                    f'call')
+                if vjp:
+                    parts = {part: dict(
+                        kernel=kernel, launches_a_call=want[kernel],
+                        device_ms=got[kernel],
+                        registers=regs[part]['registers'],
+                        local_bytes=regs[part]['local_bytes'])
+                        for part, kernel in pairs}
+            elif columns and vjp:  # the prologue, the tiles' walk, the sum:
+                # ms a launch, each once a call
                 events = device_kernels(call)
                 parts = {}
                 for part, kernel in TILE_VJP_PARTS:
@@ -3767,7 +3906,8 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                 _, plain_ms = timed(lambda: build_unitary_batched(
                     n, 'cp', rot, anz.placements, angles, columns=cols,
                     dtype=dtype))
-            in_cluster = c > 1 and (vjp or tiles) and not columns
+            in_cluster = c > 1 and (vjp or tiles) and not columns and \
+                not wide
             resident = uk.active_clusters(plan['threads'], plan['smem_bytes'],
                                           c, 'cuda', dtype, kname) \
                 if in_cluster else uk.occupancy(
@@ -3789,9 +3929,9 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                       for v in parts.values()) + ')' if parts else '')
                   + f'; unitary err {eu:.3e}, gradient err {eg:.3e} (tol '
                   f'{tol_u}, {tol_g}){arbiter}; '
-                  f'kernel alone (profiler) {alone} ms, one wrapper call '
-                  f'(CUDA events) {ms:.4f} ms, plain {plain_ms:.3f} ms; bound '
-                  f'{b_ms:.4f} ms by {b_by}, share of the kernel alone '
+                  f'kernel alone (profiler) {alone} ms{traced}, one wrapper '
+                  f'call (CUDA events) {ms:.4f} ms, plain {plain_ms:.3f} ms; '
+                  f'bound {b_ms:.4f} ms by {b_by}, share of the kernel alone '
                   f'{share}', flush=True)
             rows.setdefault(line, []).append(dict(
                 shape=name, design=plan['design'], cluster=c,
@@ -3799,7 +3939,9 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                 device_ms=alone, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, registers=regs[kname]['registers'],
                 local_bytes=regs[kname]['local_bytes'],
-                **({'parts': parts} if parts else {})))
+                **({'parts': parts} if parts else {}),
+                **({'launches_a_call': want, 'launches_traced': kept,
+                    'trace_whole': whole} if wide else {})))
     return errs, rows
 
 
@@ -4021,7 +4163,7 @@ def ghz_program(n):
 
 
 def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
-                   label='phase 19 (d)'):
+                   label='phase 19 (d)', passes=None):
     """Phase 19 (d), Synthesize.static from a warm start: GHZ-n (13 by
     default) on the n-qubit chain at k = n - 1, whose template is the
     (n - 1)-CZ ladder's (ghz_program's placements, embedded exactly), in
@@ -4035,12 +4177,22 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
     scored on the circuit's state. With `penalty` (a torch callable of the
     CP angles, such as cp_penalty_L1) sampling runs through the unitary
     kernels (one column), never the plain builder, and verification (no
-    penalty) through the sweep. Needs an (n - 1)-CZ decomposition at host
-    loss <= 1e-6 (the package's and ghz_host_loss), every sweep launch on
-    the blocks the plan gives a restart, of the build its plan names (a
-    state on more than one block: the row tiles'), and every unitary launch
-    the kernel its plan names. Returns the launches, by kernel line name
-    (sweep, sweep_row_tiles, ansatz_vjp_row_tiles_f64, ...)."""
+    penalty) through the sweep. A state that no plan of the fused kernel
+    holds (past 17 qubits, 16 in float64) runs sampling and verification
+    through the unitary kernels (sweep's route), the plain builder never
+    called and no sweep launched; there, where the host's Circuit.state
+    takes seconds a row, the rows' starting losses come from the plain
+    builder on the card in float64, before anything is counted. Needs an
+    (n - 1)-CZ decomposition at host loss <= 1e-6 (the package's and
+    ghz_host_loss, of the best three by CZ and package loss, the best one
+    on the unitary kernels' route), every sweep launch on the blocks the
+    plan gives a restart, of the build its plan names (a state on more than
+    one block: the row tiles'), and every unitary launch the kernel its
+    plan names; on the global row tiles, every vjp call one sum. Returns
+    the wrapper calls, by kernel line name (sweep, sweep_row_tiles,
+    ansatz_vjp_row_tiles_f64, ansatz_vjp_global_rows, ...); a dict given as
+    `passes` takes the global row tiles' kernel launches (uk.GLOBAL_PASSES:
+    a pass each, the vjp's sum once a call)."""
     import numpy as np
     import torch
     from cpflow_tpu_torch import config
@@ -4061,16 +4213,31 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
           f'GHZ-{n}: the chain template at k = {n - 1} is not the ladder\'s')
     nba = num_block_angles('cp', 'xyz')
     c = sk.cluster_plan(n, n - 1, nba, 'state', dtype)
-    build = ('sweep_row_tiles' if c > 1 else 'sweep') + suffix
-    kernels = {vjp: uk.kernel_name('rows', vjp, n, uk.plan(
-        n, n - 1, nba, 0, vjp, dtype)['blocks_per_restart'], True) + suffix
-        for vjp in (False, True)}
+    fused = c is not None  # else the unitary kernels run the sweeps
+    build = ('sweep_row_tiles' if fused and c > 1 else 'sweep') + suffix
+    plans = {vjp: uk.plan(n, n - 1, nba, 0, vjp, dtype)
+             for vjp in (False, True)}
+    kernels = {vjp: uk.kernel_name(p['design'], vjp, n,
+                                   p['blocks_per_restart'], True) + suffix
+               for vjp, p in plans.items()}
     warm, sigma = build_warm_batch(exact.astype(np.float32),
                                    np.asarray(anz.cp_mask, dtype=np.float64),
                                    B, 0)
     spec, entry = LossSpec('state', target=target), BasicOptions.entry_loss
-    loss0 = np.array([spec.numpy(anz.circuit(list(a.astype(float)))
-                                 .state()[:, None]) for a in warm])
+    if not fused:
+        from cpflow_tpu_torch.sim.batched import build_unitary_batched
+        col = build_unitary_batched(
+            n, 'cp', 'xyz', anz.placements,
+            torch.tensor(warm.T, dtype=torch.float64, device='cuda'),
+            columns=[0], dtype=torch.float64).reshape(2 ** n, B)
+        t64 = torch.tensor(target.astype(np.complex128) /
+                           np.linalg.norm(target.astype(np.complex128)),
+                           device='cuda')
+        loss0 = (1 - (t64.conj() @ col).abs() ** 2).cpu().numpy()
+        del col
+    else:
+        loss0 = np.array([spec.numpy(anz.circuit(list(a.astype(float)))
+                                     .state()[:, None]) for a in warm])
     rows = np.nonzero((sigma > 0) & (loss0 > entry))[0]
     check(len(rows) > 0, f'GHZ-{n}: no noisy row starts above entry {entry}')
     config.set_precision(f64)
@@ -4088,6 +4255,7 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
             sk.LAUNCHES_BY_BUILD.clear()
             uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
             uk.LAUNCHES_BY_KERNEL.clear()
+            uk.GLOBAL_PASSES.clear()
             start = time.perf_counter()
             results = synth.static(options, save_results=False,
                                    verbose=False,
@@ -4098,27 +4266,52 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
             by_build, by_kernel = (dict(sk.LAUNCHES_BY_BUILD),
                                    dict(uk.LAUNCHES_BY_KERNEL))
             unitary = (uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+            by_pass = dict(uk.GLOBAL_PASSES)
     finally:
         config.set_precision(False)
-    hosts = sorted((d.cz_count, d.loss, ghz_host_loss(d))
-                   for d in results.decompositions)
+    best = sorted(results.decompositions,
+                  key=lambda d: (d.cz_count, d.loss))[:3 if fused else 1]
+    hosts = [(d.cz_count, d.loss, ghz_host_loss(d)) for d in best]
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
     how = f' with {penalty.__name__} (sampling through the unitary ' \
         f'kernels, {unitary[0]} forward and {unitary[1]} vjp launches ' \
         f'{by_kernel})' if penalty else ''
+    if not fused:
+        how = f' (sampling and verification through the unitary kernels, ' \
+            f'{unitary[0]} forward and {unitary[1]} vjp launches ' \
+            f'{by_kernel}, {by_pass} kernel launches, plain ' \
+            f'builder {watch.calls})'
     print(f'{label}: GHZ-{n}, Synthesize.static from a warm start on the '
           f'{n}q chain in {str(dtype)[6:]}{how}, k={n - 1}: {len(rows)} noisy '
           f'rows of {B} starting above entry {entry} (host losses '
           f'{loss0[rows].min():.3g}-{loss0[rows].max():.3g}), {T} steps at '
-          f'lr 0.01: {len(hosts)} verified, (CZ, loss, float64 host loss) '
-          f'{hosts[:3]}; sweep launches {launches} by blocks a restart '
-          f'{by_cluster}, by build {by_build}; wall {wall:.3f} s ({stages})',
-          flush=True)
-    check(launches >= (1 if penalty else 2) and by_cluster == {c: launches}
-          and by_build == {build: launches},
-          f'GHZ-{n}: {launches} launches, by blocks a restart {by_cluster}, '
-          f'by build {by_build}, not all {build} on {c}')
+          f'lr 0.01: {len(results.decompositions)} verified, (CZ, loss, '
+          f'float64 host loss) {hosts}; sweep launches {launches} by blocks '
+          f'a restart {by_cluster}, by build {by_build}; wall {wall:.3f} s '
+          f'({stages})', flush=True)
+    if fused:
+        check(launches >= (1 if penalty else 2) and
+              by_cluster == {c: launches} and by_build == {build: launches},
+              f'GHZ-{n}: {launches} launches, by blocks a restart '
+              f'{by_cluster}, by build {by_build}, not all {build} on {c}')
+    else:
+        check(launches == 0 and watch.calls == 0 and unitary[0] > T and
+              unitary[1] >= T and
+              by_kernel == {kernels[False]: unitary[0],
+                            kernels[True]: unitary[1]},
+              f'GHZ-{n}: sweep launches {launches}, plain builder '
+              f'{watch.calls}, forward {unitary[0]}, vjp {unitary[1]} by '
+              f'kernel {by_kernel}, not all {kernels}')
+        if kernels[True].startswith('ansatz_vjp_global_rows'):
+            check(by_pass.get(kernels[True].replace('global_rows',
+                                                    'global_sum')) ==
+                  unitary[1] and all(by_pass.get(kernels[v], 0) >= unitary[v]
+                                     for v in (False, True)),
+                  f'GHZ-{n}: kernel launches {by_pass}, not a pass or more '
+                  f'a call and one sum a vjp call')
+    if passes is not None:
+        passes.update(by_pass)
     if penalty:
         check(watch.calls == 0 and unitary[0] > T and unitary[1] >= T and
               by_kernel == {kernels[False]: unitary[0],
@@ -4129,8 +4322,8 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
     check(hosts and hosts[0][0] == n - 1 and max(hosts[0][1:]) <= 1e-6,
           f'GHZ-{n}: no {n - 1}-CZ decomposition at host loss <= 1e-6 from '
           f'noisy rows that started above entry: {hosts[:4]}')
-    out = {build: launches}
-    if penalty:
+    out = {build: launches} if fused else {}
+    if penalty or not fused:
         out.update({kernels[False]: unitary[0], kernels[True]: unitary[1]})
     return out
 
@@ -4316,11 +4509,10 @@ def phase_split_vjp_bits(shapes, label='phase 20 (a)'):
     import torch
     from cpflow_tpu_torch.api import Ansatz
     from cpflow_tpu_torch.kernels import unitary as uk
-    from cpflow_tpu_torch.topology import chain_layer, fill_layers
     gen = torch.Generator(device='cuda').manual_seed(20)
-    for n, k, rot, B, dname, passes, cols, _ in shapes:
+    for n, k, rot, B, dname, passes, cols, _, *layer in shapes:
         dtype = getattr(torch, dname)
-        anz = Ansatz(n, 'cp', fill_layers(chain_layer(n), k), rot)
+        anz = Ansatz(n, 'cp', shape_layers(n, k, layer), rot)
         angles = uniform_inits(anz.num_angles, B, 20, 'cuda').to(dtype)
         u, u2 = (uk.ansatz_forward(n, 'cp', rot, anz.placements, angles,
                                    cols) for _ in range(2))
@@ -4339,10 +4531,13 @@ def phase_split_vjp_bits(shapes, label='phase 20 (a)'):
 
 
 def refuse_beyond_plans():
-    """Phase 20's refusals: an 18-qubit state and a 17-qubit state in
-    float64, by the sweep and by the unitary kernels, each with its reason
-    and no kernel launched; then the whole unitary's (refuse_whole_beyond:
-    one qubit past the column tiles' limit, a modulo loss at 14)."""
+    """Phase 20's refusals: a state one qubit past the unitary kernels' cap
+    (25 qubits in float32, 24 in float64; kernels/unitary.py's
+    GLOBAL_MAX_QUBITS) by the sweep and by the unitary kernels, each with
+    its reason, and a column whose U the card cannot hold (24 qubits, 1024
+    restarts: 128 GiB), refused before it is allocated, no kernel launched;
+    then the whole unitary's (refuse_whole_beyond: one qubit past the
+    column tiles' limit, a modulo loss at 14)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.kernels import unitary as uk
@@ -4350,22 +4545,31 @@ def refuse_beyond_plans():
     F64 = torch.float64
     before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
     refusals = [
-        ('18q state, sweep', '2 to 17 qubits', lambda: sk.sweep(
-            make_objective(18, 2, ghz(18), 0.0, kind='state')[0],
-            uniform_inits(3 * 18 + 14, 2, 0, 'cuda'), 0.1, 1)),
-        ('17q state in float64, sweep', '2 to 16 qubits', lambda: sk.sweep(
-            make_objective(17, 2, ghz(17), 0.0, kind='state', dtype=F64)[0],
-            uniform_inits(3 * 17 + 14, 2, 0, 'cuda').to(F64), 0.1, 1)),
-        ('18q column, unitary kernels', '2 to 17 qubits',
-         lambda: uk.build_unitary(18, 'cp', 'xyz',
-                                  fill_layers(chain_layer(18), 2),
-                                  uniform_inits(3 * 18 + 14, 2, 0, 'cuda'),
+        ('25q state, sweep', 'one column to 24 qubits, and past that cap',
+         lambda: sk.sweep(
+             make_objective(25, 2, ghz(25), 0.0, kind='state')[0],
+             uniform_inits(3 * 25 + 14, 2, 0, 'cuda'), 0.1, 1)),
+        ('24q state in float64, sweep',
+         'one column to 23 qubits, and past that cap', lambda: sk.sweep(
+             make_objective(24, 2, ghz(24), 0.0, kind='state', dtype=F64)[0],
+             uniform_inits(3 * 24 + 14, 2, 0, 'cuda').to(F64), 0.1, 1)),
+        ('25q column, unitary kernels', '2 to 24 qubits for one column',
+         lambda: uk.build_unitary(25, 'cp', 'xyz',
+                                  fill_layers(chain_layer(25), 2),
+                                  uniform_inits(3 * 25 + 14, 2, 0, 'cuda'),
                                   columns=[0])),
-        ('17q column in float64, unitary kernels', '2 to 16 qubits',
-         lambda: uk.build_unitary(17, 'cp', 'xyz',
-                                  fill_layers(chain_layer(17), 2),
-                                  uniform_inits(3 * 17 + 14, 2, 0, 'cuda'),
-                                  columns=[0], dtype=F64))]
+        ('24q column in float64, unitary kernels',
+         '2 to 23 qubits for one column',
+         lambda: uk.build_unitary(24, 'cp', 'xyz',
+                                  fill_layers(chain_layer(24), 2),
+                                  uniform_inits(3 * 24 + 14, 2, 0, 'cuda'),
+                                  columns=[0], dtype=F64)),
+        ('24q column of 1024 restarts, unitary kernels',
+         'need 137438953472 bytes of device memory for U of 1024 restarts',
+         lambda: uk.ansatz_forward(24, 'cp', 'xyz',
+                                   fill_layers(chain_layer(24), 2),
+                                   uniform_inits(3 * 24 + 14, 1024, 0,
+                                                 'cuda'), columns=[0]))]
     for name, want, call in refusals:
         try:
             call()
@@ -4993,6 +5197,89 @@ def phase_block(card):
     return errs, rows, launches
 
 
+# Phase 23 (a)'s rows, as SIXTEEN_UNITARY's tuples with a ninth, the layer
+# ('random': random pairs, shape_layers): one column past the row tiles,
+# the vjp on the global row tiles' tiles (the forward pass there too, but
+# at 18 qubits in float32 and 17 in float64, where a cluster of 16 still
+# holds it): the GHZ ladder's template and a random one at 20 qubits in
+# float32 and 19 in float64, phase 23 (c)'s two main paths' shapes (the
+# ladder at 20 qubits in float32 and 18 in float64, B = 4, the noisy rows
+# that path samples), and the edge, the cap's width (24 and 23), shallow
+# for the plain version's autograd
+GLOBAL_UNITARY = [(18, 17, 'xyz', 4, 'float32', (False, True), [0], 32),
+                  (20, 19, 'xyz', 4, 'float32', (False, True), [0], 128),
+                  (20, 40, 'xyz', 2, 'float32', (False, True), [0], 128,
+                   'random'),
+                  (17, 16, 'xyz', 4, 'float64', (False, True), [0], 32),
+                  (18, 17, 'xyz', 4, 'float64', (False, True), [0], 64),
+                  (19, 18, 'xyz', 2, 'float64', (False, True), [0], 128),
+                  (19, 38, 'xyz', 2, 'float64', (False, True), [0], 128,
+                   'random'),
+                  (24, 2, 'xyz', 2, 'float32', (False, True), [0], 2048),
+                  (23, 2, 'xyz', 2, 'float64', (False, True), [0], 2048)]
+# the kernel lines of the global row tiles (the vjp's with its sum)
+GLOBAL_LINES = ('ansatz_forward_global_rows', 'ansatz_vjp_global_rows')
+
+
+def global_passes(shapes):
+    """Prints the passes of each row's global schedules (forward pass,
+    vjp) on the library's plans."""
+    from cpflow_tpu_torch.kernels import rows as rk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    import torch
+    for n, k, rot, _, dname, _, _, _, *layer in shapes:
+        dtype = getattr(torch, dname)
+        placements = tuple(tuple(p) for p in all_placements(
+            shape_layers(n, k, layer)))
+        got = {}
+        for vjp in (False, True):
+            p = uk.global_plan(n, k, num_block_angles('cp', rot), vjp, dtype)
+            if p is not None:
+                _, offsets, _ = rk.global_schedule(
+                    n, placements, p['segment'], p['log_rows'],
+                    rk.sector_bits(dtype), not vjp)
+                got['vjp' if vjp else 'forward'] = len(offsets) - 1
+        print(f'phase 23 (a): {n}q {layer[0] if layer else "chain"} k={k} '
+              f'{dname}: passes {got}', flush=True)
+
+
+def phase_wide(card):
+    """Phase 23: one column past what a cluster holds, on the global row
+    tiles (forward_global_kernel, vjp_global_kernel, vjp_global_sum_kernel).
+    (a) the unitary kernels at GLOBAL_UNITARY against the plain builder
+    (phase_sixteen_unitary: plans, tolerances, the float64 arbiter where
+    plain float32 drifts) and two launches of each on the same inputs
+    (phase_split_vjp_bits), with each row's passes; (b) there, each kernel
+    alone on the card beside its bound, with registers and local bytes;
+    (c) GHZ-20 in float32 and GHZ-18 in float64 through Synthesize.static
+    from a warm start (phase_ghz_warm, 8 rows), sampling and verification
+    through the unitary kernels, never the plain builder. Returns (largest
+    errors by kernel line name, timing rows by kernel line name, wrapper
+    calls by kernel line name and path, kernel launches by uk.KERNELS name
+    and path)."""
+    import torch
+    start = time.perf_counter()
+    global_passes(GLOBAL_UNITARY)
+    errs, rows = phase_sixteen_unitary(card, GLOBAL_UNITARY, 'phase 23 (a)')
+    phase_split_vjp_bits(GLOBAL_UNITARY, 'phase 23 (a)')
+    print(f'phase 23 (a), (b): {time.perf_counter() - start:.1f} s',
+          flush=True)
+    launches, kernel_launches = {}, {}
+    for path, (n, dtype) in {'ghz20_warm': (20, None),
+                             'ghz18_warm_f64': (18, torch.float64)}.items():
+        passes = {}
+        for line, count in phase_ghz_warm(
+                B=8, T=300, n=n, dtype=dtype, label='phase 23 (c)',
+                passes=passes).items():
+            launches.setdefault(line, {})[path] = count
+        for name, count in passes.items():
+            kernel_launches.setdefault(name, {})[path] = count
+    print(f'phase 23: {time.perf_counter() - start:.1f} s', flush=True)
+    return errs, rows, launches, kernel_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5063,6 +5350,7 @@ def main() -> int:
         split = attempt(None, phase_split, card)
         nine = attempt(None, phase_nine, card)
         block = attempt(None, phase_block, card)
+        wide = attempt(None, phase_wide, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
         max_err = max(max_err, seven_err)
@@ -5096,6 +5384,18 @@ def main() -> int:
                   for line in lines22),
               f'the pair on one block missed the phase 22 paths: '
               f'{launches22}')
+        errs23, rows23, launches23, passes23 = wide
+        lines23 = [line + suffix for line in GLOBAL_LINES
+                   for suffix in ('', '_f64')]
+        check(all(sum(launches23.get(line, {}).values()) > 0
+                  for line in lines23),
+              f'the global row tiles missed the phase 23 paths: '
+              f'{launches23}')
+        check(all(sum(passes23.get(part + suffix, {}).values()) > 0
+                  for parts in GLOBAL_PARTS.values() for part, _ in parts
+                  for suffix in ('', '_f64')),
+              f'a global row tiles\' kernel missed the phase 23 paths: '
+              f'{passes23}')
         check('jax' not in sys.modules, 'jax was imported')
     except PhaseError as e:
         print(f'FAIL: {e}', file=sys.stderr)
@@ -5257,6 +5557,46 @@ def main() -> int:
             'bound_by': rows[0]['bound_by'], 'library_ms': None,
             'registers': rows[0]['registers'],
             'local_bytes': rows[0]['local_bytes'], 'shapes': rows})
+    # phase 23: a line for each build of the global row tiles' pair (the
+    # vjp's with its sum kernel in `parts`), its numbers from its row at
+    # phase 23 (c)'s shape (the GHZ ladder's template at 20 qubits, 18 in
+    # float64) and its launches from phase 23 (c)'s paths: `launches` the
+    # line's kernel launches (uk.GLOBAL_PASSES: a pass each, the vjp's sum
+    # once a call), `wrapper_calls` the wrapper's calls (LAUNCHES_BY_KERNEL);
+    # phase 23's rows of an older build (the forward pass at 18 qubits, 17
+    # in float64, on the row tiles) join that build's line
+    for line in kernels:
+        line['shapes'] = line['shapes'] + rows23.get(line['name'], [])
+        line['max_abs_err'] = max(line['max_abs_err'],
+                                  errs23.get(line['name'], 0.0))
+    for name in lines23:
+        rows = rows23[name]
+        f64 = name.endswith('_f64')
+        row = next(r for r in rows if r['shape'].startswith(
+            '18q chain' if f64 else '20q chain'))
+        by_kernel = {kernel: passes23[part + '_f64' * f64]
+                     for part, kernel in GLOBAL_PARTS['vjp' in name]}
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'kernel': TRACE_NAMES[('global_rows', 'vjp' in name)],
+            'source': 'cpflow_tpu_torch/csrc/unitary.cu',
+            **({'build': '-DCPFLOW_DOUBLE'} if name.endswith('_f64') else {}),
+            'replaces': 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(sum(by.values()) for by in by_kernel.values()),
+            'launches_by_kernel': {kernel: sum(by.values())
+                                   for kernel, by in by_kernel.items()},
+            'launches_by_path': {path: sum(by.get(path, 0)
+                                           for by in by_kernel.values())
+                                 for path in launches23[name]},
+            'wrapper_calls': sum(launches23[name].values()),
+            'wrapper_calls_by_path': launches23[name],
+            'max_abs_err': errs23[name], 'ms': row['ms'],
+            'device_ms': row['device_ms'], 'plain_ms': row['plain_ms'],
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'library_ms': None, 'registers': row['registers'],
+            'local_bytes': row['local_bytes'],
+            **({'parts': row['parts']} if 'parts' in row else {}),
+            'shapes': rows})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

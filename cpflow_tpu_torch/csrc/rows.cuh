@@ -353,4 +353,115 @@ __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
   }
 }
 
+
+// ------------------------------------------------------- global row tiles
+// A column too wide for a cluster's shared memory (unitary.cu's
+// forward_global_kernel and vjp_global_kernel): it stays in device memory
+// in natural order, and each launch (a pass) runs every tile of 2^log_rows
+// rows on a block of its own, the bits on row bits log_rows ... n - 1 (the
+// global bits) naming the tile. A pass's table (kernels/rows.py:
+// global_schedule) starts with n rows (-2, v, b, 0), row bit v holding bit
+// b of the amplitudes' index when the pass begins; its swaps never leave
+// the tile. The block loads its tile under that permutation and stores it
+// under the one the swaps leave, so every address is an amplitude's own
+// index and the column is in natural order between passes, whatever
+// permutation a pass runs in. The sector bits (bit 0, and bit 1 in float)
+// lie in every pass's tile, and a block copies its tile in increasing
+// address order, so that a warp reads and writes whole 32-byte sectors.
+
+// A pass's two permutations, at its start (0) and its end (1): row bit ->
+// address bit, and the tile's address bits in increasing order with the
+// row bit of each.
+struct GlobalMaps {
+  int held[2][32];
+  int bit[2][32];
+  int row[2][32];
+};
+
+// The pass's maps from its table (nops int4, the n header rows first),
+// formed by thread 0. Ends with a block barrier.
+__device__ __forceinline__ void global_maps(const int4* ops, int nops, int n,
+                                            int log_rows, GlobalMaps* m) {
+  if (threadIdx.x == 0) {
+    for (int v = 0; v < n; ++v) m->held[0][v] = m->held[1][v] = ops[v].z;
+    for (int i = n; i < nops; ++i) {
+      const int4 op = ops[i];
+      if (op.x != -1) continue;
+      const int y = m->held[1][op.y];
+      m->held[1][op.y] = m->held[1][op.z];
+      m->held[1][op.z] = y;
+    }
+    for (int at = 0; at < 2; ++at) {
+      int k = 0;
+      for (int b = 0; b < n; ++b)
+        for (int v = 0; v < log_rows; ++v)
+          if (m->held[at][v] == b) {
+            m->bit[at][k] = b;
+            m->row[at][k++] = v;
+          }
+    }
+  }
+  __syncthreads();
+}
+
+// The address of the tile's amplitude base + i-th (in increasing address
+// order) under permutation `at`, and the tile row that holds it.
+__device__ __forceinline__ size_t global_address(const GlobalMaps& m, int at,
+                                                 size_t base, int i,
+                                                 int log_rows, int* e) {
+  size_t addr = base;
+  int r = 0;
+  for (int u = 0; u < log_rows; ++u)
+    if ((i >> u) & 1) {
+      addr |= (size_t)1 << m.bit[at][u];
+      r |= 1 << m.row[at][u];
+    }
+  *e = r;
+  return addr;
+}
+
+// The address bits that tile t's index sets under permutation `at`.
+__device__ __forceinline__ size_t global_base(const GlobalMaps& m, int at,
+                                              int n, int log_rows, int t) {
+  size_t base = 0;
+  for (int i = 0; i < n - log_rows; ++i)
+    if ((t >> i) & 1) base |= (size_t)1 << m.held[at][log_rows + i];
+  return base;
+}
+
+// Tile t of the column(s) x (and y with kM) into the shared rows X (Y)
+// under permutation `at`; kHalf: Y = conj(y) / 2 (the vjp's M from Ubar).
+template <bool kM, bool kHalf>
+__device__ __forceinline__ void global_load(cplx* X, cplx* Y, const cplx* x,
+                                            const cplx* y,
+                                            const GlobalMaps& m, int at,
+                                            int n, int log_rows, int t) {
+  const size_t base = global_base(m, at, n, log_rows, t);
+  for (int i = threadIdx.x; i < 1 << log_rows; i += blockDim.x) {
+    int e;
+    const size_t addr = global_address(m, at, base, i, log_rows, &e);
+    X[e] = x[addr];
+    if (kM) {
+      const cplx v = y[addr];
+      Y[e] = kHalf ? mkc(RL(0.5) * v.x, RL(-0.5) * v.y) : v;
+    }
+  }
+}
+
+// The shared rows X (Y) into tile t of the column(s) x (y) under
+// permutation `at`.
+template <bool kM>
+__device__ __forceinline__ void global_store(const cplx* X, const cplx* Y,
+                                             cplx* x, cplx* y,
+                                             const GlobalMaps& m, int at,
+                                             int n, int log_rows, int t) {
+  const size_t base = global_base(m, at, n, log_rows, t);
+  for (int i = threadIdx.x; i < 1 << log_rows; i += blockDim.x) {
+    int e;
+    const size_t addr = global_address(m, at, base, i, log_rows, &e);
+    x[addr] = X[e];
+    if (kM) y[addr] = Y[e];
+  }
+}
+
 }  // namespace

@@ -101,6 +101,13 @@
 // fixed order from shares the tiles leave in global memory (the column
 // tiles section below).
 //
+// The global row tiles (one column past what a cluster of 16 holds: from
+// 18 qubits in float and 17 in double to kGlobalMaxQubits, 24 and 23): the
+// column stays in device memory and runs a launch a pass, each tile of
+// rows on a block of its own on rows.cuh's warps, a gate with a bit outside
+// the tile ending the pass (forward_global_kernel, vjp_global_kernel and
+// the vjp's fixed-order sum, vjp_global_sum_kernel; the section below).
+//
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
 // TF32's 10-bit mantissa would break the 2e-5 (unitary) and 1e-4
@@ -237,6 +244,73 @@ __host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
   L.nt = 32 * plan->warps;
   L.nw = plan->warps;
   return L;
+}
+
+// The global row tiles (one column past what a cluster holds; rows.cuh's
+// global row tiles): the widest column they take, by build (a column of
+// 2^24 complex64 or 2^23 complex128 amplitudes is 128 MiB, and the vjp
+// holds four of them a restart, U, Ubar and its A and M: 512 MiB; it is
+// the widest that chip_smoke.py holds against the plain version on the
+// card), and log2 of the fewest rows of a tile (a pass's window of gates
+// then holds at least 8 bits beside the sector bits).
+#ifdef CPFLOW_DOUBLE
+constexpr int kGlobalMaxQubits = 23;
+#else
+constexpr int kGlobalMaxQubits = 24;
+#endif
+constexpr int kGlobalRowsMin = 10;
+constexpr size_t kGlobalMapBytes = sizeof(GlobalMaps);
+
+// The layout of a pass of the global row tiles, whose tiles hold 2^(n - j)
+// rows: make_layout's for a split of 2^j (whose bytes decide j), with the
+// warps of rows.cuh's row_plan (which *plan receives) and, in the vjp, the
+// ring of cotangent slots in place of the cross-warp partials, in what the
+// layout and the pass's maps leave of a block's shared memory; the maps
+// (GlobalMaps) last, at bytes - kGlobalMapBytes.
+__host__ __device__ inline Layout global_layout(int n, int nb, int nba,
+                                                int j, bool vjp,
+                                                RowPlan* plan) {
+  Layout L = make_layout(n, nb, nba, 0, j, vjp);
+  if (vjp) {
+    const size_t red = (size_t)2 * L.nw * 32 * sizeof(real);
+    *plan = row_plan(n - j, kSmemLimit - kGlobalMapBytes - (L.bytes - red));
+    size_t o = L.off_red + (size_t)32 * plan->warps * plan->ring *
+                               sizeof(real);
+    L.off_params = o;   o += (size_t)L.P * sizeof(real);
+    L.off_grad = o;     o += (size_t)L.P * sizeof(real);
+    L.off_cs = o;       o += (size_t)2 * L.P * sizeof(real);
+    L.bytes = o;
+  } else {
+    *plan = row_plan(n - j, ~(size_t)0);
+    plan->ring = 0;
+  }
+  L.nt = 32 * plan->warps;
+  L.nw = plan->warps;
+  L.bytes += kGlobalMapBytes;
+  return L;
+}
+
+// The most qubits of one column that a cluster of the row tiles holds with
+// no blocks (17 in float, 16 in double).
+inline int row_tiles_max() {
+  int n = 2;
+  while (cluster_plan(n + 1, 0, 0, 0, true) >= 0) ++n;
+  return n;
+}
+
+// log2 of the tiles a restart of one column takes on the global row tiles:
+// past the row tiles' widest column, up to kGlobalMaxQubits, where no
+// cluster holds the pass, the fewest whose layout fits a block, tiles of
+// at least 2^kGlobalRowsMin rows; -1 elsewhere.
+inline int global_log(int n, int nb, int nba, int log_c, bool vjp) {
+  if (log_c || n <= row_tiles_max() || n > kGlobalMaxQubits ||
+      cluster_plan(n, nb, nba, 0, vjp) >= 0)
+    return -1;
+  for (int j = 1; n - j >= kGlobalRowsMin; ++j)
+    if (make_layout(n, nb, nba, 0, j, vjp).bytes + kGlobalMapBytes <=
+        kSmemLimit)
+      return j;
+  return -1;
 }
 
 // The layout of the kernels on tiles.cuh's warps (the forward pass's
@@ -986,17 +1060,196 @@ vjp_tile_sum_kernel(TileArgs ta) {
     a.grad[(size_t)i * a.B + b] = grad[i];
 }
 
+// ------------------------------------------------- the global row tiles
+// One column past what a cluster of 16 blocks holds (from 18 qubits in
+// float, 17 in double, to kGlobalMaxQubits): the column stays in device
+// memory, in natural order, and each restart's 2^j tiles of 2^(n - j) rows
+// run on blocks of their own, a launch a pass of the schedule
+// (kernels/rows.py:global_schedule, rows.cuh's global row tiles): a pass
+// loads its tile under its start permutation, runs its gates and swaps on
+// rows.cuh's warps as one block does (row_chain, row_walk with c = 1), and
+// stores the tile under the permutation its swaps leave. A gate whose bits
+// are not all in the tile ends a pass, and the next pass's load brings
+// them in: no launch of its own swaps bits through device memory. A call
+// enqueues
+//   the forward pass: forward_global_kernel once a pass, the first writing
+//     the surface round's product state from e_0 in its start permutation
+//     (row_product), in place on U (each block reads and writes the same
+//     addresses);
+//   the vjp: vjp_global_kernel once a pass, last pass first, A = U and
+//     M = conj(Ubar) / 2 loaded by the first launch and kept in the
+//     workspace for the next, each block's shares of its pass's gates'
+//     cotangents into the workspace; then vjp_global_sum_kernel, a block a
+//     (restart, gate), which adds the tiles' shares in a fixed order and
+//     forms that gate's angle gradients.
+// No TPU kernel stands behind them: they replace the XLA builder's column-0
+// path (cpflow_tpu/sim/batched.py:255-362 with columns=[0]). What bounds
+// them on this card: bytes. The forward pass must write U once and the vjp
+// read U and Ubar once; each pass past one reads and writes the column (A
+// and M in the vjp) again, 8 or 16 bytes an amplitude in float, unless it
+// stays in the 50 MB L2, so the schedule makes the fewest passes (the
+// longest runs of gates whose bits fit a tile) and puts the swaps that
+// cross tiles into the passes' loads. Within a pass a tile is one block's
+// shared memory, as the one-block kernels run it; every sum runs in a
+// fixed order, so that two launches give the same bits.
+
+struct GlobalArgs {
+  RowArgs ra;    // cluster_log: log2 of the tiles a restart; ops, nops: the
+                 // pass's table, its n header rows first
+  real* work;    // the vjp's workspace, `per` reals a restart: A and M
+                 // (2^n complex each), then the tiles' shares (G x tiles x
+                 // 32 reals)
+  size_t per;
+  int first;     // the forward pass's first pass; the vjp's first launch
+  int keep;      // the vjp: A and M stored for the next launch
+  int jlo, jhi;  // the vjp: the pass's gates
+};
+
+// The reals of the vjp's workspace a restart on 2^j tiles.
+__host__ __device__ inline size_t global_work(int n, int G, int j) {
+  return ((size_t)4 << n) + ((size_t)G << j) * 32;
+}
+
+__global__ void __launch_bounds__(kRowThreads, 1)
+forward_global_kernel(GlobalArgs ga) {
+  const RowArgs& ra = ga.ra;
+  const Args& a = ra;
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowPlan plan;
+  const int n = a.n, j = a.cluster_log, log_rows = n - j;
+  const Layout L = global_layout(n, a.nb, a.tpl.nba, j, false, &plan);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  GlobalMaps* maps =
+      reinterpret_cast<GlobalMaps*>(smem + L.bytes - kGlobalMapBytes);
+  const int b = blockIdx.x >> j, t = blockIdx.x & ((1 << j) - 1);
+  cplx* col = a.U + ((size_t)b << n);
+  load_gates(a, L, b, params, cs, gates);
+  global_maps(ra.ops, ra.nops, n, log_rows, maps);
+  if (ga.first) {
+    row_product(A, gates, ra.ops, n, ra.plan, log_rows, t);
+    __syncwarp();
+  } else {
+    global_load<false, false>(A, nullptr, col, nullptr, *maps, 0, n,
+                              log_rows, t);
+    __syncthreads();
+  }
+  row_chain<true>(A, gates, ra.ops + n, ra.nops - n, n, ra.plan, log_rows,
+                  t);
+  global_store<false>(A, nullptr, col, nullptr, *maps, 1, n, log_rows, t);
+}
+
+__global__ void __launch_bounds__(kRowThreads, 1)
+vjp_global_kernel(GlobalArgs ga) {
+  const RowArgs& ra = ga.ra;
+  const Args& a = ra;
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowPlan plan;
+  const int n = a.n, j = a.cluster_log, log_rows = n - j;
+  const Layout L = global_layout(n, a.nb, a.tpl.nba, j, true, &plan);
+  cplx* A = reinterpret_cast<cplx*>(smem);
+  cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
+  cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* ring = reinterpret_cast<real*>(smem + L.off_red);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  GlobalMaps* maps =
+      reinterpret_cast<GlobalMaps*>(smem + L.bytes - kGlobalMapBytes);
+  const int b = blockIdx.x >> j, t = blockIdx.x & ((1 << j) - 1);
+  real* work = ga.work + (size_t)b * ga.per;
+  cplx* Aw = reinterpret_cast<cplx*>(work);
+  cplx* Mw = Aw + ((size_t)1 << n);
+  real* parts = work + ((size_t)4 << n);
+  load_gates(a, L, b, params, cs, gates);
+  global_maps(ra.ops, ra.nops, n, log_rows, maps);
+  if (ga.first)  // the walk starts where the chain ended: U, Ubar
+    global_load<true, true>(A, M, a.U + ((size_t)b << n),
+                            a.Ubar + ((size_t)b << n), *maps, 1, n, log_rows,
+                            t);
+  else
+    global_load<true, false>(A, M, Aw, Mw, *maps, 1, n, log_rows, t);
+  __syncthreads();
+  const int ringm = ra.plan.ring - 1;
+  row_walk<true>(A, M, gates, ra.ops + n, ra.nops - n, ring, gbar, n, L.G,
+                 ra.plan, log_rows, t);
+  // the ring's last gates, if the pass's first gate left them unsummed
+  if (ga.jlo & ringm) row_flush(ring, gbar, ga.jlo & ~ringm, n, L.G, ra.plan);
+  __syncthreads();
+  if (ga.keep)
+    global_store<true>(A, M, Aw, Mw, *maps, 0, n, log_rows, t);
+  const int tiles = 1 << j;
+  for (int i = threadIdx.x; i < (ga.jhi - ga.jlo + 1) * 32; i += blockDim.x) {
+    const int g = ga.jlo + (i >> 5);
+    parts[((size_t)g * tiles + t) * 32 + (i & 31)] = gbar[32 * g + (i & 31)];
+  }
+}
+
+// Block blockIdx.x holds gate g = blockIdx.x mod G of restart blockIdx.x /
+// G: the tiles' shares of its cotangent added in a fixed order (8 runs of
+// tiles, each in tile order, then the runs in order; a thread an entry of
+// a run), then its angles' gradients from its own gate and cos and sin.
+__global__ void __launch_bounds__(kMaxThreads)
+vjp_global_sum_kernel(GlobalArgs ga) {
+  const Args& a = ga.ra;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ real runs[kMaxThreads];
+  const int n = a.n, G = n + a.nb, P = 3 * n + a.tpl.nba * a.nb;
+  const SumLayout L = sum_layout(1, P);
+  cplx* gate = reinterpret_cast<cplx*>(smem);
+  real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
+  real* grad = reinterpret_cast<real*>(smem + L.off_grad);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int b = blockIdx.x / G, g = blockIdx.x - b * G, tid = threadIdx.x;
+  const int tiles = 1 << a.cluster_log;
+  const int count = tiles < 8 ? tiles : 8, run = tiles / count;
+  for (int i = tid; i < P; i += blockDim.x)
+    params[i] = a.angles[(size_t)i * a.B + b];
+  __syncthreads();
+  row_angle_trig(a.tpl, n, P, params, cs);
+  const real* part =
+      ga.work + (size_t)b * ga.per + ((size_t)4 << n) + (size_t)g * tiles * 32;
+  if (tid < 32 * count)
+    runs[tid] = sum_tiles(part + (size_t)(tid >> 5) * run * 32 + (tid & 31),
+                          run, 32);
+  __syncthreads();
+  if (tid < 32) {
+    real s = runs[tid];
+    for (int q = 1; q < count; ++q) s += runs[32 * q + tid];
+    gbar[tid] = s;
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  const cplx* gbj = reinterpret_cast<const cplx*>(gbar);
+  if (g < n) {
+    surface_gate(cs + 6 * g, gate);
+    surface_grads(cs + 6 * g, gate, gbj, grad);
+    for (int i = 0; i < 3; ++i)
+      a.grad[(size_t)(3 * g + i) * a.B + b] = grad[i];
+  } else {
+    const int off = 3 * n + a.tpl.nba * (g - n);
+    block_grads(a.tpl, cs + 2 * off, gbj, grad);
+    for (int i = 0; i < a.tpl.nba; ++i)
+      a.grad[(size_t)(off + i) * a.B + b] = grad[i];
+  }
+}
+
 // 0 forward, 1 vjp on one block a restart (the row-split design's plan
 // with no cluster: forward_block_kernel, vjp_block_kernel), 2 vjp on a
 // cluster of tiles of columns (tiles.cuh's warps); 3 + n - 2 the column
 // forward pass at n qubits, 8 + n - 2 the column vjp; 13 the forward pass,
 // 14 the vjp's walk and 15 its sum on the column tiles; 16 forward and 17
 // vjp of one column split by rows over a cluster (the row-split design's
-// row tiles); 18 the column tiles' vjp prologue.
-constexpr int kKernels = 9 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+// row tiles); 18 the column tiles' vjp prologue; 19 forward and 20 vjp of
+// the global row tiles, 21 the vjp's sum there.
+constexpr int kKernels = 12 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
 constexpr int kForwardBlock = 0, kVjpBlock = 1;
 constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
 constexpr int kForwardRows = 16, kVjpRows = 17, kVjpTileGates = 18;
+constexpr int kForwardGlobal = 19, kVjpGlobal = 20, kVjpGlobalSum = 21;
 const void* kernel_of(int which) {
   const void* kernels[kKernels] = {
       (const void*)forward_block_kernel, (const void*)vjp_block_kernel,
@@ -1008,11 +1261,13 @@ const void* kernel_of(int which) {
       (const void*)column_vjp<6>,        (const void*)forward_tiles_kernel,
       (const void*)vjp_tiles_kernel,     (const void*)vjp_tile_sum_kernel,
       (const void*)forward_rows_kernel,  (const void*)vjp_rows_kernel,
-      (const void*)vjp_tile_gates_kernel};
+      (const void*)vjp_tile_gates_kernel, (const void*)forward_global_kernel,
+      (const void*)vjp_global_kernel,    (const void*)vjp_global_sum_kernel};
   return kernels[which];
 }
 
-enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1, DESIGN_TILES = 2 };
+enum { DESIGN_ROWS = 0, DESIGN_COLUMNS = 1, DESIGN_TILES = 2,
+       DESIGN_GLOBAL = 3 };
 
 // Dynamic shared memory granted to each kernel on each device so far,
 // whether each cluster kernel may take a cluster of 16 (non-portable)
@@ -1181,17 +1436,19 @@ long long cpflow_unitary_column_smem_bytes(int n, int num_blocks, int nba,
 // 2 to 6 qubits, where its layout fits), else for the forward pass 2 the
 // column tiles for the whole unitary from 7 qubits (forward_on_tiles),
 // else 0 the row-split design where one block or a cluster holds it, else
-// 2 the column tiles where they hold it, else 0.
+// 2 the column tiles where they hold it, else 3 the global row tiles where
+// they hold one column (global_log), else 0.
 int cpflow_unitary_design(int n, int num_blocks, int nba, int log_c,
                           int vjp) {
   if (column_restarts(n, num_blocks, nba, log_c, vjp != 0) > 0)
     return DESIGN_COLUMNS;
-  if (!vjp)
-    return forward_on_tiles(n, num_blocks, nba, log_c) ? DESIGN_TILES
-                                                       : DESIGN_ROWS;
-  if (cluster_plan(n, num_blocks, nba, log_c, true) < 0 &&
+  if (!vjp && forward_on_tiles(n, num_blocks, nba, log_c))
+    return DESIGN_TILES;
+  if (vjp && cluster_plan(n, num_blocks, nba, log_c, true) < 0 &&
       tile_log(n, num_blocks, nba, log_c) >= 0)
     return DESIGN_TILES;
+  if (global_log(n, num_blocks, nba, log_c, vjp != 0) >= 0)
+    return DESIGN_GLOBAL;
   return DESIGN_ROWS;
 }
 
@@ -1419,6 +1676,125 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(
                                       kernel_of(l.which)), args);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The plan of a pass of the global row tiles (one column past what a
+// cluster holds, global_log): out[0] threads and out[1] dynamic shared
+// memory bytes a block (global_layout), out[2] warps, out[3] log2 of a
+// warp's rows, out[4] gates in the ring (0 in the forward pass), out[5]
+// log2 of a tile's rows, out[6] tiles a restart, out[7] the sum kernel's
+// dynamic shared memory bytes. Returns cudaErrorInvalidValue where they do
+// not take the shape.
+int cpflow_unitary_global_plan(int n, int num_blocks, int nba, int vjp,
+                               int* out) {
+  const int j = global_log(n, num_blocks, nba, 0, vjp != 0);
+  if (j < 0) return (int)cudaErrorInvalidValue;
+  RowPlan plan;
+  const Layout L = global_layout(n, num_blocks, nba, j, vjp != 0, &plan);
+  out[0] = L.nt;
+  out[1] = (int)L.bytes;
+  out[2] = plan.warps;
+  out[3] = plan.seg;
+  out[4] = plan.ring;
+  out[5] = n - j;
+  out[6] = 1 << j;
+  out[7] = (int)sum_layout(1, L.P).bytes;
+  return 0;
+}
+
+// The reals of the vjp's workspace a restart on the global row tiles
+// (global_work: A and M, then the tiles' shares of the gates' cotangents);
+// 0 where they do not take the shape.
+long long cpflow_unitary_global_work(int n, int num_blocks, int nba) {
+  const int j = global_log(n, num_blocks, nba, 0, true);
+  return j < 0 ? 0 : (long long)global_work(n, n + num_blocks, j);
+}
+
+// The forward pass (vjp == 0: writes U) or the vjp (vjp == 1: reads U and
+// Ubar, writes grad; `work` a device buffer of B x
+// cpflow_unitary_global_work reals, whose contents need no setting) of one
+// column on the global row tiles, on `stream`, with the arguments of
+// cpflow_unitary_launch (log_c 0) and the pass's schedule
+// (kernels/rows.py:global_schedule, the forward pass's or the vjp's for
+// the segment and tile of cpflow_unitary_global_plan): `ops`, its table on
+// the device; `offsets` (passes + 1 ints) and `ranges` (2 x passes ints,
+// each pass's first and last gate), on the host. The forward pass launches
+// forward_global_kernel once a pass, in order; the vjp vjp_global_kernel
+// once a pass, last pass first, then vjp_global_sum_kernel. Returns
+// cudaErrorInvalidValue for a shape or a schedule they do not take, else
+// the first CUDA error of the launches.
+int cpflow_unitary_global_launch(const void* angles, void* U,
+                                 const void* Ubar, void* grad, void* work,
+                                 const void* placements, const void* letters,
+                                 int n, int num_blocks, int num_letters,
+                                 int ent, int nba, int B, int vjp,
+                                 void* stream, const void* ops,
+                                 const int* offsets, const int* ranges,
+                                 int passes) {
+  GlobalArgs ga;
+  RowArgs& a = ga.ra;
+  a.angles = static_cast<const real*>(angles);
+  a.U = static_cast<cplx*>(U);
+  a.Ubar = static_cast<const cplx*>(Ubar);
+  a.grad = static_cast<real*>(grad);
+  a.placements = static_cast<const int*>(placements);
+  a.tpl.letters = static_cast<const int*>(letters);
+  a.tpl.m = num_letters;
+  a.tpl.ent = ent;
+  a.tpl.nba = nba;
+  a.n = n;
+  a.nb = num_blocks;
+  a.log_c = 0;
+  a.B = B;
+  a.restarts = 1;
+  a.cluster_log = global_log(n, num_blocks, nba, 0, vjp != 0);
+  const int G = n + num_blocks;
+  if (a.cluster_log < 0 || !ops || passes < 1 || !offsets ||
+      (vjp && (!work || !ranges)))
+    return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < passes; ++p)
+    if (offsets[p + 1] - offsets[p] < n ||
+        (vjp && (ranges[2 * p] < 0 || ranges[2 * p] > ranges[2 * p + 1] ||
+                 ranges[2 * p + 1] >= G)))
+      return (int)cudaErrorInvalidValue;
+  const Layout L =
+      global_layout(n, num_blocks, nba, a.cluster_log, vjp != 0, &a.plan);
+  ga.work = static_cast<real*>(work);
+  ga.per = global_work(n, G, a.cluster_log);
+  ga.jlo = ga.jhi = 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)B << a.cluster_log;
+  const int4* table = static_cast<const int4*>(ops);
+  cudaError_t err = grant_smem(vjp ? kVjpGlobal : kForwardGlobal, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (!vjp) {
+    for (int p = 0; p < passes; ++p) {
+      a.ops = table + offsets[p];
+      a.nops = offsets[p + 1] - offsets[p];
+      ga.first = p == 0;
+      ga.keep = 0;
+      forward_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+  const size_t sum_bytes = sum_layout(1, L.P).bytes;
+  err = grant_smem(kVjpGlobalSum, sum_bytes);
+  if (err != cudaSuccess) return (int)err;
+  for (int p = passes - 1; p >= 0; --p) {
+    a.ops = table + offsets[p];
+    a.nops = offsets[p + 1] - offsets[p];
+    ga.first = p == passes - 1;
+    ga.keep = p > 0;
+    ga.jlo = ranges[2 * p];
+    ga.jhi = ranges[2 * p + 1];
+    vjp_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  vjp_global_sum_kernel<<<(unsigned)B * G, kMaxThreads, sum_bytes, s>>>(ga);
+  return (int)cudaGetLastError();
 }
 
 int cpflow_unitary_kernel_count() { return kKernels; }

@@ -15,7 +15,10 @@ template and the segment, so ``schedule`` computes them once, here, as a
 table of ops; ``plan`` and ``launch`` mirror the kernels' choice of warps,
 segment, ring and shared bytes, so that the tables and the layouts can be
 checked without a card (on the card the library's own plan decides:
-cpflow_sweep_row_plan, cpflow_unitary_row_plan).
+cpflow_sweep_row_plan, cpflow_unitary_row_plan). ``global_schedule`` does
+the same for one column past what a cluster holds, kept in device memory:
+its gates cut into the fewest passes of tiles, each pass a table of its
+own (the global row tiles of kernels/unitary.py).
 """
 
 from __future__ import annotations
@@ -57,24 +60,27 @@ def plan(log_rows: int, spare=None, dtype=torch.float32) -> dict:
 
 
 def launch(cluster: int, log_rows: int, plan_bytes: int, dtype,
-           vjp: bool = True) -> dict:
+           vjp: bool = True, reserve: int = 0) -> dict:
     """The launch of a block of the row tiles whose plan's layout takes
     `plan_bytes`. The vjp's (with its 2 x warps x 32 reals of cross-warp
     partials, the warps one per 16 rows between 1 and 8): ``plan`` in what
     that layout leaves of a block's shared memory, the partials out and the
     ring in. The forward pass's (vjp=False): ``plan`` with no ring, in the
-    plan's bytes. dict(cluster, log_rows, warps, segment, ring, threads,
-    smem_bytes)."""
+    plan's bytes. `reserve` bytes more follow the layout (the global row
+    tiles' pass maps), kept out of the ring's room. dict(cluster, log_rows,
+    warps, segment, ring, threads, smem_bytes)."""
     if not vjp:
         p = plan(log_rows, None, dtype)
         return dict(cluster=cluster, log_rows=log_rows,
-                    threads=32 * p['warps'], smem_bytes=plan_bytes, **p)
+                    threads=32 * p['warps'],
+                    smem_bytes=plan_bytes + reserve, **p)
     real = 8 if dtype == torch.float64 else 4
     partials = 2 * min(max((1 << log_rows) // 16, 32), 256) * real
     rest = plan_bytes - partials
-    p = plan(log_rows, SMEM_LIMIT - rest, dtype)
+    p = plan(log_rows, SMEM_LIMIT - reserve - rest, dtype)
     return dict(cluster=cluster, log_rows=log_rows, threads=32 * p['warps'],
-                smem_bytes=rest + 32 * p['warps'] * p['ring'] * real, **p)
+                smem_bytes=rest + 32 * p['warps'] * p['ring'] * real +
+                reserve, **p)
 
 
 def gate_bits(n: int, placements) -> list:
@@ -167,3 +173,105 @@ def device_schedule(n: int, placements: tuple, segment: int,
     """``schedule`` as an int32 tensor on `device`, made once a key."""
     return torch.tensor(schedule(n, placements, segment, forward),
                         dtype=torch.int32, device=device).contiguous()
+
+
+# ------------------------------------------------------ global row tiles
+# A column too wide for a cluster's shared memory stays in device memory in
+# natural order, and a launch (a pass) runs every tile of 2^log_rows rows on
+# a block of its own: the bits on row bits log_rows ... n - 1, the global
+# bits, name the tile. A pass brings its tile in under a permutation of the
+# row bits of its own (the addresses are the amplitudes' own indices, so
+# any permutation is one load) and stores it back under the permutation its
+# swaps leave, so the column is in natural order between passes whatever
+# the table does. Within a pass the bits move as on one block (``schedule``:
+# a gate on a warp's segment, a bit it needs swapped in from the tile), and
+# a gate whose bits are not all in the tile ends the pass.
+
+def sector_bits(dtype) -> int:
+    """The amplitude bits that every pass keeps in its tile, so that its
+    loads and stores read and write whole 32-byte sectors: 2 in float32
+    (four complex64), 1 in float64 (two complex128)."""
+    return 1 if dtype == torch.float64 else 2
+
+
+def windows(n: int, gates: list, order, log_rows: int, low: int) -> list:
+    """The gates of `order` (indices into `gates`, each a tuple of bits)
+    cut into the fewest passes: each pass the longest run whose bits,
+    with the sector bits 0 ... low - 1, number at most log_rows (a run is
+    feasible if a longer one is, so taking the longest each time is
+    optimal). [(first, end)] positions in `order`."""
+    order = list(order)
+    out, start = [], 0
+    while start < len(order):
+        held = set(range(low))
+        end = start
+        while end < len(order) and len(held | set(gates[order[end]])) <= \
+                log_rows:
+            held |= set(gates[order[end]])
+            end += 1
+        if end == start:
+            raise ValueError(f'a tile of {1 << log_rows} rows holds no gate '
+                             f'beside the {low} sector bits')
+        out.append((start, end))
+        start = end
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def global_schedule(n: int, placements: tuple, segment: int, log_rows: int,
+                    low: int, forward: bool = False) -> tuple:
+    """The schedule of the global row tiles for tiles of 2^log_rows rows and
+    a segment of 2^segment rows: (table, offsets, ranges). table is (ops, 4)
+    int32 of the passes one after another; pass p is table[offsets[p]:
+    offsets[p + 1]]: n rows (-2, v, b, 0), row bit v holding bit b when the
+    pass begins (its tile the bits on row bits below log_rows, sector bits
+    0 ... low - 1 among them; the rest in increasing order, naming the
+    tile), then the pass's ops as ``schedule`` writes them, every swap
+    inside the tile (both bits below log_rows). ranges[p] = (first, last)
+    gate of pass p; the gates of a pass are consecutive. The passes are the
+    fewest (``windows``); within a pass the tile's row bits start with the
+    bits used first on the segment, and Belady's rule swaps the rest in.
+
+    forward=True: the forward pass's table, of the blocks alone; its first
+    pass's n rows are also where row_product writes the surface round's
+    product state from e_0."""
+    if segment < 2:
+        raise ValueError(f'a segment of {1 << segment} rows holds no '
+                         f'two-qubit gate')
+    gates = gate_bits(n, placements)
+    order = list(range(n if forward else 0, len(gates)))
+    ops, offsets, ranges = [], [0], []
+    for start, end in windows(n, gates, order, log_rows, low):
+        run = order[start:end]
+        tile = set(range(low))
+        for j in run:
+            tile |= set(gates[j])
+        first_use = {}
+        for t, j in enumerate(run):
+            for bit in gates[j]:
+                first_use.setdefault(bit, t)
+        # the tile's bits by first use (then the sector bits, then fill up
+        # from the lowest unused bits), the rest naming the tile
+        fill = [b for b in range(n) if b not in tile][:log_rows - len(tile)]
+        local = sorted(tile, key=lambda b: (first_use.get(b, len(run)), b)) \
+            + fill
+        held = local + [b for b in range(n) if b not in set(local)]
+        head = [(-2, v, b, 0) for v, b in enumerate(held)]
+        body = _belady(gates, run, held, segment)
+        ops += head + body
+        offsets.append(len(ops))
+        ranges.append((run[0], run[-1]))
+    table = np.array(ops, dtype=np.int32).reshape(-1, 4)
+    table.setflags(write=False)
+    return table, tuple(offsets), tuple(ranges)
+
+
+@functools.lru_cache(maxsize=64)
+def device_global_schedule(n: int, placements: tuple, segment: int,
+                           log_rows: int, low: int, device: torch.device,
+                           forward: bool = False) -> torch.Tensor:
+    """``global_schedule``'s table as an int32 tensor on `device`, made
+    once a key."""
+    table = global_schedule(n, placements, segment, log_rows, low,
+                            forward)[0]
+    return torch.tensor(table, dtype=torch.int32, device=device).contiguous()

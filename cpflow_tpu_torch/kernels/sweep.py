@@ -18,7 +18,9 @@ adaptive trials side by side) is passed as it is. It raises, and never
 falls back, above MAX_QUBITS (for the HS test and disc losses 13 qubits in
 float32 and 12 in float64; for the modulo losses 8, past which ``sweep``
 routes them to the unitary kernels; for a state 17 in float32 and 16 in
-float64), for a template too deep for every plan
+float64, past which ``sweep`` routes it to the unitary kernels, whose global
+row tiles hold one column to 24 qubits in float32 and 23 in float64), for
+a template too deep for every plan
 (``cluster_plan``, ``tile_plan``), and for a penalty other than the
 piecewise-linear one.
 
@@ -36,7 +38,8 @@ Routing of ``sweep``, by the tensor's device and the objective:
   * CUDA tensor, a built-in loss kind with the piecewise-linear penalty
     (or none): the fused sweep kernel, unless no plan of it holds the
     shape and the unitary kernels' plans do (the modulo losses at 9 to 13
-    qubits, 9 to 12 in float64), which takes the route below;
+    qubits, 9 to 12 in float64; a state at 18 to 24 qubits, 17 to 23 in
+    float64), which takes the route below;
   * CUDA tensor, a custom loss (a torch callable of one unitary, which
     cannot enter a fused kernel) or any other penalty (a torch callable
     of the CP angles, such as ops.penalty.cp_penalty_L1): the Adam loop
@@ -61,7 +64,9 @@ kernel's fourth build, the row tiles; at the GHZ ladder's depths 14, 15,
 16 and 17 qubits take 2, 4, 8 and 16 blocks), each block's rows owned by
 its warps, every gate on a warp's own rows and the bits it needs swapped
 in beforehand as a table says that the wrapper computes once a call
-(kernels/rows.py; ``row_plan`` mirrors the launch). Where no cluster
+(kernels/rows.py; ``row_plan`` mirrors the launch); past 17 qubits (16 in
+float64) ``route`` takes a state to the unitary kernels, whose global row
+tiles keep its column in device memory (kernels/unitary.py). Where no cluster
 holds the whole unitary (9 qubits and up, and deeper templates at 7 and
 8), the HS test and disc losses take the column tiles (``tile_plan``): a restart's columns
 split into tiles on independent blocks, the fewest that fit, and two
@@ -336,7 +341,10 @@ def max_qubits(kind: str, dtype=torch.float32) -> int:
     float64; the modulo losses on up to 16 blocks: 8; a state's one column
     split by rows over up to 16 blocks: 17 in float32, 16 in float64,
     whose every amplitude takes twice the bytes). A template deep enough
-    may not fit even below that n."""
+    may not fit even below that n. MAX_QUBITS['state'] is what the fused
+    kernel takes; ``sweep`` takes a wider state to the unitary kernels
+    (``route``), whose own limit is kernels/unitary.py's
+    MAX_QUBITS[dtype]['column']."""
     n = 2
     while cluster_plan(n + 1, 0, 0, kind, dtype) is not None or \
             tile_plan(n + 1, 0, 0, kind, dtype) is not None:
@@ -377,9 +385,15 @@ def _check_objective(objective):
         double = ' (float64 doubles their bytes)' if \
             objective.dtype == torch.float64 else ''
         if kind == 'state':
+            cap = uk.MAX_QUBITS[objective.dtype]['column']
             why = (f'the state and cotangent exceed the shared memory of a '
                    f'cluster of {CLUSTERS[-1]} blocks, the largest Hopper '
-                   f'launches, even split by rows{double}')
+                   f'launches, even split by rows{double}; sweep() takes it '
+                   f'to the unitary kernels, whose global row tiles hold '
+                   f'one column to {cap} qubits' + (
+                       '' if n <= cap else
+                       f', and past that cap (kernels/unitary.py\'s '
+                       f'GLOBAL_MAX_QUBITS) no plan holds it'))
         elif kind in TILE_LOSSES:
             why = (f'one column of the state and cotangent exceeds the '
                    f'shared memory of a block, even on column tiles of one '
@@ -657,7 +671,8 @@ def _unitary_only(objective) -> bool:
     the unitary kernels' plans (forward pass and vjp) and by no plan of the
     fused kernel (cluster_plan, tile_plan): the modulo losses past 8 qubits
     (to 13 in float32, 12 in float64), which the column tiles cannot take
-    because their sums read V across columns."""
+    because their sums read V across columns, and a state past 17 qubits
+    (16 in float64) to the global row tiles' cap (24, 23)."""
     dtype, n = objective.dtype, objective.num_qubits
     ent, rot = objective.entangling_gate_name, objective.rotation_gates
     if dtype not in DTYPES or ent not in ENTANGLER_CODES or \

@@ -18,8 +18,9 @@ other first-order methods.
   * ``build_unitary``: the entry point. On a CUDA tensor it goes through
     ``AnsatzUnitary`` or raises (float32 or float64, sm_90 only, 2 to 13
     qubits for the whole unitary in float32 and 2 to 12 in float64, and
-    for one column 2 to 17 in float32, 2 to 16 in float64:
-    ``MAX_QUBITS``); it never falls back. On a CPU
+    for one column 2 to 24 in float32, 2 to 23 in float64:
+    ``MAX_QUBITS``, past 17 and 16 on the global row tiles); it never falls
+    back. On a CPU
     tensor it is the plain version, sim.batched.build_unitary_batched under
     ordinary autograd.
 
@@ -47,7 +48,8 @@ cotangent over the restart's lanes by shuffles; a restart takes a warp
 forward pass at 2 to 4 qubits the lanes of a column share its amplitude
 groups with a warp barrier after each gate. Blocks hold two restarts (one
 at 6 qubits, or where the layout does not fit). One column
-(``columns=[0]``, up to 17 qubits) and the vjp of the whole unitary at 7
+(``columns=[0]``, up to 17 qubits, 16 in float64) and the vjp of the
+whole unitary at 7
 and 8 qubits keep the row-split design's plan: one block a restart
 (``ansatz_forward`` and ``ansatz_vjp``, on csrc/rows.cuh's warps,
 ``rows_launch``: one column, every bit a gate needs swapped in inside the
@@ -63,8 +65,17 @@ memory in rank order), or one column's rows, 2^n / c a block, in both
 passes as a cluster (the row tiles' kernels, ``ansatz_forward_row_tiles``
 and ``ansatz_vjp_row_tiles``, whose rows are owned by warps that swap in
 the bits a gate needs as the wrapper's table for the pass's segment says:
-kernels/rows.py, ``row_plan``). The forward pass of the whole unitary
-from 7 qubits runs on the column tiles (``tile_plan``, design 'tiles',
+kernels/rows.py, ``row_plan``). One column past what a cluster holds
+(18 to 24 qubits in float32, 17 to 23 in float64; design 'global_rows',
+``global_plan``) stays in device memory in natural order and runs a
+launch a pass, every tile of 2^log_rows rows on a block of its own under
+a permutation of its own, a gate that needs a bit outside the tile ending
+the pass (kernels/rows.py:global_schedule): ``ansatz_forward_global_rows``
+in place on U, ``ansatz_vjp_global_rows`` on A and M in a workspace,
+each tile's shares of its pass's cotangents summed in a fixed order by
+``ansatz_vjp_global_sum``. Before a call allocates U or that workspace it
+raises ValueError where the card lacks the bytes. The forward pass of the
+whole unitary from 7 qubits runs on the column tiles (``tile_plan``, design 'tiles',
 ``ansatz_forward_column_tiles``): a restart's columns split into tiles on
 independent blocks, the fewest whose layout on tiles.cuh's warps fits,
 each tile never meeting another. Where no cluster holds the vjp (9 qubits
@@ -119,11 +130,15 @@ FORWARD_F64_LAUNCHES = 0  # those of the forward kernel in the double build
 VJP_F64_LAUNCHES = 0      # those of the vjp kernel in the double build
 # the vjp kernel's launches by the blocks each restart ran on (a cluster's
 # size, 1 for one block or the column design, 'tiles' for the column
-# tiles); reset with .clear()
+# tiles, 'global_rows' for the global row tiles); reset with .clear()
 VJP_LAUNCHES_BY_CLUSTER: Counter = Counter()
 # launches of both kernels by the kernel of KERNELS that ran, '_f64' added
 # for the double build; reset with .clear()
 LAUNCHES_BY_KERNEL: Counter = Counter()
+# the global row tiles' kernel launches, a pass each and the vjp's sum once
+# a call, by the kernel of KERNELS ('_f64' added for the double build);
+# a wrapper call counts once in LAUNCHES_BY_KERNEL; reset with .clear()
+GLOBAL_PASSES: Counter = Counter()
 
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
 LETTER_CODES = {'x': 0, 'y': 1, 'z': 2}
@@ -131,7 +146,11 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # blocks a restart may run on; 16 is a non-portable cluster on Hopper
 CLUSTERS = (1, 2, 4, 8, 16)
 _OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
-DESIGNS = {'rows': 0, 'columns': 1, 'tiles': 2}  # csrc/unitary.cu's numbering
+# csrc/unitary.cu's numbering
+DESIGNS = {'rows': 0, 'columns': 1, 'tiles': 2, 'global_rows': 3}
+# the designs a caller may ask for in place of the plan's, for comparisons;
+# the global row tiles run only where the plan puts them
+CALLER_DESIGNS = ('rows', 'columns', 'tiles')
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 COLUMN_THREADS = 64      # threads of a column kernel's block
 COLUMN_QUBITS = (2, 6)   # the column design's range of qubits
@@ -141,7 +160,17 @@ KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     for n in range(COLUMN_QUBITS[0], COLUMN_QUBITS[1] + 1)) + (
     'ansatz_forward_column_tiles', 'ansatz_vjp_column_tiles',
     'ansatz_vjp_tile_sum', 'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
-    'ansatz_vjp_tile_gates')
+    'ansatz_vjp_tile_gates', 'ansatz_forward_global_rows',
+    'ansatz_vjp_global_rows', 'ansatz_vjp_global_sum')
+# csrc/unitary.cu's global row tiles (one column past what a cluster
+# holds): the widest column they take, by build (a column of 2^24 complex64
+# or 2^23 complex128 amplitudes is 128 MiB, and the vjp holds four of them
+# a restart, U, Ubar and its A and M: 512 MiB; it is the widest that
+# chip_smoke.py holds against the plain version on the card); log2 of the
+# fewest rows of a tile; the bytes of a pass's maps after its layout
+GLOBAL_MAX_QUBITS = {torch.float32: 24, torch.float64: 23}
+GLOBAL_ROWS_MIN = 10
+GLOBAL_MAP_BYTES = 3 * 2 * 32 * 4
 
 
 def _scale(dtype) -> int:
@@ -282,15 +311,73 @@ def max_qubits(whole: bool, dtype=torch.float32) -> int:
     """The most qubits both kernels take for the whole unitary (whole=True)
     or one column in the build of `dtype`: the largest n whose vjp layout
     with no blocks a plan holds (the whole unitary on column tiles of one
-    column: 13 in float32, 12 in float64; one column split by rows over up
-    to 16 blocks: 17 in float32, 16 in float64). A template deep enough
-    may not fit even below that n."""
+    column: 13 in float32, 12 in float64; one column on the global row
+    tiles up to their cap, GLOBAL_MAX_QUBITS: 24 in float32, 23 in
+    float64). A template deep enough may not fit even below that n."""
     n = 2
     while cluster_plan(n + 1, 0, 0, n + 1 if whole else 0, True,
                        dtype) is not None or \
-            (whole and tile_plan(n + 1, 0, 0, n + 1, True, dtype)):
+            (whole and tile_plan(n + 1, 0, 0, n + 1, True, dtype)) or \
+            (not whole and global_plan(n + 1, 0, 0, True, dtype)):
         n += 1
     return n
+
+
+def row_tiles_max(dtype=torch.float32) -> int:
+    """The most qubits of one column that a cluster of the row tiles holds
+    with no blocks (csrc/unitary.cu's row_tiles_max): 17 in float32, 16 in
+    float64."""
+    n = 2
+    while cluster_plan(n + 1, 0, 0, 0, True, dtype) is not None:
+        n += 1
+    return n
+
+
+def global_log(n: int, num_blocks: int, nba: int, vjp: bool,
+               dtype=torch.float32):
+    """log2 of the tiles a restart of one column takes on the global row
+    tiles, as csrc/unitary.cu's global_log picks it in the build of
+    `dtype`: past the row tiles' widest column (row_tiles_max) up to
+    GLOBAL_MAX_QUBITS, where no cluster holds the pass, the fewest tiles
+    whose layout (smem_bytes with 2^j blocks, and the pass's maps) fits a
+    block, tiles of at least 2^GLOBAL_ROWS_MIN rows; None elsewhere."""
+    if not row_tiles_max(dtype) < n <= GLOBAL_MAX_QUBITS[dtype] or \
+            cluster_plan(n, num_blocks, nba, 0, vjp, dtype) is not None:
+        return None
+    for j in range(1, n - GLOBAL_ROWS_MIN + 1):
+        if smem_bytes(n, num_blocks, nba, 0, vjp, 1 << j, dtype) + \
+                GLOBAL_MAP_BYTES <= _SMEM_LIMIT:
+            return j
+    return None
+
+
+def global_plan(n: int, num_blocks: int, nba: int, vjp: bool,
+                dtype=torch.float32):
+    """The launch of a pass of the global row tiles (csrc/unitary.cu's
+    global_layout; cpflow_unitary_global_plan on the card): the row tiles'
+    block (kernels/rows.py:launch) on 2^(n - j) rows with the pass's maps
+    reserved, dict(tiles (a restart), log_rows, warps, segment, ring,
+    threads, smem_bytes, sum_smem_bytes (the vjp's sum kernel)); None where
+    global_log takes no j."""
+    j = global_log(n, num_blocks, nba, vjp, dtype)
+    if j is None:
+        return None
+    got = rk.launch(1 << j, n - j,
+                    smem_bytes(n, num_blocks, nba, 0, vjp, 1 << j, dtype),
+                    dtype, vjp, reserve=GLOBAL_MAP_BYTES)
+    P = 3 * n + nba * num_blocks
+    got['tiles'] = got.pop('cluster')
+    got['sum_smem_bytes'] = (64 + 4 * P) * _scale(dtype) * 4
+    return got
+
+
+def global_work(n: int, num_blocks: int, nba: int, dtype=torch.float32):
+    """The reals of the vjp's workspace a restart on the global row tiles
+    (csrc/unitary.cu's global_work): A and M, 2^n complex each, then each
+    tile's share of every gate's cotangent, 32 reals a gate; None where
+    they do not take the vjp."""
+    j = global_log(n, num_blocks, nba, True, dtype)
+    return None if j is None else (4 << n) + ((n + num_blocks) << j) * 32
 
 
 # qubits the kernels take, per build, for the whole unitary ('unitary')
@@ -344,14 +431,17 @@ def column_restarts(n: int, num_blocks: int, nba: int, log_c: int,
 def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
          dtype=torch.float32):
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
-    in the build of `dtype`, and its sizes: dict(design 'columns', 'rows'
-    or 'tiles', threads_per_restart, restarts_per_block, threads (a block),
-    smem_bytes (a block), blocks_per_restart; for the kernels of the whole
-    unitary on tiles.cuh's warps, the forward pass's column tiles and the
-    vjp on a cluster, also columns_per_warp, warps_per_column and ring, as
-    cpflow_unitary_warp_layout gives them); None if no design holds the
-    shape. The launches on rows.cuh's warps (every other of the row-split
-    design): rows_launch, row_plan."""
+    in the build of `dtype`, and its sizes: dict(design 'columns', 'rows',
+    'tiles' or 'global_rows', threads_per_restart, restarts_per_block,
+    threads (a block), smem_bytes (a block), blocks_per_restart; for the
+    kernels of the whole unitary on tiles.cuh's warps, the forward pass's
+    column tiles and the vjp on a cluster, also columns_per_warp,
+    warps_per_column and ring, as cpflow_unitary_warp_layout gives them;
+    for the global row tiles, one column past what a cluster holds,
+    blocks_per_restart the tiles a pass runs on, with log_rows, warps,
+    segment, ring and sum_smem_bytes, as global_plan gives them); None if
+    no design holds the shape. The launches on rows.cuh's warps (every
+    other of the row-split design): rows_launch, row_plan."""
     r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
         return dict(design='columns', threads_per_restart=column_lanes(n),
@@ -363,6 +453,17 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
         n, num_blocks, nba, log_c, dtype) else cluster_plan(
             n, num_blocks, nba, log_c, vjp, dtype)
     design, extra = 'rows', {}
+    if c is None and not log_c:
+        got = global_plan(n, num_blocks, nba, vjp, dtype)
+        if got is None:
+            return None
+        return dict(design='global_rows',
+                    threads_per_restart=got['threads'] * got['tiles'],
+                    restarts_per_block=1, threads=got['threads'],
+                    smem_bytes=got['smem_bytes'],
+                    blocks_per_restart=got['tiles'],
+                    **{k: got[k] for k in ('log_rows', 'warps', 'segment',
+                                           'ring', 'sum_smem_bytes')})
     if c is None:
         tiles = tile_plan(n, num_blocks, nba, log_c, vjp, dtype)
         if tiles is None:
@@ -397,6 +498,8 @@ def kernel_name(design: str, vjp: bool, n: int, cluster: int = 1,
         return f'ansatz_{kind}_columns_{n}q'
     if design == 'tiles':
         return f'ansatz_{kind}_column_tiles'
+    if design == 'global_rows':
+        return f'ansatz_{kind}_global_rows'
     if column and cluster > 1:
         return f'ansatz_{kind}_row_tiles'
     return 'ansatz_vjp_cluster' if vjp and cluster > 1 else f'ansatz_{kind}'
@@ -444,6 +547,13 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + [i] * 8 + [
             ptr]
         lib.cpflow_unitary_tiles_launch.restype = i
+        lib.cpflow_unitary_global_plan.argtypes = [i] * 4 + [ptr]
+        lib.cpflow_unitary_global_plan.restype = i
+        lib.cpflow_unitary_global_work.argtypes = [i] * 3
+        lib.cpflow_unitary_global_work.restype = ctypes.c_longlong
+        lib.cpflow_unitary_global_launch.argtypes = [ptr] * 7 + [i] * 7 + [
+            ptr] * 4 + [i]
+        lib.cpflow_unitary_global_launch.restype = i
     return lib
 
 
@@ -513,6 +623,37 @@ def _tables(placements: tuple, rotation_gates: str, device: torch.device):
     return plc, letters
 
 
+def check_width(n: int, whole: bool, dtype) -> None:
+    """Raises ValueError where the kernels take no n-qubit shape of the
+    whole unitary (whole=True) or of one column in the build of `dtype`
+    (MAX_QUBITS), with the reason."""
+    limit = MAX_QUBITS[dtype]['unitary' if whole else 'column']
+    if 2 <= n <= limit:
+        return
+    why = ('one column of the state and its cotangent exceeds the shared '
+           'memory of a block, even on column tiles of one column each'
+           if whole else
+           'past the global row tiles\' cap (GLOBAL_MAX_QUBITS): a column '
+           f'of 2^{limit} amplitudes is 128 MiB in {dtype}, the vjp holds '
+           'four of them a restart, and it is the widest column that the '
+           'card\'s smoke run holds against the plain version')
+    raise ValueError(
+        f'the unitary kernels take 2 to {limit} qubits for '
+        f'{"the whole unitary" if whole else "one column"} in {dtype}, got '
+        f'{n}: above that {why}')
+
+
+def check_memory(needs: int, free: int, n: int, B: int, vjp: bool) -> None:
+    """Raises ValueError where a call of the global row tiles needs more
+    bytes than the card has free."""
+    if needs > free:
+        what = "the vjp's workspace" if vjp else 'U'
+        raise ValueError(
+            f'the unitary kernels need {needs} bytes of device memory for '
+            f'{what} of {B} restarts at {n} qubits (one column on the '
+            f'global row tiles), and the card has {free} bytes free')
+
+
 class _Shape:
     """The checked shape of one template, column choice, batch, card and
     kernel: what the kernels take, what they refuse, and the plan's design.
@@ -530,18 +671,7 @@ class _Shape:
         if columns is not None and list(columns) != [0]:
             raise ValueError(f'the unitary kernels build every column or '
                              f'column 0 alone, got columns={columns!r}')
-        limit = MAX_QUBITS[dtype]['unitary' if columns is None else 'column']
-        if not 2 <= n <= limit:
-            raise ValueError(
-                f'the unitary kernels take 2 to {limit} qubits for '
-                f'{"the whole unitary" if columns is None else "one column"} '
-                f'in {dtype}, got {n}: above that ' + (
-                    'one column of the state and its cotangent exceeds the '
-                    'shared memory of a block, even on column tiles of one '
-                    'column each' if columns is None else
-                    f'the state and its cotangent exceed the shared memory '
-                    f'of a cluster of {CLUSTERS[-1]} blocks, the largest '
-                    f'Hopper launches, even split by rows'))
+        check_width(n, columns is None, dtype)
         if entangling_gate_name not in ENTANGLER_CODES or \
                 set(rotation_gates) - set(LETTER_CODES):
             raise ValueError(
@@ -572,7 +702,26 @@ class _Shape:
         self.design = {v: k for k, v in DESIGNS.items()}[code]
         self.vjp = vjp
         self.ops = None  # the row schedule, made by row_ops when first used
-        if not self.cluster and self.design != 'tiles':
+        self.table = None  # the global schedule, made by global_table
+        if self.design == 'global_rows':
+            got = (ctypes.c_int * 8)()
+            with torch.cuda.device(device):
+                err = self.lib.cpflow_unitary_global_plan(
+                    n, self.nb, self.nba, int(vjp), got)
+                self.work = self.lib.cpflow_unitary_global_work(
+                    n, self.nb, self.nba) if vjp else 0
+            if err != 0:
+                raise RuntimeError(f'no global row plan for {n} qubits: '
+                                   f'CUDA error {err}')
+            self.global_plan = dict(zip(
+                ('threads', 'smem_bytes', 'warps', 'segment', 'ring',
+                 'log_rows', 'tiles', 'sum_smem_bytes'), got))
+            real = 8 if dtype == torch.float64 else 4
+            # what a call allocates: U (the forward pass) or the workspace
+            # (the vjp)
+            self.needs = B * (self.work * real if vjp else
+                              2 * real << n)
+        if not self.cluster and self.design not in ('tiles', 'global_rows'):
             most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
                 nbytes = self.lib.cpflow_unitary_smem_bytes(
@@ -590,6 +739,35 @@ class _Shape:
         return kernel_name(design, vjp, self.n, self.cluster,
                            self.log_c == 0) + (
             '_f64' if self.dtype == torch.float64 else '')
+
+    def global_table(self, device):
+        """(table on `device`, offsets, ranges) of the global row tiles'
+        schedule of this pass (kernels/rows.py:global_schedule) for the
+        library's plan's segment and tile; made at the first launch."""
+        if self.table is None:
+            p = self.global_plan
+            low = rk.sector_bits(self.dtype)
+            _, offsets, ranges = rk.global_schedule(
+                self.n, self.placements, p['segment'], p['log_rows'], low,
+                forward=not self.vjp)
+            self.table = (rk.device_global_schedule(
+                self.n, self.placements, p['segment'], p['log_rows'], low,
+                device, forward=not self.vjp),
+                (ctypes.c_int * len(offsets))(*offsets),
+                (ctypes.c_int * (2 * len(ranges)))(
+                    *[j for r in ranges for j in r]), len(ranges))
+        return self.table
+
+    def check_free_memory(self, device):
+        """Raises ValueError, before anything is allocated or launched,
+        where what a call of the global row tiles allocates (U, or the
+        vjp's workspace) exceeds the card's free memory: what
+        torch.cuda.mem_get_info leaves, with what PyTorch's allocator holds
+        unused."""
+        free = torch.cuda.mem_get_info(device)[0] + \
+            torch.cuda.memory_reserved(device) - \
+            torch.cuda.memory_allocated(device)
+        check_memory(self.needs, free, self.n, self.B, self.vjp)
 
     def row_ops(self, device):
         """The row schedule of this pass on rows.cuh's warps in the
@@ -618,7 +796,27 @@ class _Shape:
         ops = self.row_ops(angles.device) if design == 'rows' else None
         stream = torch.cuda.current_stream(angles.device).cuda_stream
         with torch.cuda.device(angles.device):
-            if design == 'tiles':
+            if design == 'global_rows':
+                table, offsets, ranges, passes = self.global_table(
+                    angles.device)
+                work = torch.empty(
+                    self.B * self.work, dtype=self.dtype,
+                    device=angles.device) if vjp else None
+                err = self.lib.cpflow_unitary_global_launch(
+                    angles.data_ptr(), u.data_ptr(),
+                    ubar.data_ptr() if ubar is not None else None,
+                    grad.data_ptr() if grad is not None else None,
+                    work.data_ptr() if vjp else None, plc.data_ptr(),
+                    letters.data_ptr(), self.n, self.nb, len(self.rot),
+                    self.ent, self.nba, self.B, int(vjp), stream,
+                    table.data_ptr(), offsets, ranges, passes)
+                if err == 0:
+                    name = self.kernel(vjp, design)
+                    GLOBAL_PASSES[name] += passes
+                    if vjp:
+                        GLOBAL_PASSES[name.replace('global_rows',
+                                                   'global_sum')] += 1
+            elif design == 'tiles':
                 # the vjp's workspace: the gates, the tiles' shares of the
                 # gates' cotangents, the segments' sums and counts (the
                 # prologue sets what needs setting)
@@ -678,9 +876,9 @@ def _checked(num_qubits, entangling_gate_name, rotation_gates, placements,
     if angles.dim() != 2 or angles.shape[0] != shape.P:
         raise ValueError(f'angles must be (P={shape.P}, B), got '
                          f'{tuple(angles.shape)}')
-    if design not in (None, *DESIGNS):
-        raise ValueError(f'design must be one of {sorted(DESIGNS)}, got '
-                         f'{design!r}')
+    if design not in (None, *CALLER_DESIGNS):
+        raise ValueError(f'design must be one of {sorted(CALLER_DESIGNS)}, '
+                         f'got {design!r}')
     if design == 'rows' and not vjp and shape.design == 'tiles':
         raise ValueError(
             f'the forward pass of the whole unitary at {shape.n} qubits with '
@@ -706,6 +904,8 @@ def ansatz_forward(num_qubits: int, entangling_gate_name: str,
     shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
                      placements, angles, columns, False, design)
     design = design or shape.design
+    if design == 'global_rows':
+        shape.check_free_memory(angles.device)
     u = torch.empty(shape.udims, dtype=shape.cdtype, device=angles.device)
     if shape.B:
         shape.launch(angles, u, None, None, False, design)
@@ -737,6 +937,8 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
             raise ValueError(f'{name} must be {shape.cdtype} {shape.udims} '
                              f'on {angles.device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
+    if design == 'global_rows':
+        shape.check_free_memory(angles.device)
     # the column design copies each restart's slab 16 bytes at a time
     u, grad_u = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else
                  t.contiguous().clone() for t in (u, grad_u))
@@ -747,8 +949,9 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
         VJP_LAUNCHES += 1
         COLUMN_LAUNCHES += design == 'columns'
         VJP_F64_LAUNCHES += shape.dtype == torch.float64
-        VJP_LAUNCHES_BY_CLUSTER[1 if design == 'columns' else 'tiles' if
-                                design == 'tiles' else shape.cluster] += 1
+        VJP_LAUNCHES_BY_CLUSTER[1 if design == 'columns' else design if
+                                design in ('tiles', 'global_rows') else
+                                shape.cluster] += 1
     return grad
 
 

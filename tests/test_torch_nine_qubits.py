@@ -182,12 +182,12 @@ def test_the_limits_are_what_the_plans_hold():
     """The HS test and disc to 13 qubits in float32 and 12 in float64 (one
     column a tile: 128 KB of A and M), the modulo losses to 8 (no tiles),
     a state to 17 and 16 (row tiles); the unitary kernels' whole unitary to
-    13 and 12."""
-    for dtype, whole, state in ((F32, 13, 17), (F64, 12, 16)):
+    13 and 12, one column to 24 and 23 (the global row tiles' cap)."""
+    for dtype, whole, state, column in ((F32, 13, 17, 24), (F64, 12, 16, 23)):
         assert sk.MAX_QUBITS[dtype] == {
             'hst': whole, 'state': state, 'disc': whole,
             'modulo_identity': 8, 'modulo_diagonal': 8}
-        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': state}
+        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': column}
         assert sk.tile_plan(whole + 1, 0, XYZ, 'hst', dtype) is None
         assert sk.smem_bytes(whole + 1, 0, XYZ, 'hst', 2 ** (whole + 1),
                              dtype) > LIMIT

@@ -107,6 +107,20 @@ assert build.digest() and unitary.FORWARD_LAUNCHES == 0
 u = unitary.build_unitary(3, 'cp', 'xyz', anz.placements,
                           torch.zeros(anz.num_angles, 2))
 assert u.shape == (2, 2, 2, 8, 2)
+# an 18-qubit state, past the fused kernel's row tiles (on a card the
+# unitary kernels' global row tiles take it): the plain objective and its
+# gradient, and the route a card would take
+from cpflow_tpu_torch.topology import fill_layers
+wide = np.zeros(2 ** 18, dtype=np.complex64)
+wide[0] = wide[-1] = 2 ** -0.5
+obj18 = make_batched_regloss(18, 'cp', 'xyz', fill_layers(chain_layer(18), 2),
+                             api.LossSpec('state', target=wide))
+a18 = torch.zeros(3 * 18 + 14, 2, requires_grad=True)
+reg18, loss18 = obj18(a18)
+(grad18,) = torch.autograd.grad(reg18.sum(), a18)
+assert loss18.shape == (2,) and bool(torch.isfinite(grad18).all())
+assert sweep.route(obj18, 'cpu') == 'plain'
+assert sweep.route(obj18, 'cuda') == 'unitary'
 fn = lambda m: 1 - torch.abs((m * torch.as_tensor(u_ccz3).conj()).sum()) ** 2 / 64
 custom = api.Synthesize(chain_layer(3), unitary_loss_func=fn, device='cpu')
 custom.static(opts, save_results=False, verbose=False)

@@ -221,12 +221,13 @@ def test_max_qubits_by_dtype():
     to 13 in float32 and 12 in float64 for the HS test and disc; a state's
     one column to 13 qubits in float32 and to 12 in float64, whose every
     amplitude takes twice the bytes, on one block, and split by rows over
-    16 blocks to 17 and 16."""
-    for dtype, state, whole in ((F32, 17, 13), (F64, 16, 12)):
+    16 blocks to 17 and 16; the unitary kernels take one column further,
+    on the global row tiles, to 24 and 23."""
+    for dtype, state, whole, column in ((F32, 17, 13, 24), (F64, 16, 12, 23)):
         assert sk.MAX_QUBITS[dtype] == {
             'hst': whole, 'state': state, 'disc': whole,
             'modulo_identity': 8, 'modulo_diagonal': 8}
-        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': state}
+        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': column}
     assert sk.smem_bytes(14, 0, 7, 'state') > LIMIT
     assert sk.smem_bytes(13, 0, 7, 'state', dtype=F64) > LIMIT
     assert sk.smem_bytes(18, 0, 7, 'state', 16) > LIMIT
@@ -252,7 +253,8 @@ def test_sweep_takes_a_13_qubit_state_in_float32():
 @pytest.mark.parametrize('n,kind,dtype,reason', [
     (18, 'state', F32, r"2 to 17 qubits for a 'state' loss in "
      r"torch.float32, got 18: .*a cluster of 16 blocks, the largest Hopper "
-     r"launches, even split by rows$"),
+     r"launches, even split by rows; sweep\(\) takes it to the unitary "
+     r"kernels, whose global row tiles hold one column to 24 qubits$"),
     (17, 'state', F64, r"2 to 16 qubits for a 'state' loss in "
      r"torch.float64, got 17: .*even split by rows \(float64 doubles their "
      r"bytes\)"),
@@ -275,14 +277,17 @@ def test_sweep_refuses_beyond_its_plans(n, kind, dtype, reason):
 
 
 @pytest.mark.parametrize('n,columns,dtype,reason', [
-    (18, [0], F32, r'2 to 17 qubits for one column in torch.float32, got '
-     r'18: .*a cluster of 16 blocks, .*even split by rows'),
-    (17, [0], F64, r'2 to 16 qubits for one column in torch.float64, got '
-     r'17'),
+    (25, [0], F32, r'2 to 24 qubits for one column in torch.float32, got '
+     r'25: above that past the global row tiles\' cap'),
+    (24, [0], F64, r'2 to 23 qubits for one column in torch.float64, got '
+     r'24'),
     (14, None, F32, r'2 to 13 qubits for the whole unitary in torch.float32, '
      r'got 14: .*even on column tiles of one column each'),
     (13, None, F64, r'2 to 12 qubits for the whole unitary in torch.float64, '
      r'got 13'),
+# (the first two ids are the names these cases had when they refused 18
+# and 17 qubits; the names stay, and the widths they refuse now are 25 and
+# 24, one past the global row tiles' cap)
 ], ids=['column18', 'column17_float64', 'whole14', 'whole13_float64'])
 def test_unitary_kernels_refuse_beyond_their_plans(monkeypatch, n, columns,
                                                    dtype, reason):

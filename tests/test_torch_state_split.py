@@ -214,10 +214,11 @@ def test_max_qubits_of_a_state():
     """What the plans hold with no blocks: a state's one column to 17
     qubits in float32 and 16 in float64, split by rows over 16 blocks; the
     whole unitary to 13 and 12 on the column tiles (the HS test and disc),
-    the modulo losses to 8 as before."""
-    for dtype, state, whole in ((F32, 17, 13), (F64, 16, 12)):
+    the modulo losses to 8 as before; the unitary kernels take one column
+    further, on the global row tiles, to 24 and 23."""
+    for dtype, state, whole, column in ((F32, 17, 13, 24), (F64, 16, 12, 23)):
         assert sk.MAX_QUBITS[dtype]['state'] == state
-        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': state}
+        assert uk.MAX_QUBITS[dtype] == {'unitary': whole, 'column': column}
         assert sk.MAX_QUBITS[dtype]['hst'] == whole
         assert sk.MAX_QUBITS[dtype]['modulo_diagonal'] == 8
 

@@ -108,12 +108,13 @@ def test_a_layout_too_large_takes_one_restart_then_the_row_split():
 
 
 def test_the_kernel_names_follow_the_library_order():
-    assert len(uk.KERNELS) == 19
+    assert len(uk.KERNELS) == 22
     assert uk.KERNELS[13:16] == ('ansatz_forward_column_tiles',
                                  'ansatz_vjp_column_tiles',
                                  'ansatz_vjp_tile_sum')
-    assert uk.KERNELS[16:] == ('ansatz_forward_row_tiles',
-                               'ansatz_vjp_row_tiles', 'ansatz_vjp_tile_gates')
+    assert uk.KERNELS[16:19] == ('ansatz_forward_row_tiles',
+                                 'ansatz_vjp_row_tiles',
+                                 'ansatz_vjp_tile_gates')
     assert uk.kernel_name('rows', False, 15, 2, column=True) == \
         'ansatz_forward_row_tiles'
     assert uk.kernel_name('rows', True, 13, 1, column=True) == 'ansatz_vjp'
@@ -125,7 +126,11 @@ def test_the_kernel_names_follow_the_library_order():
     assert uk.kernel_name('rows', True, 4, 1) == 'ansatz_vjp'
     assert uk.kernel_name('rows', False, 8, 4) == 'ansatz_forward'
     assert uk.kernel_name('tiles', True, 9) == 'ansatz_vjp_column_tiles'
-    assert uk.DESIGNS == {'rows': 0, 'columns': 1, 'tiles': 2}
+    assert uk.DESIGNS == {'rows': 0, 'columns': 1, 'tiles': 2,
+                          'global_rows': 3}
+    assert uk.KERNELS[19:] == ('ansatz_forward_global_rows',
+                               'ansatz_vjp_global_rows',
+                               'ansatz_vjp_global_sum')
 
 
 def _column_sincos_constants():

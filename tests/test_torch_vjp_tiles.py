@@ -92,8 +92,8 @@ def test_vjp_tile_plan_keeps_its_tiles_and_the_kernels_fit(n, dtype):
             assert tk.vjp_workspace(n, k, nba, tiles, dtype) * real % 16 == 0
             taken += 1
     assert (taken > 0) == (n <= (13 if dtype == F32 else 12))
-    assert uk.MAX_QUBITS == {F32: {'unitary': 13, 'column': 17},
-                             F64: {'unitary': 12, 'column': 16}}
+    assert uk.MAX_QUBITS == {F32: {'unitary': 13, 'column': 24},
+                             F64: {'unitary': 12, 'column': 23}}
 
 
 # NINE_UNITARY's vjp rows: (n, k, dtype, columns a tile, tiles, threads,

@@ -27,12 +27,13 @@ every row of chip_smoke.py's SPLIT_UNITARY and at the paths' shapes
 (ROW_PATHS: the GHZ-15 and float64 GHZ-14 L1 runs of phase 20 (c)), in
 its precision (each source is built in float and in double), the builds
 in turns (A B ... B A), the vjp (vjp_rows_kernel) and the forward pass
-beside it (the row tiles' forward_rows_kernel, or forward_kernel where the
-forward pass fits one block) alone on the card, the mean over 20 launches
-of each by torch.profiler (chip_smoke.device_ms). Each launch hands the
-kernel this tree's row schedule (kernels/rows.py) for the segment of this
-tree's plan of its pass, which a source whose kernel does not run the
-schedule never reads. It prints one row per shape: each build's ms in
+beside it (the row tiles' forward_rows_kernel, or forward_block_kernel
+where the forward pass fits one block) alone on the card, the mean over 20
+launches of each by torch.profiler (chip_smoke.device_ms). Each launch
+hands the kernel this tree's row schedule (kernels/rows.py) for the
+segment of this tree's plan of its pass (kernels/unitary.py:rows_launch,
+one block's too), which a source whose kernel does not run the schedule
+never reads. It prints one row per shape: each build's ms in
 turns, the bounds of both passes (chip_smoke.unitary_bound_ms) and their
 shares of the fastest, and the largest difference of each build's U and
 gradient from the first build's.
@@ -164,9 +165,10 @@ def rows_main(sources) -> int:
         plc = torch.tensor(pl, dtype=torch.int32, device='cuda')
         letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
                                dtype=torch.int32, device='cuda')
-        ops = {}  # each pass's schedule, for its plan's segment
+        ops = {}  # each pass's schedule, for its plan's segment (one
+        # block's too: the forward pass at 14 qubits, 13 in float64)
         for vjp in (False, True):
-            plan = uk.row_plan(n, k, nba, dtype, vjp)
+            plan = uk.rows_launch(n, k, nba, 0, vjp, dtype)
             ops[vjp] = None if plan is None else rk.device_schedule(
                 n, pl, plan['segment'], torch.device('cuda'), not vjp)
         angles = c.uniform_inits(3 * n + nba * k, B, 20, 'cuda').to(dtype)
