@@ -297,15 +297,17 @@ with CUDA, and never imports JAX. Phases:
      phase 7's 100 random restarts with cp_penalty_L1, 3 CZ at host loss
      <= 1e-6, sampling through the pair and never the plain builder;
  23. one column past a cluster, on the global row tiles
-     (forward_global_kernel, vjp_global_kernel and the vjp's sum,
-     vjp_global_sum_kernel; kernel lines ansatz_forward_global_rows and
+     (global_gates_kernel, the prologue of every call, forward_global_kernel,
+     vjp_global_kernel and the vjp's sum, vjp_global_sum_kernel; kernel
+     lines ansatz_global_gates, ansatz_forward_global_rows and
      ansatz_vjp_global_rows): (a) the unitary kernels at GLOBAL_UNITARY's
      rows (the GHZ ladder's template at 18 and 20 qubits in float32, 17
      and 19 in float64, a random template at 20 and 19, and the cap's
      width, 24 and 23, shallow) against the plain builder under autograd
      (the float64 arbiter where plain float32 drifts), each row's passes
-     printed, and two launches of each pass on the same inputs giving the
-     same bits; (b) there, each kernel alone on the card beside its bound,
+     printed at one and two blocks an SM with the wrapper's choice, the
+     prologue's gates against the plain builders of the gates, and two
+     launches of each pass on the same inputs giving the same bits; (b) there, each kernel alone on the card beside its bound,
      with registers and local bytes; (c) GHZ-20 in float32 and GHZ-18 in
      float64 through Synthesize.static from a warm start, sampling and
      verification through the global row tiles, never the plain builder,
@@ -325,7 +327,8 @@ sweep_column_tiles, ansatz_forward_column_tiles, ansatz_vjp_column_tiles
 and their float64 builds; the pair on one block, ansatz_forward_one_block
 and ansatz_vjp_one_block, and their float64 builds; the global row
 tiles, ansatz_forward_global_rows and ansatz_vjp_global_rows, and their
-float64 builds) and, last, the JSON
+prologue ansatz_global_gates, each with its float64 build) and, last, the
+JSON
 device line; it exits non-zero if any phase fails or there is no card. A phase after the
 build and the comparison (phases 2-3) that fails is reported and the
 next one runs; the script then fails at the end, with no result lines.
@@ -1371,46 +1374,53 @@ def unitary_shapes():
     ]
 
 
-def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True)):
+def unitary_plan(n, nb, nba, log_c, name, dtype=None, passes=(False, True),
+                 placements=None):
     """(forward, vjp) plans of the unitary kernels (kernels/unitary.py:plan:
     design, threads a restart, restarts a block, shared bytes a block, blocks
     a restart), each held against the library's own (cpflow_unitary_design,
     and cpflow_unitary_column_restarts and _column_smem_bytes for the column
     design, cpflow_unitary_cluster and _smem_bytes for the row-split one,
-    cpflow_unitary_warp_layout for the kernels on tiles.cuh's warps),
-    in the build of `dtype` (default float32); passes: the vjp flags of
-    the plans to give, both by default."""
+    cpflow_unitary_warp_layout for the kernels on tiles.cuh's warps,
+    cpflow_unitary_global_plan and _global_work at the plan's blocks an SM
+    for the global row tiles), in the build of `dtype` (default float32);
+    passes: the vjp flags of the plans to give, both by default;
+    placements: the template's pairs, which decide the global row tiles'
+    blocks an SM (kernels/unitary.py:global_per_sm; without them, two
+    where a tile fits so)."""
     import torch
     from cpflow_tpu_torch.kernels import unitary as uk
     dtype = dtype or torch.float32
     lib = uk.load_library(dtype)
     out = []
     for vjp in passes:
-        mine = uk.plan(n, nb, nba, log_c, vjp, dtype)
+        mine = uk.plan(n, nb, nba, log_c, vjp, dtype, placements)
         what = 'vjp' if vjp else 'forward pass'
         design = lib.cpflow_unitary_design(n, nb, nba, log_c, int(vjp))
         check(mine is not None and uk.DESIGNS[mine['design']] == design,
               f'{name}: the plan says {mine} for the {what}, the kernels '
               f'design {design}')
         if mine['design'] == 'global_rows':
-            got = (ctypes.c_int * 8)()
+            got = (ctypes.c_int * 9)()
+            per_sm = mine['per_sm']
             check(lib.cpflow_unitary_global_plan(n, nb, nba, int(vjp),
-                                                 got) == 0,
+                                                 per_sm, got) == 0,
                   f'{name}: no global row plan for the {what}')
             want = [mine[key] for key in (
                 'threads', 'smem_bytes', 'warps', 'segment', 'ring',
-                'log_rows', 'blocks_per_restart', 'sum_smem_bytes')]
-            work = uk.global_work(n, nb, nba, dtype) if vjp else None
-            check(list(got) == want and (
-                      not vjp or
-                      lib.cpflow_unitary_global_work(n, nb, nba) == work) and
+                'log_rows', 'blocks_per_restart', 'sum_smem_bytes',
+                'gates_smem_bytes')]
+            work = uk.global_work(n, nb, nba, vjp, dtype, per_sm)
+            card_work = lib.cpflow_unitary_global_work(n, nb, nba, int(vjp),
+                                                       per_sm)
+            check(list(got) == want and card_work == work and
                   lib.cpflow_unitary_cluster(n, nb, nba, log_c,
                                              int(vjp)) == 0,
                   f'{name}: the plan says (threads, bytes, warps, segment, '
-                  f'ring, log2 rows, tiles, sum bytes) {want} and {work} '
-                  f'reals of workspace a restart for the {what}, the '
-                  f'kernels {list(got)} and '
-                  f'{lib.cpflow_unitary_global_work(n, nb, nba)}')
+                  f'ring, log2 rows, tiles, sum bytes, prologue bytes) '
+                  f'{want} and {work} reals of workspace a restart for the '
+                  f'{what} at {per_sm} blocks an SM, the kernels '
+                  f'{list(got)} and {card_work}')
         elif mine['design'] == 'columns':
             r = lib.cpflow_unitary_column_restarts(n, nb, nba, log_c,
                                                    int(vjp))
@@ -1502,7 +1512,8 @@ def plan_text(p):
         return (f'global row tiles, {p["blocks_per_restart"]} tiles of '
                 f'2^{p["log_rows"]} rows a restart, blocks of {p["threads"]} '
                 f'threads (segments of 2^{p["segment"]} rows, a ring of '
-                f'{p["ring"]}), {p["smem_bytes"]} bytes a block')
+                f'{p["ring"]}), {p["smem_bytes"]} bytes a block, '
+                f'{p["per_sm"]} an SM')
     return (f'rows, {p["blocks_per_restart"]} block(s) of {p["threads"]} '
             f'threads a restart, {p["smem_bytes"]} bytes a block')
 
@@ -1561,7 +1572,8 @@ TRACE_NAMES = {('rows', False): 'forward_block_kernel',
                ('tiles', False): 'forward_tiles_kernel',
                ('tiles', True): 'vjp_tiles_kernel',
                ('global_rows', False): 'forward_global_kernel',
-               ('global_rows', True): 'vjp_global_kernel'}
+               ('global_rows', True): 'vjp_global_kernel',
+               ('global_gates', False): 'global_gates_kernel'}
 # the kernels (KERNELS names) whose redesign left no local memory, in both
 # builds: the row tiles' and the column tiles' vjp (with its prologue and
 # sum), the row tiles' forward pass, the vjp on a cluster, the column
@@ -1585,11 +1597,13 @@ def trace_key(design, vjp, blocks=1, column=False):
 TILE_VJP_PARTS = (('ansatz_vjp_tile_gates', 'vjp_tile_gates_kernel'),
                   ('ansatz_vjp_column_tiles', 'vjp_tiles_kernel'),
                   ('ansatz_vjp_tile_sum', 'vjp_tile_sum_kernel'))
-# the global row tiles' kernels, the same way: the forward pass's passes,
-# the vjp's passes and its sum
+# the global row tiles' kernels, the same way: the prologue a call (the
+# gates), then the forward pass's passes, or the vjp's passes and its sum
 GLOBAL_PARTS = {
-    False: (('ansatz_forward_global_rows', 'forward_global_kernel'),),
-    True: (('ansatz_vjp_global_rows', 'vjp_global_kernel'),
+    False: (('ansatz_global_gates', 'global_gates_kernel'),
+            ('ansatz_forward_global_rows', 'forward_global_kernel')),
+    True: (('ansatz_global_gates', 'global_gates_kernel'),
+           ('ansatz_vjp_global_rows', 'vjp_global_kernel'),
            ('ansatz_vjp_global_sum', 'vjp_global_sum_kernel'))}
 
 
@@ -3728,7 +3742,8 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
     import torch
     from cpflow_tpu_torch.api import Ansatz
     from cpflow_tpu_torch.kernels import unitary as uk
-    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
     from cpflow_tpu_torch.sim.batched import build_unitary_batched
     errs, rows = {}, {}
     gen = torch.Generator(device='cuda').manual_seed(19)
@@ -3742,8 +3757,10 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
         nba = num_block_angles('cp', rot)
         name = f'{n}q {layer[0] if layer else "chain"} k={k} {rot!r} B={B} ' \
             f'{dname}' + (', column 0' if cols else '')
-        plans = dict(zip(passes, unitary_plan(n, k, nba, 0 if cols else n,
-                                              name, dtype, passes)))
+        plans = dict(zip(passes, unitary_plan(
+            n, k, nba, 0 if cols else n, name, dtype, passes,
+            tuple(tuple(int(q) for q in p)
+                  for p in all_placements(anz.placements)))))
         last = 'vjp' if passes[-1] else 'forward pass'
         check(plans[passes[-1]]['blocks_per_restart'] == blocks,
               f'{name}: the {last} on '
@@ -3868,13 +3885,12 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                     f'the profiler kept {kept} of 20 calls\' in three '
                     f'traces: the mean a launch kept times the launches a '
                     f'call')
-                if vjp:
-                    parts = {part: dict(
-                        kernel=kernel, launches_a_call=want[kernel],
-                        device_ms=got[kernel],
-                        registers=regs[part]['registers'],
-                        local_bytes=regs[part]['local_bytes'])
-                        for part, kernel in pairs}
+                parts = {part: dict(
+                    kernel=kernel, launches_a_call=want[kernel],
+                    device_ms=got[kernel],
+                    registers=regs[part]['registers'],
+                    local_bytes=regs[part]['local_bytes'])
+                    for part, kernel in pairs}
             elif columns and vjp:  # the prologue, the tiles' walk, the sum:
                 # ms a launch, each once a call
                 events = device_kernels(call)
@@ -3912,8 +3928,10 @@ def phase_sixteen_unitary(card, shapes=None, label='phase 19 (a)'):
                                           c, 'cuda', dtype, kname) \
                 if in_cluster else uk.occupancy(
                     kname, plan['threads'], plan['smem_bytes'], 'cuda', dtype)
-            check(resident >= 1, f'{name}: the card holds no {kname} of '
-                  f'{c} blocks')
+            check(resident >= (plan['per_sm'] if wide else 1),
+                  f'{name}: the card holds {resident} {kname} of {c} blocks'
+                  + (f' an SM, not the plan\'s {plan["per_sm"]}' if wide
+                     else ''))
             b_ms, b_by = unitary_bound_ms(
                 work['vjp' if vjp else 'forward'],
                 work['vjp_bytes' if vjp else 'forward_bytes'], B, dtype=dtype)
@@ -4307,9 +4325,12 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
             check(by_pass.get(kernels[True].replace('global_rows',
                                                     'global_sum')) ==
                   unitary[1] and all(by_pass.get(kernels[v], 0) >= unitary[v]
-                                     for v in (False, True)),
+                                     for v in (False, True)) and
+                  by_pass.get(kernels[True].replace('vjp_global_rows',
+                                                    'global_gates')) ==
+                  unitary[0] + unitary[1],
                   f'GHZ-{n}: kernel launches {by_pass}, not a pass or more '
-                  f'a call and one sum a vjp call')
+                  f'a call, one sum a vjp call and one prologue a call')
     if passes is not None:
         passes.update(by_pass)
     if penalty:
@@ -4542,8 +4563,15 @@ def refuse_beyond_plans():
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.kernels import unitary as uk
     from cpflow_tpu_torch.topology import chain_layer, fill_layers
+    from cpflow_tpu_torch.sim.ansatz_kernel import all_placements
     F64 = torch.float64
     before = (sk.LAUNCHES, uk.FORWARD_LAUNCHES, uk.VJP_LAUNCHES)
+    # what a 24q forward call of 1024 restarts allocates: U and the
+    # workspace of its plan (the gates, their cos and sin), float32
+    pairs = tuple(map(tuple, all_placements(fill_layers(chain_layer(24), 2))))
+    needs = 1024 * ((8 << 24) + 4 * uk.global_work(
+        24, 2, 7, False, torch.float32,
+        uk.global_per_sm(24, pairs, 7, False, torch.float32)))
     refusals = [
         ('25q state, sweep', 'one column to 24 qubits, and past that cap',
          lambda: sk.sweep(
@@ -4565,7 +4593,8 @@ def refuse_beyond_plans():
                                   uniform_inits(3 * 24 + 14, 2, 0, 'cuda'),
                                   columns=[0], dtype=F64)),
         ('24q column of 1024 restarts, unitary kernels',
-         'need 137438953472 bytes of device memory for U of 1024 restarts',
+         f'need {needs} bytes of device memory for U and its workspace of '
+         f'1024 restarts',
          lambda: uk.ansatz_forward(24, 'cp', 'xyz',
                                    fill_layers(chain_layer(24), 2),
                                    uniform_inits(3 * 24 + 14, 1024, 0,
@@ -5206,24 +5235,26 @@ def phase_block(card):
 # ladder at 20 qubits in float32 and 18 in float64, B = 4, the noisy rows
 # that path samples), and the edge, the cap's width (24 and 23), shallow
 # for the plain version's autograd
-GLOBAL_UNITARY = [(18, 17, 'xyz', 4, 'float32', (False, True), [0], 32),
-                  (20, 19, 'xyz', 4, 'float32', (False, True), [0], 128),
+GLOBAL_UNITARY = [(18, 17, 'xyz', 4, 'float32', (False, True), [0], 64),
+                  (20, 19, 'xyz', 4, 'float32', (False, True), [0], 256),
                   (20, 40, 'xyz', 2, 'float32', (False, True), [0], 128,
                    'random'),
-                  (17, 16, 'xyz', 4, 'float64', (False, True), [0], 32),
-                  (18, 17, 'xyz', 4, 'float64', (False, True), [0], 64),
-                  (19, 18, 'xyz', 2, 'float64', (False, True), [0], 128),
-                  (19, 38, 'xyz', 2, 'float64', (False, True), [0], 128,
+                  (17, 16, 'xyz', 4, 'float64', (False, True), [0], 64),
+                  (18, 17, 'xyz', 4, 'float64', (False, True), [0], 128),
+                  (19, 18, 'xyz', 2, 'float64', (False, True), [0], 256),
+                  (19, 38, 'xyz', 2, 'float64', (False, True), [0], 256,
                    'random'),
-                  (24, 2, 'xyz', 2, 'float32', (False, True), [0], 2048),
-                  (23, 2, 'xyz', 2, 'float64', (False, True), [0], 2048)]
+                  (24, 2, 'xyz', 2, 'float32', (False, True), [0], 4096),
+                  (23, 2, 'xyz', 2, 'float64', (False, True), [0], 4096)]
 # the kernel lines of the global row tiles (the vjp's with its sum)
 GLOBAL_LINES = ('ansatz_forward_global_rows', 'ansatz_vjp_global_rows')
 
 
 def global_passes(shapes):
     """Prints the passes of each row's global schedules (forward pass,
-    vjp) on the library's plans."""
+    vjp) at both choices of blocks an SM (one, two on tiles half as
+    large), with the one the wrapper takes (kernels/unitary.py:
+    global_per_sm)."""
     from cpflow_tpu_torch.kernels import rows as rk
     from cpflow_tpu_torch.kernels import unitary as uk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
@@ -5231,18 +5262,111 @@ def global_passes(shapes):
     import torch
     for n, k, rot, _, dname, _, _, _, *layer in shapes:
         dtype = getattr(torch, dname)
-        placements = tuple(tuple(p) for p in all_placements(
+        nba = num_block_angles('cp', rot)
+        placements = tuple(tuple(int(q) for q in p) for p in all_placements(
             shape_layers(n, k, layer)))
         got = {}
         for vjp in (False, True):
-            p = uk.global_plan(n, k, num_block_angles('cp', rot), vjp, dtype)
-            if p is not None:
-                _, offsets, _ = rk.global_schedule(
-                    n, placements, p['segment'], p['log_rows'],
-                    rk.sector_bits(dtype), not vjp)
-                got['vjp' if vjp else 'forward'] = len(offsets) - 1
+            what = 'vjp' if vjp else 'forward'
+            for per_sm in (1, 2):
+                p = uk.global_plan(n, k, nba, vjp, dtype, per_sm)
+                if p is not None:
+                    _, offsets, _ = rk.global_schedule(
+                        n, placements, p['segment'], p['log_rows'],
+                        rk.sector_bits(dtype))
+                    got[f'{what}, {per_sm} an SM (2^{p["log_rows"]} rows)'] \
+                        = len(offsets) - 1
+            chosen = uk.global_per_sm(n, placements, nba, vjp, dtype)
+            if chosen:
+                got[f'{what} takes'] = f'{chosen} an SM'
         print(f'phase 23 (a): {n}q {layer[0] if layer else "chain"} k={k} '
               f'{dname}: passes {got}', flush=True)
+
+
+def global_gates_rows(card, shapes):
+    """Phase 23 (a), the global row tiles' prologue alone
+    (uk.global_gates, global_gates_kernel) at each of `shapes` whose
+    forward pass runs on the global row tiles: every gate's matrix of every
+    restart against the plain builders (sim/adjoint.py's
+    surface_matrix_and_grads, block_matrix_and_grads) on the same angles,
+    within 1e-6 in float32 (a few products of unit-size rotations) and
+    1e-13 in float64; timed alone (traced_calls, a launch a call) and as
+    a wrapper call, beside the plain builders and its bound (the gates'
+    operations of utils/profiling.py:unitary_work; the angles read, the
+    gates and the cos and sin written). Returns (largest errors by kernel
+    line name, timing rows by kernel line name)."""
+    import torch
+    from cpflow_tpu_torch.api import Ansatz
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim import adjoint
+    from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
+    from cpflow_tpu_torch.utils.profiling import PEAK_BYTES, precision
+    errs, rows = {}, {}
+    for n, k, rot, B, dname, _, _, _, *layer in shapes:
+        dtype = getattr(torch, dname)
+        nba = num_block_angles('cp', rot)
+        if uk.plan(n, k, nba, 0, False, dtype)['design'] != 'global_rows':
+            continue
+        line = 'ansatz_global_gates' + ('_f64' if dtype == torch.float64
+                                        else '')
+        anz = Ansatz(n, 'cp', shape_layers(n, k, layer), rot)
+        name = f'{n}q {layer[0] if layer else "chain"} k={k} {rot!r} B={B} ' \
+            f'{dname}'
+        angles = uniform_inits(anz.num_angles, B, 23, 'cuda').to(dtype)
+        before = uk.GLOBAL_PASSES[line]
+
+        def call():
+            return uk.global_gates(n, 'cp', rot, anz.placements, angles)
+
+        got = call()
+        torch.cuda.synchronize()
+        check(uk.GLOBAL_PASSES[line] == before + 1,
+              f'{name}: the prologue did not run')
+
+        def plain():
+            out = [adjoint.surface_matrix_and_grads(
+                angles[3 * q:3 * q + 3])[0].reshape(4, B) for q in range(n)]
+            out += [adjoint.block_matrix_and_grads(
+                'cp', rot, angles[3 * n + nba * b:3 * n + nba * (b + 1)])[0]
+                .reshape(16, B) for b in range(k)]
+            return out
+
+        want = plain()
+        err = max((got[:, j, :w.shape[0]] - w.T).abs().max().item()
+                  for j, w in enumerate(want))
+        tol = 1e-13 if dtype == torch.float64 else 1e-6
+        check(err <= tol, f'{name}: the prologue\'s gates off the plain '
+              f'builders by {err:.3e} (tol {tol})')
+        errs[line] = max(errs.get(line, 0.0), err)
+        alone, kept, whole = traced_calls(call, {'global_gates_kernel': 1})
+        ms = alone['global_gates_kernel']
+        check(ms is not None, f'{name}: the profiler kept no prologue in '
+              f'three traces')
+        _, call_ms = timed(call)
+        _, plain_ms = timed(plain)
+        work = unitary_work(n, k, rot, log_c=0, dtype=dtype)
+        real, peak = precision(dtype)
+        G, P = n + k, work['P']
+        t_ops = work['gates'] * B / peak * 1e3
+        t_bytes = real * (P + 32 * G + 2 * P) * B / PEAK_BYTES * 1e3
+        bound, by = (t_ops, 'operations') if t_ops >= t_bytes else \
+            (t_bytes, 'bytes')
+        regs = uk.registers('cuda', dtype)['ansatz_global_gates']
+        print(f'phase 23 (a): {line} {name} on {card}: gates off the plain '
+              f'builders by {err:.3e} (tol {tol}); kernel alone (profiler) '
+              f'{ms:.4f} ms (' + ('all kept in 20 calls' if whole else
+                                  f'kept {kept} of 20') +
+              f'), one wrapper call (CUDA events) {call_ms:.4f} ms, plain '
+              f'{plain_ms:.3f} ms; bound {bound:.5f} ms by {by}, share '
+              f'{bound / ms:.2%}; {regs["registers"]} registers, '
+              f'{regs["local_bytes"]} local bytes', flush=True)
+        check(regs['local_bytes'] == 0, f'{name}: the prologue uses local '
+              f'memory: {regs}')
+        rows.setdefault(line, []).append(dict(
+            shape=name, ms=call_ms, device_ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, registers=regs['registers'],
+            local_bytes=regs['local_bytes']))
+    return errs, rows
 
 
 def phase_wide(card):
@@ -5263,6 +5387,9 @@ def phase_wide(card):
     start = time.perf_counter()
     global_passes(GLOBAL_UNITARY)
     errs, rows = phase_sixteen_unitary(card, GLOBAL_UNITARY, 'phase 23 (a)')
+    gate_errs, gate_rows = global_gates_rows(card, GLOBAL_UNITARY)
+    errs.update(gate_errs)
+    rows.update(gate_rows)
     phase_split_vjp_bits(GLOBAL_UNITARY, 'phase 23 (a)')
     print(f'phase 23 (a), (b): {time.perf_counter() - start:.1f} s',
           flush=True)
@@ -5558,7 +5685,8 @@ def main() -> int:
             'registers': rows[0]['registers'],
             'local_bytes': rows[0]['local_bytes'], 'shapes': rows})
     # phase 23: a line for each build of the global row tiles' pair (the
-    # vjp's with its sum kernel in `parts`), its numbers from its row at
+    # vjp's with its sum kernel, and either with the prologue, in `parts`;
+    # `launches` of its own kernels), its numbers from its row at
     # phase 23 (c)'s shape (the GHZ ladder's template at 20 qubits, 18 in
     # float64) and its launches from phase 23 (c)'s paths: `launches` the
     # line's kernel launches (uk.GLOBAL_PASSES: a pass each, the vjp's sum
@@ -5574,8 +5702,10 @@ def main() -> int:
         f64 = name.endswith('_f64')
         row = next(r for r in rows if r['shape'].startswith(
             '18q chain' if f64 else '20q chain'))
+        # the prologue's launches are its own line's (below)
         by_kernel = {kernel: passes23[part + '_f64' * f64]
-                     for part, kernel in GLOBAL_PARTS['vjp' in name]}
+                     for part, kernel in GLOBAL_PARTS['vjp' in name]
+                     if part != 'ansatz_global_gates'}
         kernels.append({
             'name': name, 'route': 'cuda',
             'kernel': TRACE_NAMES[('global_rows', 'vjp' in name)],
@@ -5597,6 +5727,28 @@ def main() -> int:
             'local_bytes': row['local_bytes'],
             **({'parts': row['parts']} if 'parts' in row else {}),
             'shapes': rows})
+    # phase 23: the global row tiles' prologue (a line for each build), its
+    # numbers from its row at phase 23 (c)'s shape, alone on the card
+    # against the plain builders of the gates, its launches (one a call of
+    # either pass) from phase 23 (c)'s paths
+    for suffix in ('', '_f64'):
+        name = 'ansatz_global_gates' + suffix
+        rows = rows23[name]
+        row = next(r for r in rows if r['shape'].startswith(
+            '18q chain' if suffix else '20q chain'))
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'kernel': TRACE_NAMES[('global_gates', False)],
+            'source': 'cpflow_tpu_torch/csrc/unitary.cu',
+            **({'build': '-DCPFLOW_DOUBLE'} if suffix else {}),
+            'replaces': 'cpflow_tpu/sim/batched.py:255',
+            'launches': sum(passes23[name].values()),
+            'launches_by_path': passes23[name],
+            'max_abs_err': errs23[name], 'ms': row['ms'],
+            'device_ms': row['device_ms'], 'plain_ms': row['plain_ms'],
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'library_ms': None, 'registers': row['registers'],
+            'local_bytes': row['local_bytes'], 'shapes': rows})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

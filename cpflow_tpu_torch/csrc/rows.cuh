@@ -365,103 +365,239 @@ __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
 // the tile. The block loads its tile under that permutation and stores it
 // under the one the swaps leave, so every address is an amplitude's own
 // index and the column is in natural order between passes, whatever
-// permutation a pass runs in. The sector bits (bit 0, and bit 1 in float)
-// lie in every pass's tile, and a block copies its tile in increasing
-// address order, so that a warp reads and writes whole 32-byte sectors.
+// permutation a pass runs in. Both permutations hold the tile's lowest
+// address bits on the lowest row bits, in order (at least bit 0, the
+// sector bit), so a thread copies 16 bytes, two neighbouring amplitudes in
+// float, in increasing address order: a warp reads and writes whole 32-byte
+// sectors, and eight threads' rows fall on distinct banks. The rows and
+// addresses come from the pass's tables, made on the host
+// (kernels/rows.py:global_maps): row(i) = T[i & 127] | T[128 + (i >> 7)]
+// for the tile's i-th amplitude in address order, its address bits the
+// same way, and the tile's base address from its index t.
 
-// A pass's two permutations, at its start (0) and its end (1): row bit ->
-// address bit, and the tile's address bits in increasing order with the
-// row bit of each.
-struct GlobalMaps {
-  int held[2][32];
-  int bit[2][32];
-  int row[2][32];
-};
+constexpr int kGlobalMapInts = 1536;  // a pass's tables in device memory
+constexpr int kGlobalMapBytes = 4096;  // the 8 of them a block holds: rows,
+                                       // addresses, for each end of a pass
 
-// The pass's maps from its table (nops int4, the n header rows first),
-// formed by thread 0. Ends with a block barrier.
-__device__ __forceinline__ void global_maps(const int4* ops, int nops, int n,
-                                            int log_rows, GlobalMaps* m) {
-  if (threadIdx.x == 0) {
-    for (int v = 0; v < n; ++v) m->held[0][v] = m->held[1][v] = ops[v].z;
-    for (int i = n; i < nops; ++i) {
-      const int4 op = ops[i];
-      if (op.x != -1) continue;
-      const int y = m->held[1][op.y];
-      m->held[1][op.y] = m->held[1][op.z];
-      m->held[1][op.z] = y;
+// Thread 0: arrives on *bar expecting `bytes` in all, from the bulk copies
+// that follow (bulk_copy).
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Thread 0: starts the copy of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) from global src to shared dst, completing on *bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The tile row and the address bits of the tile's i-th amplitude in
+// address order, from the tables of one end of the pass (m: 512 ints).
+__device__ __forceinline__ int global_row(const int* m, int i) {
+  return m[i & 127] | m[128 + (i >> 7)];
+}
+__device__ __forceinline__ int global_addr(const int* m, int i) {
+  return m[256 + (i & 127)] | m[384 + (i >> 7)];
+}
+
+// The address bits that tile t's index sets at end `at` of the pass (maps:
+// the pass's tables in device memory).
+__device__ __forceinline__ size_t global_base(const int* maps, int at,
+                                              int t) {
+  const int* b = maps + 1024 + 256 * at;
+  return (size_t)(__ldg(b + (t & 127)) | __ldg(b + 128 + (t >> 7)));
+}
+
+// Tile `base` of the column(s) x (and y with kM) into the shared rows X (Y)
+// under the tables m, 16 bytes a copy by cp.async. Waits for the block's
+// own copies; the caller's barrier publishes them.
+template <bool kM>
+__device__ __forceinline__ void global_load(cplx* X, cplx* Y, const cplx* x,
+                                            const cplx* y, const int* m,
+                                            size_t base, int log_rows) {
+  for (int i = kPer16 * threadIdx.x; i < 1 << log_rows;
+       i += kPer16 * blockDim.x) {
+    const int e = global_row(m, i);
+    const size_t addr = base | (size_t)global_addr(m, i);
+    __pipeline_memcpy_async(X + e, x + addr, 16);
+    if (kM) __pipeline_memcpy_async(Y + e, y + addr, 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// The shared rows X (Y) into tile `base` of the column(s) x (y) under the
+// tables m, 16 bytes a copy.
+template <bool kM>
+__device__ __forceinline__ void global_store(const cplx* X, const cplx* Y,
+                                             cplx* x, cplx* y, const int* m,
+                                             size_t base, int log_rows) {
+  for (int i = kPer16 * threadIdx.x; i < 1 << log_rows;
+       i += kPer16 * blockDim.x) {
+    const int e = global_row(m, i);
+    const size_t addr = base | (size_t)global_addr(m, i);
+    *reinterpret_cast<Vec16*>(x + addr) =
+        *reinterpret_cast<const Vec16*>(X + e);
+    if (kM)
+      *reinterpret_cast<Vec16*>(y + addr) =
+          *reinterpret_cast<const Vec16*>(Y + e);
+  }
+}
+
+// The warp's sum of v by xor shuffles (the same order on every lane).
+__device__ __forceinline__ cplx warp_csum(cplx v) {
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    v.x += __shfl_xor_sync(kFull, v.x, s);
+    v.y += __shfl_xor_sync(kFull, v.y, s);
+  }
+  return v;
+}
+
+// The product of the factors w[2 u + bit u of x] over u in [0, bits),
+// leaving out u = skip.
+__device__ __forceinline__ cplx factor_product(const cplx* w, int x, int bits,
+                                               int skip) {
+  cplx p = mkc(RL(1.), RL(0.));
+  for (int u = 0; u < bits; ++u)
+    if (u != skip) p = cmul(p, w[2 * u + ((x >> u) & 1)]);
+  return p;
+}
+
+// The surface round's cotangents, the vjp's last launch (its first pass).
+// The walk has rewound A to the product state that the surface round
+// leaves from e_0, each qubit's factor a_q the first column of its surface
+// gate (gates[16 q + 2 r]), so the input of surface gate q is e_0 on qubit
+// q: its cotangent (tile_backward's sum of M[p] A[k] at the gate, M pulled
+// back through the later surface gates) has one non-zero column,
+//   Gbar_q[r][0] = sum over x with x_q = r of M[x] prod_{p != q} a_p[x_p],
+// the contraction of M with the other qubits' factors. The tile's share,
+// M's rows under the pass's start permutation (row bit v holding address
+// bit ops[v].z, qubit n - 1 - ops[v].z): the row bits split at 6, Y[hi] =
+// sum_lo M[hi, lo] W_lo[lo] and X[lo] = sum_hi M[hi, lo] W_hi[hi] (W the
+// products of each half's factors), then each row bit's two sums from X or
+// Y with the factors of its half's other bits, all times c, the product of
+// the global bits' factors at the tile's index; a global bit's qubit gets
+// c without its own factor times the whole sum, in its entry for the
+// tile's value of the bit, and 0 in the other. Every sum runs in a fixed
+// order. Writes the 8 reals of each surface gate's share at out + 32 (q
+// tiles + t) (kernels/rows.py numbers the tiles); S: scratch of at least
+// 2^log_rows complex (A, free once the walk is done). Starts and ends
+// with a block barrier.
+__device__ __forceinline__ void surface_contract(const cplx* M, cplx* S,
+                                                 const cplx* gates,
+                                                 const int4* ops, int n,
+                                                 int log_rows, int t,
+                                                 real* out, int tiles) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int hb = log_rows - 6, H = 1 << hb, ng = n - log_rows;
+  const int chunks = nt >= 64 ? nt / 64 : 1;
+  cplx* w = S;               // 2 log_rows factors: row bit v's at 2 v + r
+  cplx* c = S + 32;          // c[i]: without global bit i; c[ng]: all
+  cplx* sums = S + 64;       // 2 a row bit, then the whole sum
+  cplx* Wlo = S + 128;       // 64
+  cplx* X = S + 192;         // 64
+  cplx* Whi = S + 256;       // H
+  cplx* Y = Whi + H;         // H
+  cplx* part = Y + H;        // chunks x 64
+  __syncthreads();
+  for (int v = tid; v < log_rows; v += nt) {
+    const cplx* g = gates + 16 * (n - 1 - __ldg(&ops[v].z));
+    w[2 * v] = g[0];
+    w[2 * v + 1] = g[2];
+  }
+  for (int i = tid; i <= ng; i += nt) {
+    cplx p = mkc(RL(1.), RL(0.));
+    for (int k = 0; k < ng; ++k)
+      if (k != i)
+        p = cmul(p, gates[16 * (n - 1 - __ldg(&ops[log_rows + k].z)) +
+                          2 * ((t >> k) & 1)]);
+    c[i] = p;
+  }
+  __syncthreads();
+  for (int x = tid; x < 64 + H; x += nt) {
+    if (x < 64) Wlo[x] = factor_product(w, x, 6, -1);
+    else Whi[x - 64] = factor_product(w + 12, x - 64, hb, -1);
+  }
+  __syncthreads();
+  for (int hi = warp; hi < H; hi += nw) {  // Y: a warp a row of 64
+    const cplx* m = M + (hi << 6);
+    cplx v = cmul(m[lane], Wlo[lane]);
+    v = cadd(v, cmul(m[32 + lane], Wlo[32 + lane]));
+    v = warp_csum(v);
+    if (lane == 0) Y[hi] = v;
+  }
+  for (int i = tid; i < chunks * 64; i += nt) {  // X: chunks of the rows
+    const int lo = i & 63;
+    cplx v = mkc(RL(0.), RL(0.));
+    for (int hi = i >> 6; hi < H; hi += chunks)
+      v = cadd(v, cmul(M[(hi << 6) | lo], Whi[hi]));
+    part[i] = v;
+  }
+  __syncthreads();
+  for (int lo = tid; lo < 64; lo += nt) {
+    cplx v = part[lo];
+    for (int k = 1; k < chunks; ++k) v = cadd(v, part[k * 64 + lo]);
+    X[lo] = v;
+  }
+  __syncthreads();
+  for (int v = warp; v <= log_rows; v += nw) {  // a warp a row bit
+    cplx s0 = mkc(RL(0.), RL(0.)), s1 = s0;
+    if (v < 6) {
+      const int x = ins0(lane, v);
+      const cplx p = factor_product(w, x, 6, v);
+      s0 = cmul(X[x], p);
+      s1 = cmul(X[x | 1 << v], p);
+    } else if (v < log_rows) {
+      const int u = v - 6;
+      for (int l = lane; l < H / 2; l += 32) {
+        const int x = ins0(l, u);
+        const cplx p = factor_product(w + 12, x, hb, u);
+        s0 = cadd(s0, cmul(Y[x], p));
+        s1 = cadd(s1, cmul(Y[x | 1 << u], p));
+      }
+    } else {  // the whole sum
+      s0 = cadd(cmul(X[lane], Wlo[lane]), cmul(X[32 + lane], Wlo[32 + lane]));
     }
-    for (int at = 0; at < 2; ++at) {
-      int k = 0;
-      for (int b = 0; b < n; ++b)
-        for (int v = 0; v < log_rows; ++v)
-          if (m->held[at][v] == b) {
-            m->bit[at][k] = b;
-            m->row[at][k++] = v;
-          }
+    s0 = warp_csum(s0);
+    s1 = warp_csum(s1);
+    if (lane == 0) {
+      sums[2 * v] = s0;
+      sums[2 * v + 1] = s1;
     }
   }
   __syncthreads();
-}
-
-// The address of the tile's amplitude base + i-th (in increasing address
-// order) under permutation `at`, and the tile row that holds it.
-__device__ __forceinline__ size_t global_address(const GlobalMaps& m, int at,
-                                                 size_t base, int i,
-                                                 int log_rows, int* e) {
-  size_t addr = base;
-  int r = 0;
-  for (int u = 0; u < log_rows; ++u)
-    if ((i >> u) & 1) {
-      addr |= (size_t)1 << m.bit[at][u];
-      r |= 1 << m.row[at][u];
+  for (int v = tid; v < n; v += nt) {
+    cplx g0, g1;
+    if (v < log_rows) {
+      g0 = cmul(c[ng], sums[2 * v]);
+      g1 = cmul(c[ng], sums[2 * v + 1]);
+    } else {
+      const cplx all = cmul(c[v - log_rows], sums[2 * log_rows]);
+      const cplx zero = mkc(RL(0.), RL(0.));
+      const bool one = (t >> (v - log_rows)) & 1;
+      g0 = one ? zero : all;
+      g1 = one ? all : zero;
     }
-  *e = r;
-  return addr;
-}
-
-// The address bits that tile t's index sets under permutation `at`.
-__device__ __forceinline__ size_t global_base(const GlobalMaps& m, int at,
-                                              int n, int log_rows, int t) {
-  size_t base = 0;
-  for (int i = 0; i < n - log_rows; ++i)
-    if ((t >> i) & 1) base |= (size_t)1 << m.held[at][log_rows + i];
-  return base;
-}
-
-// Tile t of the column(s) x (and y with kM) into the shared rows X (Y)
-// under permutation `at`; kHalf: Y = conj(y) / 2 (the vjp's M from Ubar).
-template <bool kM, bool kHalf>
-__device__ __forceinline__ void global_load(cplx* X, cplx* Y, const cplx* x,
-                                            const cplx* y,
-                                            const GlobalMaps& m, int at,
-                                            int n, int log_rows, int t) {
-  const size_t base = global_base(m, at, n, log_rows, t);
-  for (int i = threadIdx.x; i < 1 << log_rows; i += blockDim.x) {
-    int e;
-    const size_t addr = global_address(m, at, base, i, log_rows, &e);
-    X[e] = x[addr];
-    if (kM) {
-      const cplx v = y[addr];
-      Y[e] = kHalf ? mkc(RL(0.5) * v.x, RL(-0.5) * v.y) : v;
-    }
+    real* o = out + ((size_t)(n - 1 - __ldg(&ops[v].z)) * tiles + t) * 32;
+    o[0] = g0.x;
+    o[1] = g0.y;
+    o[2] = o[3] = RL(0.);
+    o[4] = g1.x;
+    o[5] = g1.y;
+    o[6] = o[7] = RL(0.);
   }
-}
-
-// The shared rows X (Y) into tile t of the column(s) x (y) under
-// permutation `at`.
-template <bool kM>
-__device__ __forceinline__ void global_store(const cplx* X, const cplx* Y,
-                                             cplx* x, cplx* y,
-                                             const GlobalMaps& m, int at,
-                                             int n, int log_rows, int t) {
-  const size_t base = global_base(m, at, n, log_rows, t);
-  for (int i = threadIdx.x; i < 1 << log_rows; i += blockDim.x) {
-    int e;
-    const size_t addr = global_address(m, at, base, i, log_rows, &e);
-    x[addr] = X[e];
-    if (kM) y[addr] = Y[e];
-  }
+  __syncthreads();
 }
 
 }  // namespace

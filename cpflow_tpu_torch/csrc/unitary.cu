@@ -105,8 +105,10 @@
 // 18 qubits in float and 17 in double to kGlobalMaxQubits, 24 and 23): the
 // column stays in device memory and runs a launch a pass, each tile of
 // rows on a block of its own on rows.cuh's warps, a gate with a bit outside
-// the tile ending the pass (forward_global_kernel, vjp_global_kernel and
-// the vjp's fixed-order sum, vjp_global_sum_kernel; the section below).
+// the tile ending the pass, the surface round written as a product state
+// and contracted in the vjp rather than walked (global_gates_kernel, the
+// gates once a call; forward_global_kernel, vjp_global_kernel and the
+// vjp's fixed-order sum, vjp_global_sum_kernel; the section below).
 //
 // Why no tensor cores: the products are 2x2 and 4x4 complex matrices
 // applied to one column at a time, far below wgmma's tile of 64 rows, and
@@ -251,42 +253,61 @@ __host__ __device__ inline Layout forward_row_layout(int n, int nb, int nba,
 // 2^24 complex64 or 2^23 complex128 amplitudes is 128 MiB, and the vjp
 // holds four of them a restart, U, Ubar and its A and M: 512 MiB; it is
 // the widest that chip_smoke.py holds against the plain version on the
-// card), and log2 of the fewest rows of a tile (a pass's window of gates
-// then holds at least 8 bits beside the sector bits).
+// card), log2 of the fewest rows of a tile (a pass's window of gates then
+// holds at least 8 bits beside the sector bits), and the shared memory a
+// block may use where two blocks of a pass share an SM (half the SM's
+// 233,472 bytes, less the 1,024 the runtime keeps for each block).
 #ifdef CPFLOW_DOUBLE
 constexpr int kGlobalMaxQubits = 23;
 #else
 constexpr int kGlobalMaxQubits = 24;
 #endif
 constexpr int kGlobalRowsMin = 10;
-constexpr size_t kGlobalMapBytes = sizeof(GlobalMaps);
+constexpr size_t kGlobalSmemTwo = 115712;
 
-// The layout of a pass of the global row tiles, whose tiles hold 2^(n - j)
-// rows: make_layout's for a split of 2^j (whose bytes decide j), with the
-// warps of rows.cuh's row_plan (which *plan receives) and, in the vjp, the
-// ring of cotangent slots in place of the cross-warp partials, in what the
-// layout and the pass's maps leave of a block's shared memory; the maps
-// (GlobalMaps) last, at bytes - kGlobalMapBytes.
-__host__ __device__ inline Layout global_layout(int n, int nb, int nba,
-                                                int j, bool vjp,
-                                                RowPlan* plan) {
-  Layout L = make_layout(n, nb, nba, 0, j, vjp);
+__host__ __device__ inline size_t global_limit(int per_sm) {
+  return per_sm == 2 ? kGlobalSmemTwo : kSmemLimit;
+}
+
+// A block of a pass of the global row tiles on 2^(n - j) rows with per_sm
+// (1 or 2) blocks an SM: a warp for every 2^kRowSegmentMin rows, at most
+// kRowThreads / per_sm threads; in shared memory A (and the vjp's M), the
+// G gates (and the vjp's gbar), the pass's copy tables (kGlobalMapBytes),
+// its mbarrier, and the vjp's ring of cotangent slots, as many gates of
+// kRowRingMax, ... 1 as global_limit(per_sm) holds (the layout does not
+// fit where one does not).
+struct GlobalLayout {
+  RowPlan plan;
+  int log_rows, nt;
+  size_t off_M, off_gates, off_gbar, off_maps, off_bar, off_ring, bytes;
+};
+
+__host__ __device__ inline GlobalLayout global_layout(int n, int nb, int j,
+                                                      bool vjp, int per_sm) {
+  GlobalLayout L;
+  L.log_rows = n - j;
+  const int cap = kRowThreads / per_sm;
+  int lw = 0;
+  while (lw < L.log_rows - kRowSegmentMin && (64 << lw) <= cap) ++lw;
+  const size_t rows = (size_t)1 << L.log_rows, G = n + nb;
+  size_t o = rows * sizeof(cplx);  // A at offset 0
+  L.off_M = o;      if (vjp) o += rows * sizeof(cplx);
+  L.off_gates = o;  o += G * 16 * sizeof(cplx);
+  L.off_gbar = o;   if (vjp) o += G * 32 * sizeof(real);
+  L.off_maps = o;   o += kGlobalMapBytes;
+  L.off_bar = o;    o += 16;
+  L.off_ring = o;
+  int ring = 0;
   if (vjp) {
-    const size_t red = (size_t)2 * L.nw * 32 * sizeof(real);
-    *plan = row_plan(n - j, kSmemLimit - kGlobalMapBytes - (L.bytes - red));
-    size_t o = L.off_red + (size_t)32 * plan->warps * plan->ring *
-                               sizeof(real);
-    L.off_params = o;   o += (size_t)L.P * sizeof(real);
-    L.off_grad = o;     o += (size_t)L.P * sizeof(real);
-    L.off_cs = o;       o += (size_t)2 * L.P * sizeof(real);
-    L.bytes = o;
-  } else {
-    *plan = row_plan(n - j, ~(size_t)0);
-    plan->ring = 0;
+    ring = kRowRingMax;
+    while (ring > 1 && o + ((size_t)(32 * ring) << lw) * sizeof(real) >
+                           global_limit(per_sm))
+      ring >>= 1;
+    o += ((size_t)(32 * ring) << lw) * sizeof(real);
   }
-  L.nt = 32 * plan->warps;
-  L.nw = plan->warps;
-  L.bytes += kGlobalMapBytes;
+  L.plan = RowPlan{1 << lw, L.log_rows - lw, ring};
+  L.nt = 32 << lw;
+  L.bytes = o;
   return L;
 }
 
@@ -298,17 +319,18 @@ inline int row_tiles_max() {
   return n;
 }
 
-// log2 of the tiles a restart of one column takes on the global row tiles:
-// past the row tiles' widest column, up to kGlobalMaxQubits, where no
-// cluster holds the pass, the fewest whose layout fits a block, tiles of
-// at least 2^kGlobalRowsMin rows; -1 elsewhere.
-inline int global_log(int n, int nb, int nba, int log_c, bool vjp) {
-  if (log_c || n <= row_tiles_max() || n > kGlobalMaxQubits ||
-      cluster_plan(n, nb, nba, 0, vjp) >= 0)
+// log2 of the tiles a restart of one column takes on the global row tiles
+// with per_sm blocks an SM: past the row tiles' widest column, up to
+// kGlobalMaxQubits, where no cluster holds the pass, the fewest whose
+// global_layout fits, tiles of at least 2^kGlobalRowsMin rows; -1
+// elsewhere.
+inline int global_log(int n, int nb, int nba, int log_c, bool vjp,
+                      int per_sm = 1) {
+  if (log_c || (per_sm != 1 && per_sm != 2) || n <= row_tiles_max() ||
+      n > kGlobalMaxQubits || cluster_plan(n, nb, nba, 0, vjp) >= 0)
     return -1;
   for (int j = 1; n - j >= kGlobalRowsMin; ++j)
-    if (make_layout(n, nb, nba, 0, j, vjp).bytes + kGlobalMapBytes <=
-        kSmemLimit)
+    if (global_layout(n, nb, j, vjp, per_sm).bytes <= global_limit(per_sm))
       return j;
   return -1;
 }
@@ -1070,18 +1092,27 @@ vjp_tile_sum_kernel(TileArgs ta) {
 // rows.cuh's warps as one block does (row_chain, row_walk with c = 1), and
 // stores the tile under the permutation its swaps leave. A gate whose bits
 // are not all in the tile ends a pass, and the next pass's load brings
-// them in: no launch of its own swaps bits through device memory. A call
-// enqueues
+// them in: no launch of its own swaps bits through device memory. Both
+// schedules hold the blocks alone: the surface round from e_0 leaves a
+// product state, which the forward pass writes in its first pass and
+// against which the vjp's last launch contracts M (surface_contract), so
+// the surface gates, which touch every bit, cut no pass. A call enqueues
+//   global_gates_kernel, a block a restart: the cos and sin of its angles
+//     and its gates, once, into the call's workspace;
 //   the forward pass: forward_global_kernel once a pass, the first writing
-//     the surface round's product state from e_0 in its start permutation
+//     the surface round's product state in its start permutation
 //     (row_product), in place on U (each block reads and writes the same
 //     addresses);
 //   the vjp: vjp_global_kernel once a pass, last pass first, A = U and
 //     M = conj(Ubar) / 2 loaded by the first launch and kept in the
 //     workspace for the next, each block's shares of its pass's gates'
-//     cotangents into the workspace; then vjp_global_sum_kernel, a block a
-//     (restart, gate), which adds the tiles' shares in a fixed order and
-//     forms that gate's angle gradients.
+//     cotangents into the workspace, the last launch's the surface
+//     round's too; then vjp_global_sum_kernel, a block a (restart, gate),
+//     which adds the tiles' shares in a fixed order and forms that gate's
+//     angle gradients.
+// Each block of a pass brings in its pass's gates (and the surface
+// round's where it uses them) and its copy tables by bulk copies on one
+// mbarrier; the copies of its tile are 16 bytes a thread, by the tables.
 // No TPU kernel stands behind them: they replace the XLA builder's column-0
 // path (cpflow_tpu/sim/batched.py:255-362 with columns=[0]). What bounds
 // them on this card: bytes. The forward pass must write U once and the vjp
@@ -1089,25 +1120,88 @@ vjp_tile_sum_kernel(TileArgs ta) {
 // and M in the vjp) again, 8 or 16 bytes an amplitude in float, unless it
 // stays in the 50 MB L2, so the schedule makes the fewest passes (the
 // longest runs of gates whose bits fit a tile) and puts the swaps that
-// cross tiles into the passes' loads. Within a pass a tile is one block's
-// shared memory, as the one-block kernels run it; every sum runs in a
-// fixed order, so that two launches give the same bits.
+// cross tiles into the passes' loads. A block walks its tile between its
+// load and its store; the wrapper puts two blocks on an SM (tiles half as
+// large, per_sm = 2), so that one's copies run under the other's walk,
+// where that costs the template no pass (kernels/unitary.py:
+// global_per_sm). Every sum runs in a fixed order, so that two launches
+// give the same bits.
+
+// The reals of a call's workspace a restart on 2^j tiles (per), and where
+// its parts start: in the vjp A and M (2^n complex each) at 0, then the
+// tiles' shares (G x 2^j x 32 reals, `parts`); then the gates (32 reals
+// each, `gates`) and the cos and sin of the angles (`cs`), from the
+// prologue; per a multiple of 4 reals.
+struct GlobalWork {
+  size_t per, parts, gates, cs;
+};
+
+__host__ __device__ inline GlobalWork global_work(int n, int G, int P, int j,
+                                                  bool vjp) {
+  GlobalWork W;
+  W.parts = (size_t)4 << n;
+  W.gates = vjp ? W.parts + ((size_t)G << j) * 32 : 0;
+  W.cs = W.gates + (size_t)32 * G;
+  W.per = (W.cs + 2 * (size_t)P + 3) & ~(size_t)3;
+  return W;
+}
 
 struct GlobalArgs {
   RowArgs ra;    // cluster_log: log2 of the tiles a restart; ops, nops: the
-                 // pass's table, its n header rows first
-  real* work;    // the vjp's workspace, `per` reals a restart: A and M
-                 // (2^n complex each), then the tiles' shares (G x tiles x
-                 // 32 reals)
-  size_t per;
+                 // pass's table, its n header rows first; plan: the pass's
+                 // warps
+  real* work;    // the call's workspace, W.per reals a restart
+  GlobalWork W;
+  const int* maps;  // the pass's copy tables (kGlobalMapInts ints)
+  int per_sm;    // blocks of a pass an SM
   int first;     // the forward pass's first pass; the vjp's first launch
-  int keep;      // the vjp: A and M stored for the next launch
-  int jlo, jhi;  // the vjp: the pass's gates
+  int last;      // the vjp's last launch (its first pass)
+  int jlo, jhi;  // the pass's gates
 };
 
-// The reals of the vjp's workspace a restart on 2^j tiles.
-__host__ __device__ inline size_t global_work(int n, int G, int j) {
-  return ((size_t)4 << n) + ((size_t)G << j) * 32;
+// The prologue: restart blockIdx.x's cos and sin (without local memory,
+// rows.cuh) and gate matrices into its workspace.
+__global__ void __launch_bounds__(kMaxThreads)
+global_gates_kernel(GlobalArgs ga) {
+  const Args& a = ga.ra;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, G = n + a.nb, P = 3 * n + a.tpl.nba * a.nb;
+  const SumLayout L = sum_layout(G, P);
+  cplx* gates = reinterpret_cast<cplx*>(smem);
+  real* params = reinterpret_cast<real*>(smem + L.off_params);
+  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
+  const int b = blockIdx.x;
+  real* work = ga.work + (size_t)b * ga.W.per;
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
+    params[i] = a.angles[(size_t)i * a.B + b];
+  __syncthreads();
+  row_angle_trig(a.tpl, n, P, params, cs);
+  __syncthreads();
+  build_gates(a.tpl, n, G, cs, gates);
+  __syncthreads();
+  const real* g = reinterpret_cast<const real*>(gates);
+  for (int i = threadIdx.x; i < 32 * G; i += blockDim.x)
+    work[ga.W.gates + i] = g[i];
+  for (int i = threadIdx.x; i < 2 * P; i += blockDim.x)
+    work[ga.W.cs + i] = cs[i];
+}
+
+// Thread 0: the mbarrier, then the bulk copies of gates g0 ... jhi of
+// restart `work` into their places and of the pass's tables; every thread
+// waits for them.
+__device__ __forceinline__ void global_bring(const GlobalArgs& ga,
+                                             const real* work, int g0,
+                                             cplx* gates, int* maps,
+                                             uint64_t* bar) {
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned bytes = (unsigned)((ga.jhi + 1 - g0) * 16 * sizeof(cplx));
+    mbar_expect(bar, bytes + kGlobalMapBytes);
+    bulk_copy(gates + 16 * g0, work + ga.W.gates + 32 * g0, bytes, bar);
+    bulk_copy(maps, ga.maps, kGlobalMapBytes, bar);
+  }
+  mbar_wait(bar, 0);
 }
 
 __global__ void __launch_bounds__(kRowThreads, 1)
@@ -1115,30 +1209,30 @@ forward_global_kernel(GlobalArgs ga) {
   const RowArgs& ra = ga.ra;
   const Args& a = ra;
   extern __shared__ __align__(16) unsigned char smem[];
-  RowPlan plan;
-  const int n = a.n, j = a.cluster_log, log_rows = n - j;
-  const Layout L = global_layout(n, a.nb, a.tpl.nba, j, false, &plan);
+  const int n = a.n, j = a.cluster_log;
+  const GlobalLayout L = global_layout(n, a.nb, j, false, ga.per_sm);
+  const int log_rows = L.log_rows;
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
-  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  GlobalMaps* maps =
-      reinterpret_cast<GlobalMaps*>(smem + L.bytes - kGlobalMapBytes);
+  int* maps = reinterpret_cast<int*>(smem + L.off_maps);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.off_bar);
   const int b = blockIdx.x >> j, t = blockIdx.x & ((1 << j) - 1);
   cplx* col = a.U + ((size_t)b << n);
-  load_gates(a, L, b, params, cs, gates);
-  global_maps(ra.ops, ra.nops, n, log_rows, maps);
+  // the pass's gates, and the surface round's in the first pass
+  global_bring(ga, ga.work + (size_t)b * ga.W.per, ga.first ? 0 : ga.jlo,
+               gates, maps, bar);
   if (ga.first) {
     row_product(A, gates, ra.ops, n, ra.plan, log_rows, t);
     __syncwarp();
   } else {
-    global_load<false, false>(A, nullptr, col, nullptr, *maps, 0, n,
-                              log_rows, t);
+    global_load<false>(A, nullptr, col, nullptr, maps,
+                       global_base(ga.maps, 0, t), log_rows);
     __syncthreads();
   }
   row_chain<true>(A, gates, ra.ops + n, ra.nops - n, n, ra.plan, log_rows,
                   t);
-  global_store<false>(A, nullptr, col, nullptr, *maps, 1, n, log_rows, t);
+  global_store<false>(A, nullptr, col, nullptr, maps + 512,
+                      global_base(ga.maps, 1, t), log_rows);
 }
 
 __global__ void __launch_bounds__(kRowThreads, 1)
@@ -1146,41 +1240,48 @@ vjp_global_kernel(GlobalArgs ga) {
   const RowArgs& ra = ga.ra;
   const Args& a = ra;
   extern __shared__ __align__(16) unsigned char smem[];
-  RowPlan plan;
-  const int n = a.n, j = a.cluster_log, log_rows = n - j;
-  const Layout L = global_layout(n, a.nb, a.tpl.nba, j, true, &plan);
+  const int n = a.n, j = a.cluster_log, G = n + a.nb;
+  const GlobalLayout L = global_layout(n, a.nb, j, true, ga.per_sm);
+  const int log_rows = L.log_rows, tiles = 1 << j;
   cplx* A = reinterpret_cast<cplx*>(smem);
   cplx* M = reinterpret_cast<cplx*>(smem + L.off_M);
   cplx* gates = reinterpret_cast<cplx*>(smem + L.off_gates);
   real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
-  real* ring = reinterpret_cast<real*>(smem + L.off_red);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
-  real* cs = reinterpret_cast<real*>(smem + L.off_cs);
-  GlobalMaps* maps =
-      reinterpret_cast<GlobalMaps*>(smem + L.bytes - kGlobalMapBytes);
+  int* maps = reinterpret_cast<int*>(smem + L.off_maps);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.off_bar);
+  real* ring = reinterpret_cast<real*>(smem + L.off_ring);
   const int b = blockIdx.x >> j, t = blockIdx.x & ((1 << j) - 1);
-  real* work = ga.work + (size_t)b * ga.per;
+  real* work = ga.work + (size_t)b * ga.W.per;
   cplx* Aw = reinterpret_cast<cplx*>(work);
   cplx* Mw = Aw + ((size_t)1 << n);
-  real* parts = work + ((size_t)4 << n);
-  load_gates(a, L, b, params, cs, gates);
-  global_maps(ra.ops, ra.nops, n, log_rows, maps);
-  if (ga.first)  // the walk starts where the chain ended: U, Ubar
-    global_load<true, true>(A, M, a.U + ((size_t)b << n),
-                            a.Ubar + ((size_t)b << n), *maps, 1, n, log_rows,
-                            t);
-  else
-    global_load<true, false>(A, M, Aw, Mw, *maps, 1, n, log_rows, t);
+  real* parts = work + ga.W.parts;
+  // the pass's gates, and the surface round's in the last launch
+  global_bring(ga, work, ga.last ? 0 : ga.jlo, gates, maps, bar);
+  // the walk starts where the chain ended: U, Ubar (M = conj(Ubar) / 2)
+  const size_t end = global_base(ga.maps, 1, t);
+  if (ga.first) {
+    global_load<true>(A, M, a.U + ((size_t)b << n),
+                      a.Ubar + ((size_t)b << n), maps + 512, end, log_rows);
+    __syncthreads();
+    for (int e = threadIdx.x; e < 1 << log_rows; e += blockDim.x) {
+      const cplx v = M[e];
+      M[e] = mkc(RL(0.5) * v.x, RL(-0.5) * v.y);
+    }
+  } else {
+    global_load<true>(A, M, Aw, Mw, maps + 512, end, log_rows);
+  }
   __syncthreads();
   const int ringm = ra.plan.ring - 1;
-  row_walk<true>(A, M, gates, ra.ops + n, ra.nops - n, ring, gbar, n, L.G,
+  row_walk<true>(A, M, gates, ra.ops + n, ra.nops - n, ring, gbar, n, G,
                  ra.plan, log_rows, t);
   // the ring's last gates, if the pass's first gate left them unsummed
-  if (ga.jlo & ringm) row_flush(ring, gbar, ga.jlo & ~ringm, n, L.G, ra.plan);
+  if (ga.jlo & ringm) row_flush(ring, gbar, ga.jlo & ~ringm, n, G, ra.plan);
   __syncthreads();
-  if (ga.keep)
-    global_store<true>(A, M, Aw, Mw, *maps, 0, n, log_rows, t);
-  const int tiles = 1 << j;
+  if (ga.last)  // A is the product state: the surface round by contraction
+    surface_contract(M, A, gates, ra.ops, n, log_rows, t, parts, tiles);
+  else
+    global_store<true>(A, M, Aw, Mw, maps, global_base(ga.maps, 0, t),
+                       log_rows);
   for (int i = threadIdx.x; i < (ga.jhi - ga.jlo + 1) * 32; i += blockDim.x) {
     const int g = ga.jlo + (i >> 5);
     parts[((size_t)g * tiles + t) * 32 + (i & 31)] = gbar[32 * g + (i & 31)];
@@ -1188,9 +1289,10 @@ vjp_global_kernel(GlobalArgs ga) {
 }
 
 // Block blockIdx.x holds gate g = blockIdx.x mod G of restart blockIdx.x /
-// G: the tiles' shares of its cotangent added in a fixed order (8 runs of
-// tiles, each in tile order, then the runs in order; a thread an entry of
-// a run), then its angles' gradients from its own gate and cos and sin.
+// G: the tiles' shares of its cotangent (8 reals of a surface gate, 32 of a
+// block) added in a fixed order (8 runs of tiles, each in tile order, then
+// the runs in order; a thread an entry of a run), then its angles'
+// gradients from its gate and the cos and sin of the prologue.
 __global__ void __launch_bounds__(kMaxThreads)
 vjp_global_sum_kernel(GlobalArgs ga) {
   const Args& a = ga.ra;
@@ -1201,20 +1303,22 @@ vjp_global_sum_kernel(GlobalArgs ga) {
   cplx* gate = reinterpret_cast<cplx*>(smem);
   real* gbar = reinterpret_cast<real*>(smem + L.off_gbar);
   real* grad = reinterpret_cast<real*>(smem + L.off_grad);
-  real* params = reinterpret_cast<real*>(smem + L.off_params);
   real* cs = reinterpret_cast<real*>(smem + L.off_cs);
   const int b = blockIdx.x / G, g = blockIdx.x - b * G, tid = threadIdx.x;
   const int tiles = 1 << a.cluster_log;
   const int count = tiles < 8 ? tiles : 8, run = tiles / count;
-  for (int i = tid; i < P; i += blockDim.x)
-    params[i] = a.angles[(size_t)i * a.B + b];
-  __syncthreads();
-  row_angle_trig(a.tpl, n, P, params, cs);
-  const real* part =
-      ga.work + (size_t)b * ga.per + ((size_t)4 << n) + (size_t)g * tiles * 32;
+  const int E = g < n ? 8 : 32;
+  const real* work = ga.work + (size_t)b * ga.W.per;
+  for (int i = tid; i < 2 * P; i += blockDim.x) cs[i] = work[ga.W.cs + i];
+  for (int i = tid; i < 32; i += blockDim.x)
+    reinterpret_cast<real*>(gate)[i] = work[ga.W.gates + 32 * g + i];
+  const real* part = work + ga.W.parts + (size_t)g * tiles * 32;
   if (tid < 32 * count)
-    runs[tid] = sum_tiles(part + (size_t)(tid >> 5) * run * 32 + (tid & 31),
-                          run, 32);
+    runs[tid] = (tid & 31) < E
+                    ? sum_tiles(part + (size_t)(tid >> 5) * run * 32 +
+                                    (tid & 31),
+                                run, 32)
+                    : RL(0.);
   __syncthreads();
   if (tid < 32) {
     real s = runs[tid];
@@ -1225,7 +1329,6 @@ vjp_global_sum_kernel(GlobalArgs ga) {
   if (tid != 0) return;
   const cplx* gbj = reinterpret_cast<const cplx*>(gbar);
   if (g < n) {
-    surface_gate(cs + 6 * g, gate);
     surface_grads(cs + 6 * g, gate, gbj, grad);
     for (int i = 0; i < 3; ++i)
       a.grad[(size_t)(3 * g + i) * a.B + b] = grad[i];
@@ -1244,12 +1347,13 @@ vjp_global_sum_kernel(GlobalArgs ga) {
 // 14 the vjp's walk and 15 its sum on the column tiles; 16 forward and 17
 // vjp of one column split by rows over a cluster (the row-split design's
 // row tiles); 18 the column tiles' vjp prologue; 19 forward and 20 vjp of
-// the global row tiles, 21 the vjp's sum there.
-constexpr int kKernels = 12 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
+// the global row tiles, 21 the vjp's sum there, 22 their prologue.
+constexpr int kKernels = 13 + 2 * (kColumnQubitsMax - kColumnQubitsMin + 1);
 constexpr int kForwardBlock = 0, kVjpBlock = 1;
 constexpr int kForwardTiles = 13, kVjpTiles = 14, kVjpTileSum = 15;
 constexpr int kForwardRows = 16, kVjpRows = 17, kVjpTileGates = 18;
 constexpr int kForwardGlobal = 19, kVjpGlobal = 20, kVjpGlobalSum = 21;
+constexpr int kGlobalGates = 22;
 const void* kernel_of(int which) {
   const void* kernels[kKernels] = {
       (const void*)forward_block_kernel, (const void*)vjp_block_kernel,
@@ -1262,7 +1366,8 @@ const void* kernel_of(int which) {
       (const void*)vjp_tiles_kernel,     (const void*)vjp_tile_sum_kernel,
       (const void*)forward_rows_kernel,  (const void*)vjp_rows_kernel,
       (const void*)vjp_tile_gates_kernel, (const void*)forward_global_kernel,
-      (const void*)vjp_global_kernel,    (const void*)vjp_global_sum_kernel};
+      (const void*)vjp_global_kernel,    (const void*)vjp_global_sum_kernel,
+      (const void*)global_gates_kernel};
   return kernels[which];
 }
 
@@ -1309,6 +1414,13 @@ cudaError_t grant_smem(int which, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   size_t* granted = dev < kMaxDevices ? &g_granted[dev][which] : nullptr;
   if (granted && *granted >= bytes) return cudaSuccess;
+  if (which == kForwardGlobal || which == kVjpGlobal) {
+    // two blocks of a pass an SM need the SM's whole shared memory
+    err = cudaFuncSetAttribute(kernel_of(which),
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaFuncSetAttribute(kernel_of(which),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
@@ -1391,6 +1503,57 @@ cudaError_t check_placement(const Launch& l, const cudaLaunchConfig_t& cfg) {
   if (placed) *placed = {l.threads, l.bytes};
   return cudaSuccess;
 }
+
+// The arguments of a call of the global row tiles; false where they do not
+// take the shape.
+bool global_args(GlobalArgs& ga, const void* angles, void* U,
+                 const void* Ubar, void* grad, void* work,
+                 const void* placements, const void* letters, int n,
+                 int num_blocks, int num_letters, int ent, int nba, int B,
+                 int vjp, int per_sm) {
+  RowArgs& a = ga.ra;
+  a.angles = static_cast<const real*>(angles);
+  a.U = static_cast<cplx*>(U);
+  a.Ubar = static_cast<const cplx*>(Ubar);
+  a.grad = static_cast<real*>(grad);
+  a.placements = static_cast<const int*>(placements);
+  a.tpl.letters = static_cast<const int*>(letters);
+  a.tpl.m = num_letters;
+  a.tpl.ent = ent;
+  a.tpl.nba = nba;
+  a.n = n;
+  a.nb = num_blocks;
+  a.log_c = 0;
+  a.B = B;
+  a.restarts = 1;
+  a.cluster_log = global_log(n, num_blocks, nba, 0, vjp != 0, per_sm);
+  if (a.cluster_log < 0 || !work) return false;
+  const GlobalLayout L =
+      global_layout(n, num_blocks, a.cluster_log, vjp != 0, per_sm);
+  a.plan = L.plan;
+  a.ops = nullptr;
+  a.nops = 0;
+  ga.work = static_cast<real*>(work);
+  ga.W = global_work(n, n + num_blocks, 3 * n + nba * num_blocks,
+                     a.cluster_log, vjp != 0);
+  ga.maps = nullptr;
+  ga.per_sm = per_sm;
+  ga.first = ga.last = 0;
+  ga.jlo = ga.jhi = 0;
+  return true;
+}
+
+// The prologue's launch (global_gates_kernel) of the call ga.
+cudaError_t global_gates_launch(const GlobalArgs& ga, cudaStream_t s) {
+  const Args& a = ga.ra;
+  const size_t bytes =
+      sum_layout(a.n + a.nb, 3 * a.n + a.tpl.nba * a.nb).bytes;
+  cudaError_t err = grant_smem(kGlobalGates, bytes);
+  if (err != cudaSuccess) return err;
+  global_gates_kernel<<<a.B, kMaxThreads, bytes, s>>>(ga);
+  return cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -1679,120 +1842,126 @@ int cpflow_unitary_launch(const void* angles, void* U, const void* Ubar,
 }
 
 // The plan of a pass of the global row tiles (one column past what a
-// cluster holds, global_log): out[0] threads and out[1] dynamic shared
-// memory bytes a block (global_layout), out[2] warps, out[3] log2 of a
-// warp's rows, out[4] gates in the ring (0 in the forward pass), out[5]
-// log2 of a tile's rows, out[6] tiles a restart, out[7] the sum kernel's
-// dynamic shared memory bytes. Returns cudaErrorInvalidValue where they do
-// not take the shape.
+// cluster holds, global_log) with per_sm (1 or 2) blocks an SM: out[0]
+// threads and out[1] dynamic shared memory bytes a block (global_layout),
+// out[2] warps, out[3] log2 of a warp's rows, out[4] gates in the ring (0
+// in the forward pass), out[5] log2 of a tile's rows, out[6] tiles a
+// restart, out[7] the sum kernel's and out[8] the prologue's dynamic
+// shared memory bytes. Returns cudaErrorInvalidValue where they do not
+// take the shape.
 int cpflow_unitary_global_plan(int n, int num_blocks, int nba, int vjp,
-                               int* out) {
-  const int j = global_log(n, num_blocks, nba, 0, vjp != 0);
+                               int per_sm, int* out) {
+  const int j = global_log(n, num_blocks, nba, 0, vjp != 0, per_sm);
   if (j < 0) return (int)cudaErrorInvalidValue;
-  RowPlan plan;
-  const Layout L = global_layout(n, num_blocks, nba, j, vjp != 0, &plan);
+  const GlobalLayout L = global_layout(n, num_blocks, j, vjp != 0, per_sm);
+  const int P = 3 * n + nba * num_blocks;
   out[0] = L.nt;
   out[1] = (int)L.bytes;
-  out[2] = plan.warps;
-  out[3] = plan.seg;
-  out[4] = plan.ring;
-  out[5] = n - j;
+  out[2] = L.plan.warps;
+  out[3] = L.plan.seg;
+  out[4] = L.plan.ring;
+  out[5] = L.log_rows;
   out[6] = 1 << j;
-  out[7] = (int)sum_layout(1, L.P).bytes;
+  out[7] = (int)sum_layout(1, P).bytes;
+  out[8] = (int)sum_layout(n + num_blocks, P).bytes;
   return 0;
 }
 
-// The reals of the vjp's workspace a restart on the global row tiles
-// (global_work: A and M, then the tiles' shares of the gates' cotangents);
-// 0 where they do not take the shape.
-long long cpflow_unitary_global_work(int n, int num_blocks, int nba) {
-  const int j = global_log(n, num_blocks, nba, 0, true);
-  return j < 0 ? 0 : (long long)global_work(n, n + num_blocks, j);
+// The reals of a call's workspace a restart on the global row tiles with
+// per_sm blocks an SM (global_work: the vjp's A and M and its tiles'
+// shares of the gates' cotangents, then the gates and the cos and sin of
+// the angles); 0 where they do not take the shape.
+long long cpflow_unitary_global_work(int n, int num_blocks, int nba,
+                                     int vjp, int per_sm) {
+  const int j = global_log(n, num_blocks, nba, 0, vjp != 0, per_sm);
+  return j < 0 ? 0
+               : (long long)global_work(n, n + num_blocks,
+                                        3 * n + nba * num_blocks, j, vjp != 0)
+                     .per;
+}
+
+// The prologue of the global row tiles alone (global_gates_kernel: each
+// restart's gates and the cos and sin of its angles into `work`, B x
+// cpflow_unitary_global_work reals, where a call of that pass and per_sm
+// keeps them: the gates, 32 reals each, first in the forward pass's), with
+// the arguments of cpflow_unitary_global_launch, on `stream`. Returns
+// cudaErrorInvalidValue for a shape the global row tiles do not take, else
+// the CUDA error of the launch.
+int cpflow_unitary_global_gates(const void* angles, void* work,
+                                const void* letters, int n, int num_blocks,
+                                int num_letters, int ent, int nba, int B,
+                                int vjp, int per_sm, void* stream) {
+  GlobalArgs ga;
+  if (!global_args(ga, angles, nullptr, nullptr, nullptr, work, nullptr,
+                   letters, n, num_blocks, num_letters, ent, nba, B, vjp,
+                   per_sm))
+    return (int)cudaErrorInvalidValue;
+  return (int)global_gates_launch(ga, static_cast<cudaStream_t>(stream));
 }
 
 // The forward pass (vjp == 0: writes U) or the vjp (vjp == 1: reads U and
-// Ubar, writes grad; `work` a device buffer of B x
-// cpflow_unitary_global_work reals, whose contents need no setting) of one
-// column on the global row tiles, on `stream`, with the arguments of
-// cpflow_unitary_launch (log_c 0) and the pass's schedule
-// (kernels/rows.py:global_schedule, the forward pass's or the vjp's for
-// the segment and tile of cpflow_unitary_global_plan): `ops`, its table on
-// the device; `offsets` (passes + 1 ints) and `ranges` (2 x passes ints,
-// each pass's first and last gate), on the host. The forward pass launches
-// forward_global_kernel once a pass, in order; the vjp vjp_global_kernel
-// once a pass, last pass first, then vjp_global_sum_kernel. Returns
-// cudaErrorInvalidValue for a shape or a schedule they do not take, else
-// the first CUDA error of the launches.
+// Ubar, writes grad) of one column on the global row tiles with per_sm (1
+// or 2) blocks of a pass an SM, on `stream`, with the arguments of
+// cpflow_unitary_launch (log_c 0), `work`, a device buffer of B x
+// cpflow_unitary_global_work reals (whose contents need no setting), and
+// the pass's schedule (kernels/rows.py:global_schedule and global_maps,
+// the forward pass's or the vjp's for the segment and tile of
+// cpflow_unitary_global_plan): `ops`, its table, and `maps`, its copy
+// tables (kGlobalMapInts ints a pass), on the device; `offsets` (passes +
+// 1 ints) and `ranges` (2 x passes ints, each pass's first and last gate,
+// blocks only), on the host. Launches the prologue (global_gates_kernel),
+// then the forward pass forward_global_kernel once a pass, in order, or
+// the vjp vjp_global_kernel once a pass, last pass first, then
+// vjp_global_sum_kernel. Returns cudaErrorInvalidValue for a shape or a
+// schedule they do not take, else the first CUDA error of the launches.
 int cpflow_unitary_global_launch(const void* angles, void* U,
                                  const void* Ubar, void* grad, void* work,
                                  const void* placements, const void* letters,
                                  int n, int num_blocks, int num_letters,
-                                 int ent, int nba, int B, int vjp,
+                                 int ent, int nba, int B, int vjp, int per_sm,
                                  void* stream, const void* ops,
-                                 const int* offsets, const int* ranges,
-                                 int passes) {
+                                 const void* maps, const int* offsets,
+                                 const int* ranges, int passes) {
   GlobalArgs ga;
-  RowArgs& a = ga.ra;
-  a.angles = static_cast<const real*>(angles);
-  a.U = static_cast<cplx*>(U);
-  a.Ubar = static_cast<const cplx*>(Ubar);
-  a.grad = static_cast<real*>(grad);
-  a.placements = static_cast<const int*>(placements);
-  a.tpl.letters = static_cast<const int*>(letters);
-  a.tpl.m = num_letters;
-  a.tpl.ent = ent;
-  a.tpl.nba = nba;
-  a.n = n;
-  a.nb = num_blocks;
-  a.log_c = 0;
-  a.B = B;
-  a.restarts = 1;
-  a.cluster_log = global_log(n, num_blocks, nba, 0, vjp != 0);
   const int G = n + num_blocks;
-  if (a.cluster_log < 0 || !ops || passes < 1 || !offsets ||
-      (vjp && (!work || !ranges)))
+  if (!global_args(ga, angles, U, Ubar, grad, work, placements, letters, n,
+                   num_blocks, num_letters, ent, nba, B, vjp, per_sm) ||
+      !ops || !maps || passes < 1 || !offsets || !ranges)
     return (int)cudaErrorInvalidValue;
   for (int p = 0; p < passes; ++p)
-    if (offsets[p + 1] - offsets[p] < n ||
-        (vjp && (ranges[2 * p] < 0 || ranges[2 * p] > ranges[2 * p + 1] ||
-                 ranges[2 * p + 1] >= G)))
+    if (offsets[p + 1] - offsets[p] < n || ranges[2 * p] < n ||
+        ranges[2 * p] > ranges[2 * p + 1] || ranges[2 * p + 1] >= G)
       return (int)cudaErrorInvalidValue;
-  const Layout L =
-      global_layout(n, num_blocks, nba, a.cluster_log, vjp != 0, &a.plan);
-  ga.work = static_cast<real*>(work);
-  ga.per = global_work(n, G, a.cluster_log);
-  ga.jlo = ga.jhi = 0;
+  RowArgs& a = ga.ra;
+  const GlobalLayout L =
+      global_layout(n, num_blocks, a.cluster_log, vjp != 0, per_sm);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)B << a.cluster_log;
   const int4* table = static_cast<const int4*>(ops);
+  const int* map = static_cast<const int*>(maps);
   cudaError_t err = grant_smem(vjp ? kVjpGlobal : kForwardGlobal, L.bytes);
   if (err != cudaSuccess) return (int)err;
-  if (!vjp) {
-    for (int p = 0; p < passes; ++p) {
-      a.ops = table + offsets[p];
-      a.nops = offsets[p + 1] - offsets[p];
-      ga.first = p == 0;
-      ga.keep = 0;
-      forward_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
-  }
-  const size_t sum_bytes = sum_layout(1, L.P).bytes;
-  err = grant_smem(kVjpGlobalSum, sum_bytes);
+  const size_t sum_bytes = sum_layout(1, 3 * n + nba * num_blocks).bytes;
+  if (vjp) err = grant_smem(kVjpGlobalSum, sum_bytes);
+  if (err == cudaSuccess) err = global_gates_launch(ga, s);
   if (err != cudaSuccess) return (int)err;
-  for (int p = passes - 1; p >= 0; --p) {
+  for (int i = 0; i < passes; ++i) {
+    const int p = vjp ? passes - 1 - i : i;  // the vjp: last pass first
     a.ops = table + offsets[p];
     a.nops = offsets[p + 1] - offsets[p];
-    ga.first = p == passes - 1;
-    ga.keep = p > 0;
+    ga.maps = map + (size_t)p * kGlobalMapInts;
+    ga.first = i == 0;
+    ga.last = vjp && p == 0;
     ga.jlo = ranges[2 * p];
     ga.jhi = ranges[2 * p + 1];
-    vjp_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
+    if (vjp)
+      vjp_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
+    else
+      forward_global_kernel<<<blocks, L.nt, L.bytes, s>>>(ga);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (!vjp) return 0;
   vjp_global_sum_kernel<<<(unsigned)B * G, kMaxThreads, sum_bytes, s>>>(ga);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,9 @@ segment, ring and shared bytes, so that the tables and the layouts can be
 checked without a card (on the card the library's own plan decides:
 cpflow_sweep_row_plan, cpflow_unitary_row_plan). ``global_schedule`` does
 the same for one column past what a cluster holds, kept in device memory:
-its gates cut into the fewest passes of tiles, each pass a table of its
-own (the global row tiles of kernels/unitary.py).
+its blocks cut into the fewest passes of tiles, each pass a table of its
+own, and ``global_maps`` the tables by which a block copies its tile (the
+global row tiles of kernels/unitary.py).
 """
 
 from __future__ import annotations
@@ -185,7 +186,21 @@ def device_schedule(n: int, placements: tuple, segment: int,
 # swaps leave, so the column is in natural order between passes whatever
 # the table does. Within a pass the bits move as on one block (``schedule``:
 # a gate on a warp's segment, a bit it needs swapped in from the tile), and
-# a gate whose bits are not all in the tile ends the pass.
+# a gate whose bits are not all in the tile ends the pass. Both passes
+# schedule the blocks alone: the forward pass starts from the surface
+# round's product state, and the vjp contracts M with it (csrc/rows.cuh).
+
+# the tile's lowest address bits that every pass holds on its lowest row
+# bits, in order, when it starts and when it ends (at most the segment's):
+# a block copies 16 bytes a thread, two neighbouring amplitudes in float32,
+# and eight threads' copies fall on distinct banks
+FIXED_BITS = 4
+# the pass's copy tables (``global_maps``): for each end of the pass, rows
+# and addresses of a tile's i-th amplitude in address order by i's 7 low
+# and 7 high bits (4 x 128 ints), then the tile's base address by the
+# tile's 7 low and 7 high bits (2 x 128 ints)
+MAP_INTS = 1536
+
 
 def sector_bits(dtype) -> int:
     """The amplitude bits that every pass keeps in its tile, so that its
@@ -219,7 +234,7 @@ def windows(n: int, gates: list, order, log_rows: int, low: int) -> list:
 
 @functools.lru_cache(maxsize=64)
 def global_schedule(n: int, placements: tuple, segment: int, log_rows: int,
-                    low: int, forward: bool = False) -> tuple:
+                    low: int) -> tuple:
     """The schedule of the global row tiles for tiles of 2^log_rows rows and
     a segment of 2^segment rows: (table, offsets, ranges). table is (ops, 4)
     int32 of the passes one after another; pass p is table[offsets[p]:
@@ -228,18 +243,25 @@ def global_schedule(n: int, placements: tuple, segment: int, log_rows: int,
     0 ... low - 1 among them; the rest in increasing order, naming the
     tile), then the pass's ops as ``schedule`` writes them, every swap
     inside the tile (both bits below log_rows). ranges[p] = (first, last)
-    gate of pass p; the gates of a pass are consecutive. The passes are the
-    fewest (``windows``); within a pass the tile's row bits start with the
-    bits used first on the segment, and Belady's rule swaps the rest in.
+    gate of pass p; the gates of a pass are consecutive blocks. The passes
+    are the fewest (``windows``); within a pass the tile's row bits start
+    with its FIXED_BITS lowest address bits (at most the segment's), in
+    order, then the bits used first on the segment, and Belady's rule
+    swaps the rest in; swaps at the pass's end put those lowest bits back
+    on the lowest row bits, so that both of its permutations keep them
+    there.
 
-    forward=True: the forward pass's table, of the blocks alone; its first
-    pass's n rows are also where row_product writes the surface round's
-    product state from e_0."""
+    Both passes run this table of the blocks alone: the forward pass in
+    order, its first pass's n rows also where row_product writes the
+    surface round's product state from e_0; the vjp backward, last pass
+    first, its first pass's n rows also where the walk leaves the product
+    state that the surface round's cotangents contract M with."""
     if segment < 2:
         raise ValueError(f'a segment of {1 << segment} rows holds no '
                          f'two-qubit gate')
     gates = gate_bits(n, placements)
-    order = list(range(n if forward else 0, len(gates)))
+    order = list(range(n, len(gates)))
+    fixed = min(FIXED_BITS, segment)
     ops, offsets, ranges = [], [0], []
     for start, end in windows(n, gates, order, log_rows, low):
         run = order[start:end]
@@ -250,14 +272,24 @@ def global_schedule(n: int, placements: tuple, segment: int, log_rows: int,
         for t, j in enumerate(run):
             for bit in gates[j]:
                 first_use.setdefault(bit, t)
-        # the tile's bits by first use (then the sector bits, then fill up
-        # from the lowest unused bits), the rest naming the tile
-        fill = [b for b in range(n) if b not in tile][:log_rows - len(tile)]
-        local = sorted(tile, key=lambda b: (first_use.get(b, len(run)), b)) \
-            + fill
-        held = local + [b for b in range(n) if b not in set(local)]
+        # the tile: its gates' bits and the sector bits, filled up from the
+        # lowest unused bits; on the row bits its lowest bits first, then
+        # by first use; the rest naming the tile
+        tile |= set([b for b in range(n) if b not in tile][:log_rows -
+                                                             len(tile)])
+        lowest = sorted(tile)[:fixed]
+        local = lowest + sorted(tile - set(lowest), key=lambda b: (
+            first_use.get(b, len(run)), b))
+        held = local + [b for b in range(n) if b not in tile]
         head = [(-2, v, b, 0) for v, b in enumerate(held)]
         body = _belady(gates, run, held, segment)
+        where = {b: v for v, b in enumerate(held)}
+        for v, b in enumerate(lowest):  # the lowest bits back in place
+            if held[v] != b:
+                p, y = where[b], held[v]
+                body.append((-1, v, p, 0))
+                held[v], held[p] = b, y
+                where[b], where[y] = v, p
         ops += head + body
         offsets.append(len(ops))
         ranges.append((run[0], run[-1]))
@@ -266,12 +298,70 @@ def global_schedule(n: int, placements: tuple, segment: int, log_rows: int,
     return table, tuple(offsets), tuple(ranges)
 
 
+def pass_ends(table, offsets) -> list:
+    """[(start, end)] of each pass of a global schedule: the permutations
+    (row bit -> address bit) it starts and ends with."""
+    out = []
+    for p in range(len(offsets) - 1):
+        rows = table[offsets[p]:offsets[p + 1]]
+        n = int((rows[:, 0] == -2).sum())
+        held = [int(b) for b in rows[:n, 2]]
+        start = list(held)
+        for j, a, b, _ in rows[n:]:
+            if j == -1:
+                held[a], held[b] = held[b], held[a]
+        out.append((start, held))
+    return out
+
+
+def _spread(values, count):
+    """For x in 0 ... 127: the OR of values[u] over the set bits u of x,
+    u < min(7, count)."""
+    out = np.zeros(128, dtype=np.int64)
+    for u in range(min(7, count)):
+        out[(np.arange(128) >> u) & 1 == 1] |= values[u]
+    return out
+
+
+def global_maps(n: int, placements: tuple, segment: int, log_rows: int,
+                low: int) -> np.ndarray:
+    """The copy tables of each pass of ``global_schedule``: (passes,
+    MAP_INTS) int32. For each end of the pass (its start permutation, then
+    its end one) four tables of 128: the tile row and the address bits of
+    the tile's i-th amplitude in increasing address order, as row(i) =
+    rows_lo[i & 127] | rows_hi[i >> 7] and addr(i) = addr_lo[i & 127] |
+    addr_hi[i >> 7]; then for each end the address bits that tile t sets,
+    base(t) = base_lo[t & 127] | base_hi[t >> 7]. A block's amplitude i
+    lies at base(t) | addr(i), on row row(i) of its tile."""
+    table, offsets, _ = global_schedule(n, placements, segment, log_rows,
+                                        low)
+    out = []
+    for ends in pass_ends(table, offsets):
+        parts, bases = [], []
+        for held in ends:
+            bits = sorted(held[:log_rows])
+            row = [held.index(b) for b in bits]
+            for values in (1 << np.array(row), 1 << np.array(bits)):
+                parts += [_spread(values, log_rows),
+                          _spread(values[7:], log_rows - 7)]
+            glob = 1 << np.array(held[log_rows:], dtype=np.int64)
+            bases += [_spread(glob, n - log_rows),
+                      _spread(glob[7:], n - log_rows - 7)]
+        out.append(np.concatenate(parts + bases))
+    maps = np.array(out, dtype=np.int32).reshape(-1, MAP_INTS)
+    maps.setflags(write=False)
+    return maps
+
+
 @functools.lru_cache(maxsize=64)
 def device_global_schedule(n: int, placements: tuple, segment: int,
-                           log_rows: int, low: int, device: torch.device,
-                           forward: bool = False) -> torch.Tensor:
-    """``global_schedule``'s table as an int32 tensor on `device`, made
-    once a key."""
-    table = global_schedule(n, placements, segment, log_rows, low,
-                            forward)[0]
-    return torch.tensor(table, dtype=torch.int32, device=device).contiguous()
+                           log_rows: int, low: int,
+                           device: torch.device) -> tuple:
+    """``global_schedule``'s table and ``global_maps``' tables as int32
+    tensors on `device`, made once a key."""
+    table = global_schedule(n, placements, segment, log_rows, low)[0]
+    maps = global_maps(n, placements, segment, log_rows, low)
+    return (torch.tensor(table, dtype=torch.int32, device=device)
+            .contiguous(),
+            torch.tensor(maps, dtype=torch.int32, device=device)
+            .contiguous())

@@ -70,11 +70,18 @@ kernels/rows.py, ``row_plan``). One column past what a cluster holds
 ``global_plan``) stays in device memory in natural order and runs a
 launch a pass, every tile of 2^log_rows rows on a block of its own under
 a permutation of its own, a gate that needs a bit outside the tile ending
-the pass (kernels/rows.py:global_schedule): ``ansatz_forward_global_rows``
-in place on U, ``ansatz_vjp_global_rows`` on A and M in a workspace,
-each tile's shares of its pass's cotangents summed in a fixed order by
-``ansatz_vjp_global_sum``. Before a call allocates U or that workspace it
-raises ValueError where the card lacks the bytes. The forward pass of the
+the pass (kernels/rows.py:global_schedule, the blocks alone: the surface
+round is a product state, which the forward pass writes and against which
+the vjp's last pass contracts M; the copies by the pass's tables,
+global_maps): ``ansatz_global_gates`` builds each restart's gates once a
+call into a workspace, from which each block brings in its pass's by one
+bulk copy; ``ansatz_forward_global_rows`` runs in place on U,
+``ansatz_vjp_global_rows`` on A and M in the workspace, each tile's shares
+of its pass's cotangents summed in a fixed order by
+``ansatz_vjp_global_sum``; two blocks of a pass share an SM, on tiles half
+as large, where that costs the template no pass (``global_per_sm``).
+Before a call allocates U or that workspace it raises ValueError where the
+card lacks the bytes. The forward pass of the
 whole unitary from 7 qubits runs on the column tiles (``tile_plan``, design 'tiles',
 ``ansatz_forward_column_tiles``): a restart's columns split into tiles on
 independent blocks, the fewest whose layout on tiles.cuh's warps fits,
@@ -135,9 +142,10 @@ VJP_LAUNCHES_BY_CLUSTER: Counter = Counter()
 # launches of both kernels by the kernel of KERNELS that ran, '_f64' added
 # for the double build; reset with .clear()
 LAUNCHES_BY_KERNEL: Counter = Counter()
-# the global row tiles' kernel launches, a pass each and the vjp's sum once
-# a call, by the kernel of KERNELS ('_f64' added for the double build);
-# a wrapper call counts once in LAUNCHES_BY_KERNEL; reset with .clear()
+# the global row tiles' kernel launches, a pass each, the vjp's sum and the
+# prologue (ansatz_global_gates) once a call, by the kernel of KERNELS
+# ('_f64' added for the double build); a wrapper call counts once in
+# LAUNCHES_BY_KERNEL; reset with .clear()
 GLOBAL_PASSES: Counter = Counter()
 
 ENTANGLER_CODES = {'cp': 0, 'cz': 1, 'cx': 2}
@@ -161,16 +169,21 @@ KERNELS = ('ansatz_forward', 'ansatz_vjp', 'ansatz_vjp_cluster') + tuple(
     'ansatz_forward_column_tiles', 'ansatz_vjp_column_tiles',
     'ansatz_vjp_tile_sum', 'ansatz_forward_row_tiles', 'ansatz_vjp_row_tiles',
     'ansatz_vjp_tile_gates', 'ansatz_forward_global_rows',
-    'ansatz_vjp_global_rows', 'ansatz_vjp_global_sum')
+    'ansatz_vjp_global_rows', 'ansatz_vjp_global_sum', 'ansatz_global_gates')
 # csrc/unitary.cu's global row tiles (one column past what a cluster
 # holds): the widest column they take, by build (a column of 2^24 complex64
 # or 2^23 complex128 amplitudes is 128 MiB, and the vjp holds four of them
 # a restart, U, Ubar and its A and M: 512 MiB; it is the widest that
 # chip_smoke.py holds against the plain version on the card); log2 of the
-# fewest rows of a tile; the bytes of a pass's maps after its layout
+# fewest rows of a tile; the bytes of a pass's copy tables in a block (the
+# first 1024 ints of kernels/rows.py's MAP_INTS) and its mbarrier; the
+# shared memory a block may use where one or two blocks of a pass share an
+# SM (two: half the SM's 233,472 bytes, less the 1,024 the runtime keeps
+# for each block)
 GLOBAL_MAX_QUBITS = {torch.float32: 24, torch.float64: 23}
 GLOBAL_ROWS_MIN = 10
-GLOBAL_MAP_BYTES = 3 * 2 * 32 * 4
+GLOBAL_MAP_BYTES = 4096 + 16
+GLOBAL_SMEM = {1: _SMEM_LIMIT, 2: 115712}
 
 
 def _scale(dtype) -> int:
@@ -333,51 +346,111 @@ def row_tiles_max(dtype=torch.float32) -> int:
     return n
 
 
+def global_layout(n: int, num_blocks: int, j: int, vjp: bool, per_sm: int,
+                  dtype=torch.float32) -> dict:
+    """A block of a pass of the global row tiles on 2^(n - j) rows with
+    `per_sm` blocks an SM (csrc/unitary.cu's global_layout): a warp for
+    every 2^7 rows up to kernels/rows.py's THREADS over per_sm threads;
+    shared memory for A (and the vjp's M), the G gates (and the vjp's
+    gbar, 32 reals a gate), the pass's copy tables and mbarrier, and the
+    vjp's ring of cotangent slots, the most
+    gates of 16, 8, ... 1 that GLOBAL_SMEM[per_sm] holds. dict(log_rows,
+    warps, segment, ring, threads, smem_bytes)."""
+    real = 4 * _scale(dtype)
+    log_rows = n - j
+    cap = rk.THREADS[dtype] // per_sm
+    lw = 0
+    while lw < log_rows - rk.SEGMENT_MIN and 64 << lw <= cap:
+        lw += 1
+    warps = 1 << lw
+    nbytes = ((2 if vjp else 1) * 2 * real << log_rows) + \
+        (2 if vjp else 1) * (n + num_blocks) * 32 * real + GLOBAL_MAP_BYTES
+    ring = 0
+    if vjp:
+        ring = rk.RING_MAX
+        while ring > 1 and nbytes + 32 * warps * ring * real > \
+                GLOBAL_SMEM[per_sm]:
+            ring //= 2
+        nbytes += 32 * warps * ring * real
+    return dict(log_rows=log_rows, warps=warps, segment=log_rows - lw,
+                ring=ring, threads=32 * warps, smem_bytes=nbytes)
+
+
 def global_log(n: int, num_blocks: int, nba: int, vjp: bool,
-               dtype=torch.float32):
+               dtype=torch.float32, per_sm: int = 1):
     """log2 of the tiles a restart of one column takes on the global row
-    tiles, as csrc/unitary.cu's global_log picks it in the build of
-    `dtype`: past the row tiles' widest column (row_tiles_max) up to
-    GLOBAL_MAX_QUBITS, where no cluster holds the pass, the fewest tiles
-    whose layout (smem_bytes with 2^j blocks, and the pass's maps) fits a
-    block, tiles of at least 2^GLOBAL_ROWS_MIN rows; None elsewhere."""
+    tiles with `per_sm` blocks an SM, as csrc/unitary.cu's global_log picks
+    it in the build of `dtype`: past the row tiles' widest column
+    (row_tiles_max) up to GLOBAL_MAX_QUBITS, where no cluster holds the
+    pass, the fewest tiles whose global_layout fits GLOBAL_SMEM[per_sm],
+    tiles of at least 2^GLOBAL_ROWS_MIN rows; None elsewhere."""
     if not row_tiles_max(dtype) < n <= GLOBAL_MAX_QUBITS[dtype] or \
             cluster_plan(n, num_blocks, nba, 0, vjp, dtype) is not None:
         return None
     for j in range(1, n - GLOBAL_ROWS_MIN + 1):
-        if smem_bytes(n, num_blocks, nba, 0, vjp, 1 << j, dtype) + \
-                GLOBAL_MAP_BYTES <= _SMEM_LIMIT:
+        if global_layout(n, num_blocks, j, vjp, per_sm, dtype)[
+                'smem_bytes'] <= GLOBAL_SMEM[per_sm]:
             return j
     return None
 
 
 def global_plan(n: int, num_blocks: int, nba: int, vjp: bool,
-                dtype=torch.float32):
-    """The launch of a pass of the global row tiles (csrc/unitary.cu's
-    global_layout; cpflow_unitary_global_plan on the card): the row tiles'
-    block (kernels/rows.py:launch) on 2^(n - j) rows with the pass's maps
-    reserved, dict(tiles (a restart), log_rows, warps, segment, ring,
-    threads, smem_bytes, sum_smem_bytes (the vjp's sum kernel)); None where
+                dtype=torch.float32, per_sm=None):
+    """The launch of a pass of the global row tiles with `per_sm` blocks
+    an SM (csrc/unitary.cu's global_layout; cpflow_unitary_global_plan on
+    the card; per_sm None: two where a tile fits so, else one):
+    global_layout at global_log's tiles, dict(tiles (a restart), per_sm,
+    log_rows, warps, segment, ring, threads, smem_bytes, sum_smem_bytes (the
+    vjp's sum kernel), gates_smem_bytes (the gates' prologue)); None where
     global_log takes no j."""
-    j = global_log(n, num_blocks, nba, vjp, dtype)
+    if per_sm is None:
+        return global_plan(n, num_blocks, nba, vjp, dtype, 2) or \
+            global_plan(n, num_blocks, nba, vjp, dtype, 1)
+    j = global_log(n, num_blocks, nba, vjp, dtype, per_sm)
     if j is None:
         return None
-    got = rk.launch(1 << j, n - j,
-                    smem_bytes(n, num_blocks, nba, 0, vjp, 1 << j, dtype),
-                    dtype, vjp, reserve=GLOBAL_MAP_BYTES)
-    P = 3 * n + nba * num_blocks
-    got['tiles'] = got.pop('cluster')
-    got['sum_smem_bytes'] = (64 + 4 * P) * _scale(dtype) * 4
+    got = global_layout(n, num_blocks, j, vjp, per_sm, dtype)
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    got.update(tiles=1 << j, per_sm=per_sm,
+               sum_smem_bytes=(64 + 4 * P) * _scale(dtype) * 4,
+               gates_smem_bytes=(64 * G + 4 * P) * _scale(dtype) * 4)
     return got
 
 
-def global_work(n: int, num_blocks: int, nba: int, dtype=torch.float32):
-    """The reals of the vjp's workspace a restart on the global row tiles
-    (csrc/unitary.cu's global_work): A and M, 2^n complex each, then each
-    tile's share of every gate's cotangent, 32 reals a gate; None where
-    they do not take the vjp."""
-    j = global_log(n, num_blocks, nba, True, dtype)
-    return None if j is None else (4 << n) + ((n + num_blocks) << j) * 32
+def global_work(n: int, num_blocks: int, nba: int, vjp: bool,
+                dtype=torch.float32, per_sm=None):
+    """The reals of a call's workspace a restart on the global row tiles
+    (csrc/unitary.cu's global_work): in the vjp A and M, 2^n complex each,
+    then each tile's share of every gate's cotangent, 32 reals a gate;
+    then the gates (32 reals each) and the cos and sin of the angles that
+    the prologue builds; a multiple of 4 reals. None where global_plan
+    takes no plan."""
+    p = global_plan(n, num_blocks, nba, vjp, dtype, per_sm)
+    if p is None:
+        return None
+    G, P = n + num_blocks, 3 * n + nba * num_blocks
+    used = ((4 << n) + 32 * G * p['tiles'] if vjp else 0) + 32 * G + 2 * P
+    return (used + 3) // 4 * 4
+
+
+def global_per_sm(n: int, placements, nba: int, vjp: bool,
+                  dtype=torch.float32):
+    """Blocks of a pass an SM for this template (the wrapper's choice,
+    which the library takes as given): two, on tiles half as large so that
+    one block's copies overlap the other's walk, where they make no more
+    passes (kernels/rows.py:global_schedule) than one block an SM; else
+    one. None where neither holds the shape."""
+    placements = tuple(tuple(int(q) for q in p) for p in placements)
+    passes = {}
+    for per_sm in (2, 1):
+        p = global_plan(n, len(placements), nba, vjp, dtype, per_sm)
+        if p is not None:
+            passes[per_sm] = len(rk.global_schedule(
+                n, placements, p['segment'], p['log_rows'],
+                rk.sector_bits(dtype))[2])
+    if not passes:
+        return None
+    return 2 if passes.get(2, 1 << 30) <= passes.get(1, 1 << 30) else 1
 
 
 # qubits the kernels take, per build, for the whole unitary ('unitary')
@@ -429,7 +502,7 @@ def column_restarts(n: int, num_blocks: int, nba: int, log_c: int,
 
 
 def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
-         dtype=torch.float32):
+         dtype=torch.float32, placements=None):
     """The design csrc/unitary.cu launches for a shape (cpflow_unitary_design)
     in the build of `dtype`, and its sizes: dict(design 'columns', 'rows',
     'tiles' or 'global_rows', threads_per_restart, restarts_per_block,
@@ -438,10 +511,12 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
     column tiles and the vjp on a cluster, also columns_per_warp,
     warps_per_column and ring, as cpflow_unitary_warp_layout gives them;
     for the global row tiles, one column past what a cluster holds,
-    blocks_per_restart the tiles a pass runs on, with log_rows, warps,
-    segment, ring and sum_smem_bytes, as global_plan gives them); None if
-    no design holds the shape. The launches on rows.cuh's warps (every
-    other of the row-split design): rows_launch, row_plan."""
+    blocks_per_restart the tiles a pass runs on, with per_sm, log_rows,
+    warps, segment, ring, sum_smem_bytes and gates_smem_bytes, as
+    global_plan gives them: with `placements` (the template's pairs) at
+    global_per_sm's blocks an SM, without them at two where a tile fits
+    so); None if no design holds the shape. The launches on rows.cuh's
+    warps (every other of the row-split design): rows_launch, row_plan."""
     r = column_restarts(n, num_blocks, nba, log_c, vjp, dtype)
     if r:
         return dict(design='columns', threads_per_restart=column_lanes(n),
@@ -454,7 +529,9 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
             n, num_blocks, nba, log_c, vjp, dtype)
     design, extra = 'rows', {}
     if c is None and not log_c:
-        got = global_plan(n, num_blocks, nba, vjp, dtype)
+        got = global_plan(n, num_blocks, nba, vjp, dtype, None if
+                          placements is None else global_per_sm(
+                              n, placements, nba, vjp, dtype))
         if got is None:
             return None
         return dict(design='global_rows',
@@ -462,8 +539,9 @@ def plan(n: int, num_blocks: int, nba: int, log_c: int, vjp: bool,
                     restarts_per_block=1, threads=got['threads'],
                     smem_bytes=got['smem_bytes'],
                     blocks_per_restart=got['tiles'],
-                    **{k: got[k] for k in ('log_rows', 'warps', 'segment',
-                                           'ring', 'sum_smem_bytes')})
+                    **{k: got[k] for k in (
+                        'per_sm', 'log_rows', 'warps', 'segment', 'ring',
+                        'sum_smem_bytes', 'gates_smem_bytes')})
     if c is None:
         tiles = tile_plan(n, num_blocks, nba, log_c, vjp, dtype)
         if tiles is None:
@@ -547,13 +625,16 @@ def load_library(dtype=torch.float32) -> ctypes.CDLL:
         lib.cpflow_unitary_tiles_launch.argtypes = [ptr] * 7 + [i] * 8 + [
             ptr]
         lib.cpflow_unitary_tiles_launch.restype = i
-        lib.cpflow_unitary_global_plan.argtypes = [i] * 4 + [ptr]
+        lib.cpflow_unitary_global_plan.argtypes = [i] * 5 + [ptr]
         lib.cpflow_unitary_global_plan.restype = i
-        lib.cpflow_unitary_global_work.argtypes = [i] * 3
+        lib.cpflow_unitary_global_work.argtypes = [i] * 5
         lib.cpflow_unitary_global_work.restype = ctypes.c_longlong
-        lib.cpflow_unitary_global_launch.argtypes = [ptr] * 7 + [i] * 7 + [
-            ptr] * 4 + [i]
+        lib.cpflow_unitary_global_launch.argtypes = [ptr] * 7 + [i] * 8 + [
+            ptr] * 5 + [i]
         lib.cpflow_unitary_global_launch.restype = i
+        lib.cpflow_unitary_global_gates.argtypes = [ptr] * 3 + [i] * 8 + [
+            ptr]
+        lib.cpflow_unitary_global_gates.restype = i
     return lib
 
 
@@ -647,7 +728,7 @@ def check_memory(needs: int, free: int, n: int, B: int, vjp: bool) -> None:
     """Raises ValueError where a call of the global row tiles needs more
     bytes than the card has free."""
     if needs > free:
-        what = "the vjp's workspace" if vjp else 'U'
+        what = "the vjp's workspace" if vjp else 'U and its workspace'
         raise ValueError(
             f'the unitary kernels need {needs} bytes of device memory for '
             f'{what} of {B} restarts at {n} qubits (one column on the '
@@ -704,23 +785,28 @@ class _Shape:
         self.ops = None  # the row schedule, made by row_ops when first used
         self.table = None  # the global schedule, made by global_table
         if self.design == 'global_rows':
-            got = (ctypes.c_int * 8)()
+            # blocks a pass an SM, by the template's passes (the wrapper's
+            # choice, which the library takes as given)
+            self.per_sm = global_per_sm(n, self.placements, self.nba, vjp,
+                                        dtype)
+            got = (ctypes.c_int * 9)()
             with torch.cuda.device(device):
                 err = self.lib.cpflow_unitary_global_plan(
-                    n, self.nb, self.nba, int(vjp), got)
+                    n, self.nb, self.nba, int(vjp), self.per_sm or 0, got)
                 self.work = self.lib.cpflow_unitary_global_work(
-                    n, self.nb, self.nba) if vjp else 0
+                    n, self.nb, self.nba, int(vjp), self.per_sm or 0)
             if err != 0:
                 raise RuntimeError(f'no global row plan for {n} qubits: '
                                    f'CUDA error {err}')
             self.global_plan = dict(zip(
                 ('threads', 'smem_bytes', 'warps', 'segment', 'ring',
-                 'log_rows', 'tiles', 'sum_smem_bytes'), got))
+                 'log_rows', 'tiles', 'sum_smem_bytes', 'gates_smem_bytes'),
+                got))
             real = 8 if dtype == torch.float64 else 4
-            # what a call allocates: U (the forward pass) or the workspace
-            # (the vjp)
-            self.needs = B * (self.work * real if vjp else
-                              2 * real << n)
+            # what a call allocates: its workspace, and U in the forward
+            # pass
+            self.needs = B * (self.work * real + (0 if vjp else
+                                                  2 * real << n))
         if not self.cluster and self.design not in ('tiles', 'global_rows'):
             most = 1 << n if self.log_c else min(CLUSTERS[-1], 1 << (n - 2))
             with torch.cuda.device(device):
@@ -741,18 +827,18 @@ class _Shape:
             '_f64' if self.dtype == torch.float64 else '')
 
     def global_table(self, device):
-        """(table on `device`, offsets, ranges) of the global row tiles'
-        schedule of this pass (kernels/rows.py:global_schedule) for the
-        library's plan's segment and tile; made at the first launch."""
+        """(table and copy tables on `device`, offsets, ranges, passes) of
+        the global row tiles' schedule of this pass (kernels/rows.py:
+        global_schedule, global_maps) for the library's plan's segment and
+        tile; made at the first launch."""
         if self.table is None:
             p = self.global_plan
             low = rk.sector_bits(self.dtype)
             _, offsets, ranges = rk.global_schedule(
+                self.n, self.placements, p['segment'], p['log_rows'], low)
+            self.table = rk.device_global_schedule(
                 self.n, self.placements, p['segment'], p['log_rows'], low,
-                forward=not self.vjp)
-            self.table = (rk.device_global_schedule(
-                self.n, self.placements, p['segment'], p['log_rows'], low,
-                device, forward=not self.vjp),
+                device) + (
                 (ctypes.c_int * len(offsets))(*offsets),
                 (ctypes.c_int * (2 * len(ranges)))(
                     *[j for r in ranges for j in r]), len(ranges))
@@ -797,22 +883,26 @@ class _Shape:
         stream = torch.cuda.current_stream(angles.device).cuda_stream
         with torch.cuda.device(angles.device):
             if design == 'global_rows':
-                table, offsets, ranges, passes = self.global_table(
+                table, maps, offsets, ranges, passes = self.global_table(
                     angles.device)
-                work = torch.empty(
-                    self.B * self.work, dtype=self.dtype,
-                    device=angles.device) if vjp else None
+                # the gates, their cos and sin (the prologue writes them),
+                # and the vjp's A, M and tiles' shares
+                work = torch.empty(self.B * self.work, dtype=self.dtype,
+                                   device=angles.device)
                 err = self.lib.cpflow_unitary_global_launch(
                     angles.data_ptr(), u.data_ptr(),
                     ubar.data_ptr() if ubar is not None else None,
                     grad.data_ptr() if grad is not None else None,
-                    work.data_ptr() if vjp else None, plc.data_ptr(),
+                    work.data_ptr(), plc.data_ptr(),
                     letters.data_ptr(), self.n, self.nb, len(self.rot),
-                    self.ent, self.nba, self.B, int(vjp), stream,
-                    table.data_ptr(), offsets, ranges, passes)
+                    self.ent, self.nba, self.B, int(vjp), self.per_sm,
+                    stream, table.data_ptr(), maps.data_ptr(), offsets,
+                    ranges, passes)
                 if err == 0:
                     name = self.kernel(vjp, design)
+                    suffix = '_f64' if self.dtype == torch.float64 else ''
                     GLOBAL_PASSES[name] += passes
+                    GLOBAL_PASSES['ansatz_global_gates' + suffix] += 1
                     if vjp:
                         GLOBAL_PASSES[name.replace('global_rows',
                                                    'global_sum')] += 1
@@ -953,6 +1043,42 @@ def ansatz_vjp(num_qubits: int, entangling_gate_name: str,
                                 design in ('tiles', 'global_rows') else
                                 shape.cluster] += 1
     return grad
+
+
+def global_gates(num_qubits: int, entangling_gate_name: str,
+                 rotation_gates: str, placements: dict,
+                 angles: torch.Tensor) -> torch.Tensor:
+    """The global row tiles' prologue alone (global_gates_kernel, which
+    each of their calls launches first): angles (P, B) on the card -> every
+    gate's matrix, (B, G, 16) complex, as the kernels hold them (a surface
+    gate's 2x2 in its first 4 entries, a block's 4x4), for the shape whose
+    forward pass of one column runs on the global row tiles; raises
+    elsewhere."""
+    angles = angles.detach().contiguous()
+    shape = _checked(num_qubits, entangling_gate_name, rotation_gates,
+                     placements, angles, [0], False, None)
+    if shape.design != 'global_rows':
+        raise ValueError(f'{num_qubits} qubits with {shape.nb} blocks: the '
+                         f'forward pass of one column runs in the '
+                         f'{shape.design!r} design, not on the global row '
+                         f'tiles')
+    _, letters = _tables(shape.placements, shape.rot, angles.device)
+    G = shape.n + shape.nb
+    work = torch.empty((shape.B, shape.work), dtype=shape.dtype,
+                       device=angles.device)
+    with torch.cuda.device(angles.device):
+        err = shape.lib.cpflow_unitary_global_gates(
+            angles.data_ptr(), work.data_ptr(), letters.data_ptr(), shape.n,
+            shape.nb, len(shape.rot), shape.ent, shape.nba, shape.B, 0,
+            shape.per_sm, torch.cuda.current_stream(angles.device)
+            .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'unitary kernel launch failed: CUDA error {err} '
+                           f'({shape.B} restarts, the global row tiles\' '
+                           f'prologue)')
+    GLOBAL_PASSES['ansatz_global_gates' + (
+        '_f64' if shape.dtype == torch.float64 else '')] += 1
+    return torch.view_as_complex(work[:, :32 * G].reshape(shape.B, G, 16, 2))
 
 
 class AnsatzUnitary(torch.autograd.Function):

@@ -128,7 +128,13 @@ class Throughput:
 # algorithm needs, the numerator of its bound:
 #  - per amplitude of the d x C state: a 1q gate's forward pass 14 and its
 #    adjoint step 44 (rewinding A by G^dag, pulling M back by G^T, summing
-#    the gate's cotangent), a 2q gate's 30 and 92;
+#    the gate's cotangent), a 2q gate's 30 and 92; the surface round, from
+#    the identity (or e_0), leaves a product state, one complex multiply an
+#    amplitude (6), and its gates' cotangents are the contraction of M
+#    with that product state leaving one qubit out, two complex
+#    multiply-adds an amplitude (16: the two halves of the bits contracted
+#    against the other half's factors, as csrc/rows.cuh's surface_contract
+#    does), 22 in all where n gate passes and n adjoint steps take 58 n;
 #  - the loss with its cotangent: 14 per amplitude (hst, disc, state); for
 #    the modulo losses 26 per entry on the blocks, 5 per entry off them and
 #    6 per row;
@@ -145,13 +151,15 @@ class Throughput:
 #  - Adam with the gradient mask, 15 per angle; the penalty's value and
 #    slope, 22 per CP angle.
 # `executed` counts csrc/sweep.cu's loops as they stand. Beyond `needed`
-# the gradient pass rebuilds both legs of every block from the stored cos
-# and sin (112(m - 1) a block), and the kernel computes the penalty of
-# every angle (masked by cp_mask) in the evaluation and again in the Adam
-# pass (2 x 22 per angle). Both count one restart-iteration once, whatever
-# the design: the blocks of a cluster, and the column tiles past it, each
-# build the restart's gates again, which neither counts, so that a bound
-# means the same for every design.
+# the kernel runs the surface round as n gate passes and n adjoint steps
+# (58 n an amplitude), the gradient pass rebuilds both legs of every block
+# from the stored cos and sin (112(m - 1) a block), and the kernel
+# computes the penalty of every angle (masked by cp_mask) in the
+# evaluation and again in the Adam pass (2 x 22 per angle). Both count
+# one restart-iteration once, whatever the design: the blocks of a
+# cluster, and the column tiles past it, each build the restart's gates
+# again, which neither counts, so that a bound means the same for every
+# design.
 def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None,
                dtype='float32'):
     """dict(P angles, target entries, needed and executed operations of one
@@ -161,7 +169,7 @@ def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None,
     d, m = 2 ** n, len(rot)
     P = 3 * n + num_block_angles(ent, rot) * nb
     amps = d if kind == 'state' else d * d
-    common = amps * (58 * n + 122 * nb)
+    common = amps * 122 * nb
     if kind.startswith('modulo'):
         on = d * 2 ** (n - num_wires)          # entries on the blocks
         common += 26 * on + 5 * (amps - on) + 6 * d
@@ -169,8 +177,8 @@ def sweep_work(n, nb, rot='xyz', ent='cp', kind='hst', num_wires=None,
         common += 14 * amps
     common += 273 * n + (214 * max(m - 1, 0) + 464 + 2 * m + {
         'cp': 109, 'cz': 16, 'cx': 0}[ent]) * nb + 18 * P
-    needed = common + 22 * nb * (ent == 'cp')
-    executed = common + 112 * max(m - 1, 0) * nb + 44 * P
+    needed = common + 22 * amps + 22 * nb * (ent == 'cp')
+    executed = common + 58 * n * amps + 112 * max(m - 1, 0) * nb + 44 * P
     real_bytes, peak = precision(dtype)
     return dict(P=P, target=amps, needed=needed, executed=executed,
                 real_bytes=real_bytes, peak=peak)
@@ -198,13 +206,19 @@ def bound_ms(work, B, T):
 # The forward pass needs no gate pass for the surface round: on the
 # identity's columns (or on e_0) it leaves a product state, the Kronecker
 # product of the surface gates (of their first columns), which takes one
-# complex multiply (6) an amplitude once each half's factors are made. The
-# walk needs the gates too, so it builds them again; it also halves and
-# conjugates the cotangent (2 per amplitude).
+# complex multiply (6) an amplitude once each half's factors are made. Nor
+# does the walk: the surface gates' cotangents are the contraction of M
+# with that product state leaving one qubit out, two complex multiply-adds
+# an amplitude (16) once each half's factors are made, as sweep_work
+# counts it and csrc/rows.cuh's surface_contract does it. The walk needs
+# the gates too, so it builds them again; it also halves and conjugates
+# the cotangent (2 per amplitude). `gates` is the gates' part alone (the
+# cos and sin, the builds), once a restart: the global row tiles'
+# prologue.
 def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None, dtype='float32'):
     """dict(P, amplitudes, forward and vjp operations of one restart,
-    forward and vjp bytes of one restart in `dtype`) of the unitary
-    kernels."""
+    the gates' operations alone, forward and vjp bytes of one restart in
+    `dtype`) of the unitary kernels."""
     from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
     m = len(rot)
     P = 3 * n + num_block_angles(ent, rot) * nb
@@ -212,11 +226,11 @@ def unitary_work(n, nb, rot='xyz', ent='cp', log_c=None, dtype='float32'):
     gates = 3 * P + 112 * n + (112 * max(m - 1, 0) + 96 + {
         'cp': 24, 'cz': 4, 'cx': 0}[ent]) * nb
     forward = amps * (6 + 30 * nb) + gates
-    vjp = gates + amps * (44 * n + 92 * nb + 2) + 161 * n + (
+    vjp = gates + amps * (16 + 92 * nb + 2) + 161 * n + (
         368 + 102 * max(m - 1, 0) + 2 * m + {'cp': 85, 'cz': 12, 'cx': 0}[ent]
     ) * nb
     rb = precision(dtype)[0]
-    return dict(P=P, amps=amps, forward=forward, vjp=vjp,
+    return dict(P=P, amps=amps, forward=forward, vjp=vjp, gates=gates,
                 forward_bytes=rb * P + 2 * rb * amps,
                 vjp_bytes=2 * rb * P + 4 * rb * amps)
 

@@ -171,7 +171,7 @@ assert ran['mesh'] == ['cpu', 'cpu'] and ran['batch'] == 4
 forward, (example,) = dryrun.entry(device='cpu')
 assert forward(example).shape == (64,)
 assert mesh.padded_batch_size(5, mesh.restart_mesh(['cpu'] * 2)) == 6
-assert profiling.sweep_work(3, 12)['needed'] == 120569
+assert profiling.sweep_work(3, 12)['needed'] == 110841
 with tempfile.TemporaryDirectory() as tmp:
     with profiling.trace(tmp):
         torch.ones(3).sum()

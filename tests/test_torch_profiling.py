@@ -17,9 +17,9 @@ from cpflow_tpu_torch.utils import profiling as prof
 
 
 @pytest.mark.parametrize('n,nb,rot,needed', [
-    (3, 12, 'xyz', 120_569),       # the static CCZ shape
-    (5, 20, 'xyz', 2_834_591),     # the 5q Toffoli k=20 shape
-    (7, 144, 'xyz', 294_884_001),  # the Toffoli-7 composite's template
+    (3, 12, 'xyz', 110_841),       # the static CCZ shape
+    (5, 20, 'xyz', 2_560_159),     # the 5q Toffoli k=20 shape
+    (7, 144, 'xyz', 288_592_545),  # the Toffoli-7 composite's template
 ])
 def test_sweep_work_matches_the_recorded_counts(n, nb, rot, needed):
     work = prof.sweep_work(n, nb, rot)
@@ -29,12 +29,12 @@ def test_sweep_work_matches_the_recorded_counts(n, nb, rot, needed):
 
 
 def test_bound_of_the_static_shape():
-    """3q k=12, B=1024, T=2000: 3.685 ms by the operations (PERF.md)."""
+    """3q k=12, B=1024, T=2000: 3.388 ms by the operations (PERF.md)."""
     ms, by = prof.bound_ms(prof.sweep_work(3, 12), 1024, 2000)
     assert by == 'operations'
-    assert ms == pytest.approx(120_569 * 1024 * 2000 / 67e12 * 1e3,
+    assert ms == pytest.approx(110_841 * 1024 * 2000 / 67e12 * 1e3,
                                rel=1e-12)
-    assert round(ms, 3) == 3.685
+    assert round(ms, 3) == 3.388
     # one step of one restart moves more bytes than it computes
     assert prof.bound_ms(prof.sweep_work(3, 12), 1, 0)[1] == 'bytes'
 
@@ -42,14 +42,48 @@ def test_bound_of_the_static_shape():
 def test_unitary_work_at_the_3q_row():
     w = prof.unitary_work(3, 12)
     assert (w['P'], w['amps'], w['forward'], w['vjp']) == \
-        (93, 64, 28_167, 92_414)
+        (93, 64, 28_167, 84_990)
     assert (w['forward_bytes'], w['vjp_bytes']) == (4 * 93 + 8 * 64,
                                                     8 * 93 + 16 * 64)
     ms, by = prof.unitary_bound_ms(w['forward'], w['forward_bytes'], 1024)
     assert by == 'operations' and round(ms, 5) == 0.00043
     ms, by = prof.unitary_bound_ms(w['vjp'], w['vjp_bytes'], 1024)
-    assert by == 'operations' and round(ms, 5) == 0.00141
+    assert by == 'operations' and round(ms, 5) == 0.0013
     assert prof.unitary_work(10, 36, log_c=0)['amps'] == 2 ** 10
+
+
+@pytest.mark.parametrize('n,nb,log_c', [(3, 12, None), (20, 19, 0),
+                                         (24, 2, 0), (9, 10, None)])
+def test_surface_round_counts_as_product_and_contraction(n, nb, log_c):
+    """Neither pass counts the surface round as n gate passes: the forward
+    pass writes the product state (6 an amplitude) and the vjp contracts M
+    with it (16 an amplitude), whatever n; each block costs 30 and 92 an
+    amplitude. The gates' part alone is what both passes build."""
+    w = prof.unitary_work(n, nb, log_c=log_c)
+    more = prof.unitary_work(n, nb + 1, log_c=log_c)
+    amps = w['amps']
+    assert more['forward'] - w['forward'] == \
+        30 * amps + more['gates'] - w['gates']
+    assert w['forward'] == 6 * amps + 30 * nb * amps + w['gates']
+    rest = w['vjp'] - w['gates'] - amps * (92 * nb + 2)
+    assert rest - 16 * amps == 161 * n + (368 + 102 * 2 + 6 + 85) * nb
+    assert w['gates'] == 3 * w['P'] + 112 * n + (112 * 2 + 96 + 24) * nb
+
+
+@pytest.mark.parametrize('kind', ['hst', 'state', 'disc'])
+@pytest.mark.parametrize('n,nb', [(3, 12), (5, 20), (14, 28)])
+def test_sweep_counts_the_surface_round_as_the_unitary_kernels_do(
+        n, nb, kind):
+    """The sweep's needed operations count the surface round as the
+    unitary kernels' bounds do (22 an amplitude: the product state and the
+    contraction); its executed ones count the kernel's n gate passes and n
+    adjoint steps (58 n an amplitude), as its loops run them."""
+    w = prof.sweep_work(n, nb, kind=kind)
+    amps = w['target']
+    beyond = 112 * 2 * nb + 44 * w['P'] - 22 * nb
+    assert w['executed'] - w['needed'] == (58 * n - 22) * amps + beyond
+    per_block = prof.sweep_work(n, nb + 1, kind=kind)['needed'] - w['needed']
+    assert per_block == 122 * amps + 214 * 2 + 464 + 6 + 109 + 18 * 7 + 22
 
 
 def test_roofline_model():

@@ -4,20 +4,26 @@ forward_global_kernel and vjp_global_kernel (csrc/unitary.cu) hold one
 column in device memory, in natural order, and run it a pass at a time:
 every tile of 2^log_rows rows on a block of its own, loaded under the
 pass's permutation and stored under the one its swaps leave, a gate that
-needs a bit outside the tile ending the pass; vjp_global_sum_kernel adds
-the tiles' shares of each gate's cotangent in a fixed order. The wrapper
-hands them a schedule computed on the host (kernels/rows.py:
-global_schedule). Here, on the CPU:
+needs a bit outside the tile ending the pass; both schedule the blocks
+alone, the vjp's last launch contracting M with the surface round's
+product state for the surface gates' cotangents; vjp_global_sum_kernel
+adds the tiles' shares of each gate's cotangent in a fixed order. The
+wrapper hands them a schedule and its copy tables computed on the host
+(kernels/rows.py: global_schedule, global_maps). Here, on the CPU:
 
   * the schedule: every gate's legs on segment bits when it runs, every
-    swap inside the tile, the sector bits in every pass's tile, the passes
-    the fewest any cut of the gates into runs allows, their counts at the
-    GHZ-20 ladder and at a deep random template printed and bounded;
+    swap inside the tile, the sector bits in every pass's tile and the
+    tile's lowest address bits on its lowest row bits at both ends of
+    every pass, the passes the fewest any cut of the blocks into runs
+    allows, their counts at the GHZ-20 ladder and at a deep random
+    template printed and bounded; the copy tables give every pass's
+    (address, row) pairs as the rule of the tiles' permutations does;
   * the schedule applied in plain torch as the kernels apply it (simulated
     tiles and passes, gathers and scatters by the passes' permutations,
-    the tiles' shares summed in the kernel's order) gives the plain path's
-    column, state loss and angle gradients at 8-12 qubits with tiles of
-    2^4-2^6 rows, and the JAX package's objective at one shape;
+    the surface round contracted tile by tile, the tiles' shares summed in
+    the kernel's order) gives the plain path's column, state loss and
+    angle gradients at 8-12 qubits with tiles of 2^4-2^6 rows, and the JAX
+    package's objective at one shape;
   * at 18 qubits the port's plain state objective and its gradient against
     the JAX package's on the same numpy inputs;
   * the plans' Python mirrors at 18-24 qubits in float32 and 17-23 in
@@ -123,26 +129,37 @@ SCHEDULES = [(8, 16, 'chain', 2, 4, 2), (9, 18, 'random', 3, 5, 1),
 def test_global_schedule_runs_every_gate_on_the_segment(n, k, layer, seg,
                                                         log_rows, low,
                                                         forward):
-    """Replayed pass by pass from each pass's own start permutation, the
-    table meets every gate once, in the template's order, with its legs on
-    segment bits where its qubits lie; every swap exchanges a segment bit
-    with a higher bit of the tile; the sector bits (0 ... low - 1) lie in
-    the tile of every pass, so that its loads and stores read whole
-    32-byte sectors; each pass's gates are the range it names; the passes
-    are as few as any cut of the gates into runs whose bits fit a tile
-    allows."""
+    """Replayed as the forward pass runs it (each pass in order from its
+    own start permutation) or as the vjp's walk does (last pass first, each
+    backward from its end permutation, each swap its own inverse), the
+    table meets every block once, in the template's order or in reverse,
+    with its legs on segment bits where its qubits lie (both passes run the
+    one table of the blocks alone: the surface round is a product state,
+    written by the forward pass and contracted by the vjp); every swap
+    exchanges a segment bit with a higher bit of the tile; the sector bits
+    (0 ... low - 1) lie in the tile of every pass, so that its loads and
+    stores read whole 32-byte sectors, and at both ends of a pass its row
+    bits 0 ... min(FIXED_BITS, seg) - 1 hold the tile's lowest address bits
+    in order, so that a thread copies two neighbouring amplitudes; the walk
+    ends each pass where it started; each pass's gates are the range it
+    names; the passes are as few as any cut of the blocks into runs whose
+    bits fit a tile allows."""
     _, placements = placements_of(n, k, layer, seed=n + k)
     table, offsets, ranges = rk.global_schedule(n, placements, seg, log_rows,
-                                                low, forward)
+                                                low)
     bits = rk.gate_bits(n, placements)
-    first = n if forward else 0
+    fixed = min(rk.FIXED_BITS, seg)
     seen = []
-    for (held, ops), (jlo, jhi) in zip(passes_of(table, offsets), ranges):
-        assert sorted(held) == list(range(n))
-        tile = set(held[:log_rows])
+    passes = list(zip(passes_of(table, offsets), ranges))
+    for (start, ops), (jlo, jhi) in passes if forward else passes[::-1]:
+        assert sorted(start) == list(range(n))
+        tile = set(start[:log_rows])
         assert set(range(low)) <= tile
+        held = list(start) if forward else end_of(start, ops)
+        for ends in (start, held):
+            assert ends[:fixed] == sorted(tile)[:fixed]
         mine = []
-        for j, a, b, _ in ops:
+        for j, a, b, _ in ops if forward else ops[::-1]:
             if j < 0:
                 assert j == -1 and 0 <= a < seg and a < b < log_rows
                 held[a], held[b] = held[b], held[a]
@@ -152,34 +169,132 @@ def test_global_schedule_runs_every_gate_on_the_segment(n, k, layer, seg,
             assert all(leg < seg for leg in legs)
             assert tuple(held[leg] for leg in legs) == bits[j]
         assert set(held[:log_rows]) == tile  # the swaps stay in the tile
-        assert mine == list(range(jlo, jhi + 1))
+        if not forward:
+            assert held == start
+        assert mine == list(range(jlo, jhi + 1))[::1 if forward else -1]
         seen += mine
-    assert seen == list(range(first, len(bits)))
-    assert len(ranges) == fewest_passes(bits, range(first, len(bits)),
-                                        log_rows, low)
+    order = list(range(n, len(bits)))
+    assert seen == (order if forward else order[::-1])
+    assert len(ranges) == fewest_passes(bits, order, log_rows, low)
 
 
 def test_global_schedule_pass_counts():
     """The passes at the GHZ-20 ladder (k = 19) and at a deep random
     template (20 qubits, k = 40 random pairs), on the float32 plans' tiles
-    (2^13 rows in the vjp, 2^14 in the forward pass, segments of 2^9 and
-    2^10 rows): printed, and bounded by what this schedule gives. The vjp
-    runs the surface round too, so it cuts more often."""
-    counts = {}
+    at the blocks an SM the wrapper picks for the template
+    (uk.global_per_sm: two blocks an SM, on tiles of 2^12 rows in the vjp
+    and 2^13 in the forward pass, where they make no more passes than one,
+    on 2^13 and 2^14): printed with both choices' counts, and bounded by
+    what this schedule gives. Both passes schedule the blocks alone (the
+    vjp contracts the surface round), so the vjp cuts as the forward pass
+    does."""
+    counts, choices = {}, {}
     for name, layer, k in (('ghz20_ladder', 'chain', 19),
                            ('random_k40', 'random', 40)):
         _, placements = placements_of(20, k, layer, seed=20 + k)
         for vjp in (False, True):
-            p = uk.global_plan(20, k, NBA, vjp)
+            what = (name, 'vjp' if vjp else 'forward')
+            p = uk.plan(20, k, NBA, 0, vjp, placements=placements)
             _, offsets, _ = rk.global_schedule(
                 20, placements, p['segment'], p['log_rows'],
-                rk.sector_bits(F32), not vjp)
-            counts[(name, 'vjp' if vjp else 'forward')] = len(offsets) - 1
-    print('global row tiles, passes at 20 qubits in float32:', counts)
+                rk.sector_bits(F32))
+            counts[what] = len(offsets) - 1
+            choices[what] = {}
+            for per_sm in (1, 2):
+                g = uk.global_plan(20, k, NBA, vjp, F32, per_sm)
+                choices[what][per_sm] = (g['log_rows'], len(
+                    rk.global_schedule(20, placements, g['segment'],
+                                       g['log_rows'],
+                                       rk.sector_bits(F32))[2]))
+            assert counts[what] == min(c for _, c in choices[what].values())
+    print('global row tiles, passes at 20 qubits in float32:', counts,
+          '(log2 rows, passes) by blocks an SM:', choices)
     assert counts[('ghz20_ladder', 'forward')] <= 2
-    assert counts[('ghz20_ladder', 'vjp')] <= 4
+    assert counts[('ghz20_ladder', 'vjp')] <= 2
     assert counts[('random_k40', 'forward')] <= 6
-    assert counts[('random_k40', 'vjp')] <= 8
+    assert counts[('random_k40', 'vjp')] <= 5
+
+
+def address_rule(n, log_rows, held, t, i):
+    """The address and the tile row of tile t's i-th amplitude in address
+    order under the permutation `held` (row bit v holding address bit
+    held[v]), by the rule PR 21's kernels applied bit by bit
+    (global_address, global_base): the tile's address bits in increasing
+    order, each with its row bit, and the global bits held[log_rows:]
+    set by t's bits. i: an array."""
+    bits = sorted(held[:log_rows])
+    addr = np.zeros_like(i)
+    row = np.zeros_like(i)
+    for u, b in enumerate(bits):
+        on = (i >> u) & 1
+        addr |= on << b
+        row |= on << held.index(b)
+    for k in range(n - log_rows):
+        addr |= ((t >> k) & 1) << held[log_rows + k]
+    return addr, row
+
+
+def map_shapes():
+    """(n, placements, segment, log_rows, low) of every pass table: PLAIN's
+    shapes in both dtypes' sector bits, and GLOBAL_UNITARY's rows at the
+    wrapper's plans of both passes."""
+    out = []
+    for n, log_rows, seg, layer, *_ in PLAIN:
+        _, placements = placements_of(n, 2 * n, layer, seed=5 * n + log_rows)
+        for low in (1, 2):
+            out.append((n, placements, seg, log_rows, low))
+    for n, k, rot, _, dname, _, _, _, *layer in chip_smoke.GLOBAL_UNITARY:
+        dtype = getattr(torch, dname)
+        placements = tuple(tuple(p) for p in all_placements(
+            chip_smoke.shape_layers(n, k, layer)))
+        for vjp in (False, True):
+            p = uk.plan(n, k, num_block_angles('cp', rot), 0, vjp, dtype,
+                        placements=placements)
+            if p['design'] == 'global_rows':
+                out.append((n, placements, p['segment'], p['log_rows'],
+                            rk.sector_bits(dtype)))
+    return out
+
+
+def test_copy_tables_follow_the_address_rule():
+    """Every pass's copy tables (kernels/rows.py:global_maps, what a block
+    reads in place of the bit loop), at both ends of the pass: tile t's
+    i-th amplitude lies at base(t) | addr(i) on row row(i), the pairs the
+    bit-by-bit rule gives, in increasing address order; row(i) holds that
+    address under the pass's permutation (the plain emulation's rule,
+    ``addresses``); and i, i + 1 for even i lie on neighbouring rows and
+    addresses (a thread's 16-byte copy). Every tile of the PLAIN shapes
+    and of GLOBAL_UNITARY's rows with up to 256 tiles; the first, second,
+    last and 16 seeded tiles of the others."""
+    rng = np.random.default_rng(23)
+    for n, placements, seg, log_rows, low in map_shapes():
+        table, offsets, _ = rk.global_schedule(n, placements, seg, log_rows,
+                                               low)
+        maps = rk.global_maps(n, placements, seg, log_rows, low)
+        assert maps.shape == (len(offsets) - 1, rk.MAP_INTS)
+        tiles = 1 << (n - log_rows)
+        some = np.arange(tiles) if tiles <= 256 else np.unique(np.concatenate(
+            [[0, 1, tiles - 1], rng.integers(0, tiles, 16)]))
+        i = np.arange(1 << log_rows)
+        for m, ends in zip(maps.astype(np.int64),
+                           rk.pass_ends(table, offsets)):
+            for at, held in enumerate(ends):
+                rows = m[512 * at + (i & 127)] | m[512 * at + 128 + (i >> 7)]
+                addr = m[512 * at + 256 + (i & 127)] | \
+                    m[512 * at + 384 + (i >> 7)]
+                base = m[1024 + 256 * at + (some & 127)] | \
+                    m[1024 + 256 * at + 128 + (some >> 7)]
+                full = addresses(n, log_rows, held).numpy()
+                assert np.all(np.diff(addr) > 0)
+                assert np.all(rows[1::2] == rows[::2] + 1)
+                assert np.all(addr[1::2] == addr[::2] + 1)
+                for t, b in zip(some, base):
+                    want_addr, want_row = address_rule(n, log_rows, held,
+                                                       int(t), i)
+                    assert np.array_equal(b | addr, want_addr)
+                    assert np.array_equal(rows, want_row)
+                    assert np.array_equal(full[(int(t) << log_rows) + rows],
+                                          b | addr)
 
 
 def test_global_schedule_refuses_a_tile_too_small():
@@ -223,8 +338,7 @@ def global_forward(n, gates, placements, seg, log_rows, low):
     round's product state in its start permutation (row_product), every
     other from the column gathered by its start permutation; each pass's
     ops on every tile, then a scatter by its end permutation."""
-    table, offsets, _ = rk.global_schedule(n, placements, seg, log_rows, low,
-                                           forward=True)
+    table, offsets, _ = rk.global_schedule(n, placements, seg, log_rows, low)
     rows = torch.arange(1 << n)
     col = None
     for p, (held, ops) in enumerate(passes_of(table, offsets)):
@@ -258,18 +372,62 @@ def tile_order_sum(shares):
     return out
 
 
+def surface_shares(n, gates, y, held, log_rows):
+    """Each tile's share of each surface gate's cotangent, (n, tiles, 2, 2),
+    as vjp_global_kernel's last launch forms it (surface_contract): M's
+    rows y under the first pass's start permutation `held`, the factors a_q
+    = the first column of surface gate q; for qubit q on row bit v,
+    Gbar_q[r][0] = c sum over the tile's rows e with e_v = r of M[e] times
+    the factors of its other row bits, c the product of the global bits'
+    factors at the tile's index; for qubit q on a global bit, c without
+    its own factor times the whole sum, in its entry for the tile's value
+    of the bit."""
+    tiles = 1 << (n - log_rows)
+    e = np.arange(1 << log_rows)
+    w = [gates[n - 1 - held[v]][:, 0] for v in range(n)]
+
+    def factors(skip):
+        out = torch.ones(1 << log_rows, dtype=y.dtype)
+        for v in range(log_rows):
+            if v != skip:
+                out = out * w[v][torch.as_tensor((e >> v) & 1)]
+        return out
+
+    out = torch.zeros((n, tiles, 2, 2), dtype=y.dtype)
+    for t in range(tiles):
+        m = y[t << log_rows:(t + 1) << log_rows]
+        glob = [w[log_rows + i][(t >> i) & 1] for i in range(n - log_rows)]
+        c = torch.prod(torch.stack(glob)) if glob else torch.ones(
+            (), dtype=y.dtype)
+        for v in range(log_rows):
+            f = m * factors(v)
+            for r in (0, 1):
+                out[n - 1 - held[v], t, r, 0] = c * f[
+                    torch.as_tensor((e >> v) & 1 == r)].sum()
+        total = (m * factors(-1)).sum()
+        for i in range(n - log_rows):
+            others = [g for k, g in enumerate(glob) if k != i]
+            ci = torch.prod(torch.stack(others)) if others else torch.ones(
+                (), dtype=y.dtype)
+            out[n - 1 - held[log_rows + i], t, (t >> i) & 1, 0] = ci * total
+    return out
+
+
 def global_vjp(n, gates, placements, u, m, seg, log_rows, low):
     """The gates' cotangents as vjp_global_kernel and vjp_global_sum_kernel
     form them: the passes last first, A and M gathered by each pass's end
     permutation, its ops backward on every tile (A rewound, M pulled back,
     each gate's cotangent sum M[p] A[k] over its groups taken tile by
-    tile), A and M scattered by its start permutation; then each gate's
-    tiles' shares summed in the kernel's fixed order."""
+    tile), A and M scattered by its start permutation, but after the first
+    pass the surface round's cotangents contracted from M tile by tile
+    (surface_shares); then each gate's tiles' shares summed in the
+    kernel's fixed order."""
     table, offsets, _ = rk.global_schedule(n, placements, seg, log_rows, low)
     tiles = 1 << (n - log_rows)
     col_a, col_m = u, m
     gbar = [None] * len(gates)
-    for held, ops in passes_of(table, offsets)[::-1]:
+    for p, (held, ops) in reversed(list(enumerate(passes_of(table,
+                                                            offsets)))):
         at = addresses(n, log_rows, end_of(held, ops))
         x, y = col_a[at], col_m[at]
         for j, a, b, _ in ops[::-1]:
@@ -286,6 +444,10 @@ def global_vjp(n, gates, placements, u, m, seg, log_rows, low):
             shares.index_add_(0, rows[0] >> log_rows, outer.permute(2, 0, 1))
             gbar[j] = tile_order_sum(shares)
             y = apply(y, G.T, legs)
+        if p == 0:
+            for q, share in enumerate(surface_shares(n, gates, y, held,
+                                                     log_rows)):
+                gbar[q] = tile_order_sum(share)
         at = addresses(n, log_rows, held)
         col_a, col_m = torch.empty_like(x), torch.empty_like(y)
         col_a[at], col_m[at] = x, y
@@ -448,7 +610,6 @@ def test_global_plans_past_the_row_tiles(dtype):
     first, cap = (18, 24) if dtype == F32 else (17, 23)
     assert uk.row_tiles_max(dtype) == first - 1
     assert uk.MAX_QUBITS[dtype]['column'] == cap == uk.GLOBAL_MAX_QUBITS[dtype]
-    warps = 16 if dtype == F32 else 8
     for n in range(first, cap + 1):
         for k in (n - 1, 2 * n, 120):
             for vjp in (False, True):
@@ -458,24 +619,36 @@ def test_global_plans_past_the_row_tiles(dtype):
                     assert not vjp and n == first and c == 16 and \
                         p['design'] == 'rows'
                     continue
-                g = uk.global_plan(n, k, NBA, vjp, dtype)
                 assert p['design'] == 'global_rows'
+                assert p == uk.plan(n, k, NBA, 0, vjp, dtype,
+                                    placements=((0, 1),) * k)
                 assert uk.kernel_name(p['design'], vjp, n,
                                       p['blocks_per_restart'], True) == \
                     ('ansatz_vjp_global_rows' if vjp else
                      'ansatz_forward_global_rows')
-                assert p['smem_bytes'] == g['smem_bytes'] <= LIMIT
-                assert p['blocks_per_restart'] == g['tiles'] == \
-                    1 << (n - g['log_rows'])
-                assert g['log_rows'] >= uk.GLOBAL_ROWS_MIN
-                assert (g['warps'], g['threads']) == (warps, 32 * warps)
-                assert g['segment'] == g['log_rows'] - warps.bit_length() + 1
-                assert (g['ring'] >= 1) if vjp else (g['ring'] == 0)
-                assert g['sum_smem_bytes'] <= 48 * 1024
-                if vjp and k == n - 1:
-                    assert g['segment'] == 9
-                    assert uk.global_work(n, k, NBA, dtype) == \
-                        (4 << n) + 32 * (n + k) * g['tiles']
+                for per_sm in (1, 2):
+                    g = uk.global_plan(n, k, NBA, vjp, dtype, per_sm)
+                    warps = (16 if dtype == F32 else 8) // per_sm
+                    if per_sm == p['per_sm']:
+                        assert p['smem_bytes'] == g['smem_bytes']
+                        assert p['blocks_per_restart'] == g['tiles']
+                    assert g['smem_bytes'] <= uk.GLOBAL_SMEM[per_sm]
+                    assert g['tiles'] == 1 << (n - g['log_rows'])
+                    assert g['log_rows'] >= uk.GLOBAL_ROWS_MIN
+                    assert (g['warps'], g['threads']) == (warps, 32 * warps)
+                    assert g['segment'] == \
+                        g['log_rows'] - warps.bit_length() + 1
+                    assert (g['ring'] >= 1) if vjp else (g['ring'] == 0)
+                    assert g['sum_smem_bytes'] <= 48 * 1024
+                    G, P = n + k, 3 * n + NBA * k
+                    assert g['gates_smem_bytes'] == (64 * G + 4 * P) * (
+                        8 if dtype == F64 else 4)
+                    work = uk.global_work(n, k, NBA, vjp, dtype, per_sm)
+                    assert work % 4 == 0 and 0 <= work - (
+                        ((4 << n) + 32 * G * g['tiles'] if vjp else 0) +
+                        32 * G + 2 * P) < 4
+                    if vjp and k == n - 1:
+                        assert g['segment'] == 9
     for vjp in (False, True):
         assert uk.plan(cap + 1, cap, NBA, 0, vjp, dtype) is None
 
@@ -507,7 +680,7 @@ def test_global_rows_take_no_earlier_shape(dtype):
 def test_global_kernel_names_follow_the_library_order():
     assert uk.KERNELS[19:] == ('ansatz_forward_global_rows',
                                'ansatz_vjp_global_rows',
-                               'ansatz_vjp_global_sum')
+                               'ansatz_vjp_global_sum', 'ansatz_global_gates')
     assert uk.DESIGNS['global_rows'] == 3
     assert uk.kernel_name('global_rows', True, 20, 128, True) == \
         uk.KERNELS[20]
@@ -527,7 +700,9 @@ def test_phase_23_rows_hold_the_main_paths_shapes():
         dtype = getattr(torch, dname)
         nba = num_block_angles('cp', rot)
         assert cols == [0] and passes == (False, True)
-        p = uk.plan(n, k, nba, 0, True, dtype)
+        placements = tuple(tuple(p) for p in all_placements(
+            chip_smoke.shape_layers(n, k, layer)))
+        p = uk.plan(n, k, nba, 0, True, dtype, placements=placements)
         assert (p['design'], p['blocks_per_restart']) == \
             ('global_rows', blocks)
         if not layer and uk.plan(n, k, nba, 0, False,
@@ -616,8 +791,9 @@ def test_a_call_past_free_memory_is_refused():
     names the bytes needed and the bytes free."""
     uk.check_memory(1 << 30, 1 << 30, 24, 8, False)
     with pytest.raises(ValueError, match=(
-            r'need 137438953472 bytes of device memory for U of 1024 '
-            r'restarts at 24 qubits .* the card has 85899345920 bytes free')):
+            r'need 137438953472 bytes of device memory for U and its '
+            r'workspace of 1024 restarts at 24 qubits .* the card has '
+            r'85899345920 bytes free')):
         uk.check_memory(1024 * (8 << 24), 80 << 30, 24, 1024, False)
     with pytest.raises(ValueError, match="for the vjp's workspace of 2"):
         uk.check_memory(2, 1, 20, 2, True)

@@ -108,7 +108,7 @@ def test_a_layout_too_large_takes_one_restart_then_the_row_split():
 
 
 def test_the_kernel_names_follow_the_library_order():
-    assert len(uk.KERNELS) == 22
+    assert len(uk.KERNELS) == 23
     assert uk.KERNELS[13:16] == ('ansatz_forward_column_tiles',
                                  'ansatz_vjp_column_tiles',
                                  'ansatz_vjp_tile_sum')
@@ -130,7 +130,7 @@ def test_the_kernel_names_follow_the_library_order():
                           'global_rows': 3}
     assert uk.KERNELS[19:] == ('ansatz_forward_global_rows',
                                'ansatz_vjp_global_rows',
-                               'ansatz_vjp_global_sum')
+                               'ansatz_vjp_global_sum', 'ansatz_global_gates')
 
 
 def _column_sincos_constants():

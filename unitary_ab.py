@@ -9,15 +9,19 @@ Run from the root of the repository:
 
 for example with build/variant/ a copy of cpflow_tpu_torch/csrc/ with one
 change. Each source must export cpflow_unitary_launch with the arguments
-of this tree's kernels/unitary.py (the design among them); each is built
-with nvcc for sm_90a into build/ab/, and its column kernels' ptxas lines at
-3 and 4 qubits are printed. Then, at every shape of chip_smoke.py's
-UNITARY_TIMING up to 6 qubits, the row-split design of the first build and
-the column design of every build run in turns (rows, each build, each
-build in reverse, rows), the forward pass and the vjp 20 times each, and
-one torch.profiler trace of the card per build and turn gives each kernel
-alone. It prints one row per shape: the mean ms of each, and the largest
-difference of each build's U and gradient from the row-split design's.
+of this tree's kernels/unitary.py (the design and the row schedule among
+them, as the --block mode passes them); each is built with nvcc for
+sm_90a into build/ab/, and its column kernels' ptxas lines at 3 and 4
+qubits are printed. Then, at every shape of chip_smoke.py's
+UNITARY_TIMING up to 6 qubits, the row-split design of the first build
+(one block a restart, with this tree's row schedule of its segment,
+kernels/unitary.py:rows_launch) and the column design of every build run
+in turns (rows, each build, each build in reverse, rows), the forward pass
+and the vjp 20 times each, and one torch.profiler trace of the card per
+build and turn gives each kernel alone (the names of chip_smoke.py's
+TRACE_NAMES). It prints one row per shape: the mean ms of each, and the
+largest difference of each build's U and gradient from the row-split
+design's.
 
     python3 unitary_ab.py --rows OLD/cpflow_tpu_torch/csrc/unitary.cu \\
         cpflow_tpu_torch/csrc/unitary.cu
@@ -80,6 +84,21 @@ this tree's row schedule for the segment of this tree's plan of the pass
 on rows.cuh's warps (kernels/unitary.py:rows_launch; the whole unitary's
 for segment n), which a source that does not run the schedule never
 reads; a vjp row's U is this tree's forward pass of the same angles.
+
+    python3 unitary_ab.py --global OLD/cpflow_tpu_torch/csrc/unitary.cu \
+        cpflow_tpu_torch/csrc/unitary.cu
+
+times the global row tiles (one column past what a cluster holds) at
+every row of chip_smoke.py's GLOBAL_UNITARY, phase 23 (c)'s shapes among
+them: each build with its own schedule and launch arguments (the
+kernels/rows.py that lies beside its csrc/, its library's own plan and
+workspace; a build from before the prologue has PR 21's interface), and
+a build with the prologue at each number of blocks an SM its plan takes
+(1 and 2, the one the wrapper picks marked), every variant in turns (A B
+... B A), the forward pass and the vjp each alone on the card
+(chip_smoke.traced_calls: its passes, the vjp's sum and the prologue, ms a
+call), beside the bounds of chip_smoke.unitary_bound_ms and the passes of
+each variant's schedule.
 """
 
 from __future__ import annotations
@@ -620,6 +639,202 @@ def block_main(sources) -> int:
     return 0
 
 
+def _module(path: Path, name: str):
+    """The Python module at `path`, loaded under `name`."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class GlobalBuild:
+    """One variant of the global row tiles: a source's library, the
+    kernels/rows.py beside its csrc/, and its launch: the interface with the
+    prologue (cpflow_unitary_global_gates exported) at `per_sm` blocks an
+    SM, or PR 21's (its plan, workspace and launch without them)."""
+
+    def __init__(self, lib, rows, per_sm, label):
+        self.lib, self.rows, self.per_sm, self.label = lib, rows, per_sm, \
+            label
+        self.new = hasattr(lib, 'cpflow_unitary_global_gates')
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        if self.new:
+            lib.cpflow_unitary_global_plan.argtypes = [i] * 5 + [ptr]
+            lib.cpflow_unitary_global_work.argtypes = [i] * 5
+            lib.cpflow_unitary_global_launch.argtypes = [ptr] * 7 + [
+                i] * 8 + [ptr] * 5 + [i]
+        else:
+            lib.cpflow_unitary_global_plan.argtypes = [i] * 4 + [ptr]
+            lib.cpflow_unitary_global_work.argtypes = [i] * 3
+            lib.cpflow_unitary_global_launch.argtypes = [ptr] * 7 + [
+                i] * 7 + [ptr] * 4 + [i]
+        lib.cpflow_unitary_global_plan.restype = i
+        lib.cpflow_unitary_global_work.restype = ctypes.c_longlong
+        lib.cpflow_unitary_global_launch.restype = i
+
+    def plan(self, n, k, nba, vjp):
+        """(segment, log2 rows, tiles) of the library's plan; None where
+        it has none."""
+        got = (ctypes.c_int * 9)()
+        args = (n, k, nba, int(vjp)) + ((self.per_sm,) if self.new else ())
+        if self.lib.cpflow_unitary_global_plan(*args, got):
+            return None
+        return got[3], got[5], got[6]
+
+    def prepare(self, n, k, nba, vjp, placements, low, B, dtype):
+        """The launch's schedule, tables and workspace; the passes."""
+        import torch
+        seg, log_rows, _ = self.plan(n, k, nba, vjp)
+        # PR 21's schedule takes the pass (its vjp walked the surface
+        # round); the one beside the prologue is the same for both
+        key = (n, placements, seg, log_rows, low) + (
+            () if self.new else (not vjp,))
+        table, offsets, ranges = self.rows.global_schedule(*key)
+        dev = torch.device('cuda')
+        self.table = torch.tensor(table, dtype=torch.int32, device=dev)
+        self.maps = torch.tensor(self.rows.global_maps(*key),
+                                 dtype=torch.int32, device=dev) \
+            if self.new else None
+        self.offsets = (ctypes.c_int * len(offsets))(*offsets)
+        self.ranges = (ctypes.c_int * (2 * len(ranges)))(
+            *[j for r in ranges for j in r])
+        self.passes = len(ranges)
+        per = self.lib.cpflow_unitary_global_work(
+            *((n, k, nba, int(vjp), self.per_sm) if self.new else
+              (n, k, nba)))
+        self.work = torch.empty(max(per, 1) * B, dtype=dtype, device=dev) \
+            if self.new or vjp else None
+        return self.passes
+
+    def launch(self, angles, u, w, grad, plc, letters, n, k, nrot, nba, B,
+               vjp):
+        import torch
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (angles.data_ptr(), u.data_ptr(),
+                w.data_ptr() if vjp else None,
+                grad.data_ptr() if vjp else None,
+                self.work.data_ptr() if self.work is not None else None,
+                plc.data_ptr(), letters.data_ptr(), n, k, nrot, 0, nba, B,
+                int(vjp))
+        if self.new:
+            err = self.lib.cpflow_unitary_global_launch(
+                *head, self.per_sm, stream, self.table.data_ptr(),
+                self.maps.data_ptr(), self.offsets, self.ranges, self.passes)
+        else:
+            err = self.lib.cpflow_unitary_global_launch(
+                *head, stream, self.table.data_ptr(), self.offsets,
+                self.ranges, self.passes)
+        if err:
+            raise RuntimeError(f'{self.label}: launch failed: CUDA error '
+                               f'{err}')
+
+    def launches(self, vjp):
+        """{trace name: launches a call}."""
+        out = {'vjp_global_kernel' if vjp else 'forward_global_kernel':
+               self.passes}
+        if vjp:
+            out['vjp_global_sum_kernel'] = 1
+        if self.new:
+            out['global_gates_kernel'] = 1
+        return out
+
+
+def global_main(sources) -> int:
+    """--global: the global row tiles of every build (and of a build with
+    the prologue at 1 and 2 blocks an SM) at GLOBAL_UNITARY's rows, in
+    turns."""
+    import torch
+    import chip_smoke as c
+    from cpflow_tpu_torch.kernels import rows as rk
+    from cpflow_tpu_torch.kernels import unitary as uk
+    from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
+                                                    num_block_angles)
+    builds = []
+    for b, src in enumerate(sources):
+        rows = _module(src.resolve().parent.parent / 'kernels' / 'rows.py',
+                       f'_ab_rows_{b}')
+        for dt in (torch.float32, torch.float64):
+            lib = build(src, dt == torch.float64)
+            if not hasattr(lib, 'cpflow_unitary_global_gates'):
+                builds.append((b, dt, GlobalBuild(lib, rows, None,
+                                                  f'build {b}')))
+                continue
+            for per_sm in (1, 2):
+                builds.append((b, dt, GlobalBuild(
+                    lib, rows, per_sm, f'build {b}, {per_sm} an SM')))
+    print(f'{c.card_line()}; builds: '
+          + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    for n, k, rot, B, dname, _, _, _, *layer in c.GLOBAL_UNITARY:
+        dtype = getattr(torch, dname)
+        cdtype = torch.complex128 if dtype == torch.float64 else \
+            torch.complex64
+        nba = num_block_angles('cp', rot)
+        placements = tuple(tuple(int(q) for q in p) for p in all_placements(
+            c.shape_layers(n, k, layer)))
+        plc = torch.tensor(placements, dtype=torch.int32, device='cuda')
+        letters = torch.tensor([uk.LETTER_CODES[x] for x in rot],
+                               dtype=torch.int32, device='cuda')
+        angles = c.uniform_inits(3 * n + nba * k, B, 23, 'cuda').to(dtype)
+        w = torch.randn((B, 1 << n, 1), generator=gen, dtype=cdtype,
+                        device='cuda')
+        picks = {vjp: uk.global_per_sm(n, placements, nba, vjp, dtype)
+                 for vjp in (False, True)}
+        name = f'{n}q {layer[0] if layer else "chain"} k={k} {rot!r} B={B} ' \
+            f'{dname}'
+        for vjp in (False, True):
+            what = 'vjp' if vjp else 'forward'
+            variants = [v for b, dt, v in builds if dt == dtype and
+                        v.plan(n, k, nba, vjp) is not None]
+            if not variants:
+                print(f'{name}: no global row plan for the {what}',
+                      flush=True)
+                continue
+            passes = {v.label: v.prepare(n, k, nba, vjp, placements,
+                                         rk.sector_bits(dtype), B, dtype)
+                      for v in variants}
+            out = {v.label: [] for v in variants}
+            first, diff = None, {}
+            # the vjp's U: this tree's forward pass of the same angles
+            u = uk.ansatz_forward(n, 'cp', rot, c.shape_layers(n, k, layer),
+                                  angles, [0]).contiguous() if vjp else \
+                torch.empty((B, 1 << n, 1), dtype=cdtype, device='cuda')
+            for v in variants + variants[::-1]:
+                grad = torch.empty_like(angles)
+                v.launch(angles, u, w, grad, plc, letters, n, k, len(rot),
+                         nba, B, vjp)
+                torch.cuda.synchronize()
+                got = (grad if vjp else u).clone()
+                if first is None:
+                    first = got
+                scale = first.abs().clamp(min=1.0) if vjp else 1.0
+                diff[v.label] = max(diff.get(v.label, 0.0), (
+                    (got - first).abs() / scale).max().item())
+                ms, kept, whole = c.traced_calls(
+                    lambda: v.launch(angles, u, w, grad, plc, letters, n, k,
+                                     len(rot), nba, B, vjp),
+                    v.launches(vjp))
+                if None in ms.values():
+                    raise RuntimeError(f'{name}: the profiler kept {kept} '
+                                       f'of {v.label}\'s launches')
+                out[v.label].append(sum(ms.values()))
+            work = c.unitary_work(n, k, rot, log_c=0, dtype=dtype)
+            bound, by = c.unitary_bound_ms(
+                work[what], work[f'{what}_bytes'], B, dtype=dtype)
+            best = min(min(t) for t in out.values())
+            print(f'{name} {what}: ' + '; '.join(
+                f'{label}' + (' (the wrapper\'s)' if label.endswith(
+                    f'{picks[vjp]} an SM') else '') +
+                f' {passes[label]} passes, ' + ' / '.join(
+                    f'{t:.4f}' for t in times) + f' ms ({what} off the '
+                f'first by {diff[label]:.1e})'
+                for label, times in out.items()) +
+                f' (bound {bound:.4f} ms by {by}, fastest {bound / best:.2%})',
+                flush=True)
+    return 0
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -640,24 +855,34 @@ def main(argv) -> int:
         return cluster_main([Path(a) for a in argv if a != '--cluster'])
     if '--block' in argv:
         return block_main([Path(a) for a in argv if a != '--block'])
+    if '--global' in argv:
+        return global_main([Path(a) for a in argv if a != '--global'])
     sources = [Path(a) for a in argv] or \
         [Path('cpflow_tpu_torch/csrc/unitary.cu')]
     libs = [build(s) for s in sources]
     print(f'{chip_smoke.card_line()}; builds: '
           + ', '.join(f'{k} {s}' for k, s in enumerate(sources)), flush=True)
+    from cpflow_tpu_torch.kernels import rows as rk
     layers = {'chain': chain_layer, 'connected': connected_layer}
-    names = {False: ('forward_kernel', 'column_forward'),
-             True: ('vjp_kernel', 'column_vjp')}
+    names = {vjp: (chip_smoke.TRACE_NAMES[('rows', vjp)],
+                   chip_smoke.TRACE_NAMES[('columns', vjp)])
+             for vjp in (False, True)}
     for name, n, k, B, rot, layer in chip_smoke.UNITARY_TIMING:
         if n > 6:
             continue
         pl = fill_layers(layers[layer](n), k)
         plc = torch.tensor(all_placements(pl), dtype=torch.int32,
                            device='cuda')
+        placements = tuple(map(tuple, all_placements(pl)))
         letters = torch.tensor([uk.LETTER_CODES[c] for c in rot],
                                dtype=torch.int32, device='cuda')
         nba = num_block_angles('cp', rot)
         P, d = 3 * n + nba * k, 1 << n
+        # the row-split design's schedule: the whole unitary's, for its
+        # segment n (no swap)
+        ops = {vjp: rk.device_schedule(n, placements, min(uk.rows_launch(
+            n, k, nba, n, vjp)['segment'], n), torch.device('cuda'), not vjp)
+            for vjp in (False, True)}
         gen = torch.Generator(device='cuda').manual_seed(1250 + n)
         angles = torch.rand((P, B), generator=gen, device='cuda') * \
             (2 * math.pi)
@@ -670,7 +895,9 @@ def main(argv) -> int:
                 w.data_ptr() if vjp else None,
                 grad.data_ptr() if vjp else None, plc.data_ptr(),
                 letters.data_ptr(), n, k, len(rot), 0, nba, n, B, int(vjp),
-                design, torch.cuda.current_stream().cuda_stream)
+                design, torch.cuda.current_stream().cuda_stream,
+                ops[vjp].data_ptr() if design == 0 else None,
+                len(ops[vjp]) if design == 0 else 0)
             if err:
                 raise RuntimeError(f'launch failed: CUDA error {err}')
 
