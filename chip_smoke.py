@@ -450,8 +450,8 @@ def shape_inputs(s, seed):
     its first ks[j] blocks, and its initial angles are masked with it."""
     import torch
     from cpflow_tpu_torch.sim.ansatz_kernel import num_block_angles
-    obj, P = shape_objective(s)
-    init = uniform_inits(P, s['B'], seed, 'cuda')
+    obj, P = shape_objective(s, s.get('dtype'))
+    init = uniform_inits(P, s['B'], seed, 'cuda').to(obj.dtype)
     if 'ks' not in s:
         return obj, init, None
     nba = num_block_angles(s.get('ent', 'cp'), s.get('rot', 'xyz'))
@@ -463,11 +463,12 @@ def shape_inputs(s, seed):
 
 
 def shape_work(s):
-    """sweep_work of a shape dict."""
+    """sweep_work of a shape dict (in its dtype, float32 by default)."""
     wires = s.get('wires')
     return sweep_work(s['n'], max(s['ks']) if 'ks' in s else s['k'],
                       s.get('rot', 'xyz'), s.get('ent', 'cp'),
-                      s.get('kind', 'hst'), len(wires) if wires else None)
+                      s.get('kind', 'hst'), len(wires) if wires else None,
+                      dtype=s.get('dtype', 'float32'))
 
 
 def uniform_inits(P, B, seed, device):
@@ -657,15 +658,26 @@ def plain_drifted(kernel, plain, plain64, keep):
 
 
 def compare_shapes():
-    """Phase 3's shapes, (a)-(p), as dicts: a bucketed one has ks, rs and S
-    (B = S len(ks)). arbiter=True names the shapes on which the float64
-    plain version may arbitrate (as_close_as_plain): those where plain
-    float32 itself misses drift_ok against float64 at T = 60, the deep
-    templates (g), (l) and (o) with their many flat directions, and (n),
-    where one restart of plain float32 drifts by 1.1e-2 (PERF.md,
-    Findings). Every other shape is held to drift_ok, against plain float32
-    or, where plain float32 itself misses it, against float64
-    (plain_drifted)."""
+    """Phase 3's shapes, (a)-(p), (q6), (r64) and (s)-(u), as dicts: a
+    bucketed one has ks, rs and S (B = S len(ks)); (q6) is the HS test at 6
+    qubits, (r64) the static CCZ's sampling shape in float64 (`dtype`);
+    (s)-(t64) are templates one block deeper than the column build holds
+    (kernels/sweep.py:column_plan), which keep the one-block build, and (u)
+    a batch on which the one-block build held to 128 registers runs
+    (`build` and `held`: what the occupancy must report). A float64 row's
+    initial losses are held to phase 18's bound besides, and its best
+    losses too where it is one of phase 18's shapes (`f64_best`: (r64));
+    deeper templates drift further in 60 steps between any two float64
+    orders of summation (at (t64) the plain version on the card and on the
+    CPU differ by 1.6e-9, drift_probe.py, PERF.md). arbiter=True names the
+    shapes on which the float64 plain version may arbitrate
+    (as_close_as_plain): those where plain float32 itself misses drift_ok
+    against float64 at T = 60, the deep templates (g), (l), (o), (s) and
+    (t) with their many flat directions, and (n), where one restart of
+    plain float32 drifts by 1.1e-2 (PERF.md, Findings). Every other shape
+    is held to drift_ok, against plain float32 or, where plain float32
+    itself misses it, against float64 (plain_drifted)."""
+    import torch
     from cpflow_tpu_torch.ops.gates import (multi_controlled_x, u_ccz3,
                                             u_toff4, u_toff5)
     from cpflow_tpu_torch.topology import connected_layer, square_layer
@@ -718,6 +730,32 @@ def compare_shapes():
              S=256, B=1024, lr=0.1, arbiter=True),
         dict(name="(p) 'cx' blocks 'y' 3q CCZ k=8 B=256", n=3, k=8,
              target=u_ccz3, ent='cx', rot='y', B=256, r=0.0, lr=0.1),
+        dict(name='(q6) HS test 6q chain Toffoli-6 k=20 B=256', n=6, k=20,
+             target=multi_controlled_x(6), B=256, r=0.00055, lr=0.1),
+        dict(name='(r64) float64 3q CCZ k=12 B=1024 (static sampling)', n=3,
+             k=12, target=u_ccz3, B=1024, r=0.00055, lr=0.1,
+             dtype=torch.float64, f64_best=True),
+        dict(name='(s) HS test 6q chain Toffoli-6 k=118 B=64 (one block too '
+             'deep for the column build)', n=6, k=118,
+             target=multi_controlled_x(6), B=64, r=0.00055, lr=0.1,
+             arbiter=True, build='sweep'),
+        dict(name='(t) modulo_identity 6q chain Toffoli-6 wires [5, 1] k=118 '
+             'B=64 (one block too deep for the column build)', n=6, k=118,
+             target=multi_controlled_x(6), kind='modulo_identity',
+             wires=[5, 1], B=64, r=0.00055, lr=0.1, arbiter=True,
+             build='sweep'),
+        dict(name='(s64) float64 HS test 6q chain Toffoli-6 k=56 B=64 (one '
+             'block too deep for the column build)', n=6, k=56,
+             target=multi_controlled_x(6), B=64, r=0.00055, lr=0.1,
+             dtype=torch.float64, build='sweep_f64'),
+        dict(name='(t64) float64 modulo_diagonal 6q chain Toffoli-6 all '
+             'wires k=55 B=64 (one block too deep for the column build)',
+             n=6, k=55, target=multi_controlled_x(6), kind='modulo_diagonal',
+             wires=list(range(6)), B=64, r=0.00055, lr=0.1,
+             dtype=torch.float64, build='sweep_f64'),
+        dict(name='(u) state 10q GHZ k=4 B=700 (the one-block build held to '
+             '128 registers)', n=10, k=4, target=ghz(10), kind='state',
+             B=700, r=0.002, lr=0.1, build='sweep', held=True),
     ]
 
 
@@ -731,14 +769,35 @@ def check_plan(obj, B, name):
     cpflow_sweep_tiles, cpflow_sweep_tile_smem_bytes and the occupancy's;
     on the row tiles (a state on more than one block) the launch's threads,
     shared bytes, warps, segment, ring and rows a block (row_plan) against
-    cpflow_sweep_row_plan and the occupancy's. Returns (blocks a restart,
+    cpflow_sweep_row_plan and the occupancy's; on the column build (the
+    whole unitary at 2 to 6 qubits, column_plan) its restarts, threads and
+    shared bytes a block against cpflow_sweep_column_plan and the
+    occupancy's, whose build must be the column build (and no other build
+    where column_plan does not hold the shape). Returns (blocks a restart,
     shared bytes per block of the plan, the occupancy)."""
+    import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     from cpflow_tpu_torch.sim.ansatz_kernel import (all_placements,
                                                     num_block_angles)
     kind = obj.unitary_loss_func.kind
     n, nb = obj.num_qubits, len(all_placements(obj.placements))
     nba = num_block_angles(obj.entangling_gate_name, obj.rotation_gates)
+    columns = sk.column_plan(n, nb, nba, kind, dtype=obj.dtype)
+    suffix = '_f64' if obj.dtype == torch.float64 else ''
+    if columns is not None:
+        lib = sk.load_library(obj.dtype)
+        got = (ctypes.c_int * 3)()
+        lib.cpflow_sweep_column_plan(n, nb, nba, sk.LOSS_CODES[kind], got)
+        occ = sk.occupancy(obj, B)
+        want = [columns[key] for key in ('restarts', 'threads', 'smem_bytes')]
+        check(list(got) == want and occ['build'] == 'sweep_columns' + suffix
+              and [occ['restarts_per_block'], occ['threads'],
+                   occ['smem_bytes']] == want and occ['cluster'] == 1,
+              f'{name}: the plan says the column build with (restarts, '
+              f'threads, bytes) {want} a block, the kernel {list(got)} and '
+              f'{occ["build"]} with {occ["restarts_per_block"]}, '
+              f'{occ["threads"]}, {occ["smem_bytes"]}')
+        return 1, columns['smem_bytes'], occ
     tiles = sk.tile_plan(n, nb, nba, kind, dtype=obj.dtype)
     if tiles is not None:
         w, t = tiles
@@ -776,7 +835,8 @@ def check_plan(obj, B, name):
               f'{occ["threads"]} threads')
         launched = rows['smem_bytes']
     check(mine == card and launched == occ['smem_bytes'] and
-          c == theirs == occ['cluster'],
+          c == theirs == occ['cluster'] and
+          not occ['build'].startswith('sweep_columns'),
           f'{name}: the plan says {c} blocks of {mine} bytes ({launched} '
           f'launched), the kernel {theirs} ({occ["cluster"]}) blocks of '
           f'{card} ({occ["smem_bytes"]}) bytes')
@@ -795,14 +855,15 @@ def phase_compare(shapes=None, label='phase 3'):
     Every shape's plan (blocks a restart, shared bytes per block) is held
     against the kernel's (check_plan). shapes: phase 3's (compare_shapes)
     by default.
-    Returns (largest absolute error, the templates driven: a dict of the
-    losses, entanglers and rotation strings, and the rows: name, cluster,
-    bytes, ms, plain_ms, bound_ms, bound_by)."""
+    Returns (largest absolute error, the templates driven: for each build
+    that ran, a dict of the losses, entanglers and rotation strings, and
+    the rows: name, build, its largest error, cluster, bytes, registers,
+    local bytes, ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from cpflow_tpu_torch.kernels import sweep as sk
     dev = 'cuda'
     worst = 0.0
-    driven = {'modes': set(), 'entanglers': set(), 'rotation_strings': set()}
+    driven = {}  # by build
     rows = []
     for i, s in enumerate(compare_shapes() if shapes is None else shapes):
         obj, init, mask = shape_inputs(s, s.get('seed', 100 + i))
@@ -814,10 +875,19 @@ def phase_compare(shapes=None, label='phase 3'):
         c, nbytes, occ = check_plan(obj, s['B'], s['name'])
         check(c == s.get('cluster', 1), f'{s["name"]}: {c} blocks a '
               f'restart, not {s.get("cluster", 1)}')
-        before = sk.LAUNCHES
+        check(occ['build'] == s.get('build', occ['build']) and
+              occ['held'] == s.get('held', occ['held']),
+              f'{s["name"]}: the occupancy reports the build {occ["build"]}'
+              f' (held to 128 registers: {occ["held"]}), not '
+              f'{s.get("build")} ({s.get("held")})')
+        before, built = sk.LAUNCHES, dict(sk.LAUNCHES_BY_BUILD)
         out, ms = best_of(lambda: sk.sweep(obj, init, s['lr'], T, mask, tl),
                           s.get('calls', 1))
-        check(sk.LAUNCHES > before, f'{s["name"]}: kernel not launched')
+        ran = {k for k, v in sk.LAUNCHES_BY_BUILD.items()
+               if v > built.get(k, 0)}
+        check(sk.LAUNCHES > before and ran == {occ['build']},
+              f'{s["name"]}: builds launched {sorted(ran)}, the plan\'s '
+              f'{occ["build"]}')
         ref, plain_ms = timed(lambda: sk.sweep_reference(
             obj, init, s['lr'], T, mask, tl))
         for t in out:
@@ -827,9 +897,12 @@ def phase_compare(shapes=None, label='phase 3'):
         abs0 = (out.regloss0 - ref.regloss0).abs().max().item()
         check(err0 <= 1e-5, f'{s["name"]}: initial loss differs by {err0}')
         keep = torch.ones(s['B'], dtype=torch.bool, device=dev)
-        line = (f'{label}: {s["name"]}: {c} block(s) a restart, {nbytes} '
-                f'shared bytes and {occ["registers"]} registers a thread each'
-                f', {occ["active_clusters"]} restarts resident; T={T}: kernel '
+        line = (f'{label}: {s["name"]}: build {occ["build"]}, {c} block(s) '
+                f'a restart, {occ["restarts_per_block"]} restart(s) a block, '
+                f'{nbytes} shared bytes and {occ["registers"]} registers a '
+                f'thread each, {occ["local_bytes"]} local bytes, '
+                f'{occ["active_clusters"] * occ["restarts_per_block"]} '
+                f'restarts resident; T={T}: kernel '
                 f'{ms:.2f} ms, plain {plain_ms:.2f} ms; regloss0 up to '
                 f'{ref.regloss0.abs().max().item():.4g}, error max {abs0:.2e}'
                 f' (scaled {err0:.2e})')
@@ -841,6 +914,7 @@ def phase_compare(shapes=None, label='phase 3'):
             line += f', success {int(ok_k.sum())}/{s["B"]} in both'
             keep = ~ok_k  # the rest ran all 60 steps in both
         worst = max(worst, abs0)
+        row_err = abs0
         ref64 = None
         for what, a, b in [('best regloss', out.best_reg, ref.best_reg),
                            ('best loss', out.best_loss, ref.best_loss)]:
@@ -860,16 +934,30 @@ def phase_compare(shapes=None, label='phase 3'):
                                    'best regloss' else ref64.best_loss, keep)
                 line += f' (float64, {rule.__name__}: {verdict})'
             check(ok, f'{s["name"]}: {what} drifts beyond the rule: {line}')
-            worst = max(worst, (a - b).abs()[keep].max().item())
+            row_err = max(row_err, (a - b).abs()[keep].max().item())
+            worst = max(worst, row_err)
+        if obj.dtype == torch.float64:  # phase 18's bounds, stated there
+            e = scaled_err(out.best_loss, ref.best_loss)[keep].max().item()
+            line += f'; float64: initial {err0:.2e}, best loss {e:.2e}'
+            check(err0 <= F64_LOSS0_TOL and
+                  (e <= F64_BEST_TOL or not s.get('f64_best')),
+                  f'{s["name"]}: float64 kernel against plain float64: '
+                  f'initial {err0:.3e}, best {e:.3e}')
         print(line, flush=True)
-        driven['modes'].add(s.get('kind', 'hst'))
-        driven['entanglers'].add(s.get('ent', 'cp'))
-        driven['rotation_strings'].add(s.get('rot', 'xyz'))
+        by = driven.setdefault(occ['build'], {
+            'modes': set(), 'entanglers': set(), 'rotation_strings': set()})
+        by['modes'].add(s.get('kind', 'hst'))
+        by['entanglers'].add(s.get('ent', 'cp'))
+        by['rotation_strings'].add(s.get('rot', 'xyz'))
         b_ms, b_by = bound_ms(shape_work(s), s['B'], T)
         rows.append(dict(shape=s['name'], T=T, cluster=c, smem_bytes=nbytes,
-                         registers=occ['registers'], ms=ms, plain_ms=plain_ms,
-                         plain_T=T, bound_ms=b_ms, bound_by=b_by))
-    return worst, {k: sorted(v) for k, v in driven.items()}, rows
+                         build=occ['build'], max_abs_err=row_err,
+                         registers=occ['registers'],
+                         local_bytes=occ['local_bytes'], ms=ms,
+                         plain_ms=plain_ms, plain_T=T, bound_ms=b_ms,
+                         bound_by=b_by))
+    return worst, {b: {k: sorted(v) for k, v in by.items()}
+                   for b, by in driven.items()}, rows
 
 
 def phase_main_path():
@@ -884,6 +972,7 @@ def phase_main_path():
     options = StaticOptions(num_cp_gates=12, num_samples=1024,
                             accepted_num_cz_gates=8)
     sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_BUILD.clear()
     start = time.perf_counter()
     results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
@@ -915,24 +1004,28 @@ def phase_main_path():
     return launches
 
 
+def timing_shapes():
+    """Phase 5's rows: [(shape dict, T, T_plain)]."""
+    from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
+    shapes = {s['name'][:3]: s for s in compare_shapes()}
+    return [(dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12,
+                  target=u_ccz3, r=0.00055, B=1024), 2000, 2000),
+            (dict(name='5q Toffoli k=20 B=2048', n=5, k=20,
+                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 500),
+            (shapes['(d)'], 2000, 100), (shapes['(f)'], 500, 100),
+            (shapes['(g)'], 500, 100), (shapes['(h)'], 2000, 100)]
+
+
 def phase_timing(card):
     """Kernel and plain times, and the kernel's share of its bound
     (bound_ms). The plain version of the later rows is timed over
     T_plain = 100 steps, not T: their T steps would take minutes of the
     script's budget. Each row reports the plain time it measured with its
-    step count (plain_T), never a time scaled to T. Rates are
-    restart-iter/s. Returns one dict per row."""
+    step count (plain_T), never a time scaled to T, and the build it
+    launched. Rates are restart-iter/s. Returns one dict per row."""
     from cpflow_tpu_torch.kernels import sweep as sk
-    from cpflow_tpu_torch.ops.gates import multi_controlled_x, u_ccz3
-    shapes = {s['name'][:3]: s for s in compare_shapes()}
     rows = []
-    for s, T, T_plain in [
-            (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12,
-                  target=u_ccz3, r=0.00055, B=1024), 2000, 2000),
-            (dict(name='5q Toffoli k=20 B=2048', n=5, k=20,
-                  target=multi_controlled_x(5), r=0.00055, B=2048), 500, 500),
-            (shapes['(d)'], 2000, 100), (shapes['(f)'], 500, 100),
-            (shapes['(g)'], 500, 100), (shapes['(h)'], 2000, 100)]:
+    for s, T, T_plain in timing_shapes():
         obj, init, mask = shape_inputs(s, s.get('seed', 7))
         B = init.shape[1]
         sk.sweep_reference(obj, init, 0.1, 2, mask)          # warm-up
@@ -945,7 +1038,8 @@ def phase_timing(card):
         work = shape_work(s)
         b_ms, b_by = bound_ms(work, B, T)
         occ = sk.occupancy(obj, B)
-        print(f'phase 5: {s["name"]} T={T} on {card}: kernel {ms1:.2f} / '
+        print(f'phase 5: {s["name"]} T={T} on {card}: build {occ["build"]}: '
+              f'kernel {ms1:.2f} / '
               f'{ms2:.2f} ms = {B * T / (ms / 1e3):.4g} restart-iter/s; bound '
               f'{b_ms:.3f} ms by {b_by} ({work["needed"]} float32 ops needed '
               f'per restart-iter, {work["executed"]} executed), share '
@@ -957,7 +1051,10 @@ def phase_timing(card):
               f'{occ["blocks_per_sm"]} blocks per SM', flush=True)
         rows.append(dict(shape=s['name'], T=T, cluster=occ['cluster'], ms=ms,
                          plain_ms=plain_ms, plain_T=T_plain, bound_ms=b_ms,
-                         bound_by=b_by, registers=occ['registers']))
+                         bound_by=b_by, registers=occ['registers'],
+                         local_bytes=occ['local_bytes'],
+                         blocks_per_sm=occ['blocks_per_sm'],
+                         build=occ['build']))
     return rows
 
 
@@ -982,6 +1079,7 @@ def run_adaptive(synth, options):
     cand.run_bucketed_stage = watched
     try:
         sk.LAUNCHES = 0
+        sk.LAUNCHES_BY_BUILD.clear()
         start = time.perf_counter()
         results = synth.adaptive(options, save_results=False, verbose=False)
         torch.cuda.synchronize()
@@ -1043,9 +1141,10 @@ def phase_adaptive():
     return launches
 
 
-def phase_state():
+def phase_state(label='phase 7'):
     """The state main path: GHZ-4 on the 4q chain (the JAX package's
-    ghz_state benchmark config; GHZ_n needs n - 1 CZ on a chain)."""
+    ghz_state benchmark config; GHZ_n needs n - 1 CZ on a chain), in the
+    precision config sets."""
     import numpy as np
     import torch
     from cpflow_tpu_torch.api import StaticOptions, Synthesize
@@ -1056,6 +1155,7 @@ def phase_state():
     options = StaticOptions(num_cp_gates=6, num_samples=100,
                             accepted_num_cz_gates=3, r=0.001)
     sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_BUILD.clear()
     start = time.perf_counter()
     results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
@@ -1074,7 +1174,7 @@ def phase_state():
           f'{hosts}')
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
-    print(f'phase 7: static GHZ-4 chain k=6 100 samples: {len(hosts)} '
+    print(f'{label}: static GHZ-4 chain k=6 100 samples: {len(hosts)} '
           f'verified, {len(good)} at 3 CZ, best host state loss '
           f'{min(good)[1]:.3e}; kernel launches {launches}; wall {wall:.3f} s '
           f'({stages})', flush=True)
@@ -1171,6 +1271,7 @@ def phase_success_ratio():
     jax_package = {'xyz': 0.59e-2, 'xz': 5.9e-2}
     paper = {'xyz': 0.6e-2, 'xz': 7.8e-2}
     sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_BUILD.clear()
     start = time.perf_counter()
     parts = []
     for rot in ('xyz', 'xz'):
@@ -1225,6 +1326,7 @@ def phase_refine(name, layer, options, want_cz, want_t, published):
 
     synth = Synthesize(layer, target_unitary=u_toff3)
     sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_BUILD.clear()
     start = time.perf_counter()
     results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
@@ -3038,12 +3140,15 @@ def phase_prng(card):
 # bounds, so no drift rule is needed in float64.
 F64_LOSS0_TOL, F64_BEST_TOL = 1e-12, 1e-9
 F64_UNITARY_TOL, F64_GRAD_TOL = 1e-12, 1e-11
+COLUMNS_F64 = 'sweep_columns_f64'  # the column build's double build
 C4_HOST_LOSS = 2.169e-6  # phase 8's 6-CZ decomposition in float64 (C.4)
-F64_TIMING = [  # (shape, steps) of phase 5's first two rows
+F64_TIMING = [  # (shape, steps) of phase 5's first two rows and of (f)
     (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12, r=0.00055,
           B=1024, lr=0.1), 2000),
     (dict(name='5q Toffoli k=20 B=2048', n=5, k=20, r=0.00055, B=2048,
-          lr=0.1), 500)]
+          lr=0.1), 500),
+    (dict(name='(f) state 10q GHZ k=36 B=256', n=10, k=36, kind='state',
+          B=256, r=0.001, lr=0.1), 500)]
 
 
 def double_shapes():
@@ -3146,7 +3251,7 @@ def phase_double(card):
           f'a float64 column kernel uses local memory: {regs64}')
 
     # (b) the sweep kernel against the plain float64 version
-    worst0 = worst = 0.0
+    worst_by = Counter()  # the largest error (initial, best) of each build
     for s in double_shapes():
         obj, P = shape_objective(s, F64)
         init = uniform_inits(P, s['B'], s.get('seed', 7), 'cuda').to(F64)
@@ -3160,8 +3265,9 @@ def phase_double(card):
         want = sk.sweep_reference(obj, init, s['lr'], 60)
         e0 = scaled_err(got.regloss0, want.regloss0).max().item()
         e = scaled_err(got.best_loss, want.best_loss).max().item()
-        worst0, worst = max(worst0, e0), max(worst, e)
-        print(f'phase 18 (b): {s["name"]}: {c} block(s) of {nbytes} bytes, '
+        worst_by[occ['build']] = max(worst_by[occ['build']], e0, e)
+        print(f'phase 18 (b): {s["name"]}: build {occ["build"]}, {c} block(s) '
+              f'of {nbytes} bytes, '
               f'{occ["registers"]} registers, {occ["local_bytes"]} local '
               f'bytes, {occ["blocks_per_sm"]} blocks per SM; initial loss '
               f'err {e0:.3e} (tol {F64_LOSS0_TOL}), best loss err {e:.3e} '
@@ -3217,6 +3323,12 @@ def phase_double(card):
                   f'{eu:.3e}, {eg:.3e}')
 
     launches = {}
+    columns, blocks = {}, {}  # the column and the one-block builds' shares
+
+    def by_build(path):
+        columns[path] = sk.LAUNCHES_BY_BUILD[COLUMNS_F64]
+        blocks[path] = sk.LAUNCHES_BY_BUILD['sweep_f64']
+
     unitary_launches = {}
     config.set_precision(True)
     try:
@@ -3224,6 +3336,7 @@ def phase_double(card):
         synth = Synthesize(chain_layer(3), target_unitary=u_ccz3)
         target = u_ccz3.astype(np.complex128)
         sk.LAUNCHES = sk.F64_LAUNCHES = 0
+        sk.LAUNCHES_BY_BUILD.clear()
         start = time.perf_counter()
         results = synth.static(StaticOptions(num_cp_gates=12,
                                              num_samples=1024,
@@ -3250,6 +3363,15 @@ def phase_double(card):
               f'({", ".join(f"{k} {v:.3f} s" for k, v in synth.stage_seconds.items())})',
               flush=True)
         launches['static_ccz3_f64'] = n64
+        by_build('static_ccz3_f64')
+
+        # the state path of phase 7 in float64, on the one-block build
+        sk.F64_LAUNCHES = 0
+        n_all = phase_state('phase 18 (d) float64')
+        check(sk.F64_LAUNCHES == n_all, f'float64 static GHZ-4: '
+              f'{sk.F64_LAUNCHES} of {n_all} sweep launches in float64')
+        launches['static_ghz4_f64'] = sk.F64_LAUNCHES
+        by_build('static_ghz4_f64')
 
         synth = Synthesize(square_layer(4), target_unitary=u_toff4)
         sk.F64_LAUNCHES = 0
@@ -3275,6 +3397,7 @@ def phase_double(card):
               f'{n_all}, {n64} float64; wall {wall:.3f} s ({stages})',
               flush=True)
         launches['adaptive_toffoli4_f64'] = n64
+        by_build('adaptive_toffoli4_f64')
 
         # (e) the relative-phase Toffoli-4, informational
         wires = [0, 1, 2, 3]
@@ -3298,6 +3421,7 @@ def phase_double(card):
               f'6 CZ at {C4_HOST_LOSS} (ROADMAP C.4); sweep launches {n_all}, '
               f'{n64} float64; wall {wall:.3f} s', flush=True)
         launches['adaptive_relphase_toffoli4_f64'] = n64
+        by_build('adaptive_relphase_toffoli4_f64')
 
         # (f) a custom loss and a custom penalty through the float64 unitary
         # kernels
@@ -3335,6 +3459,7 @@ def phase_double(card):
         steps = 300
         with PlainBuilderWatch() as watch:
             sk.LAUNCHES = sk.F64_LAUNCHES = 0
+            sk.LAUNCHES_BY_BUILD.clear()
             uk.FORWARD_F64_LAUNCHES = uk.VJP_F64_LAUNCHES = 0
             uk.FORWARD_LAUNCHES = uk.VJP_LAUNCHES = 0
             start = time.perf_counter()
@@ -3370,6 +3495,7 @@ def phase_double(card):
         unitary_launches['static_ccz3_l1_penalty_f64'] = f64
         launches['static_ccz3_l1_penalty_f64_verification'] = \
             sk.F64_LAUNCHES
+        by_build('static_ccz3_l1_penalty_f64_verification')
     finally:
         config.set_precision(False)
     check(config.real_dtype == torch.float32, 'float32 did not come back')
@@ -3377,7 +3503,8 @@ def phase_double(card):
     # (g) times, float64 beside float32, in turns
     sweep_rows = []
     for s, T in F64_TIMING:
-        s = dict(s, target=u_ccz3 if s['n'] == 3 else multi_controlled_x(5))
+        s = dict(s, target=ghz(s['n']) if s.get('kind') == 'state' else
+                 u_ccz3 if s['n'] == 3 else multi_controlled_x(5))
         objs = {dt: shape_objective(s, dt)[0] for dt in (torch.float32, F64)}
         P = 3 * s['n'] + nba * s['k']
         init = uniform_inits(P, s['B'], 7, 'cuda')
@@ -3391,11 +3518,12 @@ def phase_double(card):
         _, plain_ms = timed(lambda: sk.sweep_reference(objs[F64],
                                                        init.to(F64), 0.1,
                                                        T_plain))
-        work = sweep_work(s['n'], s['k'], dtype=F64)
+        work = shape_work(dict(s, dtype=F64))
         b_ms, b_by = bound_ms(work, s['B'], T)
         occ = sk.occupancy(objs[F64], s['B'])
         m64, m32 = min(ms[F64]), min(ms[torch.float32])
-        print(f'phase 18 (g): sweep {s["name"]} T={T} on {card}: float64 '
+        print(f'phase 18 (g): sweep {s["name"]} T={T} on {card}: '
+              f'{occ["build"]}: float64 '
               f'{ms[F64][0]:.2f} / {ms[F64][1]:.2f} ms, float32 '
               f'{ms[torch.float32][0]:.2f} / {ms[torch.float32][1]:.2f} ms '
               f'(float64 / float32 {m64 / m32:.2f}); float64 bound '
@@ -3406,7 +3534,7 @@ def phase_double(card):
               f'{occ["smem_bytes"]} shared bytes, {occ["blocks_per_sm"]} '
               f'blocks per SM', flush=True)
         sweep_rows.append(dict(shape=s['name'], T=T, cluster=occ['cluster'],
-                               ms=m64, ms_f32=m32,
+                               build=occ['build'], ms=m64, ms_f32=m32,
                                plain_ms=plain_ms, plain_T=T_plain,
                                bound_ms=b_ms, bound_by=b_by,
                                registers=occ['registers'],
@@ -3479,22 +3607,45 @@ def phase_double(card):
     print(f'phase 18: {time.perf_counter() - start_phase:.1f} s', flush=True)
 
     # the float64 builds' kernel lines: launches from (d)-(f), errors from
-    # (b) and (c), times from (g) at 3q k=12 (sweep: T = 2000, plain_ms over
-    # plain_T steps; unitary: B = 1024, ms one wrapper call on CUDA events
-    # as phase 12's, device_ms the kernel alone); no single PyTorch call
-    # computes these functions, so library_ms is null
+    # (b) and (c), times from (g) (unitary: at 3q k=12 B = 1024, ms one
+    # wrapper call on CUDA events as phase 12's, device_ms the kernel alone;
+    # sweep: plain_ms over plain_T steps); no single PyTorch call computes
+    # these functions, so library_ms is null. The sweep's builds each have
+    # their own line: the one-block build (sweep_f64: its launches, its
+    # largest error in (b), its times at (f), the first row of (g) it runs)
+    # and the column build (its times at 3q k=12)
+    row = next(r for r in sweep_rows if r['build'] == 'sweep_f64')
     lines = [{
         'name': 'sweep_f64', 'route': 'cuda',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'build': '-DCPFLOW_DOUBLE',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
-        'launches': sum(launches.values()), 'launches_by_path': launches,
-        'max_abs_err': worst, 'max_abs_err_initial': worst0,
-        'ms': sweep_rows[0]['ms'], 'plain_ms': sweep_rows[0]['plain_ms'],
-        'plain_T': sweep_rows[0]['plain_T'],
-        'bound_ms': sweep_rows[0]['bound_ms'],
-        'bound_by': sweep_rows[0]['bound_by'], 'library_ms': None,
-        'shapes': sweep_rows}]
+        'launches': sum(blocks.values()), 'launches_by_path': blocks,
+        'launches_all_builds_by_path': launches,
+        'max_abs_err': worst_by['sweep_f64'], 'ms': row['ms'],
+        'plain_ms': row['plain_ms'], 'plain_T': row['plain_T'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': None, 'registers': row['registers'],
+        'local_bytes': row['local_bytes'],
+        'shapes': [r for r in sweep_rows if r['build'] == 'sweep_f64']}]
+    check(lines[-1]['launches'] > 0 and 'sweep_f64' in worst_by,
+          f'the float64 one-block build missed phase 18\'s paths: {blocks}')
+    row = next(r for r in sweep_rows if r['build'] == COLUMNS_F64)
+    lines.append({
+        'name': COLUMNS_F64, 'route': 'cuda',
+        'kernel': 'sweep_columns_kernel',
+        'source': 'cpflow_tpu_torch/csrc/sweep.cu',
+        'build': '-DCPFLOW_DOUBLE',
+        'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
+        'launches': sum(columns.values()), 'launches_by_path': columns,
+        'max_abs_err': worst_by[COLUMNS_F64], 'ms': row['ms'],
+        'plain_ms': row['plain_ms'], 'plain_T': row['plain_T'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': None, 'registers': row['registers'],
+        'local_bytes': row['local_bytes'],
+        'shapes': [r for r in sweep_rows if r['build'] == COLUMNS_F64]})
+    check(lines[-1]['launches'] > 0 and COLUMNS_F64 in worst_by,
+          f'the float64 column build missed phase 18\'s paths: {columns}')
     for i, name in enumerate(('ansatz_forward_f64', 'ansatz_vjp_f64')):
         by_path = {k: v[i] for k, v in unitary_launches.items()}
         row = unitary_rows[name][0]
@@ -5440,28 +5591,42 @@ def main() -> int:
         print(f'phase 1: {card}; torch {torch.__version__}, CUDA '
               f'{torch.version.cuda}', flush=True)
         phase_build()
-        max_err, driven, _ = phase_compare()
-        launches = {'static_ccz3': attempt(0, phase_main_path)}
+        _, driven, compare_rows = phase_compare()
+        from cpflow_tpu_torch.kernels import sweep as sk
+        launches, by_build = {}, {}
+
+        def main_path(name, fn, *args):
+            """A main path's phase (attempt), which sets the sweep kernel's
+            counts to 0 just before it drives the path: its launches, and
+            its launches by build, read just after."""
+            launches[name] = attempt(0, fn, *args)
+            by_build[name] = dict(sk.LAUNCHES_BY_BUILD)
+
+        main_path('static_ccz3', phase_main_path)
         rows = attempt(None, phase_timing, card)
-        launches['adaptive_toffoli4'] = attempt(0, phase_adaptive)
-        launches['static_ghz4'] = attempt(0, phase_state)
-        launches['adaptive_relphase_toffoli4'] = attempt(0, phase_relphase)
-        launches['adaptive_toffoli5_xz'] = attempt(0, phase_toffoli5_xz)
-        launches['success_ratio_table3'] = attempt(0, phase_success_ratio)
+        main_path('adaptive_toffoli4', phase_adaptive)
+        main_path('static_ghz4', phase_state)
+        main_path('adaptive_relphase_toffoli4', phase_relphase)
+        main_path('adaptive_toffoli5_xz', phase_toffoli5_xz)
+        main_path('success_ratio_table3', phase_success_ratio)
         from cpflow_tpu_torch.api import StaticOptions
         from cpflow_tpu_torch.topology import chain_layer, connected_layer
-        launches['static_toffoli3_refine'] = attempt(
-            0, phase_refine,
-            '(a) static Toffoli-3 connected, then refine', connected_layer(3),
-            StaticOptions(num_cp_gates=7, r=1.31e-3, num_samples=100,
-                          accepted_num_cz_gates=6), 6, 7,
-            'published: 6 CZ, 7 T')
-        launches['static_toffoli3_chain_refine'] = attempt(
-            0, phase_refine,
-            '(b) static Toffoli-3 chain, then refine', chain_layer(3),
-            StaticOptions(num_cp_gates=14, r=0.88e-3, num_samples=100,
-                          accepted_num_cz_gates=8), 8, 7,
-            'published: 8 CZ, 7 T, T depth 3')
+        main_path('static_toffoli3_refine', phase_refine,
+                  '(a) static Toffoli-3 connected, then refine',
+                  connected_layer(3),
+                  StaticOptions(num_cp_gates=7, r=1.31e-3, num_samples=100,
+                                accepted_num_cz_gates=6), 6, 7,
+                  'published: 6 CZ, 7 T')
+        main_path('static_toffoli3_chain_refine', phase_refine,
+                  '(b) static Toffoli-3 chain, then refine', chain_layer(3),
+                  StaticOptions(num_cp_gates=14, r=0.88e-3, num_samples=100,
+                                accepted_num_cz_gates=8), 8, 7,
+                  'published: 8 CZ, 7 T, T depth 3')
+        # the column build's and the one-block build's launches on those
+        # paths
+        columns = {name: by.get('sweep_columns', 0)
+                   for name, by in by_build.items()}
+        blocks = {name: by.get('sweep', 0) for name, by in by_build.items()}
         unitary_err, unitary_rows = attempt((None, None), phase_unitary,
                                             card)
         unitary_launches, launches['adaptive_ghz4_state'] = attempt(
@@ -5480,9 +5645,20 @@ def main() -> int:
         wide = attempt(None, phase_wide, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
-        max_err = max(max_err, seven_err)
+        # the GHZ-4 state path (phase 13) and the 7-qubit paths (phase 15)
+        # have no other build than the one-block and cluster build:
+        # column_plan holds no state and nothing past 6 qubits
+        blocks['adaptive_ghz4_state'] = launches['adaptive_ghz4_state']
+        blocks.update(seven_launches)
         check(all(v > 0 for v in launches.values()),
               f'a main path missed the sweep kernel: {launches}')
+        check(sum(blocks.values()) > 0, f'the one-block build missed the '
+              f'main paths: {blocks}')
+        check(sum(columns.values()) > 0 and
+              all(r['build'] == 'sweep_columns' for r in rows
+                  if not r['shape'].startswith('(f)')),  # (f): a state
+              f'the column build missed the main paths ({columns}) or '
+              f'phase 5\'s rows ({[r["build"] for r in rows]})')
         check(all(f > 0 for f, _ in unitary_launches.values()) and
               sum(v for _, v in unitary_launches.values()) > 0,
               f'a main path missed the unitary kernels: {unitary_launches}')
@@ -5529,19 +5705,22 @@ def main() -> int:
         return 1
     print(f'all phases passed in {time.perf_counter() - start:.1f} s')
     print(card)
-    # ms, plain_ms and bound_ms: the static sampling shape (phase 5, row 1),
-    # the kernel and the plain version each timed over its T = 2000 steps;
-    # every row of `shapes` gives the steps its plain_ms was timed over
-    # (plain_T; both null where the plain version was not timed);
+    # the sweep's builds each have a line; ms, plain_ms and bound_ms: a row
+    # of phase 5 that the build runs, the kernel timed over its T steps and
+    # the plain version over plain_T; every row of `shapes` gives the steps
+    # its plain_ms was timed over (plain_T; both null where the plain
+    # version was not timed);
     # registers: per thread, as the CUDA runtime reports them;
-    # launches_by_path: every main path's count, phase 16's CLI
-    # (cli_static_ccz) and two-process (dist_sweep) counts read from those
-    # processes;
+    # launches_all_builds_by_path: every main path's count of the sweep's
+    # launches, phase 16's CLI (cli_static_ccz) and two-process
+    # (dist_sweep) counts read from those processes;
     # no single PyTorch call computes the sweep, so library_ms is null;
-    # modes, entanglers and rotation strings: those phase 3 drove;
-    # shapes: phase 5's rows, phase 15's rows (q)-(z3) at their T and the
-    # Toffoli-7 program's two sweeps, each with the blocks a restart ran on
-    # (`cluster`; at the top, every size the kernel ran with)
+    # modes, entanglers and rotation strings: those phase 3 drove on the
+    # build;
+    # shapes: the build's rows of phase 5, and for the one-block build
+    # phase 15's rows (q)-(z3) at their T and the Toffoli-7 program's two
+    # sweeps, each with the blocks a restart ran on (`cluster`; at the top,
+    # every size the build ran with)
     # the unitary kernels: ms (one call of the wrapper, CUDA events, as the
     # sweep's), device_ms (the kernel alone on the card, from the profiler's
     # trace; null if the trace lacks it), plain_ms and bound_ms at the same
@@ -5553,18 +5732,46 @@ def main() -> int:
     # forward pass is a chain of n + k batched gate applications and its
     # vjp a walk back through them, which no single PyTorch call computes,
     # so library_ms is null for them too
+    # the one-block and cluster build (a state, 7 and 8 qubits, a template
+    # too deep for the column build): its launches on the paths whose
+    # builds are known (launches_all_builds_by_path: every build's), its
+    # largest error on the rows of phases 3 and 15 that ran it, its numbers
+    # from phase 5's first row that runs it ((f), the 10q state)
+    mine = [r for r in compare_rows if r['build'] == 'sweep']
+    row = next(r for r in rows if r['build'] == 'sweep')
     kernels = [{
         'name': 'sweep', 'route': 'cuda',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
-        **driven,
-        'launches': sum(launches.values()),
-        'launches_by_path': launches, 'max_abs_err': max_err,
+        **driven['sweep'],
+        'launches': sum(blocks.values()), 'launches_by_path': blocks,
+        'launches_all_builds_by_path': launches,
+        'max_abs_err': max([seven_err] + [r['max_abs_err'] for r in mine]),
+        'ms': row['ms'], 'plain_ms': row['plain_ms'],
+        'plain_T': row['plain_T'], 'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'], 'library_ms': None,
+        'registers': row['registers'], 'local_bytes': row['local_bytes'],
+        'cluster': sorted({r['cluster'] for r in mine + seven_rows}),
+        'shapes': [r for r in rows if r['build'] == 'sweep'] + seven_rows}]
+    # the column build (the whole unitary at 2 to 6 qubits): its launches on
+    # the main paths of phases 4 and 6-11, its largest error on phase 3's
+    # rows that ran it, its numbers from phase 5's first row (the static
+    # sampling shape, which it runs), its rows of phases 3 and 5 in `shapes`
+    mine = [r for r in compare_rows + rows if r['build'] == 'sweep_columns']
+    kernels.append({
+        'name': 'sweep_columns', 'route': 'cuda',
+        'kernel': 'sweep_columns_kernel',
+        'source': 'cpflow_tpu_torch/csrc/sweep.cu',
+        'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
+        **driven['sweep_columns'],
+        'launches': sum(columns.values()), 'launches_by_path': columns,
+        'max_abs_err': max(r['max_abs_err'] for r in mine
+                           if 'max_abs_err' in r),
         'ms': rows[0]['ms'], 'plain_ms': rows[0]['plain_ms'],
-        'bound_ms': rows[0]['bound_ms'], 'bound_by': rows[0]['bound_by'],
-        'library_ms': None, 'registers': rows[0]['registers'],
-        'cluster': sorted({r['cluster'] for r in rows + seven_rows}),
-        'shapes': rows + seven_rows}]
+        'plain_T': rows[0]['plain_T'], 'bound_ms': rows[0]['bound_ms'],
+        'bound_by': rows[0]['bound_by'], 'library_ms': None,
+        'registers': rows[0]['registers'],
+        'local_bytes': rows[0]['local_bytes'], 'shapes': mine})
     for i, name in enumerate(('ansatz_forward', 'ansatz_vjp')):
         by_path = {k: v[i] for k, v in unitary_launches.items()}
         row = unitary_rows[name][0]

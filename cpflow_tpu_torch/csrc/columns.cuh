@@ -65,15 +65,17 @@ struct ColumnLayout {
 };
 
 // Shared memory of a block of R restarts at n qubits; the forward pass keeps
-// no M, cotangents and gradients.
+// no M, cotangents and gradients. slots: warps a restart (0: those of
+// column_lanes(n)).
 __host__ __device__ inline ColumnLayout column_layout(int n, int nb, int nba,
-                                                     int R, bool vjp) {
+                                                     int R, bool vjp,
+                                                     int slots = 0) {
   ColumnLayout L;
   L.P = 3 * n + nba * nb;
   L.G = n + nb;
   L.R = R;
-  L.lanes = column_lanes(n);
-  L.slots = L.lanes / 32;
+  L.slots = slots ? slots : column_lanes(n) / 32;
+  L.lanes = 32 * L.slots;
   const size_t amps = (size_t)R << (2 * n);
   size_t o = amps * sizeof(cplx);  // A at offset 0
   L.off_M = o;      if (vjp) o += amps * sizeof(cplx);
@@ -257,111 +259,160 @@ struct Column {
     }
   }
 
-  // A <- G A on the gate's rows: this lane's share of the amplitude groups,
-  // every `ways`-th from `way`
+  // A <- G A on amplitude group g of the gate's rows.
   template <int K>
-  __device__ __forceinline__ void forward(int code, const cplx (&G)[16],
-                                          int way) {
-    constexpr int D = 1 << K, ways = column_ways(N);
-    int sa, sb;
-    bits(code, sa, sb);
+  __device__ __forceinline__ void forward_group(int sa, int sb, int g,
+                                                const cplx (&G)[16]) {
+    constexpr int D = 1 << K;
+    int idx[D];
+    cplx x[D];
 #pragma unroll
-    for (int g0 = 0; g0 < (1 << (N - K)); g0 += ways) {
-      const int g = g0 + way;
-      if (ways > 1 && g >= (1 << (N - K))) break;
-      int idx[D];
-      cplx x[D];
+    for (int p = 0; p < D; ++p) {
+      idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
+      x[p] = A[idx[p]];
+    }
 #pragma unroll
-      for (int p = 0; p < D; ++p) {
-        idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
-        x[p] = A[idx[p]];
-      }
+    for (int p = 0; p < D; ++p) {
+      cplx acc = mkc(RL(0.), RL(0.));
 #pragma unroll
-      for (int p = 0; p < D; ++p) {
-        cplx acc = mkc(RL(0.), RL(0.));
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], x[k]));
-        A[idx[p]] = acc;
-      }
+      for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], x[k]));
+      A[idx[p]] = acc;
     }
   }
 
-  // One step of the walk: A <- G^dag A, gb[p,k] += M[p] A[k] (with M at the
-  // gate's output and A at its input), M <- G^T M.
-  template <int K>
-  __device__ __forceinline__ void backward(int code, const cplx (&G)[16],
-                                           real (&gb)[32]) {
-    constexpr int D = 1 << K;
+  // A <- G A on the gate's rows: this lane's share of the amplitude groups,
+  // every `ways`-th from `way`; all of them unrolled, or one at a time where
+  // `lean` is 2 (chain_range).
+  template <int K, int ways = column_ways(N), int lean = 0>
+  __device__ __forceinline__ void forward(int code, const cplx (&G)[16],
+                                          int way) {
+    constexpr int groups = 1 << (N - K);
+    constexpr int unroll = lean >= 2 ? 1 : (groups + ways - 1) / ways;
     int sa, sb;
     bits(code, sa, sb);
+#pragma unroll (unroll)
+    for (int g0 = 0; g0 < groups; g0 += ways) {
+      const int g = g0 + way;
+      if (ways > 1 && g >= groups) break;
+      forward_group<K>(sa, sb, g, G);
+    }
+  }
+
+  // One step of the walk on amplitude group g: A <- G^dag A,
+  // gb[p,k] += M[p] A[k] (with M at the gate's output and A at its input),
+  // M <- G^T M.
+  template <int K>
+  __device__ __forceinline__ void backward_group(int sa, int sb, int g,
+                                                 const cplx (&G)[16],
+                                                 real (&gb)[32]) {
+    constexpr int D = 1 << K;
+    int idx[D];
+    cplx x[D], y[D];
 #pragma unroll
-    for (int g = 0; g < (1 << (N - K)); ++g) {
-      int idx[D];
-      cplx x[D], y[D];
+    for (int p = 0; p < D; ++p) {
+      idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
+      x[p] = A[idx[p]];
+      y[p] = M[idx[p]];
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
 #pragma unroll
       for (int p = 0; p < D; ++p) {
-        idx[p] = (gate_row(K, sa, sb, g, p) << N) + col;
-        x[p] = A[idx[p]];
-        y[p] = M[idx[p]];
+        ak = cadd(ak, cmul(conj2(G[p * D + k]), x[p]));
+        mk = cadd(mk, cmul(G[p * D + k], y[p]));
       }
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
-#pragma unroll
-        for (int p = 0; p < D; ++p) {
-          ak = cadd(ak, cmul(conj2(G[p * D + k]), x[p]));
-          mk = cadd(mk, cmul(G[p * D + k], y[p]));
-        }
-#pragma unroll
-        for (int p = 0; p < D; ++p) {
-          const cplx t = cmul(y[p], ak);
-          gb[2 * (p * D + k)] += t.x;
-          gb[2 * (p * D + k) + 1] += t.y;
-        }
-        A[idx[k]] = ak;
-        M[idx[k]] = mk;
+      for (int p = 0; p < D; ++p) {
+        const cplx t = cmul(y[p], ak);
+        gb[2 * (p * D + k)] += t.x;
+        gb[2 * (p * D + k) + 1] += t.y;
       }
+      A[idx[k]] = ak;
+      M[idx[k]] = mk;
+    }
+  }
+
+  // One step of the walk through a gate on this lane's share of the
+  // amplitude groups, every `ways`-th from `way`: all of them unrolled, or
+  // one at a time where `lean` is 2.
+  template <int K, int ways = 1, int lean = 0>
+  __device__ __forceinline__ void backward(int code, const cplx (&G)[16],
+                                           real (&gb)[32], int way = 0) {
+    constexpr int groups = 1 << (N - K);
+    constexpr int unroll = lean >= 2 ? 1 : (groups + ways - 1) / ways;
+    int sa, sb;
+    bits(code, sa, sb);
+#pragma unroll (unroll)
+    for (int g0 = 0; g0 < groups; g0 += ways) {
+      const int g = ways > 1 ? g0 + way : g0;
+      if (ways > 1 && g >= groups) break;
+      backward_group<K>(sa, sb, g, G, gb);
     }
   }
 };
 
 // ------------------------------------------------ the chain and the walk
+// Gate j's matrix where it lies in shared memory, as the array a Column
+// step takes (chain_range's and walk_range's lean 2).
+__device__ __forceinline__ const cplx (&in_place(const cplx* gates,
+                                                 int j))[16] {
+  return *reinterpret_cast<const cplx(*)[16]>(gates + 16 * j);
+}
+
 // Gates lo..hi-1, all of K qubits, on the lane's column (its share of
-// each gate's groups, `way`); gate j + 1's matrix and code are loaded
-// before gate j is applied. Where a column's groups are shared
-// (column_ways), a warp barrier follows each gate; no block barrier.
-template <int K, int N>
+// each gate's groups, `way` of `ways`). With lean 0, gate j + 1's matrix
+// and code are loaded before gate j is applied; where registers are wanted
+// elsewhere (the double sweep), lean 1 loads each gate's at its turn, and
+// lean 2 holds no matrix in registers (a gate's entries read in shared
+// memory where they are used) and takes a gate's groups one at a time
+// (Column). Where a
+// column's groups are shared (ways > 1), a warp barrier follows each gate;
+// no block barrier.
+template <int K, int N, int ways = column_ways(N), int lean = 0>
 __device__ __forceinline__ void chain_range(Column<N>& col,
                                             const cplx* gates,
                                             const int* codes, int lo, int hi,
                                             int way) {
   if (lo >= hi) return;
+  constexpr bool ahead = lean == 0;
   cplx Gc[16];
   load_gate<K>(gates + 16 * lo, Gc);
   int code = codes[lo];
   for (int j = lo; j < hi; ++j) {
+    if constexpr (!ahead) {
+      if (j > lo) {
+        if constexpr (lean < 2) load_gate<K>(gates + 16 * j, Gc);
+        code = codes[j];
+      }
+    }
     cplx Gn[16];
     int next = 0;
-    if (j + 1 < hi) {
+    if (ahead && j + 1 < hi) {
       load_gate<K>(gates + 16 * (j + 1), Gn);
       next = codes[j + 1];
     }
-    col.template forward<K>(code, Gc, way);
-    if constexpr (column_ways(N) > 1) __syncwarp();
+    if constexpr (lean >= 2)
+      col.template forward<K, ways, lean>(code, in_place(gates, j), way);
+    else
+      col.template forward<K, ways, lean>(code, Gc, way);
+    if constexpr (ways > 1) __syncwarp();
+    if constexpr (ahead) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) Gc[e] = Gn[e];
-    code = next;
+      for (int e = 0; e < 16; ++e) Gc[e] = Gn[e];
+      code = next;
+    }
   }
 }
 
 // A <- G_{G-1} ... G_0 A: the surface round, then every block.
-template <int N>
+template <int N, int ways = column_ways(N), int lean = 0>
 __device__ __forceinline__ void column_chain(Column<N>& col,
                                              const cplx* gates,
                                              const int* codes, int G,
                                              int way) {
-  chain_range<1>(col, gates, codes, 0, N, way);
-  chain_range<2>(col, gates, codes, N, G, way);
+  chain_range<1, N, ways, lean>(col, gates, codes, 0, N, way);
+  chain_range<2, N, ways, lean>(col, gates, codes, N, G, way);
 }
 
 // One step of a reduce-scatter over the lanes of a segment: the lanes that
@@ -397,16 +448,20 @@ __device__ __forceinline__ void reduce_step(real (&v)[32], int lane,
 // the 2^LC lanes of the warp that hold the restart's columns (lanes 0 to
 // 2^LC - 1, `mask`). The sum of gate j is held in registers and stored to
 // gbar[32 j + ...] only after gate j - 1 has been applied and its matrix
-// loaded, so that no gate waits on the previous gate's sum. No barrier.
-template <int K, int LC, class Col>
+// loaded, so that no gate waits on the previous gate's sum (`lean` as
+// chain_range's). Where `ways` lanes share a column (each its share of the
+// groups, `way`), a warp barrier follows each gate; no block barrier.
+template <int K, int LC, int ways = 1, int lean = 0, class Col>
 __device__ __forceinline__ void walk_range(Col& col, const cplx* gates,
                                            const int* codes, real* gbar,
-                                           int lo, int hi, unsigned mask) {
+                                           int lo, int hi, unsigned mask,
+                                           int way = 0) {
   constexpr int NV = K == 2 ? 32 : 8;
   constexpr int C = 1 << LC;
   constexpr int KEEP = NV > C ? NV / C : 1;  // values a lane ends with
   constexpr int SAME = C > NV ? C / NV : 1;  // lanes that end with the same
   if (lo >= hi) return;
+  constexpr bool ahead = lean == 0;
   const int lane = threadIdx.x & 31;
   const bool owner = (lane & (SAME - 1)) == 0;
   cplx Gc[16];
@@ -415,13 +470,23 @@ __device__ __forceinline__ void walk_range(Col& col, const cplx* gates,
   real held[KEEP];
   int held_base = 0;
   for (int j = hi - 1; j >= lo; --j) {
+    if constexpr (!ahead) {
+      if (j < hi - 1) {
+        if constexpr (lean < 2) load_gate<K>(gates + 16 * j, Gc);
+        code = codes[j];
+      }
+    }
     real gb[32];
 #pragma unroll
     for (int e = 0; e < NV; ++e) gb[e] = RL(0.);
-    col.template backward<K>(code, Gc, gb);
+    if constexpr (lean >= 2)
+      col.template backward<K, ways, lean>(code, in_place(gates, j), gb, way);
+    else
+      col.template backward<K, ways, lean>(code, Gc, gb, way);
+    if constexpr (ways > 1) __syncwarp();
     cplx Gn[16];
     int next = 0;
-    if (j > lo) {
+    if (ahead && j > lo) {
       load_gate<K>(gates + 16 * (j - 1), Gn);
       next = codes[j - 1];
     }
@@ -434,9 +499,11 @@ __device__ __forceinline__ void walk_range(Col& col, const cplx* gates,
 #pragma unroll
     for (int e = 0; e < KEEP; ++e) held[e] = gb[e];
     held_base = base;
+    if constexpr (ahead) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) Gc[e] = Gn[e];
-    code = next;
+      for (int e = 0; e < 16; ++e) Gc[e] = Gn[e];
+      code = next;
+    }
   }
   if (owner) {
 #pragma unroll
@@ -445,12 +512,13 @@ __device__ __forceinline__ void walk_range(Col& col, const cplx* gates,
 }
 
 // The whole walk, last gate first: the blocks, then the surface round.
-template <int LC, class Col>
+template <int LC, int ways = 1, int lean = 0, class Col>
 __device__ __forceinline__ void column_walk(Col& col, const cplx* gates,
                                             const int* codes, real* gbar,
-                                            int n, int G, unsigned mask) {
-  walk_range<2, LC>(col, gates, codes, gbar, n, G, mask);
-  walk_range<1, LC>(col, gates, codes, gbar, 0, n, mask);
+                                            int n, int G, unsigned mask,
+                                            int way = 0) {
+  walk_range<2, LC, ways, lean>(col, gates, codes, gbar, n, G, mask, way);
+  walk_range<1, LC, ways, lean>(col, gates, codes, gbar, 0, n, mask, way);
 }
 
 }  // namespace

@@ -52,8 +52,17 @@ Routing of ``sweep``, by the tensor's device and the objective:
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
 and cotangent, 2^n x C each) and the barriers and block reductions of the
-adjoint walk (few threads per restart, a 31-shuffle warp reduction,
-double-buffered cross-warp partials). A restart runs on one thread block
+adjoint walk. The whole unitary at 2 to 6 qubits (the HS test, disc and
+both modulo losses) runs on the column build (``column_plan``,
+``column_smem_bytes``; csrc/columns.cuh's design, as the unitary kernels'
+column design runs it): a restart on one warp (four at 5 qubits, eight at
+6, four in float64, ``sweep_warps``) and 2 restarts a block up to 4
+qubits, each warp's lanes sharing its columns in the chain and the walk
+with a warp barrier a gate, no block barrier between two gates, and
+restarts that never wait on each other. A template too deep for its
+layout, and a state, run as follows (few threads per restart, a
+31-shuffle warp reduction, double-buffered cross-warp partials, a barrier
+a gate). A restart runs on one thread block
 where its layout fits one block's shared memory (every shape up to 6
 qubits, and a state up to 13); above that it is split over a thread-block
 cluster of 2, 4, 8 or 16 blocks, the smallest that fits (``cluster_plan``):
@@ -120,11 +129,17 @@ F64_LAUNCHES = 0  # those of them that ran the double build
 # those of them by the blocks each restart ran on (a cluster's size, 1 for
 # one block, 'tiles' for the column tiles); reset with .clear()
 LAUNCHES_BY_CLUSTER: Counter = Counter()
-# those of them by build: 'sweep' (one block or a cluster's tiles of
-# columns), 'sweep_row_tiles' (a state split by rows) or
+# those of them by build: 'sweep_columns' (the whole unitary at 2 to 6
+# qubits on the column design, column_plan), 'sweep' (one block or a
+# cluster's tiles of columns), 'sweep_row_tiles' (a state split by rows) or
 # 'sweep_column_tiles' (columns on independent blocks), '_f64' added for the
 # double build; reset with .clear()
 LAUNCHES_BY_BUILD: Counter = Counter()
+# the builds by the number csrc/sweep.cu's occupancy query gives them (one
+# block, one block held to 128 registers, a cluster, a state's rows on a
+# cluster, the column design)
+BUILD_NAMES = ('sweep', 'sweep', 'sweep', 'sweep_row_tiles', 'sweep_columns')
+BUILD_HELD = 1  # the one-block build held to 128 registers
 
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
@@ -234,6 +249,8 @@ def bind(lib: ctypes.CDLL, double: bool) -> ctypes.CDLL:
     lib.cpflow_sweep_cluster.restype = ctypes.c_int
     lib.cpflow_sweep_occupancy.argtypes = [ctypes.c_int] * 5 + [ptr]
     lib.cpflow_sweep_occupancy.restype = ctypes.c_int
+    lib.cpflow_sweep_column_plan.argtypes = [ctypes.c_int] * 4 + [ptr]
+    lib.cpflow_sweep_column_plan.restype = ctypes.c_int
     lib.cpflow_sweep_device.argtypes = [ptr]
     lib.cpflow_sweep_device.restype = ctypes.c_int
     lib.cpflow_sweep_tiles.argtypes = [ctypes.c_int] * 4
@@ -316,6 +333,57 @@ def tile_plan(n: int, num_blocks: int, nba: int, kind: str,
                 <= _SMEM_LIMIT and 32 * w <= TILE_THREADS[dtype] and \
                 tile_smem_bytes(n, num_blocks, w, dtype) <= _SMEM_LIMIT:
             return w, 1 << j
+    return None
+
+
+def sweep_warps(n: int, dtype=torch.float32) -> int:
+    """Warps a restart of the column build at n qubits, as csrc/sweep.cu's
+    sweep_warps in the build of `dtype`: one up to 4 qubits, 4 at 5, 8 at
+    6 (4 in float64). Their 32 lanes each share the restart's columns,
+    32 W / 2^n lanes a column."""
+    return 1 if n < 5 else 4 if n == 5 or dtype == torch.float64 else 8
+
+
+def column_smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
+                      restarts: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block of `restarts` restarts of the column
+    build, as csrc/sweep.cu's column_sweep_layout lays it out in the build
+    of `dtype`: csrc/columns.cuh's column_layout of the vjp
+    (kernels/unitary.py:column_smem_bytes's formula) with a cotangent slot
+    for each of the restart's sweep_warps(n) warps, padded to 16 bytes; then
+    per restart the modulo losses' d row sums, the Adam state (both moments
+    and the best angles, P each) and 8 values a warp for the sums across its
+    warps. All but the G gate codes (int32, once) are of the build's real
+    or complex type, twice as large in float64."""
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    warps = sweep_warps(n, dtype)
+    scale = 2 if dtype == torch.float64 else 1
+    layout = restarts * ((16 << 2 * n) + 128 * G + 128 * warps * G + 16 * P) \
+        * scale + 4 * G
+    rows = (8 << n) if kind.startswith('modulo') else 0
+    return -(-layout // 16) * 16 + restarts * scale * (
+        rows + 12 * P + 32 * warps)
+
+
+def column_plan(n: int, num_blocks: int, nba: int, kind: str,
+                dtype=torch.float32):
+    """The column build's launch, as csrc/sweep.cu's column_sweep_restarts
+    picks it in the build of `dtype` (cpflow_sweep_column_plan on the card):
+    dict(restarts, threads, smem_bytes) a block: 2 restarts of one warp up
+    to 4 qubits (1 where two do not fit), 1 of sweep_warps(n) warps above,
+    whose layout (column_smem_bytes) fits one block. None for a state,
+    outside 2 to 6 qubits and where even one restart does not fit: such a
+    shape keeps the one-block and cluster builds (cluster_plan)."""
+    if kind == 'state' or \
+            not uk.COLUMN_QUBITS[0] <= n <= uk.COLUMN_QUBITS[1]:
+        return None
+    warps = sweep_warps(n, dtype)
+    r = 1 if warps > 1 else uk.COLUMN_THREADS // 32
+    while r >= 1:
+        nbytes = column_smem_bytes(n, num_blocks, nba, kind, r, dtype)
+        if nbytes <= _SMEM_LIMIT:
+            return dict(restarts=r, threads=32 * warps * r, smem_bytes=nbytes)
+        r //= 2
     return None
 
 
@@ -474,9 +542,13 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
 
     loss = LOSS_CODES[spec.kind]
     lib = load_library(dtype)
+    got = (ctypes.c_int * 3)()
+    lib.cpflow_sweep_column_plan(n, nb, nba, loss, got)
+    columns = got[0]  # restarts a block of the column build, or 0
     cluster = lib.cpflow_sweep_cluster(n, nb, nba, loss)
-    tiles = 0 if cluster else lib.cpflow_sweep_tiles(n, nb, nba, loss)
-    if not cluster and not tiles:
+    tiles = 0 if cluster or columns else lib.cpflow_sweep_tiles(n, nb, nba,
+                                                                loss)
+    if not cluster and not tiles and not columns:
         most = 1 << n if spec.kind in TILE_LOSSES else CLUSTERS[-1]
         raise ValueError(
             f'{n} qubits with {nb} blocks need '
@@ -486,9 +558,9 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             + f' a restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
-    build_name = ('sweep_column_tiles' if tiles else 'sweep_row_tiles'
-                  if state and cluster > 1 else 'sweep') + (
-        '_f64' if dtype == torch.float64 else '')
+    build_name = ('sweep_columns' if columns else 'sweep_column_tiles'
+                  if tiles else 'sweep_row_tiles' if state and cluster > 1
+                  else 'sweep') + ('_f64' if dtype == torch.float64 else '')
     target = torch.as_tensor(np.asarray(spec.target),
                              dtype=config.complex_of(dtype))
     if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
@@ -562,14 +634,16 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             raise RuntimeError(
                 f'sweep kernel launch failed: CUDA error {err} ({B} restarts '
                 + (f'on {tiles} column tiles each)' if tiles else
+                   f'{columns} a block on the column build)' if columns else
                    f'on {cluster} blocks each)') + (
                     f': the card places no cluster of {cluster} blocks of '
                     f'{lib.cpflow_sweep_smem_bytes(n, nb, nba, loss, cluster)}'
                     f' shared bytes each' if err == _OUT_OF_RESOURCES
-                    and not tiles else ''))
+                    and not tiles and not columns else ''))
         LAUNCHES += 1
         F64_LAUNCHES += dtype == torch.float64
-        LAUNCHES_BY_CLUSTER['tiles' if tiles else cluster] += 1
+        LAUNCHES_BY_CLUSTER['tiles' if tiles else 1 if columns else
+                            cluster] += 1
         LAUNCHES_BY_BUILD[build_name] += 1
 
     T = int(num_iterations)
@@ -595,9 +669,12 @@ def occupancy(objective, batch: int, device=None) -> dict:
     blocks a
     restart runs on (`cluster`) and the clusters of that many blocks the
     card holds at once (cudaOccupancyMaxActiveClusters; a lone block counts
-    as a cluster of one). On the column tiles (no cluster: `cluster` 1) the
-    numbers are the tile kernel's, `active_clusters` its blocks resident on
-    the card, and `tiles`, `columns`, `adam_registers` and
+    as a cluster of one), the restarts a block (`restarts_per_block`: more
+    than one on the column build), the `build` that runs (a
+    LAUNCHES_BY_BUILD name) and whether it is the one-block build held to
+    128 registers (`held`). On the column tiles (no cluster: `cluster` 1)
+    the numbers are the tile kernel's, `active_clusters` its blocks resident
+    on the card, and `tiles`, `columns`, `adam_registers` and
     `adam_local_bytes` are added (the second kernel's registers and local
     bytes)."""
     _check_objective(objective)
@@ -607,23 +684,31 @@ def occupancy(objective, batch: int, device=None) -> dict:
                            objective.rotation_gates)
     lib, loss = load_library(objective.dtype), LOSS_CODES[spec.kind]
     with torch.cuda.device(device):
-        if lib.cpflow_sweep_cluster(n, nb, nba, loss) or \
-                not lib.cpflow_sweep_tiles(n, nb, nba, loss):
-            out = (ctypes.c_int * 7)()
+        plan = (ctypes.c_int * 3)()
+        lib.cpflow_sweep_column_plan(n, nb, nba, loss, plan)
+        tiles = not plan[0] and not lib.cpflow_sweep_cluster(
+            n, nb, nba, loss) and lib.cpflow_sweep_tiles(n, nb, nba, loss)
+        out = (ctypes.c_int * 9)()
+        if tiles:
+            err = lib.cpflow_sweep_tiles_occupancy(n, nb, nba, loss, out)
+        else:
             err = lib.cpflow_sweep_occupancy(n, nb, nba, loss, int(batch),
                                              out)
-        else:
-            out = (ctypes.c_int * 9)()
-            err = lib.cpflow_sweep_tiles_occupancy(n, nb, nba, loss, out)
     if err != 0:
         raise RuntimeError(f'sweep kernel occupancy query failed: CUDA error '
                            f'{err}')
     got = dict(zip(('registers', 'local_bytes', 'threads', 'smem_bytes',
                     'blocks_per_sm', 'cluster', 'active_clusters'), out))
     got['warps_per_sm'] = got['blocks_per_sm'] * got['threads'] // 32
-    if len(out) == 9:
+    suffix = '_f64' if objective.dtype == torch.float64 else ''
+    if tiles:
         got.update(cluster=1, tiles=out[5], columns=(1 << n) // out[5],
-                   adam_registers=out[7], adam_local_bytes=out[8])
+                   adam_registers=out[7], adam_local_bytes=out[8],
+                   restarts_per_block=1, build='sweep_column_tiles' + suffix,
+                   held=False)
+    else:
+        got.update(build=BUILD_NAMES[out[7]] + suffix,
+                   restarts_per_block=out[8], held=out[7] == BUILD_HELD)
     return got
 
 
@@ -681,7 +766,8 @@ def _unitary_only(objective) -> bool:
     kind = objective.unitary_loss_func.kind
     nb = len(all_placements(objective.placements))
     nba = num_block_angles(ent, rot)
-    if cluster_plan(n, nb, nba, kind, dtype) is not None or \
+    if column_plan(n, nb, nba, kind, dtype) is not None or \
+            cluster_plan(n, nb, nba, kind, dtype) is not None or \
             tile_plan(n, nb, nba, kind, dtype) is not None:
         return False
     log_c = 0 if kind == 'state' else n

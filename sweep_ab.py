@@ -15,7 +15,9 @@ for example with OLD the parent commit unpacked by ``git archive`` into
 kernels/sweep.py binds (``bind``); the parent's, from before the row
 schedule, lacks cpflow_sweep_row_plan and is given a stand-in that answers
 this tree's plan (kernels/sweep.py:row_plan), whose schedule its
-sweep_rows_kernel never reads. Each is built with nvcc for sm_90a into
+sweep_rows_kernel never reads; one from before the column build lacks
+cpflow_sweep_column_plan and is given one that answers no column plan, so
+that the wrapper launches it as it was. Each is built with nvcc for sm_90a into
 build/ab/ (with ``--tiles`` or ``--rows`` also its double build,
 -DCPFLOW_DOUBLE; all builds side by side) and its ptxas report printed.
 
@@ -23,7 +25,8 @@ Without ``--tiles`` every build times the kernel alone (CUDA events, the
 faster of two calls after a warm-up) at chip_smoke.py's phase-5 shapes and
 at the static CCZ shape with batches that put about 1, 2 and 2.75 one-warp
 restarts on each SM sub-partition of an H100 (132 SMs, 4 sub-partitions
-each). With ``--tiles`` it times the column tiles' rows of chip_smoke.py
+each). ``--double`` does the same with each source's double build at those
+shapes (and at a 2-qubit one) in float64. With ``--tiles`` it times the column tiles' rows of chip_smoke.py
 phase 21 (a) at their T, in both precisions: each call (CUDA events, the
 fastest of three calls after a warm-up call), and the tile kernels alone
 on the card in one call (torch.profiler, chip_smoke.device_kernels), which
@@ -88,6 +91,11 @@ def finish_build(source: Path, double: bool, out: Path, proc) -> ctypes.CDLL:
             got[3] = sk.row_plan(n, nb, nba, dtype)['segment']
             return 0
         lib.cpflow_sweep_row_plan = row_plan
+    if not hasattr(lib, 'cpflow_sweep_column_plan'):  # before the column
+        def column_plan(n, nb, nba, loss, got):         # build: none
+            got[0] = got[1] = got[2] = 0
+            return 0
+        lib.cpflow_sweep_column_plan = column_plan
     return sk.bind(lib, double)
 
 
@@ -190,17 +198,19 @@ def main(argv) -> int:
     from cpflow_tpu_torch.utils.profiling import bound_ms
     tiles = '--tiles' in argv
     split = '--rows' in argv  # the row tiles
+    double = '--double' in argv  # the default shapes in float64
     prof = '--profile' in argv
     sources = [Path(a) for a in argv if not a.startswith('--')]
     if not sources or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
-    precisions = (False, True) if tiles or split else (False,)
-    jobs = [(src, double, *start_build(src, double)) for src in sources
-            for double in precisions]
+    precisions = (False, True) if tiles or split else \
+        (True,) if double else (False,)
+    jobs = [(src, f64, *start_build(src, f64)) for src in sources
+            for f64 in precisions]
     built = [finish_build(*job) for job in jobs]
-    libs = [dict(zip((torch.float32, torch.float64)[:len(precisions)],
-                     built[i:i + len(precisions)]))
+    dtypes = [torch.float64 if f64 else torch.float32 for f64 in precisions]
+    libs = [dict(zip(dtypes, built[i:i + len(precisions)]))
             for i in range(0, len(built), len(precisions))]
     card = c.card_line()
     alone_name = 'sweep_tile' if tiles else 'sweep_rows_kernel'
@@ -209,6 +219,14 @@ def main(argv) -> int:
                 for label, s, T in (tile_shapes() if tiles else
                                     row_shapes())]
         calls = 3
+    elif double:
+        from cpflow_tpu_torch.ops.gates import multi_controlled_x
+        two = dict(n=2, k=4, target=multi_controlled_x(2), r=0.00055, B=1024)
+        rows = [(label + ' float64', (*inputs(s, s.get('seed', 7)), s), T)
+                for label, s, T in
+                [('2q CNOT k=4 B=1024', two, 2000)] + shapes()
+                for s in [dict(s, dtype=torch.float64)]]
+        calls = 2
     else:
         rows = [(label, (*c.shape_inputs(s, s.get('seed', 7)), s), T)
                 for label, s, T in shapes()]
@@ -227,9 +245,7 @@ def main(argv) -> int:
                 alone[i][r].append(kernel_ms(call, alone_name))
     print(card)
     for r, (label, (_, _, _, s), T) in enumerate(rows):
-        work = c.shape_work(s) if 'dtype' not in s else \
-            c.sweep_work(s['n'], s['k'], kind=s.get('kind', 'hst'),
-                         dtype=s['dtype'])
+        work = c.shape_work(s)
         b_ms, by = bound_ms(work, s['B'], T)
         best = min(min(t[r]) for t in times)
         print(f'{label} T={T}: ' + '; '.join(

@@ -182,6 +182,16 @@ CARD_CASES = {
     'modulo_diagonal_6q': dict(n=6, k=8, target=multi_controlled_x(6),
                                kind='modulo_diagonal', r=0.002, rot='xz',
                                wires=[5, 1, 3]),
+    # one block deeper than the column build holds at 6 qubits: the
+    # one-block build (chip_smoke.py phase 3's (s) and (t), held as there:
+    # `arbiter`, below)
+    'hst_6q_too_deep_for_columns': dict(n=6, k=118,
+                                        target=multi_controlled_x(6),
+                                        kind='hst', r=0.002, build='sweep',
+                                        arbiter=True),
+    'modulo_identity_6q_too_deep_for_columns': dict(
+        n=6, k=118, target=multi_controlled_x(6), kind='modulo_identity',
+        r=0.002, wires=[5, 1], build='sweep', arbiter=True),
 }
 
 
@@ -204,10 +214,16 @@ def test_kernel_matches_plain_version_on_card(case):
     p0 = torch.tensor(inits.T.copy(), device='cuda')
     mask = torch.tensor((rng.uniform(size=p0.shape) > 0.3).astype(np.float32),
                         device='cuda')
-    before = sk.LAUNCHES
+    # the whole unitary at 2 to 6 qubits runs on the column build where its
+    # layout holds the template
+    build = c.get('build', 'sweep' if c['kind'] == 'state' else
+                  'sweep_columns')
+    assert sk.occupancy(obj, B)['build'] == build
+    before, built = sk.LAUNCHES, sk.LAUNCHES_BY_BUILD[build]
     out = sk.sweep(obj, p0, 0.1, 20, mask)
     torch.cuda.synchronize()
     assert sk.LAUNCHES == before + 1
+    assert sk.LAUNCHES_BY_BUILD[build] == built + 1
     ref = sk.sweep_reference(obj, p0, 0.1, 20, mask)
     # 20 steps: short enough that float32 drift between the two stays
     # small. float32 rounding scales with the loss: the HS-test, state and
@@ -216,6 +232,24 @@ def test_kernel_matches_plain_version_on_card(case):
     scale = max(1.0, ref.regloss0.abs().max().item())
     torch.testing.assert_close(out.regloss0, ref.regloss0, atol=1e-5 * scale,
                                rtol=0)
+    if c.get('arbiter'):
+        # a deep template's many flat directions let a few restarts of any
+        # two float32 versions drift apart even in 20 steps: its best losses
+        # are held as chip_smoke.py phase 3 holds its deep rows, by drift_ok,
+        # or else as close to the plain float64 version as plain float32 is
+        import chip_smoke
+        obj64 = _problem(c['n'], c['k'], c.get('rot', 'xyz'), c['target'],
+                         c['r'], B, seed=3, kind=c['kind'],
+                         ent=c.get('ent', 'cp'), wires=c.get('wires'),
+                         dtype=torch.float64)[0]
+        ref64 = sk.sweep_reference(obj64, p0.double(), 0.1, 20,
+                                   mask.double())
+        keep = torch.ones(B, dtype=torch.bool, device='cuda')
+        for x, y, z in [(out.best_reg, ref.best_reg, ref64.best_reg),
+                        (out.best_loss, ref.best_loss, ref64.best_loss)]:
+            assert chip_smoke.drift_ok(chip_smoke.scaled_err(x, y))[0] or \
+                chip_smoke.as_close_as_plain(x, y, z, keep)[0]
+        return
     torch.testing.assert_close(out.best_reg, ref.best_reg, atol=1e-4 * scale,
                                rtol=0)
     torch.testing.assert_close(out.best_loss, ref.best_loss,
@@ -224,19 +258,21 @@ def test_kernel_matches_plain_version_on_card(case):
 
 @pytest.mark.cuda
 def test_both_kernel_builds_match_plain_version_on_card():
-    """The kernel has two builds: the 128-register one runs a batch larger
-    than the other build keeps resident on the card at once (here 64
-    threads a restart), and agrees with the plain version as the other
-    does."""
+    """The kernel's one-block build (a state, or the whole unitary too deep
+    for the column build) has two builds: the 128-register one runs a batch
+    larger than the other build keeps resident on the card at once (here
+    64 threads a restart, a 10-qubit state), and agrees with the plain
+    version as the other does."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py runs both '
                     'builds at the main path\'s shapes')
-    obj, inits, rng = _problem(5, 4, 'xyz', multi_controlled_x(5), 0.002,
-                               600, seed=4)
-    small, large = sk.occupancy(obj, 37), sk.occupancy(obj, 600)
+    obj, inits, rng = _problem(10, 4, 'xyz', _ghz(10), 0.002, 700, seed=4,
+                               kind='state')
+    small, large = sk.occupancy(obj, 37), sk.occupancy(obj, 700)
+    assert small['build'] == large['build'] == 'sweep'
     assert large['registers'] <= 128 < small['registers']
     assert large['blocks_per_sm'] > small['blocks_per_sm']
-    assert 600 > torch.cuda.get_device_properties(0).multi_processor_count \
+    assert 700 > torch.cuda.get_device_properties(0).multi_processor_count \
         * small['blocks_per_sm']
     p0 = torch.tensor(inits.T.copy(), device='cuda')
     out = sk.sweep(obj, p0, 0.1, 20)
