@@ -26,8 +26,12 @@ with CUDA, and never imports JAX. Phases:
      padded to k=20, B = 4 x 256 with r and a template mask per trial;
      (o) phase 9's bucketed sweep, (g)'s template padded to k=50,
      B = 4 x 256 with r and a template mask per trial; (p) fixed 'cx'
-     blocks with rotations 'y', 3q chain CCZ k=8 B=256; with the
-     tolerances stated in phase_compare and drift_ok;
+     blocks with rotations 'y', 3q chain CCZ k=8 B=256; then (q6), (r64)
+     and (s)-(u) (compare_shapes: (s)-(t64) one block too deep for the
+     column build, (u) a 10q state at B=700); each through the build the
+     plans give it (the column build, or the one-block build on
+     rows.cuh's warps: (e), (f), (s)-(u)), with the tolerances stated in
+     phase_compare and drift_ok;
   4. the static main path: Synthesize(...).static (on the card by default)
      on the 3q chain CCZ (k=12, 1024 samples), which must return a
      decomposition with at most 8 CZ and float64 host loss <= 1e-6,
@@ -110,7 +114,9 @@ with CUDA, and never imports JAX. Phases:
      and 'angle by angle' on the 3q chain CCZ at small budgets, every
      launch of the unitary kernels in the column design;
  15. seven and eight qubits, each restart's columns split over a cluster of
-     2, 4 or 8 thread blocks: (a) the sweep kernel against its plain
+     2, 4 or 8 thread blocks on tiles.cuh's warps (the cluster build,
+     sweep_cluster_kernel, every launch of the phase): (a) the sweep
+     kernel against its plain
      version as in phase 3 at twelve shapes, T = 60 unless said: (q) 7q chain
      Toffoli-7 k=24 B=256 r=0.002; (r) the disc loss on it, B=64; (s) the
      modulo-diagonal loss on wires [2, 5, 0], 'xz', k=16 B=256; (t) the
@@ -319,8 +325,10 @@ Each main path (4, 6-11, 13, 14, 15 (b) and (c), 16 (a)-(e), 17 (c), 18
 with the kernels' launch counts set to 0 just before it and read just
 after (16 (a) and (d) in their own processes). Every shape's plan (blocks
 a restart, shared bytes per block) is held against the kernels' own. The script prints the card, a JSON line of kernel results
-(sweep, ansatz_forward, ansatz_vjp, and their float64 builds sweep_f64,
-ansatz_forward_f64, ansatz_vjp_f64; the row tiles' builds
+(the sweep's builds sweep_block, sweep_cluster, sweep_columns,
+ansatz_forward, ansatz_vjp, and their float64 builds sweep_block_f64,
+sweep_cluster_f64, sweep_columns_f64, ansatz_forward_f64,
+ansatz_vjp_f64; the row tiles' builds
 sweep_row_tiles, ansatz_forward_row_tiles, ansatz_vjp_row_tiles and
 their float64 builds, each name with _f64; the column tiles' builds
 sweep_column_tiles, ansatz_forward_column_tiles, ansatz_vjp_column_tiles
@@ -662,9 +670,9 @@ def compare_shapes():
     bucketed one has ks, rs and S (B = S len(ks)); (q6) is the HS test at 6
     qubits, (r64) the static CCZ's sampling shape in float64 (`dtype`);
     (s)-(t64) are templates one block deeper than the column build holds
-    (kernels/sweep.py:column_plan), which keep the one-block build, and (u)
-    a batch on which the one-block build held to 128 registers runs
-    (`build` and `held`: what the occupancy must report). A float64 row's
+    (kernels/sweep.py:column_plan), which take the one-block build, and (u)
+    a 10q state on a batch of 700 restarts, one block a restart (`build`:
+    what the occupancy must report). A float64 row's
     initial losses are held to phase 18's bound besides, and its best
     losses too where it is one of phase 18's shapes (`f64_best`: (r64));
     deeper templates drift further in 60 steps between any two float64
@@ -738,24 +746,24 @@ def compare_shapes():
         dict(name='(s) HS test 6q chain Toffoli-6 k=118 B=64 (one block too '
              'deep for the column build)', n=6, k=118,
              target=multi_controlled_x(6), B=64, r=0.00055, lr=0.1,
-             arbiter=True, build='sweep'),
+             arbiter=True, build='sweep_block'),
         dict(name='(t) modulo_identity 6q chain Toffoli-6 wires [5, 1] k=118 '
              'B=64 (one block too deep for the column build)', n=6, k=118,
              target=multi_controlled_x(6), kind='modulo_identity',
              wires=[5, 1], B=64, r=0.00055, lr=0.1, arbiter=True,
-             build='sweep'),
+             build='sweep_block'),
         dict(name='(s64) float64 HS test 6q chain Toffoli-6 k=56 B=64 (one '
              'block too deep for the column build)', n=6, k=56,
              target=multi_controlled_x(6), B=64, r=0.00055, lr=0.1,
-             dtype=torch.float64, build='sweep_f64'),
+             dtype=torch.float64, build='sweep_block_f64'),
         dict(name='(t64) float64 modulo_diagonal 6q chain Toffoli-6 all '
              'wires k=55 B=64 (one block too deep for the column build)',
              n=6, k=55, target=multi_controlled_x(6), kind='modulo_diagonal',
              wires=list(range(6)), B=64, r=0.00055, lr=0.1,
-             dtype=torch.float64, build='sweep_f64'),
-        dict(name='(u) state 10q GHZ k=4 B=700 (the one-block build held to '
-             '128 registers)', n=10, k=4, target=ghz(10), kind='state',
-             B=700, r=0.002, lr=0.1, build='sweep', held=True),
+             dtype=torch.float64, build='sweep_block_f64'),
+        dict(name='(u) state 10q GHZ k=4 B=700 (one block a restart)', n=10,
+             k=4, target=ghz(10), kind='state', B=700, r=0.002, lr=0.1,
+             build='sweep_block'),
     ]
 
 
@@ -769,7 +777,12 @@ def check_plan(obj, B, name):
     cpflow_sweep_tiles, cpflow_sweep_tile_smem_bytes and the occupancy's;
     on the row tiles (a state on more than one block) the launch's threads,
     shared bytes, warps, segment, ring and rows a block (row_plan) against
-    cpflow_sweep_row_plan and the occupancy's; on the column build (the
+    cpflow_sweep_row_plan and the occupancy's; on the one-block build the
+    same (block_plan) against cpflow_sweep_block_plan; on the cluster build
+    its threads, shared bytes, ring and columns a block (cluster_layout)
+    against cpflow_sweep_cluster_layout and the occupancy's, and the build
+    the occupancy names must be the one the plans give (build_of); on the
+    column build (the
     whole unitary at 2 to 6 qubits, column_plan) its restarts, threads and
     shared bytes a block against cpflow_sweep_column_plan and the
     occupancy's, whose build must be the column build (and no other build
@@ -821,22 +834,36 @@ def check_plan(obj, B, name):
     theirs = lib.cpflow_sweep_cluster(n, nb, nba, sk.LOSS_CODES[kind])
     card = lib.cpflow_sweep_smem_bytes(n, nb, nba, sk.LOSS_CODES[kind], c)
     occ = sk.occupancy(obj, B)
-    launched = mine  # the bytes a block launches with
-    rows = sk.row_plan(n, nb, nba, obj.dtype) if kind == 'state' else None
-    if rows is not None:
+    code = sk.LOSS_CODES[kind]
+    if c == 1 or kind == 'state':  # rows.cuh's warps
         got = (ctypes.c_int * 6)()
-        check(lib.cpflow_sweep_row_plan(n, nb, nba, got) == 0,
+        check((lib.cpflow_sweep_block_plan(n, nb, nba, code, B, got) if c == 1
+               else lib.cpflow_sweep_row_plan(n, nb, nba, got)) == 0,
               f'{name}: no row plan')
+        # one block: the warps the library picked for the batch
+        rows = sk.block_plan(n, nb, nba, kind, obj.dtype, got[2]) if c == 1 \
+            else sk.row_plan(n, nb, nba, obj.dtype)
         want = [rows[key] for key in ('threads', 'smem_bytes', 'warps',
                                       'segment', 'ring', 'log_rows')]
         check(list(got) == want and occ['threads'] == rows['threads'],
               f'{name}: the row plan says (threads, bytes, warps, segment, '
               f'ring, log2 rows) {want}, the kernel {list(got)}, '
               f'{occ["threads"]} threads')
-        launched = rows['smem_bytes']
+    else:  # tiles.cuh's warps
+        rows = sk.cluster_layout(n, nb, nba, kind, obj.dtype)
+        got = (ctypes.c_int * 4)()
+        check(lib.cpflow_sweep_cluster_layout(n, nb, nba, code, got) == 0,
+              f'{name}: no cluster layout')
+        want = [rows[key] for key in ('threads', 'smem_bytes', 'ring',
+                                      'columns')]
+        check(list(got) == want and occ['threads'] == rows['threads'],
+              f'{name}: the cluster layout says (threads, bytes, ring, '
+              f'columns) {want}, the kernel {list(got)}, {occ["threads"]} '
+              f'threads')
+    launched = rows['smem_bytes']  # the bytes a block launches with
     check(mine == card and launched == occ['smem_bytes'] and
           c == theirs == occ['cluster'] and
-          not occ['build'].startswith('sweep_columns'),
+          occ['build'] == sk.build_of(n, nb, nba, kind, obj.dtype),
           f'{name}: the plan says {c} blocks of {mine} bytes ({launched} '
           f'launched), the kernel {theirs} ({occ["cluster"]}) blocks of '
           f'{card} ({occ["smem_bytes"]}) bytes')
@@ -875,11 +902,9 @@ def phase_compare(shapes=None, label='phase 3'):
         c, nbytes, occ = check_plan(obj, s['B'], s['name'])
         check(c == s.get('cluster', 1), f'{s["name"]}: {c} blocks a '
               f'restart, not {s.get("cluster", 1)}')
-        check(occ['build'] == s.get('build', occ['build']) and
-              occ['held'] == s.get('held', occ['held']),
+        check(occ['build'] == s.get('build', occ['build']),
               f'{s["name"]}: the occupancy reports the build {occ["build"]}'
-              f' (held to 128 registers: {occ["held"]}), not '
-              f'{s.get("build")} ({s.get("held")})')
+              f', not {s.get("build")}')
         before, built = sk.LAUNCHES, dict(sk.LAUNCHES_BY_BUILD)
         out, ms = best_of(lambda: sk.sweep(obj, init, s['lr'], T, mask, tl),
                           s.get('calls', 1))
@@ -1160,9 +1185,13 @@ def phase_state(label='phase 7'):
     results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launches = sk.LAUNCHES
+    launches, builds = sk.LAUNCHES, dict(sk.LAUNCHES_BY_BUILD)
     check(launches >= 2, f'state path launched the kernel {launches} times: '
           f'not in both the sampling and the verification stage')
+    check(len(builds) == 1 and next(iter(builds)).startswith('sweep_block')
+          and sum(builds.values()) == launches,
+          f'{label}: launches by build {builds}, not all {launches} on the '
+          f'one-block build')
     hosts = []
     for d in results.decompositions:
         u = d.circuit.unitary()
@@ -2526,7 +2555,9 @@ def phase_toffoli7(card):
               f'({ver_ms:.2f} ms): (sigma: rows, under entry, verified, least '
               f'best loss) {per_sigma}', flush=True)
         row = dict(shape=f'Toffoli-7 composite k={k} B={B} lr={lr}', T=T,
-                   cluster=c, smem_bytes=occ['smem_bytes'],
+                   cluster=c, build=occ['build'],
+                   local_bytes=occ['local_bytes'],
+                   smem_bytes=occ['smem_bytes'],
                    registers=occ['registers'], ms=ms, plain_ms=None,
                    plain_T=None, bound_ms=b_ms, bound_by=b_by)
         return loss0, below, ver, row
@@ -2626,15 +2657,25 @@ def phase_seven(card):
     (refuse_whole_beyond). Returns (largest error of (a), the timing rows,
     the launches of (b) and (c))."""
     start = time.perf_counter()
-    worst, _, rows = phase_compare(seven_shapes(), 'phase 15 (a)')
-    check({2, 4, 8} <= {r['cluster'] for r in rows},
-          f'phase 15 (a) ran clusters of {sorted({r["cluster"] for r in rows})}')
-    launches = {}
+    from cpflow_tpu_torch.kernels import sweep as sk
+    worst, driven, rows = phase_compare(seven_shapes(), 'phase 15 (a)')
+    check({2, 4, 8} <= {r['cluster'] for r in rows} and
+          {r['build'] for r in rows} == {'sweep_cluster'},
+          f'phase 15 (a) ran clusters of {sorted({r["cluster"] for r in rows})}'
+          f' on the builds {sorted({r["build"] for r in rows})}')
+    launches, by_build = {}, {}
+    sk.LAUNCHES_BY_BUILD.clear()
     launches['toffoli7_warm'], toffoli_rows = phase_toffoli7(card)
+    by_build['toffoli7_warm'] = dict(sk.LAUNCHES_BY_BUILD)
+    sk.LAUNCHES_BY_BUILD.clear()
     launches['static_ladder7'] = phase_ladder7()
+    by_build['static_ladder7'] = dict(sk.LAUNCHES_BY_BUILD)
+    check(all(by_build[p] == {'sweep_cluster': v} for p, v in launches.items()),
+          f'phase 15: launches by path and build {by_build}, not all on the '
+          f'cluster build')
     refuse_whole_beyond('phase 15')
     print(f'phase 15: wall {time.perf_counter() - start:.3f} s', flush=True)
-    return worst, rows + toffoli_rows, launches
+    return worst, rows + toffoli_rows, launches, driven
 
 
 # ------------------------------------------------------------ phase 16
@@ -3141,6 +3182,8 @@ def phase_prng(card):
 F64_LOSS0_TOL, F64_BEST_TOL = 1e-12, 1e-9
 F64_UNITARY_TOL, F64_GRAD_TOL = 1e-12, 1e-11
 COLUMNS_F64 = 'sweep_columns_f64'  # the column build's double build
+BLOCK_F64 = 'sweep_block_f64'  # the one-block build's double build
+CLUSTER_F64 = 'sweep_cluster_f64'  # the cluster build's double build
 C4_HOST_LOSS = 2.169e-6  # phase 8's 6-CZ decomposition in float64 (C.4)
 F64_TIMING = [  # (shape, steps) of phase 5's first two rows and of (f)
     (dict(name='3q CCZ k=12 B=1024 (static sampling)', n=3, k=12, r=0.00055,
@@ -3252,20 +3295,28 @@ def phase_double(card):
 
     # (b) the sweep kernel against the plain float64 version
     worst_by = Counter()  # the largest error (initial, best) of each build
+    cluster_rows = []  # the cluster build's rows, timed
     for s in double_shapes():
         obj, P = shape_objective(s, F64)
         init = uniform_inits(P, s['B'], s.get('seed', 7), 'cuda').to(F64)
         c, nbytes, occ = check_plan(obj, s['B'], s['name'])
         check(c == s.get('cluster', c), f'{s["name"]}: {c} blocks a restart')
         before = sk.F64_LAUNCHES
-        got = sk.sweep(obj, init, s['lr'], 60)
-        torch.cuda.synchronize()
+        got, ms = timed(lambda: sk.sweep(obj, init, s['lr'], 60))
         check(sk.F64_LAUNCHES == before + 1 and got.best_loss.dtype == F64,
               f'{s["name"]}: the double build did not run')
-        want = sk.sweep_reference(obj, init, s['lr'], 60)
+        want, plain_ms = timed(lambda: sk.sweep_reference(obj, init,
+                                                          s['lr'], 60))
         e0 = scaled_err(got.regloss0, want.regloss0).max().item()
         e = scaled_err(got.best_loss, want.best_loss).max().item()
         worst_by[occ['build']] = max(worst_by[occ['build']], e0, e)
+        if occ['build'] == CLUSTER_F64:
+            b_ms, b_by = bound_ms(shape_work(dict(s, dtype=F64)), s['B'], 60)
+            cluster_rows.append(dict(
+                shape=s['name'], T=60, cluster=c, build=occ['build'], ms=ms,
+                plain_ms=plain_ms, plain_T=60, bound_ms=b_ms, bound_by=b_by,
+                registers=occ['registers'], local_bytes=occ['local_bytes'],
+                max_abs_err=max(e0, e)))
         print(f'phase 18 (b): {s["name"]}: build {occ["build"]}, {c} block(s) '
               f'of {nbytes} bytes, '
               f'{occ["registers"]} registers, {occ["local_bytes"]} local '
@@ -3327,7 +3378,7 @@ def phase_double(card):
 
     def by_build(path):
         columns[path] = sk.LAUNCHES_BY_BUILD[COLUMNS_F64]
-        blocks[path] = sk.LAUNCHES_BY_BUILD['sweep_f64']
+        blocks[path] = sk.LAUNCHES_BY_BUILD[BLOCK_F64]
 
     unitary_launches = {}
     config.set_precision(True)
@@ -3611,25 +3662,40 @@ def phase_double(card):
     # wrapper call on CUDA events as phase 12's, device_ms the kernel alone;
     # sweep: plain_ms over plain_T steps); no single PyTorch call computes
     # these functions, so library_ms is null. The sweep's builds each have
-    # their own line: the one-block build (sweep_f64: its launches, its
-    # largest error in (b), its times at (f), the first row of (g) it runs)
+    # their own line: the one-block build (sweep_block_f64: its launches,
+    # its largest error in (b), its times at (f), the first row of (g) it
+    # runs), the cluster build (sweep_cluster_f64: its largest error and
+    # its times at (b)'s 7q row (F), its launches from phase 19's paths)
     # and the column build (its times at 3q k=12)
-    row = next(r for r in sweep_rows if r['build'] == 'sweep_f64')
+    row = next(r for r in sweep_rows if r['build'] == BLOCK_F64)
     lines = [{
-        'name': 'sweep_f64', 'route': 'cuda',
+        'name': BLOCK_F64, 'route': 'cuda', 'kernel': 'sweep_block_kernel',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'build': '-DCPFLOW_DOUBLE',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
         'launches': sum(blocks.values()), 'launches_by_path': blocks,
         'launches_all_builds_by_path': launches,
-        'max_abs_err': worst_by['sweep_f64'], 'ms': row['ms'],
+        'max_abs_err': worst_by[BLOCK_F64], 'ms': row['ms'],
         'plain_ms': row['plain_ms'], 'plain_T': row['plain_T'],
         'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
         'library_ms': None, 'registers': row['registers'],
         'local_bytes': row['local_bytes'],
-        'shapes': [r for r in sweep_rows if r['build'] == 'sweep_f64']}]
-    check(lines[-1]['launches'] > 0 and 'sweep_f64' in worst_by,
+        'shapes': [r for r in sweep_rows if r['build'] == BLOCK_F64]}]
+    check(lines[-1]['launches'] > 0 and BLOCK_F64 in worst_by,
           f'the float64 one-block build missed phase 18\'s paths: {blocks}')
+    row = cluster_rows[0]
+    lines.append({
+        'name': CLUSTER_F64, 'route': 'cuda', 'kernel': 'sweep_cluster_kernel',
+        'source': 'cpflow_tpu_torch/csrc/sweep.cu',
+        'build': '-DCPFLOW_DOUBLE',
+        'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
+        'launches': 0, 'launches_by_path': {},
+        'max_abs_err': worst_by[CLUSTER_F64], 'ms': row['ms'],
+        'plain_ms': row['plain_ms'], 'plain_T': row['plain_T'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': None, 'registers': row['registers'],
+        'local_bytes': row['local_bytes'], 'cluster': [row['cluster']],
+        'shapes': cluster_rows})
     row = next(r for r in sweep_rows if r['build'] == COLUMNS_F64)
     lines.append({
         'name': COLUMNS_F64, 'route': 'cuda',
@@ -3748,8 +3814,9 @@ def sweep_row(s, c, occ, ms, plain_ms, T, card, label):
           f'T={T}: kernel {ms:.2f} ms (CUDA events), plain {plain_ms:.2f} ms; '
           f'bound {b_ms:.3f} ms by {b_by} ({str(dtype)[6:]}), share '
           f'{b_ms / ms:.2%}', flush=True)
-    row = dict(shape=s['name'], T=T, cluster=c,
+    row = dict(shape=s['name'], T=T, cluster=c, build=occ['build'],
                smem_bytes=occ['smem_bytes'], registers=occ['registers'],
+               local_bytes=occ['local_bytes'],
                active_clusters=occ['active_clusters'], ms=ms,
                plain_ms=plain_ms, plain_T=T, bound_ms=b_ms, bound_by=b_by)
     if tiles:
@@ -3788,17 +3855,16 @@ def phase_sixteen_sweeps(card, shapes=None, label='phase 19 (a)'):
               f'clusters resident')
         tiles = 'tiles' in occ  # the column tiles: c independent blocks
         key = 'tiles' if tiles else c  # of sk.LAUNCHES_BY_CLUSTER
-        build = ('sweep_column_tiles' if tiles else 'sweep_row_tiles'
-                 if s.get('kind') == 'state' and c > 1 else 'sweep') + (
-            '_f64' if dtype == F64 else '')
+        build = occ['build']
         built = sk.LAUNCHES_BY_BUILD[build]
         if dtype == torch.float32:
             err, _, (row,) = phase_compare([s], label)
             worst32 = max(worst32, err)
             check(sk.LAUNCHES_BY_BUILD[build] > built,
                   f'{s["name"]}: the {build} build did not run')
-            rows32.append(sweep_row(s, c, occ, row['ms'], row['plain_ms'], T,
-                                    card, label))
+            rows32.append(dict(sweep_row(s, c, occ, row['ms'],
+                                         row['plain_ms'], T, card, label),
+                               max_abs_err=row['max_abs_err']))
             continue
         init = uniform_inits(P, s['B'], s.get('seed', 19), 'cuda').to(F64)
         before = (sk.F64_LAUNCHES, sk.LAUNCHES_BY_CLUSTER[key])
@@ -3836,7 +3902,8 @@ def phase_sixteen_sweeps(card, shapes=None, label='phase 19 (a)'):
               f'{s["name"]}: float64 kernel against plain float64: initial '
               f'{e0:.3e}, best {err.tolist()}, the plain route on the host '
               f'against the card\'s {host.tolist()}')
-        rows64.append(sweep_row(s, c, occ, ms, plain_ms, T, card, label))
+        rows64.append(dict(sweep_row(s, c, occ, ms, plain_ms, T, card, label),
+                           max_abs_err=max(e0, e)))
     return worst32, worst64, rows32, rows64
 
 
@@ -4294,11 +4361,16 @@ def phase_ghz_search(k=None, samples=None, steps=None, n=13,
                             accepted_num_cz_gates=n - 1)
     sk.LAUNCHES = 0
     sk.LAUNCHES_BY_CLUSTER.clear()
+    sk.LAUNCHES_BY_BUILD.clear()
     start = time.perf_counter()
     results = synth.static(options, save_results=False, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, by_cluster = sk.LAUNCHES, dict(sk.LAUNCHES_BY_CLUSTER)
+    build = sk.build_of(n, k, num_block_angles('cp', 'xyz'), 'state')
+    check(dict(sk.LAUNCHES_BY_BUILD) == {build: launches},
+          f'{label}: launches by build {dict(sk.LAUNCHES_BY_BUILD)}, not all '
+          f'{launches} on {build}')
     found = sorted((d.cz_count, d.loss) for d in results.decompositions)
     stages = ', '.join(f'{k} {v:.3f} s'
                        for k, v in synth.stage_seconds.items())
@@ -4383,7 +4455,8 @@ def phase_ghz_warm(B=64, T=500, n=13, dtype=None, penalty=None,
     nba = num_block_angles('cp', 'xyz')
     c = sk.cluster_plan(n, n - 1, nba, 'state', dtype)
     fused = c is not None  # else the unitary kernels run the sweeps
-    build = ('sweep_row_tiles' if fused and c > 1 else 'sweep') + suffix
+    build = ('sweep_row_tiles' if fused and c > 1 else 'sweep_block') + \
+        suffix
     plans = {vjp: uk.plan(n, n - 1, nba, 0, vjp, dtype)
              for vjp in (False, True)}
     kernels = {vjp: uk.kernel_name(p['design'], vjp, n,
@@ -4515,12 +4588,14 @@ def phase_sixteen(card):
     errs, rows = phase_sixteen_unitary(card)
     phase_split_vjp_bits([s for s in SIXTEEN_UNITARY if s[0] <= 8],
                          'phase 19 (a)')
-    errs.update(sweep=worst32, sweep_f64=worst64)
-    rows.update(sweep=rows32, sweep_f64=rows64)
-    launches = {'sweep': {}, 'sweep_f64': {}}
-    launches['sweep_f64']['static_ladder8_f64'] = phase_ladder8()
-    launches['sweep']['ghz13_search'] = phase_ghz_search()
-    launches['sweep']['ghz13_warm'] = phase_ghz_warm()['sweep']
+    for row in rows32 + rows64:  # by the build each row ran
+        errs[row['build']] = max(errs.get(row['build'], 0.0),
+                                 row['max_abs_err'])
+        rows.setdefault(row['build'], []).append(row)
+    launches = {'sweep_block': {}, CLUSTER_F64: {}}
+    launches[CLUSTER_F64]['static_ladder8_f64'] = phase_ladder8()
+    launches['sweep_block']['ghz13_search'] = phase_ghz_search()
+    launches['sweep_block']['ghz13_warm'] = phase_ghz_warm()['sweep_block']
     unitary_launches = {'custom_ladder8_f64': phase_custom8(card)}
     print(f'phase 19: {time.perf_counter() - start:.1f} s', flush=True)
     return errs, rows, launches, unitary_launches
@@ -5343,7 +5418,7 @@ def phase_ghz4_l1(r=0.001, label='phase 22 (c)'):
     check(good, f'GHZ-4 with cp_penalty_L1: no 3-CZ decomposition at host '
           f'loss <= 1e-6: {hosts[:4]}')
     return {kernels[False]: unitary[0], kernels[True]: unitary[1],
-            'sweep': launches}
+            'sweep_block': launches}
 
 
 def phase_block(card):
@@ -5626,14 +5701,15 @@ def main() -> int:
         # paths
         columns = {name: by.get('sweep_columns', 0)
                    for name, by in by_build.items()}
-        blocks = {name: by.get('sweep', 0) for name, by in by_build.items()}
+        blocks = {name: by.get('sweep_block', 0)
+                  for name, by in by_build.items()}
         unitary_err, unitary_rows = attempt((None, None), phase_unitary,
                                             card)
         unitary_launches, launches['adaptive_ghz4_state'] = attempt(
             ({}, 0), phase_custom_loss)
         unitary_launches.update(attempt({}, phase_engine))
-        seven_err, seven_rows, seven_launches = attempt(
-            (0.0, [], {}), phase_seven, card)
+        seven_err, seven_rows, seven_launches, seven_driven = attempt(
+            (0.0, [], {}, {}), phase_seven, card)
         launches.update(seven_launches)
         launches.update(attempt({}, phase_mesh, card))
         launches.update(attempt({}, phase_prng, card))
@@ -5645,15 +5721,18 @@ def main() -> int:
         wide = attempt(None, phase_wide, card)
         check(not failed, f'{len(failed)} phase(s) failed: '
               + '; '.join(failed))
-        # the GHZ-4 state path (phase 13) and the 7-qubit paths (phase 15)
-        # have no other build than the one-block and cluster build:
-        # column_plan holds no state and nothing past 6 qubits
+        # the GHZ-4 state path (phase 13) runs the one-block build and the
+        # 7-qubit paths (phase 15) the cluster build, as those phases check
+        # (LAUNCHES_BY_BUILD): column_plan holds no state and nothing past
+        # 6 qubits
         blocks['adaptive_ghz4_state'] = launches['adaptive_ghz4_state']
-        blocks.update(seven_launches)
+        clusters = dict(seven_launches)
         check(all(v > 0 for v in launches.values()),
               f'a main path missed the sweep kernel: {launches}')
         check(sum(blocks.values()) > 0, f'the one-block build missed the '
               f'main paths: {blocks}')
+        check(sum(clusters.values()) > 0, f'the cluster build missed the '
+              f'main paths: {clusters}')
         check(sum(columns.values()) > 0 and
               all(r['build'] == 'sweep_columns' for r in rows
                   if not r['shape'].startswith('(f)')),  # (f): a state
@@ -5732,27 +5811,47 @@ def main() -> int:
     # forward pass is a chain of n + k batched gate applications and its
     # vjp a walk back through them, which no single PyTorch call computes,
     # so library_ms is null for them too
-    # the one-block and cluster build (a state, 7 and 8 qubits, a template
-    # too deep for the column build): its launches on the paths whose
-    # builds are known (launches_all_builds_by_path: every build's), its
-    # largest error on the rows of phases 3 and 15 that ran it, its numbers
-    # from phase 5's first row that runs it ((f), the 10q state)
-    mine = [r for r in compare_rows if r['build'] == 'sweep']
-    row = next(r for r in rows if r['build'] == 'sweep')
+    # the one-block build (a state to 13 qubits, a template too deep for
+    # the column build): its launches on the paths whose builds are known
+    # (launches_all_builds_by_path: every build's), its largest error on
+    # the rows of phase 3 that ran it, its numbers from phase 5's first row
+    # that runs it ((f), the 10q state)
+    mine = [r for r in compare_rows if r['build'] == 'sweep_block']
+    row = next(r for r in rows if r['build'] == 'sweep_block')
     kernels = [{
-        'name': 'sweep', 'route': 'cuda',
+        'name': 'sweep_block', 'route': 'cuda',
+        'kernel': 'sweep_block_kernel',
         'source': 'cpflow_tpu_torch/csrc/sweep.cu',
         'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
-        **driven['sweep'],
+        **driven['sweep_block'],
         'launches': sum(blocks.values()), 'launches_by_path': blocks,
         'launches_all_builds_by_path': launches,
-        'max_abs_err': max([seven_err] + [r['max_abs_err'] for r in mine]),
+        'max_abs_err': max(r['max_abs_err'] for r in mine),
         'ms': row['ms'], 'plain_ms': row['plain_ms'],
         'plain_T': row['plain_T'], 'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'], 'library_ms': None,
         'registers': row['registers'], 'local_bytes': row['local_bytes'],
-        'cluster': sorted({r['cluster'] for r in mine + seven_rows}),
-        'shapes': [r for r in rows if r['build'] == 'sweep'] + seven_rows}]
+        'cluster': [1],
+        'shapes': [r for r in rows if r['build'] == 'sweep_block'] + mine}]
+    # the cluster build (the whole unitary at 7 and 8 qubits): its launches
+    # on phase 15's paths, its largest error on phase 15's rows, its numbers
+    # from phase 15's first row ((q), 7q k=24 on 2 blocks), every row of
+    # phase 15 and the Toffoli-7 program's two sweeps in `shapes`
+    mine = [r for r in seven_rows if r.get('build') == 'sweep_cluster']
+    row = mine[0]
+    kernels.append({
+        'name': 'sweep_cluster', 'route': 'cuda',
+        'kernel': 'sweep_cluster_kernel',
+        'source': 'cpflow_tpu_torch/csrc/sweep.cu',
+        'replaces': 'cpflow_tpu/experimental/pallas_sweep.py:317',
+        **seven_driven.get('sweep_cluster', {}),
+        'launches': sum(clusters.values()), 'launches_by_path': clusters,
+        'max_abs_err': seven_err, 'ms': row['ms'],
+        'plain_ms': row['plain_ms'], 'plain_T': row['plain_T'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': None, 'registers': row['registers'],
+        'local_bytes': row['local_bytes'],
+        'cluster': sorted({r['cluster'] for r in mine}), 'shapes': mine})
     # the column build (the whole unitary at 2 to 6 qubits): its launches on
     # the main paths of phases 4 and 6-11, its largest error on phase 3's
     # rows that ran it, its numbers from phase 5's first row (the static

@@ -232,7 +232,7 @@ __host__ __device__ constexpr int ins0(int x, int s) {
 }
 
 // Row of amplitude p of group g of a K-qubit gate on row bits sa (, sb):
-// p's high bit on sa, its low bit on sb, as gates.cuh's group_rows.
+// p's high bit on sa, its low bit on sb.
 __host__ __device__ constexpr int gate_row(int K, int sa, int sb, int g,
                                            int p) {
   return K == 1 ? ins0(g, sa) | (p << sa)

@@ -1,36 +1,29 @@
 // Device code shared by the kernels of this directory: the gate algebra of
-// the two-qubit-block ansatz in factored 2x2 form, the application of a gate
-// to a state held in shared memory, forwards and in the adjoint walk, and
-// the walk itself.
+// the two-qubit-block ansatz in factored 2x2 form (each gate's matrix from
+// the cos and sin of its angles, and its angle gradients from its
+// cotangent), and what a restart split over a thread-block cluster sums and
+// checks across its blocks.
 //
 // sweep.cu (the fused multi-start Adam sweep) and unitary.cu (the ansatz as a
 // differentiable function of its angles) include it; each compiles it into
-// its own library, so everything sits in an unnamed namespace.
+// its own library, so everything sits in an unnamed namespace. How a gate is
+// applied to a state in shared memory is each design's own: columns.cuh (a
+// column a lane), tiles.cuh (a tile's columns owned by warps) and rows.cuh
+// (a column's rows owned by warps).
 //
-// One thread block owns one restart. Its d x C complex state A (C = 2^n
-// columns for the whole unitary, C = 1 for the |0...0> column alone) and,
-// in the walk, the cotangent M live in shared memory; a gate is applied by
-// all threads of the block to disjoint amplitude groups, with one barrier
-// between gates.
-//
-// Above 6 qubits the whole unitary's A and M exceed one block's shared
-// memory. Then a restart runs on a cluster of c = 2^j blocks (at most 16:
-// Hopper's portable clusters end at 8, and a kernel takes 16 only with
-// cudaFuncAttributeNonPortableClusterSizeAllowed set), and the block
-// of rank rho owns columns [rho C / c, (rho + 1) C / c) as a row-major
-// d x (C / c) tile. Every gate acts on row bits only, so each block runs the
-// chain and the walk on its own tile, calling the functions below with the
-// tile's log_c = n - j; what crosses columns (the sums over entries, each
-// gate's cotangent, the modulo losses' entries) goes through distributed
-// shared memory (tile_to_global, cluster_sum). Past what a cluster of 16
-// holds, the same tiles run on independent blocks with no cluster (the
-// column tiles of sweep.cu and unitary.cu), and what crosses them goes
-// through global memory, summed by a second kernel in tile order.
-//
-// A state's one column (C = 1) above 13 qubits (12 in double) exceeds one
-// block too. It cannot be split by columns, so it is split by rows: the
-// block of rank rho owns rows [rho d / c, (rho + 1) d / c), and a gate on
-// the top j row bits crosses blocks (row tiles, at the end of this file).
+// A restart's d x C complex state A (C = 2^n columns for the whole unitary,
+// C = 1 for the |0...0> column alone) and, in the walk, the cotangent M live
+// in shared memory. Where one block's shared memory does not hold them, a
+// restart runs on a cluster of c = 2^j blocks (at most 16: Hopper's portable
+// clusters end at 8, and a kernel takes 16 only with
+// cudaFuncAttributeNonPortableClusterSizeAllowed set): the whole unitary
+// split by columns (tiles.cuh), one column split by rows (rows.cuh). What
+// crosses the blocks (the sums over entries, each gate's cotangent, the
+// modulo losses' entries) goes through distributed shared memory
+// (cluster_sum). Past what a cluster of 16 holds, tiles run on independent
+// blocks with no cluster (the column tiles of sweep.cu and unitary.cu, the
+// global row tiles of unitary.cu), and what crosses them goes through
+// global memory, summed by a further kernel in a fixed order.
 //
 // The precision of a build. Every source compiles twice: as it stands, in
 // float (complex64 amplitudes), and with -DCPFLOW_DOUBLE in double
@@ -337,112 +330,8 @@ __device__ inline void surface_grads(const real* cs, const cplx* G,
   leg_grads(SurfaceLetters{}, 3, cs, 2, v, grad, 1);
 }
 
-// ------------------------------------------------------------ reductions
-// Lane L returns the warp-wide sum of v[L] (31 shuffles for 32 values).
-__device__ inline real warp_reduce_scatter32(real (&v)[32]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int step = 16; step >= 1; step >>= 1) {
-    const bool upper = lane & step;
-#pragma unroll
-    for (int i = 0; i < step; ++i) {
-      real send = upper ? v[i] : v[i + step];
-      real keep = upper ? v[i + step] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, step);
-    }
-  }
-  return v[0];
-}
-
-__device__ __forceinline__ int insert_zero(int x, int s) {
-  return ((x >> s) << (s + 1)) | (x & ((1 << s) - 1));
-}
-
-// Indices in the row-major d x C state of one amplitude group of a K-qubit
-// gate on row bits sa(, sb).
-template <int K>
-__device__ __forceinline__ void group_rows(int g, int log_c, int sa, int sb,
-                                           int* idx) {
-  const int col = g & ((1 << log_c) - 1);
-  int r = g >> log_c;
-  if (K == 1) {
-    r = insert_zero(r, sa);
-    idx[0] = (r << log_c) + col;
-    idx[1] = ((r | (1 << sa)) << log_c) + col;
-  } else {
-    const int lo = sa < sb ? sa : sb, hi = sa < sb ? sb : sa;
-    r = insert_zero(insert_zero(r, lo), hi);
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      idx[p] = ((r | ((p >> 1) << sa) | ((p & 1) << sb)) << log_c) + col;
-  }
-}
-
-// A <- G A on the gate's legs.
-template <int K>
-__device__ inline void apply_forward(cplx* A, const cplx* gsm, int n,
-                                     int log_c, int sa, int sb) {
-  constexpr int D = 1 << K;
-  cplx G[D * D];
-#pragma unroll
-  for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
-  const int ngroups = (1 << (n + log_c)) >> K;
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    int idx[D];
-    group_rows<K>(g, log_c, sa, sb, idx);
-    cplx a[D];
-#pragma unroll
-    for (int p = 0; p < D; ++p) a[p] = A[idx[p]];
-#pragma unroll
-    for (int p = 0; p < D; ++p) {
-      cplx acc = mkc(RL(0.), RL(0.));
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc = cadd(acc, cmul(G[p * D + k], a[k]));
-      A[idx[p]] = acc;
-    }
-  }
-}
-
-// One step of the adjoint walk through a gate: A <- G^dag A (state before
-// the gate), gb[p,k] += sum M[p] A[k] (dL/dG), M <- G^T M.
-template <int K>
-__device__ inline void apply_backward(cplx* A, cplx* M, const cplx* gsm,
-                                      int n, int log_c, int sa, int sb,
-                                      real (&gb)[32]) {
-  constexpr int D = 1 << K;
-  cplx G[D * D];
-#pragma unroll
-  for (int e = 0; e < D * D; ++e) G[e] = gsm[e];
-  const int ngroups = (1 << (n + log_c)) >> K;
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    int idx[D];
-    group_rows<K>(g, log_c, sa, sb, idx);
-    cplx a[D], m[D];
-#pragma unroll
-    for (int p = 0; p < D; ++p) { a[p] = A[idx[p]]; m[p] = M[idx[p]]; }
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      cplx ak = mkc(RL(0.), RL(0.)), mk = mkc(RL(0.), RL(0.));
-#pragma unroll
-      for (int p = 0; p < D; ++p) {
-        ak = cadd(ak, cmul(conj2(G[p * D + k]), a[p]));
-        mk = cadd(mk, cmul(G[p * D + k], m[p]));
-      }
-#pragma unroll
-      for (int p = 0; p < D; ++p) {
-        cplx t = cmul(m[p], ak);
-        gb[2 * (p * D + k)] += t.x;
-        gb[2 * (p * D + k) + 1] += t.y;
-      }
-      A[idx[k]] = ak;
-      M[idx[k]] = mk;
-    }
-  }
-}
-
-// ------------------------------------------------------- the chain of gates
-// The steps of one evaluation and of its adjoint walk, as every kernel here
-// runs them. None ends with a barrier unless it says so.
+// ------------------------------------------------------- the gates a step
+// None ends with a barrier.
 
 // cos and sin of each of the P angles, once, into cs[2i], cs[2i + 1]: of half
 // the angle for a rotation, of the angle for a CP phase (the last of a CP
@@ -469,68 +358,7 @@ __device__ __forceinline__ void build_gates(const Template& t, int n, int G,
   }
 }
 
-// A <- G_{G-1} ... G_0 A: the surface round, then every block on its
-// placement (qubit 0 the most significant bit). A barrier after every gate.
-__device__ __forceinline__ void forward_chain(cplx* A, const cplx* gates,
-                                              const int* placements, int n,
-                                              int nb, int log_c) {
-  for (int q = 0; q < n; ++q) {
-    apply_forward<1>(A, gates + 16 * q, n, log_c, n - 1 - q, 0);
-    __syncthreads();
-  }
-  for (int b = 0; b < nb; ++b) {
-    const int q0 = placements[2 * b], q1 = placements[2 * b + 1];
-    apply_forward<2>(A, gates + 16 * (n + b), n, log_c, n - 1 - q0,
-                     n - 1 - q1);
-    __syncthreads();
-  }
-}
-
-// The adjoint walk, last gate first: from A = the chain's output and
-// M = dL/dA it rewinds A by unitarity, pulls M back, and leaves every gate's
-// cotangent dL/dG in gbar (32 reals a gate). red: 2 x nw x 32 reals of
-// cross-warp partials, double-buffered so that a gate costs one barrier.
-// Ends with a barrier.
-__device__ __forceinline__ void adjoint_walk(cplx* A, cplx* M,
-                                             const cplx* gates,
-                                             const int* placements,
-                                             real* red, real* gbar, int n,
-                                             int G, int log_c, int nw) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int j = G - 1; j >= 0; --j) {
-    real gb[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) gb[e] = RL(0.);
-    if (j >= n) {
-      const int bb = j - n;
-      const int q0 = placements[2 * bb], q1 = placements[2 * bb + 1];
-      apply_backward<2>(A, M, gates + 16 * j, n, log_c, n - 1 - q0,
-                        n - 1 - q1, gb);
-    } else {
-      apply_backward<1>(A, M, gates + 16 * j, n, log_c, n - 1 - j, 0, gb);
-    }
-    real part = warp_reduce_scatter32(gb);
-    real* rb = red + (j & 1) * nw * 32;
-    rb[warp * 32 + lane] = part;
-    __syncthreads();
-    if (tid < 32) {
-      real s = RL(0.);
-      for (int w = 0; w < nw; ++w) s += rb[w * 32 + tid];
-      gbar[32 * j + tid] = s;
-    }
-  }
-  __syncthreads();
-}
-
 // ------------------------------------------------------------- clusters
-// Index in the row-major d x 2^log_c whole of entry e of the tile of rank
-// `rank`, a row-major d x 2^log_ct block of its columns.
-__device__ __forceinline__ int tile_to_global(int e, int log_c, int log_ct,
-                                              int rank) {
-  return ((e >> log_ct) << log_c) + (rank << log_ct) +
-         (e & ((1 << log_ct) - 1));
-}
-
 // Sums the partials x[0..len) that the blocks of a cluster hold at the same
 // shared-memory offset and leaves the sum in every block's x. One thread of
 // the cluster sums entry i, over the ranks in the order 0, 1, ..., c - 1,

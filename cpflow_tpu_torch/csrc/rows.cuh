@@ -289,10 +289,11 @@ __device__ __forceinline__ void row_chain(cplx* A, const cplx* gates,
 }
 
 // The sum of the warps' slots of gates j0 .. min(j0 + ring, G) - 1, in warp
-// order, into gbar[32 j + e] (a surface gate's 8 reals; its other 24 are
-// written 0), one entry a thread, between two block barriers: the first so
-// that every warp's slots are in, the second so that none is overwritten
-// before it is read.
+// order (with kTree pairwise, tiles.cuh's pairwise_sum), into gbar[32 j + e]
+// (a surface gate's 8 reals; its other 24 are written 0), one entry a
+// thread, between two block barriers: the first so that every warp's slots
+// are in, the second so that none is overwritten before it is read.
+template <bool kTree = false>
 __device__ __forceinline__ void row_flush(const real* ring, real* gbar,
                                           int j0, int n, int G,
                                           const RowPlan& p) {
@@ -301,8 +302,13 @@ __device__ __forceinline__ void row_flush(const real* ring, real* gbar,
     const int r = i >> 5, e = i & 31, j = j0 + r;
     if (j >= G) break;
     real s = RL(0.);
-    if (j >= n || e < 8)
-      for (int w = 0; w < p.warps; ++w) s += ring[(w * p.ring + r) * 32 + e];
+    if (j >= n || e < 8) {
+      if constexpr (kTree)
+        s = pairwise_sum(ring + r * 32 + e, p.ring * 32, p.warps);
+      else
+        for (int w = 0; w < p.warps; ++w)
+          s += ring[(w * p.ring + r) * 32 + e];
+    }
     gbar[32 * j + e] = s;
   }
   __syncthreads();
@@ -313,8 +319,9 @@ __device__ __forceinline__ void row_flush(const real* ring, real* gbar,
 // pulled back, the warp's share of the gate's cotangent into its ring
 // slot), each swap on A and M. Leaves the block's share of every gate's
 // cotangent in gbar, for cluster_sum. Ends with a block barrier.
-// kOneBlock: as row_chain.
-template <bool kOneBlock = false>
+// kOneBlock: as row_chain; kTree: the warps' slots summed pairwise
+// (row_flush).
+template <bool kOneBlock = false, bool kTree = false>
 __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
                                          const int4* ops, int nops,
                                          real* ring, real* gbar, int n,
@@ -349,7 +356,7 @@ __device__ __forceinline__ void row_walk(cplx* A, cplx* M, const cplx* gates,
       if ((lane & 3) == 0) slots[slot * 32 + base] = gb[0];
     }
     __syncwarp();
-    if (slot == 0) row_flush(ring, gbar, j, n, G, p);
+    if (slot == 0) row_flush<kTree>(ring, gbar, j, n, G, p);
   }
 }
 

@@ -633,9 +633,32 @@ __device__ __forceinline__ void warp_chain(cplx* X, int S, const cplx* gates,
   }
 }
 
+// The sum of x[w stride] over warps w0 .. w0 + N - 1 that are below nw,
+// pairwise: the halves' sums added, so that each value is rounded through
+// log2(N) additions, not up to N - 1 as in warp order (no array, so no
+// local memory).
+template <int N>
+__device__ __forceinline__ real tree_sum(const real* x, int stride, int nw,
+                                         int w0 = 0) {
+  if constexpr (N == 1)
+    return w0 < nw ? x[w0 * stride] : RL(0.);
+  else
+    return tree_sum<N / 2>(x, stride, nw, w0) +
+           tree_sum<N / 2>(x, stride, nw, w0 + N / 2);
+}
+
+// The sum of x[0], x[stride], ... x[(nw - 1) stride] (nw a power of two, at
+// most 16) pairwise (tree_sum).
+__device__ __forceinline__ real pairwise_sum(const real* x, int stride,
+                                             int nw) {
+  return nw == 1 ? x[0] : tree_sum<16>(x, stride, nw);
+}
+
 // tile_flush with a ring of R gates (a power of two, at most kTileRing),
 // into out in shared memory: the warps' slots of gates j0 .. min(j0 + R,
-// G) - 1 summed in warp order between two block barriers.
+// G) - 1 summed in warp order (with kTree pairwise, pairwise_sum) between
+// two block barriers.
+template <bool kTree = false>
 __device__ __forceinline__ void ring_flush(const real* ring, int R,
                                            real* out, int j0, int n, int G,
                                            int nw) {
@@ -644,8 +667,12 @@ __device__ __forceinline__ void ring_flush(const real* ring, int R,
     const int r = i >> 5, e = i & 31, j = j0 + r;
     if (j >= G) break;
     real s = RL(0.);
-    if (j >= n || e < 8)
-      for (int w = 0; w < nw; ++w) s += ring[(w * R + r) * 32 + e];
+    if (j >= n || e < 8) {
+      if constexpr (kTree)
+        s = pairwise_sum(ring + r * 32 + e, R * 32, nw);
+      else
+        for (int w = 0; w < nw; ++w) s += ring[(w * R + r) * 32 + e];
+    }
     out[32 * j + e] = s;
   }
   __syncthreads();
@@ -655,7 +682,8 @@ __device__ __forceinline__ void ring_flush(const real* ring, int R,
 // last gate first: each gate's cotangent summed over the warp's columns in
 // registers, then over its lanes by shuffles into its slot of a ring of R
 // gates, and every R gates the slots summed in warp order into gbar
-// (ring_flush). Ends with a block barrier.
+// (ring_flush; with kTree pairwise). Ends with a block barrier.
+template <bool kTree = false>
 __device__ __forceinline__ void warp_walk(cplx* X, cplx* Y, int S,
                                           const cplx* gates,
                                           const int* placements, real* ring,
@@ -677,7 +705,7 @@ __device__ __forceinline__ void warp_walk(cplx* X, cplx* Y, int S,
     reduce_step<16, 32>(gb, lane, base, kFull);
     ring[(warp * R + j % R) * 32 + base] = gb[0];
     column_sync(wc.c0, wc.gw);
-    if (j % R == 0) ring_flush(ring, R, gbar, j, n, G, nw);
+    if (j % R == 0) ring_flush<kTree>(ring, R, gbar, j, n, G, nw);
   }
   for (int j = n - 1; j >= 0; --j) {
     real gb[32];
@@ -692,7 +720,7 @@ __device__ __forceinline__ void warp_walk(cplx* X, cplx* Y, int S,
     reduce_step<16, 8>(gb, lane, base, kFull);
     if ((lane & 3) == 0) ring[(warp * R + j % R) * 32 + base] = gb[0];
     column_sync(wc.c0, wc.gw);
-    if (j % R == 0) ring_flush(ring, R, gbar, j, n, G, nw);
+    if (j % R == 0) ring_flush<kTree>(ring, R, gbar, j, n, G, nw);
   }
 }
 

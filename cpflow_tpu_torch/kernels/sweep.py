@@ -51,51 +51,58 @@ Routing of ``sweep``, by the tensor's device and the objective:
 
 What bounds the kernel on this card, and what its design does about it, is
 set out at the top of csrc/sweep.cu: per-restart shared memory (the state
-and cotangent, 2^n x C each) and the barriers and block reductions of the
-adjoint walk. The whole unitary at 2 to 6 qubits (the HS test, disc and
-both modulo losses) runs on the column build (``column_plan``,
-``column_smem_bytes``; csrc/columns.cuh's design, as the unitary kernels'
-column design runs it): a restart on one warp (four at 5 qubits, eight at
-6, four in float64, ``sweep_warps``) and 2 restarts a block up to 4
-qubits, each warp's lanes sharing its columns in the chain and the walk
-with a warp barrier a gate, no block barrier between two gates, and
-restarts that never wait on each other. A template too deep for its
-layout, and a state, run as follows (few threads per restart, a
-31-shuffle warp reduction, double-buffered cross-warp partials, a barrier
-a gate). A restart runs on one thread block
-where its layout fits one block's shared memory (every shape up to 6
-qubits, and a state up to 13); above that it is split over a thread-block
-cluster of 2, 4, 8 or 16 blocks, the smallest that fits (``cluster_plan``):
-the whole unitary by columns (in float32 7 qubits take 2, or 4 from 215
-'xyz' blocks, 8 qubits take 8, or 16 from 214 'xyz' blocks up to 358), a
-state's one column by rows, each block holding 2^n / c of them (the
-kernel's fourth build, the row tiles; at the GHZ ladder's depths 14, 15,
-16 and 17 qubits take 2, 4, 8 and 16 blocks), each block's rows owned by
-its warps, every gate on a warp's own rows and the bits it needs swapped
-in beforehand as a table says that the wrapper computes once a call
-(kernels/rows.py; ``row_plan`` mirrors the launch); past 17 qubits (16 in
-float64) ``route`` takes a state to the unitary kernels, whose global row
-tiles keep its column in device memory (kernels/unitary.py). Where no cluster
-holds the whole unitary (9 qubits and up, and deeper templates at 7 and
-8), the HS test and disc losses take the column tiles (``tile_plan``): a restart's columns
-split into tiles on independent blocks, the fewest that fit, and two
-kernels a step, one a block per tile (the chain, the tile's share of the
-sum s and the walk from conj(T), each column of the tile run by its own
-warps with no block barrier between gates, csrc/tiles.cuh;
-``tile_threads``, ``tile_smem_bytes``) and one a block per restart (the
-shares summed in a fixed order, the gradient, Adam, and the next step's
-gate matrices), which meet through a workspace in global
-memory. Tiles of 16, 8, 4, 2 and 1 columns take a restart to 9, 10, 11, 12
-and 13 qubits in float32 (8, 4, 2 and 1 to 12 in float64). The modulo
-losses read V across columns: the fused kernel takes them to 8 qubits, and
-past that ``route`` sends them to the unitary kernels, whose plans hold the
-whole unitary to 13 qubits (12 in float64; ROADMAP A.16b). A cluster of 16
-is non-portable on Hopper: the library allows it on its cluster build, and
-a launch whose cluster the card cannot place raises. On the card the
-library's own plan decides (``cpflow_sweep_cluster``); ``smem_bytes`` and
-``cluster_plan`` mirror it so that the plan can be checked without a card.
-Every block of a cluster runs Adam on the same angles, and the kernel traps
-if the blocks end a launch with different bits of the Adam state.
+and cotangent, 2^n x C each) and the synchronisation of the adjoint walk,
+which in no build has a block barrier between two gates. The builds, by
+shape (``build_of`` names the one a shape runs):
+  * the column build (``column_plan``, ``column_smem_bytes``;
+    csrc/columns.cuh's design, as the unitary kernels' column design runs
+    it): the whole unitary at 2 to 6 qubits (the HS test, disc and both
+    modulo losses), a restart on one warp (four at 5 qubits, eight at 6,
+    four in float64, ``sweep_warps``) and 2 restarts a block up to 4
+    qubits, each warp's lanes sharing its columns with a warp barrier a
+    gate;
+  * the one-block build (``block_plan``; csrc/rows.cuh's warps): a restart
+    on one block where cluster_plan gives it one (a state up to 13 qubits,
+    12 in float64; a whole-unitary template at 2 to 6 qubits too deep for
+    the column build, held column-major with whole columns a warp), each
+    gate on a warp's own segment of rows, the bits a state's gate needs
+    swapped in beforehand as a table says that the wrapper computes once a
+    call (kernels/rows.py);
+  * the cluster build (``cluster_layout``; csrc/tiles.cuh's warps): the
+    whole unitary split by columns over a thread-block cluster of 2, 4, 8
+    or 16 blocks, the smallest that fits (``cluster_plan``: in float32 7
+    qubits take 2, or 4 from 215 'xyz' blocks, 8 qubits take 8, or 16
+    from 214 'xyz' blocks up to 358), each block's columns owned by its
+    warps, the gates built once a cluster and shared over distributed
+    shared memory;
+  * the row tiles (``row_plan``): a state's one column split by rows over
+    a cluster, each block holding 2^n / c of them (at the GHZ ladder's
+    depths 14, 15, 16 and 17 qubits take 2, 4, 8 and 16 blocks), on
+    rows.cuh's warps with swaps across blocks; past 17 qubits (16 in
+    float64) ``route`` takes a state to the unitary kernels, whose global
+    row tiles keep its column in device memory (kernels/unitary.py);
+  * the column tiles (``tile_plan``): where no cluster holds the whole
+    unitary (9 qubits and up, and deeper templates at 7 and 8), the HS
+    test and disc losses split a restart's columns into tiles on
+    independent blocks, the fewest that fit, and two kernels a step, one a
+    block per tile (the chain, the tile's share of the sum s and the walk
+    from conj(T), each column of the tile run by its own warps,
+    csrc/tiles.cuh; ``tile_threads``, ``tile_smem_bytes``) and one a block
+    per restart (the shares summed in a fixed order, the gradient, Adam,
+    and the next step's gate matrices), which meet through a workspace in
+    global memory. Tiles of 16, 8, 4, 2 and 1 columns take a restart to 9,
+    10, 11, 12 and 13 qubits in float32 (8, 4, 2 and 1 to 12 in float64).
+The modulo losses read V across columns: the fused kernel takes them to 8
+qubits, and past that ``route`` sends them to the unitary kernels, whose
+plans hold the whole unitary to 13 qubits (12 in float64; ROADMAP A.16b).
+A cluster of 16 is non-portable on Hopper: the library allows it on its
+cluster builds, and a launch whose cluster the card cannot place raises.
+On the card the library's own plan decides (``cpflow_sweep_cluster``);
+``smem_bytes`` and ``cluster_plan`` mirror it, and ``block_plan``,
+``cluster_layout``, ``row_plan`` and ``column_plan`` the launches, so that
+the plans can be checked without a card. Every block of a cluster runs
+Adam on the same angles, and the kernel traps if the blocks end a launch
+with different bits of the Adam state.
 
 target_loss: the sweep stops once every restart's best loss is at or under
 it, as engine.fused_adam_sweep of the JAX package does. The plain loop
@@ -130,16 +137,18 @@ F64_LAUNCHES = 0  # those of them that ran the double build
 # one block, 'tiles' for the column tiles); reset with .clear()
 LAUNCHES_BY_CLUSTER: Counter = Counter()
 # those of them by build: 'sweep_columns' (the whole unitary at 2 to 6
-# qubits on the column design, column_plan), 'sweep' (one block or a
-# cluster's tiles of columns), 'sweep_row_tiles' (a state split by rows) or
-# 'sweep_column_tiles' (columns on independent blocks), '_f64' added for the
-# double build; reset with .clear()
+# qubits on the column design, column_plan), 'sweep_block' (one block a
+# restart on rows.cuh's warps, block_plan), 'sweep_cluster' (the whole
+# unitary's columns over a cluster on tiles.cuh's warps, cluster_layout),
+# 'sweep_row_tiles' (a state split by rows, row_plan) or
+# 'sweep_column_tiles' (columns on independent blocks, tile_plan), '_f64'
+# added for the double build; reset with .clear()
 LAUNCHES_BY_BUILD: Counter = Counter()
 # the builds by the number csrc/sweep.cu's occupancy query gives them (one
-# block, one block held to 128 registers, a cluster, a state's rows on a
-# cluster, the column design)
-BUILD_NAMES = ('sweep', 'sweep', 'sweep', 'sweep_row_tiles', 'sweep_columns')
-BUILD_HELD = 1  # the one-block build held to 128 registers
+# block, the whole unitary on a cluster, a state's rows on a cluster, the
+# column design)
+BUILD_NAMES = ('sweep_block', 'sweep_cluster', 'sweep_row_tiles',
+               'sweep_columns')
 
 DTYPES = (torch.float32, torch.float64)  # the builds: float and double
 LOSS_CODES = {'hst': 0, 'state': 1, 'disc': 2, 'modulo_identity': 3,
@@ -243,6 +252,10 @@ def bind(lib: ctypes.CDLL, double: bool) -> ctypes.CDLL:
     lib.cpflow_sweep_launch.restype = ctypes.c_int
     lib.cpflow_sweep_row_plan.argtypes = [ctypes.c_int] * 3 + [ptr]
     lib.cpflow_sweep_row_plan.restype = ctypes.c_int
+    lib.cpflow_sweep_block_plan.argtypes = [ctypes.c_int] * 5 + [ptr]
+    lib.cpflow_sweep_block_plan.restype = ctypes.c_int
+    lib.cpflow_sweep_cluster_layout.argtypes = [ctypes.c_int] * 4 + [ptr]
+    lib.cpflow_sweep_cluster_layout.restype = ctypes.c_int
     lib.cpflow_sweep_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.cpflow_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.cpflow_sweep_cluster.argtypes = [ctypes.c_int] * 4
@@ -274,13 +287,17 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 # blocks a restart may run on; 16 is a non-portable cluster on Hopper
 CLUSTERS = (1, 2, 4, 8, 16)
 _OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
+CLUSTER_THREADS = 256  # the cluster build's threads a block at most
 
 
 def smem_bytes(n: int, num_blocks: int, nba: int, kind: str,
                cluster: int = 1, dtype=torch.float32) -> int:
-    """Dynamic shared memory of each block of a restart split over
-    `cluster` blocks, as csrc/sweep.cu's make_layout lays it out in the
-    build of `dtype`: the tile of A and of M (2^n x C / cluster amplitudes
+    """Shared memory of each block of a restart split over `cluster`
+    blocks in the layout that decides the plan (``cluster_plan``), as
+    csrc/sweep.cu's make_layout lays it out in the build of `dtype` (the
+    builds launch with their own layouts, which keep within it:
+    ``block_plan``, ``cluster_layout``, ``row_plan``): the tile of A and of
+    M (2^n x C / cluster amplitudes
     each: C / cluster columns, or for a state 2^n / cluster rows of its
     one column), the gates and their cotangents, the cross-warp partials, the
     modulo losses' row sums, five arrays of the P angles and the cos and
@@ -400,6 +417,94 @@ def row_plan(n: int, num_blocks: int, nba: int, dtype=torch.float32):
         return None
     return rk.launch(c, n - (c.bit_length() - 1),
                      smem_bytes(n, num_blocks, nba, 'state', c, dtype), dtype)
+
+
+def block_plan(n: int, num_blocks: int, nba: int, kind: str,
+               dtype=torch.float32, warps: Optional[int] = None):
+    """The one-block build's launch (a restart on one block, cluster_plan's
+    1, where the column build does not hold the shape) with at most
+    `warps` warps (default: as many as the plan gives), as csrc/sweep.cu's
+    block_layout lays it out in the build of `dtype`: dict(cluster,
+    log_rows, warps, segment, ring, threads, smem_bytes), csrc/rows.cuh's
+    warps on the block's 2^log_rows amplitudes (a state's column, or the
+    whole unitary's columns column-major: log_rows 2n, whole columns a
+    warp), the plan's layout (smem_bytes) with the warps' ring of cotangent
+    slots in place of its cross-warp partials (kernels/rows.py:launch);
+    fewer warps own longer segments, with the largest ring that fits. On
+    the card the library picks the warps by the batch
+    (cpflow_sweep_block_plan: of this plan's warps and every smaller power
+    of two, the one that keeps the most of the batch's restarts on the card
+    at once, then the most warps). None elsewhere."""
+    if column_plan(n, num_blocks, nba, kind, dtype) is not None or \
+            cluster_plan(n, num_blocks, nba, kind, dtype) != 1:
+        return None
+    log_rows = n + (0 if kind == 'state' else n)
+    plan_bytes = smem_bytes(n, num_blocks, nba, kind, 1, dtype)
+    got = rk.launch(1, log_rows, plan_bytes, dtype)
+    if warps is None or got['warps'] <= warps:
+        return got
+    real = 8 if dtype == torch.float64 else 4
+    lw = warps.bit_length() - 1
+    rest = got['smem_bytes'] - 32 * got['warps'] * got['ring'] * real
+    spare = _SMEM_LIMIT - rest
+    ring = rk.RING_MAX
+    while ring > 1 and (32 * ring << lw) * real > spare:
+        ring //= 2
+    return dict(got, warps=1 << lw, segment=log_rows - lw, ring=ring,
+                threads=32 << lw, smem_bytes=rest + (32 * ring << lw) * real)
+
+
+def cluster_layout(n: int, num_blocks: int, nba: int, kind: str,
+                   dtype=torch.float32):
+    """The cluster build's launch (the whole unitary's columns split over
+    the c > 1 blocks cluster_plan picks), as csrc/sweep.cu's cluster_layout
+    lays it out in the build of `dtype` (cpflow_sweep_cluster_layout on the
+    card): dict(cluster, columns, threads, ring, smem_bytes). A block holds
+    w = 2^n / c columns of A and M column-major with a stride of 2^n + 1
+    amplitudes, the gates and their cotangents, the warps' ring of
+    cotangent slots (32 reals a warp and gate), the modulo losses' row
+    sums, five arrays of the P angles, their cos and sin and 16 scalars;
+    its threads are tile_threads (kernels/tiles.py), at most
+    CLUSTER_THREADS, with the largest ring of 16, 8, 4, 2, 1 gates that
+    fits a block, halved while not even a ring of one gate fits. None elsewhere, and where no launch fits (never where
+    the plan holds the shape: tests/test_torch_sweep_blocks.py)."""
+    if kind == 'state' or column_plan(n, num_blocks, nba, kind,
+                                      dtype) is not None:
+        return None
+    c = cluster_plan(n, num_blocks, nba, kind, dtype)
+    if c is None or c == 1:
+        return None
+    w, d = (1 << n) // c, 1 << n
+    P, G = 3 * n + nba * num_blocks, n + num_blocks
+    scale = 2 if dtype == torch.float64 else 1
+    rows = 8 * d if kind.startswith('modulo') else 0
+    threads = min(tile_threads(n, w, dtype), CLUSTER_THREADS)
+    while threads >= 32:
+        for ring in (16, 8, 4, 2, 1):
+            nbytes = scale * (16 * w * (d + 1) + 256 * G +
+                              128 * (threads // 32) * ring + rows + 28 * P +
+                              64)
+            if nbytes <= _SMEM_LIMIT:
+                return dict(cluster=c, columns=w, threads=threads, ring=ring,
+                            smem_bytes=nbytes)
+        threads //= 2
+    return None
+
+
+def build_of(n: int, num_blocks: int, nba: int, kind: str,
+             dtype=torch.float32):
+    """The LAUNCHES_BY_BUILD name of the build that a launch of the shape
+    runs in the build of `dtype` ('_f64' added in float64), as the
+    library's plans pick it; None where no plan holds the shape."""
+    suffix = '_f64' if dtype == torch.float64 else ''
+    if column_plan(n, num_blocks, nba, kind, dtype) is not None:
+        return 'sweep_columns' + suffix
+    c = cluster_plan(n, num_blocks, nba, kind, dtype)
+    if c is None:
+        return None if tile_plan(n, num_blocks, nba, kind, dtype) is None \
+            else 'sweep_column_tiles' + suffix
+    return ('sweep_block' if c == 1 else 'sweep_row_tiles' if
+            kind == 'state' else 'sweep_cluster') + suffix
 
 
 def max_qubits(kind: str, dtype=torch.float32) -> int:
@@ -558,9 +663,11 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
             + f' a restart, above {_SMEM_LIMIT}')
 
     state = spec.kind == 'state'
+    block = cluster == 1 and not columns
     build_name = ('sweep_columns' if columns else 'sweep_column_tiles'
-                  if tiles else 'sweep_row_tiles' if state and cluster > 1
-                  else 'sweep') + ('_f64' if dtype == torch.float64 else '')
+                  if tiles else 'sweep_block' if block else 'sweep_row_tiles'
+                  if state else 'sweep_cluster') + (
+        '_f64' if dtype == torch.float64 else '')
     target = torch.as_tensor(np.asarray(spec.target),
                              dtype=config.complex_of(dtype))
     if tuple(target.shape) != ((1 << n,) if state else (1 << n, 1 << n)):
@@ -601,16 +708,20 @@ def _launch_on_current(objective, params0, learning_rate, num_iterations,
     # of each step's cotangents and sum, the segments' sums and counts (0)
     work = torch.zeros(lib.cpflow_sweep_tile_workspace(n, nb, nba, loss, B),
                        dtype=dtype, device=device) if tiles else None
-    # the row tiles' schedule, for the segment of the library's plan
+    # the row schedule of a launch on rows.cuh's warps (one block, or a
+    # state split by rows), for the segment of the library's plan (the
+    # whole unitary's holds whole columns: its table is segment n's, with
+    # no swap)
     ops = None
-    if state and cluster > 1:
+    if block or (state and cluster > 1):
         got = (ctypes.c_int * 6)()
-        err = lib.cpflow_sweep_row_plan(n, nb, nba, got)
+        err = lib.cpflow_sweep_block_plan(n, nb, nba, loss, B, got) \
+            if block else lib.cpflow_sweep_row_plan(n, nb, nba, got)
         if err != 0:
             raise RuntimeError(f'sweep kernel row plan query failed: CUDA '
                                f'error {err}')
-        ops = rk.device_schedule(n, tuple(map(tuple, placements)), got[3],
-                                 device)
+        ops = rk.device_schedule(n, tuple(map(tuple, placements)),
+                                 min(got[3], n), device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch(it_begin, it_end):
@@ -670,9 +781,8 @@ def occupancy(objective, batch: int, device=None) -> dict:
     restart runs on (`cluster`) and the clusters of that many blocks the
     card holds at once (cudaOccupancyMaxActiveClusters; a lone block counts
     as a cluster of one), the restarts a block (`restarts_per_block`: more
-    than one on the column build), the `build` that runs (a
-    LAUNCHES_BY_BUILD name) and whether it is the one-block build held to
-    128 registers (`held`). On the column tiles (no cluster: `cluster` 1)
+    than one on the column build) and the `build` that runs (a
+    LAUNCHES_BY_BUILD name). On the column tiles (no cluster: `cluster` 1)
     the numbers are the tile kernel's, `active_clusters` its blocks resident
     on the card, and `tiles`, `columns`, `adam_registers` and
     `adam_local_bytes` are added (the second kernel's registers and local
@@ -704,11 +814,10 @@ def occupancy(objective, batch: int, device=None) -> dict:
     if tiles:
         got.update(cluster=1, tiles=out[5], columns=(1 << n) // out[5],
                    adam_registers=out[7], adam_local_bytes=out[8],
-                   restarts_per_block=1, build='sweep_column_tiles' + suffix,
-                   held=False)
+                   restarts_per_block=1, build='sweep_column_tiles' + suffix)
     else:
         got.update(build=BUILD_NAMES[out[7]] + suffix,
-                   restarts_per_block=out[8], held=out[7] == BUILD_HELD)
+                   restarts_per_block=out[8])
     return got
 
 

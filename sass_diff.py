@@ -18,11 +18,13 @@ widest, which a new kernel's longer lines change). It prints, for every
 source, each kernel of the first tree with the number of lines of its
 listing in each tree and whether they are identical, then the kernels that
 only the second tree has, and exits 1 if a kernel of the first tree
-differs or is gone from the second.
+differs or is gone from the second. ``--show N`` (before ``--``) prints
+the first N lines of a unified diff of each kernel that differs.
 """
 
 from __future__ import annotations
 
+import difflib
 import os
 from pathlib import Path
 import re
@@ -58,8 +60,13 @@ def sass(cubin: Path, cuobjdump: str) -> dict:
 
 def main(argv) -> int:
     extra = argv[argv.index('--') + 1:] if '--' in argv else []
-    dirs = [Path(a) for a in (argv[:argv.index('--')] if '--' in argv
-                              else argv)]
+    argv = argv[:argv.index('--')] if '--' in argv else argv
+    show = 0
+    if '--show' in argv:
+        i = argv.index('--show')
+        show = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    dirs = [Path(a) for a in argv]
     if len(dirs) != 2:
         print(__doc__)
         return 2
@@ -87,6 +94,10 @@ def main(argv) -> int:
             print(f'{name} {" ".join(extra)}: {kernel}: {len(lines)} and '
                   f'{len(other) if other is not None else "no"} lines of '
                   f'SASS, identical: {lines == other}')
+            if show and other is not None and lines != other:
+                diff = list(difflib.unified_diff(lines, other, lineterm='',
+                                                 n=1))
+                print('\n'.join(diff[:show]))
         for kernel in sorted(set(b) - set(a)):
             print(f'{name} {" ".join(extra)}: {kernel}: new, {len(b[kernel])} '
                   f'lines of SASS')

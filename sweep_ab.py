@@ -9,6 +9,8 @@ Run from the root of the repository:
     python3 sweep_ab.py --tiles OLD/.../sweep.cu cpflow_tpu_torch/csrc/sweep.cu
     python3 sweep_ab.py --rows --profile OLD/.../sweep.cu \\
         cpflow_tpu_torch/csrc/sweep.cu
+    python3 sweep_ab.py --blocks [--double] OLD/.../sweep.cu \\
+        cpflow_tpu_torch/csrc/sweep.cu
 
 for example with OLD the parent commit unpacked by ``git archive`` into
 ``build/``. Each source must export the functions this tree's
@@ -17,7 +19,11 @@ schedule, lacks cpflow_sweep_row_plan and is given a stand-in that answers
 this tree's plan (kernels/sweep.py:row_plan), whose schedule its
 sweep_rows_kernel never reads; one from before the column build lacks
 cpflow_sweep_column_plan and is given one that answers no column plan, so
-that the wrapper launches it as it was. Each is built with nvcc for sm_90a into
+that the wrapper launches it as it was; one from before the one-block and
+cluster builds on rows.cuh's and tiles.cuh's warps lacks
+cpflow_sweep_block_plan and cpflow_sweep_cluster_layout, and is given ones
+that answer this tree's plans (``block_plan``, ``cluster_layout``), whose
+schedule its one-block build never reads. Each is built with nvcc for sm_90a into
 build/ab/ (with ``--tiles`` or ``--rows`` also its double build,
 -DCPFLOW_DOUBLE; all builds side by side) and its ptxas report printed.
 
@@ -34,12 +40,18 @@ leaves out the wrapper's copy of the target to the card. With ``--rows``
 it does the same for the row tiles: chip_smoke.py phase 20 (a)'s sweep
 rows (L)-(Q) and the GHZ-14 search's shape (phase 20 (d): 14q k=15
 B=256 T=1000) in float32 and in float64, the kernel alone being
-sweep_rows_kernel. The builds run in turns (A B ... B A); it prints one
+sweep_rows_kernel. With ``--blocks`` it times the shapes of the one-block
+and cluster builds (``block_shapes``): chip_smoke.py phase 15's rows and
+the Toffoli-7 program's sweep (its warm batch of 64 at k=144, 2000 steps)
+on clusters, phase 3's (e), (f), (u), (s) and (t) and the GHZ-13 search's
+shape on one block; with ``--double`` as well, those rows' float64
+shapes (phase 3's (f), (s64) and (t64), phase 18's (F), phase 19's (G)
+and (K)) in float64 instead. The builds run in turns (A B ... B A); it prints one
 row per shape with every build's times in ms, the bound
 (utils/profiling.py) and the share of the fastest call.
 
-``--profile`` then traces one call of each tiles or rows row with each
-build (chip_smoke.device_kernels): every kernel's launches, total and mean
+``--profile`` then traces one call of each tiles, rows or blocks row with
+each build (chip_smoke.device_kernels): every kernel's launches, total and mean
 time on the card, their sum against the call's span on the stream (CUDA
 events), whose rest is the card's idle share, and the kernel's registers,
 local bytes, threads, warps and resident blocks or clusters
@@ -96,6 +108,18 @@ def finish_build(source: Path, double: bool, out: Path, proc) -> ctypes.CDLL:
             got[0] = got[1] = got[2] = 0
             return 0
         lib.cpflow_sweep_column_plan = column_plan
+    dtype = torch.float64 if double else torch.float32
+    kind_of = {v: k for k, v in sk.LOSS_CODES.items()}
+    if not hasattr(lib, 'cpflow_sweep_block_plan'):  # before the one-block
+        def block_plan(n, nb, nba, loss, B, got):    # build on rows.cuh
+            p = sk.block_plan(n, nb, nba, kind_of[loss], dtype)
+            if p is None:
+                return 1
+            got[3] = p['segment']
+            return 0
+        lib.cpflow_sweep_block_plan = block_plan
+    if not hasattr(lib, 'cpflow_sweep_cluster_layout'):
+        lib.cpflow_sweep_cluster_layout = lambda *args: 1
     return sk.bind(lib, double)
 
 
@@ -139,10 +163,54 @@ def row_shapes():
          search['T'])]
 
 
-def inputs(s, seed):
-    """(objective, initial angles, mask) of a shape in its dtype."""
+def block_shapes(double: bool):
+    """[(label, shape dict, steps)] of --blocks: float32, or with double
+    the float64 rows."""
     import torch
     import chip_smoke as c
+    F64 = torch.float64
+    p3 = {s['name'].split()[0]: s for s in c.compare_shapes()}
+    if double:
+        p15 = {s['name'].split()[0]: s for s in c.sixteen_shapes()}
+        p18 = {s['name'].split()[0]: s for s in c.double_shapes()}
+        return [('(f) float64', dict(p3['(f)'], dtype=F64), 500),
+                (p3['(s64)']['name'], p3['(s64)'], 60),
+                (p3['(t64)']['name'], p3['(t64)'], 60),
+                (p18['(F)']['name'] + ' float64', dict(p18['(F)'], dtype=F64),
+                 60),
+                (p15['(G)']['name'], p15['(G)'], 60),
+                (p15['(K)']['name'], p15['(K)'], 60)]
+    seven = [(s['name'], s, s.get('T', 60)) for s in c.seven_shapes()]
+    _, _, placements, _ = c.toffoli7_program()
+    toffoli = dict(name='Toffoli-7 program k=144 B=64', n=7, k=144,
+                   target=None, placements={'free': placements}, B=64,
+                   r=1e-4, lr=0.1, toffoli7=True)
+    search = dict(name='GHZ-13 search 13q k=14 B=1024', n=13, k=c.GHZ13_K,
+                  target=c.ghz(13), kind='state', B=c.GHZ13_SAMPLES,
+                  r=0.001, lr=0.1)
+    return seven + [(toffoli['name'], toffoli, 2000)] + [
+        (p3[k]['name'], p3[k], 500 if k == '(f)' else 60)
+        for k in ('(e)', '(f)', '(u)', '(s)', '(t)')] + [
+        (search['name'], search, 200)]
+
+
+def inputs(s, seed):
+    """(objective, initial angles, mask) of a shape in its dtype."""
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    if s.get('toffoli7'):  # the warm batch of chip_smoke.py phase 15 (b)
+        from cpflow_tpu_torch.api import Ansatz
+        from cpflow_tpu_torch.ops.gates import multi_controlled_x
+        _, _, placements, exact = c.toffoli7_program()
+        pl = {'layers': [[], 0], 'free': placements}
+        obj, _ = c.make_objective(7, len(placements), multi_controlled_x(7),
+                                  s['r'], placements=pl)
+        warm, _ = c.build_warm_batch(
+            exact.astype(np.float32),
+            np.asarray(Ansatz(7, 'cp', pl, 'xyz').cp_mask, dtype=np.float64),
+            s['B'], 0)
+        return obj, torch.tensor(warm.T.copy(), device='cuda'), None
     obj, init, mask = c.shape_inputs(s, seed)
     dtype = s.get('dtype', torch.float32)
     if dtype != torch.float32:
@@ -199,6 +267,7 @@ def main(argv) -> int:
     tiles = '--tiles' in argv
     split = '--rows' in argv  # the row tiles
     double = '--double' in argv  # the default shapes in float64
+    blocks = '--blocks' in argv  # the one-block and cluster builds
     prof = '--profile' in argv
     sources = [Path(a) for a in argv if not a.startswith('--')]
     if not sources or not torch.cuda.is_available():
@@ -206,6 +275,8 @@ def main(argv) -> int:
         return 1
     precisions = (False, True) if tiles or split else \
         (True,) if double else (False,)
+    if blocks:
+        precisions = (double,)
     jobs = [(src, f64, *start_build(src, f64)) for src in sources
             for f64 in precisions]
     built = [finish_build(*job) for job in jobs]
@@ -214,7 +285,11 @@ def main(argv) -> int:
             for i in range(0, len(built), len(precisions))]
     card = c.card_line()
     alone_name = 'sweep_tile' if tiles else 'sweep_rows_kernel'
-    if tiles or split:
+    if blocks:
+        rows = [(label, (*inputs(s, s.get('seed', 7)), s), T)
+                for label, s, T in block_shapes(double)]
+        calls = 2
+    elif tiles or split:
         rows = [(label, (*inputs(s, s.get('seed', 7)), s), T)
                 for label, s, T in (tile_shapes() if tiles else
                                     row_shapes())]
@@ -244,8 +319,8 @@ def main(argv) -> int:
             if tiles or split:
                 alone[i][r].append(kernel_ms(call, alone_name))
     print(card)
-    for r, (label, (_, _, _, s), T) in enumerate(rows):
-        work = c.shape_work(s)
+    for r, (label, (obj, _, _, s), T) in enumerate(rows):
+        work = c.shape_work(dict(s, dtype=obj.dtype))
         b_ms, by = bound_ms(work, s['B'], T)
         best = min(min(t[r]) for t in times)
         print(f'{label} T={T}: ' + '; '.join(
@@ -256,7 +331,7 @@ def main(argv) -> int:
                 for i in range(len(libs))) + ')' if tiles or split else '') +
             f' (bound {b_ms:.3f} ms by {by}, fastest {b_ms / best:.2%})',
             flush=True)
-    if prof and (tiles or split):
+    if prof and (tiles or split or blocks):
         for source, lib in zip(sources, libs):
             sk._libs.update(lib)
             print(f'{source}:')

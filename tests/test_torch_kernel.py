@@ -187,11 +187,11 @@ CARD_CASES = {
     # `arbiter`, below)
     'hst_6q_too_deep_for_columns': dict(n=6, k=118,
                                         target=multi_controlled_x(6),
-                                        kind='hst', r=0.002, build='sweep',
-                                        arbiter=True),
+                                        kind='hst', r=0.002,
+                                        build='sweep_block', arbiter=True),
     'modulo_identity_6q_too_deep_for_columns': dict(
         n=6, k=118, target=multi_controlled_x(6), kind='modulo_identity',
-        r=0.002, wires=[5, 1], build='sweep', arbiter=True),
+        r=0.002, wires=[5, 1], build='sweep_block', arbiter=True),
 }
 
 
@@ -216,7 +216,7 @@ def test_kernel_matches_plain_version_on_card(case):
                         device='cuda')
     # the whole unitary at 2 to 6 qubits runs on the column build where its
     # layout holds the template
-    build = c.get('build', 'sweep' if c['kind'] == 'state' else
+    build = c.get('build', 'sweep_block' if c['kind'] == 'state' else
                   'sweep_columns')
     assert sk.occupancy(obj, B)['build'] == build
     before, built = sk.LAUNCHES, sk.LAUNCHES_BY_BUILD[build]
@@ -259,21 +259,22 @@ def test_kernel_matches_plain_version_on_card(case):
 @pytest.mark.cuda
 def test_both_kernel_builds_match_plain_version_on_card():
     """The kernel's one-block build (a state, or the whole unitary too deep
-    for the column build) has two builds: the 128-register one runs a batch
-    larger than the other build keeps resident on the card at once (here
-    64 threads a restart, a 10-qubit state), and agrees with the plain
-    version as the other does."""
+    for the column build) is one build whatever the batch, with no local
+    memory; the batch picks its warps a restart: 700 restarts of a 10-qubit
+    state, more than its plan's 8 warps a restart leave room for on the
+    card, run on fewer warps a restart, all at once, and agree with the
+    plain version."""
     if not torch.cuda.is_available():
-        pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py runs both '
-                    'builds at the main path\'s shapes')
+        pytest.skip('needs an NVIDIA Hopper card; chip_smoke.py runs the '
+                    'build at the main path\'s shapes')
     obj, inits, rng = _problem(10, 4, 'xyz', _ghz(10), 0.002, 700, seed=4,
                                kind='state')
     small, large = sk.occupancy(obj, 37), sk.occupancy(obj, 700)
-    assert small['build'] == large['build'] == 'sweep'
-    assert large['registers'] <= 128 < small['registers']
-    assert large['blocks_per_sm'] > small['blocks_per_sm']
-    assert 700 > torch.cuda.get_device_properties(0).multi_processor_count \
-        * small['blocks_per_sm']
+    assert small['build'] == large['build'] == 'sweep_block'
+    assert max(small['registers'], large['registers']) <= 128
+    assert small['local_bytes'] == large['local_bytes'] == 0
+    assert large['threads'] < small['threads']
+    assert large['active_clusters'] >= 700 > small['active_clusters']
     p0 = torch.tensor(inits.T.copy(), device='cuda')
     out = sk.sweep(obj, p0, 0.1, 20)
     ref = sk.sweep_reference(obj, p0, 0.1, 20)

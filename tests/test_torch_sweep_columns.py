@@ -4,8 +4,8 @@ card.
 csrc/sweep.cu runs the whole unitary at 2 to 6 qubits (the HS test, disc and
 both modulo losses) on its column build, sweep_columns_kernel, on
 csrc/columns.cuh's design, wherever its layout fits a block; a state, 7
-qubits and up, and a template too deep for that layout keep the one-block
-and cluster builds. ``column_plan`` and ``column_smem_bytes`` mirror the
+qubits and up, and a template too deep for that layout take the one-block
+and cluster builds (tests/test_torch_sweep_blocks.py). ``column_plan`` and ``column_smem_bytes`` mirror the
 library's plan (cpflow_sweep_column_plan), and chip_smoke.py phase 3 holds
 the mirror against it on the card. Here the mirror is held to that rule at
 every shape phases 3 and 5 run, in both precisions, and its shared-memory
@@ -70,18 +70,21 @@ def test_phase_rows_off_the_column_build_keep_the_one_block_build(name):
     """Phase 3's rows that name their build run the one-block build in
     their own precision: the whole-unitary ones at 6 qubits with a template
     exactly one block deeper than the column build holds (the column build
-    holds one block less), the state one as every state does."""
+    holds one block less), the state one (u) as every state up to 13
+    qubits does."""
     s = next(s for s in _phase_shapes() if s['name'] == name)
     dtype = s.get('dtype', torch.float32)
-    assert s['build'] == 'sweep' + ('_f64' if dtype == torch.float64 else '')
+    suffix = '_f64' if dtype == torch.float64 else ''
+    assert s['build'] == 'sweep_block' + suffix
     n, nb, nba, kind = _args(s)
     assert sk.column_plan(n, nb, nba, kind, dtype) is None
     assert sk.cluster_plan(n, nb, nba, kind, dtype) == 1
+    assert sk.build_of(n, nb, nba, kind, dtype) == s['build']
     if kind in WHOLE:
         assert n == 6
         assert sk.column_plan(n, nb - 1, nba, kind, dtype) is not None
     else:
-        assert kind == 'state' and s['held']
+        assert kind == 'state' and s['name'].startswith('(u)')
 
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=['float32', 'float64'])
@@ -167,8 +170,8 @@ def test_max_qubits_unchanged():
 
 def test_build_names_follow_the_library_numbers():
     """occupancy() names the build that cpflow_sweep_occupancy reports:
-    out[7] 0-2 the one-block and cluster builds (1 the one held to 128
-    registers, `held`), 3 the row tiles, 4 the column build."""
-    assert sk.BUILD_NAMES == ('sweep', 'sweep', 'sweep', 'sweep_row_tiles',
-                              'sweep_columns')
-    assert sk.BUILD_HELD == 1
+    out[7] 0 the one-block build, 1 the cluster build, 2 the row tiles, 3
+    the column build; no build is held to 128 registers beside another."""
+    assert sk.BUILD_NAMES == ('sweep_block', 'sweep_cluster',
+                              'sweep_row_tiles', 'sweep_columns')
+    assert not hasattr(sk, 'BUILD_HELD')
